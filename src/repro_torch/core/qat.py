@@ -1,0 +1,181 @@
+"""Quantization-aware training primitives with weight-set restriction.
+
+Port of `repro.core.qat` (paper 4.2): int8 symmetric fake-quantization with
+a straight-through estimator, magnitude pruning masks, most-significant-run
+(MSR) truncation, and projection onto a per-layer codebook ``C_l`` of allowed
+int8 values. Every function computes the same values as its JAX counterpart
+on the same inputs (bit for bit on the CPU).
+
+The compression state of a layer is a plain dict of tensors:
+
+    comp = {
+      "mask":       float tensor, same shape as w (all-ones = no pruning)
+      "codebook":   (K_MAX,) int32 sorted allowed values (padded by repeats)
+      "codebook_k": () int32, number of valid entries; 0 = unrestricted
+      "msr_bits":   () int32, MSR truncation depth; 0 = off
+    }
+
+Weight layout convention: the *last* axis of a weight tensor is the output
+channel; quantization scales are per-output-channel over all other axes.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+K_MAX = 32          # maximum codebook size the pipeline ever uses (paper: 32)
+QMAX = 127          # symmetric int8 range [-127, 127]
+
+CompState = Dict[str, torch.Tensor]
+
+
+def identity_comp(w_shape: Tuple[int, ...], dtype=torch.float32, *,
+                  device) -> CompState:
+    """No-op compression state (no pruning, no restriction)."""
+    return {
+        "mask": torch.ones(w_shape, dtype=dtype, device=device),
+        "codebook": torch.zeros((K_MAX,), dtype=torch.int32, device=device),
+        "codebook_k": torch.zeros((), dtype=torch.int32, device=device),
+        "msr_bits": torch.zeros((), dtype=torch.int32, device=device),
+    }
+
+
+def make_codebook(values, *, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Build a padded sorted codebook from a list of int values."""
+    vals = sorted(int(v) for v in values)
+    k = len(vals)
+    if k == 0:
+        return (torch.zeros((K_MAX,), dtype=torch.int32, device=device),
+                torch.zeros((), dtype=torch.int32, device=device))
+    if k > K_MAX:
+        raise ValueError(f"codebook size {k} exceeds K_MAX={K_MAX}")
+    padded = vals + [vals[-1]] * (K_MAX - k)
+    return (torch.tensor(padded, dtype=torch.int32, device=device),
+            torch.tensor(k, dtype=torch.int32, device=device))
+
+
+def _over_qmax(amax: torch.Tensor) -> torch.Tensor:
+    """``max(amax, 1e-8) / QMAX`` as a true division. On CUDA, PyTorch turns
+    division by a Python scalar into multiplication by its reciprocal, which
+    can differ in the last bit; dividing by a device tensor keeps scales
+    bit-identical to the CPU and to the JAX package."""
+    return torch.clamp(amax, min=1e-8) / amax.new_full((), QMAX)
+
+
+def weight_scale(w: torch.Tensor) -> torch.Tensor:
+    """Per-output-channel symmetric scale, broadcastable against ``w``."""
+    if w.ndim <= 1:                 # no axis to reduce: the scale is |w| itself
+        amax = w.abs()
+    else:
+        amax = torch.amax(w.abs(), dim=tuple(range(w.ndim - 1)), keepdim=True)
+    return _over_qmax(amax)
+
+
+def project_to_codebook(q: torch.Tensor, codebook: torch.Tensor,
+                        k) -> torch.Tensor:
+    """Map integer weights to the nearest of the first ``k`` codebook values.
+
+    ``q`` int32 in [-128, 127], ``codebook`` (K_MAX,) int32 sorted. ``k == 0``
+    means unrestricted (identity). Ties break toward the smaller value: the
+    nearest-member map is resolved once for all 256 int8 values and `argmin`
+    returns the first (lowest-index, smallest-value) minimum.
+    """
+    k = torch.as_tensor(k, dtype=torch.int32, device=codebook.device)
+    valid = torch.arange(K_MAX, device=codebook.device) < torch.clamp(k, min=1)
+    vals = torch.arange(-128, 128, dtype=torch.int32, device=codebook.device)
+    dist = (vals[:, None] - codebook[None, :]).abs()
+    dist = torch.where(valid, dist, torch.full_like(dist, 1 << 20))
+    proj_lut = codebook[torch.argmin(dist, dim=-1)]     # (256,)
+    projected = proj_lut[(q + 128).long()]
+    return torch.where(k > 0, projected, q)
+
+
+def _bit_length(mag: torch.Tensor) -> torch.Tensor:
+    """1-based index of the most significant set bit of non-negative int32
+    values, 0 for 0 (``32 - clz``; torch has no clz)."""
+    out = torch.zeros_like(mag)
+    for b in range(31):
+        out += (mag >= (1 << b)).to(mag.dtype)
+    return out
+
+
+def msr_truncate_int(q: torch.Tensor, bits) -> torch.Tensor:
+    """Most-significant-run truncation of integer weights.
+
+    Keeps the top ``bits`` significant bits of ``|q|`` and zeroes the rest,
+    preserving sign; ``bits == 0`` is the identity.
+    """
+    bits = torch.as_tensor(bits, dtype=torch.int32, device=q.device)
+    mag = q.abs()
+    shift = torch.clamp(_bit_length(mag) - bits, min=0)
+    trunc = torch.sign(q) * ((mag >> shift) << shift)
+    return torch.where(bits > 0, trunc, q)
+
+
+def _round_clip(v: torch.Tensor) -> torch.Tensor:
+    # torch.round rounds half to even, as jnp.round does
+    return torch.clamp(torch.round(v), -QMAX, QMAX)
+
+
+def quantize_weight_int(w: torch.Tensor,
+                        comp: Optional[CompState] = None) -> torch.Tensor:
+    """Integer (int32-valued int8) view of a weight tensor after mask / quant
+    / MSR truncation / projection."""
+    if comp is not None:
+        w = w * comp["mask"].to(w.dtype)
+    scale = weight_scale(w)
+    q = _round_clip(w / scale).to(torch.int32)
+    if comp is not None:
+        msr = comp.get("msr_bits")
+        if msr is not None:
+            q = msr_truncate_int(q, msr)
+        q = project_to_codebook(q, comp["codebook"], comp["codebook_k"])
+    return q
+
+
+def fake_quant_weight(w: torch.Tensor,
+                      comp: Optional[CompState] = None) -> torch.Tensor:
+    """Fake-quantized (float) weights with a straight-through estimator;
+    applies mask + optional MSR truncation + codebook."""
+    wm = w * comp["mask"].to(w.dtype) if comp is not None else w
+    scale = weight_scale(wm)
+    q = _round_clip(wm / scale)
+    if comp is not None:
+        qi = q.to(torch.int32)
+        msr = comp.get("msr_bits")
+        if msr is not None:
+            qi = msr_truncate_int(qi, msr)
+        qi = project_to_codebook(qi, comp["codebook"], comp["codebook_k"])
+        q = qi.to(wm.dtype)
+    wq = q * scale
+    # straight-through: forward value wq, gradient of identity wrt wm
+    return wm + (wq - wm).detach()
+
+
+def _act_scale(a: torch.Tensor) -> torch.Tensor:
+    return _over_qmax(a.abs().amax())
+
+
+def fake_quant_act(a: torch.Tensor) -> torch.Tensor:
+    """Dynamic per-tensor symmetric int8 fake-quantization of activations."""
+    scale = _act_scale(a)
+    q = _round_clip(a / scale) * scale
+    return a + (q - a).detach()
+
+
+def quantize_act_int(a: torch.Tensor) -> torch.Tensor:
+    """Integer int8 view of activations (for energy-trace profiling)."""
+    return _round_clip(a / _act_scale(a)).to(torch.int32)
+
+
+def magnitude_prune_mask(w: torch.Tensor, ratio: float) -> torch.Tensor:
+    """Unstructured magnitude pruning mask keeping the top (1-ratio) weights."""
+    if ratio <= 0.0:
+        return torch.ones_like(w)
+    flat = w.abs().reshape(-1)
+    k = int(round(ratio * flat.shape[0]))
+    k = min(max(k, 0), flat.shape[0] - 1)
+    thresh = torch.sort(flat).values[k]
+    return (w.abs() >= thresh).to(w.dtype)

@@ -1,0 +1,92 @@
+"""Plain PyTorch version of the 4-bit codebook-index GEMM (+ fused epilogue).
+
+Port of `repro.kernels.lut_matmul.ref`. The CPU path of
+`repro_torch.kernels.lut_matmul.ops` runs it, and the on-card check holds the
+CUDA kernel against it on the same inputs.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+N_CODES = 16
+
+# epilogue activations the kernel fuses; keys are the public contract shared
+# with the eager layers (`repro_torch.nn.layers`). gelu is the tanh form, as
+# in the JAX package (jax.nn.gelu(approximate=True)).
+ACTIVATIONS = {
+    "none": lambda v: v,
+    "relu": torch.relu,
+    "gelu": lambda v: F.gelu(v, approximate="tanh"),
+    "silu": F.silu,
+}
+
+
+def unpack_indices(packed: torch.Tensor, block_k: int) -> torch.Tensor:
+    """Invert `ops.pack_indices`: (K//2, N) int8 -> (K, N) int32 indices.
+
+    Packing is block-local over K blocks of ``block_k``: within each block,
+    byte row j holds index rows j (low nibble) and j + block_k/2 (high). The
+    signed byte is widened and masked with 0xFF before the high-nibble shift,
+    so a set sign bit never leaks into the index.
+    """
+    k2, n = packed.shape
+    k = 2 * k2
+    if k % block_k != 0:
+        raise ValueError(f"K={k} is not a multiple of block_k={block_k}")
+    p = packed.to(torch.int32) & 0xFF
+    p = p.reshape(k // block_k, block_k // 2, n)
+    low = p & 0xF
+    high = (p >> 4) & 0xF
+    return torch.cat([low, high], dim=1).reshape(k, n)
+
+
+def dequantize(packed: torch.Tensor, codebook: torch.Tensor,
+               scale: torch.Tensor, block_k: int) -> torch.Tensor:
+    """(K//2, N) packed indices -> (K, N) float32 weights
+    ``codebook[idx] * scale[n]``."""
+    idx = unpack_indices(packed, block_k)
+    return codebook.float()[idx.long()] * scale.float()[None, :]
+
+
+def lut_matmul_ref(x: torch.Tensor, packed: torch.Tensor,
+                   codebook: torch.Tensor, scale: torch.Tensor, *,
+                   block_k: int = 128) -> torch.Tensor:
+    """Y = X @ (codebook[idx] * scale), correctly rounded."""
+    return lut_matmul_fused_ref(x, packed, codebook, scale, block_k=block_k)
+
+
+def exact_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """float32 ``a @ b``, correctly rounded: the float32 products are exact
+    in float64 and summed there (error ~K * 2^-53), then rounded once, as the
+    CUDA kernel does. Two such implementations agree bit for bit whatever
+    order they sum in (unless an exact sum lies within ~K * 2^-53 of a
+    float32 rounding midpoint), so the int8 activation quantization that
+    follows every layer cannot drift apart between them; see the kernel
+    source's header."""
+    return (a.double() @ b.double()).float()
+
+
+def lut_matmul_fused_ref(x: torch.Tensor, packed: torch.Tensor,
+                         codebook: torch.Tensor, scale: torch.Tensor, *,
+                         bias: Optional[torch.Tensor] = None,
+                         residual: Optional[torch.Tensor] = None,
+                         activation: str = "none",
+                         block_k: int = 128) -> torch.Tensor:
+    """Y = act(X @ dequant(packed) + bias) + residual.
+
+    The product is `exact_matmul` (float64 accumulation, one rounding to
+    float32), as in the kernel; the epilogue is float32 in the kernel's
+    order: bias before activation, residual after. The output is float32
+    (x is float32 or bfloat16, widened as in the JAX package).
+    """
+    y = exact_matmul(x.float(), dequantize(packed, codebook, scale, block_k))
+    if bias is not None:
+        y = y + bias.float()[None, :]
+    y = ACTIVATIONS[activation](y)
+    if residual is not None:
+        y = y + residual.float()
+    return y

@@ -1,0 +1,119 @@
+"""Spec-first parameter system (port of `repro.nn.spec`).
+
+Models are described by *spec trees*: nested dicts whose leaves are
+`ParamSpec` (shape, dtype, logical axes, initializer). `init_params` turns a
+spec tree into a tree of tensors of the same structure, so the port's
+parameters keep the JAX package's names and layouts (HWIO conv kernels,
+(in, out) dense weights) and `params_from_numpy` can carry JAX-initialized
+weights across unchanged.
+
+Initializers draw from a `torch.Generator` on the CPU and the result moves to
+the requested device, so a seed gives the same weights on every device. The
+values differ from `jax.random`'s; parity tests carry weights across instead.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import zlib
+from typing import Any, Callable, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch._device import tree_map
+
+Initializer = Callable[[torch.Generator, Tuple[int, ...], torch.dtype],
+                       torch.Tensor]
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamSpec:
+    """Declaration of a single parameter."""
+
+    shape: Tuple[int, ...]
+    dtype: Any = torch.float32
+    axes: Tuple[Optional[str], ...] = ()
+    init: Optional[Initializer] = None
+
+    def __post_init__(self):
+        if self.axes and len(self.axes) != len(self.shape):
+            raise ValueError(
+                f"axes {self.axes} rank != shape {self.shape} rank")
+
+
+
+# ----------------------------------------------------------------- initializers
+
+def zeros_init(gen, shape, dtype):
+    del gen
+    return torch.zeros(shape, dtype=dtype)
+
+
+def ones_init(gen, shape, dtype):
+    del gen
+    return torch.ones(shape, dtype=dtype)
+
+
+def normal_init(stddev: float = 0.02):
+    def init(gen, shape, dtype):
+        return (torch.randn(shape, generator=gen) * stddev).to(dtype)
+
+    return init
+
+
+def _fan_in(shape, in_axis: int) -> int:
+    fan_in = shape[in_axis] if len(shape) > 1 else shape[0]
+    # conv kernels (kh, kw, cin, cout): fan_in = kh*kw*cin
+    if len(shape) == 4:
+        fan_in = shape[0] * shape[1] * shape[2]
+    return fan_in
+
+
+def fan_in_init(in_axis: int = -2, scale: float = 1.0):
+    """LeCun-normal style init: stddev = scale / sqrt(fan_in)."""
+
+    def init(gen, shape, dtype):
+        if len(shape) == 0:
+            return torch.zeros(shape, dtype=dtype)
+        std = scale / math.sqrt(max(_fan_in(shape, in_axis), 1))
+        return (torch.randn(shape, generator=gen) * std).to(dtype)
+
+    return init
+
+
+# ----------------------------------------------------------------- derivations
+
+def init_params(seed: int, spec_tree, device) -> Any:
+    """Concretely initialize every parameter; leaf ``name`` draws from a
+    generator seeded by (seed, crc32(name)), so adding a layer leaves the
+    others' values unchanged."""
+
+    def init(node, name):
+        if isinstance(node, dict):
+            return {k: init(v, f"{name}{k}/") for k, v in node.items()}
+        gen = torch.Generator().manual_seed(
+            (int(seed) * 1_000_003 + zlib.crc32(name.encode())) % (1 << 63))
+        fn = node.init or normal_init(0.02)
+        return fn(gen, node.shape, node.dtype).to(device)
+
+    return init(spec_tree, "")
+
+
+def params_from_numpy(tree, device) -> Any:
+    """Numpy (or anything `np.asarray` accepts) parameter tree -> tensors on
+    ``device``, structure unchanged. Carries the JAX package's parameters into
+    the port: ``params_from_numpy(jax.device_get(params), "cpu")``."""
+
+    def conv(a):
+        if isinstance(a, (bool, int, float, str)) or a is None:
+            return a
+        arr = np.asarray(a)
+        if arr.dtype.name == "bfloat16":     # ml_dtypes: no torch mapping
+            return torch.from_numpy(arr.astype(np.float32)).to(
+                device=device, dtype=torch.bfloat16)
+        return torch.from_numpy(np.array(arr, copy=True)).to(device)
+
+    return tree_map(conv, tree)
+

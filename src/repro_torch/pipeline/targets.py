@@ -1,0 +1,139 @@
+"""Pipeline targets (port of `repro.pipeline.targets`).
+
+A target owns the model runtime and implements one method per pipeline
+stage; each takes the shared `CompressionPlan` and the `PipelineConfig` and
+mutates only the plan. This slice ports the CNN target's ``export`` and
+``serve`` stages operation for operation; the earlier stages and the
+LM-family targets raise `NotImplementedError` naming the ROADMAP.md item that
+ports them.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch._device import tree_to
+from repro_torch.core.export import export_model, export_summary
+from repro_torch.data.synthetic import SyntheticImages
+from repro_torch.nn.cnn import CNN_FACTORIES
+from repro_torch.nn.layers import QuantConfig
+from repro_torch.pipeline.config import PipelineConfig
+from repro_torch.pipeline.plan import CompressionPlan
+
+_NOT_PORTED = {
+    "profile": "ROADMAP.md Queue 1, the profile slice (QAT base training and "
+               "trace statistics, kernel K1)",
+    "energy_model": "ROADMAP.md Queue 1, the profile slice (energy LUTs and "
+                    "shares)",
+    "schedule": "ROADMAP.md Queue 1, the QAT/training slice (weight "
+                "selection and the layer-wise schedule)",
+    "lm": "ROADMAP.md Queue 1, 'LM stack' and 'Serving'",
+    "moe": "ROADMAP.md Queue 1, 'Routed targets'",
+    "scan": "ROADMAP.md Queue 1, 'Routed targets'",
+}
+
+
+def resolve_target(cfg: PipelineConfig, device: torch.device):
+    if cfg.target.kind == "cnn":
+        return CnnTarget(cfg, device)
+    if cfg.target.kind in _NOT_PORTED:
+        raise NotImplementedError(
+            f"target kind {cfg.target.kind!r} is not ported yet: "
+            f"{_NOT_PORTED[cfg.target.kind]}")
+    raise ValueError(f"unknown target kind {cfg.target.kind!r}")
+
+
+class CnnTarget:
+    """CNN export + serve on one device."""
+
+    kind = "cnn"
+
+    def __init__(self, cfg: PipelineConfig, device: torch.device):
+        t = cfg.target
+        self.model = CNN_FACTORIES[t.arch]()
+        self.dataset = SyntheticImages(seed=t.data_seed)
+        self.batch_size = t.batch_size
+        self.device = device
+        self.name = self.model.name
+
+    def _not_ported(self, stage: str):
+        raise NotImplementedError(
+            f"stage {stage!r} of the CNN target is not ported yet: "
+            f"{_NOT_PORTED[stage]}; run it with the JAX package "
+            "(python -m repro) and resume the saved plan here")
+
+    def _on_device(self, plan: CompressionPlan) -> None:
+        """Move the plan's tensors to this target's device (plans load on
+        the CPU)."""
+        plan.params = tree_to(plan.params, self.device)
+        plan.state = tree_to(plan.state, self.device)
+        plan.comp = tree_to(plan.comp, self.device)
+        if plan.artifacts:
+            plan.artifacts = {k: a.to(self.device)
+                              for k, a in plan.artifacts.items()}
+
+    # ------------------------------------------------------------- stages
+
+    def stage_profile(self, plan, cfg, verbose: bool = False) -> None:
+        self._not_ported("profile")
+
+    def stage_energy_model(self, plan, cfg, verbose: bool = False) -> None:
+        self._not_ported("energy_model")
+
+    def stage_schedule(self, plan, cfg, verbose: bool = False) -> None:
+        self._not_ported("schedule")
+
+    def stage_export(self, plan: CompressionPlan, cfg: PipelineConfig,
+                     verbose: bool = False) -> None:
+        self._on_device(plan)
+        arts = export_model(self.model, plan.params, plan.comp,
+                            block_k=cfg.export.block_k)
+        plan.artifacts = arts
+        plan.metrics.update(
+            {f"export_{k}": v for k, v in export_summary(arts).items()})
+        if verbose:
+            print(f"[pipeline] exported {len(arts)} compressed layers")
+
+    def stage_serve(self, plan: CompressionPlan, cfg: PipelineConfig,
+                    verbose: bool = False) -> None:
+        """Full-model forward through the packed LUT GEMM: logit parity vs
+        the QAT fake-quant reference + served accuracy.
+
+        ``cfg.serve.use_ref_kernel`` is read for the `QuantConfig` only: CPU
+        tensors take the plain LUT GEMM and CUDA tensors always launch the
+        kernel, whatever the flag says. Both forwards' products are correctly
+        rounded float32 (`exact_matmul`: float64 sums, so no TF32 setting
+        applies), which keeps their activation quantization in step."""
+        self._on_device(plan)
+        arts = plan.artifacts or {}
+        plan.metrics["serve_layers"] = len(arts)
+        if not arts:
+            if verbose:
+                print("[pipeline] no layer is servable; nothing to serve")
+            return
+        model, dev = self.model, self.device
+        qserve = QuantConfig.serve(use_ref_kernel=cfg.serve.use_ref_kernel)
+        with torch.no_grad():
+            x, _ = self.dataset.batch(0, self.batch_size, "val", device=dev)
+            l_fake, _ = model.apply(plan.params, plan.state, x, train=False,
+                                    qcfg=QuantConfig.on(), comp=plan.comp)
+            l_serve, _ = model.apply(plan.params, plan.state, x, train=False,
+                                     qcfg=qserve, comp=plan.comp, serve=arts)
+            rel = float(torch.linalg.norm(l_serve - l_fake)
+                        / torch.clamp(torch.linalg.norm(l_fake), min=1e-9))
+            correct = 0
+            n_batches = max(cfg.train.eval_batches, 1)
+            for i in range(n_batches):
+                xb, yb = self.dataset.batch(i, self.batch_size, "val",
+                                            device=dev)
+                logits, _ = model.apply(plan.params, plan.state, xb,
+                                        train=False, qcfg=qserve,
+                                        comp=plan.comp, serve=arts)
+                correct += int((logits.argmax(-1) == yb).sum())
+        plan.metrics["serve_logit_rel_err"] = rel
+        plan.metrics["serve_accuracy"] = correct / (n_batches
+                                                    * self.batch_size)
+        if verbose:
+            print(f"[pipeline] serve: {len(arts)} layers on the LUT GEMM, "
+                  f"rel_err={rel:.2e}, "
+                  f"acc={plan.metrics['serve_accuracy']:.3f}")

@@ -1,0 +1,97 @@
+"""The port stands alone: `repro_torch` and ``chip_smoke.py`` import neither
+JAX nor the JAX package, and the entry points refuse to run on a device that
+is not there instead of quietly switching to the CPU.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _env():
+    return {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+
+
+def _imported_roots(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_imports(path):
+    bad = sorted({r for r in _imported_roots(path) if r in FORBIDDEN})
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_importing_every_module_loads_no_jax():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import repro_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,"
+        " 'repro_torch.')]\n"
+        "for n in names:\n"
+        "    importlib.import_module(n)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro'))\n"
+        "assert len(names) >= 20, names\n"
+        "assert not bad, bad\n"
+        "print(len(names))\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, env=_env(), timeout=300)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_cli_without_device_flag_needs_cuda(tmp_path):
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch", "serve", "--plan-in",
+         str(tmp_path / "missing")], capture_output=True, text=True,
+        env=_env(), cwd=tmp_path, timeout=300)
+    assert proc.returncode != 0
+    assert "cuda" in proc.stderr.lower() and "--device cpu" in proc.stderr
+
+
+def test_pipeline_refuses_missing_cuda():
+    import torch
+
+    from repro_torch.pipeline.config import PipelineConfig
+    from repro_torch.pipeline.pipeline import Pipeline
+
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA: the refusal cannot be shown here")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Pipeline(PipelineConfig())
+
+
+def test_chip_smoke_fails_without_a_card(tmp_path):
+    """Run from the repository on a host without CUDA, and alone in an
+    otherwise empty directory, the on-card check exits non-zero and prints
+    no result line."""
+    import shutil
+
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA")
+    lone = tmp_path / "chip_smoke.py"
+    shutil.copy(ROOT / "chip_smoke.py", lone)
+    for script in (ROOT / "chip_smoke.py", lone):
+        proc = subprocess.run([sys.executable, str(script)],
+                              capture_output=True, text=True,
+                              cwd=script.parent, timeout=300,
+                              env={k: v for k, v in os.environ.items()
+                                   if k != "PYTHONPATH"})
+        assert proc.returncode != 0
+        assert '"ok"' not in proc.stdout
