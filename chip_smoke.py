@@ -4,21 +4,34 @@
     python3 chip_smoke.py          # from the repository root, one CUDA card
 
 1. prints the card's name and power limit (nvidia-smi);
-2. builds every kernel of the serve path from the sources in this checkout
-   (nvcc, sm_90a) and prints the build time and ptxas resource lines;
-3. holds the LUT-GEMM kernel against its plain PyTorch version at every
-   (M, K_pad, N, epilogue) the ResNet-20 serve pass launches at batch 256,
-   two ResNet-50 shapes, each activation with bias and residual, and a
+2. builds every kernel of the port from the sources in this checkout (one
+   nvcc per source, all started together, sm_90a) and prints each build
+   time and the ptxas resource lines;
+3. K2, the LUT GEMM: holds the kernel against its plain PyTorch version at
+   every (M, K_pad, N, epilogue) the ResNet-20 serve pass launches at batch
+   256, two ResNet-50 shapes, each activation with bias and residual, and a
    bfloat16-x case; times kernel, plain version and one library call
-   (torch.matmul on the dequantized weights plus the same epilogue) with CUDA
-   events, and computes each case's bound;
-4. drives the port's main path: a ResNet-20 at its published width (seeded
-   random weights, batch-norm statistics of one synthetic training batch,
-   every layer restricted to 16 int8 values, one layer pruned 50%) saved as
-   a plan complete through ``schedule``, loaded, and run
-   through ``Pipeline.from_plan(..., device="cuda").run()`` — export, then
-   serve at batch 256 — with the kernel's launch count read around that run;
-5. prints the ``kernels`` JSON line, then the result line.
+   (torch.matmul on the dequantized weights plus the same epilogue) with
+   CUDA events, and computes each case's bound;
+4. K1, the transition statistics: holds the kernel against its plain
+   version, bin for bin, at the profile path's shapes (16 tiles x T = 64),
+   all 12,288 tiles of a ResNet-20 stage-1 conv at batch 256, a batch with
+   masked tiles, boundary tiles (extreme psums of both signs, all-zero
+   psums) and one tile (K1b); times kernel and plain version with CUDA
+   events and computes each case's bound (no PyTorch call computes these
+   statistics, so there is no library time);
+5. the serve path: a ResNet-20 at its published width (seeded random
+   weights, batch-norm statistics of one synthetic training batch, every
+   layer restricted to 16 int8 values, one layer pruned 50%) saved as a plan
+   complete through ``schedule``, loaded, and run through
+   ``Pipeline.from_plan(..., device="cuda").run()`` — export, then serve at
+   batch 256 — with K2's launch count read around that run;
+6. the profile path: ``Pipeline(cfg, device="cuda").run_until("energy_model")``
+   on ResNet-20 at batch 256 (seeded random weights, no QAT steps, 16 tiles
+   per layer), with K1's launch count read around that run; the card's
+   statistics are then held against the plain version on the CPU for the
+   same taps and tile indices;
+7. prints the ``kernels`` JSON line, then the result line.
 
 Any failure raises and the script exits non-zero. It refuses to run without
 a CUDA device, and outside a checkout of the repository.
@@ -31,6 +44,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -39,11 +53,23 @@ ROOT = Path(__file__).resolve().parent
 BATCH = 256                 # serve batch of the main path
 R50_BATCH = 64              # batch of the two ResNet-50 kernel shapes
 REPS = 25                   # timed turns per case (medians reported)
-RTOL = ATOL = 1e-4          # kernel vs plain: float32, summation order only
+RTOL = ATOL = 1e-4          # K2 vs plain: float32, summation order only
 PEAK_FP32_FLOPS = 67e12     # H100 SXM fp32 (non-tensor-core), dense
 PEAK_HBM_BYTES = 3.35e12    # H100 SXM HBM3
-KERNEL_SOURCE = "src/repro_torch/kernels/lut_matmul/csrc/lut_matmul.cu"
-REPLACES = "src/repro/kernels/lut_matmul/lut_matmul.py:125"
+# H100 SXM population count / count leading zeros: 16 per clock per SM
+# (a quarter of the 64 integer ALU lanes), 132 SMs at the 1.98 GHz boost
+PEAK_POPC = 16 * 132 * 1.98e9
+POPC_PER_TRANSITION = 5     # see k1_bound
+PROFILE_TILES = 16          # profile.max_tiles of the profile path
+K2 = dict(name="lut_matmul",
+          source="src/repro_torch/kernels/lut_matmul/csrc/lut_matmul.cu",
+          replaces="src/repro/kernels/lut_matmul/lut_matmul.py:125")
+K1 = dict(name="transition_energy",
+          source="src/repro_torch/kernels/transition_energy/csrc/"
+                 "transition_energy.cu",
+          replaces="src/repro/kernels/transition_energy/"
+                   "transition_energy.py:201")
+K1B_REPLACES = "src/repro/kernels/transition_energy/transition_energy.py:142"
 
 
 def symmetric_codebook_values(k: int) -> list:
@@ -65,7 +91,27 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-# ------------------------------------------------------------ kernel phase
+# ------------------------------------------------------------------ build
+
+
+def build_kernels(libraries):
+    """Build every kernel library at once (one nvcc each, in parallel) and
+    print each build time and its ptxas resource lines."""
+    def build(lib):
+        t0 = time.perf_counter()
+        path = lib.build()
+        return path, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(libraries)) as pool:
+        done = list(pool.map(build, libraries))
+    for lib, (path, secs) in zip(libraries, done):
+        print(f"[build] {path.relative_to(ROOT)} in {secs:.2f} s", flush=True)
+        for line in lib.build_log.splitlines():
+            if "registers" in line or "spill" in line or "error" in line:
+                print(f"[build] {lib.name}: {line.strip()}", flush=True)
+
+
+# ------------------------------------------------------------ K2 phase
 
 
 def main_path_shapes(comp_layers, batch, pack_block=128):
@@ -132,7 +178,7 @@ def time_turns(torch, fns, reps):
     return {name: statistics.median(v) for name, v in times.items()}
 
 
-def kernel_phase(torch, ops, ref, cases):
+def k2_phase(torch, ops, ref, cases):
     """cases: [(label, M, K_pad, N, activation, bias?, residual?, x dtype,
     launches per main-path forward)]."""
     rows = []
@@ -186,7 +232,145 @@ def kernel_phase(torch, ops, ref, cases):
     return rows
 
 
-# --------------------------------------------------------------- main path
+# ------------------------------------------------------------ K1 phase
+
+
+def k1_bound(w_tiles, a_blocks, mask):
+    """Least time on an H100 SXM for K1's work, in ms, and what sets it.
+
+    Bytes: the int32 tiles, blocks and float32 mask read once, the int64
+    event, group-pair and activation-pair bins written once, over HBM
+    bandwidth. Operations: POPC_PER_TRANSITION population-count / leading-
+    zero operations per MAC transition of an unmasked tile (product toggles,
+    accumulator toggles, carry length, and the Hamming weight and top bit of
+    the new psum's group; the activation toggles are shared by a row of 64
+    MACs) at 16 per clock per SM. The kernel's other integer operations
+    (multiplies, masks, divisions by constants, atomics) are not counted, so
+    this is a lower bound."""
+    n_live = int((mask != 0).sum())
+    t_len = a_blocks.shape[2]
+    nbytes = (w_tiles.numel() * 4 + a_blocks.numel() * 4 + mask.numel() * 4
+              + 8 * (256 * 5 + 2500 + 65536))
+    transitions = n_live * 64 * 64 * (t_len - 1)
+    t_bytes = nbytes / PEAK_HBM_BYTES
+    t_ops = transitions * POPC_PER_TRANSITION / PEAK_POPC
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def k1_boundary_tiles(np_rng, t_len):
+    """Tiles whose psums reach +-64*127*128 and change sign from t to t + 1,
+    and tiles whose psums are all zero (the _msb22 zero rule)."""
+    alt = np.array([127, -128] * t_len)[:t_len]
+    alt2 = np.array([-128, 127] * t_len)[:t_len]
+    w = np.stack([
+        np.where(np_rng.random((64, 64)) < 0.5, 127, -127),   # mixed signs
+        np.full((64, 64), 127), np.full((64, 64), -127),      # extremes
+        np_rng.integers(-127, 128, (64, 64)),                 # a == 0
+        np.zeros((64, 64), np.int64)])                        # w == 0
+    a = np.stack([np.broadcast_to(alt, (64, t_len)),
+                  np.broadcast_to(alt, (64, t_len)),
+                  np.broadcast_to(alt2, (64, t_len)),
+                  np.zeros((64, t_len), np.int64),
+                  np_rng.integers(-128, 128, (64, t_len))])
+    return w.astype(np.int32), a.astype(np.int32)
+
+
+def k1_cases(torch, comp_layers):
+    """[(label, w_tiles, a_blocks, mask, launches on the profile path)]."""
+    from repro_torch.core.profiler import gather_layer_tiles
+    from repro_torch.core.stats import pad_to_tiles
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    np_rng = np.random.default_rng(7)
+
+    def rand(shape, relu):
+        x = torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                          dtype=torch.int32)
+        return x.clamp(min=0) if relu else x
+
+    def tiles(n, t_len=64, relu=True):
+        return (rand((n, 64, 64), False), rand((n, 64, t_len), relu),
+                torch.ones(n, device="cuda"))
+
+    # the profile path's launches: min(16, the layer's tiles) tiles each
+    per_n = {}
+    for cl in comp_layers:
+        d = cl.matmul_dims(BATCH)
+        n = min(PROFILE_TILES, d.total_tiles)
+        per_n[n] = per_n.get(n, 0) + 1
+    cases = [(f"profile path, {n} tiles", *tiles(n), cnt)
+             for n, cnt in sorted(per_n.items(), reverse=True)]
+    # every tile of a stage-1 conv at batch 256: M=16, K=144, N=262144
+    w_mat = rand((16, 144), False)
+    x_cols = rand((144, BATCH * 32 * 32), True)
+    w_pad, x_pad = pad_to_tiles(w_mat, x_cols)
+    n_all = (w_pad.shape[1] // 64) * (x_pad.shape[1] // 64)
+    w_t, a_t = gather_layer_tiles(w_pad, x_pad,
+                                  torch.arange(n_all, device="cuda"))
+    cases.append((f"stage-1 conv, all {n_all} tiles", w_t, a_t,
+                  torch.ones(n_all, device="cuda"), 0))
+    del w_mat, x_cols, w_pad, x_pad
+    w, a, m = tiles(64, relu=False)
+    m[::3] = 0
+    cases.append(("masked: 64 tiles, 22 with mask 0", w, a, m, 0))
+    wb, ab = k1_boundary_tiles(np_rng, 64)
+    cases.append(("boundary tiles", torch.from_numpy(wb).cuda(),
+                  torch.from_numpy(ab).cuda(), torch.ones(5, device="cuda"),
+                  0))
+    w, a, m = tiles(1, t_len=64, relu=False)
+    cases.append(("K1b: one tile", w, a, m, 0))
+    return cases
+
+
+def k1_phase(torch, cases):
+    from repro_torch.kernels.transition_energy import ops, ref
+    from repro_torch.kernels.transition_energy import transition_energy as k1
+
+    rows = []
+    for label, w, a, m, per_stage in cases:
+        if label.startswith("K1b"):
+            got = ops.tile_transition_stats(w[0], a[0])
+        else:
+            got = ops.batched_transition_stats(w, a, mask=m)
+        counts = k1.launch(w, a, m)
+        plain_counts = ref.transition_counts(w, a, m)
+        want = ref.finish_stats(*plain_counts)
+        torch.cuda.synchronize()
+        for name, g, h in zip(("events", "group_hist", "act_hist"), counts,
+                              plain_counts):
+            if not torch.equal(g, h):
+                raise AssertionError(f"K1 {label}: {name} differs from the "
+                                     "plain version")
+        max_err = 0.0
+        for name, g, h in zip(("energy_sum", "count", "group_hist",
+                               "act_hist"), got, want):
+            max_err = max(max_err, float((g - h).abs().max()))
+            if not torch.equal(g, h):
+                raise AssertionError(
+                    f"K1 {label}: {name} differs from the plain version "
+                    f"(max abs err {max_err:.3e}; required: equal)")
+        reps = 3 if w.shape[0] > 1024 else REPS
+        ms = time_turns(torch, {"kernel": lambda: k1.launch(w, a, m),
+                                "plain": lambda: ref.transition_counts(
+                                    w, a, m)}, reps)
+        b_ms, b_by = k1_bound(w, a, m)
+        row = dict(case=label, n_tiles=int(w.shape[0]),
+                   live_tiles=int((m != 0).sum()), T=int(a.shape[2]),
+                   per_stage=per_stage, max_abs_err=max_err,
+                   ms=ms["kernel"], plain_ms=ms["plain"], library_ms=None,
+                   bound_ms=b_ms, bound_by=b_by)
+        if label.startswith("K1b"):
+            row["replaces"] = K1B_REPLACES
+        rows.append(row)
+        print(f"[k1] {label:<32} n={row['n_tiles']:<6} T={row['T']:<3} "
+              f"err={max_err:.1e} kernel={ms['kernel']:.4f} "
+              f"plain={ms['plain']:.4f} bound={b_ms:.4f} ms ({b_by})",
+              flush=True)
+    return rows
+
+
+# --------------------------------------------------------------- serve path
 
 
 def calibrated_bn_state(torch, model, params, state, x):
@@ -203,7 +387,7 @@ def calibrated_bn_state(torch, model, params, state, x):
     return tree_map(lambda v: v / 0.1, new)
 
 
-def main_path(torch, plan_dir):
+def serve_path(torch, plan_dir):
     from repro_torch.core import qat
     from repro_torch.core.export import export_model
     from repro_torch.data.synthetic import SyntheticImages
@@ -291,8 +475,129 @@ def main_path(torch, plan_dir):
                if k.startswith(("serve_", "export_", "wall_s_"))}
     metrics.update(serve_images_per_s=images_per_s, main_path_wall_s=wall,
                    kernel_launches=launches, serve_forwards=forwards)
-    print("[main] " + json.dumps(metrics, sort_keys=True), flush=True)
+    print("[serve] " + json.dumps(metrics, sort_keys=True), flush=True)
     return launches
+
+
+# ------------------------------------------------------------- profile path
+
+
+def stats_equal(torch, a, b):
+    return all(torch.equal(x.cpu(), y.cpu()) for x, y in zip(a, b))
+
+
+def profile_path(torch):
+    """Run profile + energy_model on the card; returns (K1 launches, the
+    per-layer main-path rows)."""
+    from repro_torch.core.profiler import (
+        batched_layer_stats,
+        gather_layer_tiles,
+        sample_tiles,
+    )
+    from repro_torch.core.runner import layer_seed
+    from repro_torch.core.stats import TILE, pad_to_tiles
+    from repro_torch.kernels.lut_matmul import lut_matmul as k2
+    from repro_torch.kernels.transition_energy import ref
+    from repro_torch.kernels.transition_energy import transition_energy as k1
+    from repro_torch.pipeline.config import (
+        PipelineConfig,
+        ProfileStageConfig,
+        TargetConfig,
+        TrainStageConfig,
+    )
+    from repro_torch.pipeline.pipeline import Pipeline
+
+    cfg = PipelineConfig(
+        target=TargetConfig(kind="cnn", arch="resnet20", batch_size=BATCH),
+        train=TrainStageConfig(qat_steps=0),
+        profile=ProfileStageConfig(batches=1, max_tiles=PROFILE_TILES))
+    pipe = Pipeline(cfg, device="cuda")
+    k1.launches = k2.launches = 0
+    t0 = time.perf_counter()
+    plan = pipe.run_until("energy_model", verbose=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, k2_launches = k1.launches, k2.launches
+
+    runner = pipe.target.runner
+    names = [cl.name for cl in runner.model.comp_layers]
+    if launches != len(names) or k2_launches != 0:
+        raise AssertionError(f"expected {len(names)} K1 launches and no K2 "
+                             f"launch, got {launches} and {k2_launches}")
+    if sorted(plan.stats) != sorted(names) or len(names) != 22:
+        raise AssertionError(f"stats for {sorted(plan.stats)}")
+    for name in names:
+        lut = plan.luts[name]
+        if tuple(lut.shape) != (256,) or not torch.isfinite(lut).all():
+            raise AssertionError(f"{name}: bad LUT {tuple(lut.shape)}")
+    share_sum = sum(plan.shares.values())
+    if abs(share_sum - 1.0) > 1e-6:
+        raise AssertionError(f"energy shares sum to {share_sum}")
+
+    # the stage's steps again, warm, each timed on the host clock between
+    # synchronizations (where the stage's time goes)
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    parts = dict.fromkeys(("accuracy_s", "taps_s", "trace_inputs_s",
+                           "k1_calls_s", "energy_models_s"), 0.0)
+    _, parts["accuracy_s"] = timed(lambda: runner.accuracy(
+        plan.params, plan.state, plan.comp, n_batches=cfg.train.eval_batches))
+    _, parts["energy_models_s"] = timed(lambda: runner.energy_models(
+        plan.params, plan.comp, plan.stats))
+
+    # the same taps and tile indices: the card's statistics (the pipeline's
+    # and a fresh launch) against the plain version on the CPU
+    taps, parts["taps_s"] = timed(lambda: runner.capture_taps(
+        plan.params, plan.state, plan.comp, 1))
+    rows, tiles = [], 0
+    for cl in runner.model.comp_layers:
+        tap = taps.pop(cl.name)
+
+        def trace_inputs():
+            w_pad, x_pad = pad_to_tiles(*runner.layer_trace_inputs(cl, tap))
+            total = (w_pad.shape[0] * w_pad.shape[1]
+                     * x_pad.shape[1]) // TILE ** 3
+            idx = sample_tiles(total, PROFILE_TILES, layer_seed(cl.name))
+            return gather_layer_tiles(w_pad, x_pad, idx)
+
+        (w_t, a_t), secs = timed(trace_inputs)
+        parts["trace_inputs_s"] += secs
+        mask = torch.ones(w_t.shape[0], device="cuda")
+        card, secs = timed(lambda: batched_layer_stats(w_t, a_t))
+        parts["k1_calls_s"] += secs
+        cpu = batched_layer_stats(w_t.cpu(), a_t.cpu())
+        s = plan.stats[cl.name]
+        ran = (s.energy_sum, s.count, s.group_hist, s.act_hist)
+        if not (stats_equal(torch, card, cpu) and stats_equal(torch, ran, cpu)):
+            raise AssertionError(f"{cl.name}: card statistics differ from the "
+                                 "plain version on the CPU")
+        ms = time_turns(torch, {"kernel": lambda: k1.launch(w_t, a_t, mask),
+                                "plain": lambda: ref.transition_counts(
+                                    w_t, a_t, mask)}, REPS)
+        b_ms, b_by = k1_bound(w_t, a_t, mask)
+        rows.append(dict(layer=cl.name, n_tiles=int(w_t.shape[0]),
+                         ms=ms["kernel"], plain_ms=ms["plain"],
+                         bound_ms=b_ms, bound_by=b_by))
+        tiles += int(w_t.shape[0])
+    metrics = {k: plan.metrics[k] for k in ("wall_s_profile",
+                                            "wall_s_energy_model",
+                                            "acc_base",
+                                            "energy_profile_total")}
+    metrics.update(profile_path_wall_s=wall, k1_launches=launches,
+                   tiles_traced=tiles,
+                   k1_ms_stage=sum(r["ms"] for r in rows),
+                   k1_plain_ms_stage=sum(r["plain_ms"] for r in rows),
+                   k1_bound_ms_stage=sum(r["bound_ms"] for r in rows),
+                   share_sum=share_sum)
+    print("[profile] " + json.dumps(metrics, sort_keys=True), flush=True)
+    print("[profile-breakdown] " + json.dumps(parts, sort_keys=True),
+          flush=True)
+    return launches, rows
 
 
 # --------------------------------------------------------------------- main
@@ -310,8 +615,9 @@ def main() -> int:
               "(src/repro_torch missing)", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.kernels.lut_matmul import lut_matmul as kernel
+    from repro_torch.kernels.lut_matmul import lut_matmul as k2
     from repro_torch.kernels.lut_matmul import ops, ref
+    from repro_torch.kernels.transition_energy import transition_energy as k1
     from repro_torch.nn.cnn import resnet20, resnet50
 
     torch.set_float32_matmul_precision("highest")   # no TF32 in the library call
@@ -320,14 +626,7 @@ def main() -> int:
     print(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}",
           flush=True)
-
-    t0 = time.perf_counter()
-    lib = kernel.build()
-    print(f"[build] {lib.relative_to(ROOT)} in "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
-    for line in kernel.build_log.splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
-            print(f"[build] {line.strip()}", flush=True)
+    build_kernels([k2.LIBRARY, k1.LIBRARY])
 
     f32, bf16 = torch.float32, torch.bfloat16
     cases = [(f"resnet20 x{cnt}", m, k, n, "none", b, False, f32, cnt)
@@ -342,29 +641,47 @@ def main() -> int:
         cases.append((f"epilogue {act}", 16384, 640, 64, act, True, True,
                       f32, 0))
     cases.append(("bf16 x", 262144, 256, 16, "none", False, False, bf16, 0))
-    rows = kernel_phase(torch, ops, ref, cases)
+    k2_rows = k2_phase(torch, ops, ref, cases)
+    k1_rows = k1_phase(torch, k1_cases(torch, resnet20().comp_layers))
+    torch.cuda.empty_cache()
 
-    plan_dir = ROOT / "build" / "chip_smoke"
-    launches = main_path(torch, plan_dir)
+    k2_launches = serve_path(torch, ROOT / "build" / "chip_smoke")
+    k1_launches, k1_path = profile_path(torch)
 
-    path_rows = [r for r in rows if r["per_forward"]]
+    path_rows = [r for r in k2_rows if r["per_forward"]]
     total = {key: sum(r[key] * r["per_forward"] for r in path_rows)
              for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
     by_bytes = sum(r["bound_ms"] * r["per_forward"] for r in path_rows
                    if r["bound_by"] == "bytes")
-    entry = {
-        "name": "lut_matmul", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": REPLACES, "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in rows),
+    k2_entry = {
+        **K2, "route": "cuda", "launches": k2_launches,
+        "max_abs_err": max(r["max_abs_err"] for r in k2_rows),
         **total,
         "bound_by": "bytes" if by_bytes >= total["bound_ms"] / 2
         else "operations",
         "scope": f"sum over one ResNet-20 serve forward at batch {BATCH} "
                  "(per-shape times x launches per forward)",
-        "shapes": rows,
+        "shapes": k2_rows,
     }
+    k1_entry = {
+        **K1, "route": "cuda", "launches": k1_launches,
+        "max_abs_err": max(r["max_abs_err"] for r in k1_rows),
+        **{key: sum(r[key] for r in k1_path)
+           for key in ("ms", "plain_ms", "bound_ms")},
+        "bound_by": "operations"
+        if all(r["bound_by"] == "operations" for r in k1_path) else "bytes",
+        "library_ms": None,
+        "library": "none: no PyTorch call computes these statistics",
+        "scope": f"sum over the {k1_launches} launches of one ResNet-20 "
+                 f"profile stage at batch {BATCH} ({PROFILE_TILES} tiles a "
+                 "layer, T = 64), timed on the stage's own tiles",
+        "also_replaces": K1B_REPLACES + " (K1b, as a batch of one)",
+        "main_path": k1_path,
+        "shapes": k1_rows,
+    }
+    entries = [k2_entry, k1_entry]
     print(f"[card] {card}", flush=True)
-    print(json.dumps({"kernels": [entry]}), flush=True)
+    print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

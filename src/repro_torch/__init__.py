@@ -1,16 +1,20 @@
 """PyTorch/CUDA port of the layer-wise weight-selection pipeline.
 
 A package beside `repro` (the JAX reference) with the same module layout and
-public names, for one NVIDIA H100. This slice covers the serve path: reading
-a saved `CompressionPlan`, packing every restricted layer into 4-bit
-`ServeArtifact`s, and running the CNN forward through the hand-written CUDA
-LUT-GEMM kernel (`repro_torch.kernels.lut_matmul`).
+public names, for one NVIDIA H100. Ported so far: the CNN target's
+``profile`` and ``energy_model`` stages (systolic trace statistics through
+the hand-written CUDA transition-statistics kernel,
+`repro_torch.kernels.transition_energy`, then per-weight energy LUTs and
+layer energy shares), and its ``export`` and ``serve`` stages (packed 4-bit
+`ServeArtifact`s and the CNN forward through the hand-written CUDA LUT-GEMM
+kernel, `repro_torch.kernels.lut_matmul`).
 
 The package imports torch and numpy only. Importing it touches no CUDA
 device and builds no kernel: kernels compile at first use.
 
+    python -m repro_torch profile --arch resnet20 --steps 0 --plan-out BASE
     python -m repro_torch export --plan-in BASE --plan-out BASE2
     python -m repro_torch serve  --plan-in BASE [--device cpu]
 """
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"

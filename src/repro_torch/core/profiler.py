@@ -1,0 +1,101 @@
+"""Batched whole-layer systolic profiling (port of `repro.core.profiler`,
+paper 3.1.2).
+
+  1. ``gather_layer_tiles`` — the sampled (mi, ki, ni) tiles of a layer are
+     gathered into stacked (n_tiles, 64, 64) weight / (n_tiles, 64, T)
+     activation batches with one indexing op per operand.
+  2. ``batched_layer_stats`` — the whole batch runs as one transition-
+     statistics launch (`repro_torch.kernels.transition_energy.ops`): the
+     CUDA kernel for CUDA tensors, the plain version for CPU tensors.
+  3. ``profile_layer`` — sampling + gather + trace + `LayerStats` assembly.
+
+Padding semantics are the JAX package's: partial tiles are zero-padded by
+`pad_to_tiles` and the padded MACs do count (w = 0 still clocks, matching
+`weight_value_counts`); tiles whose mask is 0 contribute nothing. Sharding
+the tile batch over several cards (``sharded_layer_stats``) waits for the
+multi-device slice.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.core.mac_model import DEFAULT_COEFFS, MacEnergyCoeffs
+from repro_torch.core.stats import TILE, LayerStats, StatsTuple, pad_to_tiles
+from repro_torch.kernels.transition_energy import ops as te_ops
+from repro_torch.kernels.transition_energy.ref import transition_stats_ref
+
+
+def gather_layer_tiles(w_pad: torch.Tensor, x_pad: torch.Tensor,
+                       tile_idx: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Stack sampled tiles: (n, 64, 64) stationary (K x M) + (n, 64, T)
+    blocks, both contiguous.
+
+    ``tile_idx`` holds flat (mi, ki, ni) indices in mi-major order,
+    ``idx = (mi * kt + ki) * nt + ni`` — the JAX package's enumeration."""
+    mp, kp = w_pad.shape
+    kp2, np_ = x_pad.shape
+    if kp != kp2:
+        raise ValueError(f"contraction mismatch: {kp} vs {kp2}")
+    kt, nt = kp // TILE, np_ // TILE
+    idx = tile_idx.to(device=w_pad.device, dtype=torch.int64)
+    mi = idx // (kt * nt)
+    rest = idx % (kt * nt)
+    ki = rest // nt
+    ni = rest % nt
+    # advanced indices split by a slice put the tile axis first:
+    # w_pad[mi*T:(mi+1)T, ki*T:(ki+1)T] -> (n, M_t, K_t), transposed to K x M
+    w_tiles = w_pad.reshape(mp // TILE, TILE, kt, TILE)[mi, :, ki, :]
+    a_blocks = x_pad.reshape(kt, TILE, nt, TILE)[ki, :, ni, :]
+    return (w_tiles.transpose(1, 2).contiguous(), a_blocks.contiguous())
+
+
+def batched_stats_oracle(w_tiles: torch.Tensor, a_blocks: torch.Tensor,
+                         mask: torch.Tensor,
+                         coeffs: MacEnergyCoeffs = DEFAULT_COEFFS
+                         ) -> StatsTuple:
+    """Plain trace of the whole tile batch, reduced to layer sums, on any
+    device (the port's counterpart of the JAX oracle of the same name)."""
+    return transition_stats_ref(w_tiles, a_blocks, coeffs, mask=mask)
+
+
+def batched_layer_stats(w_tiles: torch.Tensor, a_blocks: torch.Tensor,
+                        coeffs: MacEnergyCoeffs = DEFAULT_COEFFS, *,
+                        mask: Optional[torch.Tensor] = None) -> StatsTuple:
+    """One batched trace launch: the kernel on CUDA, the plain version on
+    the CPU."""
+    return te_ops.batched_transition_stats(w_tiles, a_blocks, coeffs,
+                                           mask=mask)
+
+
+def sample_tiles(total_tiles: int, max_tiles: int, seed: int) -> torch.Tensor:
+    """``min(max_tiles, total_tiles)`` distinct flat tile indices, drawn on
+    the CPU from a generator seeded with ``seed`` (the same tiles on every
+    device; not the tiles `jax.random.choice` picks)."""
+    gen = torch.Generator().manual_seed(int(seed))
+    return torch.randperm(total_tiles, generator=gen)[:max_tiles]
+
+
+def profile_layer(w_mat: torch.Tensor, x_cols: torch.Tensor, *,
+                  max_tiles: int = 48, seed: int = 0,
+                  tile_idx: Optional[torch.Tensor] = None,
+                  coeffs: MacEnergyCoeffs = DEFAULT_COEFFS) -> LayerStats:
+    """Trace a layer's matmul on the 64x64 array: one kernel launch.
+
+    w_mat (M, K) and x_cols (K, N) int8-valued, on one device. Samples
+    ``max_tiles`` tiles with `sample_tiles` unless ``tile_idx`` names them
+    (the flat indices of `gather_layer_tiles`, e.g. the ones the JAX
+    package drew)."""
+    w_pad, x_pad = pad_to_tiles(w_mat.to(torch.int32), x_cols.to(torch.int32))
+    total_tiles = ((w_pad.shape[0] // TILE) * (w_pad.shape[1] // TILE)
+                   * (x_pad.shape[1] // TILE))
+    if tile_idx is None:
+        tile_idx = sample_tiles(total_tiles, max_tiles, seed)
+    w_tiles, a_blocks = gather_layer_tiles(w_pad, x_pad, tile_idx)
+    es, cnt, gh, ah = batched_layer_stats(w_tiles, a_blocks, coeffs)
+    n = w_tiles.shape[0]
+    return LayerStats(act_hist=ah, group_hist=gh, energy_sum=es, count=cnt,
+                      n_transitions=n * TILE * TILE * (a_blocks.shape[2] - 1))

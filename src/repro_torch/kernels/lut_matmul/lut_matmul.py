@@ -4,11 +4,10 @@ The kernel replaces the TPU kernel
 ``repro.kernels.lut_matmul.lut_matmul.lut_matmul_pallas``; the source's
 header says what bounds it on an H100 and how its design responds.
 
-The source compiles at first use with ``nvcc`` for ``sm_90a`` into a shared
-library with a plain C interface under ``build/lut_matmul/`` at the repository
-root (named by a hash of the source and flags, so an edit rebuilds), and is
-loaded with `ctypes`. Nothing here runs at import: the CPU tests import this
-module on hosts without ``nvcc`` or a GPU.
+The source compiles at first use with ``nvcc`` for ``sm_90a`` into
+``build/lut_matmul/`` at the repository root and is loaded with `ctypes`
+(`repro_torch.kernels._build`). Nothing here runs at import: the CPU tests
+import this module on hosts without ``nvcc`` or a GPU.
 
 ``launches`` counts kernel launches (one per `launch` call that reached the
 device), so a run can show that its main path went through the kernel.
@@ -17,79 +16,22 @@ device), so a run can show that its main path went through the kernel.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 from pathlib import Path
-from typing import Optional
 
 import torch
 
+from repro_torch.kernels._build import KernelLibrary
 from repro_torch.kernels.lut_matmul.ref import N_CODES
 
 # the keys of ref.ACTIVATIONS, coded as csrc's `activate` expects them
 ACT_CODES = {"none": 0, "relu": 1, "gelu": 2, "silu": 3}
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "lut_matmul.cu"
-BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "lut_matmul"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+LIBRARY = KernelLibrary(
+    "lut_matmul", SOURCE,
+    {"lut_matmul_launch": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7})
 
 launches = 0       # kernel launches in this process
-build_log = ""     # nvcc output of the build done by this process (ptxas -v)
-_lib: Optional[ctypes.CDLL] = None
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
-        or "/usr/local/cuda"
-    path = Path(home) / "bin" / "nvcc"
-    if not path.exists():
-        raise RuntimeError(
-            "nvcc not found (PATH, $CUDA_HOME/bin): the LUT-GEMM kernel is "
-            "built from source at first use and needs the CUDA toolkit")
-    return str(path)
-
-
-def library_path() -> Path:
-    tag = hashlib.sha256(SOURCE.read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"liblut_matmul_{tag}.so"
-
-
-def build() -> Path:
-    """Compile the kernel unless this source's library already exists;
-    returns the library path. Raises `RuntimeError` with nvcc's output on
-    failure."""
-    global build_log
-    out = library_path()
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}"
-                           f"\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)             # atomic: a concurrent loader sees all or none
-    build_log = proc.stdout + proc.stderr
-    return out
-
-
-def _load() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        fn = lib.lut_matmul_launch
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
-        fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
 
 
 def check_inputs(x, packed, codebook, scale, bias, residual, activation,
@@ -152,7 +94,7 @@ def launch(x, packed, codebook, scale, *, bias=None, residual=None,
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     if m == 0 or n == 0:
         return out
-    lib = _load()
+    lib = LIBRARY.load()
     err = lib.lut_matmul_launch(
         x.data_ptr(), packed.data_ptr(), codebook.data_ptr(), scale.data_ptr(),
         None if bias is None else bias.data_ptr(),

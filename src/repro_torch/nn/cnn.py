@@ -7,7 +7,9 @@ their systolic matmul dimensions. Layer names, parameter paths and
 `comp_layers` are the JAX package's, so plans cross-load.
 
 ``apply(params, state, x, *, train, qcfg, comp, serve) -> (logits,
-new_state)``; profiling taps arrive with the profile slice.
+new_state)``; with ``capture_taps=True`` it returns ``(logits, new_state,
+taps)``, taps ``{layer: {"a_int", "w_int"}}`` holding each compressible
+layer's int8 input and weights (the profiler's trace inputs).
 """
 
 from __future__ import annotations
@@ -53,11 +55,17 @@ class CNNModel:
     num_classes: int
     spec: dict
     state_spec: dict
-    apply: Callable  # (params, state, x, *, train, qcfg, comp, serve) -> (logits, state)
+    apply: Callable  # (params, state, x, *, train, qcfg, comp, serve, capture_taps) -> (logits, state[, taps])
     comp_layers: List[CompLayer]
 
     def weight_path(self, name: str) -> Tuple[str, ...]:
         return tuple(name.split("/")) + ("w",)
+
+    def comp_layer(self, name: str) -> CompLayer:
+        for cl in self.comp_layers:
+            if cl.name == name:
+                return cl
+        raise KeyError(name)
 
     def get_weight(self, params, name: str):
         node = params
@@ -91,10 +99,13 @@ def lenet5(num_classes: int = 10, in_channels: int = 3) -> CNNModel:
     ]
 
     def apply(params, state, x, *, train=False, qcfg=QuantConfig.off(),
-              comp=None, serve=None):
+              comp=None, serve=None, capture_taps=False):
+        tap = {} if capture_taps else None
+
         def kw(name):
             return dict(qcfg=qcfg, comp=_maybe(comp, name),
-                        serve_art=_maybe(serve, name))
+                        serve_art=_maybe(serve, name), tap=tap,
+                        tap_name=name)
 
         # relu rides the layer epilogue: fused into the LUT-GEMM kernel on
         # the serve path, applied eagerly on the fake-quant/dense path
@@ -108,7 +119,7 @@ def lenet5(num_classes: int = 10, in_channels: int = 3) -> CNNModel:
         h = L.apply_dense(params["fc1"], h, activation="relu", **kw("fc1"))
         h = L.apply_dense(params["fc2"], h, activation="relu", **kw("fc2"))
         logits = L.apply_dense(params["fc3"], h, **kw("fc3"))
-        return logits, state
+        return (logits, state, tap) if capture_taps else (logits, state)
 
     return CNNModel("lenet5", num_classes, spec, {}, apply, comp_layers)
 
@@ -134,15 +145,15 @@ def _basic_block_spec(c_in: int, c_out: int, stride: int):
     return spec, state
 
 
-def _conv_kw(prefix, qcfg, comp, serve, name):
+def _conv_kw(prefix, qcfg, comp, serve, tap, name):
     full = f"{prefix}/{name}"
     return dict(qcfg=qcfg, comp=_maybe(comp, full),
-                serve_art=_maybe(serve, full))
+                serve_art=_maybe(serve, full), tap=tap, tap_name=full)
 
 
 def _apply_basic_block(params, state, x, *, prefix, stride, train, qcfg, comp,
-                       serve):
-    kw = lambda name: _conv_kw(prefix, qcfg, comp, serve, name)  # noqa: E731
+                       serve, tap):
+    kw = lambda name: _conv_kw(prefix, qcfg, comp, serve, tap, name)  # noqa: E731
     h = L.apply_conv(params["conv1"], x, stride=stride, **kw("conv1"))
     h, s1 = L.apply_batchnorm(params["bn1"], state["bn1"], h, train=train)
     h = torch.relu(h)
@@ -173,10 +184,12 @@ def _resnet_apply(block_fn, block_names, strides):
     global average pool, fc."""
 
     def apply(params, state, x, *, train=False, qcfg=QuantConfig.off(),
-              comp=None, serve=None):
+              comp=None, serve=None, capture_taps=False):
+        tap = {} if capture_taps else None
         h = L.apply_conv(params["conv1"], x, qcfg=qcfg,
                          comp=_maybe(comp, "conv1"),
-                         serve_art=_maybe(serve, "conv1"))
+                         serve_art=_maybe(serve, "conv1"), tap=tap,
+                         tap_name="conv1")
         h, s0 = L.apply_batchnorm(params["bn1"], state["bn1"], h, train=train)
         h = torch.relu(h)
         new_state = {"bn1": s0}
@@ -184,12 +197,14 @@ def _resnet_apply(block_fn, block_names, strides):
             h, new_state[name] = block_fn(
                 params[name], state[name], h, prefix=name,
                 stride=strides[name], train=train, qcfg=qcfg, comp=comp,
-                serve=serve)
+                serve=serve, tap=tap)
         h = L.avg_pool_global(h)
         logits = L.apply_dense(params["fc"], h, qcfg=qcfg,
                                comp=_maybe(comp, "fc"),
-                               serve_art=_maybe(serve, "fc"))
-        return logits, new_state
+                               serve_art=_maybe(serve, "fc"), tap=tap,
+                               tap_name="fc")
+        return ((logits, new_state, tap) if capture_taps
+                else (logits, new_state))
 
     return apply
 
@@ -256,8 +271,8 @@ def _bottleneck_spec(c_in: int, width: int, stride: int):
 
 
 def _apply_bottleneck(params, state, x, *, prefix, stride, train, qcfg, comp,
-                      serve):
-    kw = lambda name: _conv_kw(prefix, qcfg, comp, serve, name)  # noqa: E731
+                      serve, tap):
+    kw = lambda name: _conv_kw(prefix, qcfg, comp, serve, tap, name)  # noqa: E731
     h = L.apply_conv(params["conv1"], x, **kw("conv1"))
     h, s1 = L.apply_batchnorm(params["bn1"], state["bn1"], h, train=train)
     h = torch.relu(h)

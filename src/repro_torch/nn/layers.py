@@ -67,6 +67,15 @@ def _serves(qcfg: QuantConfig, serve_art) -> bool:
     return qcfg.enabled and qcfg.comp_mode == "serve" and serve_art is not None
 
 
+def _record_tap(tap, tap_name, x, w, comp):
+    """Profiling tap: int8 views of what sits in the MAC registers. Recorded
+    on both the fake-quant and serve paths (the served weights dequantize to
+    the same integers the tap reports)."""
+    if tap is not None and tap_name is not None:
+        tap[tap_name] = {"a_int": qat.quantize_act_int(x),
+                         "w_int": qat.quantize_weight_int(w, comp)}
+
+
 def _epilogue(y, params, activation, residual):
     if "b" in params:
         y = y + params["b"].to(y.dtype)
@@ -94,13 +103,17 @@ def apply_dense(params, x: torch.Tensor, *,
                 qcfg: QuantConfig = QuantConfig.off(),
                 comp: Optional[qat.CompState] = None, serve_art=None,
                 activation: str = "none",
-                residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+                residual: Optional[torch.Tensor] = None,
+                tap: Optional[dict] = None,
+                tap_name: Optional[str] = None) -> torch.Tensor:
     """Dense layer with an optional fused epilogue:
     ``y = act(x @ w + b) + residual``. On the serve path bias, activation and
-    residual ride the LUT-GEMM kernel epilogue (one launch)."""
+    residual ride the LUT-GEMM kernel epilogue (one launch). A ``tap`` dict
+    receives the layer's int8 input and weights under ``tap_name``."""
     w = params["w"]
     if qcfg.enabled and qcfg.act_quant:
         x = qat.fake_quant_act(x)
+    _record_tap(tap, tap_name, x, w, comp)
     if _serves(qcfg, serve_art):
         return serve_dense(x, serve_art, bias=params.get("b"),
                            residual=residual, activation=activation)
@@ -142,13 +155,17 @@ def apply_conv(params, x: torch.Tensor, *, stride: int = 1,
                padding: str = "SAME", qcfg: QuantConfig = QuantConfig.off(),
                comp: Optional[qat.CompState] = None, serve_art=None,
                activation: str = "none",
-               residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+               residual: Optional[torch.Tensor] = None,
+               tap: Optional[dict] = None,
+               tap_name: Optional[str] = None) -> torch.Tensor:
     """NHWC conv with HWIO kernel and an optional fused epilogue:
     ``y = act(conv(x, w) + b) + residual``. On the serve path the epilogue
-    rides the im2col-fed LUT-GEMM kernel (one launch)."""
+    rides the im2col-fed LUT-GEMM kernel (one launch). A ``tap`` dict
+    receives the layer's int8 input and weights under ``tap_name``."""
     w = params["w"]
     if qcfg.enabled and qcfg.act_quant:
         x = qat.fake_quant_act(x)
+    _record_tap(tap, tap_name, x, w, comp)
     if _serves(qcfg, serve_art):
         return serve_conv(x, serve_art, stride=stride, padding=padding,
                           bias=params.get("b"), residual=residual,

@@ -1,15 +1,20 @@
-"""`repro_torch` command-line entry point: resume a saved plan on the card.
+"""`repro_torch` command-line entry point: drive the port's Pipeline.
 
-    python -m repro_torch export --plan-in BASE [--plan-out BASE2] [--device cpu]
-    python -m repro_torch serve  --plan-in BASE [--plan-out BASE2] [--device cpu]
+    python -m repro_torch profile [--config cfg.json] [--arch A] [--steps 0]
+                                  [--seed S] [--plan-in BASE] [--plan-out BASE]
+    python -m repro_torch export --plan-in BASE [--plan-out BASE2]
+    python -m repro_torch serve  --plan-in BASE [--plan-out BASE2]
 
-``export`` runs the plan's remaining stages through ``export`` (packed 4-bit
-artifacts), ``serve`` through ``serve`` (the full-model forward on the LUT
-GEMM, with logit parity against fake-quant). The plan's earlier stages
-(profile, energy_model, schedule) come from the JAX package
-(``python -m repro compress --plan-out BASE``) until the port has them.
-``--device`` defaults to ``cuda``; on a host without CUDA that is an error,
-and ``--device cpu`` runs the plain versions of the kernels instead.
+``profile`` runs the CNN target through ``energy_model`` (per-layer trace
+statistics on the transition-statistics kernel, energy LUTs and shares);
+QAT base training is not ported yet, so it needs ``--steps 0`` (or a config
+with ``train.qat_steps = 0``). ``export`` and ``serve`` resume a saved plan
+through ``export`` (packed 4-bit artifacts) and ``serve`` (the full-model
+forward on the LUT GEMM). The ``schedule`` stage comes from the JAX package
+(``python -m repro compress --plan-out BASE``) until the port has it.
+Every command takes ``--device``, which defaults to ``cuda``; on a host
+without CUDA that is an error, and ``--device cpu`` runs the plain versions
+of the kernels instead.
 """
 
 from __future__ import annotations
@@ -20,19 +25,32 @@ import sys
 from typing import Optional
 
 # subcommand -> last pipeline stage it runs
-COMMAND_STAGE = {"export": "export", "serve": "serve"}
+COMMAND_STAGE = {"profile": "energy_model", "export": "export",
+                 "serve": "serve"}
 
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="repro_torch",
-        description="PyTorch/CUDA port of the compression pipeline: resume "
-                    "a saved CompressionPlan through export and serve.")
+        description="PyTorch/CUDA port of the compression pipeline: profile "
+                    "a CNN, or resume a saved CompressionPlan through export "
+                    "and serve.")
     sub = ap.add_subparsers(dest="command", required=True)
     for command, stage in COMMAND_STAGE.items():
         p = sub.add_parser(command,
-                           help=f"run the plan through its '{stage}' stage")
-        p.add_argument("--plan-in", required=True, metavar="BASE",
+                           help=f"run the pipeline through its '{stage}' "
+                                "stage")
+        if command == "profile":
+            p.add_argument("--config", default=None, metavar="JSON",
+                           help="PipelineConfig JSON file")
+            p.add_argument("--arch", default=None,
+                           help="lenet5|resnet8|resnet20|resnet50")
+            p.add_argument("--steps", type=int, default=None,
+                           help="override train.qat_steps (only 0 is ported)")
+            p.add_argument("--seed", type=int, default=None,
+                           help="override target.seed")
+        p.add_argument("--plan-in", required=command != "profile",
+                       default=None, metavar="BASE",
                        help="resume from a saved plan (BASE.json + BASE.npz)")
         p.add_argument("--plan-out", default=None, metavar="BASE",
                        help="save the resulting plan to BASE.json + BASE.npz")
@@ -42,6 +60,21 @@ def build_parser() -> argparse.ArgumentParser:
         p.add_argument("--quiet", action="store_true",
                        help="suppress per-stage progress output")
     return ap
+
+
+def _build_config(args):
+    from repro_torch.pipeline.config import PipelineConfig
+
+    cfg = PipelineConfig.load(args.config) if args.config \
+        else PipelineConfig()
+    overrides: dict = {}
+    target = {k: v for k, v in (("arch", args.arch), ("seed", args.seed))
+              if v is not None}
+    if target:
+        overrides["target"] = target
+    if args.steps is not None:
+        overrides["train"] = {"qat_steps": args.steps}
+    return cfg.with_overrides(overrides)
 
 
 def main(argv: Optional[list] = None) -> int:
@@ -57,8 +90,16 @@ def main(argv: Optional[list] = None) -> int:
     from repro_torch.pipeline.pipeline import Pipeline
     from repro_torch.pipeline.plan import CompressionPlan
 
-    pipe = Pipeline.from_plan(CompressionPlan.load(args.plan_in),
-                              device=device)
+    if args.plan_in:
+        pipe = Pipeline.from_plan(CompressionPlan.load(args.plan_in),
+                                  device=device)
+        # flags still override the embedded config for the stages that
+        # remain to run; the target identity is fixed by the plan
+        if getattr(args, "steps", None) is not None:
+            pipe.cfg = pipe.cfg.with_overrides(
+                {"train": {"qat_steps": args.steps}})
+    else:
+        pipe = Pipeline(_build_config(args), device=device)
     plan = pipe.run_until(COMMAND_STAGE[args.command],
                           verbose=not args.quiet)
     print(json.dumps(plan.summary(), indent=2))

@@ -11,8 +11,10 @@ dataclasses; the port's schedule and selection code arrive in a later slice.
 from __future__ import annotations
 
 import dataclasses
+import json
 import re
 import typing
+from pathlib import Path
 from typing import Any, Dict, Optional, Tuple
 
 from repro_torch.core.qat import K_MAX
@@ -151,6 +153,11 @@ class PipelineConfig:
         cfg = _build(cls, d, path="config")
         cfg.validate()
         return cfg
+
+    @classmethod
+    def load(cls, path) -> "PipelineConfig":
+        """Read a config JSON file (either package's)."""
+        return cls.from_dict(json.loads(Path(path).read_text()))
 
     # ------------------------------------------------------------ validation
 

@@ -31,23 +31,11 @@ import numpy as np
 import torch
 
 from repro_torch.core.export import ServeArtifact
+from repro_torch.core.stats import LayerStats
 from repro_torch.pipeline.schema import PLAN_FORMAT, PLAN_SCHEMA_VERSION, STAGES
 
 ARRAY_SECTIONS = ("params", "state", "opt_state", "comp", "stats", "luts",
                   "artifacts")
-
-
-@dataclasses.dataclass
-class LayerStatsRecord:
-    """Plain holder of one layer's trace statistics (a ``__layerstats__``
-    plan node), kept so plans carrying profile output round-trip unchanged
-    until the profile slice ports `LayerStats` itself."""
-
-    act_hist: Any
-    group_hist: Any
-    energy_sum: Any
-    count: Any
-    n_transitions: int
 
 
 @dataclasses.dataclass
@@ -188,7 +176,7 @@ def _encode(obj, arrays: Dict[str, np.ndarray]):
         key = f"a{len(arrays):05d}"
         arrays[key] = a
         return {"__array__": key, "dtype": dtype}
-    if isinstance(obj, LayerStatsRecord):
+    if isinstance(obj, LayerStats):
         return {"__layerstats__": {
             "act_hist": _encode(obj.act_hist, arrays),
             "group_hist": _encode(obj.group_hist, arrays),
@@ -215,7 +203,7 @@ def _encode(obj, arrays: Dict[str, np.ndarray]):
     raise TypeError(
         f"CompressionPlan cannot serialize {type(obj).__name__}; supported "
         f"node types are dict/list/tuple/tensor/array/scalar/"
-        f"LayerStatsRecord/ServeArtifact")
+        f"LayerStats/ServeArtifact")
 
 
 def _tensor(a: np.ndarray, dtype: str) -> torch.Tensor:
@@ -234,7 +222,7 @@ def _decode(node, arrays: Dict[str, np.ndarray]):
         return _tensor(arrays[node["__array__"]], node["dtype"])
     if "__layerstats__" in node:
         d = node["__layerstats__"]
-        return LayerStatsRecord(
+        return LayerStats(
             act_hist=_decode(d["act_hist"], arrays),
             group_hist=_decode(d["group_hist"], arrays),
             energy_sum=_decode(d["energy_sum"], arrays),

@@ -2,18 +2,22 @@
 
 A target owns the model runtime and implements one method per pipeline
 stage; each takes the shared `CompressionPlan` and the `PipelineConfig` and
-mutates only the plan. This slice ports the CNN target's ``export`` and
-``serve`` stages operation for operation; the earlier stages and the
-LM-family targets raise `NotImplementedError` naming the ROADMAP.md item that
-ports them.
+mutates only the plan. The CNN target's ``profile``, ``energy_model``,
+``export`` and ``serve`` stages are ported operation for operation;
+``profile`` without QAT base training (``train.qat_steps == 0``) and without
+the cosim gate. Everything else (QAT, ``schedule``, the LM-family targets)
+raises `NotImplementedError` naming the ROADMAP.md item that ports it.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 from repro_torch._device import tree_to
 from repro_torch.core.export import export_model, export_summary
+from repro_torch.core.runner import CnnRunner
 from repro_torch.data.synthetic import SyntheticImages
 from repro_torch.nn.cnn import CNN_FACTORIES
 from repro_torch.nn.layers import QuantConfig
@@ -21,10 +25,10 @@ from repro_torch.pipeline.config import PipelineConfig
 from repro_torch.pipeline.plan import CompressionPlan
 
 _NOT_PORTED = {
-    "profile": "ROADMAP.md Queue 1, the profile slice (QAT base training and "
-               "trace statistics, kernel K1)",
-    "energy_model": "ROADMAP.md Queue 1, the profile slice (energy LUTs and "
-                    "shares)",
+    "qat_steps": "ROADMAP.md Queue 1 item 3, the QAT/training slice (QAT "
+                 "base training before the trace); run the profile stage "
+                 "with train.qat_steps = 0 (CLI: --steps 0)",
+    "verify_cosim": "ROADMAP.md Queue 1 item 9, 'Bit-accurate cosim'",
     "schedule": "ROADMAP.md Queue 1, the QAT/training slice (weight "
                 "selection and the layer-wise schedule)",
     "lm": "ROADMAP.md Queue 1, 'LM stack' and 'Serving'",
@@ -44,16 +48,25 @@ def resolve_target(cfg: PipelineConfig, device: torch.device):
 
 
 class CnnTarget:
-    """CNN export + serve on one device."""
+    """CNN compression through a `repro_torch.core.runner.CnnRunner` on one
+    device. An injected ``runner`` (its model, dataset and device) replaces
+    the one the config describes."""
 
     kind = "cnn"
 
-    def __init__(self, cfg: PipelineConfig, device: torch.device):
-        t = cfg.target
-        self.model = CNN_FACTORIES[t.arch]()
-        self.dataset = SyntheticImages(seed=t.data_seed)
-        self.batch_size = t.batch_size
-        self.device = device
+    def __init__(self, cfg: PipelineConfig, device: torch.device,
+                 runner: Optional[CnnRunner] = None):
+        if runner is None:
+            t = cfg.target
+            runner = CnnRunner(CNN_FACTORIES[t.arch](),
+                               SyntheticImages(seed=t.data_seed),
+                               batch_size=t.batch_size, seed=t.seed,
+                               device=device)
+        self.runner = runner
+        self.model = runner.model
+        self.dataset = runner.dataset
+        self.batch_size = runner.batch_size
+        self.device = runner.device
         self.name = self.model.name
 
     def _not_ported(self, stage: str):
@@ -74,11 +87,44 @@ class CnnTarget:
 
     # ------------------------------------------------------------- stages
 
-    def stage_profile(self, plan, cfg, verbose: bool = False) -> None:
-        self._not_ported("profile")
+    def stage_profile(self, plan: CompressionPlan, cfg: PipelineConfig,
+                      verbose: bool = False) -> None:
+        """Fresh parameters, base accuracy, then the per-layer trace
+        statistics (one K1 launch per compressible layer on the card)."""
+        for field, value in (("qat_steps", cfg.train.qat_steps),
+                             ("verify_cosim", cfg.profile.verify_cosim)):
+            if value:
+                raise NotImplementedError(
+                    f"profile with {field}={value} is not ported yet: "
+                    f"{_NOT_PORTED[field]}")
+        runner = self.runner
+        params, state, opt_state, comp = runner.init()
+        loss = float("nan")
+        acc_base = runner.accuracy(params, state, comp,
+                                   n_batches=cfg.train.eval_batches)
+        if verbose:
+            print(f"[pipeline] QAT base: loss={loss:.4f} acc={acc_base:.3f}")
+        stats = runner.profile(params, state, comp,
+                               n_batches=cfg.profile.batches,
+                               max_tiles=cfg.profile.max_tiles)
+        plan.params, plan.state = params, state
+        plan.opt_state, plan.comp = opt_state, comp
+        plan.stats = stats
+        plan.metrics["acc_base"] = float(acc_base)
+        plan.metrics["qat_loss"] = float(loss)
 
-    def stage_energy_model(self, plan, cfg, verbose: bool = False) -> None:
-        self._not_ported("energy_model")
+    def stage_energy_model(self, plan: CompressionPlan, cfg: PipelineConfig,
+                           verbose: bool = False) -> None:
+        self._on_device(plan)
+        models = self.runner.energy_models(plan.params, plan.comp, plan.stats)
+        e_total = sum(m.energy for m in models.values())
+        plan.shares = {n: m.energy / max(e_total, 1e-12)
+                       for n, m in models.items()}
+        plan.luts = {n: m.lut for n, m in models.items()}
+        plan.metrics["energy_profile_total"] = float(e_total)
+        if verbose:
+            for n, s in sorted(plan.shares.items(), key=lambda kv: -kv[1]):
+                print(f"[pipeline] energy share {n}: {s:.3f}")
 
     def stage_schedule(self, plan, cfg, verbose: bool = False) -> None:
         self._not_ported("schedule")

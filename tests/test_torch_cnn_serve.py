@@ -39,13 +39,13 @@ from repro.pipeline.pipeline import Pipeline as JPipeline
 from repro.pipeline.plan import CompressionPlan as JPlan
 from repro.pipeline.schema import validate_plan_doc
 from repro_torch.core import export as texport
+from repro_torch.core.stats import LayerStats as TLayerStats
 from repro_torch.nn import cnn as tcnn
 from repro_torch.nn.layers import QuantConfig as TQ
 from repro_torch.nn.spec import params_from_numpy
 from repro_torch.pipeline.config import PipelineConfig as TConfig
 from repro_torch.pipeline.pipeline import Pipeline as TPipeline
 from repro_torch.pipeline.plan import CompressionPlan as TPlan
-from repro_torch.pipeline.plan import LayerStatsRecord
 
 ROOT = Path(__file__).resolve().parents[1]
 ART_FIELDS = ("packed", "codebook", "scale")
@@ -279,7 +279,7 @@ def test_plan_sections_round_trip_both_ways(tmp_path):
 
     port = TPlan.load(tmp_path / "a")
     rec = port.stats["conv1"]
-    assert isinstance(rec, LayerStatsRecord) and rec.n_transitions == 1234
+    assert isinstance(rec, TLayerStats) and rec.n_transitions == 1234
     assert port.luts["conv1"].dtype == torch.bfloat16
     assert isinstance(port.opt_state, tuple)
     port.save(tmp_path / "b")
