@@ -31,7 +31,26 @@
    per layer), with K1's launch count read around that run; the card's
    statistics are then held against the plain version on the CPU for the
    same taps and tile indices;
-7. prints the ``kernels`` JSON line, then the result line.
+7. K3, the weight fake-quant: holds the kernel against its plain version,
+   bit for bit, at every weight shape of ResNet-20's 22 compressible layers
+   (kh*kw*c_in, c_out) with k in {0, 5, 16, 32}, a 50% mask and MSR depths
+   0 and 3, with an int8 mask, with k and MSR depth passed by value, on
+   rounding ties and on the +-127 clip; times kernel (device time of a CUDA
+   graph of back-to-back launches) and plain version with CUDA events and
+   computes each shape's bound (bytes over HBM bandwidth; no PyTorch call
+   computes this function);
+8. the train step: one QAT step of ResNet-20 at batch 32 from the same
+   parameters and batch on the card and on the CPU (the plain K3), held at
+   loss rel 1e-5 and every gradient leaf rel-L2 1e-4; then warm QAT steps
+   at batch 256 (ms per step, K3 launches per step and per eval forward,
+   both 22) and a split of one step's time (convolutions, fake-quant
+   activations, K3, batch norm, optimizer) from each part timed alone;
+9. the compress path: ``Pipeline(cfg, device="cuda").run()`` on ResNet-20 at
+   batch 256, QAT base training, profile, energy model, the serial
+   layer-wise schedule on the two layers of largest energy share, export
+   and serve, with every kernel's launches read per stage (K3 in whole
+   forwards of 22 launches before the serve stage);
+10. prints the ``kernels`` JSON line, then the result line.
 
 Any failure raises and the script exits non-zero. It refuses to run without
 a CUDA device, and outside a checkout of the repository.
@@ -61,6 +80,10 @@ PEAK_HBM_BYTES = 3.35e12    # H100 SXM HBM3
 PEAK_POPC = 16 * 132 * 1.98e9
 POPC_PER_TRANSITION = 5     # see k1_bound
 PROFILE_TILES = 16          # profile.max_tiles of the profile path
+TRAIN_CHECK_BATCH = 32      # card vs CPU train-step check
+LOSS_RTOL, GRAD_RTOL = 1e-5, 1e-4
+GRAPH_LAUNCHES = 20         # K3 launches per timed CUDA graph replay
+HOST_CALLS = 200            # K3 wrapper calls timed on the host clock
 K2 = dict(name="lut_matmul",
           source="src/repro_torch/kernels/lut_matmul/csrc/lut_matmul.cu",
           replaces="src/repro/kernels/lut_matmul/lut_matmul.py:125")
@@ -70,17 +93,9 @@ K1 = dict(name="transition_energy",
           replaces="src/repro/kernels/transition_energy/"
                    "transition_energy.py:201")
 K1B_REPLACES = "src/repro/kernels/transition_energy/transition_energy.py:142"
-
-
-def symmetric_codebook_values(k: int) -> list:
-    """k int8 values: 0 plus levels spread over the int8 range (a copy of
-    the JAX package's test fixture of the same name)."""
-    n_neg = k // 2
-    n_pos = k - 1 - n_neg
-    values = sorted({0} | {-int(v) for v in np.linspace(16, 120, n_neg)}
-                    | {int(v) for v in np.linspace(16, 120, n_pos)})
-    assert len(values) == k, (k, values)
-    return values
+K3 = dict(name="fake_quant",
+          source="src/repro_torch/kernels/fake_quant/csrc/fake_quant.cu",
+          replaces="src/repro/kernels/fake_quant/fake_quant.py:51")
 
 
 def card_line() -> str:
@@ -127,6 +142,8 @@ def main_path_shapes(comp_layers, batch, pack_block=128):
 
 
 def make_case(torch, ops, m, k_pad, n, *, seed, bias, residual, x_dtype):
+    from repro_torch.core.schedule import symmetric_codebook_values
+
     gen = torch.Generator(device="cuda").manual_seed(seed)
     dev = "cuda"
     w = torch.randn((k_pad, n), generator=gen, device=dev) * 0.05
@@ -390,6 +407,7 @@ def calibrated_bn_state(torch, model, params, state, x):
 def serve_path(torch, plan_dir):
     from repro_torch.core import qat
     from repro_torch.core.export import export_model
+    from repro_torch.core.schedule import symmetric_codebook_values
     from repro_torch.data.synthetic import SyntheticImages
     from repro_torch.kernels.lut_matmul import lut_matmul as kernel
     from repro_torch.nn.cnn import resnet20
@@ -600,6 +618,543 @@ def profile_path(torch):
     return launches, rows
 
 
+# ------------------------------------------------------------ K3 phase
+
+
+def k3_shapes(comp_layers):
+    """{(M, N): launches per forward} of K3 on a CNN's QAT forward: one
+    launch per compressible layer, on its weight viewed as (-1, c_out)."""
+    shapes = {}
+    for cl in comp_layers:
+        key = (cl.kernel * cl.kernel * cl.c_in, cl.c_out)
+        shapes[key] = shapes.get(key, 0) + 1
+    return shapes
+
+
+def k3_bound(m, n, mask):
+    """Least time on an H100 SXM for K3's work, in ms, and what sets it.
+    Bytes: w and the mask read once, the output written once, the scales,
+    codebook and two scalars read once, over HBM bandwidth. Operations: 6
+    float32 operations a weight (mask multiply, division, rounding, two
+    clip comparisons, scale multiply) at the fp32 peak."""
+    nbytes = m * n * (4 + mask.element_size() + 4) + 4 * n + 4 * 32 + 8
+    t_bytes = nbytes / PEAK_HBM_BYTES
+    t_ops = 6.0 * m * n / PEAK_FP32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def graph_ms(torch, fn, reps=REPS):
+    """(device ms of one ``fn()``, method). ``fn`` launches one short
+    kernel: GRAPH_LAUNCHES calls are captured in a CUDA graph and each replay
+    is timed with CUDA events (median over ``reps``), so the host's launch
+    overhead between calls drops out. If the capture fails, back-to-back
+    launches are timed instead, which measures the host's launch rate."""
+    fn()
+    torch.cuda.synchronize()
+    try:
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(GRAPH_LAUNCHES):
+                fn()
+        run, method = graph.replay, "cuda graph"
+    except RuntimeError as e:
+        print(f"[k3] graph capture failed ({e}); timing launches from the "
+              "host", flush=True)
+        torch.cuda.synchronize()
+
+        def run():
+            for _ in range(GRAPH_LAUNCHES):
+                fn()
+        method = "host launches"
+    run()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        run()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / GRAPH_LAUNCHES)
+    return statistics.median(times), method
+
+
+def k3_cases(torch, comp_layers):
+    """[(label, w, mask, scale, codebook, k, msr_bits, launches per
+    forward)]: every weight shape of the QAT forward with k in {0, 5, 16,
+    32} and MSR depths {0, 3} on a 50% mask, k and the depth as int32
+    device scalars as the QAT path passes them; an int8 mask with k and the
+    depth by value; rounding ties; the clip."""
+    from repro_torch.core import qat
+    from repro_torch.core.schedule import symmetric_codebook_values
+
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(11)
+
+    def codebook(values):
+        return qat.make_codebook(values, device=dev)
+
+    def scalar(v):
+        return torch.tensor(v, dtype=torch.int32, device=dev)
+
+    books = {k: codebook(symmetric_codebook_values(k) if k else [])
+             for k in (0, 5, 16, 32)}
+    cases = []
+    for (m, n), per_fwd in sorted(k3_shapes(comp_layers).items()):
+        w = torch.randn((m, n), generator=gen, device=dev) * 0.1
+        mask = (torch.rand((m, n), generator=gen, device=dev) < 0.5).float()
+        scale = qat.weight_scale(w * mask)[0]
+        for k, (cb, k_t) in books.items():
+            for msr in (0, 3):
+                cases.append((f"{m}x{n} k={k} msr={msr}", w, mask, scale, cb,
+                              k_t, scalar(msr),
+                              per_fwd if (k, msr) == (16, 0) else 0))
+    cases.append(("576x64 int8 mask, k=16 msr=3 by value", w,
+                  mask.to(torch.int8), scale, books[16][0], 16, 3, 0))
+    ties = torch.cat([torch.arange(-40, 40, device=dev) + 0.5,
+                      torch.arange(-40, 40, device=dev).float()])
+    ties = ties.reshape(-1, 8).contiguous()
+    cb, k_t = codebook([-30, -10, 0, 10, 30])
+    cases.append(("ties: w/scale = x.5, codebook midpoints", ties,
+                  torch.ones_like(ties), torch.ones(8, device=dev), cb, k_t,
+                  scalar(0), 0))
+    big = torch.randn((64, 16), generator=gen, device=dev) * 4.0
+    cb, k_t = codebook([-127, -100, 0, 100, 126])
+    cases.append(("clip: |w/scale| up to ~1000", big, torch.ones_like(big),
+                  torch.full((16,), 0.01, device=dev), cb, k_t, scalar(0), 0))
+    return cases
+
+
+def k3_phase(torch, cases):
+    from repro_torch.kernels.fake_quant import fake_quant as k3
+    from repro_torch.kernels.fake_quant import ops, ref
+
+    rows = []
+    for label, w, mask, scale, cb, k, msr, per_fwd in cases:
+        got = ops.fake_quant_project(w, mask, scale, cb, k, msr)
+        want = ref.fake_quant_ref(w, mask, scale, cb, k, msr)
+        torch.cuda.synchronize()
+        max_err = float((got - want).abs().max())
+        if not torch.equal(got, want):
+            raise AssertionError(
+                f"K3 {label}: kernel differs from the plain version (max abs "
+                f"err {max_err:.3e}; required: equal)")
+        m, n = w.shape
+        row = dict(case=label, M=m, N=n, mask=str(mask.dtype).replace(
+            "torch.", ""), per_forward=per_fwd, max_abs_err=max_err)
+        if per_fwd:
+            row["ms"], row["timing"] = graph_ms(
+                torch, lambda: k3.launch(w, mask, scale, cb, k, msr))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(HOST_CALLS):
+                ops.fake_quant_project(w, mask, scale, cb, k, msr)
+            torch.cuda.synchronize()
+            row["host_us_per_call"] = 1e6 * (time.perf_counter()
+                                             - t0) / HOST_CALLS
+            row["plain_ms"] = time_turns(torch, {"plain": lambda: (
+                ref.fake_quant_ref(w, mask, scale, cb, k, msr))},
+                REPS)["plain"]
+            row["bound_ms"], row["bound_by"] = k3_bound(m, n, mask)
+            print(f"[k3] {label:<40} x{per_fwd:<2} err={max_err:.1e} "
+                  f"kernel={row['ms']:.5f} plain={row['plain_ms']:.4f} "
+                  f"host={row['host_us_per_call']:.1f}us "
+                  f"bound={row['bound_ms']:.6f} ms ({row['bound_by']})",
+                  flush=True)
+        else:
+            print(f"[k3] {label:<40} err={max_err:.1e}", flush=True)
+        rows.append(row)
+    return rows
+
+
+# --------------------------------------------------------------- train step
+
+
+def leaves(tree, prefix=""):
+    """{path: tensor} of a nested dict of tensors."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(leaves(v, f"{prefix}{k}/"))
+        return out
+    return {prefix: tree}
+
+
+def restricted_comp(torch, model, params, device):
+    """Every layer restricted to 16 int8 values, ``s2b2/conv1`` pruned 50%,
+    ``s3b1/conv2`` truncated to 3 MSR bits: a comp state that takes K3
+    through projection, mask and truncation."""
+    from repro_torch.core import qat
+    from repro_torch.core.schedule import symmetric_codebook_values
+
+    comp = {}
+    for cl in model.comp_layers:
+        w = model.get_weight(params, cl.name)
+        c = qat.identity_comp(tuple(w.shape), device=device)
+        c["codebook"], c["codebook_k"] = qat.make_codebook(
+            symmetric_codebook_values(16), device=device)
+        if cl.name == "s2b2/conv1":
+            c["mask"] = qat.magnitude_prune_mask(w, 0.5)
+        if cl.name == "s3b1/conv2":
+            c["msr_bits"] = torch.tensor(3, dtype=torch.int32, device=device)
+        comp[cl.name] = c
+    return comp
+
+
+def step_breakdown(torch, runner, params, state, opt_state, comp, batch):
+    """ms of one warm QAT step and of its parts, each part run alone at the
+    step's own shapes (forward and backward) between CUDA events:
+    convolutions, fake-quant activations, batch norm, the weight fake-quant
+    (K3 with its mask, scale and straight-through around it), K3's 22
+    launches with their scales alone, the optimizer. Alone, each part's
+    host launch gaps show in its time, while the step overlaps them with
+    device work, so ``parts_sum`` may exceed ``step``."""
+    from repro_torch.core import qat
+    from repro_torch.kernels.fake_quant import fake_quant as k3
+    from repro_torch.nn import layers as L
+    from repro_torch.optim.optimizers import apply_updates
+
+    calls = {"conv": [], "act": [], "bn": [], "weight": []}
+    real = (L.conv_nhwc, qat.fake_quant_act, L.apply_batchnorm,
+            qat.fake_quant_weight)
+
+    def rec(kind, fn):
+        def wrapped(*a, **kw):
+            calls[kind].append((a, kw))
+            return fn(*a, **kw)
+        return wrapped
+
+    L.conv_nhwc = rec("conv", real[0])
+    qat.fake_quant_act = rec("act", real[1])
+    L.apply_batchnorm = rec("bn", real[2])
+    qat.fake_quant_weight = rec("weight", real[3])
+    try:
+        runner.loss_and_grads(params, state, comp, batch)
+    finally:
+        (L.conv_nhwc, qat.fake_quant_act, L.apply_batchnorm,
+         qat.fake_quant_weight) = real
+
+    grad_args = {"conv": (0, 1), "act": (0,), "bn": (0, 2), "weight": (0,)}
+
+    def prep(v, grad):
+        """A recorded argument cut from the step's graph; a leaf that needs
+        a gradient where the step computes one."""
+        if isinstance(v, torch.Tensor):
+            v = v.detach()
+            return v.requires_grad_(True) if grad and v.is_floating_point() \
+                else v
+        if isinstance(v, dict):
+            return {k: prep(x, grad) for k, x in v.items()}
+        return v
+
+    def fwd_bwd(kind, fn):
+        def run():
+            for a, kw in calls[kind]:
+                out = fn(*[prep(v, i in grad_args[kind])
+                           for i, v in enumerate(a)], **kw)
+                out = out[0] if isinstance(out, tuple) else out
+                out.backward(torch.ones_like(out))
+        return run
+
+    def k3_alone():
+        for (w, c), _ in calls["weight"]:
+            n = w.shape[-1]
+            k3.launch(w.detach().reshape(-1, n), c["mask"].reshape(-1, n),
+                      qat.weight_scale(w.detach() * c["mask"]).reshape(-1),
+                      c["codebook"], c["codebook_k"], c["msr_bits"])
+
+    loss, grads, _ = runner.loss_and_grads(params, state, comp, batch)
+
+    def optimizer():
+        updates, _ = runner.optimizer.update(grads, opt_state, params)
+        apply_updates(params, updates)
+
+    parts = time_turns(torch, {
+        "step": lambda: runner.train_step(params, state, opt_state, comp,
+                                          batch),
+        "convs": fwd_bwd("conv", real[0]),
+        "fake_quant_acts": fwd_bwd("act", real[1]),
+        "batch_norm": fwd_bwd("bn", real[2]),
+        "weight_fake_quant": fwd_bwd("weight", real[3]),
+        "k3_kernel": k3_alone,
+        "optimizer": optimizer}, 5)
+    parts["parts_sum"] = sum(v for k, v in parts.items()
+                             if k not in ("step", "k3_kernel"))
+    parts["calls"] = {k: len(v) for k, v in calls.items()}
+    return parts
+
+
+def kernel_category(name):
+    n = name.lower()
+    if "fake_quant_kernel" in n:
+        return "k3"
+    if any(t in n for t in ("conv", "cudnn", "gemm", "dgrad", "wgrad", "xmma",
+                            "implicit", "winograd", "im2col", "col2im")):
+        return "convs"
+    if "memcpy" in n or "memset" in n:
+        return "copies"
+    if "reduce" in n:
+        return "reductions"
+    return "elementwise"
+
+
+def device_split(torch, fn, steps=3):
+    """Device ms per ``fn()`` by kernel category (from torch.profiler's
+    CUPTI kernel records), the top kernels, and the device's idle share of
+    the window (wall time under the profiler, so an upper bound). Returns
+    None if the profiler reports no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0) / steps
+    kernels = {}
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        kernels[e.key] = kernels.get(e.key, 0.0) + us / 1e3 / steps
+    busy = sum(kernels.values())
+    if busy <= 0:
+        return None
+    cats = {}
+    for name, ms in kernels.items():
+        cats[kernel_category(name)] = cats.get(kernel_category(name), 0.0) + ms
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
+    return dict(wall_ms=wall_ms, device_busy_ms=busy,
+                idle_share=max(0.0, 1.0 - busy / wall_ms),
+                by_category=cats, n_kernel_names=len(kernels),
+                top_kernels=[[name[:90], ms] for name, ms in top])
+
+
+def train_phase(torch):
+    """The card's QAT step against the CPU's, then warm steps at batch 256.
+    Returns the [train] metrics."""
+    from repro_torch._device import tree_to
+    from repro_torch.core.runner import CnnRunner
+    from repro_torch.data.synthetic import SyntheticImages
+    from repro_torch.kernels.fake_quant import fake_quant as k3
+    from repro_torch.nn.cnn import resnet20
+
+    data = SyntheticImages(seed=7)
+    cpu = CnnRunner(resnet20(), data, batch_size=TRAIN_CHECK_BATCH,
+                    device="cpu")
+    params, state, _, _ = cpu.init()
+    comp = restricted_comp(torch, cpu.model, params, "cpu")
+    batch = data.batch(0, TRAIN_CHECK_BATCH, "train", device="cpu")
+    t0 = time.perf_counter()
+    cpu_loss, cpu_grads, _ = cpu.loss_and_grads(params, state, comp, batch)
+    cpu_s = time.perf_counter() - t0
+    card = CnnRunner(resnet20(), data, batch_size=TRAIN_CHECK_BATCH,
+                     device="cuda")
+    k3.launches = 0
+    card_loss, card_grads, _ = card.loss_and_grads(
+        *(tree_to(t, "cuda") for t in (params, state, comp, batch)))
+    torch.cuda.synchronize()
+    if k3.launches != 22:
+        raise AssertionError(f"card step launched K3 {k3.launches} times, "
+                             "expected 22")
+    loss_rel = abs(float(card_loss) - float(cpu_loss)) / abs(float(cpu_loss))
+    grad_rel = {}
+    cpu_leaves = leaves(cpu_grads)
+    for name, g in leaves(card_grads).items():
+        want = cpu_leaves[name].double()
+        grad_rel[name] = float(torch.linalg.norm(g.cpu().double() - want)
+                               / torch.clamp(torch.linalg.norm(want),
+                                             min=1e-30))
+    worst = max(grad_rel, key=grad_rel.get)
+    print(f"[train] card vs CPU, batch {TRAIN_CHECK_BATCH}: loss "
+          f"{float(card_loss):.6f} vs {float(cpu_loss):.6f} (rel "
+          f"{loss_rel:.2e}), worst gradient leaf {worst} rel-L2 "
+          f"{grad_rel[worst]:.2e} (CPU step {cpu_s:.2f} s)", flush=True)
+    if not (loss_rel <= LOSS_RTOL and grad_rel[worst] <= GRAD_RTOL):
+        raise AssertionError(
+            f"card QAT step disagrees with the CPU: loss rel {loss_rel:.3e} "
+            f"(<= {LOSS_RTOL}), {worst} rel-L2 {grad_rel[worst]:.3e} "
+            f"(<= {GRAD_RTOL})")
+
+    # warm QAT steps at batch 256 from a fresh init (identity comps, as the
+    # base training of the profile stage runs)
+    runner = CnnRunner(resnet20(), data, batch_size=BATCH, device="cuda")
+    params, state, opt_state, comp = runner.init()
+    batch = data.batch(0, BATCH, "train", device="cuda")
+    for _ in range(2):
+        params, state, opt_state, _ = runner.train_step(
+            params, state, opt_state, comp, batch)
+    torch.cuda.synchronize()
+    n_steps = 5
+    k3.launches = 0
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        params, state, opt_state, loss = runner.train_step(
+            params, state, opt_state, comp, batch)
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0) / n_steps
+    per_step = k3.launches / n_steps
+    t0 = time.perf_counter()
+    params, state, opt_state, _ = runner.train(params, state, opt_state,
+                                               comp, n_steps)
+    torch.cuda.synchronize()
+    train_ms = 1e3 * (time.perf_counter() - t0) / n_steps
+    k3.launches = 0
+    with torch.no_grad():
+        runner.model.apply(params, state, batch[0], train=False,
+                           qcfg=runner.qcfg, comp=comp)
+    torch.cuda.synchronize()
+    per_eval = k3.launches
+    if per_step != 22 or per_eval != 22:
+        raise AssertionError(f"K3 launches: {per_step} per train step and "
+                             f"{per_eval} per eval forward, expected 22 each")
+    torch.cuda.reset_peak_memory_stats()
+    parts = step_breakdown(torch, runner, params, state, opt_state, comp,
+                           batch)
+    try:
+        split = device_split(torch, lambda: runner.train_step(
+            params, state, opt_state, comp, batch))
+    except Exception as e:      # the profiler is optional here
+        split = None
+        print(f"[train-device] profiler failed: {e!r}", flush=True)
+    print("[train-device] " + (json.dumps(split, sort_keys=True) if split
+                               else "not measured (no device time)"),
+          flush=True)
+    metrics = dict(check_batch=TRAIN_CHECK_BATCH, loss_rel=loss_rel,
+                   worst_grad_leaf=worst, worst_grad_rel=grad_rel[worst],
+                   batch=BATCH, step_ms=step_ms,
+                   train_ms_per_step_with_data=train_ms,
+                   k3_launches_per_step=per_step,
+                   k3_launches_per_eval_forward=per_eval,
+                   peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    print("[train] " + json.dumps(metrics, sort_keys=True), flush=True)
+    print("[train-breakdown] " + json.dumps(parts, sort_keys=True),
+          flush=True)
+    return metrics, parts
+
+
+# ------------------------------------------------------------ compress path
+
+
+def compress_path(torch):
+    """``Pipeline(cfg, device="cuda").run()``: all five stages on ResNet-20
+    at batch 256, every kernel's launches read per stage. Returns (the
+    kernels' launches over the run, per-stage launches)."""
+    from repro_torch.kernels.fake_quant import fake_quant as k3
+    from repro_torch.kernels.lut_matmul import lut_matmul as k2
+    from repro_torch.kernels.transition_energy import transition_energy as k1
+    from repro_torch.pipeline.config import (
+        PipelineConfig,
+        ProfileStageConfig,
+        ScheduleConfig,
+        SelectionConfig,
+        TargetConfig,
+        TrainStageConfig,
+    )
+    from repro_torch.pipeline.pipeline import Pipeline
+    from repro_torch.pipeline.schema import STAGES
+
+    cfg = PipelineConfig(
+        target=TargetConfig(kind="cnn", arch="resnet20", batch_size=BATCH),
+        train=TrainStageConfig(qat_steps=20, final_finetune_steps=5,
+                               eval_batches=2),
+        profile=ProfileStageConfig(batches=1, max_tiles=PROFILE_TILES),
+        schedule=ScheduleConfig(
+            search_mode="serial", prune_ratios=(0.5,), k_targets=(16,),
+            delta_acc=0.08, finetune_steps=10, trial_finetune_steps=8,
+            eval_batches=1, max_layers=2),
+        selection=SelectionConfig(k_init=20, k_target=16, delta_acc=0.08,
+                                  score_batches=1, accept_batches=1,
+                                  max_score_candidates=3))
+    pipe = Pipeline(cfg, device="cuda")
+    runner = pipe.target.runner
+    # the first QAT step's loss: the stage's init and first batch
+    p0, s0, _, c0 = runner.init()
+    first_loss = float(runner.loss_and_grads(
+        p0, s0, c0, runner.dataset.batch(0, BATCH, "train",
+                                         device="cuda"))[0])
+    del p0, s0, c0
+
+    kernels = {"K1": k1, "K2": k2, "K3": k3}
+    per_stage = {}
+    for stage in STAGES:
+        def counted(plan, cfg, verbose=False, _stage=stage,
+                    _fn=getattr(pipe.target, f"stage_{stage}")):
+            before = {key: mod.launches for key, mod in kernels.items()}
+            _fn(plan, cfg, verbose=verbose)
+            per_stage[_stage] = {key: mod.launches - before[key]
+                                 for key, mod in kernels.items()}
+        setattr(pipe.target, f"stage_{stage}", counted)
+
+    for mod in kernels.values():
+        mod.launches = 0
+    t0 = time.perf_counter()
+    plan = pipe.run(verbose=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    totals = {key: mod.launches for key, mod in kernels.items()}
+
+    m = plan.metrics
+    n_art = len(plan.artifacts or {})
+    if not n_art:
+        raise AssertionError(
+            "the schedule left no layer servable (accepted with a codebook "
+            f"of <= 16 values): decisions {plan.decisions}")
+    serve_fwds = 1 + cfg.train.eval_batches
+    expect = {
+        "profile": {"K1": 22, "K2": 0, "K3": 22 * (
+            cfg.train.qat_steps + cfg.train.eval_batches
+            + cfg.profile.batches)},
+        "energy_model": {"K1": 0, "K2": 0, "K3": 0},
+        "export": {"K1": 0, "K2": 0, "K3": 0},
+        "serve": {"K1": 0, "K2": n_art * serve_fwds,
+                  "K3": 22 + (22 - n_art) * serve_fwds},
+    }
+    for stage, want in expect.items():
+        if per_stage[stage] != want:
+            raise AssertionError(f"{stage}: launches {per_stage[stage]}, "
+                                 f"expected {want}")
+    sched = per_stage["schedule"]
+    if sched["K1"] or sched["K2"] or not sched["K3"] or sched["K3"] % 22:
+        raise AssertionError(f"schedule: launches {sched}, expected K3 only, "
+                             "in whole forwards of 22")
+    if totals != {key: sum(v[key] for v in per_stage.values())
+                  for key in kernels}:
+        raise AssertionError(f"launch totals {totals} != the stages' sum")
+    loss = m["qat_loss"]
+    if not (np.isfinite(loss) and loss < first_loss):
+        raise AssertionError(f"qat_loss {loss} is not finite and below the "
+                             f"first step's {first_loss}")
+    rel = m["serve_logit_rel_err"]
+    if not rel < 2e-2:
+        raise AssertionError(f"serve_logit_rel_err {rel} >= 2e-2")
+    for key in ("acc_base", "acc0", "acc_final", "energy_saving"):
+        if not np.isfinite(m[key]):
+            raise AssertionError(f"{key} = {m[key]}")
+
+    out = {k: v for k, v in m.items() if k.startswith("wall_s_")}
+    out.update({k: m[k] for k in (
+        "qat_loss", "acc_base", "acc0", "acc_final", "accuracy_drop",
+        "energy_before", "energy_after", "energy_saving",
+        "serve_logit_rel_err", "serve_accuracy", "export_layers")})
+    out.update(first_step_loss=first_loss, compress_path_wall_s=wall,
+               launches=totals, launches_per_stage=per_stage,
+               decisions=[{k: d[k] for k in ("layer", "share", "prune_ratio",
+                                              "k", "msr", "accepted",
+                                              "accuracy")}
+                          for d in plan.decisions])
+    print("[compress] " + json.dumps(out, sort_keys=True), flush=True)
+    return totals, per_stage
+
+
 # --------------------------------------------------------------------- main
 
 
@@ -617,6 +1172,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels.lut_matmul import lut_matmul as k2
     from repro_torch.kernels.lut_matmul import ops, ref
+    from repro_torch.kernels.fake_quant import fake_quant as k3
     from repro_torch.kernels.transition_energy import transition_energy as k1
     from repro_torch.nn.cnn import resnet20, resnet50
 
@@ -626,7 +1182,7 @@ def main() -> int:
     print(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}",
           flush=True)
-    build_kernels([k2.LIBRARY, k1.LIBRARY])
+    build_kernels([k2.LIBRARY, k1.LIBRARY, k3.LIBRARY])
 
     f32, bf16 = torch.float32, torch.bfloat16
     cases = [(f"resnet20 x{cnt}", m, k, n, "none", b, False, f32, cnt)
@@ -643,10 +1199,14 @@ def main() -> int:
     cases.append(("bf16 x", 262144, 256, 16, "none", False, False, bf16, 0))
     k2_rows = k2_phase(torch, ops, ref, cases)
     k1_rows = k1_phase(torch, k1_cases(torch, resnet20().comp_layers))
+    k3_rows = k3_phase(torch, k3_cases(torch, resnet20().comp_layers))
     torch.cuda.empty_cache()
 
     k2_launches = serve_path(torch, ROOT / "build" / "chip_smoke")
     k1_launches, k1_path = profile_path(torch)
+    train_phase(torch)
+    torch.cuda.empty_cache()
+    compress_launches, compress_stages = compress_path(torch)
 
     path_rows = [r for r in k2_rows if r["per_forward"]]
     total = {key: sum(r[key] * r["per_forward"] for r in path_rows)
@@ -661,6 +1221,7 @@ def main() -> int:
         else "operations",
         "scope": f"sum over one ResNet-20 serve forward at batch {BATCH} "
                  "(per-shape times x launches per forward)",
+        "compress_path_launches": compress_launches["K2"],
         "shapes": k2_rows,
     }
     k1_entry = {
@@ -675,11 +1236,40 @@ def main() -> int:
         "scope": f"sum over the {k1_launches} launches of one ResNet-20 "
                  f"profile stage at batch {BATCH} ({PROFILE_TILES} tiles a "
                  "layer, T = 64), timed on the stage's own tiles",
-        "also_replaces": K1B_REPLACES + " (K1b, as a batch of one)",
+        "compress_path_launches": compress_launches["K1"],
         "main_path": k1_path,
         "shapes": k1_rows,
     }
-    entries = [k2_entry, k1_entry]
+    k1b = next(r for r in k1_rows if r["case"].startswith("K1b"))
+    k1b_entry = {
+        "name": "transition_energy (K1b, one tile)", "route": "cuda",
+        "source": K1["source"], "replaces": K1B_REPLACES, "launches": 0,
+        **{key: k1b[key] for key in ("max_abs_err", "ms", "plain_ms",
+                                     "bound_ms", "bound_by", "library_ms")},
+        "scope": "one tile, T = 64, as a batch of one over K1 "
+                 "(ops.tile_transition_stats); no path of the pipeline "
+                 "calls the tile API, so it has no launches there",
+    }
+    k3_path = [r for r in k3_rows if r["per_forward"]]
+    k3_entry = {
+        **K3, "route": "cuda", "launches": compress_launches["K3"],
+        "max_abs_err": max(r["max_abs_err"] for r in k3_rows),
+        **{key: sum(r[key] * r["per_forward"] for r in k3_path)
+           for key in ("ms", "plain_ms", "bound_ms")},
+        "bound_by": "bytes"
+        if all(r["bound_by"] == "bytes" for r in k3_path) else "operations",
+        "library_ms": None,
+        "library": "none: no PyTorch call computes this function",
+        "scope": "sum over the 22 launches of one ResNet-20 QAT forward "
+                 "(per-shape device time x launches per forward; k = 16, "
+                 "50% mask); launches: the compress path's run",
+        "timing": sorted({r["timing"] for r in k3_path}),
+        "launches_per_stage": {stage: v["K3"]
+                               for stage, v in compress_stages.items()},
+        "cases_equal": len(k3_rows),
+        "shapes": k3_path,
+    }
+    entries = [k2_entry, k1_entry, k1b_entry, k3_entry]
     print(f"[card] {card}", flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

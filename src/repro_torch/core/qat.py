@@ -17,6 +17,10 @@ The compression state of a layer is a plain dict of tensors:
 
 Weight layout convention: the *last* axis of a weight tensor is the output
 channel; quantization scales are per-output-channel over all other axes.
+
+`fake_quant_weight` runs its mask / quantize / MSR / projection chain
+through the fused kernel K3 (`repro_torch.kernels.fake_quant`): the plain
+version for CPU tensors, the CUDA kernel for CUDA tensors.
 """
 
 from __future__ import annotations
@@ -24,6 +28,8 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple
 
 import torch
+
+from repro_torch.kernels.fake_quant import ops as fake_quant_ops
 
 K_MAX = 32          # maximum codebook size the pipeline ever uses (paper: 32)
 QMAX = 127          # symmetric int8 range [-127, 127]
@@ -138,18 +144,23 @@ def quantize_weight_int(w: torch.Tensor,
 def fake_quant_weight(w: torch.Tensor,
                       comp: Optional[CompState] = None) -> torch.Tensor:
     """Fake-quantized (float) weights with a straight-through estimator;
-    applies mask + optional MSR truncation + codebook."""
-    wm = w * comp["mask"].to(w.dtype) if comp is not None else w
-    scale = weight_scale(wm)
-    q = _round_clip(wm / scale)
-    if comp is not None:
-        qi = q.to(torch.int32)
-        msr = comp.get("msr_bits")
-        if msr is not None:
-            qi = msr_truncate_int(qi, msr)
-        qi = project_to_codebook(qi, comp["codebook"], comp["codebook_k"])
-        q = qi.to(wm.dtype)
-    wq = q * scale
+    applies mask + optional MSR truncation + codebook.
+
+    The chain runs through K3 on the weight viewed as ``(-1, C_out)``, with
+    the per-output-channel scale of the masked weight computed here (the
+    kernel's contract) and ``k`` / ``msr_bits`` left on the device. The
+    result is the JAX package's ``wm + stop_gradient(wq - wm)``: its forward
+    equals the JAX package bit for bit, and its gradient with respect to
+    ``w`` is the mask."""
+    if comp is None:
+        comp = identity_comp(tuple(w.shape), w.dtype, device=w.device)
+    wm = w * comp["mask"].to(w.dtype)
+    n = w.shape[-1]
+    msr = comp.get("msr_bits")
+    wq = fake_quant_ops.fake_quant_project(
+        w.detach().reshape(-1, n), comp["mask"].reshape(-1, n),
+        weight_scale(wm.detach()).reshape(-1), comp["codebook"],
+        comp["codebook_k"], 0 if msr is None else msr).reshape(w.shape)
     # straight-through: forward value wq, gradient of identity wrt wm
     return wm + (wq - wm).detach()
 

@@ -1,13 +1,17 @@
-"""CNN evaluation and profiling runner of the compression pipeline (port of
-`repro.core.runner`, without training yet).
+"""CNN training, evaluation and profiling runner of the compression
+pipeline (port of `repro.core.runner`, without the batched candidate sweep).
 
-Bundles a `CNNModel`, a synthetic dataset and one device. The compression
-state ``comp`` ({layer_name: CompState}) is a plain argument of every
-method. This slice ports what the ``profile`` and ``energy_model`` stages
-run: parameter init, accuracy, the profiling taps, the per-layer trace
+Bundles a `CNNModel`, a dataset and one device. The compression state
+``comp`` ({layer_name: CompState}) is a plain argument of every method.
+Ported: parameter init, the QAT train step (cross-entropy, backward,
+global-norm clip and AdamW, every compressible weight fake-quantized through
+K3), training loops, accuracy, the profiling taps, the per-layer trace
 statistics (one transition-statistics kernel launch per layer) and the
-per-layer energy models. QAT training and the candidate-sweep steps of the
-schedule raise `NotImplementedError` naming their ROADMAP.md item.
+per-layer energy models. The steps of the schedule's batched candidate
+sweep raise `NotImplementedError` naming their ROADMAP.md item.
+
+The dataset is any object with ``batch(step, batch_size, split, *,
+device) -> (images, labels)``.
 """
 
 from __future__ import annotations
@@ -17,8 +21,14 @@ import zlib
 from typing import Any, Dict, Optional
 
 import torch
+import torch.nn.functional as F
 
-from repro_torch._device import DEFAULT_DEVICE, resolve_device, tree_map
+from repro_torch._device import (
+    DEFAULT_DEVICE,
+    resolve_device,
+    tree_leaves,
+    tree_unflatten,
+)
 from repro_torch.core import qat
 from repro_torch.core.energy_lut import blended_lut
 from repro_torch.core.layer_energy import LayerEnergyModel, weight_value_counts
@@ -28,9 +38,16 @@ from repro_torch.data.synthetic import SyntheticImages
 from repro_torch.nn.cnn import CNNModel
 from repro_torch.nn.layers import QuantConfig
 from repro_torch.nn.spec import init_params
+from repro_torch.optim.optimizers import adamw, apply_updates
 
-_TRAINING = ("ROADMAP.md Queue 1 item 3, the QAT/training slice (the "
-             "optimizer, QAT steps and the schedule's candidate sweep)")
+_BATCHED = ("ROADMAP.md Queue 1 item 4b, the schedule's batched candidate "
+            "sweep (search_mode='batched'); the serial schedule is ported")
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    logp = F.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, labels[:, None].long())[:, 0]
+    return nll.mean()
 
 
 def layer_seed(name: str) -> int:
@@ -44,12 +61,14 @@ class CnnRunner:
     model: CNNModel
     dataset: SyntheticImages
     batch_size: int = 128
+    lr: float = 1e-3
     qcfg: QuantConfig = QuantConfig.on()
     seed: int = 0
     device: Any = DEFAULT_DEVICE
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
+        self.optimizer = adamw(self.lr)
         self._stats_cache: Optional[Dict[str, LayerStats]] = None
 
     # ------------------------------------------------------------------ setup
@@ -58,12 +77,9 @@ class CnnRunner:
         """(params, state, opt_state, comp) of a fresh model on the device."""
         params = init_params(self.seed, self.model.spec, self.device)
         state = init_params(self.seed, self.model.state_spec, self.device)
-        # zero AdamW moments in the JAX optimizer's state layout, so a plan
-        # written here resumes there
-        opt_state = {"step": torch.zeros((), dtype=torch.int32,
-                                         device=self.device),
-                     "mu": tree_map(torch.zeros_like, params),
-                     "nu": tree_map(torch.zeros_like, params)}
+        # AdamW in the JAX optimizer's state layout, so a plan written here
+        # resumes there
+        opt_state = self.optimizer.init(params)
         return params, state, opt_state, self.identity_comp(params)
 
     def identity_comp(self, params) -> Dict[str, qat.CompState]:
@@ -76,20 +92,54 @@ class CnnRunner:
 
     # ------------------------------------------------------------------ train
 
-    def train(self, *args, **kwargs):
-        raise NotImplementedError(f"QAT training is not ported yet: {_TRAINING}")
+    def loss_and_grads(self, params, state, comp, batch):
+        """(loss, grads, new_state) of one training batch: train-mode
+        forward, mean cross-entropy, backward. ``grads`` has the structure
+        of ``params``; ``loss`` stays on the device."""
+        x, y = batch
+        leaves = [p.detach().requires_grad_(True)
+                  for p in tree_leaves(params)]
+        p = tree_unflatten(params, iter(leaves))
+        logits, new_state = self.model.apply(p, state, x, train=True,
+                                             qcfg=self.qcfg, comp=comp)
+        loss = cross_entropy(logits, y)
+        grads = torch.autograd.grad(loss, leaves)
+        return loss.detach(), tree_unflatten(params, iter(grads)), new_state
+
+    def train_step(self, params, state, opt_state, comp, batch):
+        """One QAT step: `loss_and_grads`, then AdamW (global-norm clip
+        inside). Returns (params, state, opt_state, loss)."""
+        loss, grads, new_state = self.loss_and_grads(params, state, comp,
+                                                     batch)
+        updates, opt_state = self.optimizer.update(grads, opt_state, params)
+        return apply_updates(params, updates), new_state, opt_state, loss
+
+    def train(self, params, state, opt_state, comp, n_steps: int,
+              start_step: int = 0, log_every: int = 0):
+        """``n_steps`` QAT steps on training batches ``start_step...``.
+        Returns (params, state, opt_state, last loss as a float, NaN for no
+        step); the loss is read back to the host once, at the end."""
+        loss = torch.tensor(float("nan"))
+        for i in range(n_steps):
+            batch = self.dataset.batch(start_step + i, self.batch_size,
+                                       "train", device=self.device)
+            params, state, opt_state, loss = self.train_step(
+                params, state, opt_state, comp, batch)
+            if log_every and (i + 1) % log_every == 0:
+                print(f"  step {start_step + i + 1}: loss={float(loss):.4f}")
+        return params, state, opt_state, float(loss)
 
     def train_batched(self, *args, **kwargs):
-        raise NotImplementedError(f"not ported yet: {_TRAINING}")
+        raise NotImplementedError(f"not ported yet: {_BATCHED}")
 
     def accuracy_batched(self, *args, **kwargs):
-        raise NotImplementedError(f"not ported yet: {_TRAINING}")
+        raise NotImplementedError(f"not ported yet: {_BATCHED}")
 
     def accuracy_comps(self, *args, **kwargs):
-        raise NotImplementedError(f"not ported yet: {_TRAINING}")
+        raise NotImplementedError(f"not ported yet: {_BATCHED}")
 
     def accuracy_gather(self, *args, **kwargs):
-        raise NotImplementedError(f"not ported yet: {_TRAINING}")
+        raise NotImplementedError(f"not ported yet: {_BATCHED}")
 
     def accuracy(self, params, state, comp, n_batches: int = 8,
                  split: str = "val") -> float:

@@ -1,0 +1,273 @@
+"""Energy-prioritized layer-wise compression schedule (port of
+`repro.core.schedule`, paper 4.3; the serial search mode).
+
+Layers are sorted by normalized energy share rho_l = E_l / sum_j E_j and
+processed in descending order. For each layer the schedule tries candidate
+configurations (prune ratio x target codebook size x MSR truncation depth),
+most aggressive first, and accepts the first whose post-finetune *global*
+validation accuracy stays above ``acc0 - delta``. Low-energy layers
+therefore receive milder compression.
+
+``search_mode="serial"`` is the JAX package's reference trial-and-rollback
+walk: one candidate at a time, each paying its own trial fine-tune, greedy
+weight selection and eval before rolling back on reject. The JAX package's
+default, the batched candidate sweep, makes the same decisions through
+stacked candidate trees; it is not ported yet and raises
+`NotImplementedError` naming its ROADMAP.md item. `ScheduleConfig` is the
+one in `repro_torch.pipeline.config`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import qat
+from repro_torch.core.layer_energy import (
+    layer_energy_from_counts,
+    weight_value_counts,
+)
+from repro_torch.core.stats import conv_weight_matrix
+from repro_torch.core.weight_selection import (
+    SelectionReport,
+    codebook_comp,
+    greedy_backward_elimination,
+    initial_candidate_set,
+)
+from repro_torch.pipeline.config import ScheduleConfig, SelectionConfig
+
+BATCHED_NOT_PORTED = (
+    "search_mode='batched' is not ported yet: ROADMAP.md Queue 1 item 4b, "
+    "the schedule's batched candidate sweep; use search_mode='serial' "
+    "(CLI: --search-mode serial), which makes the same decisions")
+
+
+@dataclasses.dataclass
+class LayerDecision:
+    layer: str
+    share: float
+    prune_ratio: Optional[float]
+    k: Optional[int]
+    energy_before: float
+    energy_after: float
+    accuracy: float
+    accepted: bool
+    tried: List[Tuple[float, int, int]] = dataclasses.field(
+        default_factory=list)
+    msr: Optional[int] = None   # accepted MSR depth (0/None = off)
+
+    @property
+    def saving(self) -> float:
+        if self.energy_before <= 0:
+            return 0.0
+        return 1.0 - self.energy_after / self.energy_before
+
+
+@dataclasses.dataclass
+class ScheduleResult:
+    decisions: List[LayerDecision]
+    acc0: float
+    acc_final: float
+    energy_before: float
+    energy_after: float
+    selection_reports: List[SelectionReport]
+
+    @property
+    def energy_saving(self) -> float:
+        return 1.0 - self.energy_after / max(self.energy_before, 1e-12)
+
+
+def symmetric_codebook_values(k: int) -> list:
+    """Restricted set of exactly k int8 values: 0 plus levels spread over the
+    int8 range (one extra negative level when k is even). A copy of
+    `repro.core.lm_compress.symmetric_codebook_values`."""
+    n_neg = k // 2
+    n_pos = k - 1 - n_neg
+    values = sorted(
+        {0}
+        | {-int(v) for v in np.linspace(16, 120, n_neg)}
+        | {int(v) for v in np.linspace(16, 120, n_pos)})
+    assert len(values) == k, (k, values)
+    return values
+
+
+def _config_order(cfg: ScheduleConfig) -> List[Tuple[float, int, int]]:
+    """All (prune, k, msr) combos, most aggressive (highest expected saving)
+    first: higher prune, then MSR truncation on before off (fewer kept bits
+    = more aggressive), then smaller k."""
+    combos = [(p, k, m) for p in cfg.prune_ratios for k in cfg.k_targets
+              for m in cfg.msr_bits]
+    return sorted(combos, key=lambda c: (-c[0], c[2] == 0, c[2], c[1]))
+
+
+def _candidate_order(runner, params, comp, models, layer,
+                     cfg: ScheduleConfig) -> List[Tuple[float, int, int]]:
+    """Candidate combos for one layer, most aggressive first.
+
+    With ``msr_energy_prior`` off, or no non-zero MSR depth in play, this is
+    exactly `_config_order`. Otherwise each combo's post-compression layer
+    energy is *estimated* (prune mask + symmetric k-value codebook proxy +
+    MSR truncation -> int weight histogram -> LUT energy) and the combos are
+    reordered by that estimate ascending, ties broken by the static order.
+    """
+    combos = _config_order(cfg)
+    if not cfg.msr_energy_prior or all(m == 0 for m in cfg.msr_bits):
+        return combos
+
+    cl = runner.model.comp_layer(layer)
+    m = models[layer]
+    w = runner.model.get_weight(params, layer)
+    cost = []
+    for prune, k_target, msr in combos:
+        cb, k = qat.make_codebook(symmetric_codebook_values(k_target),
+                                  device=w.device)
+        c_est = dict(comp[layer])
+        c_est["mask"] = qat.magnitude_prune_mask(w, prune)
+        c_est["codebook"] = cb
+        c_est["codebook_k"] = k
+        c_est["msr_bits"] = torch.tensor(msr, dtype=torch.int32,
+                                         device=w.device)
+        w_int = qat.quantize_weight_int(w, c_est)
+        w_int = conv_weight_matrix(w_int) if cl.kind == "conv" else w_int.T
+        counts = weight_value_counts(w_int, m.dims)
+        cost.append(float(layer_energy_from_counts(counts, m.lut, m.dims)))
+    order = sorted(range(len(combos)), key=lambda i: (cost[i], i))
+    return [combos[i] for i in order]
+
+
+def _sweep_layer_serial(runner, params, state, opt_state, comp, models,
+                        layer, share, acc0, cfg, sel_cfg, verbose):
+    """Reference trial-and-rollback walk: one candidate config at a time."""
+    e_before = models[layer].energy
+    tried: List[Tuple[float, int, int]] = []
+    for prune, k_target, msr in _candidate_order(runner, params, comp,
+                                                 models, layer, cfg):
+        tried.append((prune, k_target, msr))
+        t0 = time.time()
+        # --- trial state (rollback on reject)
+        t_params, t_state, t_opt = params, state, opt_state
+        t_comp = {n: dict(c) for n, c in comp.items()}
+
+        # 1. prune + MSR truncation depth for this candidate
+        w = runner.model.get_weight(t_params, layer)
+        t_comp[layer]["mask"] = qat.magnitude_prune_mask(w, prune)
+        t_comp[layer]["msr_bits"] = torch.tensor(msr, dtype=torch.int32,
+                                                 device=w.device)
+
+        # 2. fine-tune with the mask (paper: pruning first, then finetune)
+        if cfg.trial_finetune_steps:
+            t_params, t_state, t_opt, _ = runner.train(
+                t_params, t_state, t_opt, t_comp, cfg.trial_finetune_steps)
+
+        # 3. weight-set selection on the pruned layer
+        t_models = runner.refresh_counts(t_params, t_comp, models)
+        lsel = dataclasses.replace(sel_cfg, k_target=k_target)
+        init_set = initial_candidate_set(
+            t_models[layer].counts, t_models[layer].lut, lsel)
+
+        def eval_with_codebook(values, n_batches, _layer=layer,
+                               _params=t_params, _state=t_state,
+                               _comp=t_comp):
+            c2 = codebook_comp(_comp, _layer, values)
+            return runner.accuracy(_params, _state, c2, n_batches=n_batches)
+
+        final_set, rep = greedy_backward_elimination(
+            t_models[layer], init_set, lsel, acc0,
+            eval_with_codebook=eval_with_codebook)
+        t_comp = codebook_comp(t_comp, layer, final_set)
+
+        # 4. short fine-tune with the restriction active, then accept check
+        if cfg.finetune_steps:
+            t_params, t_state, t_opt, _ = runner.train(
+                t_params, t_state, t_opt, t_comp, cfg.finetune_steps)
+        acc = runner.accuracy(t_params, t_state, t_comp,
+                              n_batches=cfg.eval_batches)
+        if verbose:
+            print(f"  try prune={prune} k={k_target} msr={msr}: "
+                  f"acc={acc:.3f} (floor {acc0 - cfg.delta_acc:.3f}) "
+                  f"[{time.time() - t0:.1f}s]")
+        if acc >= acc0 - cfg.delta_acc:
+            models = runner.refresh_counts(t_params, t_comp, models)
+            decision = LayerDecision(
+                layer, share, prune, k_target, e_before,
+                models[layer].energy, acc, True, tried, msr=msr)
+            return t_params, t_state, t_opt, t_comp, models, decision, rep
+
+    decision = LayerDecision(layer, share, None, None, e_before, e_before,
+                             acc0, False, tried)
+    return params, state, opt_state, comp, models, decision, None
+
+
+_SEARCH_MODES = {"serial": _sweep_layer_serial}
+
+
+def check_search_mode(search_mode: str) -> None:
+    """Raise unless ``search_mode`` is one the port runs: batched is
+    `NotImplementedError`, anything else `ValueError`."""
+    if search_mode == "batched":
+        raise NotImplementedError(BATCHED_NOT_PORTED)
+    if search_mode not in _SEARCH_MODES:
+        raise ValueError(f"search_mode must be one of "
+                         f"{sorted(_SEARCH_MODES)}, got {search_mode!r}")
+
+
+def energy_prioritized_compression(
+    runner, params, state, opt_state, comp: Dict[str, qat.CompState], stats,
+    cfg: ScheduleConfig, sel_cfg: Optional[SelectionConfig] = None, *,
+    verbose: bool = False,
+) -> Tuple[object, object, object, Dict[str, qat.CompState], ScheduleResult]:
+    """Run the full layer-wise schedule. Returns updated (params, state,
+    opt_state, comp, result).
+
+    ``stats=None`` profiles through the runner (cached on the runner); every
+    dE refresh below reuses those trace statistics, only the O(256)
+    weight-value histograms are recomputed per trial."""
+    check_search_mode(cfg.search_mode)
+    sweep_layer = _SEARCH_MODES[cfg.search_mode]
+    sel_cfg = sel_cfg or SelectionConfig(delta_acc=cfg.delta_acc)
+
+    acc0 = runner.accuracy(params, state, comp, n_batches=cfg.eval_batches)
+    if stats is None:
+        stats = runner.layer_stats(params, state, comp)
+    models = runner.energy_models(params, comp, stats)
+    e_total_before = sum(m.energy for m in models.values())
+    shares = {n: m.energy / max(e_total_before, 1e-12)
+              for n, m in models.items()}
+    order = sorted(shares, key=lambda n: -shares[n])
+    if cfg.max_layers is not None:
+        order = order[: cfg.max_layers]
+
+    decisions: List[LayerDecision] = []
+    reports: List[SelectionReport] = []
+
+    for layer in order:
+        share = shares[layer]
+        e_before = models[layer].energy
+        if share < cfg.min_energy_share:
+            decisions.append(LayerDecision(layer, share, None, None, e_before,
+                                           e_before, acc0, False))
+            continue
+        if verbose:
+            print(f"[schedule] layer={layer} share={share:.3f} "
+                  f"mode={cfg.search_mode}")
+
+        params, state, opt_state, comp, models, decision, rep = sweep_layer(
+            runner, params, state, opt_state, comp, models, layer, share,
+            acc0, cfg, sel_cfg, verbose)
+        decisions.append(decision)
+        if rep is not None:
+            reports.append(rep)
+
+    models = runner.refresh_counts(params, comp, models)
+    e_total_after = sum(m.energy for m in models.values())
+    acc_final = runner.accuracy(params, state, comp,
+                                n_batches=cfg.eval_batches)
+    result = ScheduleResult(
+        decisions=decisions, acc0=acc0, acc_final=acc_final,
+        energy_before=e_total_before, energy_after=e_total_after,
+        selection_reports=reports)
+    return params, state, opt_state, comp, result

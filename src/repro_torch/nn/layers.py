@@ -194,20 +194,33 @@ def make_batchnorm_state(dim: int, dtype=torch.float32):
 
 def apply_batchnorm(params, state, x: torch.Tensor, *, train: bool,
                     momentum: float = 0.9, eps: float = 1e-5):
-    """Returns (y, new_state). Reduces over all axes but the channel (last)."""
+    """Returns (y, new_state). Reduces over all axes but the channel (last).
+
+    The batch statistics and the per-channel ``rsqrt(var + eps) * scale``
+    are computed in float64 and rounded once; the normalisation itself is
+    float32, elementwise. Float32 reductions and ``rsqrt`` differ in the
+    last bit between the CPU and the card, and at depth such a bit moves an
+    activation across a `fake_quant_act` rounding boundary; so the forward
+    gives the same bits on both, like the convolutions (`conv_nhwc`). In
+    train mode the running state is detached from the graph (the JAX
+    package's state output carries no gradient; here it would chain every
+    step's graph)."""
     reduce_axes = tuple(range(x.ndim - 1))
     if train:
-        mean = x.mean(dim=reduce_axes)
-        var = x.var(dim=reduce_axes, unbiased=False)
+        xd = x.double()
+        mean = xd.mean(dim=reduce_axes)
+        var = xd.var(dim=reduce_axes, unbiased=False)
         new_state = {
-            "mean": momentum * state["mean"] + (1 - momentum) * mean,
-            "var": momentum * state["var"] + (1 - momentum) * var,
+            "mean": momentum * state["mean"]
+            + (1 - momentum) * mean.detach().to(state["mean"].dtype),
+            "var": momentum * state["var"]
+            + (1 - momentum) * var.detach().to(state["var"].dtype),
         }
     else:
-        mean, var = state["mean"], state["var"]
+        mean, var = state["mean"].double(), state["var"].double()
         new_state = state
-    inv = torch.rsqrt(var + eps) * params["scale"]
-    y = (x - mean) * inv + params["bias"]
+    inv = torch.rsqrt(var + eps) * params["scale"].double()
+    y = (x - mean.to(x.dtype)) * inv.to(x.dtype) + params["bias"].to(x.dtype)
     return y, new_state
 
 
@@ -221,4 +234,6 @@ def max_pool(x: torch.Tensor, window: int = 2, stride: int = 2) -> torch.Tensor:
 
 
 def avg_pool_global(x: torch.Tensor) -> torch.Tensor:
-    return x.mean(dim=(1, 2))
+    """Mean over H and W, summed in float64 and rounded once (see
+    `apply_batchnorm`)."""
+    return x.mean(dim=(1, 2), dtype=torch.float64).to(x.dtype)

@@ -1,0 +1,124 @@
+"""Minimal optimizer stack over tensor trees (port of
+`repro.optim.optimizers`).
+
+`Optimizer` is an (init, update) pair over nested dicts / lists / tuples of
+tensors, with ``update(grads, state, params) -> (updates, new_state)``;
+``updates`` are *deltas* to add to params. The state layout is the JAX
+package's (`adamw`: ``{"step", "mu", "nu"}``), so a plan written by either
+package resumes in the other. Learning-rate schedules are callables of the
+int32 step tensor, which stays on the device: no update reads a value back
+to the host.
+
+Every update is the JAX package's, operation for operation. PyTorch's
+`torch.optim.AdamW` is not used: it applies the bias correction and ``eps``
+in another order and has no global-norm clip. The functions run under
+`torch.no_grad` and return new tensors; nothing is updated in place.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, NamedTuple, Optional, Union
+
+import torch
+
+from repro_torch._device import tree_leaves, tree_map
+
+
+class Optimizer(NamedTuple):
+    init: Callable[[Any], Any]
+    update: Callable[[Any, Any, Any], tuple]
+
+
+def _lr_fn(lr) -> Callable[[torch.Tensor], torch.Tensor]:
+    if callable(lr):
+        return lr
+    # a fill on the step's device: no host-to-device copy per step
+    return lambda step: torch.full((), lr, dtype=torch.float32,
+                                   device=step.device)
+
+
+@torch.no_grad()
+def global_norm(tree) -> torch.Tensor:
+    leaves = [torch.sum(torch.square(x.float())) for x in tree_leaves(tree)]
+    return torch.sqrt(torch.sum(torch.stack(leaves)))
+
+
+@torch.no_grad()
+def clip_by_global_norm(grads, max_norm: float):
+    norm = global_norm(grads)
+    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+    return tree_map(lambda g: g * scale, grads), norm
+
+
+def adamw(lr: Union[Callable[[torch.Tensor], torch.Tensor], float], *,
+          b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+          weight_decay: float = 0.0,
+          max_grad_norm: Optional[float] = 1.0) -> Optimizer:
+    lr_fn = _lr_fn(lr)
+
+    def init(params):
+        leaf = tree_leaves(params)[0]
+        return {"step": torch.zeros((), dtype=torch.int32, device=leaf.device),
+                "mu": tree_map(torch.zeros_like, params),
+                "nu": tree_map(torch.zeros_like, params)}
+
+    @torch.no_grad()
+    def update(grads, state, params):
+        if max_grad_norm is not None:
+            grads, _ = clip_by_global_norm(grads, max_grad_norm)
+        step = state["step"] + 1
+        stepf = step.float()
+        mu = tree_map(lambda m, g: b1 * m + (1 - b1) * g, state["mu"], grads)
+        nu = tree_map(lambda v, g: b2 * v + (1 - b2) * torch.square(g),
+                       state["nu"], grads)
+        mu_hat_scale = 1.0 / (1.0 - b1 ** stepf)
+        nu_hat_scale = 1.0 / (1.0 - b2 ** stepf)
+        lr_t = lr_fn(step)
+
+        def upd(m, v, p):
+            mh = m * mu_hat_scale
+            vh = v * nu_hat_scale
+            delta = mh / (torch.sqrt(vh) + eps)
+            if weight_decay:
+                delta = delta + weight_decay * p
+            return (-lr_t * delta).to(p.dtype)
+
+        updates = tree_map(upd, mu, nu, params)
+        return updates, {"step": step, "mu": mu, "nu": nu}
+
+    return Optimizer(init, update)
+
+
+def sgdm(lr: Union[Callable[[torch.Tensor], torch.Tensor], float], *,
+         momentum: float = 0.9, weight_decay: float = 0.0,
+         nesterov: bool = False,
+         max_grad_norm: Optional[float] = None) -> Optimizer:
+    lr_fn = _lr_fn(lr)
+
+    def init(params):
+        leaf = tree_leaves(params)[0]
+        return {"step": torch.zeros((), dtype=torch.int32, device=leaf.device),
+                "vel": tree_map(torch.zeros_like, params)}
+
+    @torch.no_grad()
+    def update(grads, state, params):
+        if max_grad_norm is not None:
+            grads, _ = clip_by_global_norm(grads, max_grad_norm)
+        step = state["step"] + 1
+        lr_t = lr_fn(step)
+        if weight_decay:
+            grads = tree_map(lambda g, p: g + weight_decay * p, grads, params)
+        vel = tree_map(lambda v, g: momentum * v + g, state["vel"], grads)
+        if nesterov:
+            eff = tree_map(lambda v, g: momentum * v + g, vel, grads)
+        else:
+            eff = vel
+        updates = tree_map(lambda e, p: (-lr_t * e).to(p.dtype), eff, params)
+        return updates, {"step": step, "vel": vel}
+
+    return Optimizer(init, update)
+
+
+@torch.no_grad()
+def apply_updates(params, updates):
+    return tree_map(lambda p, u: p + u, params, updates)

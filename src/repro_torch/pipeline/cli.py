@@ -1,20 +1,28 @@
 """`repro_torch` command-line entry point: drive the port's Pipeline.
 
-    python -m repro_torch profile [--config cfg.json] [--arch A] [--steps 0]
-                                  [--seed S] [--plan-in BASE] [--plan-out BASE]
+    python -m repro_torch profile  [--config cfg.json | --reduced] [--arch A]
+                                   [--steps N] [--seed S] [--plan-out BASE]
+    python -m repro_torch compress [--config cfg.json | --reduced] [--arch A]
+                                   [--steps N] [--search-mode serial]
+                                   [--seed S] [--plan-in BASE]
+                                   [--plan-out BASE]
     python -m repro_torch export --plan-in BASE [--plan-out BASE2]
     python -m repro_torch serve  --plan-in BASE [--plan-out BASE2]
 
-``profile`` runs the CNN target through ``energy_model`` (per-layer trace
-statistics on the transition-statistics kernel, energy LUTs and shares);
-QAT base training is not ported yet, so it needs ``--steps 0`` (or a config
-with ``train.qat_steps = 0``). ``export`` and ``serve`` resume a saved plan
-through ``export`` (packed 4-bit artifacts) and ``serve`` (the full-model
-forward on the LUT GEMM). The ``schedule`` stage comes from the JAX package
-(``python -m repro compress --plan-out BASE``) until the port has it.
-Every command takes ``--device``, which defaults to ``cuda``; on a host
-without CUDA that is an error, and ``--device cpu`` runs the plain versions
-of the kernels instead.
+``profile`` runs the CNN target through ``energy_model``: ``--steps`` steps
+of QAT base training (``train.qat_steps``), the per-layer trace statistics
+on the transition-statistics kernel, energy LUTs and shares. ``compress``
+runs all five stages: profile, energy_model, the layer-wise ``schedule``
+(weight selection inside QAT fine-tunes), ``export`` (packed 4-bit
+artifacts) and ``serve`` (the full-model forward on the LUT GEMM); the JAX
+package's ``compress`` stops after ``schedule``. The port's schedule has the
+serial search only, so ``compress`` needs ``--search-mode serial`` unless
+the config already says so; the batched sweep is refused before any stage
+runs. ``export`` and ``serve`` resume a saved plan, from either package.
+``--plan-in`` resumes a plan (completed stages are skipped), ``--plan-out``
+saves the result as ``BASE.json`` + ``BASE.npz``. Every command takes
+``--device``, which defaults to ``cuda``; on a host without CUDA that is an
+error, and ``--device cpu`` runs the plain versions of the kernels instead.
 """
 
 from __future__ import annotations
@@ -25,31 +33,38 @@ import sys
 from typing import Optional
 
 # subcommand -> last pipeline stage it runs
-COMMAND_STAGE = {"profile": "energy_model", "export": "export",
-                 "serve": "serve"}
+COMMAND_STAGE = {"profile": "energy_model", "compress": "serve",
+                 "export": "export", "serve": "serve"}
+CONFIG_COMMANDS = ("profile", "compress")
 
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="repro_torch",
-        description="PyTorch/CUDA port of the compression pipeline: profile "
-                    "a CNN, or resume a saved CompressionPlan through export "
-                    "and serve.")
+        description="PyTorch/CUDA port of the compression pipeline "
+                    "(profile -> energy_model -> schedule -> export -> "
+                    "serve) over one CompressionPlan artifact.")
     sub = ap.add_subparsers(dest="command", required=True)
     for command, stage in COMMAND_STAGE.items():
         p = sub.add_parser(command,
                            help=f"run the pipeline through its '{stage}' "
                                 "stage")
-        if command == "profile":
+        if command in CONFIG_COMMANDS:
             p.add_argument("--config", default=None, metavar="JSON",
                            help="PipelineConfig JSON file")
             p.add_argument("--arch", default=None,
                            help="lenet5|resnet8|resnet20|resnet50")
+            p.add_argument("--reduced", action="store_true",
+                           help="CPU-smoke preset (LeNet-5, tiny budgets)")
             p.add_argument("--steps", type=int, default=None,
-                           help="override train.qat_steps (only 0 is ported)")
+                           help="override train.qat_steps")
+            p.add_argument("--search-mode", choices=("batched", "serial"),
+                           default=None,
+                           help="override schedule.search_mode (only "
+                                "serial is ported)")
             p.add_argument("--seed", type=int, default=None,
                            help="override target.seed")
-        p.add_argument("--plan-in", required=command != "profile",
+        p.add_argument("--plan-in", required=command not in CONFIG_COMMANDS,
                        default=None, metavar="BASE",
                        help="resume from a saved plan (BASE.json + BASE.npz)")
         p.add_argument("--plan-out", default=None, metavar="BASE",
@@ -62,18 +77,30 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def _build_config(args):
-    from repro_torch.pipeline.config import PipelineConfig
+def _overrides(args) -> dict:
+    """Config overrides from the flags a resumed plan may still change."""
+    over: dict = {}
+    if getattr(args, "steps", None) is not None:
+        over["train"] = {"qat_steps": args.steps}
+    if getattr(args, "search_mode", None) is not None:
+        over["schedule"] = {"search_mode": args.search_mode}
+    return over
 
-    cfg = PipelineConfig.load(args.config) if args.config \
-        else PipelineConfig()
-    overrides: dict = {}
+
+def _build_config(args):
+    from repro_torch.pipeline.config import PipelineConfig, reduced_cnn_config
+
+    if args.config:
+        cfg = PipelineConfig.load(args.config)
+    elif args.reduced:
+        cfg = reduced_cnn_config()
+    else:
+        cfg = PipelineConfig()
+    overrides = _overrides(args)
     target = {k: v for k, v in (("arch", args.arch), ("seed", args.seed))
               if v is not None}
     if target:
         overrides["target"] = target
-    if args.steps is not None:
-        overrides["train"] = {"qat_steps": args.steps}
     return cfg.with_overrides(overrides)
 
 
@@ -90,18 +117,19 @@ def main(argv: Optional[list] = None) -> int:
     from repro_torch.pipeline.pipeline import Pipeline
     from repro_torch.pipeline.plan import CompressionPlan
 
-    if args.plan_in:
-        pipe = Pipeline.from_plan(CompressionPlan.load(args.plan_in),
-                                  device=device)
-        # flags still override the embedded config for the stages that
-        # remain to run; the target identity is fixed by the plan
-        if getattr(args, "steps", None) is not None:
-            pipe.cfg = pipe.cfg.with_overrides(
-                {"train": {"qat_steps": args.steps}})
-    else:
-        pipe = Pipeline(_build_config(args), device=device)
-    plan = pipe.run_until(COMMAND_STAGE[args.command],
-                          verbose=not args.quiet)
+    try:
+        if args.plan_in:
+            pipe = Pipeline.from_plan(CompressionPlan.load(args.plan_in),
+                                      device=device)
+            # flags still override the embedded config for the stages that
+            # remain to run; the target identity is fixed by the plan
+            pipe.cfg = pipe.cfg.with_overrides(_overrides(args))
+        else:
+            pipe = Pipeline(_build_config(args), device=device)
+        plan = pipe.run_until(COMMAND_STAGE[args.command],
+                              verbose=not args.quiet)
+    except NotImplementedError as e:
+        ap.error(str(e))
     print(json.dumps(plan.summary(), indent=2))
     if args.plan_out:
         json_path, npz_path = plan.save(args.plan_out)

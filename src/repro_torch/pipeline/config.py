@@ -5,7 +5,9 @@ Every section and field is the JAX package's, so a plan's embedded config
 parses here under the same strictness (unknown keys rejected, tuples
 restored by field type) and a config written here parses there.
 `ScheduleConfig` and `SelectionConfig` are plain copies of the JAX package's
-dataclasses; the port's schedule and selection code arrive in a later slice.
+dataclasses, read by the port's `repro_torch.core.schedule` and
+`repro_torch.core.weight_selection`. `reduced_cnn_config` is the JAX
+package's CPU-smoke preset.
 """
 
 from __future__ import annotations
@@ -250,6 +252,28 @@ class PipelineConfig:
                 out, **{section: dataclasses.replace(cur, **fields)})
         out.validate()
         return out
+
+
+def reduced_cnn_config(**target_kw) -> PipelineConfig:
+    """CPU-smoke preset: a LeNet-5 micro-run of the full pipeline (port of
+    `repro.pipeline.config.reduced_cnn_config`; what ``compress --reduced``
+    runs). Its ``schedule.search_mode`` is the default, ``"batched"``, as in
+    the JAX package: the port runs it with ``search_mode="serial"``."""
+    target = TargetConfig(kind="cnn", arch="lenet5", data_seed=5,
+                          batch_size=64, lr=2e-3, **target_kw)
+    return PipelineConfig(
+        target=target,
+        train=TrainStageConfig(qat_steps=60, final_finetune_steps=15,
+                               eval_batches=2),
+        profile=ProfileStageConfig(batches=1, max_tiles=4),
+        schedule=ScheduleConfig(prune_ratios=(0.5,), k_targets=(16,),
+                                delta_acc=0.08, finetune_steps=10,
+                                trial_finetune_steps=8, eval_batches=1,
+                                max_layers=1),
+        selection=SelectionConfig(k_init=20, k_target=16, delta_acc=0.08,
+                                  score_batches=1, accept_batches=1,
+                                  max_score_candidates=3),
+    )
 
 
 def parse_plan_spec(spec: str) -> Tuple[Optional[int], int]:

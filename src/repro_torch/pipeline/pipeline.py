@@ -7,12 +7,14 @@
 with every stage reading and writing the shared `CompressionPlan`. A saved
 plan records which stages already ran; ``Pipeline.from_plan(plan)`` rebuilds
 the target from the plan's embedded config and continues from the first
-incomplete stage. Typical use in this slice, on a plan whose first three
-stages ran in the JAX package::
+incomplete stage. Typical use::
 
-    plan = CompressionPlan.load("plan")
-    Pipeline.from_plan(plan).run()          # export + serve on the card
+    Pipeline(cfg).run()                     # all five stages on the card
+    plan = CompressionPlan.load("plan")     # either package's plan
     Pipeline.from_plan(plan, device="cpu").run()
+
+Options the port does not have yet raise `NotImplementedError` before the
+first stage of a run does any work (`CnnTarget.check_ported`).
 """
 
 from __future__ import annotations
@@ -66,9 +68,10 @@ class Pipeline:
         cfg = self.cfg.with_overrides(overrides)
         self.plan.config = cfg.to_dict()
         last = stage_index(stage)
-        for name in STAGES[: last + 1]:
-            if self.plan.is_done(name):
-                continue
+        to_run = [name for name in STAGES[: last + 1]
+                  if not self.plan.is_done(name)]
+        self.target.check_ported(cfg, to_run)
+        for name in to_run:
             t0 = time.time()
             getattr(self.target, f"stage_{name}")(self.plan, cfg,
                                                   verbose=verbose)

@@ -207,10 +207,11 @@ def _encode(obj, arrays: Dict[str, np.ndarray]):
 
 
 def _tensor(a: np.ndarray, dtype: str) -> torch.Tensor:
+    # np.array, not np.ascontiguousarray: the latter makes 0-d arrays (an
+    # optimizer step, a codebook size) 1-d
     if dtype == "bfloat16":
-        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(
-            torch.bfloat16)
-    return torch.from_numpy(np.ascontiguousarray(a.astype(dtype, copy=False)))
+        return torch.from_numpy(np.array(a, np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(np.array(a.astype(dtype, copy=False)))
 
 
 def _decode(node, arrays: Dict[str, np.ndarray]):
@@ -243,3 +244,22 @@ def _decode(node, arrays: Dict[str, np.ndarray]):
     if "__tuple__" in node:
         return tuple(_decode(v, arrays) for v in node["__tuple__"])
     raise ValueError(f"unrecognized plan node: {list(node)[:3]}")
+
+
+def decision_dict(d) -> Dict[str, Any]:
+    """`repro_torch.core.schedule.LayerDecision` -> plain serializable dict
+    (the JAX package's plan encoding of a decision)."""
+    return {
+        "layer": d.layer,
+        "share": float(d.share),
+        "prune_ratio": None if d.prune_ratio is None else float(d.prune_ratio),
+        "k": None if d.k is None else int(d.k),
+        "energy_before": float(d.energy_before),
+        "energy_after": float(d.energy_after),
+        "accuracy": float(d.accuracy),
+        "accepted": bool(d.accepted),
+        "msr": None if d.msr is None else int(d.msr),
+        "tried": [[float(t[0]), int(t[1])] + ([int(t[2])] if len(t) > 2
+                                               else [])
+                  for t in d.tried],
+    }

@@ -2,11 +2,12 @@
 
 A target owns the model runtime and implements one method per pipeline
 stage; each takes the shared `CompressionPlan` and the `PipelineConfig` and
-mutates only the plan. The CNN target's ``profile``, ``energy_model``,
-``export`` and ``serve`` stages are ported operation for operation;
-``profile`` without QAT base training (``train.qat_steps == 0``) and without
-the cosim gate. Everything else (QAT, ``schedule``, the LM-family targets)
-raises `NotImplementedError` naming the ROADMAP.md item that ports it.
+mutates only the plan. The CNN target's five stages are ported operation for
+operation: ``profile`` (QAT base training, then the trace statistics),
+``energy_model``, ``schedule`` (serial search mode), ``export`` and
+``serve``. What is not ported (the cosim gate, the batched schedule sweep,
+the LM-family targets) raises `NotImplementedError` naming the ROADMAP.md
+item that ports it, from `CnnTarget.check_ported` before any stage runs.
 """
 
 from __future__ import annotations
@@ -18,19 +19,18 @@ import torch
 from repro_torch._device import tree_to
 from repro_torch.core.export import export_model, export_summary
 from repro_torch.core.runner import CnnRunner
+from repro_torch.core.schedule import (
+    check_search_mode,
+    energy_prioritized_compression,
+)
 from repro_torch.data.synthetic import SyntheticImages
 from repro_torch.nn.cnn import CNN_FACTORIES
 from repro_torch.nn.layers import QuantConfig
 from repro_torch.pipeline.config import PipelineConfig
-from repro_torch.pipeline.plan import CompressionPlan
+from repro_torch.pipeline.plan import CompressionPlan, decision_dict
 
 _NOT_PORTED = {
-    "qat_steps": "ROADMAP.md Queue 1 item 3, the QAT/training slice (QAT "
-                 "base training before the trace); run the profile stage "
-                 "with train.qat_steps = 0 (CLI: --steps 0)",
     "verify_cosim": "ROADMAP.md Queue 1 item 9, 'Bit-accurate cosim'",
-    "schedule": "ROADMAP.md Queue 1, the QAT/training slice (weight "
-                "selection and the layer-wise schedule)",
     "lm": "ROADMAP.md Queue 1, 'LM stack' and 'Serving'",
     "moe": "ROADMAP.md Queue 1, 'Routed targets'",
     "scan": "ROADMAP.md Queue 1, 'Routed targets'",
@@ -60,7 +60,7 @@ class CnnTarget:
             t = cfg.target
             runner = CnnRunner(CNN_FACTORIES[t.arch](),
                                SyntheticImages(seed=t.data_seed),
-                               batch_size=t.batch_size, seed=t.seed,
+                               batch_size=t.batch_size, lr=t.lr, seed=t.seed,
                                device=device)
         self.runner = runner
         self.model = runner.model
@@ -69,11 +69,17 @@ class CnnTarget:
         self.device = runner.device
         self.name = self.model.name
 
-    def _not_ported(self, stage: str):
-        raise NotImplementedError(
-            f"stage {stage!r} of the CNN target is not ported yet: "
-            f"{_NOT_PORTED[stage]}; run it with the JAX package "
-            "(python -m repro) and resume the saved plan here")
+    @staticmethod
+    def check_ported(cfg: PipelineConfig, stages) -> None:
+        """Raise `NotImplementedError`, naming its ROADMAP.md item, for any
+        option of the ``stages`` about to run that the port does not have
+        yet. `Pipeline` calls this before the first of them does work."""
+        if "profile" in stages and cfg.profile.verify_cosim:
+            raise NotImplementedError(
+                "profile with verify_cosim=True is not ported yet: "
+                f"{_NOT_PORTED['verify_cosim']}")
+        if "schedule" in stages:
+            check_search_mode(cfg.schedule.search_mode)
 
     def _on_device(self, plan: CompressionPlan) -> None:
         """Move the plan's tensors to this target's device (plans load on
@@ -81,6 +87,9 @@ class CnnTarget:
         plan.params = tree_to(plan.params, self.device)
         plan.state = tree_to(plan.state, self.device)
         plan.comp = tree_to(plan.comp, self.device)
+        plan.opt_state = tree_to(plan.opt_state, self.device)
+        if plan.stats:
+            plan.stats = {n: s.to(self.device) for n, s in plan.stats.items()}
         if plan.artifacts:
             plan.artifacts = {k: a.to(self.device)
                               for k, a in plan.artifacts.items()}
@@ -89,17 +98,15 @@ class CnnTarget:
 
     def stage_profile(self, plan: CompressionPlan, cfg: PipelineConfig,
                       verbose: bool = False) -> None:
-        """Fresh parameters, base accuracy, then the per-layer trace
-        statistics (one K1 launch per compressible layer on the card)."""
-        for field, value in (("qat_steps", cfg.train.qat_steps),
-                             ("verify_cosim", cfg.profile.verify_cosim)):
-            if value:
-                raise NotImplementedError(
-                    f"profile with {field}={value} is not ported yet: "
-                    f"{_NOT_PORTED[field]}")
+        """Fresh parameters, ``train.qat_steps`` of QAT base training,
+        base accuracy, then the per-layer trace statistics (one K1 launch
+        per compressible layer on the card)."""
         runner = self.runner
         params, state, opt_state, comp = runner.init()
         loss = float("nan")
+        if cfg.train.qat_steps:
+            params, state, opt_state, loss = runner.train(
+                params, state, opt_state, comp, cfg.train.qat_steps)
         acc_base = runner.accuracy(params, state, comp,
                                    n_batches=cfg.train.eval_batches)
         if verbose:
@@ -126,8 +133,44 @@ class CnnTarget:
             for n, s in sorted(plan.shares.items(), key=lambda kv: -kv[1]):
                 print(f"[pipeline] energy share {n}: {s:.3f}")
 
-    def stage_schedule(self, plan, cfg, verbose: bool = False) -> None:
-        self._not_ported("schedule")
+    def stage_schedule(self, plan: CompressionPlan, cfg: PipelineConfig,
+                       verbose: bool = False) -> None:
+        """The energy-prioritized layer-wise schedule (serial search), the
+        final fine-tune, and the decisions and metrics of the JAX stage."""
+        self._on_device(plan)
+        runner = self.runner
+        params, state, opt_state, comp, sched = energy_prioritized_compression(
+            runner, plan.params, plan.state, plan.opt_state, plan.comp,
+            plan.stats, cfg.schedule, cfg.selection, verbose=verbose)
+        if cfg.train.final_finetune_steps:
+            params, state, opt_state, _ = runner.train(
+                params, state, opt_state, comp,
+                cfg.train.final_finetune_steps)
+        acc_final = runner.accuracy(params, state, comp,
+                                    n_batches=cfg.train.eval_batches)
+        models = runner.refresh_counts(
+            params, comp, runner.energy_models(params, comp, plan.stats))
+        e_after = sum(m.energy for m in models.values())
+
+        plan.params, plan.state = params, state
+        plan.opt_state, plan.comp = opt_state, comp
+        plan.decisions = [decision_dict(d) for d in sched.decisions]
+        ks = [int(d.k) for d in sched.decisions if d.k is not None]
+        plan.metrics.update({
+            "acc0": float(sched.acc0),
+            "acc_final": float(acc_final),
+            "accuracy_drop": float(plan.metrics.get("acc_base", sched.acc0)
+                                   - acc_final),
+            "energy_before": float(sched.energy_before),
+            "energy_after": float(e_after),
+            "energy_saving": 1.0 - float(e_after)
+            / max(float(sched.energy_before), 1e-12),
+            "max_codebook": max(ks) if ks else 256,
+        })
+        if verbose:
+            print(f"[pipeline] schedule: acc {sched.acc0:.3f} -> "
+                  f"{acc_final:.3f}, energy saving "
+                  f"{plan.metrics['energy_saving']:.3f}")
 
     def stage_export(self, plan: CompressionPlan, cfg: PipelineConfig,
                      verbose: bool = False) -> None:

@@ -336,20 +336,23 @@ def test_cli_profile_writes_a_plan_jax_loads(tmp_path):
     np.testing.assert_allclose(sum(plan.shares.values()), 1.0, rtol=1e-6)
 
 
-@pytest.mark.parametrize("override", [{"train": {"qat_steps": 1}},
-                                      {"profile": {"verify_cosim": True}}])
-def test_unported_profile_options_raise_before_work(override):
+@pytest.mark.parametrize("override,item", [
+    ({"schedule": {"search_mode": "batched"}}, "Queue 1 item 4b"),
+    ({"profile": {"verify_cosim": True}}, "Queue 1 item 9")])
+def test_unported_profile_options_raise_before_work(override, item):
     cfg = TConfig.from_dict(_cfg_dict()).with_overrides(override)
     pipe = TPipeline(cfg, device="cpu")
     pipe.target.runner.init = None        # any work would fail differently
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        pipe.run_until("energy_model")
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
+        pipe.run()
     assert not pipe.plan.completed
 
 
 def test_runner_training_names_its_roadmap_item():
     runner = TRunner(tcnn.lenet5(), _TorchImages(), batch_size=2,
                      device="cpu")
-    for fn in (runner.train, runner.train_batched, runner.accuracy_batched):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    for fn in (runner.train_batched, runner.accuracy_batched,
+               runner.accuracy_comps, runner.accuracy_gather):
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP.md Queue 1 item 4b"):
             fn()
