@@ -7,12 +7,18 @@
 2. builds every kernel of the port from the sources in this checkout (one
    nvcc per source, all started together, sm_90a) and prints each build
    time and the ptxas resource lines;
-3. K2, the LUT GEMM: holds the kernel against its plain PyTorch version at
-   every (M, K_pad, N, epilogue) the ResNet-20 serve pass launches at batch
-   256, two ResNet-50 shapes, each activation with bias and residual, and a
-   bfloat16-x case; times kernel, plain version and one library call
-   (torch.matmul on the dequantized weights plus the same epilogue) with
-   CUDA events, and computes each case's bound;
+3. K2, the LUT GEMM: prints its configuration per output width (MMA
+   shape, ring stages, tiles, registers, shared memory, blocks per SM:
+   ``[k2-design]``); holds the kernel against its plain PyTorch version at
+   every (M, K, N, epilogue) the ResNet-20 serve pass launches at batch 256,
+   both with X padded to K_pad (the pack block) and with the serve path's
+   unpadded rows (K rounded up to 8), at two ResNet-50 shapes, at each
+   activation with bias and residual, and with bfloat16 x; prints the
+   outputs that are not bit-equal to the plain version and the achieved
+   GB/s; times kernel, plain version and one library call (torch.matmul on
+   the dequantized weights plus the same epilogue) a call at a time between
+   CUDA events, kernel and library call also as device time in a CUDA graph
+   of back-to-back calls, and computes each case's bound;
 4. K1, the transition statistics: holds the kernel against its plain
    version, bin for bin, at the profile path's shapes (16 tiles x T = 64),
    all 12,288 tiles of a ResNet-20 stage-1 conv at batch 256, a batch with
@@ -25,7 +31,10 @@
    layer restricted to 16 int8 values, one layer pruned 50%) saved as a plan
    complete through ``schedule``, loaded, and run through
    ``Pipeline.from_plan(..., device="cuda").run()`` — export, then serve at
-   batch 256 — with K2's launch count read around that run;
+   batch 256 — with K2's launch count read around that run; then served
+   images/s and a split of one served forward (im2col rows, K2, fake-quant
+   activations, batch norm and pooling, other), each part timed alone
+   (``[serve-breakdown]``);
 6. the profile path: ``Pipeline(cfg, device="cuda").run_until("energy_model")``
    on ResNet-20 at batch 256 (seeded random weights, no QAT steps, 16 tiles
    per layer), with K1's launch count read around that run; the card's
@@ -72,7 +81,10 @@ ROOT = Path(__file__).resolve().parent
 BATCH = 256                 # serve batch of the main path
 R50_BATCH = 64              # batch of the two ResNet-50 kernel shapes
 REPS = 25                   # timed turns per case (medians reported)
-RTOL = ATOL = 1e-4          # K2 vs plain: float32, summation order only
+# K2 vs plain: both sum float64 products and round once to float32, so they
+# differ only where float64 summation order moves a sum across a float32
+# rounding midpoint (and by the card's tanhf/expf in the gelu/silu epilogue)
+RTOL = ATOL = 1e-4
 PEAK_FP32_FLOPS = 67e12     # H100 SXM fp32 (non-tensor-core), dense
 PEAK_HBM_BYTES = 3.35e12    # H100 SXM HBM3
 # H100 SXM population count / count leading zeros: 16 per clock per SM
@@ -129,19 +141,24 @@ def build_kernels(libraries):
 # ------------------------------------------------------------ K2 phase
 
 
-def main_path_shapes(comp_layers, batch, pack_block=128):
-    """{(M, K_pad, N, has_bias): launches per forward} of a CNN's serve pass
-    (one LUT-GEMM launch per compressed layer; dense layers carry a bias)."""
+def main_path_shapes(comp_layers, batch):
+    """{(M, K, N, has_bias): launches per forward} of a CNN's serve pass (one
+    LUT-GEMM launch per compressed layer; dense layers carry a bias)."""
     shapes = {}
     for cl in comp_layers:
-        k = cl.c_in * cl.kernel * cl.kernel
         key = (batch * cl.out_hw[0] * cl.out_hw[1],
-               -(-k // pack_block) * pack_block, cl.c_out, cl.kind == "dense")
+               cl.c_in * cl.kernel * cl.kernel, cl.c_out, cl.kind == "dense")
         shapes[key] = shapes.get(key, 0) + 1
     return shapes
 
 
-def make_case(torch, ops, m, k_pad, n, *, seed, bias, residual, x_dtype):
+def k_pad(k, pack_block=128):
+    return -(-k // pack_block) * pack_block
+
+
+def make_case(torch, ops, m, k_x, k_pad, n, *, seed, bias, residual,
+              x_dtype):
+    """Weights (K_pad, N) packed at pack block 128; x (M, K_x)."""
     from repro_torch.core.schedule import symmetric_codebook_values
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -149,7 +166,7 @@ def make_case(torch, ops, m, k_pad, n, *, seed, bias, residual, x_dtype):
     w = torch.randn((k_pad, n), generator=gen, device=dev) * 0.05
     packed, cb, scale = ops.compress_layer_weights(
         w, symmetric_codebook_values(16), block_k=128)
-    x = torch.randn((m, k_pad), generator=gen, device=dev).to(x_dtype)
+    x = torch.randn((m, k_x), generator=gen, device=dev).to(x_dtype)
     return dict(
         x=x, packed=packed, codebook=cb, scale=scale,
         bias=(torch.randn((n,), generator=gen, device=dev) * 0.1
@@ -158,10 +175,8 @@ def make_case(torch, ops, m, k_pad, n, *, seed, bias, residual, x_dtype):
                   if residual else None))
 
 
-def bound(m, k, n, case):
-    """Least time on an H100 SXM: each input read once, the output written
-    once, against HBM bandwidth; 2*M*K*N fp32 operations against the fp32
-    peak. Returns (ms, "bytes" | "operations")."""
+def k2_bytes(m, n, case):
+    """Bytes K2 must move: each input read once, the output written once."""
     nbytes = (case["x"].numel() * case["x"].element_size()
               + case["packed"].numel() + case["codebook"].numel()
               + 4 * n + 4 * m * n)
@@ -169,7 +184,14 @@ def bound(m, k, n, case):
         nbytes += 4 * n
     if case["residual"] is not None:
         nbytes += 4 * m * n
-    t_bytes = nbytes / PEAK_HBM_BYTES
+    return nbytes
+
+
+def bound(m, k, n, case):
+    """Least time on an H100 SXM: `k2_bytes` against HBM bandwidth; 2*M*K*N
+    operations (K = x's width) against 67 TFLOP/s, the fp32 peak and the
+    float64 tensor-core peak alike. Returns (ms, "bytes" | "operations")."""
+    t_bytes = k2_bytes(m, n, case) / PEAK_HBM_BYTES
     t_ops = 2.0 * m * k * n / PEAK_FP32_FLOPS
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
@@ -195,13 +217,49 @@ def time_turns(torch, fns, reps):
     return {name: statistics.median(v) for name, v in times.items()}
 
 
+def k2_cases(torch, r20_model, r50_model):
+    """[(label, M, K_x, K_pad, N, activation, bias?, residual?, x dtype,
+    launches per main-path forward, on the serve path's unpadded rows?)]:
+    every ResNet-20 serve shape with X padded to K_pad (the like-for-like
+    yardstick of earlier slices), two ResNet-50 shapes, each epilogue, bf16
+    x, then the ResNet-20 serve shapes as the serve path feeds them."""
+    from repro_torch.kernels.lut_matmul.lut_matmul import x_width
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    r20 = sorted(main_path_shapes(r20_model.comp_layers, BATCH).items(),
+                 reverse=True)
+    cases = [(f"resnet20 x{cnt}", m, k_pad(k), k_pad(k), n, "none", b, False,
+              f32, cnt, False) for (m, k, n, b), cnt in r20]
+    r50 = {cl.name: cl for cl in r50_model.comp_layers}
+    for name in ("s4b1/conv2", "s1b1/conv2"):
+        (m, k, n, b), = main_path_shapes([r50[name]], R50_BATCH)
+        cases.append((f"resnet50 {name}", m, k_pad(k), k_pad(k), n, "none",
+                      b, False, f32, 0, False))
+    for act in ("none", "relu", "gelu", "silu"):
+        cases.append((f"epilogue {act}", 16384, 640, 640, 64, act, True, True,
+                      f32, 0, False))
+    cases.append(("bf16 x", 262144, 256, 256, 16, "none", False, False, bf16,
+                  0, False))
+    cases += [(f"serve rows x{cnt}", m, x_width(k), k_pad(k), n, "none", b,
+               False, f32, cnt, True) for (m, k, n, b), cnt in r20]
+    return cases
+
+
 def k2_phase(torch, ops, ref, cases):
-    """cases: [(label, M, K_pad, N, activation, bias?, residual?, x dtype,
-    launches per main-path forward)]."""
+    """cases: `k2_cases`. Times kernel, plain version and library call a
+    call at a time between CUDA events, the card idle before each call
+    (``ms``, ``plain_ms``, ``library_ms``: the host's wrapper and launch
+    cost counts, as in every earlier K2 row), and kernel and library call
+    as device time in a CUDA graph of back-to-back calls (``device_ms``,
+    ``library_device_ms``; `graph_ms`, as K3 is timed; ``timing`` names the
+    method `graph_ms` used). The timing launches are not counted as the
+    main path's."""
+    from repro_torch.kernels.lut_matmul import lut_matmul as k2
+
     rows = []
-    for i, (label, m, k, n, act, with_bias, with_res, x_dtype,
-            per_fwd) in enumerate(cases):
-        c = make_case(torch, ops, m, k, n, seed=1000 + i, bias=with_bias,
+    for i, (label, m, k, kp, n, act, with_bias, with_res, x_dtype, per_fwd,
+            serve_rows) in enumerate(cases):
+        c = make_case(torch, ops, m, k, kp, n, seed=1000 + i, bias=with_bias,
                       residual=with_res, x_dtype=x_dtype)
         args = (c["x"], c["packed"], c["codebook"], c["scale"])
         kw = dict(bias=c["bias"], residual=c["residual"], activation=act)
@@ -212,12 +270,14 @@ def k2_phase(torch, ops, ref, cases):
             raise AssertionError(f"{label}: kernel output not finite")
         err = (y_kernel - y_plain).abs()
         max_err = float(err.max())
+        not_equal = int((y_kernel != y_plain).sum())
         if not bool((err <= ATOL + RTOL * y_plain.abs()).all()):
             raise AssertionError(
                 f"{label}: kernel disagrees with the plain version, max abs "
                 f"err {max_err:.3e} (rtol {RTOL}, atol {ATOL})")
 
-        w_deq = ref.dequantize(c["packed"], c["codebook"], c["scale"], 128)
+        w_deq = ref.weight_rows(
+            ref.dequantize(c["packed"], c["codebook"], c["scale"], 128), k)
         act_fn = ref.ACTIVATIONS[act]
 
         def library():
@@ -227,23 +287,37 @@ def k2_phase(torch, ops, ref, cases):
             y = act_fn(y)
             return y if c["residual"] is None else y + c["residual"]
 
+        def kernel():
+            return ops.lut_matmul_fused(*args, **kw, pack_block=128)
+
+        launched = k2.launches
         ms = time_turns(torch, {
-            "kernel": lambda: ops.lut_matmul_fused(*args, **kw,
-                                                   pack_block=128),
+            "kernel": kernel,
             "plain": lambda: ref.lut_matmul_fused_ref(*args, **kw,
                                                       block_k=128),
             "library": library}, REPS)
+        device_ms, k_method = graph_ms(torch, kernel)
+        library_device_ms, l_method = graph_ms(torch, library)
+        k2.launches = launched
         b_ms, b_by = bound(m, k, n, c)
+        gbps = k2_bytes(m, n, c) / (device_ms * 1e-3) / 1e9
         epi = "+".join([act] + ["bias"] * with_bias + ["res"] * with_res)
-        row = dict(case=label, M=m, K=k, N=n, epilogue=epi,
+        row = dict(case=label, M=m, K_x=k, K_pad=kp, N=n, epilogue=epi,
                    x_dtype=str(x_dtype).replace("torch.", ""),
-                   per_forward=per_fwd, max_abs_err=max_err,
+                   per_forward=per_fwd, serve_rows=serve_rows,
+                   max_abs_err=max_err, not_bit_equal=not_equal,
                    ms=ms["kernel"], plain_ms=ms["plain"],
-                   library_ms=ms["library"], bound_ms=b_ms, bound_by=b_by)
+                   library_ms=ms["library"], bound_ms=b_ms, bound_by=b_by,
+                   device_ms=device_ms, library_device_ms=library_device_ms,
+                   timing=sorted({k_method, l_method}),
+                   device_gb_per_s=gbps)
         rows.append(row)
-        print(f"[kernel] {label:<20} M={m:<7} K={k:<5} N={n:<4} {epi:<14} "
-              f"{row['x_dtype']:<8} err={max_err:.2e} kernel={ms['kernel']:.4f}"
-              f" plain={ms['plain']:.4f} library={ms['library']:.4f} "
+        print(f"[kernel] {label:<20} M={m:<7} K_x={k:<5} K_pad={kp:<5} "
+              f"N={n:<4} {epi:<14} {row['x_dtype']:<8} err={max_err:.2e} "
+              f"not_equal={not_equal} a call: kernel={ms['kernel']:.4f} "
+              f"plain={ms['plain']:.4f} library={ms['library']:.4f} ms; "
+              f"device ({'/'.join(row['timing'])}): kernel={device_ms:.4f} "
+              f"library={library_device_ms:.4f} ms, {gbps:.0f} GB/s; "
               f"bound={b_ms:.4f} ms ({b_by})", flush=True)
         del c, y_kernel, y_plain, w_deq
     return rows
@@ -489,12 +563,65 @@ def serve_path(torch, plan_dir):
         torch.cuda.synchronize()
         images_per_s = n_timed * BATCH / (time.perf_counter() - t0)
 
+        parts = serve_breakdown(torch, lambda: model.apply(
+            dev_params, ran.state, x, qcfg=qserve, comp=ran.comp,
+            serve=arts))
+
     metrics = {k: v for k, v in ran.metrics.items()
                if k.startswith(("serve_", "export_", "wall_s_"))}
     metrics.update(serve_images_per_s=images_per_s, main_path_wall_s=wall,
                    kernel_launches=launches, serve_forwards=forwards)
     print("[serve] " + json.dumps(metrics, sort_keys=True), flush=True)
+    print("[serve-breakdown] " + json.dumps(parts, sort_keys=True),
+          flush=True)
     return launches
+
+
+def serve_breakdown(torch, forward):
+    """ms of one served forward and of its parts, each part's calls (as the
+    forward made them) replayed alone between CUDA events: the im2col rows,
+    K2 (the fused LUT GEMM), the fake-quant activations, batch norm and
+    pooling; ``other`` is the forward's time less the parts (residual adds,
+    relus, reshapes, host gaps the parts do not overlap)."""
+    from repro_torch.core import export, qat
+    from repro_torch.nn import layers as L
+
+    targets = {"im2col_rows": (export, "im2col_rows"),
+               "k2": (export, "lut_matmul_fused"),
+               "fake_quant_acts": (qat, "fake_quant_act"),
+               "batch_norm": (L, "apply_batchnorm"),
+               "pooling": (L, "avg_pool_global")}
+    calls = {name: [] for name in targets}
+    real = {name: getattr(mod, attr) for name, (mod, attr) in targets.items()}
+
+    def rec(name, fn):
+        def wrapped(*a, **kw):
+            calls[name].append((a, kw))
+            return fn(*a, **kw)
+        return wrapped
+
+    for name, (mod, attr) in targets.items():
+        setattr(mod, attr, rec(name, real[name]))
+    try:
+        forward()
+    finally:
+        for name, (mod, attr) in targets.items():
+            setattr(mod, attr, real[name])
+
+    def replay(name):
+        def run():
+            for a, kw in calls[name]:
+                real[name](*a, **kw)
+        return run
+
+    fns = {"forward": forward}
+    fns.update({name: replay(name) for name in targets})
+    ms = time_turns(torch, fns, 10)
+    ms["batch_norm_and_pooling"] = ms.pop("batch_norm") + ms.pop("pooling")
+    ms["other"] = ms["forward"] - sum(v for k, v in ms.items()
+                                      if k != "forward")
+    ms["calls"] = {name: len(v) for name, v in calls.items()}
+    return ms
 
 
 # ------------------------------------------------------------- profile path
@@ -659,7 +786,7 @@ def graph_ms(torch, fn, reps=REPS):
                 fn()
         run, method = graph.replay, "cuda graph"
     except RuntimeError as e:
-        print(f"[k3] graph capture failed ({e}); timing launches from the "
+        print(f"[graph] capture failed ({e}); timing launches from the "
               "host", flush=True)
         torch.cuda.synchronize()
 
@@ -1184,20 +1311,10 @@ def main() -> int:
           flush=True)
     build_kernels([k2.LIBRARY, k1.LIBRARY, k3.LIBRARY])
 
-    f32, bf16 = torch.float32, torch.bfloat16
-    cases = [(f"resnet20 x{cnt}", m, k, n, "none", b, False, f32, cnt)
-             for (m, k, n, b), cnt in sorted(
-                 main_path_shapes(resnet20().comp_layers, BATCH).items(),
-                 reverse=True)]
-    r50 = {cl.name: cl for cl in resnet50().comp_layers}
-    for name in ("s4b1/conv2", "s1b1/conv2"):
-        (m, k, n, b), = main_path_shapes([r50[name]], R50_BATCH)
-        cases.append((f"resnet50 {name}", m, k, n, "none", b, False, f32, 0))
-    for act in ("none", "relu", "gelu", "silu"):
-        cases.append((f"epilogue {act}", 16384, 640, 64, act, True, True,
-                      f32, 0))
-    cases.append(("bf16 x", 262144, 256, 16, "none", False, False, bf16, 0))
-    k2_rows = k2_phase(torch, ops, ref, cases)
+    k2_design = {f"N<={n}": k2.config(n) for n in (16, 32, 64)}
+    print("[k2-design] " + json.dumps(k2_design, sort_keys=True), flush=True)
+    k2_rows = k2_phase(torch, ops, ref, k2_cases(torch, resnet20(),
+                                                 resnet50()))
     k1_rows = k1_phase(torch, k1_cases(torch, resnet20().comp_layers))
     k3_rows = k3_phase(torch, k3_cases(torch, resnet20().comp_layers))
     torch.cuda.empty_cache()
@@ -1208,10 +1325,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     compress_launches, compress_stages = compress_path(torch)
 
-    path_rows = [r for r in k2_rows if r["per_forward"]]
-    total = {key: sum(r[key] * r["per_forward"] for r in path_rows)
-             for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
-    by_bytes = sum(r["bound_ms"] * r["per_forward"] for r in path_rows
+    padded = [r for r in k2_rows if r["per_forward"] and not r["serve_rows"]]
+    unpadded = [r for r in k2_rows if r["per_forward"] and r["serve_rows"]]
+    total = {key: sum(r[key] * r["per_forward"] for r in padded)
+             for key in ("ms", "plain_ms", "library_ms", "bound_ms",
+                         "device_ms", "library_device_ms")}
+    serve_total = {f"serve_path_{key}": sum(r[key] * r["per_forward"]
+                                            for r in unpadded)
+                   for key in ("ms", "library_ms", "bound_ms", "device_ms",
+                               "library_device_ms")}
+    by_bytes = sum(r["bound_ms"] * r["per_forward"] for r in padded
                    if r["bound_by"] == "bytes")
     k2_entry = {
         **K2, "route": "cuda", "launches": k2_launches,
@@ -1219,9 +1342,17 @@ def main() -> int:
         **total,
         "bound_by": "bytes" if by_bytes >= total["bound_ms"] / 2
         else "operations",
+        **serve_total,
         "scope": f"sum over one ResNet-20 serve forward at batch {BATCH} "
-                 "(per-shape times x launches per forward)",
+                 "(per-shape times x launches per forward): ms, plain_ms, "
+                 "library_ms, bound_ms, device_ms and library_device_ms "
+                 "with X padded to K_pad, serve_path_* on the serve path's "
+                 "unpadded rows; ms, plain_ms, library_ms: one call between "
+                 "CUDA events, the card idle before it; device_ms, "
+                 "library_device_ms: one call's device time, by `timing`",
+        "timing": sorted({t for r in k2_rows for t in r["timing"]}),
         "compress_path_launches": compress_launches["K2"],
+        "design": k2_design,
         "shapes": k2_rows,
     }
     k1_entry = {

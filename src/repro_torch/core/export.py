@@ -13,9 +13,11 @@ weights dequantize to the fake-quant weights (pruned positions always serve
 as exact 0). The artifacts are byte-identical to the JAX package's export of
 the same weights and comp state.
 
-The serve forwards hand the kernel row-major contiguous ``(M, K_pad)``
-activations and ``(M, N)`` residuals, built so explicitly: the kernel's
-wrapper refuses strided views instead of copying them.
+The serve forwards hand the kernel row-major contiguous ``(M, K_x)``
+activations, ``K_x = round_up(K, 8)`` (`ServeArtifact.k_x`; the kernel never
+reads the pack block's padding), and ``(M, N)`` residuals, built so
+explicitly: the kernel's wrapper refuses strided views instead of copying
+them.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import torch.nn.functional as F
 from repro_torch.core import qat
 from repro_torch.core.layer_energy import MatmulDims, dense_matmul_dims
 from repro_torch.core.stats import conv_out_hw, im2col_rows
+from repro_torch.kernels.lut_matmul.lut_matmul import x_width
 from repro_torch.kernels.lut_matmul.ops import (
     N_CODES,
     compress_layer_weights,
@@ -63,6 +66,11 @@ class ServeArtifact:
     @property
     def k_pad(self) -> int:
         return 2 * int(self.packed.shape[0])
+
+    @property
+    def k_x(self) -> int:
+        """Width of the X rows the serve forwards feed the kernel."""
+        return x_width(self.k_dim)
 
     def matmul_dims(self, n_tokens: int) -> MatmulDims:
         """Systolic mapping of this artifact's GEMM for ``n_tokens`` streamed
@@ -154,11 +162,11 @@ def serve_dense(x: torch.Tensor, art: ServeArtifact, *,
                 residual: Optional[torch.Tensor] = None,
                 activation: str = "none") -> torch.Tensor:
     """(..., K) -> act((..., K) @ W + bias) + residual, one fused LUT-GEMM
-    launch. Flattens leading dims into a contiguous (M, K_pad) matrix whose
+    launch. Flattens leading dims into a contiguous (M, K_x) matrix whose
     columns past K are zero."""
     lead = x.shape[:-1]
     x2d = x.reshape(-1, x.shape[-1])
-    pad = art.k_pad - art.k_dim
+    pad = art.k_x - art.k_dim
     x2d = F.pad(x2d, (0, pad)) if pad else x2d.contiguous()
     y = lut_matmul_fused(x2d, art.packed, art.codebook, art.scale, bias=bias,
                          residual=_rows(residual, art.n_dim),
@@ -172,11 +180,12 @@ def serve_conv(x: torch.Tensor, art: ServeArtifact, *, stride: int = 1,
                activation: str = "none") -> torch.Tensor:
     """NHWC conv through im2col feeding the fused LUT GEMM (bias/activation/
     residual ride the kernel epilogue). The patch matrix is built directly
-    as contiguous (N*Ho*Wo, K_pad) rows (the JAX package's ``cols.T``)."""
+    as contiguous (N*Ho*Wo, K_x) rows (the JAX package's ``cols.T``, zero
+    past K)."""
     n, h, w_in, _ = x.shape
     kh = kw = art.kernel
     ho, wo = conv_out_hw(h, w_in, (kh, kw), stride, padding)
-    rows = im2col_rows(x, (kh, kw), stride, padding, k_pad=art.k_pad)
+    rows = im2col_rows(x, (kh, kw), stride, padding, k_pad=art.k_x)
     y = lut_matmul_fused(rows, art.packed, art.codebook, art.scale, bias=bias,
                          residual=_rows(residual, art.n_dim),
                          activation=activation, pack_block=art.block_k)

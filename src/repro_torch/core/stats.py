@@ -165,7 +165,8 @@ def im2col_rows(x: torch.Tensor, kernel_hw: Tuple[int, int], stride: int = 1,
 
     Columns ``[0, kh*kw*C)`` follow the `im2col` row order; columns up to
     ``k_pad`` (default: no padding) are zero. This is the row-major ``(M, K)``
-    matrix the LUT-GEMM kernel reads, built in one allocation.
+    matrix the LUT-GEMM kernel reads (the serve path asks for K rounded up
+    to 8), built in one allocation; only the padding columns are zeroed.
     """
     kh, kw = kernel_hw
     n, h, w, c = x.shape
@@ -176,12 +177,13 @@ def im2col_rows(x: torch.Tensor, kernel_hw: Tuple[int, int], stride: int = 1,
     k_pad = k if k_pad is None else k_pad
     if k_pad < k:
         raise ValueError(f"k_pad={k_pad} < K={k}")
-    cols = x.new_zeros((n, ho, wo, k_pad))
-    for i in range(kh):
-        for j in range(kw):
-            o = (i * kw + j) * c
-            cols[..., o:o + c] = x[:, i:i + (ho - 1) * stride + 1:stride,
-                                   j:j + (wo - 1) * stride + 1:stride, :]
+    # (N, Ho, Wo, C, kh, kw) windows: a view of x, gathered by one copy
+    win = x.unfold(1, kh, stride).unfold(2, kw, stride)[:, :ho, :wo]
+    cols = x.new_empty((n, ho, wo, k_pad))
+    cols[..., :k].unflatten(-1, (kh, kw, c)).copy_(
+        win.permute(0, 1, 2, 4, 5, 3))
+    if k_pad > k:
+        cols[..., k:] = 0
     return cols.reshape(n * ho * wo, k_pad)
 
 

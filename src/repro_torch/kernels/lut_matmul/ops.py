@@ -59,9 +59,11 @@ def lut_matmul_fused(x: torch.Tensor, packed: torch.Tensor,
                      pack_block: int = 128) -> torch.Tensor:
     """Fused serve matmul: Y = act(X @ dequant(packed) + bias) + residual.
 
-    x (M, K) float32/bfloat16 with K a ``pack_block`` multiple (pad K at
-    export); packed (K//2, N) int8; codebook (16,) int8; scale/bias (N,)
-    float32; residual (M, N) float32. All contiguous, all on one device.
+    x (M, K_x) float32/bfloat16 with K_x a multiple of 8 and at most K_pad
+    (columns past K_x count as zero; the serve path passes K rounded up to
+    8); packed (K_pad//2, N) int8 with K_pad a ``pack_block`` multiple;
+    codebook (16,) int8; scale/bias (N,) float32; residual (M, N) float32.
+    All contiguous, all on one device.
     Returns float32 (M, N). CPU tensors run the plain version; CUDA tensors
     launch the kernel.
     """

@@ -52,6 +52,16 @@ def dequantize(packed: torch.Tensor, codebook: torch.Tensor,
     return codebook.float()[idx.long()] * scale.float()[None, :]
 
 
+def weight_rows(w: torch.Tensor, k_x: int) -> torch.Tensor:
+    """The first ``k_x`` rows of a dequantized (K_pad, N) weight, the rows an
+    (M, K_x) X multiplies: X's columns [K_x, K_pad) count as zero, and rows
+    past K_pad (K_x is K rounded up to 8) as zero weights."""
+    k_pad = w.shape[0]
+    if k_x <= k_pad:
+        return w[:k_x]
+    return torch.cat([w, w.new_zeros((k_x - k_pad, w.shape[1]))])
+
+
 def lut_matmul_ref(x: torch.Tensor, packed: torch.Tensor,
                    codebook: torch.Tensor, scale: torch.Tensor, *,
                    block_k: int = 128) -> torch.Tensor:
@@ -78,12 +88,16 @@ def lut_matmul_fused_ref(x: torch.Tensor, packed: torch.Tensor,
                          block_k: int = 128) -> torch.Tensor:
     """Y = act(X @ dequant(packed) + bias) + residual.
 
-    The product is `exact_matmul` (float64 accumulation, one rounding to
+    ``x`` is (M, K_x) with K_x up to K_pad = 2 * packed rows: it multiplies
+    the first K_x weight rows (`weight_rows`), so an unpadded X gives the
+    padded call's result bit for bit (the padding adds exact zeros). The
+    product is `exact_matmul` (float64 accumulation, one rounding to
     float32), as in the kernel; the epilogue is float32 in the kernel's
     order: bias before activation, residual after. The output is float32
     (x is float32 or bfloat16, widened as in the JAX package).
     """
-    y = exact_matmul(x.float(), dequantize(packed, codebook, scale, block_k))
+    w = dequantize(packed, codebook, scale, block_k)
+    y = exact_matmul(x.float(), weight_rows(w, x.shape[1]))
     if bias is not None:
         y = y + bias.float()[None, :]
     y = ACTIVATIONS[activation](y)

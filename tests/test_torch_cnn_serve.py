@@ -177,6 +177,71 @@ def test_serve_conv_layer_matches_pallas(stride, padding):
                                atol=1e-5)
 
 
+@pytest.mark.parametrize("c_in", [3, 5, 16])
+def test_serve_conv_feeds_round_up_8_rows(c_in, monkeypatch):
+    """The serve path's im2col rows are contiguous, round_up(K, 8) wide (not
+    the pack block's K_pad) and zero past K, and serve the JAX package's
+    padded-row output."""
+    rng = np.random.default_rng(c_in)
+    w = (rng.normal(size=(3, 3, c_in, 8)) * 0.1).astype(np.float32)
+    comp = jqat.identity_comp(w.shape)
+    comp["codebook"], comp["codebook_k"] = jqat.make_codebook(
+        symmetric_codebook_values(16))
+    x = rng.normal(size=(2, 6, 6, c_in)).astype(np.float32)
+    seen = []
+    real = texport.lut_matmul_fused
+
+    def spy(rows, *a, **kw):
+        seen.append(rows)
+        return real(rows, *a, **kw)
+
+    monkeypatch.setattr(texport, "lut_matmul_fused", spy)
+    ta = texport.export_layer(torch.from_numpy(w), j2t(comp), kind="conv")
+    got = texport.serve_conv(torch.from_numpy(x), ta, activation="relu")
+    rows, = seen
+    k = 9 * c_in
+    assert tuple(rows.shape) == (2 * 6 * 6, -(-k // 8) * 8)
+    assert ta.k_pad == -(-k // 128) * 128
+    assert rows.is_contiguous() and not rows[:, k:].any()
+    ja = j_export_layer(jnp.asarray(w), comp, kind="conv")
+    want = j_serve_conv(jnp.asarray(x), ja, activation="relu",
+                        interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_lenet5_serve_feeds_unpadded_rows_at_the_gate(monkeypatch):
+    """Every LUT-GEMM launch of a LeNet-5 served forward gets rows
+    round_up(K, 8) wide, and the logits still match the JAX package's
+    served forward (padded rows) at the serve gate."""
+    c = {"jm": jcnn.lenet5(), "tm": tcnn.lenet5()}
+    key = jax.random.PRNGKey(1)
+    p = j_init_params(key, c["jm"].spec)
+    comp = restricted_comp(c["jm"], p, "fc1")
+    arts = j_export_model(c["jm"], p, comp)
+    x = np.random.default_rng(1).normal(size=(3, 32, 32, 3)).astype(
+        np.float32)
+    lj, _, _ = c["jm"].apply(p, {}, jnp.asarray(x),
+                             qcfg=JQ.serve(use_ref_kernel=True), comp=comp,
+                             serve=arts)
+    t_arts = texport.export_model(c["tm"], j2t(p), j2t(comp))
+    widths = []
+    real = texport.lut_matmul_fused
+
+    def spy(rows, packed, *a, **kw):
+        widths.append((rows.shape[1], 2 * packed.shape[0]))
+        return real(rows, packed, *a, **kw)
+
+    monkeypatch.setattr(texport, "lut_matmul_fused", spy)
+    with torch.no_grad():
+        lt, _ = c["tm"].apply(j2t(p), {}, torch.from_numpy(x), qcfg=TQ.serve(),
+                              comp=j2t(comp), serve=t_arts)
+    k_dims = [t_arts[cl.name].k_dim for cl in c["tm"].comp_layers]
+    assert widths == [(-(-k // 8) * 8, -(-k // 128) * 128) for k in k_dims]
+    assert any(w < kp for w, kp in widths)
+    assert rel(lt.numpy(), lj) < 1e-3
+
+
 # ------------------------------------------------ a JAX plan, resumed here
 
 

@@ -4,9 +4,11 @@ The plain PyTorch version (``ref.py``, what CPU tensors run) is held against
 the JAX package's Pallas kernel in interpret mode and its jnp oracle, across
 activations, bias/residual, ``block_k`` multiples of the pack block and
 ragged N: rtol/atol 1e-5, float32 summation order only. Encoding and packing
-must be bit-exact. The CUDA kernel itself runs only on the card
-(``chip_smoke.py`` holds it against ``ref.py`` there); here the wrapper's
-input checks are exercised, which run before any dispatch.
+must be bit-exact. X may be unpadded (K_x = K rounded up to 8 columns, not
+the pack block's K_pad): the plain version then equals the padded call bit
+for bit. The CUDA kernel itself runs only on the card (``chip_smoke.py``
+holds it against ``ref.py`` there); here the wrapper's input checks are
+exercised, which run before any dispatch.
 """
 
 import jax.numpy as jnp
@@ -116,6 +118,48 @@ def test_bf16_x_matches_oracle():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
+@pytest.mark.parametrize("k", [32, 144, 288, 576])
+def test_ref_unpadded_x_equals_padded_call(k):
+    """X with K_x = K columns (the serve path's rows; each K here is already
+    a multiple of 8) gives the padded (M, K_pad) call's result bit for bit,
+    with every epilogue input, against weights whose padding rows are not
+    zero weights (no 0 in the codebook)."""
+    rng = np.random.default_rng(k)
+    m, n = 24, 16
+    w = (rng.normal(size=(k, n)) * 0.05).astype(np.float32)
+    packed, cb, scale = tops.compress_layer_weights(
+        t(w), [-120, -80, -45, -20, -5], pad_k=True)
+    k_pad = 2 * packed.shape[0]
+    assert k_pad > k and int(cb[int(torch.argmin(cb.abs()))]) != 0
+    x = rng.normal(size=(m, k)).astype(np.float32)
+    x_pad = np.zeros((m, k_pad), np.float32)
+    x_pad[:, :k] = x
+    kw = dict(bias=t(rng.normal(size=(n,)).astype(np.float32)),
+              residual=t(rng.normal(size=(m, n)).astype(np.float32)),
+              activation="relu")
+    got = tops.lut_matmul_fused(t(x), packed, cb, scale, **kw)
+    want = tops.lut_matmul_fused(t(x_pad), packed, cb, scale, **kw)
+    assert torch.equal(got, want)
+    assert torch.equal(tref.lut_matmul_ref(t(x), packed, cb, scale),
+                       tref.lut_matmul_ref(t(x_pad), packed, cb, scale))
+
+
+def test_ref_x_past_k_pad_meets_zero_weights():
+    """A pack block that is not a multiple of 8 can leave K_pad below K
+    rounded up to 8; X's columns past K_pad then multiply zero weights."""
+    rng = np.random.default_rng(6)
+    w = (rng.normal(size=(27, 5)) * 0.05).astype(np.float32)
+    packed, cb, scale = tops.compress_layer_weights(t(w), VALUES, block_k=6,
+                                                    pad_k=True)
+    assert 2 * packed.shape[0] == 30
+    x = np.zeros((7, 32), np.float32)
+    x[:, :27] = rng.normal(size=(7, 27))
+    got = tops.lut_matmul_fused(t(x), packed, cb, scale, pack_block=6)
+    want = tref.exact_matmul(t(x[:, :30]), tref.dequantize(packed, cb, scale,
+                                                           6))
+    assert torch.equal(got, want)
+
+
 def test_epilogue_order_bias_act_then_residual():
     a = problem(8, 128, 16, seed=4)
     base = tref.lut_matmul_ref(t(a["x"]), t(a["packed"]), t(a["cb"]),
@@ -221,8 +265,10 @@ def _good(m=8, k=128, n=16):
 
 @pytest.mark.parametrize("bad,match", [
     ("k_pairing", "does not pair"),
+    ("k_x_over_k_pad", "does not pair"),
     ("odd_pack_block", "positive even"),
-    ("k_not_multiple", "multiple of pack_block"),
+    ("k_not_multiple", "multiple of 8"),
+    ("k_pad_not_multiple", "multiple of pack_block"),
     ("activation", "unknown activation"),
     ("bias_shape", "bias shape"),
     ("residual_shape", "residual shape"),
@@ -240,8 +286,12 @@ def test_wrapper_rejects_bad_inputs(bad, match):
         packed = torch.zeros(32, 16, dtype=torch.int8)
     elif bad == "odd_pack_block":
         kw["pack_block"] = 127
+    elif bad == "k_x_over_k_pad":
+        x = torch.zeros(8, 136)
     elif bad == "k_not_multiple":
-        x, packed = torch.zeros(8, 100), torch.zeros(50, 16, dtype=torch.int8)
+        x = torch.zeros(8, 100)
+    elif bad == "k_pad_not_multiple":
+        x, packed = torch.zeros(8, 96), torch.zeros(50, 16, dtype=torch.int8)
     elif bad == "activation":
         kw["activation"] = "tanh"
     elif bad == "bias_shape":
@@ -274,8 +324,8 @@ def test_kernel_launch_refuses_cpu_tensors():
 
 def test_serve_dense_builds_contiguous_rows_for_the_kernel():
     """A strided activation view is refused by the wrapper but served by
-    `serve_dense`, which builds the contiguous, K-padded (M, K_pad) matrix
-    explicitly."""
+    `serve_dense`, which builds the contiguous (M, K_x) matrix explicitly
+    (K_x = K rounded up to 8, not the pack block's K_pad)."""
     from repro_torch.core import qat as tqat
     from repro_torch.core.export import export_layer
 
@@ -293,3 +343,34 @@ def test_serve_dense_builds_contiguous_rows_for_the_kernel():
     want = x @ tqat.fake_quant_weight(w, comp)
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5,
                                atol=1e-5)
+
+
+@pytest.mark.parametrize("k", [27, 40, 100])
+def test_serve_dense_feeds_round_up_8_rows(k, monkeypatch):
+    """`serve_dense` hands the kernel contiguous (M, round_up(K, 8)) rows,
+    zero past K, never the pack block's K_pad."""
+    from repro_torch.core import export as texport
+    from repro_torch.core import qat as tqat
+
+    seen = []
+    real = texport.lut_matmul_fused
+
+    def spy(x, *a, **kw):
+        seen.append(x)
+        return real(x, *a, **kw)
+
+    monkeypatch.setattr(texport, "lut_matmul_fused", spy)
+    w = torch.randn(k, 12) * 0.05
+    comp = tqat.identity_comp(w.shape, device="cpu")
+    comp["codebook"], comp["codebook_k"] = tqat.make_codebook(VALUES,
+                                                              device="cpu")
+    art = texport.export_layer(w, comp)
+    x = torch.randn(2, 3, k)
+    got = texport.serve_dense(x, art)
+    rows, = seen
+    k_x = -(-k // 8) * 8
+    assert tuple(rows.shape) == (6, k_x) == (6, art.k_x) and art.k_pad == 128
+    assert rows.is_contiguous() and not rows[:, k:].any()
+    assert torch.equal(rows[:, :k], x.reshape(6, k))
+    want = tref.exact_matmul(x.reshape(6, k), tqat.fake_quant_weight(w, comp))
+    assert torch.equal(got.reshape(6, 12), want)
