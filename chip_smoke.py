@@ -23,9 +23,11 @@
    version, bin for bin, at the profile path's shapes (16 tiles x T = 64),
    all 12,288 tiles of a ResNet-20 stage-1 conv at batch 256, a batch with
    masked tiles, boundary tiles (extreme psums of both signs, all-zero
-   psums) and one tile (K1b); times kernel and plain version with CUDA
-   events and computes each case's bound (no PyTorch call computes these
-   statistics, so there is no library time);
+   psums) and one tile (K1b); prints each launch's plan (blocks, slabs of
+   transitions, shared memory, registers, blocks per SM);
+   times kernel and plain version with CUDA events and computes each case's
+   bound (no PyTorch call computes these statistics, so there is no library
+   time);
 5. the serve path: a ResNet-20 at its published width (seeded random
    weights, batch-norm statistics of one synthetic training batch, every
    layer restricted to 16 int8 values, one layer pruned 50%) saved as a plan
@@ -40,25 +42,31 @@
    per layer), with K1's launch count read around that run; the card's
    statistics are then held against the plain version on the CPU for the
    same taps and tile indices;
-7. K3, the weight fake-quant: holds the kernel against its plain version,
-   bit for bit, at every weight shape of ResNet-20's 22 compressible layers
-   (kh*kw*c_in, c_out) with k in {0, 5, 16, 32}, a 50% mask and MSR depths
-   0 and 3, with an int8 mask, with k and MSR depth passed by value, on
-   rounding ties and on the +-127 clip; times kernel (device time of a CUDA
-   graph of back-to-back launches) and plain version with CUDA events and
-   computes each shape's bound (bytes over HBM bandwidth; no PyTorch call
-   computes this function);
+7. K3, the weight fake-quant: holds the per-layer kernel against its plain
+   version, bit for bit, at every weight shape of ResNet-20's 22
+   compressible layers (kh*kw*c_in, c_out) with k in {0, 5, 16, 32}, a 50%
+   mask and MSR depths 0 and 3, with an int8 mask, with k and MSR depth
+   passed by value, on rounding ties and on the +-127 clip; holds the
+   grouped kernel (one launch for a whole QAT forward, scale and
+   straight-through value inside) against its plain version on all 22
+   layers at each k and depth, an int8 mask with the scalars by value,
+   ragged shapes, ties and large magnitudes; times one grouped call on a
+   forward's 22 weights (device time in a CUDA graph, host time a call)
+   beside its bound and, in the same run, the per-layer path it replaces
+   (22 kernel launches alone, and 22 `qat.fake_quant_weight` chains);
 8. the train step: one QAT step of ResNet-20 at batch 32 from the same
    parameters and batch on the card and on the CPU (the plain K3), held at
    loss rel 1e-5 and every gradient leaf rel-L2 1e-4; then warm QAT steps
    at batch 256 (ms per step, K3 launches per step and per eval forward,
-   both 22) and a split of one step's time (convolutions, fake-quant
-   activations, K3, batch norm, optimizer) from each part timed alone;
+   one each) and a split of one step's time (convolutions, fake-quant
+   activations, the grouped weight fake-quant, K3 alone, batch norm,
+   optimizer) from each part timed alone;
 9. the compress path: ``Pipeline(cfg, device="cuda").run()`` on ResNet-20 at
    batch 256, QAT base training, profile, energy model, the serial
    layer-wise schedule on the two layers of largest energy share, export
-   and serve, with every kernel's launches read per stage (K3 in whole
-   forwards of 22 launches before the serve stage);
+   and serve, with every kernel's launches and the model's forwards read
+   per stage (K3: one launch a fake-quant forward, plus one for each layer
+   a serve-mode forward leaves unserved);
 10. prints the ``kernels`` JSON line, then the result line.
 
 Any failure raises and the script exits non-zero. It refuses to run without
@@ -67,6 +75,7 @@ a CUDA device, and outside a checkout of the repository.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import statistics
 import subprocess
@@ -414,6 +423,15 @@ def k1_cases(torch, comp_layers):
     return cases
 
 
+def k1_plan(k1, n_tiles, t_len):
+    """The launch plan K1's wrapper takes for a batch, with the kernel's
+    resources at it: slabs, slab_len, blocks a launch, registers, spill
+    bytes, resident blocks per SM, shared memory a block."""
+    slabs, slab_len = k1.launch_plan(n_tiles, t_len, k1.sm_count(0))
+    return dict(slabs=slabs, slab_len=slab_len, blocks=n_tiles * slabs,
+                **k1.config(slab_len))
+
+
 def k1_phase(torch, cases):
     from repro_torch.kernels.transition_energy import ops, ref
     from repro_torch.kernels.transition_energy import transition_energy as k1
@@ -445,19 +463,29 @@ def k1_phase(torch, cases):
         ms = time_turns(torch, {"kernel": lambda: k1.launch(w, a, m),
                                 "plain": lambda: ref.transition_counts(
                                     w, a, m)}, reps)
+        launched = k1.launches
+        device_ms, timing = graph_ms(torch, lambda: k1.launch(w, a, m), reps)
+        host = host_us(torch, lambda: k1.launch(w, a, m), reps)
+        k1.launches = launched
         b_ms, b_by = k1_bound(w, a, m)
+        plan = k1_plan(k1, int(w.shape[0]), int(a.shape[2]))
         row = dict(case=label, n_tiles=int(w.shape[0]),
                    live_tiles=int((m != 0).sum()), T=int(a.shape[2]),
                    per_stage=per_stage, max_abs_err=max_err,
                    ms=ms["kernel"], plain_ms=ms["plain"], library_ms=None,
-                   bound_ms=b_ms, bound_by=b_by)
+                   device_ms=device_ms, timing=timing, host_us=host,
+                   bound_ms=b_ms, bound_by=b_by, plan=plan)
         if label.startswith("K1b"):
             row["replaces"] = K1B_REPLACES
         rows.append(row)
         print(f"[k1] {label:<32} n={row['n_tiles']:<6} T={row['T']:<3} "
-              f"err={max_err:.1e} kernel={ms['kernel']:.4f} "
-              f"plain={ms['plain']:.4f} bound={b_ms:.4f} ms ({b_by})",
-              flush=True)
+              f"err={max_err:.1e} kernel={ms['kernel']:.4f} (device "
+              f"{device_ms:.4f}, host {host:.1f} us) plain={ms['plain']:.4f} "
+              f"bound={b_ms:.4f} ms ({b_by}); "
+              f"{plan['blocks']} blocks ({plan['slabs']} slabs of "
+              f"{plan['slab_len']}), {plan['smem_bytes']} B shared, "
+              f"{plan['registers']} regs, "
+              f"{plan['blocks_per_sm']} blocks/SM", flush=True)
     return rows
 
 
@@ -724,10 +752,11 @@ def profile_path(torch):
         ms = time_turns(torch, {"kernel": lambda: k1.launch(w_t, a_t, mask),
                                 "plain": lambda: ref.transition_counts(
                                     w_t, a_t, mask)}, REPS)
+        device_ms, _ = graph_ms(torch, lambda: k1.launch(w_t, a_t, mask))
         b_ms, b_by = k1_bound(w_t, a_t, mask)
         rows.append(dict(layer=cl.name, n_tiles=int(w_t.shape[0]),
                          ms=ms["kernel"], plain_ms=ms["plain"],
-                         bound_ms=b_ms, bound_by=b_by))
+                         device_ms=device_ms, bound_ms=b_ms, bound_by=b_by))
         tiles += int(w_t.shape[0])
     metrics = {k: plan.metrics[k] for k in ("wall_s_profile",
                                             "wall_s_energy_model",
@@ -736,6 +765,7 @@ def profile_path(torch):
     metrics.update(profile_path_wall_s=wall, k1_launches=launches,
                    tiles_traced=tiles,
                    k1_ms_stage=sum(r["ms"] for r in rows),
+                   k1_device_ms_stage=sum(r["device_ms"] for r in rows),
                    k1_plain_ms_stage=sum(r["plain_ms"] for r in rows),
                    k1_bound_ms_stage=sum(r["bound_ms"] for r in rows),
                    share_sum=share_sum)
@@ -748,27 +778,49 @@ def profile_path(torch):
 # ------------------------------------------------------------ K3 phase
 
 
+def k3_weight_shapes(comp_layers):
+    """Every compressible weight's shape, in the JAX package's layout (HWIO
+    conv kernels, (in, out) dense weights), in the model's order."""
+    return [(cl.kernel, cl.kernel, cl.c_in, cl.c_out) if cl.kind == "conv"
+            else (cl.c_in, cl.c_out) for cl in comp_layers]
+
+
 def k3_shapes(comp_layers):
-    """{(M, N): launches per forward} of K3 on a CNN's QAT forward: one
-    launch per compressible layer, on its weight viewed as (-1, c_out)."""
-    shapes = {}
-    for cl in comp_layers:
-        key = (cl.kernel * cl.kernel * cl.c_in, cl.c_out)
-        shapes[key] = shapes.get(key, 0) + 1
-    return shapes
+    """The distinct (M, N) of a CNN's weights viewed as (-1, c_out), the
+    per-layer kernel's shapes, in order."""
+    return sorted({(cl.kernel * cl.kernel * cl.c_in, cl.c_out)
+                   for cl in comp_layers})
 
 
-def k3_bound(m, n, mask):
-    """Least time on an H100 SXM for K3's work, in ms, and what sets it.
-    Bytes: w and the mask read once, the output written once, the scales,
-    codebook and two scalars read once, over HBM bandwidth. Operations: 6
-    float32 operations a weight (mask multiply, division, rounding, two
-    clip comparisons, scale multiply) at the fp32 peak."""
-    nbytes = m * n * (4 + mask.element_size() + 4) + 4 * n + 4 * 32 + 8
+def k3_bound(ws, comps):
+    """Least time on an H100 SXM for a grouped K3 call, in ms, and what
+    sets it. Bytes: every w and mask read once, every output written once,
+    each layer's codebook and two scalars read once, over HBM bandwidth.
+    Operations: 10 float32 operations a weight (mask multiply, absolute
+    value and maximum for the scale, division, rounding, two clip
+    comparisons, scale multiply, the straight-through subtract and add) at
+    the fp32 peak."""
+    nbytes = sum(w.numel() * (4 + c["mask"].element_size() + 4) + 4 * 32 + 8
+                 for w, c in zip(ws, comps))
     t_bytes = nbytes / PEAK_HBM_BYTES
-    t_ops = 6.0 * m * n / PEAK_FP32_FLOPS
+    t_ops = 10.0 * sum(w.numel() for w in ws) / PEAK_FP32_FLOPS
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def host_us(torch, fn, calls):
+    """Host µs a call of ``fn``: ``calls`` back-to-back calls timed on the
+    host clock up to the last enqueue (the device drains afterwards, not
+    timed), so what the wrapper costs the host, whatever the kernel's
+    length."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = 1e6 * (time.perf_counter() - t0) / calls
+    torch.cuda.synchronize()
+    return us
 
 
 def graph_ms(torch, fn, reps=REPS):
@@ -809,11 +861,11 @@ def graph_ms(torch, fn, reps=REPS):
 
 
 def k3_cases(torch, comp_layers):
-    """[(label, w, mask, scale, codebook, k, msr_bits, launches per
-    forward)]: every weight shape of the QAT forward with k in {0, 5, 16,
-    32} and MSR depths {0, 3} on a 50% mask, k and the depth as int32
-    device scalars as the QAT path passes them; an int8 mask with k and the
-    depth by value; rounding ties; the clip."""
+    """[(label, w, mask, scale, codebook, k, msr_bits)] for the per-layer
+    kernel: every weight shape of ResNet-20 viewed as (-1, c_out) with k in
+    {0, 5, 16, 32} and MSR depths {0, 3} on a 50% mask, k and the depth as
+    int32 device scalars; an int8 mask with k and the depth by value;
+    rounding ties; the clip; a NaN weight at a finite scale."""
     from repro_torch.core import qat
     from repro_torch.core.schedule import symmetric_codebook_values
 
@@ -829,71 +881,206 @@ def k3_cases(torch, comp_layers):
     books = {k: codebook(symmetric_codebook_values(k) if k else [])
              for k in (0, 5, 16, 32)}
     cases = []
-    for (m, n), per_fwd in sorted(k3_shapes(comp_layers).items()):
+    for m, n in k3_shapes(comp_layers):
         w = torch.randn((m, n), generator=gen, device=dev) * 0.1
         mask = (torch.rand((m, n), generator=gen, device=dev) < 0.5).float()
         scale = qat.weight_scale(w * mask)[0]
         for k, (cb, k_t) in books.items():
             for msr in (0, 3):
                 cases.append((f"{m}x{n} k={k} msr={msr}", w, mask, scale, cb,
-                              k_t, scalar(msr),
-                              per_fwd if (k, msr) == (16, 0) else 0))
+                              k_t, scalar(msr)))
     cases.append(("576x64 int8 mask, k=16 msr=3 by value", w,
-                  mask.to(torch.int8), scale, books[16][0], 16, 3, 0))
+                  mask.to(torch.int8), scale, books[16][0], 16, 3))
     ties = torch.cat([torch.arange(-40, 40, device=dev) + 0.5,
                       torch.arange(-40, 40, device=dev).float()])
     ties = ties.reshape(-1, 8).contiguous()
     cb, k_t = codebook([-30, -10, 0, 10, 30])
     cases.append(("ties: w/scale = x.5, codebook midpoints", ties,
                   torch.ones_like(ties), torch.ones(8, device=dev), cb, k_t,
-                  scalar(0), 0))
+                  scalar(0)))
     big = torch.randn((64, 16), generator=gen, device=dev) * 4.0
     cb, k_t = codebook([-127, -100, 0, 100, 126])
     cases.append(("clip: |w/scale| up to ~1000", big, torch.ones_like(big),
-                  torch.full((16,), 0.01, device=dev), cb, k_t, scalar(0), 0))
+                  torch.full((16,), 0.01, device=dev), cb, k_t, scalar(0)))
+    nan = big.clone()
+    nan[9, 2] = float("nan")        # q of NaN is 0, as in the plain version
+    cases.append(("a NaN weight at a finite scale", nan, torch.ones_like(nan),
+                  torch.full((16,), 0.05, device=dev), cb, k_t, scalar(0)))
     return cases
 
 
 def k3_phase(torch, cases):
-    from repro_torch.kernels.fake_quant import fake_quant as k3
+    """The per-layer kernel (the serve path's unserved layers, and the
+    caller-scale API) against its plain version, bit for bit."""
     from repro_torch.kernels.fake_quant import ops, ref
 
     rows = []
-    for label, w, mask, scale, cb, k, msr, per_fwd in cases:
+    for label, w, mask, scale, cb, k, msr in cases:
         got = ops.fake_quant_project(w, mask, scale, cb, k, msr)
         want = ref.fake_quant_ref(w, mask, scale, cb, k, msr)
         torch.cuda.synchronize()
         max_err = float((got - want).abs().max())
-        if not torch.equal(got, want):
+        if not equal_nan(torch, got, want):
             raise AssertionError(
                 f"K3 {label}: kernel differs from the plain version (max abs "
                 f"err {max_err:.3e}; required: equal)")
-        m, n = w.shape
-        row = dict(case=label, M=m, N=n, mask=str(mask.dtype).replace(
-            "torch.", ""), per_forward=per_fwd, max_abs_err=max_err)
-        if per_fwd:
-            row["ms"], row["timing"] = graph_ms(
-                torch, lambda: k3.launch(w, mask, scale, cb, k, msr))
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(HOST_CALLS):
-                ops.fake_quant_project(w, mask, scale, cb, k, msr)
-            torch.cuda.synchronize()
-            row["host_us_per_call"] = 1e6 * (time.perf_counter()
-                                             - t0) / HOST_CALLS
-            row["plain_ms"] = time_turns(torch, {"plain": lambda: (
-                ref.fake_quant_ref(w, mask, scale, cb, k, msr))},
-                REPS)["plain"]
-            row["bound_ms"], row["bound_by"] = k3_bound(m, n, mask)
-            print(f"[k3] {label:<40} x{per_fwd:<2} err={max_err:.1e} "
-                  f"kernel={row['ms']:.5f} plain={row['plain_ms']:.4f} "
-                  f"host={row['host_us_per_call']:.1f}us "
-                  f"bound={row['bound_ms']:.6f} ms ({row['bound_by']})",
-                  flush=True)
-        else:
-            print(f"[k3] {label:<40} err={max_err:.1e}", flush=True)
-        rows.append(row)
+        rows.append(dict(case=f"per-layer {label}", max_abs_err=max_err))
+        print(f"[k3] per-layer {label:<40} err={max_err:.1e}", flush=True)
     return rows
+
+
+def k3_group_cases(torch, comp_layers):
+    """[(label, ws, comps)] for the grouped kernel: every ResNet-20 weight
+    in one group with k in {0, 5, 16, 32} and MSR depths {0, 3} on a 50%
+    mask (k and the depth as int32 device scalars, as the QAT path passes
+    them); an int8 mask with k and the depth by value; ragged shapes; ties
+    (w / scale exactly x.5, values exactly between codebook entries); large
+    magnitudes; a NaN weight (its column NaN, as in the plain version)."""
+    from repro_torch.core import qat
+    from repro_torch.core.schedule import symmetric_codebook_values
+
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(12)
+
+    def comp(w, values=(), msr=0, mask=None, by_value=False):
+        c = qat.identity_comp(tuple(w.shape), device=dev)
+        if values:
+            c["codebook"], c["codebook_k"] = qat.make_codebook(values,
+                                                               device=dev)
+        if mask is not None:
+            c["mask"] = mask
+        c["msr_bits"] = torch.tensor(msr, dtype=torch.int32, device=dev)
+        if by_value:
+            c["codebook_k"], c["msr_bits"] = len(values), msr
+        return c
+
+    ws = [torch.randn(s, generator=gen, device=dev) * 0.1
+          for s in k3_weight_shapes(comp_layers)]
+    masks = [(torch.rand(w.shape, generator=gen, device=dev) < 0.5).float()
+             for w in ws]
+    cases = []
+    for k in (0, 5, 16, 32):
+        values = symmetric_codebook_values(k) if k else ()
+        for msr in (0, 3):
+            cases.append((f"resnet20, 22 layers, k={k} msr={msr}", ws,
+                          [comp(w, values, msr=msr, mask=m)
+                           for w, m in zip(ws, masks)]))
+    cases.append(("resnet20, int8 mask, k=16 msr=3 by value", ws,
+                  [comp(w, symmetric_codebook_values(16), msr=3,
+                        mask=m.to(torch.int8), by_value=True)
+                   for w, m in zip(ws, masks)]))
+    ragged = [torch.randn(s, generator=gen, device=dev)
+              for s in ((7, 37), (5,), (1, 1), (3, 3, 5, 70), (300, 9))]
+    cases.append(("ragged shapes", ragged,
+                  [comp(w, symmetric_codebook_values(5)) for w in ragged]))
+    ties = torch.cat([torch.arange(-40, 40, device=dev) + 0.5,
+                      torch.arange(-40, 40, device=dev).float(),
+                      torch.full((8,), 127.0, device=dev)])   # scale = 1
+    ties = ties.reshape(-1, 8).contiguous()
+    big = torch.randn((64, 16), generator=gen, device=dev) * 4.0
+    cases.append(("ties and large magnitudes", [ties, big],
+                  [comp(ties, (-30, -10, 0, 10, 30)),
+                   comp(big, (-127, -100, 0, 100, 126))]))
+    nan = torch.randn((40, 12), generator=gen, device=dev)
+    nan[17, 3] = float("nan")      # its column's scale, and column, is NaN
+    nan[5, 8] = float("nan")       # NaN * 0 is NaN: masked out, still NaN
+    nan_mask = torch.ones_like(nan)
+    nan_mask[5, 8] = 0.0
+    cases.append(("one NaN weight a column", [nan, big],
+                  [comp(nan, symmetric_codebook_values(16), mask=nan_mask),
+                   comp(big, symmetric_codebook_values(5))]))
+    return cases
+
+
+def equal_nan(torch, a, b):
+    """``a`` equals ``b`` bit for bit where neither is NaN, and both are
+    NaN at the same places."""
+    nan = a.isnan()
+    return (torch.equal(nan, b.isnan())
+            and torch.equal(a.masked_fill(nan, 0.0), b.masked_fill(nan, 0.0)))
+
+
+def k3_group_phase(torch, comp_layers):
+    """The grouped kernel against its plain version on `k3_group_cases`,
+    bit for bit, one launch a group; then, on one ResNet-20 QAT forward's
+    22 weights (k = 16, 50% mask), device time of one grouped call in a
+    CUDA graph and host time a call, beside the per-layer path it replaced,
+    in the same run: its 22 kernel launches alone and its 22
+    `qat.fake_quant_weight` chains (kernel plus the eager mask, scale and
+    straight-through ops around it), device and host. Timing launches are
+    not counted as the main path's."""
+    from repro_torch.core import qat
+    from repro_torch.kernels.fake_quant import fake_quant as k3
+    from repro_torch.kernels.fake_quant import ref
+
+    rows = []
+    cases = k3_group_cases(torch, comp_layers)
+    for label, ws, comps in cases:
+        launched = k3.launches
+        got = qat.fake_quant_weights(ws, comps)
+        if k3.launches - launched != 1:
+            raise AssertionError(f"K3 group {label}: "
+                                 f"{k3.launches - launched} launches")
+        torch.cuda.synchronize()
+        max_err = 0.0
+        for i, (w, c, g) in enumerate(zip(ws, comps, got)):
+            want = ref.fake_quant_ste_ref(w, c)
+            max_err = max(max_err, float((g - want).abs().nan_to_num(
+                nan=0.0).max()))
+            if not equal_nan(torch, g, want):
+                raise AssertionError(
+                    f"K3 group {label}, entry {i} {tuple(w.shape)}: kernel "
+                    f"differs from the plain version (max abs err "
+                    f"{max_err:.3e}; required: equal)")
+        rows.append(dict(case=f"grouped {label}", layers=len(ws),
+                         max_abs_err=max_err))
+        print(f"[k3] grouped {label:<42} x{len(ws):<2} err={max_err:.1e}",
+              flush=True)
+
+    ws, comps = next(c[1:] for c in cases if c[0].endswith("k=16 msr=0"))
+    launched = k3.launches
+
+    scales = [qat.weight_scale(w * c["mask"]).reshape(-1)
+              for w, c in zip(ws, comps)]
+
+    def grouped():
+        qat.fake_quant_weights(ws, comps)
+
+    def per_layer_kernels():
+        for w, c, sc in zip(ws, comps, scales):
+            n = w.shape[-1]
+            k3.launch(w.reshape(-1, n), c["mask"].reshape(-1, n), sc,
+                      c["codebook"], c["codebook_k"], c["msr_bits"])
+
+    def per_layer_chains():
+        for w, c in zip(ws, comps):
+            qat.fake_quant_weight(w, c)
+
+    with torch.no_grad():
+        out = {}
+        out["device_ms"], out["timing"] = graph_ms(torch, grouped)
+        out["per_layer_kernels_device_ms"], _ = graph_ms(torch,
+                                                         per_layer_kernels)
+        out["per_layer_chains_device_ms"], _ = graph_ms(torch,
+                                                        per_layer_chains)
+        out["host_us_per_call"] = host_us(torch, grouped, HOST_CALLS)
+        out["per_layer_chains_host_us"] = host_us(torch, per_layer_chains,
+                                                  HOST_CALLS // 4)
+        out["plain_ms"] = time_turns(torch, {"plain": lambda: [
+            ref.fake_quant_ste_ref(w, c) for w, c in zip(ws, comps)]},
+            REPS)["plain"]
+    k3.launches = launched
+    out["bound_ms"], out["bound_by"] = k3_bound(ws, comps)
+    out["weights"] = sum(w.numel() for w in ws)
+    print(f"[k3] one ResNet-20 forward, 22 layers: grouped "
+          f"{1e3 * out['device_ms']:.2f} us device ({out['timing']}), "
+          f"{out['host_us_per_call']:.1f} us host a call; per-layer kernels "
+          f"{1e3 * out['per_layer_kernels_device_ms']:.2f} us device; "
+          f"per-layer chains {1e3 * out['per_layer_chains_device_ms']:.2f} "
+          f"us device, {out['per_layer_chains_host_us']:.1f} us host; plain "
+          f"{out['plain_ms']:.4f} ms; bound {1e3 * out['bound_ms']:.3f} us "
+          f"({out['bound_by']})", flush=True)
+    return rows, out
 
 
 # --------------------------------------------------------------- train step
@@ -934,10 +1121,10 @@ def step_breakdown(torch, runner, params, state, opt_state, comp, batch):
     """ms of one warm QAT step and of its parts, each part run alone at the
     step's own shapes (forward and backward) between CUDA events:
     convolutions, fake-quant activations, batch norm, the weight fake-quant
-    (K3 with its mask, scale and straight-through around it), K3's 22
-    launches with their scales alone, the optimizer. Alone, each part's
-    host launch gaps show in its time, while the step overlaps them with
-    device work, so ``parts_sum`` may exceed ``step``."""
+    (the grouped call with its straight-through backward), the grouped K3
+    launch alone, the optimizer. Alone, each part's host launch gaps show
+    in its time, while the step overlaps them with device work, so
+    ``parts_sum`` may exceed ``step``."""
     from repro_torch.core import qat
     from repro_torch.kernels.fake_quant import fake_quant as k3
     from repro_torch.nn import layers as L
@@ -945,7 +1132,7 @@ def step_breakdown(torch, runner, params, state, opt_state, comp, batch):
 
     calls = {"conv": [], "act": [], "bn": [], "weight": []}
     real = (L.conv_nhwc, qat.fake_quant_act, L.apply_batchnorm,
-            qat.fake_quant_weight)
+            qat.fake_quant_weights)
 
     def rec(kind, fn):
         def wrapped(*a, **kw):
@@ -956,12 +1143,12 @@ def step_breakdown(torch, runner, params, state, opt_state, comp, batch):
     L.conv_nhwc = rec("conv", real[0])
     qat.fake_quant_act = rec("act", real[1])
     L.apply_batchnorm = rec("bn", real[2])
-    qat.fake_quant_weight = rec("weight", real[3])
+    qat.fake_quant_weights = rec("weight", real[3])
     try:
         runner.loss_and_grads(params, state, comp, batch)
     finally:
         (L.conv_nhwc, qat.fake_quant_act, L.apply_batchnorm,
-         qat.fake_quant_weight) = real
+         qat.fake_quant_weights) = real
 
     grad_args = {"conv": (0, 1), "act": (0,), "bn": (0, 2), "weight": (0,)}
 
@@ -974,6 +1161,8 @@ def step_breakdown(torch, runner, params, state, opt_state, comp, batch):
                 else v
         if isinstance(v, dict):
             return {k: prep(x, grad) for k, x in v.items()}
+        if isinstance(v, list):
+            return [prep(x, grad) for x in v]
         return v
 
     def fwd_bwd(kind, fn):
@@ -981,16 +1170,15 @@ def step_breakdown(torch, runner, params, state, opt_state, comp, batch):
             for a, kw in calls[kind]:
                 out = fn(*[prep(v, i in grad_args[kind])
                            for i, v in enumerate(a)], **kw)
-                out = out[0] if isinstance(out, tuple) else out
-                out.backward(torch.ones_like(out))
+                outs = out if isinstance(out, list) else [
+                    out[0] if isinstance(out, tuple) else out]
+                torch.autograd.backward(outs,
+                                        [torch.ones_like(o) for o in outs])
         return run
 
     def k3_alone():
-        for (w, c), _ in calls["weight"]:
-            n = w.shape[-1]
-            k3.launch(w.detach().reshape(-1, n), c["mask"].reshape(-1, n),
-                      qat.weight_scale(w.detach() * c["mask"]).reshape(-1),
-                      c["codebook"], c["codebook_k"], c["msr_bits"])
+        for (ws, comps), _ in calls["weight"]:
+            k3.launch_group([w.detach() for w in ws], comps)
 
     loss, grads, _ = runner.loss_and_grads(params, state, comp, batch)
 
@@ -1015,7 +1203,7 @@ def step_breakdown(torch, runner, params, state, opt_state, comp, batch):
 
 def kernel_category(name):
     n = name.lower()
-    if "fake_quant_kernel" in n:
+    if "fake_quant" in n:
         return "k3"
     if any(t in n for t in ("conv", "cudnn", "gemm", "dgrad", "wgrad", "xmma",
                             "implicit", "winograd", "im2col", "col2im")):
@@ -1089,9 +1277,9 @@ def train_phase(torch):
     card_loss, card_grads, _ = card.loss_and_grads(
         *(tree_to(t, "cuda") for t in (params, state, comp, batch)))
     torch.cuda.synchronize()
-    if k3.launches != 22:
+    if k3.launches != 1:
         raise AssertionError(f"card step launched K3 {k3.launches} times, "
-                             "expected 22")
+                             "expected 1")
     loss_rel = abs(float(card_loss) - float(cpu_loss)) / abs(float(cpu_loss))
     grad_rel = {}
     cpu_leaves = leaves(cpu_grads)
@@ -1140,9 +1328,9 @@ def train_phase(torch):
                            qcfg=runner.qcfg, comp=comp)
     torch.cuda.synchronize()
     per_eval = k3.launches
-    if per_step != 22 or per_eval != 22:
+    if per_step != 1 or per_eval != 1:
         raise AssertionError(f"K3 launches: {per_step} per train step and "
-                             f"{per_eval} per eval forward, expected 22 each")
+                             f"{per_eval} per eval forward, expected 1 each")
     torch.cuda.reset_peak_memory_stats()
     parts = step_breakdown(torch, runner, params, state, opt_state, comp,
                            batch)
@@ -1173,11 +1361,13 @@ def train_phase(torch):
 
 def compress_path(torch):
     """``Pipeline(cfg, device="cuda").run()``: all five stages on ResNet-20
-    at batch 256, every kernel's launches read per stage. Returns (the
-    kernels' launches over the run, per-stage launches)."""
+    at batch 256, every kernel's launches and the model's forwards (fake-
+    quant and serve mode) read per stage. Returns (the kernels' launches
+    over the run, per-stage launches)."""
     from repro_torch.kernels.fake_quant import fake_quant as k3
     from repro_torch.kernels.lut_matmul import lut_matmul as k2
     from repro_torch.kernels.transition_energy import transition_energy as k1
+    from repro_torch.nn.layers import QuantConfig
     from repro_torch.pipeline.config import (
         PipelineConfig,
         ProfileStageConfig,
@@ -1211,22 +1401,41 @@ def compress_path(torch):
     del p0, s0, c0
 
     kernels = {"K1": k1, "K2": k2, "K3": k3}
-    per_stage = {}
+    # forwards by kind, counted where the model runs, to hold K3's launches
+    # to: one a fake-quant forward (a QAT step's or an evaluation's), plus
+    # one a layer that a serve-mode forward does not serve
+    forwards = {"fake_quant": 0, "serve": 0}
+    real_apply = runner.model.apply
+
+    def counting_apply(*args, qcfg=QuantConfig.off(), **kw):
+        if qcfg.enabled:
+            forwards["serve" if qcfg.comp_mode == "serve"
+                     else "fake_quant"] += 1
+        return real_apply(*args, qcfg=qcfg, **kw)
+
+    per_stage, forwards_per_stage = {}, {}
     for stage in STAGES:
         def counted(plan, cfg, verbose=False, _stage=stage,
                     _fn=getattr(pipe.target, f"stage_{stage}")):
             before = {key: mod.launches for key, mod in kernels.items()}
+            fwd_before = dict(forwards)
             _fn(plan, cfg, verbose=verbose)
             per_stage[_stage] = {key: mod.launches - before[key]
                                  for key, mod in kernels.items()}
+            forwards_per_stage[_stage] = {key: forwards[key] - fwd_before[key]
+                                          for key in forwards}
         setattr(pipe.target, f"stage_{stage}", counted)
 
     for mod in kernels.values():
         mod.launches = 0
-    t0 = time.perf_counter()
-    plan = pipe.run(verbose=True)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    runner.model.apply = counting_apply
+    try:
+        t0 = time.perf_counter()
+        plan = pipe.run(verbose=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        runner.model.apply = real_apply
     totals = {key: mod.launches for key, mod in kernels.items()}
 
     m = plan.metrics
@@ -1236,23 +1445,33 @@ def compress_path(torch):
             "the schedule left no layer servable (accepted with a codebook "
             f"of <= 16 values): decisions {plan.decisions}")
     serve_fwds = 1 + cfg.train.eval_batches
+    want_fwds = {
+        "profile": {"fake_quant": cfg.train.qat_steps + cfg.train.eval_batches
+                    + cfg.profile.batches, "serve": 0},
+        "energy_model": {"fake_quant": 0, "serve": 0},
+        "export": {"fake_quant": 0, "serve": 0},
+        "serve": {"fake_quant": 1, "serve": serve_fwds},
+    }
+    for stage, want in want_fwds.items():
+        if forwards_per_stage[stage] != want:
+            raise AssertionError(f"{stage}: forwards "
+                                 f"{forwards_per_stage[stage]}, expected "
+                                 f"{want}")
     expect = {
-        "profile": {"K1": 22, "K2": 0, "K3": 22 * (
-            cfg.train.qat_steps + cfg.train.eval_batches
-            + cfg.profile.batches)},
-        "energy_model": {"K1": 0, "K2": 0, "K3": 0},
-        "export": {"K1": 0, "K2": 0, "K3": 0},
-        "serve": {"K1": 0, "K2": n_art * serve_fwds,
-                  "K3": 22 + (22 - n_art) * serve_fwds},
+        "profile": {"K1": 22, "K2": 0},
+        "energy_model": {"K1": 0, "K2": 0},
+        "schedule": {"K1": 0, "K2": 0},
+        "export": {"K1": 0, "K2": 0},
+        "serve": {"K1": 0, "K2": n_art * serve_fwds},
     }
     for stage, want in expect.items():
+        f = forwards_per_stage[stage]
+        want = dict(want, K3=f["fake_quant"] + (22 - n_art) * f["serve"])
         if per_stage[stage] != want:
             raise AssertionError(f"{stage}: launches {per_stage[stage]}, "
-                                 f"expected {want}")
-    sched = per_stage["schedule"]
-    if sched["K1"] or sched["K2"] or not sched["K3"] or sched["K3"] % 22:
-        raise AssertionError(f"schedule: launches {sched}, expected K3 only, "
-                             "in whole forwards of 22")
+                                 f"expected {want} (forwards {f})")
+    if not forwards_per_stage["schedule"]["fake_quant"]:
+        raise AssertionError("schedule: no fake-quant forward")
     if totals != {key: sum(v[key] for v in per_stage.values())
                   for key in kernels}:
         raise AssertionError(f"launch totals {totals} != the stages' sum")
@@ -1272,8 +1491,17 @@ def compress_path(torch):
         "qat_loss", "acc_base", "acc0", "acc_final", "accuracy_drop",
         "energy_before", "energy_after", "energy_saving",
         "serve_logit_rel_err", "serve_accuracy", "export_layers")})
+    # the schedule's result, masks and codebooks included, in one digest
+    digest = hashlib.sha256()
+    for name in sorted(plan.comp):
+        for key in ("mask", "codebook", "codebook_k", "msr_bits"):
+            v = plan.comp[name].get(key)
+            if v is not None:
+                digest.update(v.detach().cpu().contiguous().numpy().tobytes())
     out.update(first_step_loss=first_loss, compress_path_wall_s=wall,
                launches=totals, launches_per_stage=per_stage,
+               forwards_per_stage=forwards_per_stage,
+               comp_sha256=digest.hexdigest(),
                decisions=[{k: d[k] for k in ("layer", "share", "prune_ratio",
                                               "k", "msr", "accepted",
                                               "accuracy")}
@@ -1317,6 +1545,7 @@ def main() -> int:
                                                  resnet50()))
     k1_rows = k1_phase(torch, k1_cases(torch, resnet20().comp_layers))
     k3_rows = k3_phase(torch, k3_cases(torch, resnet20().comp_layers))
+    k3_group_rows, k3_forward = k3_group_phase(torch, resnet20().comp_layers)
     torch.cuda.empty_cache()
 
     k2_launches = serve_path(torch, ROOT / "build" / "chip_smoke")
@@ -1359,14 +1588,17 @@ def main() -> int:
         **K1, "route": "cuda", "launches": k1_launches,
         "max_abs_err": max(r["max_abs_err"] for r in k1_rows),
         **{key: sum(r[key] for r in k1_path)
-           for key in ("ms", "plain_ms", "bound_ms")},
+           for key in ("ms", "plain_ms", "device_ms", "bound_ms")},
         "bound_by": "operations"
         if all(r["bound_by"] == "operations" for r in k1_path) else "bytes",
         "library_ms": None,
         "library": "none: no PyTorch call computes these statistics",
         "scope": f"sum over the {k1_launches} launches of one ResNet-20 "
                  f"profile stage at batch {BATCH} ({PROFILE_TILES} tiles a "
-                 "layer, T = 64), timed on the stage's own tiles",
+                 "layer, T = 64), timed on the stage's own tiles: ms, "
+                 "plain_ms one call between CUDA events, the card idle "
+                 "before it; device_ms one launch's device time in a CUDA "
+                 "graph",
         "compress_path_launches": compress_launches["K1"],
         "main_path": k1_path,
         "shapes": k1_rows,
@@ -1376,29 +1608,33 @@ def main() -> int:
         "name": "transition_energy (K1b, one tile)", "route": "cuda",
         "source": K1["source"], "replaces": K1B_REPLACES, "launches": 0,
         **{key: k1b[key] for key in ("max_abs_err", "ms", "plain_ms",
-                                     "bound_ms", "bound_by", "library_ms")},
+                                     "device_ms", "bound_ms", "bound_by",
+                                     "library_ms")},
         "scope": "one tile, T = 64, as a batch of one over K1 "
                  "(ops.tile_transition_stats); no path of the pipeline "
                  "calls the tile API, so it has no launches there",
     }
-    k3_path = [r for r in k3_rows if r["per_forward"]]
+    k3_all = k3_rows + k3_group_rows
     k3_entry = {
         **K3, "route": "cuda", "launches": compress_launches["K3"],
-        "max_abs_err": max(r["max_abs_err"] for r in k3_rows),
-        **{key: sum(r[key] * r["per_forward"] for r in k3_path)
-           for key in ("ms", "plain_ms", "bound_ms")},
-        "bound_by": "bytes"
-        if all(r["bound_by"] == "bytes" for r in k3_path) else "operations",
+        "max_abs_err": max(r["max_abs_err"] for r in k3_all),
+        "ms": k3_forward["device_ms"], "plain_ms": k3_forward["plain_ms"],
+        "bound_ms": k3_forward["bound_ms"],
+        "bound_by": k3_forward["bound_by"],
         "library_ms": None,
         "library": "none: no PyTorch call computes this function",
-        "scope": "sum over the 22 launches of one ResNet-20 QAT forward "
-                 "(per-shape device time x launches per forward; k = 16, "
-                 "50% mask); launches: the compress path's run",
-        "timing": sorted({r["timing"] for r in k3_path}),
+        "scope": "one grouped launch: the 22 weights of a ResNet-20 QAT "
+                 "forward (k = 16, 50% mask), scale and straight-through "
+                 "value inside, device time in a CUDA graph (`timing`); "
+                 "per_layer_*: the per-layer path on the same weights in the "
+                 "same run; launches: the compress path's run",
+        **{key: k3_forward[key] for key in (
+            "timing", "host_us_per_call", "per_layer_kernels_device_ms",
+            "per_layer_chains_device_ms", "per_layer_chains_host_us",
+            "weights")},
         "launches_per_stage": {stage: v["K3"]
                                for stage, v in compress_stages.items()},
-        "cases_equal": len(k3_rows),
-        "shapes": k3_path,
+        "cases_equal": len(k3_all),
     }
     entries = [k2_entry, k1_entry, k1b_entry, k3_entry]
     print(f"[card] {card}", flush=True)

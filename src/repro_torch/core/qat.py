@@ -21,11 +21,14 @@ channel; quantization scales are per-output-channel over all other axes.
 `fake_quant_weight` runs its mask / quantize / MSR / projection chain
 through the fused kernel K3 (`repro_torch.kernels.fake_quant`): the plain
 version for CPU tensors, the CUDA kernel for CUDA tensors.
+`fake_quant_weights` does the same for a whole forward's layers in one
+grouped K3 launch, the per-column scale and the straight-through value
+included.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -125,6 +128,13 @@ def _round_clip(v: torch.Tensor) -> torch.Tensor:
     return torch.clamp(torch.round(v), -QMAX, QMAX)
 
 
+def clipped_to_int(q: torch.Tensor) -> torch.Tensor:
+    """int32 of `_round_clip`'s output, a NaN (from a NaN weight or scale)
+    taken as 0, as the JAX package's float-to-int conversion takes it, so it
+    indexes the codebook table in range."""
+    return torch.nan_to_num(q, nan=0.0).to(torch.int32)
+
+
 def quantize_weight_int(w: torch.Tensor,
                         comp: Optional[CompState] = None) -> torch.Tensor:
     """Integer (int32-valued int8) view of a weight tensor after mask / quant
@@ -132,7 +142,7 @@ def quantize_weight_int(w: torch.Tensor,
     if comp is not None:
         w = w * comp["mask"].to(w.dtype)
     scale = weight_scale(w)
-    q = _round_clip(w / scale).to(torch.int32)
+    q = clipped_to_int(_round_clip(w / scale))
     if comp is not None:
         msr = comp.get("msr_bits")
         if msr is not None:
@@ -163,6 +173,18 @@ def fake_quant_weight(w: torch.Tensor,
         comp["codebook_k"], 0 if msr is None else msr).reshape(w.shape)
     # straight-through: forward value wq, gradient of identity wrt wm
     return wm + (wq - wm).detach()
+
+
+def fake_quant_weights(ws: Sequence[torch.Tensor],
+                       comps: Sequence[Optional[CompState]]
+                       ) -> List[torch.Tensor]:
+    """`fake_quant_weight` of several layers at once (``comps[i]`` None =
+    identity): one grouped K3 launch for CUDA tensors, the plain version
+    for CPU tensors. Each output equals ``fake_quant_weight(ws[i],
+    comps[i])`` bit for bit, and so does its gradient (the mask)."""
+    comps = [identity_comp(tuple(w.shape), w.dtype, device=w.device)
+             if c is None else c for w, c in zip(ws, comps, strict=True)]
+    return fake_quant_ops.fake_quant_group(list(ws), comps)
 
 
 def _act_scale(a: torch.Tensor) -> torch.Tensor:

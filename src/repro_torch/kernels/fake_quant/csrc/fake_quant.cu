@@ -1,4 +1,7 @@
-// Fused weight fake-quantization for QAT, for Hopper (sm_90a).
+// Fused weight fake-quantization for QAT, for Hopper (sm_90a): kernel K3.
+//
+// Two entry points share one chain. The per-layer kernel takes the
+// per-column scale from the caller:
 //
 //   wm  = w * mask
 //   q   = clip(rint(wm / scale[n]), -127, 127)
@@ -6,40 +9,56 @@
 //         (k = 0: no projection; msr_bits = 0: no truncation)
 //   out = q' * scale[n]
 //
-// over an (M, N) weight matrix: a conv kernel (kh, kw, c_in, c_out) or a
+// The grouped kernel does a whole QAT forward's weights in one launch and
+// computes the rest of `repro_torch.core.qat.fake_quant_weight` itself:
+//
+//   scale[n] = max(max_m |wm[m, n]|, 1e-8) / 127
+//   out      = wm + (q' * scale[n] - wm)      (the straight-through value)
+//
+// over (M, N) weight matrices: a conv kernel (kh, kw, c_in, c_out) or a
 // dense weight (in, out) viewed as (-1, c_out), so the scale is per column.
 //
 // Replaces the TPU kernel
 //   src/repro/kernels/fake_quant/fake_quant.py::fake_quant_pallas
 // (body `_kernel`), with the most-significant-run truncation of
 // `repro.core.qat.fake_quant_weight` fused between the rounding and the
-// projection. With msr_bits = 0 it computes exactly what the TPU kernel
-// computes. The straight-through backward (g * mask) is plain PyTorch, as
-// in the JAX package; it never reads this kernel's output.
+// projection. With msr_bits = 0 the per-layer kernel computes exactly what
+// the TPU kernel computes. The straight-through backward (g * mask) is plain
+// PyTorch, as in the JAX package; it never reads this kernel's output.
 //
 // Exactness. The result must equal the plain version (kernels/fake_quant/
 // ref.py, the port's and the JAX package's QAT chain) bit for bit, so every
 // step is an IEEE operation nvcc may not rewrite: __fmul_rn for the mask and
-// the final scale (no contraction into an FMA), __fdiv_rn for the division
+// the final scale (no contraction into an FMA), __fdiv_rn for the divisions
 // (never --use_fast_math), rintf (round half to even, as torch.round and
 // jnp.round; roundf would round half away from zero), the clip before the
-// projection, and a strict `<` in the nearest-value search so that a tie
-// keeps the lower index (the smaller value of a sorted codebook).
+// projection, a strict `<` in the nearest-value search so that a tie keeps
+// the lower index (the smaller value of a sorted codebook), and __fsub_rn /
+// __fadd_rn for `wm + (wq - wm)`, which is not always wq in float32. The
+// column maximum is exact in any order, so a block reduction equals
+// torch.amax; it passes a NaN through, as torch.amax does.
 //
 // What bounds it on an H100. Per weight it reads w and the mask and writes
-// the output, 12 bytes, plus one scale per column; ResNet-20's largest layer
-// holds 36,864 weights, 0.44 MB, 0.13 us at 3.35 TB/s. Every launch of the
-// QAT path is therefore bound by launch latency, not by bytes or operations.
+// the output, 12 bytes, plus one codebook per layer; ResNet-20's 22 layers
+// hold 270,896 weights, 3.3 MB, 0.97 us at 3.35 TB/s. A QAT forward of 22
+// per-layer launches (2.5 us each) plus the eager ops around them is bound
+// by launch latency, not by bytes or operations.
 //
-// What the design does about it. One thread per element in a grid-stride
-// loop, one launch per weight, no host synchronisation: k and msr_bits are
-// read on the device from the comp state's scalars. Each block first builds
-// a 256-entry table in shared memory, table[v + 128] = projection of
-// MSR(v), one int8 value per thread, instead of the TPU kernel's 32-way
-// unrolled select per element; MSR truncation and projection are functions
-// of the int8 value alone, so the table gives the same result as the
-// chain. Each element then costs a multiply, a division, a rounding, a clip,
-// a shared-memory read and a multiply.
+// What the design does about it. The grouped kernel takes the forward's
+// layers as a table passed by value (`__grid_constant__`, read in place
+// from the parameter bank: no copy to the device, no host synchronisation)
+// and launches once: one 256-thread block per (layer, slab of 8 columns),
+// 32 row phases a column, each thread with 8 loads in flight (the columns
+// are short, so a dependent load a row would cost a memory latency each).
+// A block reduces its columns' |w * mask| maxima through shared memory and
+// divides once per column; meanwhile it builds a 256-entry table in shared
+// memory, table[v + 128] = projection of MSR(v), one int8 value per thread,
+// from the layer's codebook (staged in shared memory) and its k and
+// msr_bits, read on the device from the comp state's scalars. MSR
+// truncation and projection are functions of the int8 value alone, so the
+// table gives the same result as the chain. A second pass over the same
+// (L1/L2-resident) rows writes the outputs. The per-layer kernel is one
+// thread per element in a grid-stride loop over the same table.
 
 #include <climits>
 #include <cuda_runtime.h>
@@ -50,7 +69,13 @@ namespace {
 constexpr int kThreads = 256;  // = the 256 int8 values of the table
 constexpr int kKMax = 32;      // codebook length (qat.K_MAX)
 constexpr float kQMax = 127.f;
+constexpr float kMinAmax = 1e-8f;          // qat._over_qmax's clamp
 constexpr int kMaxBlocks = 132 * 16;
+constexpr int kSlab = 8;                   // columns a grouped block owns
+constexpr int kRowPhases = kThreads / kSlab;
+constexpr int kBatch = 8;                  // loads in flight a thread
+constexpr int kMaxGroup = 60;              // layers a grouped launch takes
+constexpr int kEntryWords = 11;            // int64 words of a host entry
 
 // Keep the top `bits` significant bits of |q|, zero the rest, keep the sign;
 // bits <= 0 is the identity (qat.msr_truncate_int).
@@ -69,6 +94,53 @@ __device__ __forceinline__ float mask_value(const int8_t* m, long long i) {
   return static_cast<float>(m[i]);
 }
 
+// The codebook into shared memory, one entry a thread, so that the table's
+// search reads no device memory. The caller syncs.
+__device__ __forceinline__ void stage_codebook(int* s_cb,
+                                               const int32_t* codebook) {
+  if (threadIdx.x < kKMax) s_cb[threadIdx.x] = __ldg(codebook + threadIdx.x);
+}
+
+// table[v + 128] = the projection of MSR(v, bits) onto the first k values
+// of the staged codebook (k <= 0: MSR(v)); thread t fills entry t. The
+// caller syncs.
+__device__ __forceinline__ void build_table(float* table, const int* codebook,
+                                            int k, int bits) {
+  const int v = static_cast<int>(threadIdx.x) - 128;
+  const int m = msr_truncate(v, bits);
+  int best = m;
+  if (k > 0) {
+    const int kk = min(k, kKMax);
+    int best_d = INT_MAX;
+    for (int c = 0; c < kk; ++c) {
+      const int cv = codebook[c];
+      const int d = abs(m - cv);
+      if (d < best_d) {  // strict: a tie keeps the lower index
+        best_d = d;
+        best = cv;
+      }
+    }
+  }
+  table[threadIdx.x] = static_cast<float>(best);
+}
+
+// max(a, b) that returns NaN if either is NaN, as torch.amax, torch.clamp
+// and jnp.max do (fmaxf drops a NaN): a NaN weight makes its column's scale,
+// and so the whole column, NaN, as in the plain version
+__device__ __forceinline__ float nan_max(float a, float b) {
+  return (a != a || a > b) ? a : b;
+}
+
+// q' * s for wm = w * mask: quantize, clip (a NaN to 0, as the plain
+// version's and XLA's float-to-int conversion take it), project through the
+// table
+__device__ __forceinline__ float project(const float* table, float wm,
+                                         float s) {
+  float q = rintf(__fdiv_rn(wm, s));
+  q = q != q ? 0.f : fminf(fmaxf(q, -kQMax), kQMax);
+  return __fmul_rn(table[static_cast<int>(q) + 128], s);
+}
+
 template <typename MaskT>
 __global__ void __launch_bounds__(kThreads)
 fake_quant_kernel(const float* __restrict__ w, const MaskT* __restrict__ mask,
@@ -78,26 +150,11 @@ fake_quant_kernel(const float* __restrict__ w, const MaskT* __restrict__ mask,
                   const int32_t* __restrict__ msr_ptr, int msr_val,
                   float* __restrict__ out, long long total, int n) {
   __shared__ float table[kThreads];
-  {
-    const int k = k_ptr != nullptr ? *k_ptr : k_val;
-    const int bits = msr_ptr != nullptr ? *msr_ptr : msr_val;
-    const int v = static_cast<int>(threadIdx.x) - 128;
-    const int m = msr_truncate(v, bits);
-    int best = m;
-    if (k > 0) {
-      const int kk = min(k, kKMax);
-      int best_d = INT_MAX;
-      for (int c = 0; c < kk; ++c) {
-        const int cv = codebook[c];
-        const int d = abs(m - cv);
-        if (d < best_d) {  // strict: a tie keeps the lower index
-          best_d = d;
-          best = cv;
-        }
-      }
-    }
-    table[threadIdx.x] = static_cast<float>(best);
-  }
+  __shared__ int s_cb[kKMax];
+  stage_codebook(s_cb, codebook);
+  __syncthreads();
+  build_table(table, s_cb, k_ptr != nullptr ? *k_ptr : k_val,
+              msr_ptr != nullptr ? *msr_ptr : msr_val);
   __syncthreads();
 
   const long long stride = static_cast<long long>(gridDim.x) * kThreads;
@@ -105,11 +162,114 @@ fake_quant_kernel(const float* __restrict__ w, const MaskT* __restrict__ mask,
                      + threadIdx.x;
        i < total; i += stride) {
     const float s = __ldg(scale + i % n);
-    const float wm = __fmul_rn(__ldg(w + i), mask_value(mask, i));
-    float q = rintf(__fdiv_rn(wm, s));
-    q = fminf(fmaxf(q, -kQMax), kQMax);
-    out[i] = __fmul_rn(table[static_cast<int>(q) + 128], s);
+    out[i] = project(table, __fmul_rn(__ldg(w + i), mask_value(mask, i)), s);
   }
+}
+
+// One layer of a grouped launch. k / msr_bits come from the device scalar
+// where its pointer is set, else from the by-value field.
+struct GroupEntry {
+  const float* w;
+  const void* mask;
+  const int32_t* codebook;
+  const int32_t* k_ptr;
+  const int32_t* msr_ptr;
+  float* out;
+  int m, n;
+  int first_block;   // this layer's first block in the grid
+  int flags;         // bit 0: int8 mask; bits 8-15: k; bits 16-23: msr_bits
+};
+
+struct GroupTable {
+  GroupEntry e[kMaxGroup];
+  int count;
+};
+
+// One block's columns c0.. of a layer: the column maxima (pass 1), the
+// projection table from the staged codebook while the maxima reduce, then
+// the outputs (pass 2).
+template <typename MaskT>
+__device__ __forceinline__ void group_columns(const GroupEntry& en, int c0,
+                                              int k, int bits,
+                                              const int* s_cb, float* table,
+                                              float (*s_part)[kSlab],
+                                              float* s_scale) {
+  const float* __restrict__ w = en.w;
+  const MaskT* __restrict__ mask = static_cast<const MaskT*>(en.mask);
+  float* __restrict__ out = en.out;
+  const int tx = threadIdx.x % kSlab, ty = threadIdx.x / kSlab;
+  const int col = c0 + tx;
+  const bool live = col < en.n;
+  const long long n = en.n;
+  constexpr int kStride = kRowPhases * kBatch;  // rows a batch of loads spans
+
+  // a thread's rows are ty, ty + kRowPhases, ...; each round issues kBatch
+  // independent loads before it uses any, so the round costs one memory
+  // latency, not kBatch
+  float amax = 0.f;
+  if (live)
+    for (int r0 = ty; r0 < en.m; r0 += kStride) {
+      float v[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int r = r0 + u * kRowPhases;
+        const long long i = r * n + col;
+        v[u] = r < en.m ? fabsf(__fmul_rn(__ldg(w + i), mask_value(mask, i)))
+                        : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) amax = nan_max(v[u], amax);
+    }
+  s_part[ty][tx] = amax;
+  __syncthreads();
+  build_table(table, s_cb, k, bits);
+  if (ty == 0) {
+    for (int p = 1; p < kRowPhases; ++p) amax = nan_max(amax, s_part[p][tx]);
+    s_scale[tx] = __fdiv_rn(nan_max(amax, kMinAmax), kQMax);
+  }
+  __syncthreads();
+
+  if (!live) return;
+  const float s = s_scale[tx];
+  for (int r0 = ty; r0 < en.m; r0 += kStride) {
+    float wm[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int r = r0 + u * kRowPhases;
+      const long long i = r * n + col;
+      wm[u] = r < en.m ? __fmul_rn(__ldg(w + i), mask_value(mask, i)) : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int r = r0 + u * kRowPhases;
+      if (r < en.m)
+        out[r * n + col] =
+            __fadd_rn(wm[u], __fsub_rn(project(table, wm[u], s), wm[u]));
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+fake_quant_group_kernel(const __grid_constant__ GroupTable table) {
+  __shared__ float proj[kThreads];
+  __shared__ int s_cb[kKMax];
+  __shared__ float s_part[kRowPhases][kSlab];
+  __shared__ float s_scale[kSlab];
+
+  int e = 0;  // the layer this block belongs to (first_block ascends)
+  while (e + 1 < table.count
+         && static_cast<int>(blockIdx.x) >= table.e[e + 1].first_block)
+    ++e;
+  const GroupEntry& en = table.e[e];
+  const int flags = en.flags;
+  stage_codebook(s_cb, en.codebook);
+  const int k = en.k_ptr != nullptr ? *en.k_ptr : (flags >> 8) & 0xff;
+  const int bits = en.msr_ptr != nullptr ? *en.msr_ptr : (flags >> 16) & 0xff;
+  const int c0 = (static_cast<int>(blockIdx.x) - en.first_block) * kSlab;
+  if (flags & 1)
+    group_columns<int8_t>(en, c0, k, bits, s_cb, proj, s_part, s_scale);
+  else
+    group_columns<float>(en, c0, k, bits, s_cb, proj, s_part, s_scale);
 }
 
 }  // namespace
@@ -147,5 +307,47 @@ extern "C" int fake_quant_launch(const void* w, const void* mask,
         wf, static_cast<const float*>(mask), sc, cb, kp, k_val, mp, msr_val,
         o, total, n);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Layers a grouped launch takes; the wrapper splits a larger group.
+extern "C" int fake_quant_group_capacity() { return kMaxGroup; }
+
+// Grouped entry point: `count` layers (1 <= count <= kMaxGroup), each 11
+// int64 words at words[11 * i]: w, mask, codebook, k_ptr, msr_ptr, out
+// (device addresses, k_ptr / msr_ptr 0 for by-value), m, n, mask_int8,
+// k_val, msr_val, with the per-layer kernel's layouts and m, n >= 1; k_val
+// in [0, 32] and msr_val in [0, 8]. One launch computes every layer's
+// scale, projection and straight-through value. Returns cudaGetLastError()
+// after the launch (0 on success), cudaErrorInvalidValue for a bad count.
+extern "C" int fake_quant_group_launch(const long long* words, int count,
+                                       void* stream, int device) {
+  if (count < 1 || count > kMaxGroup)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  GroupTable table = {};
+  table.count = count;
+  long long blocks = 0;
+  for (int i = 0; i < count; ++i) {
+    const long long* v = words + kEntryWords * i;
+    GroupEntry& en = table.e[i];
+    en.w = reinterpret_cast<const float*>(v[0]);
+    en.mask = reinterpret_cast<const void*>(v[1]);
+    en.codebook = reinterpret_cast<const int32_t*>(v[2]);
+    en.k_ptr = reinterpret_cast<const int32_t*>(v[3]);
+    en.msr_ptr = reinterpret_cast<const int32_t*>(v[4]);
+    en.out = reinterpret_cast<float*>(v[5]);
+    en.m = static_cast<int>(v[6]);
+    en.n = static_cast<int>(v[7]);
+    en.flags = static_cast<int>((v[8] & 1) | ((v[9] & 0xff) << 8)
+                                | ((v[10] & 0xff) << 16));
+    en.first_block = static_cast<int>(blocks);
+    blocks += (en.n + kSlab - 1) / kSlab;
+  }
+  if (blocks < 1 || blocks > INT_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  fake_quant_group_kernel<<<static_cast<int>(blocks), kThreads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(table);
   return static_cast<int>(cudaGetLastError());
 }

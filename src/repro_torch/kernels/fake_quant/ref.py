@@ -3,9 +3,11 @@
 Port of `repro.kernels.fake_quant.ref` plus the most-significant-run (MSR)
 truncation that `repro.core.qat.fake_quant_weight` applies between the
 rounding and the projection: the same chain as the QAT path, with the
-per-column scale supplied by the caller (the kernel's contract). The CPU
-path of `repro_torch.kernels.fake_quant.ops` runs it, and the on-card check
-holds the CUDA kernel against it on the same inputs.
+per-column scale supplied by the caller (the per-layer kernel's contract),
+and `fake_quant_ste_ref`, one layer of the grouped kernel: the scale and the
+straight-through value around that chain. The CPU path of
+`repro_torch.kernels.fake_quant.ops` runs them, and the on-card check holds
+the CUDA kernels against them on the same inputs.
 """
 
 from __future__ import annotations
@@ -22,6 +24,21 @@ def fake_quant_ref(w: torch.Tensor, mask: torch.Tensor, scale: torch.Tensor,
     (0 = no projection) -> ``* scale``. w, mask (M, N); scale (N,)."""
     wm = w.float() * mask.float()
     q = torch.clamp(torch.round(wm / scale[None, :]), -qat.QMAX, qat.QMAX)
-    qi = qat.msr_truncate_int(q.to(torch.int32), msr_bits)
+    qi = qat.msr_truncate_int(qat.clipped_to_int(q), msr_bits)
     qi = qat.project_to_codebook(qi, codebook, k)
     return (qi.float() * scale[None, :]).to(w.dtype)
+
+
+def fake_quant_ste_ref(w: torch.Tensor, comp) -> torch.Tensor:
+    """The straight-through forward value of `qat.fake_quant_weight`,
+    ``wm + (wq - wm)``, with ``wm = w * mask``, ``wq`` `fake_quant_ref` at
+    the per-output-channel scale of ``wm``. ``w`` of any shape, its last
+    axis the output channel; ``comp`` a `qat.CompState` (``msr_bits``
+    optional)."""
+    n = w.shape[-1]
+    w2, mask2 = w.reshape(-1, n), comp["mask"].reshape(-1, n)
+    wm = w2 * mask2.to(w.dtype)
+    wq = fake_quant_ref(w2, mask2, qat.weight_scale(wm).reshape(-1),
+                        comp["codebook"], comp["codebook_k"],
+                        comp.get("msr_bits", 0))
+    return (wm + (wq - wm)).reshape(w.shape)

@@ -19,6 +19,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from repro_torch.core import qat
 from repro_torch.core.layer_energy import (
     MatmulDims,
     conv_matmul_dims,
@@ -49,6 +50,19 @@ class CompLayer:
         return dense_matmul_dims(self.c_in, self.c_out, batch)
 
 
+def _weight_path(name: str) -> Tuple[str, ...]:
+    """Path of compressible layer ``name``'s weight in the params tree."""
+    return tuple(name.split("/")) + ("w",)
+
+
+def _weight(params, name: str):
+    """Compressible layer ``name``'s weight in ``params``."""
+    node = params
+    for k in _weight_path(name):
+        node = node[k]
+    return node
+
+
 @dataclasses.dataclass
 class CNNModel:
     name: str
@@ -59,7 +73,7 @@ class CNNModel:
     comp_layers: List[CompLayer]
 
     def weight_path(self, name: str) -> Tuple[str, ...]:
-        return tuple(name.split("/")) + ("w",)
+        return _weight_path(name)
 
     def comp_layer(self, name: str) -> CompLayer:
         for cl in self.comp_layers:
@@ -68,14 +82,23 @@ class CNNModel:
         raise KeyError(name)
 
     def get_weight(self, params, name: str):
-        node = params
-        for k in self.weight_path(name):
-            node = node[k]
-        return node
+        return _weight(params, name)
 
 
 def _maybe(tree: Optional[Dict], name: str):
     return None if tree is None else tree.get(name)
+
+
+def _fake_quant_all(params, names, qcfg: QuantConfig, comp):
+    """{layer: fake-quantized weight} of every compressible layer from one
+    grouped call (one K3 launch on the card) on the fake-quant path; None
+    when quantization is off, or in ``serve`` mode, where each layer without
+    an artifact fake-quantizes its own weight."""
+    if not qcfg.enabled or qcfg.comp_mode == "serve":
+        return None
+    ws = [_weight(params, name) for name in names]
+    comps = [_maybe(comp, name) for name in names]
+    return dict(zip(names, qat.fake_quant_weights(ws, comps)))
 
 
 # ===================================================================== LeNet-5
@@ -97,15 +120,17 @@ def lenet5(num_classes: int = 10, in_channels: int = 3) -> CNNModel:
         CompLayer("fc2", "dense", 120, 84),
         CompLayer("fc3", "dense", 84, num_classes),
     ]
+    names = [cl.name for cl in comp_layers]
 
     def apply(params, state, x, *, train=False, qcfg=QuantConfig.off(),
               comp=None, serve=None, capture_taps=False):
         tap = {} if capture_taps else None
+        w_eff = _fake_quant_all(params, names, qcfg, comp)
 
         def kw(name):
             return dict(qcfg=qcfg, comp=_maybe(comp, name),
                         serve_art=_maybe(serve, name), tap=tap,
-                        tap_name=name)
+                        tap_name=name, w_eff=_maybe(w_eff, name))
 
         # relu rides the layer epilogue: fused into the LUT-GEMM kernel on
         # the serve path, applied eagerly on the fake-quant/dense path
@@ -145,15 +170,16 @@ def _basic_block_spec(c_in: int, c_out: int, stride: int):
     return spec, state
 
 
-def _conv_kw(prefix, qcfg, comp, serve, tap, name):
+def _conv_kw(prefix, qcfg, comp, serve, tap, w_eff, name):
     full = f"{prefix}/{name}"
     return dict(qcfg=qcfg, comp=_maybe(comp, full),
-                serve_art=_maybe(serve, full), tap=tap, tap_name=full)
+                serve_art=_maybe(serve, full), tap=tap, tap_name=full,
+                w_eff=_maybe(w_eff, full))
 
 
 def _apply_basic_block(params, state, x, *, prefix, stride, train, qcfg, comp,
-                       serve, tap):
-    kw = lambda name: _conv_kw(prefix, qcfg, comp, serve, tap, name)  # noqa: E731
+                       serve, tap, w_eff):
+    kw = lambda name: _conv_kw(prefix, qcfg, comp, serve, tap, w_eff, name)  # noqa: E731
     h = L.apply_conv(params["conv1"], x, stride=stride, **kw("conv1"))
     h, s1 = L.apply_batchnorm(params["bn1"], state["bn1"], h, train=train)
     h = torch.relu(h)
@@ -179,17 +205,20 @@ def _resnet_stem_spec(in_channels, width, fc_in, num_classes):
     return spec, {"bn1": L.make_batchnorm_state(width)}
 
 
-def _resnet_apply(block_fn, block_names, strides):
-    """apply() of a ResNet: stem conv + BN + relu, the blocks in order,
-    global average pool, fc."""
+def _resnet_apply(block_fn, block_names, strides, comp_layers):
+    """apply() of a ResNet: the compressible weights fake-quantized in one
+    grouped call, stem conv + BN + relu, the blocks in order, global
+    average pool, fc."""
+    names = [cl.name for cl in comp_layers]
 
     def apply(params, state, x, *, train=False, qcfg=QuantConfig.off(),
               comp=None, serve=None, capture_taps=False):
         tap = {} if capture_taps else None
+        w_eff = _fake_quant_all(params, names, qcfg, comp)
         h = L.apply_conv(params["conv1"], x, qcfg=qcfg,
                          comp=_maybe(comp, "conv1"),
                          serve_art=_maybe(serve, "conv1"), tap=tap,
-                         tap_name="conv1")
+                         tap_name="conv1", w_eff=_maybe(w_eff, "conv1"))
         h, s0 = L.apply_batchnorm(params["bn1"], state["bn1"], h, train=train)
         h = torch.relu(h)
         new_state = {"bn1": s0}
@@ -197,12 +226,12 @@ def _resnet_apply(block_fn, block_names, strides):
             h, new_state[name] = block_fn(
                 params[name], state[name], h, prefix=name,
                 stride=strides[name], train=train, qcfg=qcfg, comp=comp,
-                serve=serve, tap=tap)
+                serve=serve, tap=tap, w_eff=w_eff)
         h = L.avg_pool_global(h)
         logits = L.apply_dense(params["fc"], h, qcfg=qcfg,
                                comp=_maybe(comp, "fc"),
                                serve_art=_maybe(serve, "fc"), tap=tap,
-                               tap_name="fc")
+                               tap_name="fc", w_eff=_maybe(w_eff, "fc"))
         return ((logits, new_state, tap) if capture_taps
                 else (logits, new_state))
 
@@ -234,7 +263,8 @@ def _basic_resnet(name: str, blocks_per_stage: int, num_classes: int,
                                              width, 1, stride, (hw, hw)))
             c_in = width
     comp_layers.append(CompLayer("fc", "dense", 64, num_classes))
-    apply = _resnet_apply(_apply_basic_block, list(strides), strides)
+    apply = _resnet_apply(_apply_basic_block, list(strides), strides,
+                          comp_layers)
     return CNNModel(name, num_classes, spec, state_spec, apply, comp_layers)
 
 
@@ -271,8 +301,8 @@ def _bottleneck_spec(c_in: int, width: int, stride: int):
 
 
 def _apply_bottleneck(params, state, x, *, prefix, stride, train, qcfg, comp,
-                      serve, tap):
-    kw = lambda name: _conv_kw(prefix, qcfg, comp, serve, tap, name)  # noqa: E731
+                      serve, tap, w_eff):
+    kw = lambda name: _conv_kw(prefix, qcfg, comp, serve, tap, w_eff, name)  # noqa: E731
     h = L.apply_conv(params["conv1"], x, **kw("conv1"))
     h, s1 = L.apply_batchnorm(params["bn1"], state["bn1"], h, train=train)
     h = torch.relu(h)
@@ -321,7 +351,8 @@ def resnet50(num_classes: int = 100, in_channels: int = 3) -> CNNModel:
                                              width * 4, 1, stride, (hw, hw)))
             c_in = width * 4
     comp_layers.append(CompLayer("fc", "dense", 2048, num_classes))
-    apply = _resnet_apply(_apply_bottleneck, list(strides), strides)
+    apply = _resnet_apply(_apply_bottleneck, list(strides), strides,
+                          comp_layers)
     return CNNModel("resnet50", num_classes, spec, state_spec, apply,
                     comp_layers)
 

@@ -4,7 +4,10 @@ CNN part of `repro.nn.layers`).
 Every layer is a (make_*_spec, apply_*) pair over plain parameter dicts.
 Layouts are the JAX package's: activations NHWC, conv kernels HWIO, dense
 weights (in, out). Compressible layers accept an optional per-layer
-compression state (`repro_torch.core.qat.CompState`) and a `QuantConfig`.
+compression state (`repro_torch.core.qat.CompState`) and a `QuantConfig`,
+and an optional ``w_eff``: the layer's weight already fake-quantized by the
+model's one grouped call (`repro_torch.core.qat.fake_quant_weights`), in
+place of the layer's own `repro_torch.core.qat.fake_quant_weight`.
 """
 
 from __future__ import annotations
@@ -105,11 +108,13 @@ def apply_dense(params, x: torch.Tensor, *,
                 activation: str = "none",
                 residual: Optional[torch.Tensor] = None,
                 tap: Optional[dict] = None,
-                tap_name: Optional[str] = None) -> torch.Tensor:
+                tap_name: Optional[str] = None,
+                w_eff: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Dense layer with an optional fused epilogue:
     ``y = act(x @ w + b) + residual``. On the serve path bias, activation and
     residual ride the LUT-GEMM kernel epilogue (one launch). A ``tap`` dict
-    receives the layer's int8 input and weights under ``tap_name``."""
+    receives the layer's int8 input and weights under ``tap_name``.
+    ``w_eff``: the fake-quantized weight, where the caller computed it."""
     w = params["w"]
     if qcfg.enabled and qcfg.act_quant:
         x = qat.fake_quant_act(x)
@@ -117,7 +122,8 @@ def apply_dense(params, x: torch.Tensor, *,
     if _serves(qcfg, serve_art):
         return serve_dense(x, serve_art, bias=params.get("b"),
                            residual=residual, activation=activation)
-    w_eff = qat.fake_quant_weight(w, comp) if qcfg.enabled else w
+    if w_eff is None:
+        w_eff = qat.fake_quant_weight(w, comp) if qcfg.enabled else w
     y = exact_matmul(x, w_eff).to(x.dtype)
     return _epilogue(y, params, activation, residual)
 
@@ -157,11 +163,13 @@ def apply_conv(params, x: torch.Tensor, *, stride: int = 1,
                activation: str = "none",
                residual: Optional[torch.Tensor] = None,
                tap: Optional[dict] = None,
-               tap_name: Optional[str] = None) -> torch.Tensor:
+               tap_name: Optional[str] = None,
+               w_eff: Optional[torch.Tensor] = None) -> torch.Tensor:
     """NHWC conv with HWIO kernel and an optional fused epilogue:
     ``y = act(conv(x, w) + b) + residual``. On the serve path the epilogue
     rides the im2col-fed LUT-GEMM kernel (one launch). A ``tap`` dict
-    receives the layer's int8 input and weights under ``tap_name``."""
+    receives the layer's int8 input and weights under ``tap_name``.
+    ``w_eff``: the fake-quantized weight, where the caller computed it."""
     w = params["w"]
     if qcfg.enabled and qcfg.act_quant:
         x = qat.fake_quant_act(x)
@@ -170,7 +178,8 @@ def apply_conv(params, x: torch.Tensor, *, stride: int = 1,
         return serve_conv(x, serve_art, stride=stride, padding=padding,
                           bias=params.get("b"), residual=residual,
                           activation=activation)
-    w_eff = qat.fake_quant_weight(w, comp) if qcfg.enabled else w
+    if w_eff is None:
+        w_eff = qat.fake_quant_weight(w, comp) if qcfg.enabled else w
     y = conv_nhwc(x, w_eff.to(x.dtype), stride, padding)
     return _epilogue(y, params, activation, residual)
 

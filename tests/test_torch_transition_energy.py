@@ -262,6 +262,47 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     assert tkernel.launches == before
 
 
+
+@pytest.mark.parametrize("slabs,slab_len", [(1, 22), (2, 11), (5, 5),
+                                            (8, 3), (22, 1)])
+def test_transition_slabs_sum_to_the_whole_tile(slabs, slab_len):
+    """K1's split of a tile over blocks: the plain counts of T-slabs of the
+    same tiles (columns t0..t1 inclusive, neighbours sharing one column, so
+    the slabs partition the transitions) sum to the whole tiles' integer
+    counts; events and group histogram, and the activation-pair histogram
+    too, since each slab counts only its own pairs."""
+    w, a = _tiles(6, 2, 23)
+    wt, at = torch.from_numpy(w), torch.from_numpy(a)
+    whole = t_ref.transition_counts(wt, at)
+    parts = [torch.zeros_like(x) for x in whole]
+    for s in range(slabs):
+        t0 = s * slab_len
+        t1 = min(t0 + slab_len, 22)          # 23 columns, 22 transitions
+        for acc, x in zip(parts, t_ref.transition_counts(
+                wt, at[:, :, t0:t1 + 1].contiguous())):
+            acc += x
+    for name, got, want in zip(("events", "group_hist", "act_hist"), parts,
+                               whole):
+        assert torch.equal(got, want), name
+
+
+@pytest.mark.parametrize("n_tiles,t_len", [
+    (16, 64), (4, 64), (1, 64), (64, 64), (12288, 64), (16, 2), (3, 512),
+    (7, 9)])
+def test_launch_plan_partitions_the_transitions(n_tiles, t_len):
+    """`launch_plan` (slabs, slab_len): the slabs cover every transition and
+    none is empty; the profile path's 16-tile launch at T = 64 puts at
+    least 128 blocks on the 132 SMs of an H100; thousands of tiles keep one
+    slab a tile."""
+    slabs, slab_len = tkernel.launch_plan(n_tiles, t_len, 132)
+    n_trans = t_len - 1
+    assert slabs * slab_len >= n_trans > (slabs - 1) * slab_len
+    assert slab_len >= min(tkernel.MIN_SLAB, n_trans)
+    if (n_tiles, t_len) == (16, 64):
+        assert n_tiles * slabs >= 128
+    if n_tiles == 12288:
+        assert slabs == 1
+
 # ------------------------------------------------------------ profile_layer
 
 
