@@ -53,7 +53,13 @@
    ragged shapes, ties and large magnitudes; times one grouped call on a
    forward's 22 weights (device time in a CUDA graph, host time a call)
    beside its bound and, in the same run, the per-layer path it replaces
-   (22 kernel launches alone, and 22 `qat.fake_quant_weight` chains);
+   (22 kernel launches alone, and 22 `qat.fake_quant_weight` chains); then
+   the grouped kernel with a candidate axis (the batched schedule sweep's
+   forwards) at 1, 6 and 63 candidates of the 22 weights, per-candidate k,
+   MSR depths and masks, and with shared (stride-0) fields mixed in, bit
+   for bit against its plain version, one launch a call, timed (device time
+   in a CUDA graph) beside its bound and beside the n single-candidate
+   grouped launches it replaces;
 8. the train step: one QAT step of ResNet-20 at batch 32 from the same
    parameters and batch on the card and on the CPU (the plain K3), held at
    loss rel 1e-5 and every gradient leaf rel-L2 1e-4; then warm QAT steps
@@ -62,12 +68,22 @@
    activations, the grouped weight fake-quant, K3 alone, batch norm,
    optimizer) from each part timed alone;
 9. the compress path: ``Pipeline(cfg, device="cuda").run()`` on ResNet-20 at
-   batch 256, QAT base training, profile, energy model, the serial
-   layer-wise schedule on the two layers of largest energy share, export
-   and serve, with every kernel's launches and the model's forwards read
-   per stage (K3: one launch a fake-quant forward, plus one for each layer
-   a serve-mode forward leaves unserved);
-10. prints the ``kernels`` JSON line, then the result line.
+   batch 256, QAT base training, profile, energy model, the layer-wise
+   schedule on the two layers of largest energy share, export and serve,
+   under the serial walk, with every kernel's launches and the model's
+   forwards read per stage (K3: one launch a fake-quant forward, and one a
+   serve-mode forward that leaves a layer unserved);
+10. the batched sweep: ResNet-20 at batch 256 through ``energy_model``, then
+   its schedule stage (prune 0.7/0.5/0.3 x k 16/24, six candidates a layer,
+   two layers) under the serial walk and under the batched sweep from the
+   same plan: decisions, masks and codebooks equal, K3 one launch a
+   forward (a candidate axis's included), each mode's schedule wall time
+   and trials/s (a trial: one (layer, candidate) fine-tune with its weight
+   selection and accept check);
+11. the compress path again under the default search mode (the batched
+   sweep), as users run it: the main path whose launches the ``kernels``
+   line reports;
+12. prints the ``kernels`` JSON line, then the result line.
 
 Any failure raises and the script exits non-zero. It refuses to run without
 a CUDA device, and outside a checkout of the repository.
@@ -105,6 +121,10 @@ TRAIN_CHECK_BATCH = 32      # card vs CPU train-step check
 LOSS_RTOL, GRAD_RTOL = 1e-5, 1e-4
 GRAPH_LAUNCHES = 20         # K3 launches per timed CUDA graph replay
 HOST_CALLS = 200            # K3 wrapper calls timed on the host clock
+# candidate axes of the K3 candidate phase: one; the sweep phase's 6
+# candidates; the largest gathered evaluation of the default schedule (9
+# candidates, chunks of at most 64 requests: 63)
+K3_CANDIDATES = (1, 6, 63)
 K2 = dict(name="lut_matmul",
           source="src/repro_torch/kernels/lut_matmul/csrc/lut_matmul.cu",
           replaces="src/repro/kernels/lut_matmul/lut_matmul.py:125")
@@ -792,15 +812,28 @@ def k3_shapes(comp_layers):
                    for cl in comp_layers})
 
 
+def leaf_bytes(v):
+    """Bytes of a K3 input read once: a leaf whose candidate axis has
+    stride 0 (one tensor every candidate shares) counts once; an int passed
+    by value counts nothing."""
+    if not hasattr(v, "element_size"):
+        return 0
+    if v.ndim and v.shape[0] > 1 and v.stride(0) == 0:
+        v = v[0]
+    return v.numel() * v.element_size()
+
+
 def k3_bound(ws, comps):
     """Least time on an H100 SXM for a grouped K3 call, in ms, and what
-    sets it. Bytes: every w and mask read once, every output written once,
-    each layer's codebook and two scalars read once, over HBM bandwidth.
-    Operations: 10 float32 operations a weight (mask multiply, absolute
-    value and maximum for the scale, division, rounding, two clip
-    comparisons, scale multiply, the straight-through subtract and add) at
-    the fp32 peak."""
-    nbytes = sum(w.numel() * (4 + c["mask"].element_size() + 4) + 4 * 32 + 8
+    sets it. Bytes: every w and mask read once (a field shared by every
+    candidate once), every output written once, each codebook and scalar
+    read once, over HBM bandwidth. Operations: 10 float32 operations a
+    weight and candidate (mask multiply, absolute value and maximum for the
+    scale, division, rounding, two clip comparisons, scale multiply, the
+    straight-through subtract and add) at the fp32 peak."""
+    nbytes = sum(leaf_bytes(w) + 4 * w.numel()
+                 + sum(leaf_bytes(c.get(key)) for key in
+                       ("mask", "codebook", "codebook_k", "msr_bits"))
                  for w, c in zip(ws, comps))
     t_bytes = nbytes / PEAK_HBM_BYTES
     t_ops = 10.0 * sum(w.numel() for w in ws) / PEAK_FP32_FLOPS
@@ -1083,6 +1116,121 @@ def k3_group_phase(torch, comp_layers):
     return rows, out
 
 
+def k3_candidate_cases(torch, comp_layers, n):
+    """[(label, ws, comps)] for the grouped kernel with a candidate axis of
+    ``n`` over ResNet-20's 22 weights: every field per candidate (weights,
+    50% masks, and per candidate a k of {0, 5, 16, 32} and an MSR depth of
+    {0, 3} as int32 device tensors: the batched sweep's trial forwards);
+    then the same with shared (stride-0) fields mixed in layer by layer: a
+    shared weight and mask (comp variants of one model), a shared codebook
+    and depth with k by value, every comp field shared (a layer the sweep
+    does not search)."""
+    from repro_torch.core import qat
+    from repro_torch.core.schedule import symmetric_codebook_values
+
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(13 + n)
+    books = [qat.make_codebook(symmetric_codebook_values(k) if k else [],
+                               device=dev) for k in (0, 5, 16, 32)]
+    ws, per = [], []
+    for shape in k3_weight_shapes(comp_layers):
+        w = torch.randn((n,) + shape, generator=gen, device=dev) * 0.1
+        pick = torch.randint(0, 4, (n,), generator=gen, device=dev).tolist()
+        depth = torch.randint(0, 2, (n,), generator=gen, device=dev) * 3
+        ws.append(w)
+        per.append({
+            "mask": (torch.rand(w.shape, generator=gen, device=dev)
+                     < 0.5).float(),
+            "codebook": torch.stack([books[j][0] for j in pick]),
+            "codebook_k": torch.stack([books[j][1] for j in pick]),
+            "msr_bits": depth.to(device=dev, dtype=torch.int32)})
+    mixed_ws, mixed = [], []
+    for i, (w, c) in enumerate(zip(ws, per)):
+        kind = i % 4
+        if kind == 0:
+            w, c = w[0][None].expand_as(w), dict(c, mask=c["mask"][0])
+        elif kind == 1:
+            c = dict(c, codebook=c["codebook"][0][None].expand(n, 32),
+                     msr_bits=c["msr_bits"][0],
+                     codebook_k=int(c["codebook_k"][0]))
+        elif kind == 2:
+            c = {key: v[0][None].expand_as(v) for key, v in c.items()}
+        mixed_ws.append(w)
+        mixed.append(c)
+    return [(f"{n} candidates, every field per candidate", ws, per),
+            (f"{n} candidates, shared fields mixed in", mixed_ws, mixed)]
+
+
+def k3_candidate_phase(torch, comp_layers):
+    """The grouped kernel with a candidate axis (the batched schedule
+    sweep's forwards) against its plain version, bit for bit, at
+    K3_CANDIDATES candidates of ResNet-20's 22 weights, one launch a call;
+    then, on the case with every field per candidate, device time of one
+    call in a CUDA graph beside its bound and beside the n single-candidate
+    grouped calls it replaces, in the same run, the host time of a call and
+    the plain version's time. Timing launches are not counted as a main
+    path's."""
+    from repro_torch.core import qat
+    from repro_torch.kernels.fake_quant import fake_quant as k3
+    from repro_torch.kernels.fake_quant import ref
+
+    rows, timed = [], []
+    launched = k3.launches
+    for n in K3_CANDIDATES:
+        cases = k3_candidate_cases(torch, comp_layers, n)
+        for label, ws, comps in cases:
+            before = k3.launches
+            got = qat.fake_quant_weights(ws, comps, cands=n)
+            if k3.launches - before != 1:
+                raise AssertionError(f"K3 {label}: {k3.launches - before} "
+                                     "launches, expected 1")
+            torch.cuda.synchronize()
+            want = ref.fake_quant_group_ref(ws, comps, n)
+            max_err = 0.0
+            for i, (g, r) in enumerate(zip(got, want)):
+                max_err = max(max_err, float((g - r).abs().max()))
+                if not equal_nan(torch, g, r):
+                    raise AssertionError(
+                        f"K3 {label}, entry {i} {tuple(g.shape)}: kernel "
+                        f"differs from the plain version (max abs err "
+                        f"{max_err:.3e}; required: equal)")
+            rows.append(dict(case=f"grouped, {label}", layers=len(ws),
+                             candidates=n, max_abs_err=max_err))
+            print(f"[k3-cand] {label:<46} err={max_err:.1e}", flush=True)
+
+        _, ws, comps = cases[0]
+        singles = [([w[j] for w in ws],
+                    [ref.candidate_comp(c, w.ndim - 1, j)
+                     for w, c in zip(ws, comps)]) for j in range(n)]
+
+        def grouped():
+            qat.fake_quant_weights(ws, comps, cands=n)
+
+        def separate():
+            for ws_j, comps_j in singles:
+                qat.fake_quant_weights(ws_j, comps_j)
+
+        with torch.no_grad():
+            out = dict(candidates=n, weights=sum(w.numel() for w in ws))
+            out["device_ms"], out["timing"] = graph_ms(torch, grouped)
+            out["separate_device_ms"], _ = graph_ms(torch, separate)
+            out["host_us_per_call"] = host_us(torch, grouped,
+                                              HOST_CALLS // 4)
+            out["plain_ms"] = time_turns(torch, {"plain": lambda: (
+                ref.fake_quant_group_ref(ws, comps, n))}, 3)["plain"]
+        out["bound_ms"], out["bound_by"] = k3_bound(ws, comps)
+        timed.append(out)
+        print(f"[k3-cand] {n} candidates x 22 layers: one launch "
+              f"{1e3 * out['device_ms']:.2f} us device ({out['timing']}), "
+              f"{out['host_us_per_call']:.1f} us host; {n} single-candidate "
+              f"launches {1e3 * out['separate_device_ms']:.2f} us device; "
+              f"plain {out['plain_ms']:.3f} ms; bound "
+              f"{1e3 * out['bound_ms']:.3f} us ({out['bound_by']})",
+              flush=True)
+    k3.launches = launched
+    return rows, timed
+
+
 # --------------------------------------------------------------- train step
 
 
@@ -1177,8 +1325,8 @@ def step_breakdown(torch, runner, params, state, opt_state, comp, batch):
         return run
 
     def k3_alone():
-        for (ws, comps), _ in calls["weight"]:
-            k3.launch_group([w.detach() for w in ws], comps)
+        for (ws, comps, cands), _ in calls["weight"]:
+            k3.launch_group([w.detach() for w in ws], comps, cands)
 
     loss, grads, _ = runner.loss_and_grads(params, state, comp, batch)
 
@@ -1359,15 +1507,11 @@ def train_phase(torch):
 # ------------------------------------------------------------ compress path
 
 
-def compress_path(torch):
-    """``Pipeline(cfg, device="cuda").run()``: all five stages on ResNet-20
-    at batch 256, every kernel's launches and the model's forwards (fake-
-    quant and serve mode) read per stage. Returns (the kernels' launches
-    over the run, per-stage launches)."""
-    from repro_torch.kernels.fake_quant import fake_quant as k3
-    from repro_torch.kernels.lut_matmul import lut_matmul as k2
-    from repro_torch.kernels.transition_energy import transition_energy as k1
-    from repro_torch.nn.layers import QuantConfig
+def compress_config(search_mode=None, **schedule):
+    """The compress path's ResNet-20 config at batch 256: 20 QAT steps,
+    16 tiles a layer, the schedule on the two layers of largest share (prune
+    0.5, k 16 unless ``schedule`` says otherwise), 5 final fine-tune steps.
+    ``search_mode`` None keeps the default (batched)."""
     from repro_torch.pipeline.config import (
         PipelineConfig,
         ProfileStageConfig,
@@ -1376,21 +1520,70 @@ def compress_path(torch):
         TargetConfig,
         TrainStageConfig,
     )
-    from repro_torch.pipeline.pipeline import Pipeline
-    from repro_torch.pipeline.schema import STAGES
 
-    cfg = PipelineConfig(
+    schedule = dict(dict(prune_ratios=(0.5,), k_targets=(16,),
+                         delta_acc=0.08, finetune_steps=10,
+                         trial_finetune_steps=8, eval_batches=1,
+                         max_layers=2), **schedule)
+    if search_mode is not None:
+        schedule["search_mode"] = search_mode
+    return PipelineConfig(
         target=TargetConfig(kind="cnn", arch="resnet20", batch_size=BATCH),
         train=TrainStageConfig(qat_steps=20, final_finetune_steps=5,
                                eval_batches=2),
         profile=ProfileStageConfig(batches=1, max_tiles=PROFILE_TILES),
-        schedule=ScheduleConfig(
-            search_mode="serial", prune_ratios=(0.5,), k_targets=(16,),
-            delta_acc=0.08, finetune_steps=10, trial_finetune_steps=8,
-            eval_batches=1, max_layers=2),
+        schedule=ScheduleConfig(**schedule),
         selection=SelectionConfig(k_init=20, k_target=16, delta_acc=0.08,
                                   score_batches=1, accept_batches=1,
                                   max_score_candidates=3))
+
+
+def comp_digest(comp):
+    """sha256 of every layer's mask, codebook, k and MSR depth: a
+    schedule's result in one digest."""
+    digest = hashlib.sha256()
+    for name in sorted(comp):
+        for key in ("mask", "codebook", "codebook_k", "msr_bits"):
+            v = comp[name].get(key)
+            if v is not None:
+                digest.update(v.detach().cpu().contiguous().numpy().tobytes())
+    return digest.hexdigest()
+
+
+def counting_forwards(model, forwards):
+    """Wrap ``model.apply`` to count its fake-quant forwards by kind into
+    ``forwards`` ("fake_quant", "serve", and "candidates" for those of a
+    candidate axis, which are fake-quant forwards too); returns the real
+    apply, to restore."""
+    from repro_torch.nn.layers import QuantConfig
+
+    real_apply = model.apply
+
+    def counting_apply(*args, qcfg=QuantConfig.off(), cands=None, **kw):
+        if qcfg.enabled:
+            forwards["serve" if qcfg.comp_mode == "serve"
+                     else "fake_quant"] += 1
+            forwards["candidates"] += cands is not None
+        return real_apply(*args, qcfg=qcfg, cands=cands, **kw)
+
+    model.apply = counting_apply
+    return real_apply
+
+
+def compress_path(torch, search_mode=None):
+    """``Pipeline(cfg, device="cuda").run()``: all five stages on ResNet-20
+    at batch 256 (`compress_config`; ``search_mode`` None: the default
+    batched sweep, as users run it), every kernel's launches and the
+    model's forwards (fake-quant, serve mode, and those of a candidate
+    axis) read per stage. Returns (the kernels' launches over the run,
+    per-stage launches, per-stage forwards)."""
+    from repro_torch.kernels.fake_quant import fake_quant as k3
+    from repro_torch.kernels.lut_matmul import lut_matmul as k2
+    from repro_torch.kernels.transition_energy import transition_energy as k1
+    from repro_torch.pipeline.pipeline import Pipeline
+    from repro_torch.pipeline.schema import STAGES
+
+    cfg = compress_config(search_mode)
     pipe = Pipeline(cfg, device="cuda")
     runner = pipe.target.runner
     # the first QAT step's loss: the stage's init and first batch
@@ -1402,16 +1595,10 @@ def compress_path(torch):
 
     kernels = {"K1": k1, "K2": k2, "K3": k3}
     # forwards by kind, counted where the model runs, to hold K3's launches
-    # to: one a fake-quant forward (a QAT step's or an evaluation's), plus
-    # one a layer that a serve-mode forward does not serve
-    forwards = {"fake_quant": 0, "serve": 0}
-    real_apply = runner.model.apply
-
-    def counting_apply(*args, qcfg=QuantConfig.off(), **kw):
-        if qcfg.enabled:
-            forwards["serve" if qcfg.comp_mode == "serve"
-                     else "fake_quant"] += 1
-        return real_apply(*args, qcfg=qcfg, **kw)
+    # to: one a fake-quant forward (a QAT step's or an evaluation's, of one
+    # model or of a candidate axis), and one a serve-mode forward that
+    # leaves a layer unserved
+    forwards = {"fake_quant": 0, "serve": 0, "candidates": 0}
 
     per_stage, forwards_per_stage = {}, {}
     for stage in STAGES:
@@ -1428,7 +1615,7 @@ def compress_path(torch):
 
     for mod in kernels.values():
         mod.launches = 0
-    runner.model.apply = counting_apply
+    real_apply = counting_forwards(runner.model, forwards)
     try:
         t0 = time.perf_counter()
         plan = pipe.run(verbose=True)
@@ -1447,10 +1634,10 @@ def compress_path(torch):
     serve_fwds = 1 + cfg.train.eval_batches
     want_fwds = {
         "profile": {"fake_quant": cfg.train.qat_steps + cfg.train.eval_batches
-                    + cfg.profile.batches, "serve": 0},
-        "energy_model": {"fake_quant": 0, "serve": 0},
-        "export": {"fake_quant": 0, "serve": 0},
-        "serve": {"fake_quant": 1, "serve": serve_fwds},
+                    + cfg.profile.batches, "serve": 0, "candidates": 0},
+        "energy_model": {"fake_quant": 0, "serve": 0, "candidates": 0},
+        "export": {"fake_quant": 0, "serve": 0, "candidates": 0},
+        "serve": {"fake_quant": 1, "serve": serve_fwds, "candidates": 0},
     }
     for stage, want in want_fwds.items():
         if forwards_per_stage[stage] != want:
@@ -1466,12 +1653,16 @@ def compress_path(torch):
     }
     for stage, want in expect.items():
         f = forwards_per_stage[stage]
-        want = dict(want, K3=f["fake_quant"] + (22 - n_art) * f["serve"])
+        want = dict(want, K3=f["fake_quant"] + (n_art < 22) * f["serve"])
         if per_stage[stage] != want:
             raise AssertionError(f"{stage}: launches {per_stage[stage]}, "
                                  f"expected {want} (forwards {f})")
-    if not forwards_per_stage["schedule"]["fake_quant"]:
+    sched = forwards_per_stage["schedule"]
+    if not sched["fake_quant"]:
         raise AssertionError("schedule: no fake-quant forward")
+    if bool(sched["candidates"]) != (cfg.schedule.search_mode == "batched"):
+        raise AssertionError(f"schedule ({cfg.schedule.search_mode}): "
+                             f"{sched['candidates']} candidate-axis forwards")
     if totals != {key: sum(v[key] for v in per_stage.values())
                   for key in kernels}:
         raise AssertionError(f"launch totals {totals} != the stages' sum")
@@ -1491,23 +1682,95 @@ def compress_path(torch):
         "qat_loss", "acc_base", "acc0", "acc_final", "accuracy_drop",
         "energy_before", "energy_after", "energy_saving",
         "serve_logit_rel_err", "serve_accuracy", "export_layers")})
-    # the schedule's result, masks and codebooks included, in one digest
-    digest = hashlib.sha256()
-    for name in sorted(plan.comp):
-        for key in ("mask", "codebook", "codebook_k", "msr_bits"):
-            v = plan.comp[name].get(key)
-            if v is not None:
-                digest.update(v.detach().cpu().contiguous().numpy().tobytes())
-    out.update(first_step_loss=first_loss, compress_path_wall_s=wall,
+    out.update(search_mode=cfg.schedule.search_mode,
+               first_step_loss=first_loss, compress_path_wall_s=wall,
                launches=totals, launches_per_stage=per_stage,
                forwards_per_stage=forwards_per_stage,
-               comp_sha256=digest.hexdigest(),
+               comp_sha256=comp_digest(plan.comp),
                decisions=[{k: d[k] for k in ("layer", "share", "prune_ratio",
                                               "k", "msr", "accepted",
                                               "accuracy")}
                           for d in plan.decisions])
     print("[compress] " + json.dumps(out, sort_keys=True), flush=True)
-    return totals, per_stage
+    return totals, per_stage, forwards_per_stage
+
+
+def sweep_phase(torch, plan_dir):
+    """The schedule stage in both search modes on one plan: ResNet-20 at
+    batch 256 through ``energy_model`` once (`compress_config` with prune
+    (0.7, 0.5, 0.3) x k (16, 24): 6 candidates a layer), saved, then
+    ``Pipeline.from_plan(..., device="cuda").run_until("schedule")`` under
+    the serial walk and under the batched sweep. Holds the decisions
+    (layer, prune, k, MSR depth, accepted) and the masks and codebooks
+    (`comp_digest`) equal, and K3 to one launch a forward, a candidate
+    axis's included; prints each mode's schedule wall time and trials/s (a
+    trial: one (layer, candidate) fine-tune with its weight selection and
+    accept check). Returns the [sweep] metrics."""
+    from repro_torch._device import tree_leaves
+    from repro_torch.kernels.fake_quant import fake_quant as k3
+    from repro_torch.pipeline.pipeline import Pipeline
+    from repro_torch.pipeline.plan import CompressionPlan
+
+    base = compress_config(prune_ratios=(0.7, 0.5, 0.3), k_targets=(16, 24))
+    n_cands = (len(base.schedule.prune_ratios) * len(base.schedule.k_targets)
+               * len(base.schedule.msr_bits))
+    Pipeline(base, device="cuda").run_until("energy_model").save(plan_dir)
+    torch.cuda.empty_cache()
+    runs, plans = {}, {}
+    for mode in ("serial", "batched"):
+        cfg = base.with_overrides({"schedule": {"search_mode": mode}})
+        pipe = Pipeline.from_plan(CompressionPlan.load(plan_dir), cfg=cfg,
+                                  device="cuda")
+        forwards = {"fake_quant": 0, "serve": 0, "candidates": 0}
+        model = pipe.target.runner.model
+        real_apply = counting_forwards(model, forwards)
+        k3.launches = 0
+        try:
+            t0 = time.perf_counter()
+            plan = pipe.run_until("schedule")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            model.apply = real_apply
+        launches = k3.launches
+        if launches != forwards["fake_quant"]:
+            raise AssertionError(f"sweep ({mode}): {launches} K3 launches for "
+                                 f"{forwards['fake_quant']} forwards "
+                                 "(expected one a forward)")
+        swept = [d for d in plan.decisions if d["tried"]]
+        trials = (sum(len(d["tried"]) for d in swept) if mode == "serial"
+                  else n_cands * len(swept))
+        runs[mode] = dict(
+            wall_s_schedule=wall, trials=trials, trials_per_s=trials / wall,
+            k3_launches=launches, forwards=dict(forwards),
+            comp_sha256=comp_digest(plan.comp),
+            decisions=[{k: d[k] for k in ("layer", "prune_ratio", "k", "msr",
+                                          "accepted", "accuracy")}
+                       for d in plan.decisions])
+        plans[mode] = plan
+        torch.cuda.empty_cache()
+    key = ("layer", "prune_ratio", "k", "msr", "accepted")
+    ser, bat = runs["serial"], runs["batched"]
+    if ([{k: d[k] for k in key} for d in ser["decisions"]]
+            != [{k: d[k] for k in key} for d in bat["decisions"]]):
+        raise AssertionError(f"sweep: batched decisions {bat['decisions']} "
+                             f"!= serial {ser['decisions']}")
+    if ser["comp_sha256"] != bat["comp_sha256"]:
+        raise AssertionError("sweep: batched masks/codebooks differ from the "
+                             "serial walk's")
+    if not bat["forwards"]["candidates"]:
+        raise AssertionError("sweep: the batched run made no candidate-axis "
+                             "forward")
+    out = dict(runs=runs, candidates=n_cands,
+               batched_vs_serial_trials_per_s=bat["trials_per_s"]
+               / ser["trials_per_s"],
+               decisions_equal_all_fields=plans["serial"].decisions
+               == plans["batched"].decisions,
+               params_equal=all(torch.equal(a, b) for a, b in zip(
+                   tree_leaves(plans["serial"].params),
+                   tree_leaves(plans["batched"].params))))
+    print("[sweep] " + json.dumps(out, sort_keys=True), flush=True)
+    return out
 
 
 # --------------------------------------------------------------------- main
@@ -1546,13 +1809,18 @@ def main() -> int:
     k1_rows = k1_phase(torch, k1_cases(torch, resnet20().comp_layers))
     k3_rows = k3_phase(torch, k3_cases(torch, resnet20().comp_layers))
     k3_group_rows, k3_forward = k3_group_phase(torch, resnet20().comp_layers)
+    k3_cand_rows, k3_cand = k3_candidate_phase(torch, resnet20().comp_layers)
     torch.cuda.empty_cache()
 
     k2_launches = serve_path(torch, ROOT / "build" / "chip_smoke")
     k1_launches, k1_path = profile_path(torch)
     train_phase(torch)
     torch.cuda.empty_cache()
-    compress_launches, compress_stages = compress_path(torch)
+    serial_launches, _, _ = compress_path(torch, "serial")
+    torch.cuda.empty_cache()
+    sweep = sweep_phase(torch, ROOT / "build" / "chip_smoke" / "sweep")
+    torch.cuda.empty_cache()
+    compress_launches, compress_stages, compress_fwds = compress_path(torch)
 
     padded = [r for r in k2_rows if r["per_forward"] and not r["serve_rows"]]
     unpadded = [r for r in k2_rows if r["per_forward"] and r["serve_rows"]]
@@ -1614,7 +1882,7 @@ def main() -> int:
                  "(ops.tile_transition_stats); no path of the pipeline "
                  "calls the tile API, so it has no launches there",
     }
-    k3_all = k3_rows + k3_group_rows
+    k3_all = k3_rows + k3_group_rows + k3_cand_rows
     k3_entry = {
         **K3, "route": "cuda", "launches": compress_launches["K3"],
         "max_abs_err": max(r["max_abs_err"] for r in k3_all),
@@ -1627,13 +1895,26 @@ def main() -> int:
                  "forward (k = 16, 50% mask), scale and straight-through "
                  "value inside, device time in a CUDA graph (`timing`); "
                  "per_layer_*: the per-layer path on the same weights in the "
-                 "same run; launches: the compress path's run",
+                 "same run; candidate_axis: one launch of n candidates of "
+                 "those 22 weights (every field per candidate) beside n "
+                 "single-candidate launches; launches: the compress path's "
+                 "run under the default (batched) search mode, "
+                 "candidate_axis_launches those of them with a candidate "
+                 "axis, "
+                 "compress_path_serial_launches under the serial walk, "
+                 "sweep_launches the sweep phase's schedule stage",
         **{key: k3_forward[key] for key in (
             "timing", "host_us_per_call", "per_layer_kernels_device_ms",
             "per_layer_chains_device_ms", "per_layer_chains_host_us",
             "weights")},
         "launches_per_stage": {stage: v["K3"]
                                for stage, v in compress_stages.items()},
+        "candidate_axis_launches": sum(f["candidates"]
+                                       for f in compress_fwds.values()),
+        "compress_path_serial_launches": serial_launches["K3"],
+        "sweep_launches": {mode: r["k3_launches"]
+                           for mode, r in sweep["runs"].items()},
+        "candidate_axis": k3_cand,
         "cases_equal": len(k3_all),
     }
     entries = [k2_entry, k1_entry, k1b_entry, k3_entry]

@@ -23,15 +23,24 @@ through the fused kernel K3 (`repro_torch.kernels.fake_quant`): the plain
 version for CPU tensors, the CUDA kernel for CUDA tensors.
 `fake_quant_weights` does the same for a whole forward's layers in one
 grouped K3 launch, the per-column scale and the straight-through value
-included.
+included, and with ``cands=n`` for n stacked candidates of every layer in
+that same one launch.
+
+The schedule's batched candidate sweep stacks n per-candidate trees (comp
+dicts, params, state, optimizer state) along a new leading *candidate*
+axis: `stack_pytrees`, `broadcast_pytree` (a stride-0 view: every candidate
+shares the one tensor, which the grouped kernel reads once), `index_pytree`
+and `pad_leading`.
 """
 
 from __future__ import annotations
 
 from typing import Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
+from repro_torch._device import tree_map
 from repro_torch.kernels.fake_quant import ops as fake_quant_ops
 
 K_MAX = 32          # maximum codebook size the pipeline ever uses (paper: 32)
@@ -63,6 +72,26 @@ def make_codebook(values, *, device) -> Tuple[torch.Tensor, torch.Tensor]:
     padded = vals + [vals[-1]] * (K_MAX - k)
     return (torch.tensor(padded, dtype=torch.int32, device=device),
             torch.tensor(k, dtype=torch.int32, device=device))
+
+
+def make_codebooks(value_sets, *, device) -> Tuple[torch.Tensor,
+                                                   torch.Tensor]:
+    """Batched `make_codebook`: (E, K_MAX) sorted padded codebooks and (E,)
+    valid counts, built on the host and moved as two tensors (the lockstep
+    elimination scores dozens of trial codebooks a round)."""
+    cbs = np.zeros((len(value_sets), K_MAX), np.int32)
+    ks = np.zeros((len(value_sets),), np.int32)
+    for e, values in enumerate(value_sets):
+        vals = sorted(int(v) for v in values)
+        k = len(vals)
+        if k > K_MAX:
+            raise ValueError(f"codebook size {k} exceeds K_MAX={K_MAX}")
+        ks[e] = k
+        if k:
+            cbs[e, :k] = vals
+            cbs[e, k:] = vals[-1]
+    return (torch.from_numpy(cbs).to(device),
+            torch.from_numpy(ks).to(device))
 
 
 def _over_qmax(amax: torch.Tensor) -> torch.Tensor:
@@ -176,24 +205,40 @@ def fake_quant_weight(w: torch.Tensor,
 
 
 def fake_quant_weights(ws: Sequence[torch.Tensor],
-                       comps: Sequence[Optional[CompState]]
-                       ) -> List[torch.Tensor]:
+                       comps: Sequence[Optional[CompState]],
+                       cands: Optional[int] = None) -> List[torch.Tensor]:
     """`fake_quant_weight` of several layers at once (``comps[i]`` None =
     identity): one grouped K3 launch for CUDA tensors, the plain version
     for CPU tensors. Each output equals ``fake_quant_weight(ws[i],
-    comps[i])`` bit for bit, and so does its gradient (the mask)."""
-    comps = [identity_comp(tuple(w.shape), w.dtype, device=w.device)
+    comps[i])`` bit for bit, and so does its gradient (the mask).
+
+    ``cands=n``: every ``ws[i]`` has a leading candidate axis ``(n,
+    *shape)`` and each comp leaf either has one too or is shared (see
+    `repro_torch.kernels.fake_quant.ops.fake_quant_group`); candidate j of
+    output i equals ``fake_quant_weight(ws[i][j], comps[i] at j)``, and all
+    n x len(ws) weights still take one launch."""
+    shape = (lambda w: tuple(w.shape[1:])) if cands else (
+        lambda w: tuple(w.shape))
+    comps = [identity_comp(shape(w), w.dtype, device=w.device)
              if c is None else c for w, c in zip(ws, comps, strict=True)]
-    return fake_quant_ops.fake_quant_group(list(ws), comps)
+    return fake_quant_ops.fake_quant_group(list(ws), comps, cands)
 
 
-def _act_scale(a: torch.Tensor) -> torch.Tensor:
-    return _over_qmax(a.abs().amax())
+def _act_scale(a: torch.Tensor, cand_dim: Optional[int] = None
+               ) -> torch.Tensor:
+    if cand_dim is None:
+        return _over_qmax(a.abs().amax())
+    dims = [d for d in range(a.ndim) if d != cand_dim % a.ndim]
+    return _over_qmax(a.abs().amax(dim=dims, keepdim=True))
 
 
-def fake_quant_act(a: torch.Tensor) -> torch.Tensor:
-    """Dynamic per-tensor symmetric int8 fake-quantization of activations."""
-    scale = _act_scale(a)
+def fake_quant_act(a: torch.Tensor,
+                   cand_dim: Optional[int] = None) -> torch.Tensor:
+    """Dynamic per-tensor symmetric int8 fake-quantization of activations.
+    ``cand_dim``: the candidate axis of a batched activation; each
+    candidate's slice then gets its own scale (its own amax), the value a
+    forward of that candidate alone computes."""
+    scale = _act_scale(a, cand_dim)
     q = _round_clip(a / scale) * scale
     return a + (q - a).detach()
 
@@ -212,3 +257,37 @@ def magnitude_prune_mask(w: torch.Tensor, ratio: float) -> torch.Tensor:
     k = min(max(k, 0), flat.shape[0] - 1)
     thresh = torch.sort(flat).values[k]
     return (w.abs() >= thresh).to(w.dtype)
+
+
+# ----------------------------------------------------------- stacked trees
+
+
+def stack_pytrees(trees: Sequence):
+    """Stack identically structured tensor trees along a new leading
+    candidate axis (a copy)."""
+    return tree_map(lambda *xs: torch.stack(xs), *trees)
+
+
+def broadcast_pytree(tree, n: int):
+    """Every leaf repeated ``n`` times along a new leading candidate axis,
+    as a stride-0 view: nothing is copied, and the grouped K3 launch reads
+    such a leaf once for all candidates. Results built from it are new
+    tensors; nothing writes through the view."""
+    return tree_map(lambda x: x[None].expand((n,) + tuple(x.shape)), tree)
+
+
+def index_pytree(tree, i: int):
+    """Candidate ``i`` of a stacked tree, as tensors of its own."""
+    return tree_map(lambda x: x[i].clone(), tree)
+
+
+def pad_leading(tree, n_to: int):
+    """The leading axis padded up to ``n_to`` by repeating its last entry
+    (callers discard the padded slots)."""
+    def one(x):
+        pad = n_to - x.shape[0]
+        if pad <= 0:
+            return x
+        return torch.cat([x, x[-1:].expand((pad,) + tuple(x.shape[1:]))])
+
+    return tree_map(one, tree)

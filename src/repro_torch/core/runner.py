@@ -1,14 +1,18 @@
 """CNN training, evaluation and profiling runner of the compression
-pipeline (port of `repro.core.runner`, without the batched candidate sweep).
+pipeline (port of `repro.core.runner`).
 
 Bundles a `CNNModel`, a dataset and one device. The compression state
 ``comp`` ({layer_name: CompState}) is a plain argument of every method.
 Ported: parameter init, the QAT train step (cross-entropy, backward,
 global-norm clip and AdamW, every compressible weight fake-quantized through
-K3), training loops, accuracy, the profiling taps, the per-layer trace
-statistics (one transition-statistics kernel launch per layer) and the
-per-layer energy models. The steps of the schedule's batched candidate
-sweep raise `NotImplementedError` naming their ROADMAP.md item.
+K3), training loops, accuracy, the schedule's batched candidate sweep
+(`train_batched`, `accuracy_batched`, `accuracy_comps`, `accuracy_gather`:
+n candidates in one forward a batch, the JAX package's ``vmap`` written out
+as a candidate axis), the profiling taps, the per-layer trace statistics
+(one transition-statistics kernel launch per layer) and the per-layer
+energy models. The JAX package's ``sweep_mesh`` (the candidate axis sharded
+over devices) is not ported: one device, so its padding to a multiple of
+the mesh is a no-op.
 
 The dataset is any object with ``batch(step, batch_size, split, *,
 device) -> (images, labels)``.
@@ -20,6 +24,7 @@ import dataclasses
 import zlib
 from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -27,6 +32,7 @@ from repro_torch._device import (
     DEFAULT_DEVICE,
     resolve_device,
     tree_leaves,
+    tree_map,
     tree_unflatten,
 )
 from repro_torch.core import qat
@@ -40,14 +46,24 @@ from repro_torch.nn.layers import QuantConfig
 from repro_torch.nn.spec import init_params
 from repro_torch.optim.optimizers import adamw, apply_updates
 
-_BATCHED = ("ROADMAP.md Queue 1 item 4b, the schedule's batched candidate "
-            "sweep (search_mode='batched'); the serial schedule is ported")
-
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean cross-entropy of (B, classes) logits, a 0-d tensor; of (B, n,
+    classes) logits (n candidates on one batch) one mean a candidate, (n,).
+    The mean is summed in float64 and rounded once, so a candidate's loss
+    does not depend on how many candidates share the call."""
     logp = F.log_softmax(logits.float(), dim=-1)
-    nll = -torch.gather(logp, -1, labels[:, None].long())[:, 0]
-    return nll.mean()
+    idx = labels.long().reshape((-1,) + (1,) * (logits.ndim - 1))
+    nll = -torch.gather(logp, -1, idx.expand(*logits.shape[:-1], 1))[..., 0]
+    return nll.mean(dim=0, dtype=torch.float64).float()
+
+
+def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Candidates ``idx`` of a stacked leaf; a leaf shared by every
+    candidate (stride 0) stays shared."""
+    if x.stride(0) == 0:
+        return x[:1].expand((len(idx),) + tuple(x.shape[1:]))
+    return x.index_select(0, idx)
 
 
 def layer_seed(name: str) -> int:
@@ -92,25 +108,34 @@ class CnnRunner:
 
     # ------------------------------------------------------------------ train
 
-    def loss_and_grads(self, params, state, comp, batch):
+    @staticmethod
+    def _n_candidates(comps) -> int:
+        """The candidate count of a stacked comp tree (its leading axis)."""
+        return int(tree_leaves(comps)[0].shape[0])
+
+    def loss_and_grads(self, params, state, comp, batch, cands=None):
         """(loss, grads, new_state) of one training batch: train-mode
         forward, mean cross-entropy, backward. ``grads`` has the structure
-        of ``params``; ``loss`` stays on the device."""
+        of ``params``; ``loss`` stays on the device. ``cands=n``: n stacked
+        candidates (see `CNNModel`), ``loss`` (n,), each candidate's
+        gradient that of its own loss."""
         x, y = batch
         leaves = [p.detach().requires_grad_(True)
                   for p in tree_leaves(params)]
         p = tree_unflatten(params, iter(leaves))
         logits, new_state = self.model.apply(p, state, x, train=True,
-                                             qcfg=self.qcfg, comp=comp)
+                                             qcfg=self.qcfg, comp=comp,
+                                             cands=cands)
         loss = cross_entropy(logits, y)
-        grads = torch.autograd.grad(loss, leaves)
+        grads = torch.autograd.grad(loss.sum(), leaves)
         return loss.detach(), tree_unflatten(params, iter(grads)), new_state
 
-    def train_step(self, params, state, opt_state, comp, batch):
+    def train_step(self, params, state, opt_state, comp, batch, cands=None):
         """One QAT step: `loss_and_grads`, then AdamW (global-norm clip
-        inside). Returns (params, state, opt_state, loss)."""
+        inside; one a candidate under ``cands``). Returns (params, state,
+        opt_state, loss)."""
         loss, grads, new_state = self.loss_and_grads(params, state, comp,
-                                                     batch)
+                                                     batch, cands)
         updates, opt_state = self.optimizer.update(grads, opt_state, params)
         return apply_updates(params, updates), new_state, opt_state, loss
 
@@ -129,17 +154,32 @@ class CnnRunner:
                 print(f"  step {start_step + i + 1}: loss={float(loss):.4f}")
         return params, state, opt_state, float(loss)
 
-    def train_batched(self, *args, **kwargs):
-        raise NotImplementedError(f"not ported yet: {_BATCHED}")
+    def train_batched(self, params, state, opt_state, comps, n_steps: int,
+                      start_step: int = 0):
+        """Train n stacked candidates in lockstep, one step of all of them a
+        batch. ``params``, ``state``, ``opt_state`` and ``comps`` carry a
+        leading candidate axis (`qat.stack_pytrees` /
+        `qat.broadcast_pytree`); every candidate sees the batch stream
+        `train` would feed it, so candidate j's trajectory is the serial
+        trial fine-tune of candidate j.
+        Returns (params, state, opt_state, per-candidate final loss as a
+        numpy array, NaN for no step), read back once."""
+        n = self._n_candidates(comps)
+        loss = torch.full((n,), float("nan"))
+        for i in range(n_steps):
+            batch = self.dataset.batch(start_step + i, self.batch_size,
+                                       "train", device=self.device)
+            params, state, opt_state, loss = self.train_step(
+                params, state, opt_state, comps, batch, cands=n)
+        return params, state, opt_state, loss.cpu().numpy()
 
-    def accuracy_batched(self, *args, **kwargs):
-        raise NotImplementedError(f"not ported yet: {_BATCHED}")
-
-    def accuracy_comps(self, *args, **kwargs):
-        raise NotImplementedError(f"not ported yet: {_BATCHED}")
-
-    def accuracy_gather(self, *args, **kwargs):
-        raise NotImplementedError(f"not ported yet: {_BATCHED}")
+    def _correct(self, params, state, comp, x, y, cands=None):
+        """Correct predictions on one batch, on the device: a 0-d count, or
+        (n,) under ``cands``."""
+        logits, _ = self.model.apply(params, state, x, train=False,
+                                     qcfg=self.qcfg, comp=comp, cands=cands)
+        hit = logits.argmax(-1) == (y if cands is None else y[:, None])
+        return hit.sum(0)
 
     def accuracy(self, params, state, comp, n_batches: int = 8,
                  split: str = "val") -> float:
@@ -148,10 +188,44 @@ class CnnRunner:
             for i in range(n_batches):
                 x, y = self.dataset.batch(i, self.batch_size, split,
                                           device=self.device)
-                logits, _ = self.model.apply(params, state, x, train=False,
-                                             qcfg=self.qcfg, comp=comp)
-                correct += int((logits.argmax(-1) == y).sum())
+                correct += int(self._correct(params, state, comp, x, y))
         return correct / (n_batches * self.batch_size)
+
+    def accuracy_batched(self, params, state, comps, n_batches: int = 8,
+                         split: str = "val") -> np.ndarray:
+        """Per-candidate accuracy vector of stacked params/state/comps: one
+        forward of all candidates a batch, the counts read back once."""
+        n = self._n_candidates(comps)
+        correct = torch.zeros((n,), dtype=torch.int64, device=self.device)
+        with torch.no_grad():
+            for i in range(n_batches):
+                x, y = self.dataset.batch(i, self.batch_size, split,
+                                          device=self.device)
+                correct += self._correct(params, state, comps, x, y, n)
+        return (correct.cpu().numpy().astype(np.float64)
+                / (n_batches * self.batch_size))
+
+    def accuracy_comps(self, params, state, comps, n_batches: int = 8,
+                       split: str = "val") -> np.ndarray:
+        """Accuracy of n stacked comp variants sharing one params/state (not
+        copied: stride-0 views, which K3 reads once)."""
+        n = self._n_candidates(comps)
+        return self.accuracy_batched(qat.broadcast_pytree(params, n),
+                                     qat.broadcast_pytree(state, n), comps,
+                                     n_batches, split)
+
+    def accuracy_gather(self, params_s, state_s, comps_e, idx,
+                        n_batches: int = 8, split: str = "val") -> np.ndarray:
+        """Accuracy of E comp variants, variant e with the params/state of
+        stacked candidate ``idx[e]``: one forward of all E variants a batch
+        (the lockstep elimination's fused requests, each against its own
+        candidate's fine-tuned weights)."""
+        idx = torch.as_tensor(idx, dtype=torch.long, device=self.device)
+        return self.accuracy_batched(tree_map(lambda x: _take(x, idx),
+                                              params_s),
+                                     tree_map(lambda x: _take(x, idx),
+                                              state_s), comps_e,
+                                     n_batches, split)
 
     # ---------------------------------------------------------------- profile
 

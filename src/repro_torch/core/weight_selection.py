@@ -1,6 +1,5 @@
 """Energy-accuracy co-optimized weight-set selection (port of
-`repro.core.weight_selection`, paper 4.2; without the batched sweep's
-lockstep driver).
+`repro.core.weight_selection`, paper 4.2).
 
 Two stages per layer:
 
@@ -18,13 +17,16 @@ Two stages per layer:
    marked *essential* and skipped thereafter. Terminates at ``k_target`` or
    when nothing is removable.
 
-`SelectionConfig` is the one in `repro_torch.pipeline.config`.
+The serial loop (`greedy_backward_elimination`) and the batched sweep's
+lockstep loop (`lockstep_backward_elimination`) run the same generator,
+so they make the same decisions. `SelectionConfig` is the one in
+`repro_torch.pipeline.config`.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -158,6 +160,45 @@ def greedy_backward_elimination(
             answer = [eval_with_codebook(v, n_batches) for v in value_sets]
     except StopIteration as stop:
         return stop.value
+
+
+def lockstep_backward_elimination(
+    models: Sequence[LayerEnergyModel], candidates: Sequence[List[int]],
+    cfgs: Sequence[SelectionConfig], acc0: float, *, eval_requests,
+) -> List[Tuple[List[int], SelectionReport]]:
+    """Advance N independent greedy eliminations in lockstep (the batched
+    sweep's selection stage). Each is the `_elimination_requests` generator
+    the serial loop runs, so its decisions are the serial ones; every sync
+    point fuses the outstanding requests of all eliminations with the same
+    ``n_batches`` (a round's trial codebooks across all candidates, then
+    the accept checks, then the ``acc_ref`` refreshes) into one
+    ``eval_requests([(cand_idx, values)], n_batches) -> accuracies`` call,
+    which the schedule serves with one batched evaluation
+    (`CnnRunner.accuracy_gather`)."""
+    gens = [_elimination_requests(m, c, cfg, acc0)
+            for m, c, cfg in zip(models, candidates, cfgs)]
+    results: List[Optional[Tuple[List[int], SelectionReport]]] = \
+        [None] * len(gens)
+    pending = {i: next(g) for i, g in enumerate(gens)}  # first yield: always
+    while pending:
+        by_nb: Dict[int, List[int]] = {}
+        for i, (_, n_batches) in pending.items():
+            by_nb.setdefault(n_batches, []).append(i)
+        next_pending = {}
+        for n_batches, idxs in sorted(by_nb.items()):
+            reqs = [(i, vals) for i in idxs for vals in pending[i][0]]
+            accs = eval_requests(reqs, n_batches)
+            pos = 0
+            for i in idxs:
+                take = len(pending[i][0])
+                mine = [float(a) for a in accs[pos:pos + take]]
+                pos += take
+                try:
+                    next_pending[i] = gens[i].send(mine)
+                except StopIteration as stop:
+                    results[i] = stop.value
+        pending = next_pending
+    return results
 
 
 def naive_lowest_energy_set(lut, k: int) -> List[int]:

@@ -17,6 +17,15 @@
 //
 // over (M, N) weight matrices: a conv kernel (kh, kw, c_in, c_out) or a
 // dense weight (in, out) viewed as (-1, c_out), so the scale is per column.
+// An entry of the grouped table may carry C candidates of its layer (the
+// batched schedule sweep trains and evaluates C comp variants of a model in
+// lockstep): candidate c reads w, mask, codebook, k and msr_bits at c times
+// that field's candidate stride, and writes out at c * M * N. A field's
+// candidate stride is either its size (one copy a candidate) or 0 (one copy
+// shared by every candidate: the sweep's non-target layers, a shared mask,
+// the weights of an evaluation of several comp variants of one model), so
+// the table stores one "shared" bit a field, not a stride. Each candidate
+// computes what the one-candidate entry computes, bit for bit.
 //
 // Replaces the TPU kernel
 //   src/repro/kernels/fake_quant/fake_quant.py::fake_quant_pallas
@@ -42,12 +51,16 @@
 // the output, 12 bytes, plus one codebook per layer; ResNet-20's 22 layers
 // hold 270,896 weights, 3.3 MB, 0.97 us at 3.35 TB/s. A QAT forward of 22
 // per-layer launches (2.5 us each) plus the eager ops around them is bound
-// by launch latency, not by bytes or operations.
+// by launch latency, not by bytes or operations. With C candidates a
+// layer, C x 3.3 MB: 5.9 us at C = 6 (the sweep's trial forwards), 62 us at
+// C = 63 (its largest gathered evaluation), less where fields are shared.
 //
 // What the design does about it. The grouped kernel takes the forward's
 // layers as a table passed by value (`__grid_constant__`, read in place
 // from the parameter bank: no copy to the device, no host synchronisation)
-// and launches once: one 256-thread block per (layer, slab of 8 columns),
+// and launches once: one 256-thread block per (layer, candidate, slab of 8
+// columns), so n candidates of 22 layers are still 22 entries and one
+// launch, and more candidates fill more of the card's 132 SMs;
 // 32 row phases a column, each thread with 8 loads in flight (the columns
 // are short, so a dependent load a row would cost a memory latency each).
 // A block reduces its columns' |w * mask| maxima through shared memory and
@@ -75,7 +88,13 @@ constexpr int kSlab = 8;                   // columns a grouped block owns
 constexpr int kRowPhases = kThreads / kSlab;
 constexpr int kBatch = 8;                  // loads in flight a thread
 constexpr int kMaxGroup = 60;              // layers a grouped launch takes
-constexpr int kEntryWords = 11;            // int64 words of a host entry
+constexpr int kEntryWords = 12;            // int64 words of a host entry
+constexpr int kMaxCands = 256;             // candidates an entry takes
+// GroupEntry::flags: bit 0 int8 mask; bits 1-5 the field is shared by every
+// candidate (candidate stride 0); bits 8-15 k, 16-23 msr_bits by value. The
+// candidate count needs no field: it sets how many blocks the entry owns.
+constexpr int kInt8Mask = 1, kSharedW = 2, kSharedMask = 4,
+              kSharedCodebook = 8, kSharedK = 16, kSharedMsr = 32;
 
 // Keep the top `bits` significant bits of |q|, zero the rest, keep the sign;
 // bits <= 0 is the identity (qat.msr_truncate_int).
@@ -166,8 +185,9 @@ fake_quant_kernel(const float* __restrict__ w, const MaskT* __restrict__ mask,
   }
 }
 
-// One layer of a grouped launch. k / msr_bits come from the device scalar
-// where its pointer is set, else from the by-value field.
+// One layer of a grouped launch, with its candidates. k / msr_bits come
+// from the device scalars where the pointer is set, else from the by-value
+// field.
 struct GroupEntry {
   const float* w;
   const void* mask;
@@ -177,7 +197,7 @@ struct GroupEntry {
   float* out;
   int m, n;
   int first_block;   // this layer's first block in the grid
-  int flags;         // bit 0: int8 mask; bits 8-15: k; bits 16-23: msr_bits
+  int flags;         // see kInt8Mask ... above
 };
 
 struct GroupTable {
@@ -185,22 +205,19 @@ struct GroupTable {
   int count;
 };
 
-// One block's columns c0.. of a layer: the column maxima (pass 1), the
+// One block's columns c0.. of one candidate of a layer (its w, mask and out
+// already offset to that candidate): the column maxima (pass 1), the
 // projection table from the staged codebook while the maxima reduce, then
 // the outputs (pass 2).
 template <typename MaskT>
-__device__ __forceinline__ void group_columns(const GroupEntry& en, int c0,
-                                              int k, int bits,
-                                              const int* s_cb, float* table,
-                                              float (*s_part)[kSlab],
-                                              float* s_scale) {
-  const float* __restrict__ w = en.w;
-  const MaskT* __restrict__ mask = static_cast<const MaskT*>(en.mask);
-  float* __restrict__ out = en.out;
+__device__ __forceinline__ void group_columns(
+    const float* __restrict__ w, const MaskT* __restrict__ mask,
+    float* __restrict__ out, int m, int n_cols, int c0, int k, int bits,
+    const int* s_cb, float* table, float (*s_part)[kSlab], float* s_scale) {
   const int tx = threadIdx.x % kSlab, ty = threadIdx.x / kSlab;
   const int col = c0 + tx;
-  const bool live = col < en.n;
-  const long long n = en.n;
+  const bool live = col < n_cols;
+  const long long n = n_cols;
   constexpr int kStride = kRowPhases * kBatch;  // rows a batch of loads spans
 
   // a thread's rows are ty, ty + kRowPhases, ...; each round issues kBatch
@@ -208,14 +225,14 @@ __device__ __forceinline__ void group_columns(const GroupEntry& en, int c0,
   // latency, not kBatch
   float amax = 0.f;
   if (live)
-    for (int r0 = ty; r0 < en.m; r0 += kStride) {
+    for (int r0 = ty; r0 < m; r0 += kStride) {
       float v[kBatch];
 #pragma unroll
       for (int u = 0; u < kBatch; ++u) {
         const int r = r0 + u * kRowPhases;
         const long long i = r * n + col;
-        v[u] = r < en.m ? fabsf(__fmul_rn(__ldg(w + i), mask_value(mask, i)))
-                        : 0.f;
+        v[u] = r < m ? fabsf(__fmul_rn(__ldg(w + i), mask_value(mask, i)))
+                     : 0.f;
       }
 #pragma unroll
       for (int u = 0; u < kBatch; ++u) amax = nan_max(v[u], amax);
@@ -231,18 +248,18 @@ __device__ __forceinline__ void group_columns(const GroupEntry& en, int c0,
 
   if (!live) return;
   const float s = s_scale[tx];
-  for (int r0 = ty; r0 < en.m; r0 += kStride) {
+  for (int r0 = ty; r0 < m; r0 += kStride) {
     float wm[kBatch];
 #pragma unroll
     for (int u = 0; u < kBatch; ++u) {
       const int r = r0 + u * kRowPhases;
       const long long i = r * n + col;
-      wm[u] = r < en.m ? __fmul_rn(__ldg(w + i), mask_value(mask, i)) : 0.f;
+      wm[u] = r < m ? __fmul_rn(__ldg(w + i), mask_value(mask, i)) : 0.f;
     }
 #pragma unroll
     for (int u = 0; u < kBatch; ++u) {
       const int r = r0 + u * kRowPhases;
-      if (r < en.m)
+      if (r < m)
         out[r * n + col] =
             __fadd_rn(wm[u], __fsub_rn(project(table, wm[u], s), wm[u]));
     }
@@ -262,14 +279,32 @@ fake_quant_group_kernel(const __grid_constant__ GroupTable table) {
     ++e;
   const GroupEntry& en = table.e[e];
   const int flags = en.flags;
-  stage_codebook(s_cb, en.codebook);
-  const int k = en.k_ptr != nullptr ? *en.k_ptr : (flags >> 8) & 0xff;
-  const int bits = en.msr_ptr != nullptr ? *en.msr_ptr : (flags >> 16) & 0xff;
-  const int c0 = (static_cast<int>(blockIdx.x) - en.first_block) * kSlab;
-  if (flags & 1)
-    group_columns<int8_t>(en, c0, k, bits, s_cb, proj, s_part, s_scale);
+  // this block's (candidate, slab): blocks of an entry run candidate-major
+  const int slabs = (en.n + kSlab - 1) / kSlab;
+  const int local = static_cast<int>(blockIdx.x) - en.first_block;
+  const int cand = local / slabs;
+  const int c0 = (local - cand * slabs) * kSlab;
+  const long long mn = static_cast<long long>(en.m) * en.n;
+  const long long at = cand * mn;  // the candidate's offset in its slices
+  stage_codebook(s_cb, en.codebook + (flags & kSharedCodebook ? 0
+                                                              : cand * kKMax));
+  const int k = en.k_ptr != nullptr
+                    ? en.k_ptr[flags & kSharedK ? 0 : cand]
+                    : (flags >> 8) & 0xff;
+  const int bits = en.msr_ptr != nullptr
+                       ? en.msr_ptr[flags & kSharedMsr ? 0 : cand]
+                       : (flags >> 16) & 0xff;
+  const float* w = en.w + (flags & kSharedW ? 0 : at);
+  const long long mask_at = flags & kSharedMask ? 0 : at;
+  float* out = en.out + at;
+  if (flags & kInt8Mask)
+    group_columns<int8_t>(w, static_cast<const int8_t*>(en.mask) + mask_at,
+                          out, en.m, en.n, c0, k, bits, s_cb, proj, s_part,
+                          s_scale);
   else
-    group_columns<float>(en, c0, k, bits, s_cb, proj, s_part, s_scale);
+    group_columns<float>(w, static_cast<const float*>(en.mask) + mask_at,
+                         out, en.m, en.n, c0, k, bits, s_cb, proj, s_part,
+                         s_scale);
 }
 
 }  // namespace
@@ -313,11 +348,14 @@ extern "C" int fake_quant_launch(const void* w, const void* mask,
 // Layers a grouped launch takes; the wrapper splits a larger group.
 extern "C" int fake_quant_group_capacity() { return kMaxGroup; }
 
-// Grouped entry point: `count` layers (1 <= count <= kMaxGroup), each 11
-// int64 words at words[11 * i]: w, mask, codebook, k_ptr, msr_ptr, out
-// (device addresses, k_ptr / msr_ptr 0 for by-value), m, n, mask_int8,
-// k_val, msr_val, with the per-layer kernel's layouts and m, n >= 1; k_val
-// in [0, 32] and msr_val in [0, 8]. One launch computes every layer's
+// Grouped entry point: `count` layers (1 <= count <= kMaxGroup), each 12
+// int64 words at words[12 * i]: w, mask, codebook, k_ptr, msr_ptr, out
+// (device addresses, k_ptr / msr_ptr 0 for by-value), m, n, bits (bit 0
+// int8 mask; bits 1-5 w, mask, codebook, k, msr_bits shared by every
+// candidate), k_val, msr_val, cands, with the per-layer kernel's layouts
+// for one candidate, m, n >= 1, 1 <= cands <= kMaxCands; k_val in [0, 32]
+// and msr_val in [0, 8]. A field that is not shared holds cands slices
+// back to back; out always does. One launch computes every candidate's
 // scale, projection and straight-through value. Returns cudaGetLastError()
 // after the launch (0 on success), cudaErrorInvalidValue for a bad count.
 extern "C" int fake_quant_group_launch(const long long* words, int count,
@@ -332,6 +370,9 @@ extern "C" int fake_quant_group_launch(const long long* words, int count,
   for (int i = 0; i < count; ++i) {
     const long long* v = words + kEntryWords * i;
     GroupEntry& en = table.e[i];
+    const long long cands = v[11];
+    if (cands < 1 || cands > kMaxCands)
+      return static_cast<int>(cudaErrorInvalidValue);
     en.w = reinterpret_cast<const float*>(v[0]);
     en.mask = reinterpret_cast<const void*>(v[1]);
     en.codebook = reinterpret_cast<const int32_t*>(v[2]);
@@ -340,13 +381,13 @@ extern "C" int fake_quant_group_launch(const long long* words, int count,
     en.out = reinterpret_cast<float*>(v[5]);
     en.m = static_cast<int>(v[6]);
     en.n = static_cast<int>(v[7]);
-    en.flags = static_cast<int>((v[8] & 1) | ((v[9] & 0xff) << 8)
+    en.flags = static_cast<int>((v[8] & 0x3f) | ((v[9] & 0xff) << 8)
                                 | ((v[10] & 0xff) << 16));
     en.first_block = static_cast<int>(blocks);
-    blocks += (en.n + kSlab - 1) / kSlab;
+    blocks += cands * ((en.n + kSlab - 1) / kSlab);
+    if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (blocks < 1 || blocks > INT_MAX)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (blocks < 1) return static_cast<int>(cudaErrorInvalidValue);
   fake_quant_group_kernel<<<static_cast<int>(blocks), kThreads, 0,
                             static_cast<cudaStream_t>(stream)>>>(table);
   return static_cast<int>(cudaGetLastError());

@@ -8,7 +8,8 @@ between its rounding and its projection; the source's header says what
 bounds it on an H100 and how its design responds. `launch` runs one layer
 with a caller-supplied scale; `launch_group` runs a whole QAT forward's
 layers in one launch, with the per-column scale and the straight-through
-value computed inside.
+value computed inside, and with a candidate axis all candidates of those
+layers (the batched schedule sweep's forwards) in that same launch.
 
 The source compiles at first use with ``nvcc`` for ``sm_90a`` into
 ``build/fake_quant/`` at the repository root and is loaded with `ctypes`
@@ -37,6 +38,7 @@ LIBRARY = KernelLibrary(
      "fake_quant_group_launch": [ctypes.c_void_p, ctypes.c_int,
                                  ctypes.c_void_p, ctypes.c_int],
      "fake_quant_group_capacity": []})
+ENTRY_WORDS = 12   # int64 words of one grouped entry (see the source)
 
 launches = 0       # kernel launches in this process
 
@@ -78,43 +80,64 @@ def launch(w: torch.Tensor, mask: torch.Tensor, scale: torch.Tensor,
     return out
 
 
-def launch_group(ws, comps):
+def _leaf(v, ndim, cands):
+    """(device pointer or 0, value by value, shared by every candidate) of a
+    comp leaf whose one-candidate form has ``ndim`` dims: an int is passed
+    by value; a tensor with a leading candidate axis is shared where its
+    stride there is 0."""
+    if not isinstance(v, torch.Tensor):
+        return 0, int(v), True
+    stacked = cands is not None and v.ndim == ndim + 1
+    return v.data_ptr(), 0, not stacked or v.stride(0) == 0
+
+
+def launch_group(ws, comps, cands=None):
     """Launch the grouped kernel on CUDA layers already validated by
     `repro_torch.kernels.fake_quant.ops.check_group`: ``ws[i]`` float32 of
     any shape (the last axis is the output channel), ``comps[i]`` its
     compression state (``mask``, ``codebook``, ``codebook_k`` and an
-    optional ``msr_bits``). Returns the straight-through forward values,
-    ``wm + (wq - wm)``, one float32 tensor of ``ws[i]``'s shape each; one
-    launch per `group_capacity` layers. Raises `RuntimeError` if a launch
-    failed."""
+    optional ``msr_bits``); with ``cands=n``, ``ws[i]`` is ``(n, *shape)``
+    and each leaf carries that axis or is shared (``ops.candidate_leaf``).
+    Returns the straight-through forward values, ``wm + (wq - wm)``, one
+    float32 tensor of ``ws[i]``'s shape each (contiguous); one launch per
+    `group_capacity` layers, whatever the number of candidates. Raises
+    `RuntimeError` if a launch failed."""
     global launches
     dev = ws[0].device
     if dev.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
     outs, words = [], []
     for w, comp in zip(ws, comps):
+        base = w.ndim - (cands is not None)
         n = w.shape[-1]
         mask = comp["mask"]
-        k_ptr, k_val = _scalar(comp["codebook_k"])
-        msr_ptr, msr_val = _scalar(comp.get("msr_bits", 0))
-        out = torch.empty_like(w)
-        words.append((w.data_ptr(), mask.data_ptr(),
-                       comp["codebook"].data_ptr(), k_ptr or 0, msr_ptr or 0,
-                       out.data_ptr(), w.numel() // n, n,
-                       int(mask.dtype == torch.int8), k_val, msr_val))
+        w_ptr, _, w_shared = _leaf(w, base, cands)
+        m_ptr, _, m_shared = _leaf(mask, base, cands)
+        cb_ptr, _, cb_shared = _leaf(comp["codebook"], 1, cands)
+        k_ptr, k_val, k_shared = _leaf(comp["codebook_k"], 0, cands)
+        msr_ptr, msr_val, msr_shared = _leaf(comp.get("msr_bits", 0), 0,
+                                             cands)
+        out = torch.empty_like(w, memory_format=torch.contiguous_format)
+        bits = (int(mask.dtype == torch.int8) | w_shared << 1
+                | m_shared << 2 | cb_shared << 3 | k_shared << 4
+                | msr_shared << 5)
+        per_cand = out[0].numel() if cands is not None else out.numel()
+        words.append((w_ptr, m_ptr, cb_ptr, k_ptr, msr_ptr, out.data_ptr(),
+                      per_cand // n, n, bits, k_val, msr_val, cands or 1))
         outs.append(out)
     lib = LIBRARY.load()
     cap = group_capacity()
     stream = torch._C._cuda_getCurrentRawStream(dev.index)
     for i in range(0, len(words), cap):
         group = words[i:i + cap]
-        table = (ctypes.c_longlong * (len(group) * len(group[0])))(
+        table = (ctypes.c_longlong * (len(group) * ENTRY_WORDS))(
             *(v for entry in group for v in entry))
         err = lib.fake_quant_group_launch(table, len(group), stream,
                                           dev.index)
         if err != 0:
             raise RuntimeError(f"fake_quant group launch failed: CUDA error "
-                               f"{err} at {len(group)} layers")
+                               f"{err} at {len(group)} layers x "
+                               f"{cands or 1} candidates")
         launches += 1
     return outs
 

@@ -21,34 +21,40 @@ from repro_torch.kernels.fake_quant import fake_quant as _kernel
 from repro_torch.kernels.fake_quant import ref  # module: qat imports ops
 
 MAX_MSR_BITS = 8
+MAX_CANDIDATES = 256   # candidates a grouped launch takes (8 bits an entry)
 _MASK_DTYPES = (torch.float32, torch.int8)
 
 
-def _check_scalar(name, v, lo, hi, device) -> None:
-    """k / msr_bits: an int, or a 0-d int32 tensor on ``device``. Its value
-    is checked where it is on the host; a CUDA scalar is not read back (that
-    would synchronise every launch), and the kernel computes the plain
-    version's function for any value."""
+def _check_scalar(name, v, lo, hi, device, ndims=(0,)) -> None:
+    """k / msr_bits: an int, or an int32 tensor of one of ``ndims`` dims (0;
+    1 for one value a candidate) on ``device``. Its values are checked where
+    they are on the host; a CUDA tensor is not read back (that would
+    synchronise every launch), and the kernel computes the plain version's
+    function for any value."""
     if isinstance(v, torch.Tensor):
-        if v.ndim != 0 or v.dtype != torch.int32:
+        if v.ndim not in ndims or v.dtype != torch.int32:
             raise ValueError(f"{name} must be an int or a 0-d int32 tensor, "
                              f"got {v.dtype} of shape {tuple(v.shape)}")
         if v.device != device:
             raise ValueError(f"{name} is on {v.device}, w on {device}")
         if v.device.type == "cuda":
             return
-        v = int(v)
+        vals = (int(v.min()), int(v.max()))
     elif not isinstance(v, numbers.Integral) or isinstance(v, bool):
         raise ValueError(f"{name} must be an int or a 0-d int32 tensor, "
                          f"got {type(v).__name__}")
-    if not lo <= v <= hi:
-        raise ValueError(f"{name}={v} not in [{lo}, {hi}]")
+    else:
+        vals = (int(v),)
+    for x in vals:
+        if not lo <= x <= hi:
+            raise ValueError(f"{name}={x} not in [{lo}, {hi}]")
 
 
-def _check_layer(w, mask, codebook, k, msr_bits) -> None:
+def _check_layer(w, mask, codebook, k, msr_bits, ndims=(0,)) -> None:
     """What both kernels need of a layer: float32 ``w``, a float32 or int8
     ``mask`` of ``w``'s shape, a (32,) int32 codebook, all contiguous on
-    ``w``'s device, and valid ``k`` / ``msr_bits``."""
+    ``w``'s device, and valid ``k`` / ``msr_bits`` (of one of ``ndims``
+    dims: 1 where they carry one value a candidate)."""
     if w.dtype != torch.float32:
         raise ValueError(f"w must be float32, got {w.dtype}")
     if mask.dtype not in _MASK_DTYPES:
@@ -68,8 +74,28 @@ def _check_layer(w, mask, codebook, k, msr_bits) -> None:
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous row-major; build it "
                              "contiguous (no strided views)")
-    _check_scalar("k", k, 0, qat.K_MAX, dev)
-    _check_scalar("msr_bits", msr_bits, 0, MAX_MSR_BITS, dev)
+    _check_scalar("k", k, 0, qat.K_MAX, dev, ndims)
+    _check_scalar("msr_bits", msr_bits, 0, MAX_MSR_BITS, dev, ndims)
+
+
+def candidate_leaf(name, t, ndim, n):
+    """(candidate 0's view, shared) of a leaf under a candidate axis of
+    ``n``: a leaf of ``ndim`` dims (or an int) is shared by every candidate;
+    one of ``ndim + 1`` dims has a leading axis of ``n``, shared when its
+    stride there is 0 (a `qat.broadcast_pytree` view), else one contiguous
+    slice a candidate. Raises `ValueError` on any other layout."""
+    if not isinstance(t, torch.Tensor) or t.ndim == ndim:
+        return t, True
+    if t.ndim != ndim + 1 or t.shape[0] != n:
+        raise ValueError(f"{name} must have a leading candidate axis of {n} "
+                         f"or none, got shape {tuple(t.shape)}")
+    if t.stride(0) == 0:
+        return t[0], True
+    if n > 1 and t.stride(0) != t[0].numel():
+        raise ValueError(f"{name}'s candidates must be contiguous slices or "
+                         f"shared (stride 0), got candidate stride "
+                         f"{t.stride(0)} for slices of {t[0].numel()}")
+    return t[0], False
 
 
 def check_inputs(w, mask, scale, codebook, k, msr_bits) -> None:
@@ -91,26 +117,48 @@ def check_inputs(w, mask, scale, codebook, k, msr_bits) -> None:
     _check_layer(w, mask, codebook, k, msr_bits)
 
 
-def check_group(ws, comps) -> None:
+def check_group(ws, comps, cands=None) -> None:
     """Raise `ValueError` on anything the grouped kernel does not take,
     naming the entry: an empty group, a count of comps that differs from
     the weights', weights on more than one device, a weight with no element
-    or no output axis, and every check of `_check_layer`."""
+    or no output axis, and every check of `_check_layer`. With ``cands=n``
+    every weight has a leading candidate axis of ``n`` (contiguous slices,
+    or stride 0 for one weight shared by all) and every comp leaf either
+    the same axis or none (`candidate_leaf`); the checks of `_check_layer`
+    then apply to one candidate's slices."""
     if not len(ws):
         raise ValueError("empty group: no weights to fake-quantize")
     if len(comps) != len(ws):
         raise ValueError(f"{len(ws)} weights but {len(comps)} comp states")
+    if cands is not None and (isinstance(cands, bool)
+                              or not isinstance(cands, numbers.Integral)
+                              or not 1 <= cands <= MAX_CANDIDATES):
+        raise ValueError(f"cands must be an int in [1, {MAX_CANDIDATES}], "
+                         f"got {cands!r}")
     dev = ws[0].device
     for i, (w, comp) in enumerate(zip(ws, comps)):
         try:
             if w.device != dev:
                 raise ValueError(f"w is on {w.device}, the group's first "
                                  f"weight on {dev} (one device a group)")
+            mask, codebook = comp["mask"], comp["codebook"]
+            k, msr = comp["codebook_k"], comp.get("msr_bits", 0)
+            ndims = (0,)
+            if cands is not None:
+                if w.ndim < 2:
+                    raise ValueError(f"w must have a leading candidate axis "
+                                     f"of {cands} and an output axis, got "
+                                     f"shape {tuple(w.shape)}")
+                w, _ = candidate_leaf("w", w, w.ndim - 1, cands)
+                mask, _ = candidate_leaf("mask", mask, w.ndim, cands)
+                codebook, _ = candidate_leaf("codebook", codebook, 1, cands)
+                candidate_leaf("k", k, 0, cands)
+                candidate_leaf("msr_bits", msr, 0, cands)
+                ndims = (0, 1)
             if w.ndim < 1 or w.numel() == 0:
                 raise ValueError(f"w must have an output axis and elements, "
                                  f"got shape {tuple(w.shape)}")
-            _check_layer(w, comp["mask"], comp["codebook"],
-                         comp["codebook_k"], comp.get("msr_bits", 0))
+            _check_layer(w, mask, codebook, k, msr, ndims)
         except ValueError as e:
             raise ValueError(f"group entry {i}: {e}") from None
 
@@ -158,31 +206,37 @@ def ste_fake_quant(w: torch.Tensor, mask: torch.Tensor, scale: torch.Tensor,
 class _SteFakeQuantGroup(torch.autograd.Function):
     """Forward: every layer's straight-through value, one grouped kernel
     launch for CUDA tensors, the plain version for CPU tensors. Backward:
-    ``g_i * mask_i`` to each ``w_i`` and nothing to the comp states (the
-    gradient of ``w * mask`` through ``wm + stop_gradient(wq - wm)``; plain
-    array code in the JAX package too)."""
+    ``g_i * mask_i`` to each ``w_i`` (per candidate under a candidate axis;
+    a shared mask broadcasts) and nothing to the comp states (the gradient
+    of ``w * mask`` through ``wm + stop_gradient(wq - wm)``; plain array
+    code in the JAX package too)."""
 
     @staticmethod
-    def forward(ctx, comps, *ws):
+    def forward(ctx, comps, cands, *ws):
         ctx.save_for_backward(*(c["mask"] for c in comps))
         if ws[0].device.type == "cuda":
-            return tuple(_kernel.launch_group(ws, comps))
-        return tuple(ref.fake_quant_ste_ref(w, c) for w, c in zip(ws, comps))
+            return tuple(_kernel.launch_group(ws, comps, cands))
+        return tuple(ref.fake_quant_group_ref(ws, comps, cands))
 
     @staticmethod
     def backward(ctx, *gs):
-        return (None, *(g * m.to(g.dtype)
-                        for g, m in zip(gs, ctx.saved_tensors)))
+        return (None, None, *(g * m.to(g.dtype)
+                              for g, m in zip(gs, ctx.saved_tensors)))
 
 
-def fake_quant_group(ws, comps) -> list:
+def fake_quant_group(ws, comps, cands=None) -> list:
     """Fake-quantize several layers at once: ``ws[i]`` float32 of any shape
     (the last axis is the output channel), ``comps[i]`` its `qat.CompState`
     (``msr_bits`` optional). Returns ``wm + (wq - wm)`` for each, the value
     of `qat.fake_quant_weight`, with the straight-through gradient
-    ``g * mask``. Every entry is checked before the dispatch; CUDA tensors
-    take one kernel launch, CPU tensors the plain version."""
-    check_group(ws, comps)
+    ``g * mask``. ``cands=n``: each ``ws[i]`` is ``(n, *shape)``, n
+    candidates of the layer, and each comp leaf carries the same leading
+    axis or is shared (`check_group`); output ``i`` is ``(n, *shape)``,
+    candidate ``j`` the value for ``ws[i][j]`` under candidate ``j``'s comp
+    (`ref.candidate_comp`). Every entry is checked before the dispatch;
+    CUDA tensors take one kernel launch (up to the kernel's table of
+    layers), CPU tensors the plain version."""
+    check_group(ws, comps, cands)
     if ws[0].device.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {ws[0].device}")
-    return list(_SteFakeQuantGroup.apply(list(comps), *ws))
+    return list(_SteFakeQuantGroup.apply(list(comps), cands, *ws))

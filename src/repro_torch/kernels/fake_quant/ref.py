@@ -12,9 +12,15 @@ the CUDA kernels against them on the same inputs.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.core import qat
+
+# ndim of each comp leaf of one layer without a candidate axis ("mask": the
+# weight's)
+_LEAF_NDIM = {"codebook": 1, "codebook_k": 0, "msr_bits": 0}
 
 
 def fake_quant_ref(w: torch.Tensor, mask: torch.Tensor, scale: torch.Tensor,
@@ -42,3 +48,29 @@ def fake_quant_ste_ref(w: torch.Tensor, comp) -> torch.Tensor:
                         comp["codebook"], comp["codebook_k"],
                         comp.get("msr_bits", 0))
     return (wm + (wq - wm)).reshape(w.shape)
+
+
+def candidate_comp(comp, w_ndim: int, j: int):
+    """Candidate ``j``'s comp state of a layer under a candidate axis: a
+    leaf with a leading candidate axis gives its slice ``j``, a shared leaf
+    (one without that axis, or an int) itself. ``w_ndim``: the ndim of the
+    layer's weight without the candidate axis."""
+    out = {}
+    for key, v in comp.items():
+        ndim = w_ndim if key == "mask" else _LEAF_NDIM[key]
+        out[key] = (v[j] if isinstance(v, torch.Tensor) and v.ndim == ndim + 1
+                    else v)
+    return out
+
+
+def fake_quant_group_ref(ws, comps, cands: Optional[int] = None) -> list:
+    """The grouped kernel's function: `fake_quant_ste_ref` of every layer,
+    and with ``cands=n`` of every candidate ``j`` of every layer
+    (``ws[i][j]`` under `candidate_comp`), stacked back along the candidate
+    axis."""
+    if cands is None:
+        return [fake_quant_ste_ref(w, c) for w, c in zip(ws, comps)]
+    return [torch.stack([fake_quant_ste_ref(w[j],
+                                            candidate_comp(c, w.ndim - 1, j))
+                         for j in range(cands)])
+            for w, c in zip(ws, comps)]

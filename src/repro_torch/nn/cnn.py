@@ -6,10 +6,19 @@ function over parameter dicts, and the list of compressible layers with
 their systolic matmul dimensions. Layer names, parameter paths and
 `comp_layers` are the JAX package's, so plans cross-load.
 
-``apply(params, state, x, *, train, qcfg, comp, serve) -> (logits,
-new_state)``; with ``capture_taps=True`` it returns ``(logits, new_state,
-taps)``, taps ``{layer: {"a_int", "w_int"}}`` holding each compressible
-layer's int8 input and weights (the profiler's trace inputs).
+``apply(params, state, x, *, train, qcfg, comp, serve, cands) ->
+(logits, new_state)``; with ``capture_taps=True`` it returns ``(logits,
+new_state, taps)``, taps ``{layer: {"a_int", "w_int"}}`` holding each
+compressible layer's int8 input and weights (the profiler's trace inputs).
+
+``cands=n`` runs n candidates of the model in one forward on one shared
+input batch: ``params``, ``state`` and ``comp`` carry a leading candidate
+axis n on every leaf (stacked, or stride-0 views of one shared tensor;
+`repro_torch.core.qat.stack_pytrees` / `broadcast_pytree`), the logits
+come out (B, n, classes) and the new state with the same axis. Candidate
+j's logits and state are what the forward of candidate j alone computes
+(`repro_torch.nn.layers` says how). One grouped K3 launch fake-quantizes
+all n x layers weights; taps and serve mode take one candidate.
 """
 
 from __future__ import annotations
@@ -69,7 +78,7 @@ class CNNModel:
     num_classes: int
     spec: dict
     state_spec: dict
-    apply: Callable  # (params, state, x, *, train, qcfg, comp, serve, capture_taps) -> (logits, state[, taps])
+    apply: Callable  # (params, state, x, *, train, qcfg, comp, serve, capture_taps, cands) -> (logits, state[, taps])
     comp_layers: List[CompLayer]
 
     def weight_path(self, name: str) -> Tuple[str, ...]:
@@ -89,16 +98,35 @@ def _maybe(tree: Optional[Dict], name: str):
     return None if tree is None else tree.get(name)
 
 
-def _fake_quant_all(params, names, qcfg: QuantConfig, comp):
-    """{layer: fake-quantized weight} of every compressible layer from one
-    grouped call (one K3 launch on the card) on the fake-quant path; None
-    when quantization is off, or in ``serve`` mode, where each layer without
-    an artifact fake-quantizes its own weight."""
-    if not qcfg.enabled or qcfg.comp_mode == "serve":
+def _fake_quant_all(params, names, qcfg: QuantConfig, comp, serve, cands):
+    """{layer: fake-quantized weight} of the compressible layers a forward
+    fake-quantizes, from one grouped call (one K3 launch on the card): every
+    layer on the fake-quant path, in ``serve`` mode the layers without an
+    artifact; with ``cands``, every candidate of each. None when
+    quantization is off."""
+    if not qcfg.enabled:
         return None
+    if qcfg.comp_mode == "serve":
+        names = [name for name in names if _maybe(serve, name) is None]
+        if not names:
+            return {}
     ws = [_weight(params, name) for name in names]
     comps = [_maybe(comp, name) for name in names]
-    return dict(zip(names, qat.fake_quant_weights(ws, comps)))
+    return dict(zip(names, qat.fake_quant_weights(ws, comps, cands)))
+
+
+def _check_cands(cands, serve, capture_taps) -> None:
+    if cands is not None and (serve is not None or capture_taps):
+        raise ValueError("a candidate axis (cands) runs the fake-quant "
+                         "forward only: no serve artifacts, no taps")
+
+
+def _flatten(h: torch.Tensor, cands) -> torch.Tensor:
+    """(B, H, W, C) -> (B, H*W*C); (B, H, W, n, C) -> (B, n, H*W*C), each
+    candidate in the order of its own forward."""
+    if cands is None:
+        return h.reshape(h.shape[0], -1)
+    return h.permute(0, 3, 1, 2, 4).reshape(h.shape[0], cands, -1)
 
 
 # ===================================================================== LeNet-5
@@ -123,9 +151,10 @@ def lenet5(num_classes: int = 10, in_channels: int = 3) -> CNNModel:
     names = [cl.name for cl in comp_layers]
 
     def apply(params, state, x, *, train=False, qcfg=QuantConfig.off(),
-              comp=None, serve=None, capture_taps=False):
+              comp=None, serve=None, capture_taps=False, cands=None):
+        _check_cands(cands, serve, capture_taps)
         tap = {} if capture_taps else None
-        w_eff = _fake_quant_all(params, names, qcfg, comp)
+        w_eff = _fake_quant_all(params, names, qcfg, comp, serve, cands)
 
         def kw(name):
             return dict(qcfg=qcfg, comp=_maybe(comp, name),
@@ -140,7 +169,7 @@ def lenet5(num_classes: int = 10, in_channels: int = 3) -> CNNModel:
         h = L.apply_conv(params["conv2"], h, padding="VALID",
                          activation="relu", **kw("conv2"))
         h = L.max_pool(h)
-        h = h.reshape(h.shape[0], -1)
+        h = _flatten(h, cands)
         h = L.apply_dense(params["fc1"], h, activation="relu", **kw("fc1"))
         h = L.apply_dense(params["fc2"], h, activation="relu", **kw("fc2"))
         logits = L.apply_dense(params["fc3"], h, **kw("fc3"))
@@ -212,9 +241,10 @@ def _resnet_apply(block_fn, block_names, strides, comp_layers):
     names = [cl.name for cl in comp_layers]
 
     def apply(params, state, x, *, train=False, qcfg=QuantConfig.off(),
-              comp=None, serve=None, capture_taps=False):
+              comp=None, serve=None, capture_taps=False, cands=None):
+        _check_cands(cands, serve, capture_taps)
         tap = {} if capture_taps else None
-        w_eff = _fake_quant_all(params, names, qcfg, comp)
+        w_eff = _fake_quant_all(params, names, qcfg, comp, serve, cands)
         h = L.apply_conv(params["conv1"], x, qcfg=qcfg,
                          comp=_maybe(comp, "conv1"),
                          serve_art=_maybe(serve, "conv1"), tap=tap,

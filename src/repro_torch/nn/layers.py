@@ -6,8 +6,18 @@ Layouts are the JAX package's: activations NHWC, conv kernels HWIO, dense
 weights (in, out). Compressible layers accept an optional per-layer
 compression state (`repro_torch.core.qat.CompState`) and a `QuantConfig`,
 and an optional ``w_eff``: the layer's weight already fake-quantized by the
-model's one grouped call (`repro_torch.core.qat.fake_quant_weights`), in
-place of the layer's own `repro_torch.core.qat.fake_quant_weight`.
+model's one grouped call (`repro_torch.core.qat.fake_quant_weights`); a
+layer called alone without it makes that grouped call for itself.
+
+Candidates. The batched schedule sweep runs n candidate variants of a model
+in one forward (the JAX package's ``vmap``, written out): parameters, state
+and comps carry a leading candidate axis n, and activations carry it just
+before their last axis, (B, H, W, n, C) and (B, n, F), so candidates ride
+as extra channels. A conv is then one grouped convolution, and every
+per-tensor or per-channel reduction (activation scale, batch-norm
+statistics, pools) stays one a candidate; each candidate's slice is what a
+forward of that candidate alone computes. The network's input is shared,
+(B, H, W, C), with no candidate axis.
 """
 
 from __future__ import annotations
@@ -79,9 +89,62 @@ def _record_tap(tap, tap_name, x, w, comp):
                          "w_int": qat.quantize_weight_int(w, comp)}
 
 
+def _fake_quant_alone(w, comp, qcfg: QuantConfig, cands: bool):
+    """A layer's fake-quantized weight when the model did not hand it one:
+    one grouped call for this layer alone."""
+    if not qcfg.enabled:
+        return w
+    return qat.fake_quant_weights([w], [comp],
+                                  w.shape[0] if cands else None)[0]
+
+
+def _channel_sum(g: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``g`` summed to the shape of ``like``, a per-channel tensor (C,) or
+    (n, C) broadcast over ``g``'s leading axes, in float64 and rounded once:
+    a float32 sum's order depends on how many channels and candidates share
+    the call, and the batched schedule sweep needs each candidate's
+    gradient to be the one it gets alone."""
+    dims = tuple(range(g.ndim - like.ndim))
+    return g.sum(dim=dims, dtype=torch.float64).to(like.dtype)
+
+
+class _AddBias(torch.autograd.Function):
+    """``y + b``, float32; backward ``g`` and `_channel_sum` of ``g``."""
+
+    @staticmethod
+    def forward(ctx, y, b):
+        ctx.save_for_backward(b)
+        return y + b
+
+    @staticmethod
+    def backward(ctx, g):
+        (b,) = ctx.saved_tensors
+        return g, _channel_sum(g, b)
+
+
+class _Normalize(torch.autograd.Function):
+    """``(x - mean) * inv + bias``, float32 elementwise, as the JAX
+    package's batch norm; backward the same elementwise gradient to ``x``,
+    and per-channel gradients of ``mean``, ``inv`` and ``bias`` through
+    `_channel_sum`."""
+
+    @staticmethod
+    def forward(ctx, x, mean, inv, bias):
+        t = x - mean
+        ctx.save_for_backward(t, inv)
+        return t * inv + bias
+
+    @staticmethod
+    def backward(ctx, g):
+        t, inv = ctx.saved_tensors
+        g_t = g * inv
+        return (g_t, -_channel_sum(g_t, inv), _channel_sum(g * t, inv),
+                _channel_sum(g, inv))
+
+
 def _epilogue(y, params, activation, residual):
     if "b" in params:
-        y = y + params["b"].to(y.dtype)
+        y = _AddBias.apply(y, params["b"].to(y.dtype))
     y = ACTIVATIONS[activation](y)
     if residual is not None:
         y = y + residual.to(y.dtype)
@@ -114,18 +177,24 @@ def apply_dense(params, x: torch.Tensor, *,
     ``y = act(x @ w + b) + residual``. On the serve path bias, activation and
     residual ride the LUT-GEMM kernel epilogue (one launch). A ``tap`` dict
     receives the layer's int8 input and weights under ``tap_name``.
-    ``w_eff``: the fake-quantized weight, where the caller computed it."""
+    ``w_eff``: the fake-quantized weight, where the caller computed it.
+    Candidates: ``w`` (n, in, out) and ``x`` (B, n, in) give (B, n, out),
+    one batched product."""
     w = params["w"]
+    cands = w.ndim == 3
     if qcfg.enabled and qcfg.act_quant:
-        x = qat.fake_quant_act(x)
+        x = qat.fake_quant_act(x, -2 if cands else None)
     _record_tap(tap, tap_name, x, w, comp)
     if _serves(qcfg, serve_art):
         return serve_dense(x, serve_art, bias=params.get("b"),
                            residual=residual, activation=activation)
     if w_eff is None:
-        w_eff = qat.fake_quant_weight(w, comp) if qcfg.enabled else w
-    y = exact_matmul(x, w_eff).to(x.dtype)
-    return _epilogue(y, params, activation, residual)
+        w_eff = _fake_quant_alone(w, comp, qcfg, cands)
+    if cands:
+        y = exact_matmul(x.transpose(0, 1), w_eff).transpose(0, 1)
+    else:
+        y = exact_matmul(x, w_eff)
+    return _epilogue(y.to(x.dtype), params, activation, residual)
 
 
 # --------------------------------------------------------------------- conv2d
@@ -145,16 +214,30 @@ def conv_nhwc(x: torch.Tensor, w: torch.Tensor, stride: int,
     """``lax.conv_general_dilated`` with NHWC/HWIO/NHWC dimension numbers,
     correctly rounded like `exact_matmul` (float64 sums, one rounding).
 
+    Candidates: ``w`` (n, kh, kw, c_in, c_out) holds n kernels; ``x`` is
+    (B, H, W, n, c_in), candidate j convolved with kernel j (one grouped
+    convolution, candidates folded into channels), or a shared (B, H, W,
+    c_in) that every kernel reads (one convolution of n * c_out outputs).
+    The result is (B, Ho, Wo, n, c_out).
+
     SAME pads explicitly (`same_pad_nhwc`): torch's ``padding="same"``
     rejects stride > 1 and pads stride-2 convs differently."""
-    kh, kw = w.shape[:2]
+    kh, kw = w.shape[-4:-2]
+    cands, groups = (w.shape[0] if w.ndim == 5 else None), 1
+    if cands is None:
+        w = w.permute(3, 2, 0, 1)
+    else:
+        if x.ndim == 5:
+            x, groups = x.flatten(3), cands
+        w = w.permute(0, 4, 3, 1, 2).flatten(0, 1)
     if padding == "SAME":
         x = same_pad_nhwc(x, (kh, kw), stride)
     elif padding != "VALID":
         raise ValueError(padding)
-    y = F.conv2d(x.permute(0, 3, 1, 2).double(),
-                 w.permute(3, 2, 0, 1).double(), stride=stride)
-    return y.permute(0, 2, 3, 1).to(x.dtype)
+    y = F.conv2d(x.permute(0, 3, 1, 2).double(), w.double(), stride=stride,
+                 groups=groups)
+    y = y.permute(0, 2, 3, 1).to(x.dtype)
+    return y if cands is None else y.unflatten(3, (cands, -1))
 
 
 def apply_conv(params, x: torch.Tensor, *, stride: int = 1,
@@ -169,17 +252,19 @@ def apply_conv(params, x: torch.Tensor, *, stride: int = 1,
     ``y = act(conv(x, w) + b) + residual``. On the serve path the epilogue
     rides the im2col-fed LUT-GEMM kernel (one launch). A ``tap`` dict
     receives the layer's int8 input and weights under ``tap_name``.
-    ``w_eff``: the fake-quantized weight, where the caller computed it."""
+    ``w_eff``: the fake-quantized weight, where the caller computed it.
+    Candidates: see `conv_nhwc`; a shared input has one activation scale,
+    a candidate axis one a candidate."""
     w = params["w"]
     if qcfg.enabled and qcfg.act_quant:
-        x = qat.fake_quant_act(x)
+        x = qat.fake_quant_act(x, -2 if x.ndim == 5 else None)
     _record_tap(tap, tap_name, x, w, comp)
     if _serves(qcfg, serve_art):
         return serve_conv(x, serve_art, stride=stride, padding=padding,
                           bias=params.get("b"), residual=residual,
                           activation=activation)
     if w_eff is None:
-        w_eff = qat.fake_quant_weight(w, comp) if qcfg.enabled else w
+        w_eff = _fake_quant_alone(w, comp, qcfg, w.ndim == 5)
     y = conv_nhwc(x, w_eff.to(x.dtype), stride, padding)
     return _epilogue(y, params, activation, residual)
 
@@ -203,18 +288,22 @@ def make_batchnorm_state(dim: int, dtype=torch.float32):
 
 def apply_batchnorm(params, state, x: torch.Tensor, *, train: bool,
                     momentum: float = 0.9, eps: float = 1e-5):
-    """Returns (y, new_state). Reduces over all axes but the channel (last).
+    """Returns (y, new_state). Reduces over all axes but the channel (last)
+    and, where ``params`` carry a candidate axis ((n, C) leaves), the
+    candidate axis before it: statistics and running state are one a
+    candidate.
 
     The batch statistics and the per-channel ``rsqrt(var + eps) * scale``
     are computed in float64 and rounded once; the normalisation itself is
     float32, elementwise. Float32 reductions and ``rsqrt`` differ in the
     last bit between the CPU and the card, and at depth such a bit moves an
     activation across a `fake_quant_act` rounding boundary; so the forward
-    gives the same bits on both, like the convolutions (`conv_nhwc`). In
-    train mode the running state is detached from the graph (the JAX
+    gives the same bits on both, like the convolutions (`conv_nhwc`); the
+    backward's per-channel sums are float64 too (`_Normalize`). In train
+    mode the running state is detached from the graph (the JAX
     package's state output carries no gradient; here it would chain every
     step's graph)."""
-    reduce_axes = tuple(range(x.ndim - 1))
+    reduce_axes = tuple(range(x.ndim - params["scale"].ndim))
     if train:
         xd = x.double()
         mean = xd.mean(dim=reduce_axes)
@@ -229,7 +318,8 @@ def apply_batchnorm(params, state, x: torch.Tensor, *, train: bool,
         mean, var = state["mean"].double(), state["var"].double()
         new_state = state
     inv = torch.rsqrt(var + eps) * params["scale"].double()
-    y = (x - mean.to(x.dtype)) * inv.to(x.dtype) + params["bias"].to(x.dtype)
+    y = _Normalize.apply(x, mean.to(x.dtype), inv.to(x.dtype),
+                         params["bias"].to(x.dtype))
     return y, new_state
 
 
@@ -237,12 +327,16 @@ def apply_batchnorm(params, state, x: torch.Tensor, *, train: bool,
 
 
 def max_pool(x: torch.Tensor, window: int = 2, stride: int = 2) -> torch.Tensor:
-    """VALID max pool over H and W of an NHWC tensor."""
+    """VALID max pool over H and W of an NHWC (or (B, H, W, n, C))
+    tensor."""
+    if x.ndim == 5:
+        return max_pool(x.flatten(3), window, stride).unflatten(3,
+                                                                x.shape[3:])
     y = F.max_pool2d(x.permute(0, 3, 1, 2), window, stride)
     return y.permute(0, 2, 3, 1)
 
 
 def avg_pool_global(x: torch.Tensor) -> torch.Tensor:
     """Mean over H and W, summed in float64 and rounded once (see
-    `apply_batchnorm`)."""
+    `apply_batchnorm`); (B, H, W, n, C) gives (B, n, C)."""
     return x.mean(dim=(1, 2), dtype=torch.float64).to(x.dtype)

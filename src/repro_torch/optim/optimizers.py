@@ -9,10 +9,19 @@ package resumes in the other. Learning-rate schedules are callables of the
 int32 step tensor, which stays on the device: no update reads a value back
 to the host.
 
-Every update is the JAX package's, operation for operation. PyTorch's
-`torch.optim.AdamW` is not used: it applies the bias correction and ``eps``
-in another order and has no global-norm clip. The functions run under
-`torch.no_grad` and return new tensors; nothing is updated in place.
+Every update is the JAX package's, operation for operation, except that the
+global norm is summed in float64 and rounded once: a float32 sum's order
+depends on the shapes it is reduced over, and the batched schedule sweep
+needs candidate j's update to equal the update of candidate j alone.
+PyTorch's `torch.optim.AdamW` is not used: it applies the bias correction
+and ``eps`` in another order and has no global-norm clip. The functions run
+under `torch.no_grad` and return new tensors; nothing is updated in place.
+
+Candidates. `adamw`'s state may carry a leading candidate axis n on every
+leaf (``step`` of shape (n,), as `repro_torch.core.qat.stack_pytrees`
+builds it), with grads and params of the same layout: each candidate then
+takes its own update, its own global-norm clip and bias correction
+included, the one the unbatched update gives it.
 """
 
 from __future__ import annotations
@@ -37,17 +46,31 @@ def _lr_fn(lr) -> Callable[[torch.Tensor], torch.Tensor]:
                                    device=step.device)
 
 
-@torch.no_grad()
-def global_norm(tree) -> torch.Tensor:
-    leaves = [torch.sum(torch.square(x.float())) for x in tree_leaves(tree)]
-    return torch.sqrt(torch.sum(torch.stack(leaves)))
+def _per_candidate(v: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """A per-candidate (n,) value shaped to broadcast against ``like``'s
+    (n, ...); a 0-d value as it is."""
+    return v.reshape(v.shape + (1,) * (like.ndim - v.ndim)) if v.ndim else v
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads, max_norm: float):
-    norm = global_norm(grads)
+def global_norm(tree, cands: bool = False) -> torch.Tensor:
+    """The float32 norm of every leaf together, its squares summed in
+    float64 and rounded once; ``cands``: one norm a candidate (the leading
+    axis of every leaf), shape (n,)."""
+    def sq(x):
+        x = x.double()
+        return (x.reshape(x.shape[0], -1) if cands else x).square().sum(-1)
+
+    total = torch.stack([sq(x).reshape(-1) if cands else sq(x).sum()
+                         for x in tree_leaves(tree)]).sum(0)
+    return torch.sqrt(total).float()
+
+
+@torch.no_grad()
+def clip_by_global_norm(grads, max_norm: float, cands: bool = False):
+    norm = global_norm(grads, cands)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
-    return tree_map(lambda g: g * scale, grads), norm
+    return tree_map(lambda g: g * _per_candidate(scale, g), grads), norm
 
 
 def adamw(lr: Union[Callable[[torch.Tensor], torch.Tensor], float], *,
@@ -64,8 +87,9 @@ def adamw(lr: Union[Callable[[torch.Tensor], torch.Tensor], float], *,
 
     @torch.no_grad()
     def update(grads, state, params):
+        cands = state["step"].ndim == 1
         if max_grad_norm is not None:
-            grads, _ = clip_by_global_norm(grads, max_grad_norm)
+            grads, _ = clip_by_global_norm(grads, max_grad_norm, cands)
         step = state["step"] + 1
         stepf = step.float()
         mu = tree_map(lambda m, g: b1 * m + (1 - b1) * g, state["mu"], grads)
@@ -76,12 +100,12 @@ def adamw(lr: Union[Callable[[torch.Tensor], torch.Tensor], float], *,
         lr_t = lr_fn(step)
 
         def upd(m, v, p):
-            mh = m * mu_hat_scale
-            vh = v * nu_hat_scale
+            mh = m * _per_candidate(mu_hat_scale, m)
+            vh = v * _per_candidate(nu_hat_scale, v)
             delta = mh / (torch.sqrt(vh) + eps)
             if weight_decay:
                 delta = delta + weight_decay * p
-            return (-lr_t * delta).to(p.dtype)
+            return (-_per_candidate(lr_t, p) * delta).to(p.dtype)
 
         updates = tree_map(upd, mu, nu, params)
         return updates, {"step": step, "mu": mu, "nu": nu}

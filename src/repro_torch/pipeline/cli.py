@@ -3,7 +3,7 @@
     python -m repro_torch profile  [--config cfg.json | --reduced] [--arch A]
                                    [--steps N] [--seed S] [--plan-out BASE]
     python -m repro_torch compress [--config cfg.json | --reduced] [--arch A]
-                                   [--steps N] [--search-mode serial]
+                                   [--steps N] [--search-mode MODE]
                                    [--seed S] [--plan-in BASE]
                                    [--plan-out BASE]
     python -m repro_torch export --plan-in BASE [--plan-out BASE2]
@@ -15,10 +15,11 @@ on the transition-statistics kernel, energy LUTs and shares. ``compress``
 runs all five stages: profile, energy_model, the layer-wise ``schedule``
 (weight selection inside QAT fine-tunes), ``export`` (packed 4-bit
 artifacts) and ``serve`` (the full-model forward on the LUT GEMM); the JAX
-package's ``compress`` stops after ``schedule``. The port's schedule has the
-serial search only, so ``compress`` needs ``--search-mode serial`` unless
-the config already says so; the batched sweep is refused before any stage
-runs. ``export`` and ``serve`` resume a saved plan, from either package.
+package's ``compress`` stops after ``schedule``. The schedule runs the
+config's ``search_mode``, the batched candidate sweep by default;
+``--search-mode serial`` takes the serial walk, which makes the same
+decisions. ``export`` and ``serve`` resume a saved plan, from either
+package.
 ``--plan-in`` resumes a plan (completed stages are skipped), ``--plan-out``
 saves the result as ``BASE.json`` + ``BASE.npz``. Every command takes
 ``--device``, which defaults to ``cuda``; on a host without CUDA that is an
@@ -60,8 +61,8 @@ def build_parser() -> argparse.ArgumentParser:
                            help="override train.qat_steps")
             p.add_argument("--search-mode", choices=("batched", "serial"),
                            default=None,
-                           help="override schedule.search_mode (only "
-                                "serial is ported)")
+                           help="override schedule.search_mode (both "
+                                "make the same decisions)")
             p.add_argument("--seed", type=int, default=None,
                            help="override target.seed")
         p.add_argument("--plan-in", required=command not in CONFIG_COMMANDS,

@@ -258,7 +258,7 @@ def reduced_cnn_config(**target_kw) -> PipelineConfig:
     """CPU-smoke preset: a LeNet-5 micro-run of the full pipeline (port of
     `repro.pipeline.config.reduced_cnn_config`; what ``compress --reduced``
     runs). Its ``schedule.search_mode`` is the default, ``"batched"``, as in
-    the JAX package: the port runs it with ``search_mode="serial"``."""
+    the JAX package."""
     target = TargetConfig(kind="cnn", arch="lenet5", data_seed=5,
                           batch_size=64, lr=2e-3, **target_kw)
     return PipelineConfig(

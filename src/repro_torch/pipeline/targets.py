@@ -4,10 +4,11 @@ A target owns the model runtime and implements one method per pipeline
 stage; each takes the shared `CompressionPlan` and the `PipelineConfig` and
 mutates only the plan. The CNN target's five stages are ported operation for
 operation: ``profile`` (QAT base training, then the trace statistics),
-``energy_model``, ``schedule`` (serial search mode), ``export`` and
-``serve``. What is not ported (the cosim gate, the batched schedule sweep,
-the LM-family targets) raises `NotImplementedError` naming the ROADMAP.md
-item that ports it, from `CnnTarget.check_ported` before any stage runs.
+``energy_model``, ``schedule`` (both search modes, the batched candidate
+sweep by default), ``export`` and ``serve``. What is not ported (the cosim
+gate, the LM-family targets) raises `NotImplementedError` naming the
+ROADMAP.md item that ports it, from `CnnTarget.check_ported` or
+`resolve_target` before any stage runs.
 """
 
 from __future__ import annotations
@@ -19,10 +20,7 @@ import torch
 from repro_torch._device import tree_to
 from repro_torch.core.export import export_model, export_summary
 from repro_torch.core.runner import CnnRunner
-from repro_torch.core.schedule import (
-    check_search_mode,
-    energy_prioritized_compression,
-)
+from repro_torch.core.schedule import energy_prioritized_compression
 from repro_torch.data.synthetic import SyntheticImages
 from repro_torch.nn.cnn import CNN_FACTORIES
 from repro_torch.nn.layers import QuantConfig
@@ -78,8 +76,6 @@ class CnnTarget:
             raise NotImplementedError(
                 "profile with verify_cosim=True is not ported yet: "
                 f"{_NOT_PORTED['verify_cosim']}")
-        if "schedule" in stages:
-            check_search_mode(cfg.schedule.search_mode)
 
     def _on_device(self, plan: CompressionPlan) -> None:
         """Move the plan's tensors to this target's device (plans load on
@@ -135,8 +131,9 @@ class CnnTarget:
 
     def stage_schedule(self, plan: CompressionPlan, cfg: PipelineConfig,
                        verbose: bool = False) -> None:
-        """The energy-prioritized layer-wise schedule (serial search), the
-        final fine-tune, and the decisions and metrics of the JAX stage."""
+        """The energy-prioritized layer-wise schedule (``search_mode``:
+        the batched candidate sweep or the serial walk), the final
+        fine-tune, and the decisions and metrics of the JAX stage."""
         self._on_device(plan)
         runner = self.runner
         params, state, opt_state, comp, sched = energy_prioritized_compression(

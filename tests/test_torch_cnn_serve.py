@@ -362,10 +362,22 @@ def test_plan_sections_round_trip_both_ways(tmp_path):
     JConfig.from_dict(back.config)
 
 
+class _WorkStarted(Exception):
+    pass
+
+
 def test_unported_stages_and_targets_name_their_roadmap_item():
+    """The default config (``search_mode="batched"``, ported) is not
+    refused: its run starts work. Targets not ported still raise, naming
+    their ROADMAP.md item."""
     pipe = TPipeline(TConfig(), device="cpu")     # search_mode="batched"
-    pipe.target.runner.init = None        # any work would fail differently
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 4b"):
+    assert pipe.cfg.schedule.search_mode == "batched"
+
+    def init():
+        raise _WorkStarted
+
+    pipe.target.runner.init = init
+    with pytest.raises(_WorkStarted):
         pipe.run()
     assert not pipe.plan.completed
     lm = TConfig.from_dict({"target": {"kind": "lm", "arch": "olmo-1b"}})

@@ -70,6 +70,16 @@ NAMES = ("energy_sum", "count", "group_hist", "act_hist")
 _SPLIT = {"train": 0, "val": 1, "test": 2}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """The port's CPU work in this file runs on one thread: beside the
+    suite's parallel workers, more threads only contend for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def j2t(tree):
     return params_from_numpy(jax.device_get(tree), "cpu")
 
@@ -336,23 +346,57 @@ def test_cli_profile_writes_a_plan_jax_loads(tmp_path):
     np.testing.assert_allclose(sum(plan.shares.values()), 1.0, rtol=1e-6)
 
 
+class _WorkStarted(Exception):
+    pass
+
+
 @pytest.mark.parametrize("override,item", [
     ({"schedule": {"search_mode": "batched"}}, "Queue 1 item 4b"),
     ({"profile": {"verify_cosim": True}}, "Queue 1 item 9")])
 def test_unported_profile_options_raise_before_work(override, item):
+    """An option that is not ported raises, naming its ROADMAP.md item,
+    before any work; item 4b (the batched schedule sweep) is ported, so its
+    config goes on to work."""
     cfg = TConfig.from_dict(_cfg_dict()).with_overrides(override)
     pipe = TPipeline(cfg, device="cpu")
-    pipe.target.runner.init = None        # any work would fail differently
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
+
+    def init():
+        raise _WorkStarted
+
+    pipe.target.runner.init = init
+    shipped = item == "Queue 1 item 4b"
+    with pytest.raises(_WorkStarted if shipped else NotImplementedError,
+                       match=None if shipped else f"ROADMAP.md {item}"):
         pipe.run()
     assert not pipe.plan.completed
 
 
 def test_runner_training_names_its_roadmap_item():
+    """The runner's batched candidate sweep (ROADMAP.md Queue 1 item 4b)
+    runs: two stacked LeNet-5 candidates train and evaluate as each does
+    alone, bit for bit."""
+    from repro_torch._device import tree_leaves
+    from repro_torch.core import qat as tqat
+
     runner = TRunner(tcnn.lenet5(), _TorchImages(), batch_size=2,
                      device="cpu")
-    for fn in (runner.train_batched, runner.accuracy_batched,
-               runner.accuracy_comps, runner.accuracy_gather):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP.md Queue 1 item 4b"):
-            fn()
+    params, state, opt_state, comp = runner.init()
+    comps = [comp, dict(comp, conv2=dict(comp["conv2"], mask=tqat.
+             magnitude_prune_mask(params["conv2"]["w"], 0.5)))]
+    stacked = tqat.stack_pytrees(comps)
+    p_s, s_s, o_s, loss = runner.train_batched(
+        *(tqat.broadcast_pytree(t, 2) for t in (params, state, opt_state)),
+        stacked, 2)
+    accs = runner.accuracy_batched(p_s, s_s, stacked, n_batches=2)
+    for j, c in enumerate(comps):
+        p1, s1, _, l1 = runner.train(params, state, opt_state, c, 2)
+        assert loss[j] == l1
+        for a, b in zip(tree_leaves(p1), tree_leaves(p_s)):
+            assert torch.equal(a, b[j])
+        assert accs[j] == runner.accuracy(p1, s1, c, n_batches=2)
+    np.testing.assert_array_equal(
+        runner.accuracy_comps(params, state, stacked, n_batches=2),
+        [runner.accuracy(params, state, c, n_batches=2) for c in comps])
+    np.testing.assert_array_equal(
+        runner.accuracy_gather(p_s, s_s, stacked, [0, 1], n_batches=2),
+        accs)

@@ -72,6 +72,16 @@ SERIAL = {"schedule": {"search_mode": "serial"}}
 N_MC = 256                  # Monte-Carlo samples of the JAX grouped LUT
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """The port's CPU work in this file runs on one thread: beside the
+    suite's parallel workers, more threads only contend for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def j2t(tree):
     return params_from_numpy(jax.device_get(tree), "cpu")
 
@@ -342,7 +352,11 @@ def test_decision_dict_matches_jax():
 
 
 def _env():
-    return {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    """The CLI subprocess's environment: the port on its path, one CPU
+    thread (beside the suite's parallel workers more threads only contend
+    for the cores)."""
+    return {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+            "OMP_NUM_THREADS": "1", "MKL_NUM_THREADS": "1"}
 
 
 def test_cli_compress_reduced_writes_a_plan_jax_loads(tmp_path):
@@ -363,24 +377,86 @@ def test_cli_compress_reduced_writes_a_plan_jax_loads(tmp_path):
     assert int(plan.opt_state["step"]) > 60          # base QAT + fine-tunes
 
 
-def test_batched_schedule_raises_before_any_work():
+@pytest.fixture(scope="module")
+def batched_port(schedule_pair):
+    """The port's schedule stage under the default ``search_mode``
+    (batched), from the same JAX-made plan and with the same JAX LUTs as
+    the serial pair."""
     cfg = t_reduced()                     # search_mode: "batched" (default)
-    pipe = TPipeline(cfg, device="cpu")
-    pipe.target.runner.init = None        # any work would fail differently
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 4b"):
-        pipe.run()
-    assert not pipe.plan.completed
+    assert cfg.schedule.search_mode == "batched"
+    start = TPlan.load(schedule_pair["tmp"] / "energy_model")
+    pipe = TPipeline.from_plan(start, cfg=cfg, device="cpu")
+    runner = schedule_pair["pipe"].target.runner
+    pipe.target = TTarget(cfg, torch.device("cpu"), runner=runner)
+    return pipe, pipe.run_until("schedule")
+
+
+def test_batched_schedule_raises_before_any_work(schedule_pair,
+                                                 batched_port):
+    """The batched sweep (the default ``search_mode``) runs the schedule
+    stage from the same JAX-made plan and gives the port's serial walk's
+    decisions, masks, codebooks and accuracies."""
+    pipe, plan = batched_port
+    serial = schedule_pair["port"]
+    assert plan.decisions == serial.decisions
+    for name, c in serial.comp.items():
+        for f in ("codebook", "codebook_k", "msr_bits", "mask"):
+            assert torch.equal(plan.comp[name][f], c[f]), (name, f)
+    for f in ("acc0", "acc_final", "energy_saving"):
+        assert plan.metrics[f] == serial.metrics[f], f
     # a plan already past the schedule resumes whatever the config says
     pipe.plan.completed = ("profile", "energy_model", "schedule", "export",
                            "serve")
     pipe.run()
 
 
+def test_batched_schedule_matches_jax_batched(schedule_pair, batched_port):
+    """The port's batched sweep against the JAX package's, from the same
+    plan, LUTs and batches, at the serial schedule's bounds (module
+    docstring)."""
+    jcfg = j_reduced()
+    assert jcfg.schedule.search_mode == "batched"
+    jrunner = JRunner(jcnn.lenet5(), _JaxImages(), batch_size=64,
+                      lr=jcfg.target.lr)
+    jpipe = JPipeline.from_plan(
+        JPlan.load(schedule_pair["tmp"] / "energy_model"),
+        target=JTarget(jcfg, runner=jrunner), cfg=jcfg)
+    blended = j_energy_lut.blended_lut
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(j_energy_lut, "blended_lut",
+                   lambda stats: blended(stats, n_mc=N_MC))
+        jplan = jpipe.run_until("schedule")
+    tplan = batched_port[1]
+    assert len(tplan.decisions) == len(jplan.decisions) >= 1
+    for t, j in zip(tplan.decisions, jplan.decisions):
+        for f in ("layer", "prune_ratio", "k", "msr", "accepted", "tried",
+                  "accuracy"):
+            assert t[f] == j[f], (f, t[f], j[f])
+        for f in ("share", "energy_before", "energy_after"):
+            np.testing.assert_allclose(t[f], j[f], rtol=1e-5, err_msg=f)
+    for name, jc in jplan.comp.items():
+        for f in ("codebook", "codebook_k", "msr_bits", "mask"):
+            np.testing.assert_array_equal(tplan.comp[name][f].numpy(),
+                                          np.asarray(jc[f]),
+                                          err_msg=f"{name}.{f}")
+    for f in ("acc0", "acc_final", "accuracy_drop", "max_codebook"):
+        assert tplan.metrics[f] == jplan.metrics[f], f
+    np.testing.assert_allclose(tplan.metrics["energy_saving"],
+                               jplan.metrics["energy_saving"], rtol=1e-4)
+
+
 def test_cli_compress_refuses_batched_search(tmp_path):
+    """``compress --reduced`` with no ``--search-mode`` runs all five stages
+    under the default batched sweep."""
+    out = tmp_path / "batched"
     proc = subprocess.run(
         [sys.executable, "-m", "repro_torch", "compress", "--reduced",
-         "--device", "cpu"], capture_output=True, text=True, cwd=tmp_path,
-        env=_env(), timeout=300)
-    assert proc.returncode == 2
-    assert "ROADMAP.md Queue 1 item 4b" in proc.stderr
-    assert "--search-mode serial" in proc.stderr
+         "--device", "cpu", "--quiet", "--plan-out", str(out)],
+        capture_output=True, text=True, cwd=tmp_path, env=_env(),
+        timeout=600)
+    assert proc.returncode == 0, proc.stderr
+    plan = JPlan.load(out)
+    assert plan.config["schedule"]["search_mode"] == "batched"
+    assert plan.completed == ("profile", "energy_model", "schedule",
+                              "export", "serve")
+    assert plan.decisions and plan.metrics["serve_logit_rel_err"] < 2e-2
