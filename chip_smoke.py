@@ -83,7 +83,27 @@
 11. the compress path again under the default search mode (the batched
    sweep), as users run it: the main path whose launches the ``kernels``
    line reports;
-12. prints the ``kernels`` JSON line, then the result line.
+12. ``[lm]``: olmo-1b at its published width and depth (1.177e9
+   parameters, seeded init): ``Pipeline(cfg, device="cuda")
+   .run_until("export")`` (no LM QAT, every matmul restricted to 4
+   values), with launches per stage, 112 exported matmuls and
+   `lut_parity_report` over all of them (max < 1e-5); K2 at the LM's
+   shapes (M = 1024 prefill and M = 4 decode for 2048 x 2048, 2048 x 8192
+   with and without the SiLU epilogue, 8192 x 2048; float32 and bfloat16
+   x at each shape) against its plain version, timed as in 3; K3's one
+   launch of 7 stacked units x 16 layers (the layer axis as candidates)
+   bit for bit against its plain version, timed beside its bound; the
+   stacked serve artifacts; 4 seeded prompts of 256 tokens prefilled to
+   512 and 8 greedy decode steps, served (K2: 112 launches a prefill or
+   step, no K3; the dtype of each launch's x recorded) against fake-quant
+   (one K3 launch a step, no K2), at float32 (prefill logit rel err <
+   2e-2) and at the config's bfloat16 (reported), with tokens/s and ms a
+   step; at float32 a witness: the fake-quant forward with each weight set
+   to its artifact's dequantized weight, held to the served logits (rel
+   err < 1e-5); and where a served prefill's and decode step's time goes
+   (``[lm-breakdown]``: K2's recorded calls of the step replayed through
+   the kernel, its plain version and `torch.matmul`, beside their bound);
+13. prints the ``kernels`` JSON line, then the result line.
 
 Any failure raises and the script exits non-zero. It refuses to run without
 a CUDA device, and outside a checkout of the repository.
@@ -125,6 +145,17 @@ HOST_CALLS = 200            # K3 wrapper calls timed on the host clock
 # candidates; the largest gathered evaluation of the default schedule (9
 # candidates, chunks of at most 64 requests: 63)
 K3_CANDIDATES = (1, 6, 63)
+# the [lm] phase: olmo-1b at its published width and depth, seeded init
+LM_ARCH, LM_CDTYPE = "olmo-1b", "bfloat16"
+LM_COMPRESS_K = 4
+LM_PROMPTS, LM_PROMPT_LEN, LM_MAX_LEN = 4, 256, 512
+LM_DECODE_STEPS = 8
+LM_PROMPT_SEED = 100
+LM_PARITY = 1e-5            # lut_parity_report, max over every unit
+# served vs the fake-quant forward on the artifacts' dequantized weights:
+# the same float64-summed products rounded once, so float32 ulps at most
+WITNESS_PARITY = 1e-5
+SERVE_PARITY = 2e-2         # the README's serve_forward_parity gate
 K2 = dict(name="lut_matmul",
           source="src/repro_torch/kernels/lut_matmul/csrc/lut_matmul.cu",
           replaces="src/repro/kernels/lut_matmul/lut_matmul.py:125")
@@ -634,11 +665,27 @@ def serve_breakdown(torch, forward):
     from repro_torch.core import export, qat
     from repro_torch.nn import layers as L
 
-    targets = {"im2col_rows": (export, "im2col_rows"),
-               "k2": (export, "lut_matmul_fused"),
-               "fake_quant_acts": (qat, "fake_quant_act"),
-               "batch_norm": (L, "apply_batchnorm"),
-               "pooling": (L, "avg_pool_global")}
+    ms, _ = breakdown(torch, forward, {
+        "im2col_rows": (export, "im2col_rows"),
+        "k2": (export, "lut_matmul_fused"),
+        "fake_quant_acts": (qat, "fake_quant_act"),
+        "batch_norm": (L, "apply_batchnorm"),
+        "pooling": (L, "avg_pool_global")})
+    ms["batch_norm_and_pooling"] = ms.pop("batch_norm") + ms.pop("pooling")
+    ms["other"] = ms["forward"] - sum(v for k, v in ms.items()
+                                      if k not in ("forward", "calls"))
+    return ms
+
+
+def breakdown(torch, forward, targets, reps=10, replays=None):
+    """({"forward": ms, part: ms, ..., "calls": {part: n}}, {part: [(args,
+    kwargs)]}): ``forward()`` runs once with every ``targets`` function
+    ({part: (module or object, attribute)}) recording its calls; then the
+    forward and each part's recorded calls, replayed alone, are timed
+    between CUDA events in interleaved turns (`time_turns`). ``replays``
+    ({name: (part, make)}) times one more replay of a part's calls each:
+    ``make(args, kwargs)`` prepares a call's stand-in (outside the timing)
+    and returns it as a function of no arguments."""
     calls = {name: [] for name in targets}
     real = {name: getattr(mod, attr) for name, (mod, attr) in targets.items()}
 
@@ -662,14 +709,21 @@ def serve_breakdown(torch, forward):
                 real[name](*a, **kw)
         return run
 
+    def replay_as(part, make):
+        stand_ins = [make(a, kw) for a, kw in calls[part]]
+
+        def run():
+            for fn in stand_ins:
+                fn()
+        return run
+
     fns = {"forward": forward}
     fns.update({name: replay(name) for name in targets})
-    ms = time_turns(torch, fns, 10)
-    ms["batch_norm_and_pooling"] = ms.pop("batch_norm") + ms.pop("pooling")
-    ms["other"] = ms["forward"] - sum(v for k, v in ms.items()
-                                      if k != "forward")
+    fns.update({name: replay_as(part, make)
+                for name, (part, make) in (replays or {}).items()})
+    ms = time_turns(torch, fns, reps)
     ms["calls"] = {name: len(v) for name, v in calls.items()}
-    return ms
+    return ms, calls
 
 
 # ------------------------------------------------------------- profile path
@@ -1773,6 +1827,551 @@ def sweep_phase(torch, plan_dir):
     return out
 
 
+# ------------------------------------------------------------------ LM phase
+
+
+def lm_config():
+    """The [lm] phase's config: `reduced_lm_config` of olmo-1b at its
+    published width and depth (``reduced=False``), no LM QAT steps, every
+    matmul restricted to LM_COMPRESS_K values."""
+    import dataclasses
+
+    from repro_torch.pipeline.config import reduced_lm_config
+
+    cfg = reduced_lm_config(LM_ARCH, compress_k=LM_COMPRESS_K)
+    return dataclasses.replace(cfg, target=dataclasses.replace(
+        cfg.target, reduced=False))
+
+
+def lm_export_path(torch):
+    """``Pipeline(lm_config(), device="cuda").run_until("export")`` with
+    every kernel's launches read per stage, then `lut_parity_report` over
+    every exported unit. Returns (target, plan, [lm] metrics)."""
+    from repro_torch.core.lm_compress import lut_parity_report
+    from repro_torch.kernels.fake_quant import fake_quant as k3
+    from repro_torch.kernels.lut_matmul import lut_matmul as k2
+    from repro_torch.kernels.transition_energy import transition_energy as k1
+    from repro_torch.pipeline.pipeline import Pipeline
+
+    kernels = {"K1": k1, "K2": k2, "K3": k3}
+    pipe = Pipeline(lm_config(), device="cuda")
+    target = pipe.target
+    stages = ("profile", "energy_model", "schedule", "export")
+    per_stage = {}
+    for stage in stages:
+        def counted(plan, cfg, verbose=False, _stage=stage,
+                    _fn=getattr(target, f"stage_{stage}")):
+            before = {key: mod.launches for key, mod in kernels.items()}
+            _fn(plan, cfg, verbose=verbose)
+            torch.cuda.synchronize()
+            per_stage[_stage] = {key: mod.launches - before[key]
+                                 for key, mod in kernels.items()}
+        setattr(target, f"stage_{stage}", counted)
+    for mod in kernels.values():
+        mod.launches = 0
+    t0 = time.perf_counter()
+    plan = pipe.run_until("export", verbose=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+
+    acfg = target.acfg
+    n_units = 7 * acfg.n_layers
+    arts = plan.artifacts
+    if len(arts) != n_units:
+        raise AssertionError(f"[lm] exported {len(arts)} matmuls, expected "
+                             f"{n_units}")
+    t0 = time.perf_counter()
+    checked = lut_parity_report(target.model, plan.params, plan.comp, arts,
+                                check_units=len(arts))
+    parity_s = time.perf_counter() - t0
+    parity = max(checked.values())
+    if len(checked) != n_units or not parity < LM_PARITY:
+        raise AssertionError(f"[lm] lut_parity_report: {len(checked)} units, "
+                             f"max rel err {parity:.3e} (required < "
+                             f"{LM_PARITY})")
+    m = plan.metrics
+    out = {k: v for k, v in m.items() if k.startswith(("wall_s_", "export_"))}
+    out.update(arch=acfg.name, n_params=m["n_params"], n_units=m["n_units"],
+               exported_matmuls=len(arts),
+               packed_mb=m["export_weight_bytes_packed"] / 1e6,
+               energy_per_token=m["energy_per_token"],
+               energy_before=m["energy_before"],
+               energy_after=m["energy_after"],
+               parity_units=len(checked), parity_max_rel_err=parity,
+               parity_wall_s=parity_s, export_path_wall_s=wall,
+               launches_per_stage=per_stage)
+    print(f"[lm] {acfg.name}: {m['n_params']:,} params "
+          f"({m['n_params'] / 1e9:.3f}e9), {len(arts)} matmuls exported, "
+          f"{out['packed_mb']:.1f} MB packed; stages "
+          + ", ".join(f"{st} {m[f'wall_s_{st}']:.2f} s" for st in stages)
+          + f"; LUT parity over {len(checked)} units max {parity:.2e}",
+          flush=True)
+    return target, plan, out
+
+
+def lm_k2_cases(torch, acfg):
+    """`k2_phase` cases of the three (K, N) pairs of the LM's matmuls
+    (olmo-1b: 2048 x 2048, 2048 x 8192, 8192 x 2048) at prefill (M =
+    prompts x prompt length) and decode (M = prompts), the gate's SiLU
+    epilogue, each at float32 and at bfloat16 X."""
+    d, f = acfg.d_model, acfg.d_ff
+    shapes = [("qkvo", d, d, "none"), ("gate", d, f, "silu"),
+              ("up", d, f, "none"), ("down", f, d, "none")]
+    cases = []
+    for step, m in (("prefill", LM_PROMPTS * LM_PROMPT_LEN),
+                    ("decode", LM_PROMPTS)):
+        for x_dtype, tag in ((torch.float32, ""), (torch.bfloat16, " bf16")):
+            for name, k, n, act in shapes:
+                cases.append((f"lm {step} {name}{tag}", m, k, k, n, act,
+                              False, False, x_dtype, 0, True))
+    return cases
+
+
+def lm_stacked_units(model, params, comp):
+    """(names, weights, comps) of every stacked unit of the model's blocks:
+    the entries of the one grouped K3 launch a fake-quant forward makes."""
+    from repro_torch.nn.transformer import block_matmuls
+
+    names, ws, comps = [], [], []
+    for g, block in params["blocks"].items():
+        for unit in block_matmuls(block):
+            sub, key = unit.split("/")
+            names.append(f"blocks/{g}/{unit}")
+            ws.append(block[sub][key])
+            comps.append({k: v for k, v in comp["blocks"][g][unit].items()
+                          if k != "serve"})
+    return names, ws, comps
+
+
+def lm_k3_phase(torch, model, params, comp):
+    """K3 on the stacked units of the LM, as a fake-quant forward calls it:
+    one launch of 7 entries x L candidates (the layer axis), held against
+    its plain version bit for bit; one call timed between CUDA events (a
+    launch of milliseconds: the host's share drops out) beside its bound
+    and the plain version. The launches here are not the main path's."""
+    from repro_torch.core import qat
+    from repro_torch.kernels.fake_quant import fake_quant as k3
+    from repro_torch.kernels.fake_quant import ref
+
+    names, ws, comps = lm_stacked_units(model, params, comp)
+    n = model.n_rep
+    launched = k3.launches
+    with torch.no_grad():
+        got = qat.fake_quant_weights(ws, comps, cands=n)
+        if k3.launches - launched != 1:
+            raise AssertionError(f"[lm-k3] {k3.launches - launched} "
+                                 "launches, expected 1")
+        torch.cuda.synchronize()
+        max_err = 0.0
+        for i, (w, c) in enumerate(zip(ws, comps)):
+            want = ref.fake_quant_group_ref([w], [c], n)[0]
+            max_err = max(max_err, float((got[i] - want).abs().max()))
+            if not equal_nan(torch, got[i], want):
+                raise AssertionError(
+                    f"[lm-k3] {names[i]} {tuple(w.shape)}: kernel differs "
+                    f"from the plain version (max abs err {max_err:.3e}; "
+                    "required: equal)")
+            del want
+        del got
+        ms = time_turns(torch, {
+            "kernel": lambda: qat.fake_quant_weights(ws, comps, cands=n),
+            "plain": lambda: ref.fake_quant_group_ref(ws, comps, n)}, 3)
+    k3.launches = launched
+    bound_ms, bound_by = k3_bound(ws, comps)
+    out = dict(entries=len(ws), candidates=n,
+               weights=sum(w.numel() for w in ws), max_abs_err=max_err,
+               device_ms=ms["kernel"], plain_ms=ms["plain"],
+               timing="cuda events, one call", bound_ms=bound_ms,
+               bound_by=bound_by,
+               shapes=[[nm, list(w.shape)] for nm, w in zip(names, ws)])
+    print(f"[lm-k3] one launch of {len(ws)} entries x {n} candidates "
+          f"({out['weights']:,} weights): equal to the plain version; "
+          f"{ms['kernel']:.3f} ms (events), plain {ms['plain']:.1f} ms, "
+          f"bound {bound_ms:.3f} ms ({bound_by})", flush=True)
+    return out
+
+
+def lm_rel(torch, a, b, vocab):
+    a, b = a[..., :vocab].double(), b[..., :vocab].double()
+    return float(torch.linalg.norm(a - b)
+                 / torch.clamp(torch.linalg.norm(b), min=1e-9))
+
+
+def lm_generate(torch, model, params, comp, qcfg, prompts, cache_dtype,
+                feed=None):
+    """Prefill ``prompts`` (B, S) to LM_MAX_LEN, then LM_DECODE_STEPS
+    decode steps: greedy from this run's own logits, or fed the tokens
+    ``feed`` (B, steps) so two runs see the same inputs. Returns
+    (prefill logits, [decode logits], fed tokens (B, steps), prefill s,
+    [decode s], {kernel: launches} of the prefill, [of each step])."""
+    from repro_torch.kernels.fake_quant import fake_quant as k3
+    from repro_torch.kernels.lut_matmul import lut_matmul as k2
+
+    def counts():
+        return {"K2": k2.launches, "K3": k3.launches}
+
+    def since(before):
+        return {k: v - before[k] for k, v in counts().items()}
+
+    vocab = model.cfg.vocab
+    with torch.no_grad():
+        before = counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(params, prompts, LM_MAX_LEN, qcfg=qcfg,
+                                      comp=comp, cache_dtype=cache_dtype)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        prefill_launches = since(before)
+        tok = logits[:, -1:, :vocab].argmax(-1).to(torch.int32)
+        step_logits, step_s, step_launches, fed = [], [], [], []
+        for i in range(LM_DECODE_STEPS):
+            if feed is not None:
+                tok = feed[:, i:i + 1]
+            fed.append(tok)
+            before = counts()
+            t0 = time.perf_counter()
+            out, cache = model.decode_step(params, cache, tok, qcfg=qcfg,
+                                           comp=comp)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            step_launches.append(since(before))
+            step_logits.append(out)
+            tok = out[:, :, :vocab].argmax(-1).to(torch.int32)
+    return (logits, step_logits, torch.cat(fed, dim=1), prefill_s, step_s,
+            prefill_launches, step_launches)
+
+
+def lm_dequantized_units(torch, model, params, arts):
+    """{"blocks": {g: {unit: (L, ...)}}, "tail": {}}: every stacked unit's
+    weight as its exported artifacts serve it (each layer's artifact
+    dequantized, laid out as the parameter), in the form of
+    `LMModel._fake_quant_units`."""
+    from repro_torch.kernels.lut_matmul import ref
+    from repro_torch.nn.transformer import block_matmuls
+
+    out = {"blocks": {}, "tail": {}}
+    for g, block in params["blocks"].items():
+        out["blocks"][g] = {}
+        for unit in block_matmuls(block):
+            sub, key = unit.split("/")
+            w = block[sub][key]
+            layers = [arts[f"blocks/{g}/{unit}[{j}]"]
+                      for j in range(w.shape[0])]
+            out["blocks"][g][unit] = torch.stack([
+                ref.dequantize(a.packed, a.codebook, a.scale,
+                               a.block_k)[:a.k_dim] for a in layers
+            ]).reshape(w.shape).to(w.dtype)
+    return out
+
+
+def lm_witness(torch, model, plan, prompts, dtype, feed, served):
+    """The fake-quant forward with each weight set to its artifact's
+    dequantized weight (`lm_dequantized_units`) in place of K3's
+    straight-through value: on the same products and activation rounding
+    as the served path, it tells the served path's plumbing (layer slices
+    of the stacked artifacts, layouts, dtypes) from the straight-through
+    rounding. Returns its logits' rel err against the served run's, and
+    how far K3's straight-through weights are from the artifacts'."""
+    from repro_torch.kernels.fake_quant import fake_quant as k3
+    from repro_torch.nn.layers import QuantConfig
+
+    deq = lm_dequantized_units(torch, model, plan.params, plan.artifacts)
+    launched = k3.launches
+    with torch.no_grad():
+        st = model._fake_quant_units(plan.params, plan.comp,
+                                     QuantConfig.on())
+    k3.launches = launched
+    differ = total = 0
+    max_diff = 0.0
+    for g, units in deq["blocks"].items():
+        for unit, w in units.items():
+            d = (st["blocks"][g][unit] - w).abs()
+            differ += int((d != 0).sum())
+            total += d.numel()
+            max_diff = max(max_diff, float(d.max()))
+    del st
+    model._fake_quant_units = lambda params, comp, qcfg: deq
+    try:
+        run = lm_generate(torch, model, plan.params, plan.comp,
+                          QuantConfig.on(), prompts, dtype, feed)
+    finally:
+        del model._fake_quant_units
+    vocab = model.cfg.vocab
+    return dict(
+        prefill_logit_rel_err=lm_rel(torch, run[0], served[0], vocab),
+        decode_logit_rel_err=[lm_rel(torch, a, b, vocab)
+                              for a, b in zip(run[1], served[1])],
+        launches_prefill=run[5],
+        straight_through_weights_differing=differ / total,
+        straight_through_max_abs_diff=max_diff)
+
+
+def lm_serve_phase(torch, target, plan, comp_serve, compute_dtype):
+    """Served (`QuantConfig.serve`, K2) against fake-quant
+    (`QuantConfig.on()`, K3) prefill and decode at ``compute_dtype``:
+    LM_PROMPTS seeded prompts of LM_PROMPT_LEN tokens, then LM_DECODE_STEPS
+    greedy steps of the served model, the fake-quant model fed the same
+    tokens. Each path runs once to warm up, then timed; the served warm-up
+    records the dtype of each K2 launch's x. Launches: a served prefill or
+    decode step 7 K2 launches a layer and no K3, a fake-quant one one K3
+    launch and no K2. At float32 it runs `lm_witness` too. Returns the
+    metrics; raises at float32 if the prefill logits differ by 2e-2 or
+    more (the README's ``serve_forward_parity``), or the witness's differ
+    from the served ones by WITNESS_PARITY or more."""
+    import dataclasses
+
+    from repro_torch.core import export
+    from repro_torch.models.lm import build_lm
+    from repro_torch.nn.layers import QuantConfig
+
+    acfg = dataclasses.replace(target.acfg, compute_dtype=compute_dtype)
+    model = build_lm(acfg)
+    dtype = acfg.cdtype
+    gen = torch.Generator(device="cuda").manual_seed(LM_PROMPT_SEED)
+    prompts = torch.randint(0, acfg.vocab, (LM_PROMPTS, LM_PROMPT_LEN),
+                            generator=gen, device="cuda", dtype=torch.int32)
+    params = plan.params
+    n_units = 7 * acfg.n_layers
+    real_k2 = export.lut_matmul_fused
+    x_dtypes = []
+
+    def recording(x, packed, *a, **kw):
+        x_dtypes.append([str(x.dtype).replace("torch.", ""),
+                         x.shape[1], packed.shape[1]])
+        return real_k2(x, packed, *a, **kw)
+
+    runs = {}
+    feed = None
+    for label, qcfg, comp in (("served", QuantConfig.serve(), comp_serve),
+                              ("fake_quant", QuantConfig.on(), plan.comp)):
+        if label == "served":
+            export.lut_matmul_fused = recording
+        try:
+            lm_generate(torch, model, params, comp, qcfg, prompts, dtype,
+                        feed)
+        finally:
+            export.lut_matmul_fused = real_k2
+        runs[label] = lm_generate(torch, model, params, comp, qcfg, prompts,
+                                  dtype, feed)
+        feed = runs[label][2]
+        torch.cuda.empty_cache()
+    # the served warm-up's K2 calls: a prefill's n_units, then each step's
+    k2_x = {"prefill": x_dtypes[:n_units],
+            "decode_step": x_dtypes[n_units:2 * n_units]}
+    want = {"served": {"K2": n_units, "K3": 0},
+            "fake_quant": {"K2": 0, "K3": 1}}
+    for label, run in runs.items():
+        for where, got in [("prefill", run[5])] + [
+                (f"decode step {i}", c) for i, c in enumerate(run[6])]:
+            if got != want[label]:
+                raise AssertionError(f"[lm-serve] {compute_dtype} {label} "
+                                     f"{where}: launches {got}, expected "
+                                     f"{want[label]}")
+    srv, fq = runs["served"], runs["fake_quant"]
+    for label, run in runs.items():
+        shape = (LM_PROMPTS, LM_PROMPT_LEN, acfg.padded_vocab)
+        if tuple(run[0].shape) != shape or not torch.isfinite(
+                run[0][..., :acfg.vocab]).all():
+            raise AssertionError(f"[lm-serve] {label}: bad prefill logits "
+                                 f"{tuple(run[0].shape)}")
+    vocab = acfg.vocab
+    prefill_rel = lm_rel(torch, srv[0], fq[0], vocab)
+    step_rel = [lm_rel(torch, a, b, vocab) for a, b in zip(srv[1], fq[1])]
+    agree = [float((a[..., :vocab].argmax(-1) == b[..., :vocab].argmax(-1))
+                   .float().mean()) for a, b in zip(srv[1], fq[1])]
+    out = dict(compute_dtype=compute_dtype, prompts=LM_PROMPTS,
+               prompt_len=LM_PROMPT_LEN, max_len=LM_MAX_LEN,
+               decode_steps=LM_DECODE_STEPS,
+               prefill_logit_rel_err=prefill_rel,
+               decode_logit_rel_err=step_rel,
+               greedy_token_agreement=agree,
+               greedy_token_agreement_mean=sum(agree) / len(agree),
+               launches_prefill={k: r[5] for k, r in runs.items()},
+               launches_decode_step={k: r[6][0] for k, r in runs.items()},
+               k2_x_dtype_counts={
+                   step: {dt: sum(c[0] == dt for c in calls)
+                          for dt in sorted({c[0] for c in calls})}
+                   for step, calls in k2_x.items()},
+               k2_x_dtype_calls={
+                   step: [[i, *c] for i, c in enumerate(calls)
+                          if c[0] != "float32"]
+                   for step, calls in k2_x.items()})
+    if compute_dtype == "float32":
+        out["witness"] = lm_witness(torch, model, plan, prompts, dtype,
+                                    srv[2], srv)
+    for label, run in runs.items():
+        out[f"{label}_prefill_s"] = run[3]
+        out[f"{label}_prefill_tokens_per_s"] = (LM_PROMPTS * LM_PROMPT_LEN
+                                                / run[3])
+        out[f"{label}_decode_ms_per_step"] = [1e3 * t for t in run[4]]
+        out[f"{label}_decode_ms_per_step_median"] = 1e3 * statistics.median(
+            run[4])
+    print("[lm-serve] " + json.dumps(out, sort_keys=True), flush=True)
+    if compute_dtype == "float32" and not prefill_rel < SERVE_PARITY:
+        raise AssertionError(f"[lm-serve] float32 prefill logit rel err "
+                             f"{prefill_rel:.3e} >= {SERVE_PARITY}")
+    if "witness" in out:
+        wit = out["witness"]
+        worst = max([wit["prefill_logit_rel_err"]]
+                    + wit["decode_logit_rel_err"])
+        if not worst < WITNESS_PARITY:
+            raise AssertionError(f"[lm-serve] witness vs served logit rel "
+                                 f"err {worst:.3e} >= {WITNESS_PARITY}")
+    del runs, srv, fq
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_k2_replays(torch):
+    """`breakdown` replays of K2's recorded calls through its plain version
+    (``k2_plain``) and through `torch.matmul` on the call's dequantized
+    weight, its epilogue in torch (``k2_library``)."""
+    from repro_torch.kernels.lut_matmul import ref
+
+    def plain(a, kw):
+        x, packed, codebook, scale = a
+        return lambda: ref.lut_matmul_fused_ref(
+            x, packed, codebook, scale, bias=kw.get("bias"),
+            residual=kw.get("residual"),
+            activation=kw.get("activation", "none"),
+            block_k=kw["pack_block"])
+
+    def library(a, kw):
+        x, packed, codebook, scale = a
+        w = ref.weight_rows(ref.dequantize(packed, codebook, scale,
+                                           kw["pack_block"]), x.shape[1])
+        act = ref.ACTIVATIONS[kw.get("activation", "none")]
+        bias, res = kw.get("bias"), kw.get("residual")
+
+        def run():
+            y = torch.matmul(x.float(), w)
+            if bias is not None:
+                y = y + bias
+            y = act(y)
+            return y if res is None else y + res
+        return run
+
+    return {"k2_plain": ("k2", plain), "k2_library": ("k2", library)}
+
+
+def lm_k2_step(ms, k2_calls):
+    """K2 over one step's recorded calls: the replays' ms (kernel, plain
+    version, `torch.matmul`), and `bound` summed over the calls."""
+    bounds = []
+    for (x, packed, codebook, scale), kw in k2_calls:
+        case = dict(x=x, packed=packed, codebook=codebook,
+                    bias=kw.get("bias"), residual=kw.get("residual"))
+        bounds.append(bound(x.shape[0], x.shape[1], scale.numel(), case))
+    total = sum(b for b, _ in bounds)
+    by_bytes = sum(b for b, by in bounds if by == "bytes")
+    return dict(calls=len(k2_calls), ms=ms["k2"], plain_ms=ms["k2_plain"],
+                library_ms=ms["k2_library"], bound_ms=total,
+                bound_by="bytes" if by_bytes >= total / 2 else "operations",
+                timing="the step's recorded calls replayed back to back "
+                       "between CUDA events")
+
+
+def lm_breakdown(torch, target, plan, comp_serve):
+    """Where a served float32 prefill's and decode step's time goes: the
+    step, and the calls it made of K2, attention (blocked and decode),
+    RoPE, layer norms, activation fake-quant and the unembedding, each
+    replayed alone (`breakdown`); K2's calls replayed through its plain
+    version and `torch.matmul` too (``k2_step``, `lm_k2_step`)."""
+    import dataclasses
+
+    from repro_torch.core import export, qat
+    from repro_torch.models.lm import build_lm
+    from repro_torch.nn import attention, transformer
+    from repro_torch.nn.layers import QuantConfig
+
+    model = build_lm(dataclasses.replace(target.acfg,
+                                         compute_dtype="float32"))
+    gen = torch.Generator(device="cuda").manual_seed(LM_PROMPT_SEED)
+    prompts = torch.randint(0, model.cfg.vocab, (LM_PROMPTS, LM_PROMPT_LEN),
+                            generator=gen, device="cuda", dtype=torch.int32)
+    qserve = QuantConfig.serve()
+    targets = {"k2": (export, "lut_matmul_fused"),
+               "attention": (attention, "blocked_attention"),
+               "decode_attention": (attention, "decode_attention"),
+               "rope": (attention, "apply_rope"),
+               "norms": (transformer, "apply_layernorm"),
+               "fake_quant_acts": (qat, "fake_quant_act"),
+               "unembed": (model, "_unembed")}
+    replays = lm_k2_replays(torch)
+    parts = {}
+    with torch.no_grad():
+        _, cache = model.prefill(plan.params, prompts, LM_MAX_LEN,
+                                 qcfg=qserve, comp=comp_serve,
+                                 cache_dtype=torch.float32)
+        tok = prompts[:, -1:]
+        for step, forward in (
+                ("prefill", lambda: model.prefill(
+                    plan.params, prompts, LM_MAX_LEN, qcfg=qserve,
+                    comp=comp_serve, cache_dtype=torch.float32)),
+                ("decode_step", lambda: model.decode_step(
+                    plan.params, cache, tok, qcfg=qserve,
+                    comp=comp_serve))):
+            ms, calls = breakdown(torch, forward, targets, 5, replays)
+            ms["k2_step"] = lm_k2_step(ms, calls["k2"])
+            parts[step] = ms
+            del calls
+            torch.cuda.empty_cache()
+    for ms in parts.values():
+        ms["other"] = ms["forward"] - sum(
+            v for k, v in ms.items()
+            if k not in ("forward", "calls", "k2_step") + tuple(replays))
+    print("[lm-breakdown] " + json.dumps(parts, sort_keys=True), flush=True)
+    return parts
+
+
+def lm_phase(torch, ops, ref):
+    """[lm]: olmo-1b at full width and depth on the card. The pipeline
+    through export (`lm_export_path`); K2 on the LM's shapes; K3's one
+    launch over the stacked units; the serve artifacts stacked over layers
+    (`attach_serve_artifacts`, held equal to the exported ones); served vs
+    fake-quant prefill and decode at float32 (gated) and at the config's
+    bfloat16 (reported); where a served step's time goes."""
+    from repro_torch.core.lm_compress import attach_serve_artifacts
+    from repro_torch.kernels.fake_quant import fake_quant as k3
+    from repro_torch.kernels.lut_matmul import lut_matmul as k2
+
+    t_phase = time.perf_counter()
+    target, plan, metrics = lm_export_path(torch)
+    k2_rows = k2_phase(torch, ops, ref, lm_k2_cases(torch, target.acfg))
+    k3_out = lm_k3_phase(torch, target.model, plan.params, plan.comp)
+    torch.cuda.empty_cache()
+    comp_serve, n = attach_serve_artifacts(target.model, plan.params,
+                                           plan.comp)
+    for name, art in plan.artifacts.items():
+        unit, layer = name[:-1].split("[")
+        top, g, sub, key = unit.split("/")
+        stacked = comp_serve[top][g][f"{sub}/{key}"]["serve"]
+        for f in ("packed", "codebook", "scale"):
+            if not torch.equal(getattr(stacked, f)[int(layer)],
+                               getattr(art, f)):
+                raise AssertionError(f"[lm] {name}.{f}: attached artifact "
+                                     "!= exported artifact")
+    launched = {"K2": k2.launches, "K3": k3.launches}
+    k2.launches = k3.launches = 0
+    serve = {dt: lm_serve_phase(torch, target, plan, comp_serve, dt)
+             for dt in ("float32", LM_CDTYPE)}
+    lm_launches = {"K2": k2.launches, "K3": k3.launches}
+    k2.launches, k3.launches = launched["K2"], launched["K3"]
+    parts = lm_breakdown(torch, target, plan, comp_serve)
+    k2.launches, k3.launches = launched["K2"], launched["K3"]
+    metrics.update(stacked_units_attached=n, serve=serve,
+                   serve_path_launches=lm_launches, breakdown=parts,
+                   phase_wall_s=time.perf_counter() - t_phase,
+                   peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    print("[lm] " + json.dumps({k: v for k, v in metrics.items()
+                                if k not in ("serve", "breakdown")},
+                               sort_keys=True), flush=True)
+    del comp_serve, plan, target
+    torch.cuda.empty_cache()
+    return metrics, k2_rows, k3_out
+
+
 # --------------------------------------------------------------------- main
 
 
@@ -1821,6 +2420,8 @@ def main() -> int:
     sweep = sweep_phase(torch, ROOT / "build" / "chip_smoke" / "sweep")
     torch.cuda.empty_cache()
     compress_launches, compress_stages, compress_fwds = compress_path(torch)
+    torch.cuda.empty_cache()
+    lm, lm_k2_rows, lm_k3 = lm_phase(torch, ops, ref)
 
     padded = [r for r in k2_rows if r["per_forward"] and not r["serve_rows"]]
     unpadded = [r for r in k2_rows if r["per_forward"] and r["serve_rows"]]
@@ -1835,7 +2436,7 @@ def main() -> int:
                    if r["bound_by"] == "bytes")
     k2_entry = {
         **K2, "route": "cuda", "launches": k2_launches,
-        "max_abs_err": max(r["max_abs_err"] for r in k2_rows),
+        "max_abs_err": max(r["max_abs_err"] for r in k2_rows + lm_k2_rows),
         **total,
         "bound_by": "bytes" if by_bytes >= total["bound_ms"] / 2
         else "operations",
@@ -1851,6 +2452,30 @@ def main() -> int:
         "compress_path_launches": compress_launches["K2"],
         "design": k2_design,
         "shapes": k2_rows,
+        "lm": {
+            "scope": f"{LM_ARCH} at full width: per-shape rows (M = "
+                     f"{LM_PROMPTS * LM_PROMPT_LEN} prefill, {LM_PROMPTS} "
+                     "decode; float32 and bfloat16 X; the gate's SiLU); "
+                     "steps: the K2 calls one served float32 prefill and "
+                     "decode step made, recorded and replayed back to back "
+                     "between CUDA events through the kernel (ms), its "
+                     "plain version (plain_ms) and torch.matmul on the "
+                     "dequantized weights (library_ms), bound_ms summed "
+                     "over those calls, launches counted in the served run",
+            "launches": lm["serve_path_launches"]["K2"],
+            "launches_per_prefill": lm["serve"]["float32"][
+                "launches_prefill"]["served"]["K2"],
+            "launches_per_decode_step": lm["serve"]["float32"][
+                "launches_decode_step"]["served"]["K2"],
+            "export_path_launches": {st: v["K2"] for st, v in
+                                     lm["launches_per_stage"].items()},
+            "steps": {step: dict(
+                lm["breakdown"][step]["k2_step"],
+                launches=lm["serve"]["float32"][key]["served"]["K2"])
+                for step, key in (("prefill", "launches_prefill"),
+                                  ("decode_step", "launches_decode_step"))},
+            "shapes": lm_k2_rows,
+        },
     }
     k1_entry = {
         **K1, "route": "cuda", "launches": k1_launches,
@@ -1885,7 +2510,8 @@ def main() -> int:
     k3_all = k3_rows + k3_group_rows + k3_cand_rows
     k3_entry = {
         **K3, "route": "cuda", "launches": compress_launches["K3"],
-        "max_abs_err": max(r["max_abs_err"] for r in k3_all),
+        "max_abs_err": max([r["max_abs_err"] for r in k3_all]
+                           + [lm_k3["max_abs_err"]]),
         "ms": k3_forward["device_ms"], "plain_ms": k3_forward["plain_ms"],
         "bound_ms": k3_forward["bound_ms"],
         "bound_by": k3_forward["bound_by"],
@@ -1916,6 +2542,14 @@ def main() -> int:
                            for mode, r in sweep["runs"].items()},
         "candidate_axis": k3_cand,
         "cases_equal": len(k3_all),
+        "lm": dict(lm_k3, scope=f"{LM_ARCH} at full width: the one grouped "
+                   "launch of a fake-quant forward, its stacked units as "
+                   "entries and the layer axis as candidates",
+                   launches=lm["serve_path_launches"]["K3"],
+                   launches_per_forward=lm["serve"]["float32"][
+                       "launches_prefill"]["fake_quant"]["K3"],
+                   export_path_launches={st: v["K3"] for st, v in
+                                         lm["launches_per_stage"].items()}),
     }
     entries = [k2_entry, k1_entry, k1b_entry, k3_entry]
     print(f"[card] {card}", flush=True)

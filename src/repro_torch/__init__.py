@@ -7,7 +7,10 @@ the hand-written CUDA transition-statistics kernel,
 `repro_torch.kernels.transition_energy`, then per-weight energy LUTs and
 layer energy shares), and its ``export`` and ``serve`` stages (packed 4-bit
 `ServeArtifact`s and the CNN forward through the hand-written CUDA LUT-GEMM
-kernel, `repro_torch.kernels.lut_matmul`).
+kernel, `repro_torch.kernels.lut_matmul`), with QAT and the layer-wise
+schedule in both search modes between them; and the dense LM stack
+(`repro_torch.models.lm`: prefill and decode, on the LUT GEMM when served)
+with the LM target's stages through ``export``.
 
 The package imports torch and numpy only. Importing it touches no CUDA
 device and builds no kernel: kernels compile at first use.
@@ -15,6 +18,7 @@ device and builds no kernel: kernels compile at first use.
     python -m repro_torch profile --arch resnet20 --steps 0 --plan-out BASE
     python -m repro_torch export --plan-in BASE --plan-out BASE2
     python -m repro_torch serve  --plan-in BASE [--device cpu]
+    python -m repro_torch compress --target lm --reduced --compress-k 4
 """
 
 __version__ = "0.2.0"

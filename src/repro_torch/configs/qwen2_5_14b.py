@@ -1,0 +1,24 @@
+"""qwen2.5-14b [dense] — GQA with QKV bias [hf:Qwen/Qwen2.5-0.5B; hf].
+
+48L d_model=5120 40H (GQA kv=8) d_ff=13824 vocab=152064.
+"""
+
+from repro_torch.models.config import ArchConfig
+
+CONFIG = ArchConfig(
+    name="qwen2.5-14b",
+    family="dense",
+    n_layers=48,
+    d_model=5120,
+    n_heads=40,
+    n_kv_heads=8,
+    head_dim=128,
+    d_ff=13824,
+    vocab=152064,
+    pattern=("attn",),
+    qkv_bias=True,
+    norm="rmsnorm",
+    ffn="swiglu",
+    rope_theta=1_000_000.0,
+    tie_embeddings=False,
+)

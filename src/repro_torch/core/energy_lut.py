@@ -124,3 +124,48 @@ def model_fidelity(stats: LayerStats, **grouped_kwargs) -> dict:
             "mean_rel_err": float((torch.abs(tv - gv)
                                    / torch.clamp(tv, min=1e-9)).mean()),
             "n_seen": int(seen.sum())}
+
+
+_UNIFORM_DRAWS: Dict[Tuple[int, int], Tuple[torch.Tensor, ...]] = {}
+
+
+def uniform_lut_from_draws(a_prev: torch.Tensor, a_cur: torch.Tensor,
+                           p_prev: torch.Tensor,
+                           coeffs: MacEnergyCoeffs = DEFAULT_COEFFS
+                           ) -> torch.Tensor:
+    """The uniform-trace LUT (256,) float32 from explicit draws: a_prev,
+    a_cur (n,) int8-valued activations, p_prev (n,) 22-bit partial sums;
+    ``p_cur = p_prev + w * a_cur`` (accumulate-consistent). The mean over
+    the n draws is summed in float64 and rounded once."""
+    w = torch.arange(-128, 128, dtype=torch.int32,
+                     device=a_prev.device)[:, None]          # (256, 1)
+    a_prev = a_prev.to(torch.int32)[None]
+    a_cur = a_cur.to(torch.int32)[None]
+    p_prev = p_prev.to(torch.int32)[None]
+    e = mac_transition_energy(w, a_prev, a_cur, p_prev, p_prev + w * a_cur,
+                              coeffs)                        # (256, n)
+    return e.mean(dim=1, dtype=torch.float64).to(torch.float32)
+
+
+def uniform_trace_lut(n_mc: int = 2048, seed: int = 23,
+                      coeffs: MacEnergyCoeffs = DEFAULT_COEFFS, *,
+                      device="cpu") -> torch.Tensor:
+    """Traffic-agnostic per-weight-value LUT (256,) for serve-time
+    estimates (port of `repro.core.energy_lut.uniform_trace_lut`).
+
+    At serving time there are no profiled activation statistics, so the LM
+    target Monte-Carlo-averages the MAC transition energy over *uniform*
+    int8 activation transitions (a_prev, a_cur in [-128, 128)) with
+    accumulate-consistent 22-bit partial sums (p_prev in [-2^21, 2^21)).
+    Same units as `LayerStats.trace_lut`. The draws come from a CPU
+    `torch.Generator` seeded with ``seed`` and are cached per process, so a
+    seed gives the same LUT on every device."""
+    key = (n_mc, seed)
+    if key not in _UNIFORM_DRAWS:
+        gen = torch.Generator().manual_seed(seed)
+        _UNIFORM_DRAWS[key] = (
+            torch.randint(-128, 128, (n_mc,), generator=gen),
+            torch.randint(-128, 128, (n_mc,), generator=gen),
+            torch.randint(-(1 << 21), 1 << 21, (n_mc,), generator=gen))
+    draws = [d.to(device) for d in _UNIFORM_DRAWS[key]]
+    return uniform_lut_from_draws(*draws, coeffs)

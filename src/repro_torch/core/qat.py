@@ -216,7 +216,10 @@ def fake_quant_weights(ws: Sequence[torch.Tensor],
     *shape)`` and each comp leaf either has one too or is shared (see
     `repro_torch.kernels.fake_quant.ops.fake_quant_group`); candidate j of
     output i equals ``fake_quant_weight(ws[i][j], comps[i] at j)``, and all
-    n x len(ws) weights still take one launch."""
+    n x len(ws) weights still take one launch. The LM's fake-quant forward
+    passes its stacked ``(L, ...)`` units this way, the layer axis as the
+    candidate axis (`repro_torch.models.lm`): layer j gets the per-slice
+    value of the JAX package's scan, its own scale included."""
     shape = (lambda w: tuple(w.shape[1:])) if cands else (
         lambda w: tuple(w.shape))
     comps = [identity_comp(shape(w), w.dtype, device=w.device)

@@ -35,10 +35,10 @@ import dataclasses
 import time
 from typing import Dict, List, Optional, Tuple
 
-import numpy as np
 import torch
 
 from repro_torch.core import qat
+from repro_torch.core.lm_compress import symmetric_codebook_values
 from repro_torch.core.layer_energy import (
     layer_energy_from_counts,
     weight_value_counts,
@@ -92,20 +92,6 @@ class ScheduleResult:
     @property
     def energy_saving(self) -> float:
         return 1.0 - self.energy_after / max(self.energy_before, 1e-12)
-
-
-def symmetric_codebook_values(k: int) -> list:
-    """Restricted set of exactly k int8 values: 0 plus levels spread over the
-    int8 range (one extra negative level when k is even). A copy of
-    `repro.core.lm_compress.symmetric_codebook_values`."""
-    n_neg = k // 2
-    n_pos = k - 1 - n_neg
-    values = sorted(
-        {0}
-        | {-int(v) for v in np.linspace(16, 120, n_neg)}
-        | {int(v) for v in np.linspace(16, 120, n_pos)})
-    assert len(values) == k, (k, values)
-    return values
 
 
 def _config_order(cfg: ScheduleConfig) -> List[Tuple[float, int, int]]:

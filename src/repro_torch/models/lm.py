@@ -1,0 +1,362 @@
+"""LM assembly: ArchConfig -> spec tree + forward / prefill / decode (port of
+`repro.models.lm`).
+
+Layers are grouped by the config's repeating block ``pattern``; each
+pattern position's parameters are stacked over the repeat count (leaves
+``(L, ...)`` under ``params["blocks"]["g<i>"]``, the JAX package's layout,
+so its parameters carry across unchanged), and remainder layers are
+unstacked ``tail`` blocks. The JAX package's ``lax.scan`` over the stack is
+a Python loop over the layer axis here.
+
+Under QAT (``qcfg.enabled``) a forward fake-quantizes every compressible
+weight of every layer in one grouped K3 launch before its first layer
+(`_fake_quant_units`): each stacked unit is one entry of the launch with
+its layer axis as K3's candidate axis, so layer j's weight is
+``fake_quant_weight(w[j], comp at j)``, the per-slice semantics of the
+reference's scan. On the serve path (``comp_mode="serve"``) units with a
+packed artifact run on the LUT GEMM (K2) and only the others take that
+launch.
+
+Ported families: dense decoder-only stacks of ``attn`` / ``local`` blocks.
+`build_lm` raises `NotImplementedError`, naming the ROADMAP.md item, for
+MoE, SSM, hybrid (RG-LRU), VLM-prefix and encoder-decoder configs.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.core import qat
+from repro_torch.core.export import ServeArtifact
+from repro_torch.models.config import ArchConfig
+from repro_torch.nn import transformer as T
+from repro_torch.nn.layers import QuantConfig
+from repro_torch.nn.spec import ParamSpec, normal_init, stack_specs
+from repro_torch.nn.transformer import (
+    apply_block,
+    apply_block_decode,
+    block_cache_spec,
+    make_block_spec,
+)
+
+NEG_INF = -1e30
+
+def _layer(tree, r: int):
+    """Layer ``r`` of a stacked tree (tensors, and `ServeArtifact` leaves
+    whose fields carry the layer axis); 0-d leaves are shared by every
+    layer."""
+    if isinstance(tree, dict):
+        return {k: _layer(v, r) for k, v in tree.items()}
+    if isinstance(tree, ServeArtifact):
+        return dataclasses.replace(tree, packed=tree.packed[r],
+                                   codebook=tree.codebook[r],
+                                   scale=tree.scale[r])
+    if isinstance(tree, torch.Tensor) and tree.ndim:
+        return tree[r]
+    return tree
+
+
+def _embed(params, tokens, cfg: ArchConfig):
+    x = params["embed"]["table"][tokens.long()].to(cfg.cdtype)
+    if cfg.embed_scale:
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=cfg.cdtype,
+                             device=x.device)
+    return x
+
+
+@dataclasses.dataclass
+class LMModel:
+    cfg: ArchConfig
+    spec: dict
+
+    # ------------------------------------------------------------ structure
+
+    @property
+    def n_pattern(self) -> int:
+        return len(self.cfg.pattern)
+
+    @property
+    def n_rep(self) -> int:
+        return self.cfg.n_layers // self.n_pattern
+
+    @property
+    def n_tail(self) -> int:
+        return self.cfg.n_layers % self.n_pattern
+
+    def _layers(self, params, comp, weff):
+        """(block params, block comp, block w_eff, block type, cache key)
+        of every layer in order: the stacked groups layer by layer, then
+        the tail."""
+        blocks_comp = None if comp is None else comp.get("blocks")
+        tail_comp = None if comp is None else comp.get("tail")
+        for r in range(self.n_rep):
+            layer_params = _layer(params["blocks"], r)
+            layer_comp = None if blocks_comp is None \
+                else _layer(blocks_comp, r)
+            for i, bt in enumerate(self.cfg.pattern):
+                g = f"g{i}"
+                yield (layer_params[g],
+                       None if layer_comp is None else layer_comp.get(g),
+                       None if weff is None else _layer(weff["blocks"][g], r),
+                       bt, ("groups", g, r))
+        for j in range(self.n_tail):
+            t = f"t{j}"
+            yield (params["tail"][t],
+                   None if tail_comp is None else tail_comp.get(t),
+                   None if weff is None else weff["tail"][t],
+                   self.cfg.pattern[j], ("tail", t, None))
+
+    # ------------------------------------------------------------- QAT
+
+    def _fake_quant_units(self, params, comp, qcfg: QuantConfig):
+        """Every compressible weight of the model fake-quantized at once,
+        as {"blocks": {"g0": {"attn/wq": (L, ...)}}, "tail": {...}}, or
+        None without QAT. The stacked units of all groups take one grouped
+        K3 launch with the layer axis as K3's candidate axis (the tail's
+        units, unstacked, one more); a unit that serves from a packed
+        artifact on the serve path is left out (K2 runs it)."""
+        if not qcfg.enabled:
+            return None
+        serve = qcfg.comp_mode == "serve"
+        out: Dict[str, Dict[str, dict]] = {"blocks": {}, "tail": {}}
+        for top in ("blocks", "tail"):
+            if top not in params:
+                continue
+            top_comp = None if comp is None else comp.get(top)
+            names, ws, comps = [], [], []
+            for g, block in params[top].items():
+                out[top][g] = {}
+                block_comp = None if top_comp is None else top_comp.get(g)
+                for unit in T.block_matmuls(block):
+                    c = None if block_comp is None else block_comp.get(unit)
+                    if serve and c is not None and "serve" in c:
+                        continue
+                    sub, key = unit.split("/")
+                    names.append((g, unit))
+                    ws.append(block[sub][key])
+                    comps.append(None if c is None else
+                                 {k: v for k, v in c.items() if k != "serve"})
+            if ws:
+                outs = qat.fake_quant_weights(
+                    ws, comps, self.n_rep if top == "blocks" else None)
+                for (g, unit), w in zip(names, outs):
+                    out[top][g][unit] = w
+        return out
+
+    # ------------------------------------------------------------- forward
+
+    def forward(self, params, tokens: torch.Tensor, *,
+                qcfg: QuantConfig = QuantConfig.off(), comp=None,
+                q_block: int = 512, kv_block: int = 512
+                ) -> Tuple[torch.Tensor, dict]:
+        """Returns (logits (B, S, padded_vocab) float32, aux)."""
+        cfg = self.cfg
+        b, s = tokens.shape
+        x = _embed(params, tokens, cfg)
+        positions = torch.arange(s, dtype=torch.int32,
+                                 device=x.device).expand(b, s)
+        aux = {"lb_loss": torch.zeros((), device=x.device),
+               "z_loss": torch.zeros((), device=x.device)}
+        weff = self._fake_quant_units(params, comp, qcfg)
+        for block_params, block_comp, block_weff, bt, _ in self._layers(
+                params, comp, weff):
+            x, a = apply_block(block_params, x, cfg, bt, positions=positions,
+                               qcfg=qcfg, comp=block_comp, q_block=q_block,
+                               kv_block=kv_block, w_eff=block_weff)
+            aux = {k: aux[k] + a[k] for k in aux}
+        x = T.apply_norm(params["final_norm"], x, cfg)
+        return self._unembed(params, x), aux
+
+    def _unembed(self, params, x):
+        """Logits in float32 with the vocab padding masked to -1e30 (the
+        tied read-out is a plain product in the activations' dtype)."""
+        cfg = self.cfg
+        if cfg.tie_embeddings:
+            logits = torch.matmul(x, params["embed"]["table"].to(x.dtype).T)
+        else:
+            logits = torch.matmul(x, params["lm_head"]["w"].to(x.dtype))
+        pad_mask = torch.arange(cfg.padded_vocab,
+                                device=x.device) >= cfg.vocab
+        return torch.where(pad_mask, torch.full((), NEG_INF, device=x.device),
+                           logits.float())
+
+    # --------------------------------------------------------------- caches
+
+    def cache_spec(self, batch: int, max_len: int,
+                   dtype=torch.bfloat16) -> dict:
+        """Shape-and-dtype placeholders (meta tensors) of a decode cache:
+        {"groups": {"g<i>": {"k", "v"} (L, B, Smax, Hkv, D)}, "tail":
+        {...}, "pos": (B,) int32, the per-sequence position}."""
+        cfg = self.cfg
+        spec: Dict[str, Any] = {"groups": {}, "tail": {}}
+        for i, bt in enumerate(cfg.pattern):
+            one = block_cache_spec(cfg, bt, batch, max_len, dtype)
+            spec["groups"][f"g{i}"] = {
+                k: torch.empty((self.n_rep, *s.shape), dtype=s.dtype,
+                               device="meta") for k, s in one.items()}
+        for j in range(self.n_tail):
+            spec["tail"][f"t{j}"] = block_cache_spec(
+                cfg, cfg.pattern[j], batch, max_len, dtype)
+        spec["pos"] = torch.empty((batch,), dtype=torch.int32, device="meta")
+        return spec
+
+    def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16, *,
+                   device) -> dict:
+        from repro_torch._device import tree_map
+
+        return tree_map(lambda s: torch.zeros(s.shape, dtype=s.dtype,
+                                              device=device),
+                        self.cache_spec(batch, max_len, dtype))
+
+    # --------------------------------------------------------------- decode
+
+    def decode_step(self, params, cache: dict, tokens: torch.Tensor, *,
+                    qcfg: QuantConfig = QuantConfig.off(), comp=None,
+                    active: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, dict]:
+        """One token for every sequence of the batch: tokens (B, 1).
+        Returns (logits (B, 1, padded_vocab), new cache); ``cache["pos"]``
+        is per sequence (B,). Rows where ``active`` (B,) is False keep
+        their cache and position (their logits are to be ignored)."""
+        cfg = self.cfg
+        pos = cache["pos"]
+        x = _embed(params, tokens, cfg)
+        weff = self._fake_quant_units(params, comp, qcfg)
+        new_cache: Dict[str, Any] = {"groups": {}, "tail": {},
+                                     "pos": pos + 1}
+        group_layers: Dict[str, list] = {g: [] for g in cache["groups"]}
+        for block_params, block_comp, block_weff, bt, (top, key, r) in \
+                self._layers(params, comp, weff):
+            layer_cache = (_layer(cache["groups"][key], r) if top == "groups"
+                           else cache["tail"][key])
+            x, c_new = apply_block_decode(block_params, x, layer_cache, pos,
+                                          cfg, bt, qcfg=qcfg, comp=block_comp,
+                                          w_eff=block_weff)
+            if top == "groups":
+                group_layers[key].append(c_new)
+            else:
+                new_cache["tail"][key] = c_new
+        for g, caches in group_layers.items():
+            new_cache["groups"][g] = {k: torch.stack([c[k] for c in caches])
+                                      for k in caches[0]}
+        if active is not None:
+            new_cache = self._merge_active(cache, new_cache, active)
+        x = T.apply_norm(params["final_norm"], x, cfg)
+        return self._unembed(params, x), new_cache
+
+    @staticmethod
+    def _merge_active(old_cache: dict, new_cache: dict, active) -> dict:
+        """Keep inactive rows' cache untouched. ``groups`` leaves carry the
+        layer axis first (batch is axis 1); ``tail`` and ``pos`` leaves
+        have batch leading."""
+        act = active.to(torch.bool)
+
+        def merge(axis, new, old):
+            shape = [1] * new.ndim
+            shape[axis] = act.shape[0]
+            return torch.where(act.reshape(shape), new, old)
+
+        return {
+            "groups": {g: {k: merge(1, v, old_cache["groups"][g][k])
+                           for k, v in c.items()}
+                       for g, c in new_cache["groups"].items()},
+            "tail": {t: {k: merge(0, v, old_cache["tail"][t][k])
+                         for k, v in c.items()}
+                     for t, c in new_cache["tail"].items()},
+            "pos": torch.where(act, new_cache["pos"], old_cache["pos"]),
+        }
+
+    # --------------------------------------------------------------- prefill
+
+    def prefill(self, params, tokens: torch.Tensor, max_len: int, *,
+                qcfg: QuantConfig = QuantConfig.off(), comp=None,
+                cache_dtype=torch.bfloat16, q_block: int = 512,
+                kv_block: int = 512) -> Tuple[torch.Tensor, dict]:
+        """Forward over the prompt (B, S), capturing each layer's K/V into
+        a decode cache. Returns (logits (B, S, V), cache ready at
+        pos = S)."""
+        cfg = self.cfg
+        b, s = tokens.shape
+        x = _embed(params, tokens, cfg)
+        dev = x.device
+        positions = torch.arange(s, dtype=torch.int32, device=dev).expand(b, s)
+        cache: Dict[str, Any] = {
+            "groups": {}, "tail": {},
+            "pos": torch.full((b,), s, dtype=torch.int32, device=dev)}
+        group_states: Dict[str, list] = {f"g{i}": []
+                                         for i in range(self.n_pattern)}
+        weff = self._fake_quant_units(params, comp, qcfg)
+        for block_params, block_comp, block_weff, bt, (top, key, _) in \
+                self._layers(params, comp, weff):
+            (x, _), st = apply_block(block_params, x, cfg, bt,
+                                     positions=positions, qcfg=qcfg,
+                                     comp=block_comp, q_block=q_block,
+                                     kv_block=kv_block, return_state=True,
+                                     w_eff=block_weff)
+            st = self._state_to_cache(st, bt, max_len, cache_dtype)
+            if top == "groups":
+                group_states[key].append(st)
+            else:
+                cache["tail"][key] = st
+        for g, sts in group_states.items():
+            if sts:
+                cache["groups"][g] = {k: torch.stack([st[k] for st in sts])
+                                      for k in sts[0]}
+        x = T.apply_norm(params["final_norm"], x, cfg)
+        return self._unembed(params, x), cache
+
+    def _state_to_cache(self, st, bt, max_len, dtype):
+        """A block's prefill K/V (B, S, Hkv, D) as its decode cache: the
+        last ``min(S, cache_len)`` positions at their slots ``pos mod
+        cache_len``, zeros elsewhere."""
+        dims = self.cfg.attn_dims(bt == "local")
+        cache_len = min(max_len, dims.window) if dims.window else max_len
+        k, v = st["k"], st["v"]
+        b, s = k.shape[:2]
+        take = min(s, cache_len)
+        slots = torch.remainder(torch.arange(s - take, s, device=k.device),
+                                cache_len)
+        kc = torch.zeros((b, cache_len, *k.shape[2:]), dtype=dtype,
+                         device=k.device)
+        vc = torch.zeros((b, cache_len, *v.shape[2:]), dtype=dtype,
+                         device=v.device)
+        kc[:, slots] = k[:, s - take:].to(dtype)
+        vc[:, slots] = v[:, s - take:].to(dtype)
+        return {"k": kc, "v": vc}
+
+
+def build_lm(cfg: ArchConfig) -> LMModel:
+    """The spec tree of a dense LM; raises `NotImplementedError`, naming the
+    ROADMAP.md item, for the families whose blocks are not ported (MoE FFNs,
+    SSM and RG-LRU mixers, cross-attention: `make_block_spec`) and for the
+    VLM prefix."""
+    if cfg.prefix_len:
+        raise NotImplementedError(f"{cfg.name}: the VLM prefix embeddings "
+                                  f"are not ported yet: {T.NOT_PORTED['prefix']}")
+    spec: Dict[str, Any] = {
+        "embed": {"table": ParamSpec((cfg.padded_vocab, cfg.d_model),
+                                     cfg.pdtype, ("vocab", "embed"),
+                                     normal_init(0.02))},
+        "final_norm": T.make_norm_spec(cfg),
+    }
+    n_pat = len(cfg.pattern)
+    n_rep = cfg.n_layers // n_pat
+    n_tail = cfg.n_layers % n_pat
+    if n_rep > 0:
+        group = {f"g{i}": make_block_spec(cfg, bt,
+                                          cross_attn=cfg.encoder_decoder)
+                 for i, bt in enumerate(cfg.pattern)}
+        spec["blocks"] = stack_specs(group, n_rep, "layers")
+    if n_tail:
+        spec["tail"] = {f"t{j}": make_block_spec(
+            cfg, cfg.pattern[j], cross_attn=cfg.encoder_decoder)
+            for j in range(n_tail)}
+    if not cfg.tie_embeddings:
+        spec["lm_head"] = {"w": ParamSpec((cfg.d_model, cfg.padded_vocab),
+                                          cfg.pdtype, ("embed", "vocab"),
+                                          normal_init(0.02))}
+    return LMModel(cfg, spec)

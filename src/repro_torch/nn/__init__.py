@@ -1,1 +1,1 @@
-"""Layers, parameter specs and the CNN zoo of the port."""
+"""Layers, parameter specs, the CNN zoo and the LM blocks of the port."""

@@ -1,5 +1,6 @@
-"""Layer library: compressible Dense/Conv, batch norm and pools (port of the
-CNN part of `repro.nn.layers`).
+"""Layer library: compressible Dense/Conv, batch norm and pools, and the LM
+layers (RMS/layer norms, embeddings, `quantized_mm`); port of
+`repro.nn.layers`.
 
 Every layer is a (make_*_spec, apply_*) pair over plain parameter dicts.
 Layouts are the JAX package's: activations NHWC, conv kernels HWIO, dense
@@ -32,12 +33,21 @@ from repro_torch.core import qat
 from repro_torch.core.export import serve_conv, serve_dense
 from repro_torch.core.stats import same_pad_nhwc
 from repro_torch.kernels.lut_matmul.ref import ACTIVATIONS, exact_matmul
-from repro_torch.nn.spec import ParamSpec, fan_in_init, ones_init, zeros_init
+from repro_torch.nn.spec import (
+    ParamSpec,
+    fan_in_init,
+    normal_init,
+    ones_init,
+    zeros_init,
+)
 
 __all__ = [
     "ACTIVATIONS", "QuantConfig", "apply_batchnorm", "apply_conv",
-    "apply_dense", "avg_pool_global", "make_batchnorm_spec",
-    "make_batchnorm_state", "make_conv_spec", "make_dense_spec", "max_pool",
+    "apply_dense", "apply_embed", "apply_layernorm", "apply_rmsnorm",
+    "apply_unembed", "avg_pool_global", "gelu", "make_batchnorm_spec",
+    "make_batchnorm_state", "make_conv_spec", "make_dense_spec",
+    "make_embed_spec", "make_layernorm_spec", "make_rmsnorm_spec",
+    "max_pool", "quantized_mm",
 ]
 
 
@@ -197,6 +207,26 @@ def apply_dense(params, x: torch.Tensor, *,
     return _epilogue(y.to(x.dtype), params, activation, residual)
 
 
+def quantized_mm(params, key, xin, *, qcfg: QuantConfig, comp, name: str,
+                 dtype, w_eff: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``xin @ params[key]`` for a named compressible unit: on the packed LUT
+    GEMM when a `ServeArtifact` is attached and ``comp_mode == "serve"``,
+    else on the fake-quantized weight (``w_eff`` where the caller computed
+    it) under QAT, as a correctly rounded product (`exact_matmul`: float64
+    sums, one rounding), so the two agree to float32 ulps; without QAT a
+    plain product."""
+    c = None if comp is None else comp.get(f"{name}/{key}")
+    art = None if c is None else c.get("serve")
+    if _serves(qcfg, art):
+        return serve_dense(xin, art).to(dtype)
+    w = params[key]
+    if not qcfg.enabled:
+        return torch.matmul(xin, w.to(dtype))
+    if w_eff is None:
+        w_eff = _fake_quant_alone(w, c, qcfg, False)
+    return exact_matmul(xin, w_eff.to(dtype)).to(dtype)
+
+
 # --------------------------------------------------------------------- conv2d
 
 
@@ -321,6 +351,67 @@ def apply_batchnorm(params, state, x: torch.Tensor, *, train: bool,
     y = _Normalize.apply(x, mean.to(x.dtype), inv.to(x.dtype),
                          params["bias"].to(x.dtype))
     return y, new_state
+
+
+def make_rmsnorm_spec(dim: int, dtype=torch.float32):
+    return {"scale": ParamSpec((dim,), dtype, (None,), ones_init)}
+
+
+def apply_rmsnorm(params, x: torch.Tensor, *, eps: float = 1e-6
+                  ) -> torch.Tensor:
+    """RMS norm in float32, returned in ``x``'s dtype."""
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * params["scale"].float()).to(x.dtype)
+
+
+def make_layernorm_spec(dim: int, dtype=torch.float32, *,
+                        parametric: bool = True):
+    if not parametric:
+        return {}
+    return {"scale": ParamSpec((dim,), dtype, (None,), ones_init),
+            "bias": ParamSpec((dim,), dtype, (None,), zeros_init)}
+
+
+def apply_layernorm(params, x: torch.Tensor, *, eps: float = 1e-5
+                    ) -> torch.Tensor:
+    """LayerNorm in float32; with empty params this is OLMo's
+    non-parametric LN."""
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, unbiased=False)
+    y = (xf - mean) * torch.rsqrt(var + eps)
+    if params:
+        y = y * params["scale"].float() + params["bias"].float()
+    return y.to(x.dtype)
+
+
+# --------------------------------------------------------------------- embed
+
+
+def make_embed_spec(vocab: int, dim: int, *, dtype=torch.float32,
+                    axes: Tuple[Optional[str], Optional[str]] = ("vocab",
+                                                                 "embed")):
+    return {"table": ParamSpec((vocab, dim), dtype, axes, normal_init(1.0))}
+
+
+def apply_embed(params, ids: torch.Tensor) -> torch.Tensor:
+    return params["table"][ids.long()]
+
+
+def apply_unembed(params, x: torch.Tensor) -> torch.Tensor:
+    """Tied read-out: logits = x @ table^T."""
+    return torch.matmul(x, params["table"].to(x.dtype).T)
+
+
+# --------------------------------------------------------------------- misc
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """The tanh form, as the JAX package's ``jax.nn.gelu(approximate=True)``
+    (torch's default is the erf form)."""
+    return F.gelu(x, approximate="tanh")
 
 
 # --------------------------------------------------------------------- pools

@@ -17,7 +17,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import zlib
-from typing import Any, Callable, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -101,10 +101,62 @@ def init_params(seed: int, spec_tree, device) -> Any:
     return init(spec_tree, "")
 
 
+def _spec_leaves(spec_tree) -> list:
+    if isinstance(spec_tree, dict):
+        return [s for v in spec_tree.values() for s in _spec_leaves(v)]
+    return [spec_tree]
+
+
+def spec_count(spec_tree) -> int:
+    """Total parameter count implied by the spec tree."""
+    return sum(math.prod(s.shape) for s in _spec_leaves(spec_tree))
+
+
+def stack_specs(spec_tree, n_layers: int,
+                layer_axis_name: Optional[str] = None) -> Any:
+    """Lift a per-layer spec tree to a stacked (one leading layer axis) spec
+    tree: each leaf (shape, axes) becomes ((n_layers, *shape),
+    (layer_axis_name, *axes)). Its initializer draws the layers one after
+    another from the leaf's generator, each at the per-layer shape (so a
+    fan-in initializer sees the layer's fan-in, not the layer count)."""
+
+    def lift(s):
+        if isinstance(s, dict):
+            return {k: lift(v) for k, v in s.items()}
+        base = s.init or normal_init(0.02)
+
+        def stacked_init(gen, shape, dtype, _base=base, _inner=s.shape):
+            return torch.stack([_base(gen, _inner, dtype)
+                                for _ in range(shape[0])])
+
+        axes = s.axes if s.axes else (None,) * len(s.shape)
+        return ParamSpec(shape=(n_layers, *s.shape), dtype=s.dtype,
+                         axes=(layer_axis_name, *axes), init=stacked_init)
+
+    return lift(spec_tree)
+
+
+def flatten_with_names(tree, prefix: str = "") -> Dict[str, Any]:
+    """{'a/b/c': leaf} view of a nested-dict tree (keys sorted, as the JAX
+    package's)."""
+    out: Dict[str, Any] = {}
+    if isinstance(tree, dict):
+        for k in sorted(tree.keys()):
+            out.update(flatten_with_names(tree[k], f"{prefix}{k}/"))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            out.update(flatten_with_names(v, f"{prefix}{i}/"))
+    else:
+        out[prefix[:-1]] = tree
+    return out
+
+
 def params_from_numpy(tree, device) -> Any:
     """Numpy (or anything `np.asarray` accepts) parameter tree -> tensors on
-    ``device``, structure unchanged. Carries the JAX package's parameters into
-    the port: ``params_from_numpy(jax.device_get(params), "cpu")``."""
+    ``device``, structure unchanged, nested LM trees included (stacked
+    ``(L, ...)`` leaves stay stacked under the same key paths). Carries the
+    JAX package's parameters into the port:
+    ``params_from_numpy(jax.device_get(params), "cpu")``."""
 
     def conv(a):
         if isinstance(a, (bool, int, float, str)) or a is None:

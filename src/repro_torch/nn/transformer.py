@@ -1,0 +1,232 @@
+"""Transformer block assembly: norms + attention mixer + FFN (port of
+`repro.nn.transformer`).
+
+A *block* is one residual layer of the network. `make_block_spec` /
+`apply_block` / `apply_block_decode` dispatch on the block type string; the
+LM assembler (`repro_torch.models.lm`) stacks same-typed blocks over a
+leading layer axis and walks it. Block types ``attn`` and ``local`` are
+ported; ``rglru`` and ``ssm`` mixers, MoE FFNs and cross-attention raise
+`NotImplementedError` naming their ROADMAP.md item, and chunked prefill
+(``apply_block_chunk``) belongs to the serving engine (item 7).
+
+Every compressible matmul takes an optional ``w_eff``: {"attn/wq": the
+fake-quantized weight, ...}, computed for all layers at once by the
+model's one grouped K3 launch; a block called alone fake-quantizes its own.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.core import qat
+from repro_torch.core.export import serve_dense
+from repro_torch.models.config import ArchConfig
+from repro_torch.nn import attention as A
+from repro_torch.nn.layers import (
+    ACTIVATIONS,
+    QuantConfig,
+    apply_layernorm,
+    apply_rmsnorm,
+    quantized_mm,
+)
+from repro_torch.nn.spec import ParamSpec, fan_in_init, ones_init, zeros_init
+
+# the compressible matmuls of a block, by sub-module (the JAX package's
+# `_project` and `apply_ffn` fake-quantize exactly these under QAT)
+MATMULS = {"attn": ("wq", "wk", "wv", "wo"),
+           "mlp": ("w_gate", "w_up", "w_down")}
+
+NOT_PORTED = {
+    "rglru": "ROADMAP.md Queue 1 item 6c, 'LM stack' (nn/rglru.py)",
+    "ssm": "ROADMAP.md Queue 1 item 6c, 'LM stack' (nn/ssm.py)",
+    "moe": "ROADMAP.md Queue 1 item 8, 'Routed targets' (nn/moe.py)",
+    "xattn": "ROADMAP.md Queue 1 item 6c, 'LM stack' (the encoder-decoder "
+             "family's encoder and cross-attention)",
+    "prefix": "ROADMAP.md Queue 1 item 6c, 'LM stack'",
+}
+
+
+def _not_ported(what: str, key: str):
+    return NotImplementedError(f"{what} is not ported yet: {NOT_PORTED[key]}")
+
+
+def block_matmuls(block_params) -> list:
+    """["attn/wq", ..., "mlp/w_down"]: the compressible matmul weights a
+    block's parameters hold, in `MATMULS` order."""
+    return [f"{sub}/{key}" for sub, keys in MATMULS.items()
+            if sub in block_params for key in keys if key in block_params[sub]]
+
+
+# ------------------------------------------------------------------- norms
+
+
+def make_norm_spec(cfg: ArchConfig):
+    if cfg.norm == "rmsnorm":
+        return {"scale": ParamSpec((cfg.d_model,), cfg.pdtype, (None,),
+                                   ones_init)}
+    if cfg.norm == "layernorm":
+        return {"scale": ParamSpec((cfg.d_model,), cfg.pdtype, (None,),
+                                   ones_init),
+                "bias": ParamSpec((cfg.d_model,), cfg.pdtype, (None,),
+                                  zeros_init)}
+    if cfg.norm == "nonparam_ln":
+        return {}
+    raise ValueError(cfg.norm)
+
+
+def apply_norm(params, x, cfg: ArchConfig):
+    if cfg.norm == "rmsnorm":
+        return apply_rmsnorm(params, x)
+    return apply_layernorm(params, x)  # parametric or non-parametric LN
+
+
+# ------------------------------------------------------------------- ffn
+
+
+def make_ffn_spec(cfg: ArchConfig):
+    d, f, dt = cfg.d_model, cfg.d_ff, cfg.pdtype
+    spec = {
+        "w_up": ParamSpec((d, f), dt, ("embed", "mlp"),
+                          fan_in_init(in_axis=0)),
+        "w_down": ParamSpec((f, d), dt, ("mlp", "embed"),
+                            fan_in_init(in_axis=0)),
+    }
+    if cfg.ffn in ("swiglu", "geglu"):
+        spec = {"w_gate": ParamSpec((d, f), dt, ("embed", "mlp"),
+                                    fan_in_init(in_axis=0)), **spec}
+    return spec
+
+
+def apply_ffn(params, x, cfg: ArchConfig, *,
+              qcfg: QuantConfig = QuantConfig.off(), comp=None,
+              name: str = "mlp", w_eff=None):
+    """SwiGLU / GeGLU / GELU FFN. On the serve path each matmul runs on the
+    packed LUT GEMM with its activation fused into the kernel's epilogue
+    (the gate's SiLU); under QAT the products are correctly rounded
+    (`exact_matmul`), so the two agree to float32 ulps."""
+
+    def mm(key, xin, activation="none"):
+        """act(xin @ w[key])."""
+        unit = f"{name}/{key}"
+        c = None if comp is None else comp.get(unit)
+        art = None if c is None else c.get("serve")
+        if qcfg.enabled and qcfg.comp_mode == "serve" and art is not None:
+            return serve_dense(xin, art, activation=activation)
+        y = quantized_mm(params, key, xin, qcfg=qcfg, comp=comp, name=name,
+                         dtype=x.dtype, w_eff=None if w_eff is None
+                         else w_eff.get(unit))
+        return ACTIVATIONS[activation](y)
+
+    xin = qat.fake_quant_act(x) if (qcfg.enabled and qcfg.act_quant) else x
+    if cfg.ffn in ("swiglu", "geglu"):
+        act = "silu" if cfg.ffn == "swiglu" else "gelu"
+        h = mm("w_gate", xin, act) * mm("w_up", xin)
+    else:
+        h = mm("w_up", xin, "gelu")
+    if qcfg.enabled and qcfg.act_quant:
+        h = qat.fake_quant_act(h)
+    return mm("w_down", h)
+
+
+# ------------------------------------------------------------------- blocks
+
+
+def make_block_spec(cfg: ArchConfig, block_type: str, *,
+                    cross_attn: bool = False):
+    if block_type in NOT_PORTED:
+        raise _not_ported(f"{cfg.name}: block type {block_type!r}",
+                          block_type)
+    if block_type not in ("attn", "local"):
+        raise ValueError(block_type)
+    if cfg.is_moe:
+        raise _not_ported(f"{cfg.name}: the MoE FFN", "moe")
+    if cross_attn:
+        raise _not_ported(f"{cfg.name}: cross-attention", "xattn")
+    return {"ln1": make_norm_spec(cfg),
+            "attn": A.make_attention_spec(
+                cfg.attn_dims(block_type == "local"), cfg.pdtype),
+            "ln2": make_norm_spec(cfg),
+            "mlp": make_ffn_spec(cfg)}
+
+
+def _check_block(params, block_type: str) -> None:
+    if block_type in NOT_PORTED:
+        raise _not_ported(f"block type {block_type!r}", block_type)
+    if block_type not in ("attn", "local"):
+        raise ValueError(block_type)
+    for key in ("moe", "xattn"):
+        if key in params:
+            raise _not_ported(f"a block with {key!r}", key)
+
+
+def apply_block(params, x: torch.Tensor, cfg: ArchConfig, block_type: str, *,
+                positions: Optional[torch.Tensor] = None,
+                qcfg: QuantConfig = QuantConfig.off(), comp=None,
+                q_block: int = 512, kv_block: int = 512,
+                return_state: bool = False, w_eff=None):
+    """One residual block (prefill). Returns (x, aux), or ((x, aux), state)
+    when ``return_state``: the state is the block's contribution to a
+    decode cache (K/V after RoPE)."""
+    _check_block(params, block_type)
+    aux = {"lb_loss": torch.zeros((), device=x.device),
+           "z_loss": torch.zeros((), device=x.device)}
+    h = apply_norm(params["ln1"], x, cfg)
+    mix = A.apply_attention(params["attn"], h,
+                            cfg.attn_dims(block_type == "local"),
+                            positions=positions, qcfg=qcfg, comp=comp,
+                            name="attn", q_block=q_block, kv_block=kv_block,
+                            return_kv=return_state, w_eff=w_eff)
+    state = None
+    if return_state:
+        mix, (k_st, v_st) = mix
+        state = {"k": k_st, "v": v_st}
+    x = x + mix
+    h = apply_norm(params["ln2"], x, cfg)
+    x = x + apply_ffn(params["mlp"], h, cfg, qcfg=qcfg, comp=comp,
+                      name="mlp", w_eff=w_eff)
+    return ((x, aux), state) if return_state else (x, aux)
+
+
+# ------------------------------------------------------------------- decode
+
+
+def block_cache_spec(cfg: ArchConfig, block_type: str, batch: int,
+                     max_len: int, dtype=torch.bfloat16):
+    """Shape-and-dtype placeholders (meta tensors) of a block's cache."""
+    if block_type in NOT_PORTED:
+        raise _not_ported(f"block type {block_type!r}", block_type)
+    if block_type not in ("attn", "local"):
+        raise ValueError(block_type)
+    dims = cfg.attn_dims(block_type == "local")
+    cache_len = min(max_len, dims.window) if dims.window else max_len
+    return A.kv_cache_spec(batch, cache_len, dims, dtype)
+
+
+def init_block_cache(cfg: ArchConfig, block_type: str, batch: int,
+                     max_len: int, dtype=torch.bfloat16, *, device):
+    spec = block_cache_spec(cfg, block_type, batch, max_len, dtype)
+    return {k: torch.zeros(s.shape, dtype=s.dtype, device=device)
+            for k, s in spec.items()}
+
+
+def apply_block_decode(params, x: torch.Tensor, cache: dict, pos,
+                       cfg: ArchConfig, block_type: str, *,
+                       qcfg: QuantConfig = QuantConfig.off(), comp=None,
+                       w_eff=None):
+    """One decode step through a block: x (B, 1, d), pos () or (B,).
+    Returns (x, updated cache)."""
+    _check_block(params, block_type)
+    h = apply_norm(params["ln1"], x, cfg)
+    new_cache = dict(cache)
+    mix, kv_new = A.apply_attention_decode(
+        params["attn"], h, {"k": cache["k"], "v": cache["v"]}, pos,
+        cfg.attn_dims(block_type == "local"), qcfg=qcfg, comp=comp,
+        name="attn", w_eff=w_eff)
+    new_cache.update(kv_new)
+    x = x + mix
+    h = apply_norm(params["ln2"], x, cfg)
+    y = apply_ffn(params["mlp"], h, cfg, qcfg=qcfg, comp=comp, name="mlp",
+                  w_eff=w_eff)
+    return x + y, new_cache

@@ -1,9 +1,11 @@
 """`repro_torch` command-line entry point: drive the port's Pipeline.
 
-    python -m repro_torch profile  [--config cfg.json | --reduced] [--arch A]
-                                   [--steps N] [--seed S] [--plan-out BASE]
-    python -m repro_torch compress [--config cfg.json | --reduced] [--arch A]
-                                   [--steps N] [--search-mode MODE]
+    python -m repro_torch profile  [--config cfg.json | --reduced]
+                                   [--target cnn|lm] [--arch A] [--steps N]
+                                   [--seed S] [--plan-out BASE]
+    python -m repro_torch compress [--config cfg.json | --reduced]
+                                   [--target cnn|lm] [--arch A] [--steps N]
+                                   [--search-mode MODE] [--compress-k K]
                                    [--seed S] [--plan-in BASE]
                                    [--plan-out BASE]
     python -m repro_torch export --plan-in BASE [--plan-out BASE2]
@@ -20,6 +22,17 @@ config's ``search_mode``, the batched candidate sweep by default;
 ``--search-mode serial`` takes the serial walk, which makes the same
 decisions. ``export`` and ``serve`` resume a saved plan, from either
 package.
+
+``--target lm`` compresses an LM of
+`repro_torch.configs` (``--arch olmo-1b``; ``--reduced``: its scaled-down
+form, no LM QAT, ``--compress-k 4``): profile (seeded parameters),
+energy_model (the uniform-trace LUT), schedule (every matmul restricted to
+the same k-value codebook) and export (packed 4-bit artifacts, one a layer).
+For an LM target ``compress`` runs through ``export``, the last stage the
+port has for it, and prints one line saying that the serve stage is
+ROADMAP.md item 7; the JAX package's ``compress`` stops after
+``schedule``. ``serve`` on an LM plan exits non-zero naming item 7. ``--compress-k``
+applies to an LM target only; with any other it is an error.
 ``--plan-in`` resumes a plan (completed stages are skipped), ``--plan-out``
 saves the result as ``BASE.json`` + ``BASE.npz``. Every command takes
 ``--device``, which defaults to ``cuda``; on a host without CUDA that is an
@@ -53,10 +66,19 @@ def build_parser() -> argparse.ArgumentParser:
         if command in CONFIG_COMMANDS:
             p.add_argument("--config", default=None, metavar="JSON",
                            help="PipelineConfig JSON file")
+            p.add_argument("--target", choices=("cnn", "lm", "moe", "scan"),
+                           default=None,
+                           help="target kind when building a config from "
+                                "flags (moe/scan are not ported yet)")
             p.add_argument("--arch", default=None,
-                           help="lenet5|resnet8|resnet20|resnet50")
+                           help="cnn: lenet5|resnet8|resnet20|resnet50; "
+                                "lm: a repro_torch.configs id (olmo-1b)")
             p.add_argument("--reduced", action="store_true",
-                           help="CPU-smoke preset (LeNet-5, tiny budgets)")
+                           help="CPU-smoke preset (cnn: LeNet-5, tiny "
+                                "budgets; lm: the scaled-down config)")
+            p.add_argument("--compress-k", type=int, default=None,
+                           help="lm: restrict every eligible matmul to a "
+                                "k-value codebook")
             p.add_argument("--steps", type=int, default=None,
                            help="override train.qat_steps")
             p.add_argument("--search-mode", choices=("batched", "serial"),
@@ -85,21 +107,29 @@ def _overrides(args) -> dict:
         over["train"] = {"qat_steps": args.steps}
     if getattr(args, "search_mode", None) is not None:
         over["schedule"] = {"search_mode": args.search_mode}
+    if getattr(args, "compress_k", None) is not None:
+        over["serve"] = {"compress_k": args.compress_k}
     return over
 
 
 def _build_config(args):
-    from repro_torch.pipeline.config import PipelineConfig, reduced_cnn_config
+    from repro_torch.pipeline.config import (
+        PipelineConfig,
+        reduced_cnn_config,
+        reduced_lm_config,
+    )
 
+    kind = args.target
     if args.config:
         cfg = PipelineConfig.load(args.config)
     elif args.reduced:
-        cfg = reduced_cnn_config()
+        cfg = (reduced_cnn_config() if kind in (None, "cnn")
+               else reduced_lm_config(args.arch or "olmo-1b"))
     else:
         cfg = PipelineConfig()
     overrides = _overrides(args)
-    target = {k: v for k, v in (("arch", args.arch), ("seed", args.seed))
-              if v is not None}
+    target = {k: v for k, v in (("kind", kind), ("arch", args.arch),
+                                ("seed", args.seed)) if v is not None}
     if target:
         overrides["target"] = target
     return cfg.with_overrides(overrides)
@@ -127,8 +157,17 @@ def main(argv: Optional[list] = None) -> int:
             pipe.cfg = pipe.cfg.with_overrides(_overrides(args))
         else:
             pipe = Pipeline(_build_config(args), device=device)
-        plan = pipe.run_until(COMMAND_STAGE[args.command],
-                              verbose=not args.quiet)
+        if (getattr(args, "compress_k", None) is not None
+                and pipe.cfg.target.kind != "lm"):
+            ap.error("--compress-k restricts an LM's codebooks: pass "
+                     "--target lm")
+        stage = COMMAND_STAGE[args.command]
+        if args.command == "compress" and pipe.target.kind == "lm":
+            stage = "export"
+            print("[repro_torch] compress runs an LM target through export: "
+                  "its serve stage is not ported yet (ROADMAP.md Queue 1 "
+                  "item 7, 'Serving')")
+        plan = pipe.run_until(stage, verbose=not args.quiet)
     except NotImplementedError as e:
         ap.error(str(e))
     print(json.dumps(plan.summary(), indent=2))

@@ -6,8 +6,8 @@ parses here under the same strictness (unknown keys rejected, tuples
 restored by field type) and a config written here parses there.
 `ScheduleConfig` and `SelectionConfig` are plain copies of the JAX package's
 dataclasses, read by the port's `repro_torch.core.schedule` and
-`repro_torch.core.weight_selection`. `reduced_cnn_config` is the JAX
-package's CPU-smoke preset.
+`repro_torch.core.weight_selection`. `reduced_cnn_config` and
+`reduced_lm_config` are the JAX package's CPU-smoke presets.
 """
 
 from __future__ import annotations
@@ -273,6 +273,23 @@ def reduced_cnn_config(**target_kw) -> PipelineConfig:
         selection=SelectionConfig(k_init=20, k_target=16, delta_acc=0.08,
                                   score_batches=1, accept_batches=1,
                                   max_score_candidates=3),
+    )
+
+
+def reduced_lm_config(arch: str = "olmo-1b", *, compress_k: int = 4,
+                      **serve_kw) -> PipelineConfig:
+    """CPU-smoke preset for an LM target (port of
+    `repro.pipeline.config.reduced_lm_config`): the family's scaled-down
+    config, no LM QAT steps, a uniform ``compress_k``-value restriction,
+    and the JAX preset's serve fields (read by the serve stage, which is
+    not ported yet)."""
+    serve = ServeStageConfig(compress_k=compress_k, requests=2, prompt_len=12,
+                             new_tokens=6, mixed=True, max_batch=4)
+    serve = dataclasses.replace(serve, **serve_kw)
+    return PipelineConfig(
+        target=TargetConfig(kind="lm", arch=arch, reduced=True),
+        train=TrainStageConfig(qat_steps=0, final_finetune_steps=0),
+        serve=serve,
     )
 
 

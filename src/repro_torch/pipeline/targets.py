@@ -5,31 +5,48 @@ stage; each takes the shared `CompressionPlan` and the `PipelineConfig` and
 mutates only the plan. The CNN target's five stages are ported operation for
 operation: ``profile`` (QAT base training, then the trace statistics),
 ``energy_model``, ``schedule`` (both search modes, the batched candidate
-sweep by default), ``export`` and ``serve``. What is not ported (the cosim
-gate, the LM-family targets) raises `NotImplementedError` naming the
-ROADMAP.md item that ports it, from `CnnTarget.check_ported` or
-`resolve_target` before any stage runs.
+sweep by default), ``export`` and ``serve``. The LM target's first four
+are ported (`LMTarget`): parameter initialisation, the uniform-trace
+energy model, the uniform k-value codebook restriction and the export of
+packed artifacts. What is not ported (the cosim gate, LM QAT, checkpoint
+restore, LM serving and fleets, the routed targets) raises
+`NotImplementedError` naming the ROADMAP.md item that ports it, from a
+target's ``check_ported`` or `resolve_target` before any stage runs.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
 from repro_torch._device import tree_to
+from repro_torch.core import lm_compress, qat
+from repro_torch.core.energy_lut import uniform_trace_lut
 from repro_torch.core.export import export_model, export_summary
+from repro_torch.core.layer_energy import (
+    dense_matmul_dims,
+    layer_energy_from_counts,
+    weight_value_counts,
+)
 from repro_torch.core.runner import CnnRunner
 from repro_torch.core.schedule import energy_prioritized_compression
+from repro_torch.configs import get_config
 from repro_torch.data.synthetic import SyntheticImages
+from repro_torch.models.lm import build_lm
 from repro_torch.nn.cnn import CNN_FACTORIES
 from repro_torch.nn.layers import QuantConfig
+from repro_torch.nn.spec import init_params, spec_count
 from repro_torch.pipeline.config import PipelineConfig
 from repro_torch.pipeline.plan import CompressionPlan, decision_dict
 
 _NOT_PORTED = {
     "verify_cosim": "ROADMAP.md Queue 1 item 9, 'Bit-accurate cosim'",
-    "lm": "ROADMAP.md Queue 1, 'LM stack' and 'Serving'",
+    "lm_qat": "ROADMAP.md Queue 1 item 6b, 'LM QAT'",
+    "ckpt_dir": "ROADMAP.md Queue 1 item 10, 'Multi-device, checkpointing, "
+                "launch'",
+    "lm_serve": "ROADMAP.md Queue 1 item 7, 'Serving'",
+    "fleet": "ROADMAP.md Queue 1 item 7, 'Serving' (fleet)",
     "moe": "ROADMAP.md Queue 1, 'Routed targets'",
     "scan": "ROADMAP.md Queue 1, 'Routed targets'",
 }
@@ -38,6 +55,8 @@ _NOT_PORTED = {
 def resolve_target(cfg: PipelineConfig, device: torch.device):
     if cfg.target.kind == "cnn":
         return CnnTarget(cfg, device)
+    if cfg.target.kind == "lm":
+        return LMTarget(cfg, device)
     if cfg.target.kind in _NOT_PORTED:
         raise NotImplementedError(
             f"target kind {cfg.target.kind!r} is not ported yet: "
@@ -223,3 +242,166 @@ class CnnTarget:
             print(f"[pipeline] serve: {len(arts)} layers on the LUT GEMM, "
                   f"rel_err={rel:.2e}, "
                   f"acc={plan.metrics['serve_accuracy']:.3f}")
+
+
+# ====================================================================== LM
+
+
+class LMTarget:
+    """LM compression (port of `repro.pipeline.targets.LMTarget`, stages
+    profile through export) on one device. The model is `build_lm` of the
+    config's architecture, scaled down where ``target.reduced``."""
+
+    kind = "lm"
+
+    def __init__(self, cfg: PipelineConfig, device: torch.device):
+        acfg = get_config(cfg.target.arch)
+        if cfg.target.reduced:
+            acfg = acfg.scaled_down(compute_dtype="float32")
+        self.acfg = acfg
+        self.model = build_lm(acfg)
+        self.name = acfg.name
+        self.device = device
+        self._unit_energy_cache: Optional[Dict[str, float]] = None
+
+    @staticmethod
+    def check_ported(cfg: PipelineConfig, stages) -> None:
+        """Raise `NotImplementedError`, naming its ROADMAP.md item, for what
+        the port's LM target does not have yet: LM QAT steps, a checkpoint
+        to restore, the serve stage (the serving engine) and fleets.
+        `Pipeline` calls this before the first stage does work."""
+        if cfg.serve.plans or cfg.serve.plans_dir:
+            raise NotImplementedError(
+                "serve.plans / serve.plans_dir (fleet serving) is not "
+                f"ported yet: {_NOT_PORTED['fleet']}")
+        if "profile" in stages and cfg.train.qat_steps:
+            raise NotImplementedError(
+                f"LM QAT (train.qat_steps={cfg.train.qat_steps}) is not "
+                f"ported yet: {_NOT_PORTED['lm_qat']}; set qat_steps=0")
+        if "profile" in stages and cfg.target.ckpt_dir:
+            raise NotImplementedError(
+                "restoring an LM checkpoint (target.ckpt_dir) is not ported "
+                f"yet: {_NOT_PORTED['ckpt_dir']}")
+        if "serve" in stages:
+            raise NotImplementedError(
+                "the LM target's serve stage (the continuous-batching "
+                f"engine) is not ported yet: {_NOT_PORTED['lm_serve']}")
+
+    def _on_device(self, plan: CompressionPlan) -> None:
+        """Move the plan's tensors to this target's device (plans load on
+        the CPU)."""
+        plan.params = tree_to(plan.params, self.device)
+        plan.comp = tree_to(plan.comp, self.device)
+        if plan.artifacts:
+            plan.artifacts = {k: a.to(self.device)
+                              for k, a in plan.artifacts.items()}
+
+    def _unit_energies(self, params, comp) -> Dict[str, float]:
+        """Per-unit one-token MAC energy on the 64x64 array, priced with
+        the uniform-trace LUT (no profiled activations exist at LM
+        scale)."""
+        lut = uniform_trace_lut(device=self.device)
+        out: Dict[str, float] = {}
+        for name, w, c, layout in lm_compress.iter_eligible_units(
+                self.model, params, comp):
+            w_int = qat.quantize_weight_int(w, c)
+            mat = (w_int.reshape(w_int.shape[0], -1) if layout == "in_first"
+                   else w_int.reshape(-1, w_int.shape[-1]))
+            dims = dense_matmul_dims(fan_in=mat.shape[0],
+                                     fan_out=mat.shape[1], n_tokens=1)
+            counts = weight_value_counts(mat.T, dims)
+            out[name] = float(layer_energy_from_counts(counts, lut, dims))
+        return out
+
+    # ------------------------------------------------------------- stages
+
+    def stage_profile(self, plan: CompressionPlan, cfg: PipelineConfig,
+                      verbose: bool = False) -> None:
+        """Seeded parameters (``target.seed``), unless the plan already
+        carries parameters (a plan of either package), and the identity
+        comp tree."""
+        if plan.params is None:
+            plan.params = init_params(cfg.target.seed, self.model.spec,
+                                      self.device)
+        else:
+            plan.params = tree_to(plan.params, self.device)
+        plan.comp = lm_compress.init_lm_comp(self.model, device=self.device)
+        plan.metrics["n_params"] = int(spec_count(self.model.spec))
+        plan.metrics["n_units"] = len(lm_compress.lm_comp_layers(self.model))
+        if verbose:
+            print(f"[pipeline] {self.name}: "
+                  f"{plan.metrics['n_params'] / 1e6:.1f}M params, "
+                  f"{plan.metrics['n_units']} compressible units")
+
+    def stage_energy_model(self, plan: CompressionPlan, cfg: PipelineConfig,
+                           verbose: bool = False) -> None:
+        self._on_device(plan)
+        energies = self._unit_energies(plan.params, plan.comp)
+        total = sum(energies.values())
+        plan.shares = {n: e / max(total, 1e-12) for n, e in energies.items()}
+        plan.luts = {"uniform": uniform_trace_lut(device=self.device)}
+        plan.metrics["energy_per_token"] = float(total)
+        self._unit_energy_cache = energies
+
+    def stage_schedule(self, plan: CompressionPlan, cfg: PipelineConfig,
+                       verbose: bool = False) -> None:
+        """Restrict every unit to the same ``serve.compress_k``-value
+        symmetric codebook (0: leave the model unrestricted)."""
+        self._on_device(plan)
+        k = cfg.serve.compress_k
+        e_before = self._unit_energy_cache
+        if e_before is None:
+            e_before = self._unit_energies(plan.params, plan.comp)
+        total_before = sum(e_before.values())
+        if not k:
+            plan.metrics["energy_before"] = float(total_before)
+            plan.metrics["energy_after"] = float(total_before)
+            return
+        plan.comp = lm_compress.restrict_all_codebooks(
+            self.model, plan.comp, lm_compress.symmetric_codebook_values(k))
+        e_after = self._unit_energies(plan.params, plan.comp)
+        plan.decisions = [
+            {"layer": name, "share": e_before[name] / max(total_before, 1e-12),
+             "prune_ratio": None, "k": k,
+             "energy_before": e_before[name], "energy_after": e_after[name],
+             "accuracy": None, "accepted": True, "tried": [[0.0, k]]}
+            for name in e_before
+        ]
+        plan.metrics["energy_before"] = float(total_before)
+        plan.metrics["energy_after"] = float(sum(e_after.values()))
+        plan.metrics["compress_k"] = k
+        if verbose:
+            print(f"[pipeline] restricted {len(e_before)} units to "
+                  f"{k}-value codebooks "
+                  f"(per-token energy {total_before:.3g} -> "
+                  f"{plan.metrics['energy_after']:.3g} eu)")
+
+    def stage_export(self, plan: CompressionPlan, cfg: PipelineConfig,
+                     verbose: bool = False) -> None:
+        """Packed 4-bit artifacts of every restricted unit (one a layer of
+        a stacked unit, keyed ``blocks/g0/attn/wq[3]``), the skip report,
+        and the LUT-GEMM parity of the first four units."""
+        self._on_device(plan)
+        arts, skips = lm_compress.export_lm_matmuls(
+            self.model, plan.params, plan.comp, block_k=cfg.export.block_k)
+        plan.artifacts = arts
+        summary = export_summary(arts)
+        checked = lm_compress.lut_parity_report(self.model, plan.params,
+                                                plan.comp, arts)
+        summary["parity_max_rel_err"] = max(checked.values()) if checked \
+            else 0.0
+        summary["skipped"] = len(skips)
+        plan.metrics.update({f"export_{k}": v for k, v in summary.items()})
+        if plan.stats is None:
+            plan.stats = {}
+        plan.stats.setdefault("export", {})["skip_report"] = skips
+        if verbose and arts:
+            print(f"[pipeline] exported {summary['layers']} matmuls, "
+                  f"{summary['weight_bytes_packed'] / 1e6:.2f} MB packed "
+                  f"({summary['compression_vs_int8']:.2f}x vs int8), "
+                  f"LUT parity max rel err "
+                  f"{summary['parity_max_rel_err']:.2e}")
+        if verbose and skips:
+            print(f"[pipeline] export skipped {len(skips)} units:")
+            for sk in skips:
+                print(f"  - {sk['unit']}: {sk['reason']} ({sk['detail']})")

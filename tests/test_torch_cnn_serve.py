@@ -368,8 +368,9 @@ class _WorkStarted(Exception):
 
 def test_unported_stages_and_targets_name_their_roadmap_item():
     """The default config (``search_mode="batched"``, ported) is not
-    refused: its run starts work. Targets not ported still raise, naming
-    their ROADMAP.md item."""
+    refused: its run starts work. A dense LM target builds; the routed
+    targets still raise, naming their ROADMAP.md item, and so does an LM
+    serve stage (item 7, 'Serving')."""
     pipe = TPipeline(TConfig(), device="cpu")     # search_mode="batched"
     assert pipe.cfg.schedule.search_mode == "batched"
 
@@ -380,6 +381,16 @@ def test_unported_stages_and_targets_name_their_roadmap_item():
     with pytest.raises(_WorkStarted):
         pipe.run()
     assert not pipe.plan.completed
-    lm = TConfig.from_dict({"target": {"kind": "lm", "arch": "olmo-1b"}})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        TPipeline(lm, device="cpu")
+    lm = TConfig.from_dict({"target": {"kind": "lm", "arch": "olmo-1b",
+                                       "reduced": True},
+                            "train": {"qat_steps": 0}})
+    lm_pipe = TPipeline(lm, device="cpu")
+    assert lm_pipe.target.kind == "lm"
+    for kind in ("moe", "scan"):
+        routed = TConfig.from_dict({"target": {"kind": kind,
+                                               "arch": "olmo-1b"}})
+        with pytest.raises(NotImplementedError, match="'Routed targets'"):
+            TPipeline(routed, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 7, 'Serving'"):
+        lm_pipe.run()
+    assert not lm_pipe.plan.completed
