@@ -103,7 +103,24 @@
    err < 1e-5); and where a served prefill's and decode step's time goes
    (``[lm-breakdown]``: K2's recorded calls of the step replayed through
    the kernel, its plain version and `torch.matmul`, beside their bound);
-13. prints the ``kernels`` JSON line, then the result line.
+13. ``[lm-engine]``: the serving engine on that plan at full width. (a)
+   ``Pipeline.from_plan(plan, device="cuda")`` through ``serve`` (8
+   requests of up to 64 prompt and 16 new tokens, the fake-quant engine
+   then the oneshot fallback): engine == oneshot, no build after warmup,
+   one K3 launch a forward call and no K2; (b) the packed-LUT engine
+   (``lut_serve=True``, float32, 16 requests of 256/249/242 prompt and
+   32/29 new tokens, each prompt prefilled in two 128-token chunks) in the
+   engine, wave and oneshot modes: greedy tokens equal across the modes,
+   no build after warmup, 112 K2 launches a forward call and no K3, with
+   tokens/s, TTFT and latency p50/p99, slot utilization and peak memory,
+   and a split of one group decode step and one 4-row chunk step
+   (``[lm-engine-breakdown]``); then the engine's row sums (float64,
+   rounded once) against a fixed float32 order and PyTorch's float32
+   order: engine-mode tokens/s, step ms, and whether a batched step's rows
+   equal the rows run alone, gated for the shipped float64 sums
+   (``[lm-engine-sums]``); (c) (a)'s trace through a LUT engine: the share
+   of greedy tokens equal to (a)'s (reported);
+14. prints the ``kernels`` JSON line, then the result line.
 
 Any failure raises and the script exits non-zero. It refuses to run without
 a CUDA device, and outside a checkout of the repository.
@@ -156,6 +173,16 @@ LM_PARITY = 1e-5            # lut_parity_report, max over every unit
 # the same float64-summed products rounded once, so float32 ulps at most
 WITNESS_PARITY = 1e-5
 SERVE_PARITY = 2e-2         # the README's serve_forward_parity gate
+# the [lm-engine] phase: (a) the pipeline's serve stage on the [lm] plan,
+# (b) the packed-LUT engine built directly, its trace served in each mode
+LM_STAGE_SERVE = dict(compress_k=LM_COMPRESS_K, requests=8, prompt_len=64,
+                      new_tokens=16, mixed=True, max_batch=4,
+                      verify_oneshot=True)
+LM_LUT_REQUESTS, LM_LUT_PROMPT_LEN, LM_LUT_NEW_TOKENS = 16, 256, 32
+LM_LUT_PROMPT_SEED = 200
+LM_LUT_ENGINE = dict(max_batch=8, prompt_buckets=(128, 256),
+                     new_token_buckets=(32,), max_waves=2, q_block=128,
+                     kv_block=128, cache_dtype="float32", lut_serve=True)
 K2 = dict(name="lut_matmul",
           source="src/repro_torch/kernels/lut_matmul/csrc/lut_matmul.cu",
           replaces="src/repro/kernels/lut_matmul/lut_matmul.py:125")
@@ -2325,6 +2352,430 @@ def lm_breakdown(torch, target, plan, comp_serve):
     return parts
 
 
+def counting_calls(model, names=("prefill", "prefill_chunk",
+                                   "decode_step")):
+    """{name: calls} of the model's forward entry points, counted from now
+    on (the engine's step builds call them through the model object)."""
+    calls = dict.fromkeys(names, 0)
+    for name in names:
+        def counted(*a, _name=name, _real=getattr(model, name), **kw):
+            calls[_name] += 1
+            return _real(*a, **kw)
+        setattr(model, name, counted)
+    return calls
+
+
+def serve_numbers(rep):
+    """The engine report's end-to-end numbers."""
+    keys = ("requests", "new_tokens", "wall_s", "tokens_per_s",
+            "ttft_p50_s", "ttft_p99_s", "latency_p50_s", "latency_p99_s",
+            "slot_utilization", "executed_positions", "energy_eu_overhead",
+            "cache_compile_count", "cache_buckets_compiled")
+    return {k: rep[k] for k in keys if k in rep}
+
+
+def lm_engine_stage(torch, plan):
+    """(a) The normal entry point: ``Pipeline.from_plan(plan, device=
+    "cuda")`` through ``serve`` on the [lm] plan (the fake-quant engine,
+    then the oneshot fallback: `LMTarget.stage_serve`), every forward call
+    counted. Gates: engine == oneshot, no build after warmup, one K3 launch
+    a forward call and no K2. Returns (metrics, the target, its results)."""
+    from repro_torch.kernels.fake_quant import fake_quant as k3
+    from repro_torch.kernels.lut_matmul import lut_matmul as k2
+    from repro_torch.pipeline.pipeline import Pipeline
+
+    cfg = lm_config().with_overrides({"serve": LM_STAGE_SERVE})
+    pipe = Pipeline.from_plan(plan, cfg=cfg, device="cuda")
+    calls = counting_calls(pipe.target.model)
+    k2.launches = k3.launches = 0
+    t0 = time.perf_counter()
+    pipe.run_until("serve", verbose=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"K2": k2.launches, "K3": k3.launches}
+    for name in calls:
+        pipe.target.model.__dict__.pop(name, None)
+    m = plan.metrics
+    forwards = sum(calls.values())
+    out = dict(serve=LM_STAGE_SERVE, stage_wall_s=wall,
+               forward_calls=dict(calls),
+               launches=launches,
+               parity_engine_vs_oneshot=m["serve_parity_engine_vs_oneshot"],
+               recompiles_after_warmup=m["serve_recompiles_after_warmup"],
+               **{k[len("serve_"):]: v for k, v in m.items()
+                  if k.startswith("serve_") and k[len("serve_"):] in (
+                      "requests", "new_tokens", "wall_s", "tokens_per_s",
+                      "ttft_p50_s", "ttft_p99_s", "latency_p50_s",
+                      "latency_p99_s", "slot_utilization",
+                      "executed_positions")})
+    print("[lm-engine] (a) " + json.dumps(out, sort_keys=True), flush=True)
+    if out["parity_engine_vs_oneshot"] is not True:
+        raise AssertionError("[lm-engine] (a) engine tokens != oneshot tokens")
+    if out["recompiles_after_warmup"] != 0:
+        raise AssertionError(f"[lm-engine] (a) {out['recompiles_after_warmup']}"
+                             " builds after warmup")
+    if launches != {"K2": 0, "K3": forwards}:
+        raise AssertionError(f"[lm-engine] (a) launches {launches}, expected "
+                             f"one K3 launch a forward call ({forwards}) and "
+                             "no K2")
+    return out, pipe.target
+
+
+def lm_engine_split(torch, engine):
+    """Where one group decode step and one 4-row chunk step of the LUT
+    engine spend their time (`breakdown`: each part's calls replayed alone
+    between CUDA events): K2, attention, activation fake-quant, RoPE, norms,
+    the cache merge (decode) or row gather/scatter (chunk), the
+    unembedding, and ``other`` (the step less the parts)."""
+    from repro_torch.core import export, qat
+    from repro_torch.nn import attention, transformer
+
+    model, params, cfg = engine.model, engine.params, engine.config
+    group = engine.cache.group_fns(params)
+    chunk = engine.cache.chunk_fns(LM_LUT_ENGINE["prompt_buckets"][0], 4,
+                                   params)
+    dev = engine.device
+    cache = group.make_cache()
+    batch = cfg.max_batch
+    tok = torch.zeros((batch, 1), dtype=torch.int32, device=dev)
+    active = torch.ones((batch,), dtype=torch.bool, device=dev)
+    toks = torch.zeros((4, chunk.chunk), dtype=torch.int32, device=dev)
+    rows = torch.arange(4, dtype=torch.int32, device=dev)
+    start = torch.full((4,), chunk.chunk, dtype=torch.int32, device=dev)
+    common = {"k2": (export, "lut_matmul_fused"),
+              "fake_quant_acts": (qat, "fake_quant_act"),
+              "rope": (attention, "apply_rope"),
+              "norms": (transformer, "apply_layernorm"),
+              "unembed": (model, "_unembed")}
+    parts = {}
+    for step, forward, extra in (
+            ("decode_step", lambda: group.decode(params, cache, tok, active),
+             {"attention": (attention, "decode_attention"),
+              "cache_merge": (model, "_merge_active")}),
+            ("chunk_step_4_rows", lambda: chunk.fn(params, cache, toks, rows,
+                                                   start, active[:4]),
+             {"attention": (attention, "blocked_attention"),
+              "cache_gather": (model, "gather_cache_rows"),
+              "cache_scatter": (model, "scatter_cache_rows")})):
+        ms, _ = breakdown(torch, forward, {**common, **extra}, 5)
+        ms["other"] = ms["forward"] - sum(v for k, v in ms.items()
+                                          if k not in ("forward", "calls"))
+        parts[step] = ms
+        torch.cuda.empty_cache()
+    for attr in ("_unembed", "_merge_active", "gather_cache_rows",
+                 "scatter_cache_rows"):
+        model.__dict__.pop(attr, None)
+    print("[lm-engine-breakdown] " + json.dumps(parts, sort_keys=True),
+          flush=True)
+    return parts
+
+
+def tree_sum(torch, x, dim=-1):
+    """The sum over ``dim`` in float32 by pairwise halving (zero-padded to
+    a power of two): its order is fixed by the axis length alone, whatever
+    the other axes hold."""
+    x = x.movedim(dim, -1)
+    n = x.shape[-1]
+    width = 1 << (n - 1).bit_length()
+    if width != n:
+        x = torch.nn.functional.pad(x, (0, width - n))
+    while x.shape[-1] > 1:
+        half = x.shape[-1] // 2
+        x = x[..., :half] + x[..., half:]
+    return x[..., 0]
+
+
+def sum_variants(torch):
+    """{variant: {(module, attribute): stand-in}}: the row sums of the
+    engine's batch-invariant forward as shipped ("float64": summed in
+    float64, rounded once), in a fixed float32 order ("fixed32": pairwise
+    halving, `tree_sum`, products as elementwise products summed so; the
+    unembedding stays float64, since its product tensor would hold M x d x
+    vocab floats), and in PyTorch's own float32 order ("float32": the JAX
+    package's sums). Each stand-in replaces the ``exact`` branch of the
+    attention products and softmax sums (`attention._scores`,
+    `attention._row_sum`) and of the layer norm; activation scales stay
+    one a token position in every variant."""
+    from repro_torch.models import lm
+    from repro_torch.nn import attention, transformer
+
+    scores, row_sum = attention._scores, attention._row_sum
+    layernorm = transformer.apply_layernorm
+
+    def tree_mm(a, b):
+        return tree_sum(torch, a.float().unsqueeze(-1)
+                        * b.float().unsqueeze(-3), -2)
+
+    def layernorm_fixed(params, x, *, eps=1e-5, exact=False):
+        if not exact:
+            return layernorm(params, x, eps=eps)
+        xf = x.float()
+        mean = (tree_sum(torch, xf) / xf.shape[-1])[..., None]
+        var = (tree_sum(torch, (xf - mean) ** 2) / xf.shape[-1])[..., None]
+        y = (xf - mean) * torch.rsqrt(var + eps)
+        if params:
+            y = y * params["scale"].float() + params["bias"].float()
+        return y.to(x.dtype)
+
+    return {
+        "float64": {},
+        "fixed32": {
+            (attention, "_scores"): lambda a, b, exact: (
+                tree_mm(a, b) if exact else scores(a, b, False)),
+            (attention, "_row_sum"): lambda x, exact: (
+                tree_sum(torch, x) if exact else row_sum(x, False)),
+            (transformer, "apply_layernorm"): layernorm_fixed},
+        "float32": {
+            (attention, "_scores"): lambda a, b, exact: scores(a, b, False),
+            (attention, "_row_sum"): lambda x, exact: row_sum(x, False),
+            (transformer, "apply_layernorm"):
+                lambda params, x, *, eps=1e-5, exact=False: layernorm(
+                    params, x, eps=eps),
+            (lm, "exact_matmul"): lambda a, b: torch.matmul(a, b)},
+    }
+
+
+def rows_alone(torch, engine):
+    """How many rows of a group decode step (``max_batch`` rows) and of a
+    4-row chunk step get, bit for bit, the logits each gets alone: the
+    model's forwards with the engine's qcfg and comp, on a group cache
+    filled by one chunk of seeded tokens."""
+    model, params, cfg = engine.model, engine.params, engine.config
+    kw = dict(qcfg=engine.qcfg, comp=engine.comp)
+    chunk_kw = dict(kw, q_block=cfg.q_block, kv_block=cfg.kv_block)
+    batch, chunk = cfg.max_batch, cfg.prompt_buckets[0]
+    dev = engine.device
+    gen = torch.Generator(device=dev).manual_seed(LM_LUT_PROMPT_SEED)
+
+    def draw(rows, n):
+        return torch.randint(0, model.cfg.vocab, (rows, n), generator=gen,
+                             device=dev, dtype=torch.int32)
+
+    def rows_of(cache, rows):
+        return model.gather_cache_rows(cache, torch.tensor(
+            rows, dtype=torch.int32, device=dev))
+
+    start = torch.zeros(batch, dtype=torch.int32, device=dev)
+    with torch.no_grad():
+        cache = model.init_cache(batch, cfg.group_total_len,
+                                 cfg.torch_cache_dtype, device=dev)
+        _, cache = model.prefill_chunk(params, cache, draw(batch, chunk),
+                                       start=start, **chunk_kw)
+        toks, tok = draw(4, chunk), draw(batch, 1)
+        both = model.prefill_chunk(params, rows_of(cache, [0, 1, 2, 3]),
+                                   toks, start=start[:4] + chunk,
+                                   **chunk_kw)[0]
+        chunk_equal = sum(torch.equal(both[r:r + 1], model.prefill_chunk(
+            params, rows_of(cache, [r]), toks[r:r + 1],
+            start=start[:1] + chunk, **chunk_kw)[0]) for r in range(4))
+        both = model.decode_step(params, cache, tok, **kw)[0]
+        decode_equal = sum(torch.equal(both[r:r + 1], model.decode_step(
+            params, rows_of(cache, [r]), tok[r:r + 1], **kw)[0])
+            for r in range(batch))
+    return {"decode_rows_equal": f"{decode_equal}/{batch}",
+            "chunk_rows_equal": f"{chunk_equal}/4",
+            "row_invariant": decode_equal == batch and chunk_equal == 4}
+
+
+def step_ms(torch, engine):
+    """Median ms of one group decode step and one 4-row chunk step of the
+    engine's built steps (CUDA events, `time_turns`)."""
+    params, cfg, dev = engine.params, engine.config, engine.device
+    group = engine.cache.group_fns(params)
+    chunk = engine.cache.chunk_fns(cfg.prompt_buckets[0], 4, params)
+    cache = group.make_cache()
+    tok = torch.zeros((cfg.max_batch, 1), dtype=torch.int32, device=dev)
+    active = torch.ones((cfg.max_batch,), dtype=torch.bool, device=dev)
+    toks = torch.zeros((4, chunk.chunk), dtype=torch.int32, device=dev)
+    rows = torch.arange(4, dtype=torch.int32, device=dev)
+    start = torch.full((4,), chunk.chunk, dtype=torch.int32, device=dev)
+    with torch.no_grad():
+        return time_turns(torch, {
+            "decode_step_ms": lambda: group.decode(params, cache, tok,
+                                                   active),
+            "chunk_step_4_rows_ms": lambda: chunk.fn(params, cache, toks,
+                                                     rows, start,
+                                                     active[:4])}, 5)
+
+
+def lm_engine_sums(torch, model, params, handle, cfg, shapes, requests,
+                   want, device="cuda"):
+    """What the engine's float64 sums cost and what a fixed float32 order
+    would (`sum_variants`): for each variant, the LUT engine in engine
+    mode over (b)'s trace (tokens/s, the share of greedy tokens equal to
+    (b)'s engine run ``want``), a group decode step's and a 4-row chunk
+    step's ms, and whether a batched step's rows equal the rows run alone
+    (`rows_alone`). Gate: the shipped variant's rows do."""
+    from repro_torch.serving import ServingEngine
+
+    out = {}
+    for name, patches in sum_variants(torch).items():
+        real = {key: getattr(*key) for key in patches}
+        for (mod, attr), fn in patches.items():
+            setattr(mod, attr, fn)
+        try:
+            engine = ServingEngine(model, params, config=cfg, plan=handle,
+                                   device=device)
+            engine.warmup(shapes)
+            got = [r.tokens for r in engine.serve(requests)]
+            rep = engine.report()
+            out[name] = dict(rows_alone(torch, engine), **step_ms(
+                torch, engine), tokens_per_s=rep["tokens_per_s"])
+        finally:
+            for (mod, attr), fn in real.items():
+                setattr(mod, attr, fn)
+        pairs = [(a, b) for x, y in zip(got, want) for a, b in zip(x, y)]
+        out[name]["tokens_equal_to_engine"] = sum(
+            a == b for a, b in pairs) / len(pairs)
+        del engine
+        torch.cuda.empty_cache()
+    print("[lm-engine-sums] " + json.dumps(out, sort_keys=True), flush=True)
+    if not out["float64"]["row_invariant"]:
+        raise AssertionError("[lm-engine-sums] the engine's float64 sums: "
+                             "a batched step's rows differ from the rows "
+                             f"run alone: {out['float64']}")
+    return out
+
+
+def lm_engine_lut(torch, target, plan):
+    """(b) The packed-LUT engine built directly (``lut_serve=True``: the
+    stage never sets it), on a float32 olmo-1b over the [lm] plan's
+    parameters and comp tree: LM_LUT_REQUESTS requests of the mixed trace
+    (`lm_trace_shapes`), seeded numpy prompts, served in each mode. Gates:
+    greedy tokens equal across the modes, no build after warmup, 112 K2
+    launches a forward call (prefill, chunk step or decode step) and no
+    K3. Then the step split (`lm_engine_split`) and what the engine's
+    float64 sums cost against the alternatives (`lm_engine_sums`)."""
+    import dataclasses
+
+    from repro_torch.kernels.fake_quant import fake_quant as k3
+    from repro_torch.kernels.lut_matmul import lut_matmul as k2
+    from repro_torch.models.lm import build_lm
+    from repro_torch.pipeline.targets import lm_trace_shapes
+    from repro_torch.serving import (
+        EngineConfig,
+        PlanHandle,
+        ServeRequest,
+        ServingEngine,
+    )
+
+    model = build_lm(dataclasses.replace(target.acfg,
+                                         compute_dtype="float32"))
+    n_units = 7 * model.cfg.n_layers
+    cfg = EngineConfig(**LM_LUT_ENGINE)
+    handle = PlanHandle.from_comp(plan.comp, compress_k=LM_COMPRESS_K,
+                                  plan_id=f"k{LM_COMPRESS_K}")
+    shapes = lm_trace_shapes(LM_LUT_REQUESTS, LM_LUT_PROMPT_LEN,
+                             LM_LUT_NEW_TOKENS, True)
+    requests = [ServeRequest(
+        tokens=np.random.default_rng(LM_LUT_PROMPT_SEED + i).integers(
+            0, model.cfg.vocab, plen).astype(np.int32), max_new_tokens=ntok)
+        for i, (plen, ntok) in enumerate(shapes)]
+    runs, tokens = {}, {}
+    split = None
+    for mode in ("engine", "wave", "oneshot"):
+        calls = counting_calls(model)
+        k2.launches = k3.launches = 0
+        t0 = time.perf_counter()
+        engine = ServingEngine(model, plan.params, mode=mode, config=cfg,
+                               plan=handle, device="cuda")
+        engine.warmup(shapes)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        warm_builds = engine.cache.compile_count
+        torch.cuda.reset_peak_memory_stats()
+        results = engine.serve(requests)
+        torch.cuda.synchronize()
+        rep = engine.report()
+        launches = {"K2": k2.launches, "K3": k3.launches}
+        forwards = sum(calls.values())
+        tokens[mode] = [r.tokens for r in results]
+        runs[mode] = dict(serve_numbers(rep), warmup_s=warm_s,
+                          builds=warm_builds,
+                          builds_after_warmup=engine.cache.compile_count
+                          - warm_builds,
+                          forward_calls=dict(calls), launches=launches,
+                          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+        if launches != {"K2": n_units * forwards, "K3": 0}:
+            raise AssertionError(f"[lm-engine] (b) {mode}: launches "
+                                 f"{launches}, expected {n_units} K2 a "
+                                 f"forward call ({forwards}) and no K3")
+        if runs[mode]["builds_after_warmup"]:
+            raise AssertionError(f"[lm-engine] (b) {mode}: "
+                                 f"{runs[mode]['builds_after_warmup']} "
+                                 "builds after warmup")
+        if mode == "engine":
+            split = lm_engine_split(torch, engine)
+        for name in calls:
+            model.__dict__.pop(name, None)
+        del engine, results
+        torch.cuda.empty_cache()
+    equal = {mode: tokens[mode] == tokens["engine"] for mode in tokens}
+    out = dict(config=LM_LUT_ENGINE, requests=LM_LUT_REQUESTS,
+               shapes=sorted(set(shapes)), runs=runs,
+               tokens_equal_to_engine=equal)
+    print("[lm-engine] (b) " + json.dumps(out, sort_keys=True), flush=True)
+    if not all(equal.values()):
+        differ = {mode: sum(a != b for x, y in zip(t, tokens["engine"])
+                            for a, b in zip(x, y))
+                  for mode, t in tokens.items()}
+        raise AssertionError(f"[lm-engine] (b) greedy tokens differ across "
+                             f"modes: {differ} of "
+                             f"{sum(len(t) for t in tokens['engine'])}")
+    out["split"] = split
+    out["sums"] = lm_engine_sums(torch, model, plan.params, handle, cfg,
+                                 shapes, requests, tokens["engine"])
+    return out
+
+
+def lm_engine_compare(torch, target, plan, stage_results):
+    """(c) The stage's trace through a ``lut_serve=True`` engine of the same
+    config and model: the share of greedy tokens equal to the fake-quant
+    engine's (reported, not gated: the straight-through weight is the
+    artifact's only up to a rounding: the [lm-serve] witness)."""
+    import dataclasses
+
+    from repro_torch.pipeline.targets import lm_serve_trace
+    from repro_torch.serving import PlanHandle, ServingEngine
+
+    cfg = lm_config().with_overrides({"serve": LM_STAGE_SERVE})
+    shapes, ecfg, requests = lm_serve_trace(cfg.serve, target.acfg.vocab)
+    engine = ServingEngine(
+        target.model, plan.params, config=dataclasses.replace(
+            ecfg, lut_serve=True),
+        plan=PlanHandle.from_comp(plan.comp, compress_k=LM_COMPRESS_K),
+        device="cuda")
+    engine.warmup(shapes)
+    lut = engine.serve(requests)
+    fq = [stage_results[r].tokens for r in sorted(stage_results)]
+    pairs = [(a, b) for x, y in zip(fq, [r.tokens for r in lut])
+             for a, b in zip(x, y)]
+    out = dict(tokens=len(pairs),
+               equal_share=sum(a == b for a, b in pairs) / len(pairs),
+               requests_equal=sum(x == r.tokens for x, r in zip(fq, lut)))
+    print("[lm-engine] (c) fake-quant vs LUT engine: "
+          + json.dumps(out, sort_keys=True), flush=True)
+    del engine
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_engine_phase(torch, plan):
+    """[lm-engine]: the serving engine at olmo-1b's full width on the [lm]
+    plan: (a) the pipeline's serve stage, (b) the packed-LUT engine in each
+    mode with its step split, (c) the two engines' greedy tokens."""
+    t_phase = time.perf_counter()
+    stage, target = lm_engine_stage(torch, plan)
+    torch.cuda.empty_cache()
+    lut = lm_engine_lut(torch, target, plan)
+    compare = lm_engine_compare(torch, target, plan,
+                                target.last_serve_results)
+    out = dict(stage=stage, lut=lut, compare=compare,
+               phase_wall_s=time.perf_counter() - t_phase)
+    print(f"[lm-engine] phase {out['phase_wall_s']:.1f} s", flush=True)
+    return out
+
+
 def lm_phase(torch, ops, ref):
     """[lm]: olmo-1b at full width and depth on the card. The pipeline
     through export (`lm_export_path`); K2 on the LM's shapes; K3's one
@@ -2359,15 +2810,18 @@ def lm_phase(torch, ops, ref):
     lm_launches = {"K2": k2.launches, "K3": k3.launches}
     k2.launches, k3.launches = launched["K2"], launched["K3"]
     parts = lm_breakdown(torch, target, plan, comp_serve)
+    del comp_serve
+    torch.cuda.empty_cache()
+    engine = lm_engine_phase(torch, plan)
     k2.launches, k3.launches = launched["K2"], launched["K3"]
-    metrics.update(stacked_units_attached=n, serve=serve,
+    metrics.update(stacked_units_attached=n, serve=serve, engine=engine,
                    serve_path_launches=lm_launches, breakdown=parts,
                    phase_wall_s=time.perf_counter() - t_phase,
                    peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     print("[lm] " + json.dumps({k: v for k, v in metrics.items()
-                                if k not in ("serve", "breakdown")},
+                                if k not in ("serve", "breakdown", "engine")},
                                sort_keys=True), flush=True)
-    del comp_serve, plan, target
+    del plan, target
     torch.cuda.empty_cache()
     return metrics, k2_rows, k3_out
 
@@ -2475,6 +2929,23 @@ def main() -> int:
                 for step, key in (("prefill", "launches_prefill"),
                                   ("decode_step", "launches_decode_step"))},
             "shapes": lm_k2_rows,
+            "engine": {
+                "scope": "[lm-engine] (b): the packed-LUT serving engine "
+                         f"(lut_serve=True) on {LM_ARCH} at full width, "
+                         f"{LM_LUT_REQUESTS} requests; launches: its "
+                         "engine-mode run (counts set to 0 before the "
+                         "engine was built, read after its trace), 112 a "
+                         "forward call; by mode: each mode's run",
+                "launches": lm["engine"]["lut"]["runs"]["engine"][
+                    "launches"]["K2"],
+                "launches_by_mode": {
+                    mode: r["launches"]["K2"]
+                    for mode, r in lm["engine"]["lut"]["runs"].items()},
+                "forward_calls_by_mode": {
+                    mode: r["forward_calls"]
+                    for mode, r in lm["engine"]["lut"]["runs"].items()},
+                "stage_launches": lm["engine"]["stage"]["launches"]["K2"],
+            },
         },
     }
     k1_entry = {
@@ -2549,7 +3020,17 @@ def main() -> int:
                    launches_per_forward=lm["serve"]["float32"][
                        "launches_prefill"]["fake_quant"]["K3"],
                    export_path_launches={st: v["K3"] for st, v in
-                                         lm["launches_per_stage"].items()}),
+                                         lm["launches_per_stage"].items()},
+                   engine=dict(
+                       scope="[lm-engine] (a): the pipeline's serve stage "
+                             "(the fake-quant engine, then the oneshot "
+                             f"fallback) on {LM_ARCH} at full width; one "
+                             "launch a forward call",
+                       launches=lm["engine"]["stage"]["launches"]["K3"],
+                       forward_calls=lm["engine"]["stage"]["forward_calls"],
+                       lut_engine_launches={
+                           mode: r["launches"]["K3"] for mode, r in
+                           lm["engine"]["lut"]["runs"].items()})),
     }
     entries = [k2_entry, k1_entry, k1b_entry, k3_entry]
     print(f"[card] {card}", flush=True)

@@ -10,7 +10,8 @@ layer energy shares), and its ``export`` and ``serve`` stages (packed 4-bit
 kernel, `repro_torch.kernels.lut_matmul`), with QAT and the layer-wise
 schedule in both search modes between them; and the dense LM stack
 (`repro_torch.models.lm`: prefill and decode, on the LUT GEMM when served)
-with the LM target's stages through ``export``.
+with the LM target's five stages, its ``serve`` stage the continuous-batching
+engine of `repro_torch.serving`.
 
 The package imports torch and numpy only. Importing it touches no CUDA
 device and builds no kernel: kernels compile at first use.
@@ -19,6 +20,7 @@ device and builds no kernel: kernels compile at first use.
     python -m repro_torch export --plan-in BASE --plan-out BASE2
     python -m repro_torch serve  --plan-in BASE [--device cpu]
     python -m repro_torch compress --target lm --reduced --compress-k 4
+    python -m repro_torch serve  --plan-in LM_BASE [--verify-oneshot]
 """
 
 __version__ = "0.2.0"

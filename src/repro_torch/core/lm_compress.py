@@ -132,8 +132,9 @@ def _slice_comp(c: Optional[dict], idx: tuple) -> Optional[dict]:
            "codebook_k": c["codebook_k"][idx]}
     if "msr_bits" in c:
         mb = c["msr_bits"]
-        # msr_bits is scalar or per-layer
-        out["msr_bits"] = mb if mb.ndim == 0 else mb[idx[0]]
+        # msr_bits is a Python int, a 0-d tensor or per-layer
+        out["msr_bits"] = mb if not isinstance(mb, torch.Tensor) \
+            or mb.ndim == 0 else mb[idx[0]]
     return out
 
 

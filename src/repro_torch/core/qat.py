@@ -227,21 +227,26 @@ def fake_quant_weights(ws: Sequence[torch.Tensor],
     return fake_quant_ops.fake_quant_group(list(ws), comps, cands)
 
 
-def _act_scale(a: torch.Tensor, cand_dim: Optional[int] = None
-               ) -> torch.Tensor:
+def _act_scale(a: torch.Tensor, cand_dim: Optional[int] = None,
+               token_dims: int = 0) -> torch.Tensor:
+    if token_dims:
+        return _over_qmax(a.abs().amax(dim=tuple(range(token_dims, a.ndim)),
+                                       keepdim=True))
     if cand_dim is None:
         return _over_qmax(a.abs().amax())
     dims = [d for d in range(a.ndim) if d != cand_dim % a.ndim]
     return _over_qmax(a.abs().amax(dim=dims, keepdim=True))
 
 
-def fake_quant_act(a: torch.Tensor,
-                   cand_dim: Optional[int] = None) -> torch.Tensor:
+def fake_quant_act(a: torch.Tensor, cand_dim: Optional[int] = None, *,
+                   token_dims: int = 0) -> torch.Tensor:
     """Dynamic per-tensor symmetric int8 fake-quantization of activations.
     ``cand_dim``: the candidate axis of a batched activation; each
     candidate's slice then gets its own scale (its own amax), the value a
-    forward of that candidate alone computes."""
-    scale = _act_scale(a, cand_dim)
+    forward of that candidate alone computes. ``token_dims`` > 0: the first
+    ``token_dims`` axes index token positions, and each position gets its
+    own scale (the amax over the remaining axes)."""
+    scale = _act_scale(a, cand_dim, token_dims)
     q = _round_clip(a / scale) * scale
     return a + (q - a).detach()
 

@@ -15,7 +15,9 @@ its layer axis as K3's candidate axis, so layer j's weight is
 ``fake_quant_weight(w[j], comp at j)``, the per-slice semantics of the
 reference's scan. On the serve path (``comp_mode="serve"``) units with a
 packed artifact run on the LUT GEMM (K2) and only the others take that
-launch.
+launch. The serving engine's chunked prefill (`LMModel.prefill_chunk`) and
+its cache row shuffles (`gather_cache_rows`, `scatter_cache_rows`) follow
+the same layer walk and make the same one K3 launch a call.
 
 Ported families: dense decoder-only stacks of ``attn`` / ``local`` blocks.
 `build_lm` raises `NotImplementedError`, naming the ROADMAP.md item, for
@@ -32,12 +34,14 @@ import torch
 
 from repro_torch.core import qat
 from repro_torch.core.export import ServeArtifact
+from repro_torch.kernels.lut_matmul.ref import exact_matmul
 from repro_torch.models.config import ArchConfig
 from repro_torch.nn import transformer as T
 from repro_torch.nn.layers import QuantConfig
 from repro_torch.nn.spec import ParamSpec, normal_init, stack_specs
 from repro_torch.nn.transformer import (
     apply_block,
+    apply_block_chunk,
     apply_block_decode,
     block_cache_spec,
     make_block_spec,
@@ -168,17 +172,17 @@ class LMModel:
                                qcfg=qcfg, comp=block_comp, q_block=q_block,
                                kv_block=kv_block, w_eff=block_weff)
             aux = {k: aux[k] + a[k] for k in aux}
-        x = T.apply_norm(params["final_norm"], x, cfg)
-        return self._unembed(params, x), aux
+        x = T.apply_norm(params["final_norm"], x, cfg, qcfg.batch_invariant)
+        return self._unembed(params, x, qcfg.batch_invariant), aux
 
-    def _unembed(self, params, x):
+    def _unembed(self, params, x, exact: bool = False):
         """Logits in float32 with the vocab padding masked to -1e30 (the
-        tied read-out is a plain product in the activations' dtype)."""
+        tied read-out is a plain product in the activations' dtype, or with
+        ``exact`` a correctly rounded one: `QuantConfig.batch_invariant`)."""
         cfg = self.cfg
-        if cfg.tie_embeddings:
-            logits = torch.matmul(x, params["embed"]["table"].to(x.dtype).T)
-        else:
-            logits = torch.matmul(x, params["lm_head"]["w"].to(x.dtype))
+        w = (params["embed"]["table"].T if cfg.tie_embeddings
+             else params["lm_head"]["w"]).to(x.dtype)
+        logits = exact_matmul(x, w) if exact else torch.matmul(x, w)
         pad_mask = torch.arange(cfg.padded_vocab,
                                 device=x.device) >= cfg.vocab
         return torch.where(pad_mask, torch.full((), NEG_INF, device=x.device),
@@ -245,8 +249,8 @@ class LMModel:
                                       for k in caches[0]}
         if active is not None:
             new_cache = self._merge_active(cache, new_cache, active)
-        x = T.apply_norm(params["final_norm"], x, cfg)
-        return self._unembed(params, x), new_cache
+        x = T.apply_norm(params["final_norm"], x, cfg, qcfg.batch_invariant)
+        return self._unembed(params, x, qcfg.batch_invariant), new_cache
 
     @staticmethod
     def _merge_active(old_cache: dict, new_cache: dict, active) -> dict:
@@ -306,8 +310,91 @@ class LMModel:
             if sts:
                 cache["groups"][g] = {k: torch.stack([st[k] for st in sts])
                                       for k in sts[0]}
-        x = T.apply_norm(params["final_norm"], x, cfg)
-        return self._unembed(params, x), cache
+        x = T.apply_norm(params["final_norm"], x, cfg, qcfg.batch_invariant)
+        return self._unembed(params, x, qcfg.batch_invariant), cache
+
+    # ------------------------------------------------------- chunked prefill
+
+    def prefill_chunk(self, params, cache: dict, tokens: torch.Tensor, *,
+                      start: torch.Tensor,
+                      qcfg: QuantConfig = QuantConfig.off(), comp=None,
+                      q_block: int = 8, kv_block: int = 8
+                      ) -> Tuple[torch.Tensor, dict]:
+        """One prefill chunk per row against an existing decode cache:
+        tokens (B, C), row r at positions ``start[r] .. start[r] + C - 1``.
+        Returns (logits (B, C, V), the cache with ``pos = start + C``); the
+        last chunk's final position seeds the first sampled token."""
+        cfg = self.cfg
+        b, c = tokens.shape
+        start = start.to(torch.int32)
+        positions = start[:, None] + torch.arange(
+            c, dtype=torch.int32, device=tokens.device)[None, :]
+        x = _embed(params, tokens, cfg)
+        weff = self._fake_quant_units(params, comp, qcfg)
+        new_cache: Dict[str, Any] = {"groups": {}, "tail": {},
+                                     "pos": start + c}
+        group_layers: Dict[str, list] = {g: [] for g in cache["groups"]}
+        for block_params, block_comp, block_weff, bt, (top, key, r) in \
+                self._layers(params, comp, weff):
+            layer_cache = (_layer(cache["groups"][key], r) if top == "groups"
+                           else cache["tail"][key])
+            x, c_new = apply_block_chunk(block_params, x, layer_cache,
+                                         positions, cfg, bt, qcfg=qcfg,
+                                         comp=block_comp, q_block=q_block,
+                                         kv_block=kv_block, w_eff=block_weff)
+            if top == "groups":
+                group_layers[key].append(c_new)
+            else:
+                new_cache["tail"][key] = c_new
+        for g, caches in group_layers.items():
+            new_cache["groups"][g] = {k: torch.stack([ch[k] for ch in caches])
+                                      for k in caches[0]}
+        x = T.apply_norm(params["final_norm"], x, cfg, qcfg.batch_invariant)
+        return self._unembed(params, x, qcfg.batch_invariant), new_cache
+
+    # ---------------------------------------------------- cache row shuffles
+
+    @staticmethod
+    def gather_cache_rows(cache: dict, rows: torch.Tensor) -> dict:
+        """Rows (int (Bc,)) of a decode cache as a smaller cache. ``groups``
+        leaves carry the layer axis first (batch is axis 1); ``tail`` and
+        ``pos`` leaves have batch leading."""
+        rows = rows.long()
+        return {
+            "groups": {g: {k: v.index_select(1, rows) for k, v in c.items()}
+                       for g, c in cache["groups"].items()},
+            "tail": {t: {k: v.index_select(0, rows) for k, v in c.items()}
+                     for t, c in cache["tail"].items()},
+            "pos": cache["pos"].index_select(0, rows),
+        }
+
+    @staticmethod
+    def scatter_cache_rows(cache: dict, rows: torch.Tensor, row_cache: dict,
+                           active: torch.Tensor) -> dict:
+        """``row_cache`` (batch Bc) written back into ``cache`` at ``rows``.
+        ``active`` (Bc,) bool masks padding rows; active entries of ``rows``
+        must be distinct. Inactive and unlisted rows keep their state."""
+        b = cache["pos"].shape[0]
+        sel = (torch.arange(b, device=rows.device)[:, None]
+               == rows.long()[None, :]) & active.to(torch.bool)[None, :]
+        hit = sel.any(dim=1)                                 # (B,)
+        src = sel.to(torch.int8).argmax(dim=1)               # (B,) source row
+
+        def put(axis, old, new):
+            shape = [1] * old.ndim
+            shape[axis] = b
+            return torch.where(hit.reshape(shape),
+                               new.index_select(axis, src), old)
+
+        return {
+            "groups": {g: {k: put(1, v, row_cache["groups"][g][k])
+                           for k, v in c.items()}
+                       for g, c in cache["groups"].items()},
+            "tail": {t: {k: put(0, v, row_cache["tail"][t][k])
+                         for k, v in c.items()}
+                     for t, c in cache["tail"].items()},
+            "pos": put(0, cache["pos"], row_cache["pos"]),
+        }
 
     def _state_to_cache(self, st, bt, max_len, dtype):
         """A block's prefill K/V (B, S, Hkv, D) as its decode cache: the

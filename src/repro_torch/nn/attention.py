@@ -8,15 +8,20 @@ the reference's rounding; the scores and the probability-weighted values
 are plain `torch.matmul` products in the activations' dtype (not quantized
 products: no kernel of the TPU path computes them). Decode is one query
 against the cache. Query heads are grouped over the K/V heads as
-``(B, S, Hkv, G, D)``, as in the reference.
+``(B, S, Hkv, G, D)``, as in the reference. With ``exact`` (the serving
+engine's `QuantConfig.batch_invariant`) the scores and the weighted values
+are correctly rounded products (`exact_matmul`) and the softmax sums
+float64 sums rounded once, so a row's attention does not depend on how
+many rows the call holds.
 
 The projections are compressible units: they take the same
 (``qcfg``, ``comp``) pair as the dense layers. On the serve path a unit with
 a `ServeArtifact` runs on the packed LUT GEMM (K2); under QAT its weight is
 fake-quantized (``w_eff``: the model's one grouped K3 launch computed it)
 and the product is correctly rounded (`exact_matmul`), so the two paths
-agree to float32 ulps. ``apply_attention_chunk`` (chunked prefill) belongs
-to the serving engine and is not ported yet (ROADMAP.md item 7).
+agree to float32 ulps. ``apply_attention_chunk`` is the serving engine's
+chunked prefill: one chunk of each row's prompt written into that row's
+cache, then attended over the whole cache with per-row positions.
 """
 
 from __future__ import annotations
@@ -29,7 +34,7 @@ import torch
 from repro_torch.core import qat
 from repro_torch.core.export import serve_dense
 from repro_torch.kernels.lut_matmul.ref import exact_matmul
-from repro_torch.nn.layers import QuantConfig
+from repro_torch.nn.layers import QuantConfig, lm_fake_quant_act
 from repro_torch.nn.spec import ParamSpec, fan_in_init, zeros_init
 
 NEG_INF = -1e30
@@ -104,8 +109,7 @@ def _project(params, x, qcfg: QuantConfig, comp, name: str, key: str,
     w = params[key]                        # (d, H, hd) or (H, hd, d)
     unit = f"{name}/{key}"
     c = None if comp is None else comp.get(unit)
-    if qcfg.enabled and qcfg.act_quant:
-        x = qat.fake_quant_act(x)
+    x = lm_fake_quant_act(x, qcfg)
     art = None if c is None else c.get("serve")
     bias = params.get(bias_key) if bias_key else None
     if key == "wo":
@@ -121,7 +125,7 @@ def _project(params, x, qcfg: QuantConfig, comp, name: str, key: str,
             else qat.fake_quant_weights([w], [c])[0]
     w_mat = (w.reshape(-1, w.shape[-1]) if key == "wo"
              else w.reshape(w.shape[0], -1)).to(x.dtype)
-    y = (exact_matmul(x, w_mat) if qcfg.enabled
+    y = (exact_matmul(x, w_mat) if qcfg.enabled or qcfg.batch_invariant
          else torch.matmul(x, w_mat)).to(x.dtype)
     if key != "wo":
         y = y.reshape(*x.shape[:-1], w.shape[1], w.shape[2])
@@ -151,12 +155,26 @@ def _block_mask(q_pos, k_pos, dims: AttnDims):
     return m
 
 
+def _scores(a: torch.Tensor, b: torch.Tensor, exact: bool) -> torch.Tensor:
+    """``a @ b`` in float32: correctly rounded when ``exact``, else a plain
+    product in the operands' dtype."""
+    return exact_matmul(a, b) if exact else torch.matmul(a, b).float()
+
+
+def _row_sum(x: torch.Tensor, exact: bool) -> torch.Tensor:
+    """The sum over the last axis, from float64 and rounded once when
+    ``exact``."""
+    if exact:
+        return x.sum(dim=-1, dtype=torch.float64).float()
+    return x.sum(dim=-1)
+
+
 def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       dims: AttnDims, *, q_offset: int = 0,
                       q_block: int = 512, kv_block: int = 512,
                       q_positions: Optional[torch.Tensor] = None,
-                      kv_positions: Optional[torch.Tensor] = None
-                      ) -> torch.Tensor:
+                      kv_positions: Optional[torch.Tensor] = None,
+                      exact: bool = False) -> torch.Tensor:
     """Online-softmax attention. q: (B, Sq, Hq, D); k, v: (B, Sk, Hkv, D),
     Sq and Sk multiples of the block sizes (callers pad).
 
@@ -165,7 +183,8 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     float32 (the JAX package's ``lax.scan`` schedule, written as loops);
     fully masked key blocks add exactly zero once a real key has been seen.
     The JAX package's ``use_flash`` branch (a training custom VJP) is not
-    ported (ROADMAP.md item 6b).
+    ported (ROADMAP.md item 6b). ``exact``: products and sums round once
+    from float64 (see the module docstring).
     """
     b, sq, hq, hd = q.shape
     sk, hkv = k.shape[1], k.shape[2]
@@ -192,8 +211,7 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         l_run = torch.zeros((b, hkv, g, q_block), device=dev)
         acc = torch.zeros((b, hkv, g, q_block, hd), device=dev)
         for k0 in range(0, sk, kv_block):
-            s = torch.matmul(q_blk, kt[..., k0:k0 + kv_block]).float()
-            s = s * scale
+            s = _scores(q_blk, kt[..., k0:k0 + kv_block], exact) * scale
             if dims.softcap > 0:
                 s = dims.softcap * torch.tanh(s / dims.softcap)
             mask = _block_mask(qp, kv_positions[..., k0:k0 + kv_block], dims)
@@ -203,9 +221,9 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             m_new = torch.maximum(m_run, s.amax(dim=-1))
             alpha = torch.exp(m_run - m_new)
             p = torch.exp(s - m_new[..., None])
-            l_run = l_run * alpha + p.sum(dim=-1)
-            pv = torch.matmul(p.to(v.dtype), vt[..., k0:k0 + kv_block, :])
-            acc = acc * alpha[..., None] + pv.float()
+            l_run = l_run * alpha + _row_sum(p, exact)
+            pv = _scores(p.to(v.dtype), vt[..., k0:k0 + kv_block, :], exact)
+            acc = acc * alpha[..., None] + pv
             m_run = m_new
         out = acc / torch.clamp(l_run[..., None], min=1e-20)
         blocks.append(out.permute(0, 3, 1, 2, 4).to(q.dtype))  # b,q,h,g,d
@@ -214,14 +232,14 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, dims: AttnDims, *,
-                     cur_pos, cache_positions: Optional[torch.Tensor] = None
-                     ) -> torch.Tensor:
+                     cur_pos, cache_positions: Optional[torch.Tensor] = None,
+                     exact: bool = False) -> torch.Tensor:
     """Single-step attention over a cache.
 
     q: (B, 1, Hq, D); k_cache/v_cache: (B, Smax, Hkv, D); cur_pos: () or
     (B,), the position of the new token. Slot i of the cache holds position
     ``cache_positions[..., i]`` (default: i); negative positions mark slots
-    never written.
+    never written. ``exact`` as in `blocked_attention`.
     """
     b, _, hq, hd = q.shape
     smax, hkv = k_cache.shape[1], k_cache.shape[2]
@@ -229,8 +247,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     scale = 1.0 / (hd ** 0.5)
     qg = q.reshape(b, hkv, g, hd)
     dt = torch.promote_types(q.dtype, k_cache.dtype)   # einsum's promotion
-    s = torch.matmul(qg.to(dt), k_cache.permute(0, 2, 3, 1).to(dt))
-    s = s.float() * scale
+    s = _scores(qg.to(dt), k_cache.permute(0, 2, 3, 1).to(dt), exact) * scale
     if dims.softcap > 0:
         s = dims.softcap * torch.tanh(s / dims.softcap)
     pos = cache_positions if cache_positions is not None else torch.arange(
@@ -243,9 +260,14 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     if dims.window > 0:
         valid &= pos > cur - dims.window
     s = torch.where(valid[:, None, None, :], s, torch.full_like(s, NEG_INF))
-    p = torch.softmax(s, dim=-1)
-    out = torch.matmul(p.to(v_cache.dtype), v_cache.permute(0, 2, 1, 3))
-    return out.reshape(b, 1, hq, hd)
+    if exact:
+        e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+        p = e / _row_sum(e, True)[..., None]
+        out = _scores(p.to(v_cache.dtype), v_cache.permute(0, 2, 1, 3), True)
+    else:
+        p = torch.softmax(s, dim=-1)
+        out = torch.matmul(p.to(v_cache.dtype), v_cache.permute(0, 2, 1, 3))
+    return out.to(v_cache.dtype).reshape(b, 1, hq, hd)
 
 
 # ----------------------------------------------------------------- full layer
@@ -283,7 +305,7 @@ def apply_attention(params, x: torch.Tensor, dims: AttnDims, *,
         k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad_k))
         v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad_k))
     out = blocked_attention(q, k, v, dims, q_block=q_block,
-                            kv_block=kv_block)
+                            kv_block=kv_block, exact=qcfg.batch_invariant)
     if pad_q:
         out = out[:, :s]
     out = _project(params, out, qcfg, comp, name, "wo", w_eff=w_eff)
@@ -337,6 +359,87 @@ def apply_attention_decode(params, x: torch.Tensor, cache: dict, pos,
     cache_positions = idx[None, :] + torch.div(
         pos_b[:, None] - idx[None, :], smax, rounding_mode="floor") * smax
     out = decode_attention(q, k_cache, v_cache, dims, cur_pos=pos_b,
-                           cache_positions=cache_positions)
+                           cache_positions=cache_positions,
+                           exact=qcfg.batch_invariant)
+    out = _project(params, out, qcfg, comp, name, "wo", w_eff=w_eff)
+    return out, {"k": k_cache, "v": v_cache}
+
+
+def apply_attention_chunk(params, x: torch.Tensor, cache: dict,
+                          positions: torch.Tensor, dims: AttnDims, *,
+                          qcfg: QuantConfig = QuantConfig.off(), comp=None,
+                          name: str = "attn", q_block: int = 8,
+                          kv_block: int = 8, w_eff=None
+                          ) -> Tuple[torch.Tensor, dict]:
+    """Chunked-prefill attention step: x (B, C, d_model), one prefill chunk
+    per row at absolute ``positions`` (B, C); cache {"k", "v"} (B, Smax,
+    Hkv, D). Returns (output (B, C, d), new cache).
+
+    Writes the chunk's post-RoPE K/V into each row's cache (last write wins
+    per slot), then runs `blocked_attention` over the *whole* cache with
+    per-row positions. Slots the row has not reached yet resolve, by the
+    largest-position-congruent-to-slot formula of decode, to negative
+    positions and are masked as ``1 << 30`` (after every query), so stale
+    entries from a previous occupant of the slot are invisible. Masked key
+    blocks add exactly zero, so with a float32 cache the chunked pass equals
+    one full prefill over the same tokens.
+
+    Ring caches (windowed layers with Smax < total length) are not
+    supported: a chunk write could evict keys still inside an earlier
+    query's window. The engine checks ``Smax >= max positions`` first.
+    """
+    b, c, _ = x.shape
+    dev = x.device
+    smax = cache["k"].shape[1]
+    positions = positions.to(torch.int32)
+    q = _project(params, x, qcfg, comp, name, "wq", "bq", w_eff)
+    k_new = _project(params, x, qcfg, comp, name, "wk", "bk", w_eff)
+    v_new = _project(params, x, qcfg, comp, name, "wv", "bv", w_eff)
+    if dims.rope_theta > 0:
+        q = apply_rope(q, positions, dims.rope_theta)
+        k_new = apply_rope(k_new, positions, dims.rope_theta)
+
+    # scatter the chunk into the cache, last write wins per slot (a chunk
+    # never wraps, see above, so "last" is just in order)
+    idx = torch.arange(smax, dtype=torch.int32, device=dev)
+    hits = torch.remainder(positions, smax)[:, :, None] == idx[None, None, :]
+    order = torch.where(hits, torch.arange(c, dtype=torch.int32,
+                                           device=dev)[None, :, None],
+                        torch.full((), -1, dtype=torch.int32, device=dev))
+    src = order.amax(dim=1)                          # (B, Smax); -1 untouched
+    written = (src >= 0)[..., None, None]
+    gather_idx = src.clamp(min=0).long()[..., None, None]
+
+    def scatter(old, new):
+        gathered = torch.gather(new, 1, gather_idx.expand(
+            b, smax, *new.shape[2:]))
+        return torch.where(written, gathered.to(old.dtype), old)
+
+    k_cache = scatter(cache["k"], k_new)
+    v_cache = scatter(cache["v"], v_new)
+
+    cur = positions[:, -1]                           # (B,) last chunk position
+    cache_positions = idx[None, :] + torch.div(
+        cur[:, None] - idx[None, :], smax, rounding_mode="floor") * smax
+    far = torch.full((), 1 << 30, dtype=torch.int32, device=dev)
+    kv_positions = torch.where(cache_positions >= 0, cache_positions, far)
+
+    pad_q = (-c) % q_block
+    pad_k = (-smax) % kv_block
+    q_pos = positions
+    kf, vf = k_cache.to(q.dtype), v_cache.to(q.dtype)
+    if pad_q:
+        q = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, pad_q))
+        q_pos = torch.cat([q_pos, q_pos[:, -1:].expand(b, pad_q)], dim=1)
+    if pad_k:
+        kf = torch.nn.functional.pad(kf, (0, 0, 0, 0, 0, pad_k))
+        vf = torch.nn.functional.pad(vf, (0, 0, 0, 0, 0, pad_k))
+        kv_positions = torch.cat([kv_positions, far.expand(b, pad_k)], dim=1)
+    out = blocked_attention(q, kf, vf, dims, q_block=q_block,
+                            kv_block=kv_block, q_positions=q_pos,
+                            kv_positions=kv_positions,
+                            exact=qcfg.batch_invariant)
+    if pad_q:
+        out = out[:, :c]
     out = _project(params, out, qcfg, comp, name, "wo", w_eff=w_eff)
     return out, {"k": k_cache, "v": v_cache}

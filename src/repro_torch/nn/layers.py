@@ -65,12 +65,24 @@ class QuantConfig:
     ``use_ref_kernel`` is kept so configs and plans cross-load with the JAX
     package. It selects nothing here: CPU tensors always take the plain
     LUT-GEMM version and CUDA tensors always launch the kernel.
+
+    ``batch_invariant`` makes every row's result a function of that row
+    alone, whatever else the call holds (the serving engine's setting: a
+    request's tokens must not depend on its batch-mates, its padding or how
+    its prompt was chunked). The LM's activation fake-quant then takes one
+    scale a token position instead of the JAX package's one a call, and the
+    LM's norm statistics, softmax sums, attention products, unembedding and
+    unquantized projections are float64 sums rounded once
+    (`exact_matmul`), since a float32 sum on the card takes an order
+    chosen from the call's row count. Off, the forward computes the JAX
+    package's function with float32 sums.
     """
 
     enabled: bool = False
     act_quant: bool = True
     comp_mode: str = "fake_quant"
     use_ref_kernel: bool = False
+    batch_invariant: bool = False
 
     @staticmethod
     def off() -> "QuantConfig":
@@ -84,6 +96,15 @@ class QuantConfig:
     def serve(*, use_ref_kernel: bool = False) -> "QuantConfig":
         return QuantConfig(enabled=True, comp_mode="serve",
                            use_ref_kernel=use_ref_kernel)
+
+
+def lm_fake_quant_act(x: torch.Tensor, qcfg: QuantConfig) -> torch.Tensor:
+    """An LM activation (B, S, ...) as the quantized matmul that follows it
+    reads it: fake-quantized under QAT (one scale a call, or one a token
+    position when ``qcfg.batch_invariant``), unchanged otherwise."""
+    if not (qcfg.enabled and qcfg.act_quant):
+        return x
+    return qat.fake_quant_act(x, token_dims=2 if qcfg.batch_invariant else 0)
 
 
 def _serves(qcfg: QuantConfig, serve_art) -> bool:
@@ -214,13 +235,15 @@ def quantized_mm(params, key, xin, *, qcfg: QuantConfig, comp, name: str,
     else on the fake-quantized weight (``w_eff`` where the caller computed
     it) under QAT, as a correctly rounded product (`exact_matmul`: float64
     sums, one rounding), so the two agree to float32 ulps; without QAT a
-    plain product."""
+    plain product (correctly rounded under ``qcfg.batch_invariant``)."""
     c = None if comp is None else comp.get(f"{name}/{key}")
     art = None if c is None else c.get("serve")
     if _serves(qcfg, art):
         return serve_dense(xin, art).to(dtype)
     w = params[key]
     if not qcfg.enabled:
+        if qcfg.batch_invariant:
+            return exact_matmul(xin, w.to(dtype)).to(dtype)
         return torch.matmul(xin, w.to(dtype))
     if w_eff is None:
         w_eff = _fake_quant_alone(w, c, qcfg, False)
@@ -357,11 +380,16 @@ def make_rmsnorm_spec(dim: int, dtype=torch.float32):
     return {"scale": ParamSpec((dim,), dtype, (None,), ones_init)}
 
 
-def apply_rmsnorm(params, x: torch.Tensor, *, eps: float = 1e-6
-                  ) -> torch.Tensor:
-    """RMS norm in float32, returned in ``x``'s dtype."""
+def apply_rmsnorm(params, x: torch.Tensor, *, eps: float = 1e-6,
+                  exact: bool = False) -> torch.Tensor:
+    """RMS norm in float32, returned in ``x``'s dtype. ``exact``: the mean
+    square is summed in float64 and rounded once, so a row's norm does not
+    depend on the rows beside it (`QuantConfig.batch_invariant`)."""
     xf = x.float()
-    var = (xf * xf).mean(dim=-1, keepdim=True)
+    if exact:
+        var = (x.double() ** 2).mean(dim=-1, keepdim=True).float()
+    else:
+        var = (xf * xf).mean(dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
     return (y * params["scale"].float()).to(x.dtype)
 
@@ -374,13 +402,20 @@ def make_layernorm_spec(dim: int, dtype=torch.float32, *,
             "bias": ParamSpec((dim,), dtype, (None,), zeros_init)}
 
 
-def apply_layernorm(params, x: torch.Tensor, *, eps: float = 1e-5
-                    ) -> torch.Tensor:
+def apply_layernorm(params, x: torch.Tensor, *, eps: float = 1e-5,
+                    exact: bool = False) -> torch.Tensor:
     """LayerNorm in float32; with empty params this is OLMo's
-    non-parametric LN."""
+    non-parametric LN. ``exact``: mean and variance are summed in float64
+    and rounded once, as in `apply_rmsnorm`."""
     xf = x.float()
-    mean = xf.mean(dim=-1, keepdim=True)
-    var = xf.var(dim=-1, keepdim=True, unbiased=False)
+    if exact:
+        xd = x.double()
+        mean_d = xd.mean(dim=-1, keepdim=True)
+        mean = mean_d.float()
+        var = ((xd - mean_d) ** 2).mean(dim=-1, keepdim=True).float()
+    else:
+        mean = xf.mean(dim=-1, keepdim=True)
+        var = xf.var(dim=-1, keepdim=True, unbiased=False)
     y = (xf - mean) * torch.rsqrt(var + eps)
     if params:
         y = y * params["scale"].float() + params["bias"].float()

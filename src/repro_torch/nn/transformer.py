@@ -6,8 +6,8 @@ A *block* is one residual layer of the network. `make_block_spec` /
 LM assembler (`repro_torch.models.lm`) stacks same-typed blocks over a
 leading layer axis and walks it. Block types ``attn`` and ``local`` are
 ported; ``rglru`` and ``ssm`` mixers, MoE FFNs and cross-attention raise
-`NotImplementedError` naming their ROADMAP.md item, and chunked prefill
-(``apply_block_chunk``) belongs to the serving engine (item 7).
+`NotImplementedError` naming their ROADMAP.md item. ``apply_block_chunk``
+is the serving engine's chunked prefill through one block.
 
 Every compressible matmul takes an optional ``w_eff``: {"attn/wq": the
 fake-quantized weight, ...}, computed for all layers at once by the
@@ -20,7 +20,6 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core import qat
 from repro_torch.core.export import serve_dense
 from repro_torch.models.config import ArchConfig
 from repro_torch.nn import attention as A
@@ -29,6 +28,7 @@ from repro_torch.nn.layers import (
     QuantConfig,
     apply_layernorm,
     apply_rmsnorm,
+    lm_fake_quant_act,
     quantized_mm,
 )
 from repro_torch.nn.spec import ParamSpec, fan_in_init, ones_init, zeros_init
@@ -76,10 +76,13 @@ def make_norm_spec(cfg: ArchConfig):
     raise ValueError(cfg.norm)
 
 
-def apply_norm(params, x, cfg: ArchConfig):
+def apply_norm(params, x, cfg: ArchConfig, exact: bool = False):
+    """The architecture's norm; ``exact``: statistics summed in float64
+    (`QuantConfig.batch_invariant`)."""
     if cfg.norm == "rmsnorm":
-        return apply_rmsnorm(params, x)
-    return apply_layernorm(params, x)  # parametric or non-parametric LN
+        return apply_rmsnorm(params, x, exact=exact)
+    # parametric or non-parametric LN
+    return apply_layernorm(params, x, exact=exact)
 
 
 # ------------------------------------------------------------------- ffn
@@ -119,14 +122,13 @@ def apply_ffn(params, x, cfg: ArchConfig, *,
                          else w_eff.get(unit))
         return ACTIVATIONS[activation](y)
 
-    xin = qat.fake_quant_act(x) if (qcfg.enabled and qcfg.act_quant) else x
+    xin = lm_fake_quant_act(x, qcfg)
     if cfg.ffn in ("swiglu", "geglu"):
         act = "silu" if cfg.ffn == "swiglu" else "gelu"
         h = mm("w_gate", xin, act) * mm("w_up", xin)
     else:
         h = mm("w_up", xin, "gelu")
-    if qcfg.enabled and qcfg.act_quant:
-        h = qat.fake_quant_act(h)
+    h = lm_fake_quant_act(h, qcfg)
     return mm("w_down", h)
 
 
@@ -172,7 +174,7 @@ def apply_block(params, x: torch.Tensor, cfg: ArchConfig, block_type: str, *,
     _check_block(params, block_type)
     aux = {"lb_loss": torch.zeros((), device=x.device),
            "z_loss": torch.zeros((), device=x.device)}
-    h = apply_norm(params["ln1"], x, cfg)
+    h = apply_norm(params["ln1"], x, cfg, qcfg.batch_invariant)
     mix = A.apply_attention(params["attn"], h,
                             cfg.attn_dims(block_type == "local"),
                             positions=positions, qcfg=qcfg, comp=comp,
@@ -183,7 +185,7 @@ def apply_block(params, x: torch.Tensor, cfg: ArchConfig, block_type: str, *,
         mix, (k_st, v_st) = mix
         state = {"k": k_st, "v": v_st}
     x = x + mix
-    h = apply_norm(params["ln2"], x, cfg)
+    h = apply_norm(params["ln2"], x, cfg, qcfg.batch_invariant)
     x = x + apply_ffn(params["mlp"], h, cfg, qcfg=qcfg, comp=comp,
                       name="mlp", w_eff=w_eff)
     return ((x, aux), state) if return_state else (x, aux)
@@ -218,7 +220,7 @@ def apply_block_decode(params, x: torch.Tensor, cache: dict, pos,
     """One decode step through a block: x (B, 1, d), pos () or (B,).
     Returns (x, updated cache)."""
     _check_block(params, block_type)
-    h = apply_norm(params["ln1"], x, cfg)
+    h = apply_norm(params["ln1"], x, cfg, qcfg.batch_invariant)
     new_cache = dict(cache)
     mix, kv_new = A.apply_attention_decode(
         params["attn"], h, {"k": cache["k"], "v": cache["v"]}, pos,
@@ -226,7 +228,33 @@ def apply_block_decode(params, x: torch.Tensor, cache: dict, pos,
         name="attn", w_eff=w_eff)
     new_cache.update(kv_new)
     x = x + mix
-    h = apply_norm(params["ln2"], x, cfg)
+    h = apply_norm(params["ln2"], x, cfg, qcfg.batch_invariant)
+    y = apply_ffn(params["mlp"], h, cfg, qcfg=qcfg, comp=comp, name="mlp",
+                  w_eff=w_eff)
+    return x + y, new_cache
+
+
+def apply_block_chunk(params, x: torch.Tensor, cache: dict,
+                      positions: torch.Tensor, cfg: ArchConfig,
+                      block_type: str, *,
+                      qcfg: QuantConfig = QuantConfig.off(), comp=None,
+                      q_block: int = 8, kv_block: int = 8, w_eff=None):
+    """One chunked-prefill step through a block: x (B, C, d), one prefill
+    chunk per row at absolute ``positions`` (B, C). Returns (x, updated
+    cache). The attention mixer scatters the chunk's K/V into the row's
+    cache and attends over the whole cache with per-row positions
+    (`attention.apply_attention_chunk`). Recurrent mixers, MoE FFNs and
+    cross-attention raise as `apply_block` does."""
+    _check_block(params, block_type)
+    h = apply_norm(params["ln1"], x, cfg, qcfg.batch_invariant)
+    new_cache = dict(cache)
+    mix, kv_new = A.apply_attention_chunk(
+        params["attn"], h, {"k": cache["k"], "v": cache["v"]}, positions,
+        cfg.attn_dims(block_type == "local"), qcfg=qcfg, comp=comp,
+        name="attn", q_block=q_block, kv_block=kv_block, w_eff=w_eff)
+    new_cache.update(kv_new)
+    x = x + mix
+    h = apply_norm(params["ln2"], x, cfg, qcfg.batch_invariant)
     y = apply_ffn(params["mlp"], h, cfg, qcfg=qcfg, comp=comp, name="mlp",
                   w_eff=w_eff)
     return x + y, new_cache

@@ -10,6 +10,10 @@
                                    [--plan-out BASE]
     python -m repro_torch export --plan-in BASE [--plan-out BASE2]
     python -m repro_torch serve  --plan-in BASE [--plan-out BASE2]
+                                 [--mode engine|oneshot] [--requests N]
+                                 [--prompt-len P] [--new-tokens T]
+                                 [--mixed] [--max-batch B]
+                                 [--temperature X] [--verify-oneshot]
 
 ``profile`` runs the CNN target through ``energy_model``: ``--steps`` steps
 of QAT base training (``train.qat_steps``), the per-layer trace statistics
@@ -28,11 +32,15 @@ package.
 form, no LM QAT, ``--compress-k 4``): profile (seeded parameters),
 energy_model (the uniform-trace LUT), schedule (every matmul restricted to
 the same k-value codebook) and export (packed 4-bit artifacts, one a layer).
-For an LM target ``compress`` runs through ``export``, the last stage the
-port has for it, and prints one line saying that the serve stage is
-ROADMAP.md item 7; the JAX package's ``compress`` stops after
-``schedule``. ``serve`` on an LM plan exits non-zero naming item 7. ``--compress-k``
-applies to an LM target only; with any other it is an error.
+For an LM target ``compress`` runs through ``export`` and prints one line
+naming ``serve --plan-in`` for the serve stage; the JAX package's
+``compress`` stops after ``schedule``. ``serve --plan-in`` on an LM plan
+runs the serve stage: the continuous-batching engine drains a
+deterministic request trace (the ``serve`` options override the plan's
+``serve`` section; ``--verify-oneshot`` drains it through the oneshot
+fallback too and records whether every token agrees). Fleet serving
+(``--plans``) is not ported. ``--compress-k`` applies to an LM target
+only; with any other it is an error.
 ``--plan-in`` resumes a plan (completed stages are skipped), ``--plan-out``
 saves the result as ``BASE.json`` + ``BASE.npz``. Every command takes
 ``--device``, which defaults to ``cuda``; on a host without CUDA that is an
@@ -97,7 +105,38 @@ def build_parser() -> argparse.ArgumentParser:
                             "host without CUDA)")
         p.add_argument("--quiet", action="store_true",
                        help="suppress per-stage progress output")
+        if command == "serve":
+            p.add_argument("--mode", choices=("engine", "oneshot"),
+                           default=None, help="override serve.mode")
+            p.add_argument("--requests", type=int, default=None)
+            p.add_argument("--prompt-len", type=int, default=None)
+            p.add_argument("--new-tokens", type=int, default=None)
+            p.add_argument("--mixed", action=argparse.BooleanOptionalAction,
+                           default=None,
+                           help="vary request lengths across buckets")
+            p.add_argument("--max-batch", type=int, default=None,
+                           help="engine wave width")
+            p.add_argument("--temperature", type=float, default=None)
+            p.add_argument("--verify-oneshot", action="store_true",
+                           default=None,
+                           help="cross-check engine tokens vs the oneshot "
+                                "fallback")
     return ap
+
+
+def _serve_overrides(args) -> dict:
+    fields = {
+        "mode": getattr(args, "mode", None),
+        "compress_k": getattr(args, "compress_k", None),
+        "requests": getattr(args, "requests", None),
+        "prompt_len": getattr(args, "prompt_len", None),
+        "new_tokens": getattr(args, "new_tokens", None),
+        "mixed": getattr(args, "mixed", None),
+        "max_batch": getattr(args, "max_batch", None),
+        "temperature": getattr(args, "temperature", None),
+        "verify_oneshot": getattr(args, "verify_oneshot", None),
+    }
+    return {k: v for k, v in fields.items() if v is not None}
 
 
 def _overrides(args) -> dict:
@@ -107,8 +146,9 @@ def _overrides(args) -> dict:
         over["train"] = {"qat_steps": args.steps}
     if getattr(args, "search_mode", None) is not None:
         over["schedule"] = {"search_mode": args.search_mode}
-    if getattr(args, "compress_k", None) is not None:
-        over["serve"] = {"compress_k": args.compress_k}
+    serve = _serve_overrides(args)
+    if serve:
+        over["serve"] = serve
     return over
 
 
@@ -164,9 +204,9 @@ def main(argv: Optional[list] = None) -> int:
         stage = COMMAND_STAGE[args.command]
         if args.command == "compress" and pipe.target.kind == "lm":
             stage = "export"
-            print("[repro_torch] compress runs an LM target through export: "
-                  "its serve stage is not ported yet (ROADMAP.md Queue 1 "
-                  "item 7, 'Serving')")
+            print("[repro_torch] compress runs an LM target through export; "
+                  "run its serve stage with `serve --plan-in BASE` on the "
+                  "saved plan")
         plan = pipe.run_until(stage, verbose=not args.quiet)
     except NotImplementedError as e:
         ap.error(str(e))

@@ -281,8 +281,7 @@ def reduced_lm_config(arch: str = "olmo-1b", *, compress_k: int = 4,
     """CPU-smoke preset for an LM target (port of
     `repro.pipeline.config.reduced_lm_config`): the family's scaled-down
     config, no LM QAT steps, a uniform ``compress_k``-value restriction,
-    and the JAX preset's serve fields (read by the serve stage, which is
-    not ported yet)."""
+    and the JAX preset's serve fields (read by `LMTarget.stage_serve`)."""
     serve = ServeStageConfig(compress_k=compress_k, requests=2, prompt_len=12,
                              new_tokens=6, mixed=True, max_batch=4)
     serve = dataclasses.replace(serve, **serve_kw)

@@ -70,6 +70,20 @@ class CompressionPlan:
             self.completed = tuple(s for s in STAGES
                                    if s in self.completed or s == stage)
 
+    # ------------------------------------------------------------ fingerprint
+
+    def fingerprint(self) -> str:
+        """Content identity of the plan's *serving-relevant* state: the comp
+        tree (codebook values, masks, ``msr_bits``) plus the schedule's
+        decision set; what `repro_torch.serving.ServeCompileCache` keys
+        steps and exported artifacts on. Equal to the JAX package's
+        fingerprint of the same plan."""
+        from repro_torch.serving.fleet import comp_fingerprint
+
+        extra = json.dumps(self.decisions, sort_keys=True) \
+            if self.decisions else None
+        return comp_fingerprint(self.comp, extra=extra)
+
     # --------------------------------------------------------------- summary
 
     def summary(self) -> Dict[str, Any]:

@@ -5,30 +5,27 @@ stage; each takes the shared `CompressionPlan` and the `PipelineConfig` and
 mutates only the plan. The CNN target's five stages are ported operation for
 operation: ``profile`` (QAT base training, then the trace statistics),
 ``energy_model``, ``schedule`` (both search modes, the batched candidate
-sweep by default), ``export`` and ``serve``. The LM target's first four
-are ported (`LMTarget`): parameter initialisation, the uniform-trace
-energy model, the uniform k-value codebook restriction and the export of
-packed artifacts. What is not ported (the cosim gate, LM QAT, checkpoint
-restore, LM serving and fleets, the routed targets) raises
+sweep by default), ``export`` and ``serve``. The LM target's five are
+ported too (`LMTarget`): parameter initialisation, the uniform-trace
+energy model, the uniform k-value codebook restriction, the export of
+packed artifacts, and the serve stage (the continuous-batching engine over
+a deterministic trace). What is not ported (the cosim gate, LM QAT,
+checkpoint restore, fleets, the routed targets) raises
 `NotImplementedError` naming the ROADMAP.md item that ports it, from a
 target's ``check_ported`` or `resolve_target` before any stage runs.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch._device import tree_to
-from repro_torch.core import lm_compress, qat
+from repro_torch.core import lm_compress
 from repro_torch.core.energy_lut import uniform_trace_lut
 from repro_torch.core.export import export_model, export_summary
-from repro_torch.core.layer_energy import (
-    dense_matmul_dims,
-    layer_energy_from_counts,
-    weight_value_counts,
-)
 from repro_torch.core.runner import CnnRunner
 from repro_torch.core.schedule import energy_prioritized_compression
 from repro_torch.configs import get_config
@@ -39,14 +36,15 @@ from repro_torch.nn.layers import QuantConfig
 from repro_torch.nn.spec import init_params, spec_count
 from repro_torch.pipeline.config import PipelineConfig
 from repro_torch.pipeline.plan import CompressionPlan, decision_dict
+from repro_torch.serving import metrics as serve_metrics
+from repro_torch.serving.fleet import FLEET_NOT_PORTED
 
 _NOT_PORTED = {
     "verify_cosim": "ROADMAP.md Queue 1 item 9, 'Bit-accurate cosim'",
     "lm_qat": "ROADMAP.md Queue 1 item 6b, 'LM QAT'",
     "ckpt_dir": "ROADMAP.md Queue 1 item 10, 'Multi-device, checkpointing, "
                 "launch'",
-    "lm_serve": "ROADMAP.md Queue 1 item 7, 'Serving'",
-    "fleet": "ROADMAP.md Queue 1 item 7, 'Serving' (fleet)",
+    "fleet": FLEET_NOT_PORTED,
     "moe": "ROADMAP.md Queue 1, 'Routed targets'",
     "scan": "ROADMAP.md Queue 1, 'Routed targets'",
 }
@@ -62,6 +60,43 @@ def resolve_target(cfg: PipelineConfig, device: torch.device):
             f"target kind {cfg.target.kind!r} is not ported yet: "
             f"{_NOT_PORTED[cfg.target.kind]}")
     raise ValueError(f"unknown target kind {cfg.target.kind!r}")
+
+
+def lm_trace_shapes(n_requests: int, prompt_len: int, new_tokens: int,
+                    mixed: bool, *, stride: int = 7) -> List[Tuple[int, int]]:
+    """Deterministic (prompt_len, new_tokens) trace; ``mixed`` varies lengths
+    so several buckets are exercised."""
+    if not mixed:
+        return [(prompt_len, new_tokens)] * n_requests
+    lens = [max(2, prompt_len - stride * (i % 3)) for i in range(n_requests)]
+    news = [max(2, new_tokens - 3 * (i % 2)) for i in range(n_requests)]
+    return list(zip(lens, news))
+
+
+def lm_serve_trace(serve, vocab: int):
+    """(shapes, `EngineConfig`, [`ServeRequest`]) of the serve stage's
+    deterministic trace for a ``ServeStageConfig``: prompt buckets at half
+    and all of the longest prompt, one new-token bucket, and request i's
+    prompt drawn by ``np.random.default_rng(prompt_seed + i)``."""
+    from repro_torch.serving import EngineConfig, ServeRequest
+
+    s = serve
+    shapes = lm_trace_shapes(s.requests, s.prompt_len, s.new_tokens,
+                             s.mixed, stride=s.mixed_stride)
+    p_bucket = max(sh[0] for sh in shapes)
+    n_bucket = max(sh[1] for sh in shapes)
+    # dedupe and sort: EngineConfig rejects duplicate buckets, and a tiny
+    # p_bucket makes the half-size bucket collide with it
+    p_buckets = tuple(sorted({max(p_bucket // 2, 2), p_bucket}))
+    ecfg = EngineConfig(max_batch=s.max_batch, prompt_buckets=p_buckets,
+                        new_token_buckets=(n_bucket,))
+    requests = [
+        ServeRequest(tokens=np.random.default_rng(s.prompt_seed + i)
+                     .integers(0, vocab, plen).astype(np.int32),
+                     max_new_tokens=ntok, temperature=s.temperature,
+                     tenant=f"tenant{i % 2}")
+        for i, (plen, ntok) in enumerate(shapes)]
+    return shapes, ecfg, requests
 
 
 class CnnTarget:
@@ -248,9 +283,10 @@ class CnnTarget:
 
 
 class LMTarget:
-    """LM compression (port of `repro.pipeline.targets.LMTarget`, stages
-    profile through export) on one device. The model is `build_lm` of the
-    config's architecture, scaled down where ``target.reduced``."""
+    """LM compression and serving (port of
+    `repro.pipeline.targets.LMTarget`) on one device. The model is
+    `build_lm` of the config's architecture, scaled down where
+    ``target.reduced``."""
 
     kind = "lm"
 
@@ -263,13 +299,14 @@ class LMTarget:
         self.name = acfg.name
         self.device = device
         self._unit_energy_cache: Optional[Dict[str, float]] = None
+        self.last_serve_results: Dict = {}
 
     @staticmethod
     def check_ported(cfg: PipelineConfig, stages) -> None:
         """Raise `NotImplementedError`, naming its ROADMAP.md item, for what
         the port's LM target does not have yet: LM QAT steps, a checkpoint
-        to restore, the serve stage (the serving engine) and fleets.
-        `Pipeline` calls this before the first stage does work."""
+        to restore and fleets. `Pipeline` calls this before the first stage
+        does work."""
         if cfg.serve.plans or cfg.serve.plans_dir:
             raise NotImplementedError(
                 "serve.plans / serve.plans_dir (fleet serving) is not "
@@ -282,10 +319,6 @@ class LMTarget:
             raise NotImplementedError(
                 "restoring an LM checkpoint (target.ckpt_dir) is not ported "
                 f"yet: {_NOT_PORTED['ckpt_dir']}")
-        if "serve" in stages:
-            raise NotImplementedError(
-                "the LM target's serve stage (the continuous-batching "
-                f"engine) is not ported yet: {_NOT_PORTED['lm_serve']}")
 
     def _on_device(self, plan: CompressionPlan) -> None:
         """Move the plan's tensors to this target's device (plans load on
@@ -298,20 +331,12 @@ class LMTarget:
 
     def _unit_energies(self, params, comp) -> Dict[str, float]:
         """Per-unit one-token MAC energy on the 64x64 array, priced with
-        the uniform-trace LUT (no profiled activations exist at LM
-        scale)."""
+        the uniform-trace LUT (no profiled activations exist at LM scale):
+        `repro_torch.serving.metrics.unit_energies`, the sum the serving
+        engine's per-token energy takes."""
         lut = uniform_trace_lut(device=self.device)
-        out: Dict[str, float] = {}
-        for name, w, c, layout in lm_compress.iter_eligible_units(
-                self.model, params, comp):
-            w_int = qat.quantize_weight_int(w, c)
-            mat = (w_int.reshape(w_int.shape[0], -1) if layout == "in_first"
-                   else w_int.reshape(-1, w_int.shape[-1]))
-            dims = dense_matmul_dims(fan_in=mat.shape[0],
-                                     fan_out=mat.shape[1], n_tokens=1)
-            counts = weight_value_counts(mat.T, dims)
-            out[name] = float(layer_energy_from_counts(counts, lut, dims))
-        return out
+        return {name: float(e) for name, e in serve_metrics.unit_energies(
+            self.model, params, comp, lut).items()}
 
     # ------------------------------------------------------------- stages
 
@@ -405,3 +430,71 @@ class LMTarget:
             print(f"[pipeline] export skipped {len(skips)} units:")
             for sk in skips:
                 print(f"  - {sk['unit']}: {sk['reason']} ({sk['detail']})")
+
+    def _serve_handle(self, plan: CompressionPlan, k: int):
+        """The single-variant `PlanHandle` the pinned serve stage uses."""
+        from repro_torch.serving import PlanHandle
+
+        if k and plan.comp is not None:
+            return PlanHandle.from_comp(plan.comp, compress_k=k,
+                                        plan_id=f"k{k}")
+        if k:
+            return PlanHandle.from_compress_k(self.model, k,
+                                              device=self.device)
+        return PlanHandle.uncompressed()
+
+    def stage_serve(self, plan: CompressionPlan, cfg: PipelineConfig,
+                    verbose: bool = False) -> None:
+        """Drain a deterministic request trace through the serving engine
+        (``serve.mode``), on the fake-quant forward of the plan's comp tree
+        when ``serve.compress_k`` (one K3 launch a step) and uncompressed
+        otherwise, as the JAX stage does (it never sets ``lut_serve``). With
+        ``verify_oneshot`` the oneshot fallback drains the same trace and
+        ``serve_parity_engine_vs_oneshot`` records whether every request's
+        tokens agree; ``serve_recompiles_after_warmup`` counts step builds
+        after warmup.
+
+        Prompts (`lm_serve_trace`): request i draws
+        ``np.random.default_rng(prompt_seed + i).integers(0, vocab,
+        prompt_len)``. The JAX stage draws with
+        ``jax.random.randint(PRNGKey(prompt_seed + i))``, which torch cannot
+        reproduce, so the two stages serve different prompts; tests inject
+        the same prompts into both packages."""
+        from repro_torch.serving import ServingEngine
+
+        self._on_device(plan)
+        s = cfg.serve
+        shapes, ecfg, requests = lm_serve_trace(s, self.acfg.vocab)
+        handle = self._serve_handle(plan, s.compress_k)
+
+        def drain(mode):
+            engine = ServingEngine(self.model, plan.params, mode=mode,
+                                   config=ecfg, plan=handle,
+                                   device=self.device)
+            engine.warmup(shapes)
+            warm_builds = engine.cache.compile_count
+            results = engine.serve(requests)
+            rep = engine.report()
+            rep["recompiles_after_warmup"] = (engine.cache.compile_count
+                                              - warm_builds)
+            return {r.rid: r for r in results}, rep
+
+        results, rep = drain(s.mode)
+        plan.metrics.update({f"serve_{key}": val for key, val in rep.items()
+                             if isinstance(val, (int, float, bool))})
+        plan.metrics["serve_mode"] = s.mode
+        parity: Optional[bool] = None
+        if s.verify_oneshot and s.mode == "engine":
+            ref, _ = drain("oneshot")
+            parity = all(results[r].tokens == ref[r].tokens for r in results)
+            plan.metrics["serve_parity_engine_vs_oneshot"] = bool(parity)
+        self.last_serve_results = results
+        if verbose:
+            line = (f"[pipeline] {s.mode}: {rep['requests']} requests, "
+                    f"{rep['new_tokens']} tokens "
+                    f"({rep['tokens_per_s']:.1f} tok/s), "
+                    f"{rep['recompiles_after_warmup']} recompiles after "
+                    f"warmup")
+            if parity is not None:
+                line += f", engine==oneshot: {parity}"
+            print(line)

@@ -296,7 +296,7 @@ class _WorkStarted(Exception):
 @pytest.mark.parametrize("over,stage,match", [
     ({"train": {"qat_steps": 2}}, "profile", "item 6b"),
     ({"target": {"ckpt_dir": "/nonexistent"}}, "profile", "item 10"),
-    ({}, "serve", "item 7, 'Serving'"),
+    ({"serve": {"plans_dir": "/x"}}, "serve", "fleet"),
     ({"serve": {"plans": ("k4",)}}, "export", "fleet"),
 ])
 def test_unported_lm_options_raise_before_work(over, stage, match):
@@ -333,22 +333,31 @@ def _cli(*args, cwd):
 
 def test_cli_lm_compress_export_and_serve_boundary(ref, tmp_path):
     """``compress --target lm --reduced --compress-k 4`` runs profile
-    through export; ``serve`` on its plan exits non-zero naming item 7
-    before any work; ``export --plan-in`` of the JAX package's schedule
-    plan writes its artifacts byte for byte."""
+    through export and names ``serve --plan-in`` for the serve stage;
+    ``serve`` on its plan runs that stage (the engine on the k = 4
+    fake-quant forward, checked against the oneshot fallback);
+    ``export --plan-in`` of the JAX package's schedule plan writes its
+    artifacts byte for byte."""
     proc = _cli("compress", "--target", "lm", "--arch", "olmo-1b",
                 "--reduced", "--compress-k", "4", "--device", "cpu",
                 "--quiet", "--plan-out", str(tmp_path / "base"), cwd=tmp_path)
     assert proc.returncode == 0, proc.stderr
-    assert "item 7" in proc.stdout
+    assert "serve --plan-in" in proc.stdout
     plan = TPlan.load(tmp_path / "base")
     assert plan.completed == STAGES
     assert len(plan.artifacts) == 14 and plan.metrics["compress_k"] == 4
 
     proc = _cli("serve", "--plan-in", str(tmp_path / "base"), "--device",
-                "cpu", cwd=tmp_path)
-    assert proc.returncode != 0
-    assert "item 7, 'Serving'" in proc.stderr
+                "cpu", "--verify-oneshot", "--quiet", "--plan-out",
+                str(tmp_path / "served"), cwd=tmp_path)
+    assert proc.returncode == 0, proc.stderr
+    served = TPlan.load(tmp_path / "served")
+    assert served.completed == STAGES + ("serve",)
+    m = served.metrics
+    assert m["serve_mode"] == "engine" and m["serve_requests"] == 2
+    assert m["serve_recompiles_after_warmup"] == 0
+    assert m["serve_parity_engine_vs_oneshot"] is True
+    assert m["serve_cache_compress_k"] == 4
 
     proc = _cli("export", "--plan-in", str(ref["paths"]["schedule"]),
                 "--device", "cpu", "--quiet", "--plan-out",
