@@ -120,7 +120,35 @@
    equal the rows run alone, gated for the shipped float64 sums
    (``[lm-engine-sums]``); (c) (a)'s trace through a LUT engine: the share
    of greedy tokens equal to (a)'s (reported);
-14. prints the ``kernels`` JSON line, then the result line.
+14. ``[lm-fleet]``: the fleet router on that plan's parameters at full
+   width, three resident plans (base, k8, k4; 8 slots, the JAX fleet
+   tests' router: watermarks 0.5 / 0.25, hysteresis 2), a burst of 16
+   requests of 64 prompt and 16 new tokens from two tenants, then a
+   trickle of 6, each drained before the next: the burst degrades to the
+   last level without flapping, the trickle recovers to level 0, the
+   per-plan and per-tenant accounting sums to the totals, no build after
+   warmup, one K3 launch a compressed engine's forward call; each plan's
+   routed tokens equal an engine pinned to that plan (engine mode); the
+   same drain on ``lut_serve=True`` engines (112 K2 launches a compressed
+   forward, K2 launches per plan); then ``serve --plan-in <the [lm] plan>
+   --plans k4 base`` through the CLI (every request served, no build after
+   warmup);
+15. ``[lm-train]``: ``repro_torch.launch.train.main`` at olmo-1b's full
+   width (8 QAT steps at batch 8 x 64 tokens, the plan saved): step ms,
+   peak memory, the losses (finite, the last below the first), one K3
+   launch a forward call; the correctly rounded products' backward summed
+   in float32 and in float64 and autograd through the float64 product,
+   step ms and peak memory each at batch 8 and 64; ``compress --target lm
+   --arch olmo-1b --steps 2`` through the CLI (the default path at the
+   pipeline's batch of 64 x 64 tokens); the trained params checkpointed
+   and restored through ``--ckpt-dir``, bit for bit;
+16. ``[lm-train-parity]``: one train step of the reduced olmo-1b (QAT, k
+   = 8) on the card and on the CPU: the CPU step on the card's int8
+   activation rounding held to the card's at loss rel 1e-5 and gradient
+   rel-L2 1e-4, the CPU's own step (its own rounding, with the flips
+   counted) at loss rel 1e-5; remat == no remat bit for bit on the card;
+   the flash backward against autograd through ``blocked_attention``;
+17. prints the ``kernels`` JSON line, then the result line.
 
 Any failure raises and the script exits non-zero. It refuses to run without
 a CUDA device, and outside a checkout of the repository.
@@ -183,6 +211,24 @@ LM_LUT_PROMPT_SEED = 200
 LM_LUT_ENGINE = dict(max_batch=8, prompt_buckets=(128, 256),
                      new_token_buckets=(32,), max_waves=2, q_block=128,
                      kv_block=128, cache_dtype="float32", lut_serve=True)
+# the [lm-fleet] phase: base / k8 / k4 over the [lm] parameters, the JAX
+# fleet tests' router (tests/test_fleet.py), 8 slots; a burst of 16 requests
+# (two tenants), then a trickle of 6, each drained before the next
+LM_FLEET_ENGINE = dict(max_batch=4, max_waves=2)
+LM_FLEET_ROUTER = dict(high_watermark=0.5, low_watermark=0.25, hysteresis=2)
+LM_FLEET_K = (8, 4)
+LM_FLEET_BURST, LM_FLEET_TRICKLE = 16, 6
+LM_FLEET_PROMPT_LEN, LM_FLEET_NEW_TOKENS = 64, 16
+LM_FLEET_PROMPT_SEED = 300
+# the [lm-train] phase: launch.train's QAT steps at full width, then the
+# pipeline's default compress path for LM_COMPRESS_STEPS QAT steps
+LM_TRAIN_STEPS, LM_TRAIN_BATCH = 8, 8
+LM_COMPRESS_STEPS = 2
+LM_COMPRESS_BATCH = 64      # the pipeline's default target.batch_size
+LM_BACKWARD_STEPS = 3       # steps of each exact_matmul backward variant
+# flash against autograd through blocked_attention on the card: the same
+# forward operations; the backward recomputes the probabilities
+FLASH_FWD_ATOL, FLASH_GRAD_RTOL = 1e-6, 1e-5
 K2 = dict(name="lut_matmul",
           source="src/repro_torch/kernels/lut_matmul/csrc/lut_matmul.cu",
           replaces="src/repro/kernels/lut_matmul/lut_matmul.py:125")
@@ -2776,7 +2822,7 @@ def lm_engine_phase(torch, plan):
     return out
 
 
-def lm_phase(torch, ops, ref):
+def lm_phase(torch, ops, ref, work):
     """[lm]: olmo-1b at full width and depth on the card. The pipeline
     through export (`lm_export_path`); K2 on the LM's shapes; K3's one
     launch over the stacked units; the serve artifacts stacked over layers
@@ -2813,17 +2859,652 @@ def lm_phase(torch, ops, ref):
     del comp_serve
     torch.cuda.empty_cache()
     engine = lm_engine_phase(torch, plan)
+    torch.cuda.empty_cache()
+    fleet = lm_fleet_phase(torch, target, plan, work)
     k2.launches, k3.launches = launched["K2"], launched["K3"]
     metrics.update(stacked_units_attached=n, serve=serve, engine=engine,
+                   fleet=fleet,
                    serve_path_launches=lm_launches, breakdown=parts,
                    phase_wall_s=time.perf_counter() - t_phase,
                    peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     print("[lm] " + json.dumps({k: v for k, v in metrics.items()
-                                if k not in ("serve", "breakdown", "engine")},
+                                if k not in ("serve", "breakdown", "engine",
+                                             "fleet")},
                                sort_keys=True), flush=True)
     del plan, target
     torch.cuda.empty_cache()
     return metrics, k2_rows, k3_out
+
+
+# ------------------------------------------------------------- LM fleet
+
+
+def fleet_requests(vocab):
+    """(burst, trickle) of the [lm-fleet] traffic: seeded numpy prompts of
+    LM_FLEET_PROMPT_LEN tokens, LM_FLEET_NEW_TOKENS new tokens each; the
+    burst alternates two tenants."""
+    from repro_torch.serving import ServeRequest
+
+    def request(i, tenant):
+        rng = np.random.default_rng(LM_FLEET_PROMPT_SEED + i)
+        return ServeRequest(
+            tokens=rng.integers(0, vocab, LM_FLEET_PROMPT_LEN).astype(
+                np.int32),
+            max_new_tokens=LM_FLEET_NEW_TOKENS, tenant=tenant)
+
+    burst = [request(i, f"tenant{i % 2}") for i in range(LM_FLEET_BURST)]
+    trickle = [request(LM_FLEET_BURST + i, "tenant0")
+               for i in range(LM_FLEET_TRICKLE)]
+    return burst, trickle
+
+
+def per_plan_counts(fleet, calls):
+    """{plan_id: {"K2", "K3", "forward_calls"}} counted from now on, each
+    engine's warmup and scheduler steps attributed to its plan (the router
+    runs one engine at a time)."""
+    from repro_torch.kernels.fake_quant import fake_quant as k3
+    from repro_torch.kernels.lut_matmul import lut_matmul as k2
+
+    counts = {pid: {"K2": 0, "K3": 0, "forward_calls": 0}
+              for pid in fleet.engines}
+    for pid, engine in fleet.engines.items():
+        for name in ("warmup", "step"):
+            def counted(*a, _pid=pid, _fn=getattr(engine, name), **kw):
+                before = (k2.launches, k3.launches, sum(calls.values()))
+                out = _fn(*a, **kw)
+                c = counts[_pid]
+                c["K2"] += k2.launches - before[0]
+                c["K3"] += k3.launches - before[1]
+                c["forward_calls"] += sum(calls.values()) - before[2]
+                return out
+            setattr(engine, name, counted)
+    return counts
+
+
+def fleet_gates(fleet, rep, tag):
+    """The router's gates: the burst degrades to the last level without
+    flapping, level changes at least `hysteresis` submissions apart; the
+    trickle recovers to level 0; accounting sums to the totals; no build
+    after warmup."""
+    levels = [e["level"] for e in fleet.route_log]
+    burst, trickle = levels[:LM_FLEET_BURST], levels[LM_FLEET_BURST:]
+    last = len(fleet.levels) - 1
+    if burst != sorted(burst) or burst[0] != 0 or burst[-1] != last:
+        raise AssertionError(f"[lm-fleet] {tag}: burst levels {burst}")
+    change_at = [i for i in range(1, len(burst)) if burst[i] != burst[i - 1]]
+    if any(b - a < fleet.router.hysteresis
+           for a, b in zip(change_at, change_at[1:])):
+        raise AssertionError(f"[lm-fleet] {tag}: level flapped {burst}")
+    if trickle != sorted(trickle, reverse=True) or trickle[-1] != 0:
+        raise AssertionError(f"[lm-fleet] {tag}: trickle levels {trickle}")
+    for part in ("plans", "tenants"):
+        for key in ("requests", "new_tokens"):
+            got = sum(p[key] for p in rep[part].values())
+            if got != rep[key]:
+                raise AssertionError(f"[lm-fleet] {tag}: {part} {key} sum "
+                                     f"{got} != {rep[key]}")
+        got = sum(p["energy_eu"] for p in rep[part].values())
+        if abs(got - rep["energy_eu_total"]) > 1e-6 * rep["energy_eu_total"]:
+            raise AssertionError(f"[lm-fleet] {tag}: {part} energy sum")
+    if rep["requests"] != LM_FLEET_BURST + LM_FLEET_TRICKLE:
+        raise AssertionError(f"[lm-fleet] {tag}: {rep['requests']} served")
+    if rep["recompiles_after_warmup"]:
+        raise AssertionError(f"[lm-fleet] {tag}: "
+                             f"{rep['recompiles_after_warmup']} builds after "
+                             "warmup")
+
+
+def lm_fleet_run(torch, model, params, lut):
+    """One fleet of base / k8 / k4 over the [lm] parameters driven through
+    the burst then the trickle (each trickle request drained before the
+    next). Returns (metrics, fleet, requests in submit order, results)."""
+    from repro_torch.serving import (
+        EngineConfig,
+        FleetRouter,
+        PlanHandle,
+        RouterConfig,
+    )
+
+    tag = "lut" if lut else "fake_quant"
+    calls = counting_calls(model)
+    handles = [PlanHandle.uncompressed()] + [
+        PlanHandle.from_compress_k(model, k, device="cuda")
+        for k in LM_FLEET_K]
+    ecfg = EngineConfig(**LM_FLEET_ENGINE, lut_serve=lut)
+    torch.cuda.reset_peak_memory_stats()
+    fleet = FleetRouter(model, params, handles, config=ecfg,
+                        router=RouterConfig(**LM_FLEET_ROUTER),
+                        device="cuda")
+    counts = per_plan_counts(fleet, calls)
+    t0 = time.perf_counter()
+    fleet.warmup([(LM_FLEET_PROMPT_LEN, LM_FLEET_NEW_TOKENS)])
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    burst, trickle = fleet_requests(model.cfg.vocab)
+    rids = [fleet.submit(r) for r in burst]
+    out = fleet.run()
+    for r in trickle:
+        rids.append(fleet.submit(r))
+        out = fleet.run()
+    torch.cuda.synchronize()
+    results = [out[rid] for rid in rids]
+    rep = fleet.report()
+    for name in calls:
+        model.__dict__.pop(name, None)
+    metrics = dict(
+        engine=LM_FLEET_ENGINE, lut_serve=lut, warmup_s=warm_s,
+        levels=[h.plan_id for h in fleet.levels],
+        energy_per_token={h.plan_id: h.energy_per_token
+                          for h in fleet.levels},
+        route_levels=[e["level"] for e in fleet.route_log],
+        level_degrades=rep["level_degrades"],
+        level_recovers=rep["level_recovers"],
+        plan_requests={pid: p["requests"] for pid, p in rep["plans"].items()},
+        tenant_requests={t: v["requests"] for t, v in rep["tenants"].items()},
+        recompiles_after_warmup=rep["recompiles_after_warmup"],
+        per_plan=counts,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+        **serve_numbers(rep))
+    print(f"[lm-fleet] {tag} " + json.dumps(metrics, sort_keys=True),
+          flush=True)
+    fleet_gates(fleet, rep, tag)
+    n_units = 7 * model.cfg.n_layers
+    for h in fleet.levels:
+        c = counts[h.plan_id]
+        if not h.compressed:
+            want = {"K2": 0, "K3": 0}
+        elif lut:
+            want = {"K2": n_units * c["forward_calls"], "K3": 0}
+        else:
+            want = {"K2": 0, "K3": c["forward_calls"]}
+        got = {"K2": c["K2"], "K3": c["K3"]}
+        if got != want or (h.compressed and not c["forward_calls"]):
+            raise AssertionError(f"[lm-fleet] {tag} {h.plan_id}: launches "
+                                 f"{got}, expected {want} for "
+                                 f"{c['forward_calls']} forward calls")
+    return metrics, fleet, burst + trickle, results
+
+
+def lm_fleet_pinned(torch, model, params, fleet, requests, results):
+    """Routed == pinned: for each plan, an engine pinned to it (engine mode)
+    serves the requests the router sent there; their tokens must be the
+    routed ones."""
+    from repro_torch.serving import ServingEngine
+
+    out = {}
+    for h in fleet.levels:
+        mine = [i for i, e in enumerate(fleet.route_log)
+                if e["plan_id"] == h.plan_id]
+        engine = ServingEngine(model, params, mode="engine",
+                               config=fleet.config, plan=h, device="cuda")
+        pinned = engine.serve([requests[i] for i in mine])
+        equal = sum(results[i].tokens == r.tokens
+                    for i, r in zip(mine, pinned))
+        out[h.plan_id] = {"requests": len(mine), "equal": equal}
+        del engine
+        torch.cuda.empty_cache()
+    print("[lm-fleet] routed == pinned " + json.dumps(out, sort_keys=True),
+          flush=True)
+    if any(v["equal"] != v["requests"] for v in out.values()):
+        raise AssertionError(f"[lm-fleet] routed tokens != pinned: {out}")
+    return out
+
+
+def lm_fleet_stage(torch, plan, work):
+    """``serve --plan-in <the [lm] plan> --plans k4 base`` through the
+    CLI, in process, as a user runs it: the plan saved as the [lm] phase's
+    export left it (the [lm-engine] stage since ran its serve stage on the
+    same object)."""
+    import dataclasses
+
+    from repro_torch.pipeline import cli
+    from repro_torch.pipeline.plan import CompressionPlan
+
+    base = work / "lm_plan"
+    exported = dataclasses.replace(
+        plan, completed=tuple(st for st in plan.completed if st != "serve"),
+        metrics={k: v for k, v in plan.metrics.items()
+                 if not k.startswith("serve_")})
+    t0 = time.perf_counter()
+    exported.save(base)
+    save_s = time.perf_counter() - t0
+    served = work / "lm_plan_fleet"
+    t0 = time.perf_counter()
+    rc = cli.main(["serve", "--plan-in", str(base), "--plans", "k4", "base",
+                   "--device", "cuda", "--plan-out", str(served)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    m = CompressionPlan.load(served).metrics
+    out = dict(rc=rc, plan_save_s=save_s, command_wall_s=wall,
+               **{k: m[k] for k in (
+                   "serve_mode", "serve_plans", "serve_requests",
+                   "serve_new_tokens", "serve_tokens_per_s",
+                   "serve_recompiles_after_warmup", "serve_level_degrades",
+                   "serve_level_recovers")})
+    print("[lm-fleet] stage " + json.dumps(out, sort_keys=True), flush=True)
+    want_requests = exported.config["serve"]["requests"]
+    if (rc != 0 or m["serve_mode"] != "fleet"
+            or m["serve_requests"] != want_requests
+            or m["serve_recompiles_after_warmup"] != 0):
+        raise AssertionError(f"[lm-fleet] stage: {out}, expected every one "
+                             f"of {want_requests} requests served and 0 "
+                             "builds after warmup")
+    for p in work.glob("lm_plan*"):
+        p.unlink()
+    return out
+
+
+def lm_fleet_phase(torch, target, plan, work):
+    """[lm-fleet]: the fleet router over three plans of the [lm] model at
+    full width (base, k8, k4; fake-quant engines, then LUT engines), the
+    routed tokens against pinned engines, then the CLI's fleet stage."""
+    from repro_torch.kernels.fake_quant import fake_quant as k3
+    from repro_torch.kernels.lut_matmul import lut_matmul as k2
+
+    t_phase = time.perf_counter()
+    k2.launches = k3.launches = 0
+    fq, fleet, requests, results = lm_fleet_run(torch, target.model,
+                                                plan.params, False)
+    fq["launches"] = {"K2": k2.launches, "K3": k3.launches}
+    pinned = lm_fleet_pinned(torch, target.model, plan.params, fleet,
+                             requests, results)
+    del fleet, results
+    torch.cuda.empty_cache()
+    k2.launches = k3.launches = 0
+    lut, fleet, _, _ = lm_fleet_run(torch, target.model, plan.params, True)
+    lut["launches"] = {"K2": k2.launches, "K3": k3.launches}
+    del fleet
+    torch.cuda.empty_cache()
+    stage = lm_fleet_stage(torch, plan, work)
+    out = dict(fake_quant=fq, lut=lut, pinned=pinned, stage=stage,
+               phase_wall_s=time.perf_counter() - t_phase)
+    print(f"[lm-fleet] phase {out['phase_wall_s']:.1f} s", flush=True)
+    return out
+
+
+# ------------------------------------------------------------ LM training
+
+
+class _Captured:
+    """Patches `LMTarget.stage_profile` (and `LMModel.forward`, counted)
+    while open; records each profile stage's (target, plan)."""
+
+    def __init__(self):
+        self.runs = []
+        self.forwards = 0
+
+    def __enter__(self):
+        from repro_torch.models.lm import LMModel
+        from repro_torch.pipeline.targets import LMTarget
+
+        self._real = (LMTarget.stage_profile, LMModel.forward)
+        profile, forward = self._real
+
+        def stage_profile(target, plan, cfg, verbose=False):
+            self.runs.append((target, plan))
+            return profile(target, plan, cfg, verbose=verbose)
+
+        def counted(model, *a, **kw):
+            self.forwards += 1
+            return forward(model, *a, **kw)
+
+        LMTarget.stage_profile, LMModel.forward = stage_profile, counted
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models.lm import LMModel
+        from repro_torch.pipeline.targets import LMTarget
+
+        LMTarget.stage_profile, LMModel.forward = self._real
+
+
+def qat_numbers(torch, qat, peak):
+    step_ms = [s * 1e3 for s in qat["step_s"]]
+    return dict(steps=len(step_ms), first_step_ms=step_ms[0],
+                median_step_ms=statistics.median(step_ms[1:] or step_ms),
+                loss_first=qat["loss"][0], loss_last=qat["loss"][-1],
+                losses=qat["loss"], peak_mem_gb=peak)
+
+
+def backward_variants(torch, model, params, batch_size):
+    """The QAT step's correctly rounded products with each backward: the
+    shipped `exact_matmul` (its backward sums in float64 from the operands
+    as given), the same function summing in float32 (the JAX package's
+    backward), and autograd through the float64 product (the parent's,
+    which keeps float64 copies of every operand). Step ms (median of the
+    steps after the first) and peak memory each, at ``batch_size``
+    sequences of 64 tokens."""
+    from repro_torch.core.lm_compress import init_lm_comp
+    from repro_torch.data.synthetic import SyntheticTokens
+    from repro_torch.launch.train import (
+        StepConfig,
+        make_optimizer,
+        make_train_step,
+    )
+    from repro_torch.kernels.lut_matmul import ref
+    from repro_torch.nn import attention, layers
+
+    class Float32Backward(ref._ExactMatmul):
+        @staticmethod
+        def backward(ctx, g):
+            a, b = ctx.saved_tensors
+            return ref.matmul_grads(a, b, g, torch.float32,
+                                    ctx.needs_input_grad)
+
+    variants = {
+        "float64": None,
+        "float32": lambda a, b: Float32Backward.apply(a, b),
+        "float64_autograd": lambda a, b: (a.double() @ b.double()).float(),
+    }
+    comp = init_lm_comp(model, device="cuda")
+    x, y = SyntheticTokens(vocab=model.cfg.vocab, seed=7).batch(
+        0, batch_size, 64, device="cuda")
+    batch = {"tokens": x, "labels": y}
+    real = (layers.exact_matmul, attention.exact_matmul)
+    out = {}
+    for variant, fn in variants.items():
+        if fn is not None:
+            layers.exact_matmul = attention.exact_matmul = fn
+        cfg = StepConfig(qat=True, with_comp=True, remat=False, q_block=128,
+                         kv_block=128, lr=6e-4)
+        step = make_train_step(model, cfg)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state = {"params": params, "opt": make_optimizer(cfg).init(params)}
+        times, losses = [], []
+        try:
+            for _ in range(LM_BACKWARD_STEPS):
+                t0 = time.perf_counter()
+                state, m = step(state, batch, comp)
+                losses.append(float(m["loss"]))
+                times.append((time.perf_counter() - t0) * 1e3)
+        finally:
+            layers.exact_matmul, attention.exact_matmul = real
+        out[variant] = dict(step_ms=times,
+                            median_step_ms=statistics.median(times[1:]),
+                            losses=losses,
+                            peak_mem_gb=torch.cuda.max_memory_allocated()
+                            / 1e9)
+        del state, step
+    torch.cuda.empty_cache()
+    print(f"[lm-train] exact_matmul backward, batch {batch_size} x 64 "
+          + json.dumps(out, sort_keys=True), flush=True)
+    return out
+
+
+def lm_train_phase(torch, work):
+    """[lm-train]: what a user of the train entry points runs at olmo-1b's
+    full width. `repro_torch.launch.train.main` (LM_TRAIN_STEPS QAT steps
+    at batch LM_TRAIN_BATCH x 64 tokens, the plan saved): losses, step ms,
+    peak memory, K3 launches against forward calls; the exact products'
+    backward both ways; ``compress --target lm --arch olmo-1b --steps 2``
+    through the CLI (the pipeline's default batch of 64 x 64 tokens, then
+    the rest of its default path); then the trained params checkpointed and
+    restored through ``--ckpt-dir``, bit for bit."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.kernels.fake_quant import fake_quant as k3
+    from repro_torch.launch import train as launch_train
+    from repro_torch.pipeline import cli
+
+    t_phase = time.perf_counter()
+    out = {}
+    k3.launches = 0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with _Captured() as cap:
+        rc = launch_train.main([
+            "--arch", LM_ARCH, "--steps", str(LM_TRAIN_STEPS),
+            "--batch-size", str(LM_TRAIN_BATCH),
+            "--plan-out", str(work / "lm_train"), "--device", "cuda"])
+    torch.cuda.synchronize()
+    target, plan = cap.runs[0]
+    train = qat_numbers(torch, target.last_qat,
+                        torch.cuda.max_memory_allocated() / 1e9)
+    train.update(rc=rc, command_wall_s=time.perf_counter() - t0,
+                 k3_launches=k3.launches, forward_calls=cap.forwards,
+                 energy_per_token=plan.metrics["energy_per_token"],
+                 wall_s_profile=plan.metrics["wall_s_profile"])
+    out["train"] = train
+    print("[lm-train] launch.train " + json.dumps(train, sort_keys=True),
+          flush=True)
+    losses = train["losses"]
+    if rc != 0 or not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"[lm-train] losses {losses}: every loss "
+                             "finite and the last below the first required")
+    if not k3.launches == cap.forwards == LM_TRAIN_STEPS:
+        raise AssertionError(f"[lm-train] {k3.launches} K3 launches for "
+                             f"{cap.forwards} forward calls and "
+                             f"{LM_TRAIN_STEPS} steps: one a forward")
+    for p in work.glob("lm_train.*"):
+        p.unlink()
+
+    out["backward"] = {
+        str(b): backward_variants(torch, target.model, plan.params, b)
+        for b in (LM_TRAIN_BATCH, LM_COMPRESS_BATCH)}
+
+    ckpt = work / "lm_ckpt"
+    t0 = time.perf_counter()
+    manager = CheckpointManager(ckpt, keep=1)
+    manager.save(LM_TRAIN_STEPS, {"params": plan.params})
+    manager.wait()
+    save_s = time.perf_counter() - t0
+    saved = plan.params
+    del target, plan, cap
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with _Captured() as cap:
+        rc = cli.main(["compress", "--target", "lm", "--arch", LM_ARCH,
+                       "--steps", str(LM_COMPRESS_STEPS), "--device",
+                       "cuda"])
+    torch.cuda.synchronize()
+    target, plan = cap.runs[0]
+    compress = qat_numbers(torch, target.last_qat,
+                           torch.cuda.max_memory_allocated() / 1e9)
+    compress.update(rc=rc, command_wall_s=time.perf_counter() - t0,
+                    batch=[plan.config["target"]["batch_size"], 64],
+                    completed=list(plan.completed),
+                    **{k: v for k, v in plan.metrics.items()
+                       if k.startswith("wall_s_")})
+    out["compress"] = compress
+    print("[lm-train] compress " + json.dumps(compress, sort_keys=True),
+          flush=True)
+    if rc != 0 or not all(np.isfinite(compress["losses"])):
+        raise AssertionError(f"[lm-train] compress: rc {rc}, losses "
+                             f"{compress['losses']}")
+    del target, plan, cap
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    with _Captured() as cap:
+        rc = launch_train.main(["--arch", LM_ARCH, "--steps", "0",
+                                "--ckpt-dir", str(ckpt), "--device", "cuda"])
+    restored = cap.runs[0][1].params
+    names = sorted(leaves(saved))
+    got, want = leaves(restored), leaves(saved)
+    equal = sum(torch.equal(got[n], want[n]) for n in names)
+    out["checkpoint"] = dict(rc=rc, leaves=len(names), equal=equal,
+                             save_s=save_s,
+                             restore_wall_s=time.perf_counter() - t0)
+    print("[lm-train] checkpoint " + json.dumps(out["checkpoint"],
+                                                sort_keys=True), flush=True)
+    if rc != 0 or set(got) != set(want) or equal != len(names):
+        raise AssertionError(f"[lm-train] checkpoint: {equal} of "
+                             f"{len(names)} leaves restored bit for bit")
+    del saved, restored, cap, got, want
+    for p in sorted(ckpt.rglob("*"), reverse=True):
+        p.unlink() if p.is_file() else p.rmdir()
+    torch.cuda.empty_cache()
+    out["phase_wall_s"] = time.perf_counter() - t_phase
+    print(f"[lm-train] phase {out['phase_wall_s']:.1f} s", flush=True)
+    return out
+
+
+class _ActQuant:
+    """Patches `qat.fake_quant_act` while open. Records each call's int8
+    codes and quantized value (on the CPU); given ``replay`` (another
+    instance's record), each call takes the recorded quantized value in
+    place of its own (straight-through as before) and counts the codes where
+    its own rounding differs: the step then runs on the recorded rounding
+    decisions."""
+
+    def __init__(self, replay=None):
+        self.codes, self.values = [], []
+        self.replay = replay
+        self.flips = 0
+
+    def __enter__(self):
+        from repro_torch.core import qat
+
+        self._real = qat.fake_quant_act
+
+        def fake_quant_act(a, cand_dim=None, *, token_dims=0):
+            scale = qat._act_scale(a, cand_dim, token_dims)
+            codes = qat._round_clip(a / scale)
+            q = codes * scale
+            if self.replay is not None:
+                i = len(self.codes)
+                want = self.replay.codes[i].to(a.device)
+                self.flips += int((codes != want).sum())
+                q = self.replay.values[i].to(a.device)
+            self.codes.append(codes.detach().cpu())
+            self.values.append(q.detach().cpu())
+            return a + (q - a).detach()
+
+        qat.fake_quant_act = fake_quant_act
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core import qat
+
+        qat.fake_quant_act = self._real
+
+
+def step_gaps(torch, a, b):
+    """(loss rel, {leaf: gradient rel-L2}) of step ``a`` against ``b``
+    (state, metrics); the gradient is read from the first Adam moment (0.1 x
+    the clipped gradient)."""
+    (sa, ma), (sb, mb) = a, b
+    loss_rel = abs(float(ma["loss"]) - float(mb["loss"])) \
+        / abs(float(mb["loss"]))
+    mu_a, mu_b = leaves(sa["opt"]["mu"]), leaves(sb["opt"]["mu"])
+    grad = {n.rstrip("/"): float(torch.linalg.norm(
+        (mu_a[n].cpu() - mu_b[n].cpu()).double())
+        / max(float(torch.linalg.norm(mu_b[n].cpu().double())), 1e-30))
+        for n in mu_b}
+    return loss_rel, grad
+
+
+def lm_train_parity_phase(torch):
+    """[lm-train-parity]: one `make_train_step` step of the reduced olmo-1b
+    (k = 8 codebooks, QAT) on the card and on the CPU from the same params,
+    comp and numpy batch. The forward keeps the JAX package's float32 sums
+    outside the products (norms, softmax, attention, RoPE's and SiLU's
+    transcendentals), which round differently on the two devices, so an
+    activation within an ulp of an int8 rounding boundary can take the next
+    code on one of them and carry that to the loss and gradients (a flip:
+    counted). Gates: the CPU step run on the card's int8 rounding decisions
+    (`_ActQuant` replay) against the card's, loss rel LOSS_RTOL and every
+    gradient leaf rel-L2 GRAD_RTOL (the CNN's card-vs-CPU gate); the CPU's
+    own step, loss rel LOSS_RTOL, its gradients and flips reported. Then on
+    the card: ``remat=True`` == ``remat=False`` bit for bit, and the flash
+    backward against autograd through `blocked_attention`."""
+    from repro_torch._device import tree_to
+    from repro_torch.configs import get_config
+    from repro_torch.core import lm_compress
+    from repro_torch.launch.train import (
+        StepConfig,
+        make_optimizer,
+        make_train_step,
+    )
+    from repro_torch.models.lm import build_lm
+    from repro_torch.nn.attention import AttnDims, blocked_attention
+    from repro_torch.nn.spec import init_params
+
+    model = build_lm(get_config(LM_ARCH).scaled_down(
+        compute_dtype="float32"))
+    params = init_params(0, model.spec, "cpu")
+    comp = lm_compress.restrict_all_codebooks(
+        model, lm_compress.init_lm_comp(model, device="cpu"),
+        lm_compress.symmetric_codebook_values(8))
+    toks = np.random.default_rng(0).integers(
+        0, model.cfg.vocab, (8, 65)).astype(np.int32)
+
+    def step(device, remat=False):
+        cfg = StepConfig(qat=True, with_comp=True, remat=remat, q_block=16,
+                         kv_block=16, lr=1e-3)
+        p = tree_to(params, device)
+        state = {"params": p, "opt": make_optimizer(cfg).init(p)}
+        batch = {"tokens": torch.as_tensor(toks[:, :-1], device=device),
+                 "labels": torch.as_tensor(toks[:, 1:], device=device)}
+        return make_train_step(model, cfg)(state, batch,
+                                           tree_to(comp, device))
+
+    with _ActQuant() as on_card:
+        card = step("cuda")
+    with _ActQuant() as on_cpu:
+        cpu_own = step("cpu")
+    with _ActQuant(replay=on_card) as replayed:
+        cpu = step("cpu")
+    own_flips = sum(int((a != b).sum())
+                    for a, b in zip(on_card.codes, on_cpu.codes))
+    n_codes = sum(c.numel() for c in on_card.codes)
+    loss_rel, grad = step_gaps(torch, card, cpu)
+    own_loss_rel, own_grad = step_gaps(torch, card, cpu_own)
+
+    (r0, m0), (r1, m1) = step("cuda"), step("cuda", remat=True)
+    f0, f1, f2 = leaves(r0), leaves(r1), leaves(step("cuda")[0])
+    remat_equal = sum(torch.equal(f0[n], f1[n]) for n in f0)
+    repeat_equal = sum(torch.equal(f0[n], f2[n]) for n in f0)
+
+    g = torch.Generator().manual_seed(0)
+    b, s, hkv, grp, hd = 2, 256, 2, 2, 64
+    dims = AttnDims(d_model=hkv * grp * hd, n_heads=hkv * grp,
+                    n_kv_heads=hkv, head_dim=hd, window=96)
+    arrays = [torch.randn(shape, generator=g) for shape in (
+        (b, s, hkv * grp, hd), (b, s, hkv, hd), (b, s, hkv, hd),
+        (b, s, hkv * grp, hd))]
+    flash = {}
+    for use_flash in (False, True):
+        ts = [a.cuda().requires_grad_(True) for a in arrays[:3]]
+        o = blocked_attention(*ts, dims, q_block=64, kv_block=64,
+                              use_flash=use_flash)
+        (o * arrays[3].cuda()).sum().backward()
+        flash[use_flash] = (o.detach(), [t.grad for t in ts])
+    flash_fwd = float((flash[True][0] - flash[False][0]).abs().max())
+    flash_grad = max(float(torch.linalg.norm((a - b_).double())
+                           / torch.linalg.norm(b_.double()))
+                     for a, b_ in zip(flash[True][1], flash[False][1]))
+    grad_max = max(grad.values())
+    out = dict(loss_card=float(card[1]["loss"]), loss_cpu=float(cpu[1]["loss"]),
+               loss_rel=loss_rel, loss_margin=LOSS_RTOL / max(loss_rel,
+                                                              1e-30),
+               grad_rel_l2=grad, grad_rel_l2_max=grad_max,
+               grad_margin=GRAD_RTOL / max(grad_max, 1e-30),
+               replay_flips=replayed.flips, act_codes=n_codes,
+               own=dict(loss_rel=own_loss_rel, grad_rel_l2=own_grad,
+                        grad_rel_l2_max=max(own_grad.values()),
+                        flips=own_flips),
+               remat_equal_leaves=remat_equal, remat_leaves=len(f0),
+               repeat_equal_leaves=repeat_equal,
+               remat_loss_equal=bool(torch.equal(m0["loss"], m1["loss"])),
+               flash_forward_max_abs=flash_fwd,
+               flash_grad_rel_l2_max=flash_grad)
+    print("[lm-train-parity] " + json.dumps(out, sort_keys=True), flush=True)
+    if not (loss_rel <= LOSS_RTOL and grad_max <= GRAD_RTOL
+            and own_loss_rel <= LOSS_RTOL):
+        raise AssertionError(f"[lm-train-parity] card vs CPU: loss rel "
+                             f"{loss_rel:.3e} (own rounding {own_loss_rel:.3e}"
+                             f"), gradient rel-L2 max {grad_max:.3e}")
+    if remat_equal != len(f0) or not out["remat_loss_equal"]:
+        raise AssertionError(f"[lm-train-parity] remat: {remat_equal} of "
+                             f"{len(f0)} leaves equal")
+    if not (flash_fwd <= FLASH_FWD_ATOL and flash_grad <= FLASH_GRAD_RTOL):
+        raise AssertionError(f"[lm-train-parity] flash vs blocked: forward "
+                             f"{flash_fwd:.3e}, gradients {flash_grad:.3e}")
+    return out
 
 
 # --------------------------------------------------------------------- main
@@ -2875,7 +3556,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     compress_launches, compress_stages, compress_fwds = compress_path(torch)
     torch.cuda.empty_cache()
-    lm, lm_k2_rows, lm_k3 = lm_phase(torch, ops, ref)
+    work = ROOT / "build" / "chip_smoke"
+    work.mkdir(parents=True, exist_ok=True)
+    lm, lm_k2_rows, lm_k3 = lm_phase(torch, ops, ref, work)
+    torch.cuda.empty_cache()
+    lm_train = lm_train_phase(torch, work)
+    lm_train_parity = lm_train_parity_phase(torch)
 
     padded = [r for r in k2_rows if r["per_forward"] and not r["serve_rows"]]
     unpadded = [r for r in k2_rows if r["per_forward"] and r["serve_rows"]]
@@ -2945,6 +3631,21 @@ def main() -> int:
                     mode: r["forward_calls"]
                     for mode, r in lm["engine"]["lut"]["runs"].items()},
                 "stage_launches": lm["engine"]["stage"]["launches"]["K2"],
+            },
+            "fleet": {
+                "scope": "[lm-fleet]: the fleet router over base / k8 / k4 "
+                         f"of {LM_ARCH} at full width with lut_serve=True "
+                         "engines, burst then trickle; launches: that run "
+                         "(counts set to 0 before the fleet was built, read "
+                         "after its trace), per_plan by engine, 112 a "
+                         "forward call of a compressed plan's engine",
+                "launches": lm["fleet"]["lut"]["launches"]["K2"],
+                "per_plan": {pid: c["K2"] for pid, c in
+                             lm["fleet"]["lut"]["per_plan"].items()},
+                "forward_calls": {pid: c["forward_calls"] for pid, c in
+                                  lm["fleet"]["lut"]["per_plan"].items()},
+                "fake_quant_fleet_launches": lm["fleet"]["fake_quant"][
+                    "launches"]["K2"],
             },
         },
     }
@@ -3030,7 +3731,32 @@ def main() -> int:
                        forward_calls=lm["engine"]["stage"]["forward_calls"],
                        lut_engine_launches={
                            mode: r["launches"]["K3"] for mode, r in
-                           lm["engine"]["lut"]["runs"].items()})),
+                           lm["engine"]["lut"]["runs"].items()}),
+                   fleet=dict(
+                       scope="[lm-fleet]: the fleet router over base / k8 / "
+                             f"k4 of {LM_ARCH} at full width with fake-quant "
+                             "engines, burst then trickle; launches: that "
+                             "run, one a forward call of a compressed "
+                             "plan's engine",
+                       launches=lm["fleet"]["fake_quant"]["launches"]["K3"],
+                       per_plan={pid: c["K3"] for pid, c in
+                                 lm["fleet"]["fake_quant"]["per_plan"]
+                                 .items()},
+                       forward_calls={pid: c["forward_calls"] for pid, c in
+                                      lm["fleet"]["fake_quant"]["per_plan"]
+                                      .items()},
+                       lut_fleet_launches=lm["fleet"]["lut"]["launches"][
+                           "K3"]),
+                   train=dict(
+                       scope="[lm-train]: repro_torch.launch.train.main, "
+                             f"{LM_ARCH} at full width, {LM_TRAIN_STEPS} "
+                             f"QAT steps at batch {LM_TRAIN_BATCH} x 64; "
+                             "launches: that run, one a forward (a step)",
+                       launches=lm_train["train"]["k3_launches"],
+                       forward_calls=lm_train["train"]["forward_calls"],
+                       steps=LM_TRAIN_STEPS,
+                       step_ms=lm_train["train"]["median_step_ms"],
+                       parity=lm_train_parity)),
     }
     entries = [k2_entry, k1_entry, k1b_entry, k3_entry]
     print(f"[card] {card}", flush=True)

@@ -15,7 +15,8 @@ evaluates the LUT from given draws, and `grouped_model_lut` draws them from
 a CPU `torch.Generator` (seed 1 by default, as the JAX package's key), so a
 seed gives the same LUT on every device. The draws differ from
 `jax.random`'s; tests hand both packages the same draws instead.
-``uniform_trace_lut`` (LM serving) is not ported yet.
+``uniform_trace_lut`` (the LM's per-token energy) draws its own Monte-Carlo
+sample the same way (`uniform_lut_from_draws` evaluates given draws).
 """
 
 from __future__ import annotations

@@ -267,6 +267,13 @@ def magnitude_prune_mask(w: torch.Tensor, ratio: float) -> torch.Tensor:
     return (w.abs() >= thresh).to(w.dtype)
 
 
+def apply_comp_dtype(comp: CompState, dtype) -> CompState:
+    """A copy of ``comp`` with its mask cast to ``dtype``."""
+    out = dict(comp)
+    out["mask"] = comp["mask"].to(dtype)
+    return out
+
+
 # ----------------------------------------------------------- stacked trees
 
 

@@ -1,9 +1,12 @@
-"""Synthetic-but-learnable CIFAR-like images (port of
-`repro.data.synthetic.SyntheticImages`).
+"""Synthetic-but-learnable datasets (port of `repro.data.synthetic`).
 
-``batch(step)`` is a pure function of (seed, split, step): images are a
-class template plus brightness jitter and pixel noise, labels the class. The
-shapes, splits and construction follow the JAX package; the values come from
+``batch(step)`` is a pure function of (seed, split, step).
+`SyntheticImages`: CIFAR-like images, a class template plus brightness
+jitter and pixel noise, labels the class. `SyntheticTokens`: an LM token
+stream, the noisy affine bigram process ``next = (a * cur + b) % vocab``
+with probability 1 - eps, else a uniform token. The shapes, splits and
+construction follow the JAX package (the bigram map's ``a`` and ``b``,
+int32 arithmetic included, are its own); the values come from
 `torch.Generator` and differ from `jax.random`'s, so parity tests hand both
 packages the same numpy batch instead.
 """
@@ -17,6 +20,11 @@ import torch
 import torch.nn.functional as F
 
 _SPLIT_SALT = {"train": 0, "val": 1, "test": 2}
+
+
+def _wrap_int32(x: torch.Tensor) -> torch.Tensor:
+    """int64 values wrapped to int32 two's complement (still int64)."""
+    return torch.remainder(x + (1 << 31), 1 << 32) - (1 << 31)
 
 
 def _generator(*seeds: int) -> torch.Generator:
@@ -56,3 +64,47 @@ class SyntheticImages:
         scale = 1.0 + 0.2 * torch.randn((batch_size, 1, 1, 1), generator=gen)
         x = x * scale + self.noise * torch.randn(x.shape, generator=gen)
         return x.to(device=device, dtype=torch.float32), y.to(device)
+
+
+@dataclasses.dataclass(frozen=True)
+class SyntheticTokens:
+    """LM token stream: noisy affine bigram process over the vocab.
+
+    next = (a * cur + b) % vocab  with prob 1-eps, else uniform noise.
+    """
+
+    vocab: int = 32000
+    eps: float = 0.15
+    seed: int = 0
+
+    @property
+    def _a(self) -> int:
+        return 31337 % self.vocab or 7
+
+    @property
+    def _b(self) -> int:
+        return (self.seed * 2654435761 + 12345) % self.vocab
+
+    def next_tokens(self, cur: torch.Tensor) -> torch.Tensor:
+        """The bigram map of int tokens, in the JAX package's int32
+        arithmetic (``a * cur + b`` wraps at 2^31, then a floor modulo)."""
+        x = _wrap_int32(_wrap_int32(cur.long() * self._a) + self._b)
+        return torch.remainder(x, self.vocab).to(torch.int32)
+
+    def batch(self, step: int, batch_size: int, seq_len: int,
+              split: str = "train", *, device):
+        """Returns (tokens (B, S) int32, labels (B, S) int32) on ``device``;
+        the labels are the tokens shifted by one. Drawn on the CPU so every
+        device sees the same batch."""
+        gen = _generator(self.seed + 7000 * _SPLIT_SALT[split], step)
+        cur = torch.randint(0, self.vocab, (batch_size,), generator=gen,
+                            dtype=torch.int32)
+        noise = torch.rand((seq_len, batch_size), generator=gen) < self.eps
+        rand_tok = torch.randint(0, self.vocab, (seq_len, batch_size),
+                                 generator=gen, dtype=torch.int32)
+        seq = [cur]
+        for t in range(seq_len):
+            cur = torch.where(noise[t], rand_tok[t], self.next_tokens(cur))
+            seq.append(cur)
+        seq = torch.stack(seq, dim=1).to(device)          # (B, S + 1)
+        return seq[:, :-1], seq[:, 1:]

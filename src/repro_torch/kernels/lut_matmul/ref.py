@@ -69,6 +69,46 @@ def lut_matmul_ref(x: torch.Tensor, packed: torch.Tensor,
     return lut_matmul_fused_ref(x, packed, codebook, scale, block_k=block_k)
 
 
+def _sum_to(x: torch.Tensor, shape) -> torch.Tensor:
+    return x if x.shape == shape else x.sum_to_size(shape)
+
+
+def matmul_grads(a: torch.Tensor, b: torch.Tensor, g: torch.Tensor,
+                 dtype: torch.dtype, needs=(True, True)):
+    """(grad a, grad b) of ``a @ b`` for the output gradient ``g``, summed
+    in ``dtype`` and rounded to each operand's dtype; a broadcast operand's
+    gradient is summed over the axes it was broadcast along."""
+    g = g.to(dtype)
+    ga = gb = None
+    if needs[0]:
+        ga = _sum_to(g @ b.to(dtype).mT, a.shape).to(a.dtype)
+    if needs[1]:
+        if b.ndim == 2:       # fold a's leading axes into one product
+            gb = (a.to(dtype).reshape(-1, a.shape[-1]).mT
+                  @ g.reshape(-1, g.shape[-1]))
+        else:
+            gb = _sum_to(a.to(dtype).mT @ g, b.shape)
+        gb = gb.to(b.dtype)
+    return ga, gb
+
+
+class _ExactMatmul(torch.autograd.Function):
+    """`exact_matmul` under autograd: the backward reads the operands as
+    given (float32 or bfloat16), never float64 copies of them, and sums in
+    float64, rounded once: the gradient autograd takes through the float64
+    product, without keeping that product's operands."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return (a.double() @ b.double()).float()
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        return matmul_grads(a, b, g, torch.float64, ctx.needs_input_grad)
+
+
 def exact_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """float32 ``a @ b``, correctly rounded: the float32 products are exact
     in float64 and summed there (error ~K * 2^-53), then rounded once, as the
@@ -76,7 +116,10 @@ def exact_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     order they sum in (unless an exact sum lies within ~K * 2^-53 of a
     float32 rounding midpoint), so the int8 activation quantization that
     follows every layer cannot drift apart between them; see the kernel
-    source's header."""
+    source's header. Under autograd the float64 copies of the operands are
+    not kept (`_ExactMatmul`)."""
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        return _ExactMatmul.apply(a, b)
     return (a.double() @ b.double()).float()
 
 

@@ -1,1 +1,2 @@
-"""Launchers of the port: `repro_torch.launch.serve`."""
+"""Launchers of the port: `repro_torch.launch.serve` and
+`repro_torch.launch.train`."""

@@ -1,8 +1,8 @@
 """Serving launcher (port of `repro.launch.serve`): a thin CLI over the
-port's pipeline with an LM target — seeded parameters, optionally every
-eligible matmul restricted to a k-value codebook and the packed 4-bit
-artifacts exported, then a request trace drained through
-`repro_torch.serving.ServingEngine`.
+port's pipeline with an LM target — seeded parameters or a checkpoint's
+(``--ckpt-dir``), optionally every eligible matmul restricted to a k-value
+codebook and the packed 4-bit artifacts exported, then a request trace
+drained through `repro_torch.serving.ServingEngine`.
 
     python -m repro_torch.launch.serve --arch olmo-1b --reduced --device cpu
 
@@ -11,9 +11,18 @@ artifacts exported, then a request trace drained through
 two are output-identical (the wave scheduler, ``mode="wave"`` of
 `ServingEngine`, is not a serve-stage mode). ``--compress-k N`` restricts
 every eligible matmul to an N-value codebook, exports the packed artifacts
-and serves the compressed fake-quant forward. Fleet serving (``--plans``) is not ported yet
-(`repro_torch.serving.fleet.FLEET_NOT_PORTED`). Runs on the card unless
+and serves the compressed fake-quant forward. Runs on the card unless
 ``--device cpu``.
+
+``--plans SPEC [SPEC ...]`` (or ``--plans-dir DIR``) serves a **fleet**
+instead of one pinned variant: every SPEC becomes a resident
+`repro_torch.serving.fleet.PlanHandle` (``base``, ``k4``, ``k8m2``, or a
+saved CompressionPlan base path) and a `FleetRouter` picks the variant per
+request from queue pressure and per-request budgets — degrading to
+aggressive compression under load, recovering to high fidelity when idle:
+
+    python -m repro_torch.launch.serve --arch olmo-1b --reduced \
+        --plans k4 base --device cpu
 """
 
 from __future__ import annotations
@@ -104,8 +113,7 @@ def main(argv: Optional[list] = None) -> int:
     ap.add_argument("--reduced", action="store_true",
                     help="CPU-sized config of the same family")
     ap.add_argument("--ckpt-dir", default=None,
-                    help="restore params from a checkpoint directory (not "
-                         "ported yet)")
+                    help="restore params from a CheckpointManager directory")
     ap.add_argument("--mode", choices=("engine", "oneshot"),
                     default="engine",
                     help="continuous-batching engine or single-shot fallback")
@@ -122,6 +130,13 @@ def main(argv: Optional[list] = None) -> int:
                     help="restrict eligible matmuls to a k-value codebook, "
                          "export packed 4-bit artifacts and serve the "
                          "compressed forward")
+    ap.add_argument("--plans", nargs="+", default=None, metavar="SPEC",
+                    help="fleet serving: resident variants ('base', "
+                         "'k<N>[m<M>]', or saved CompressionPlan base "
+                         "paths) routed across by load and budget")
+    ap.add_argument("--plans-dir", default=None, metavar="DIR",
+                    help="fleet serving: load every saved CompressionPlan "
+                         "under DIR as a resident variant")
     ap.add_argument("--plan-out", default=None, metavar="BASE",
                     help="save the CompressionPlan to BASE.json + BASE.npz")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
@@ -147,6 +162,8 @@ def main(argv: Optional[list] = None) -> int:
                             ckpt_dir=args.ckpt_dir),
         train=TrainStageConfig(qat_steps=0, final_finetune_steps=0),
         serve=ServeStageConfig(mode=args.mode, compress_k=args.compress_k,
+                               plans=tuple(args.plans or ()),
+                               plans_dir=args.plans_dir,
                                requests=args.batch,
                                prompt_len=args.prompt_len,
                                new_tokens=args.new_tokens, mixed=args.mixed,
@@ -167,17 +184,32 @@ def main(argv: Optional[list] = None) -> int:
               f"({m['export_compression_vs_int8']:.2f}x vs int8), "
               f"LUT parity max rel err "
               f"{m['export_parity_max_rel_err']:.2e}")
-    print(f"{args.mode}: {m['serve_requests']} requests, "
-          f"{m['serve_new_tokens']} tokens in {m['serve_wall_s']:.2f}s "
-          f"({m['serve_tokens_per_s']:.1f} tok/s), "
-          f"latency p50/p99 {m['serve_latency_p50_s'] * 1e3:.0f}/"
-          f"{m['serve_latency_p99_s'] * 1e3:.0f} ms, "
-          f"ttft p50 {m['serve_ttft_p50_s'] * 1e3:.0f} ms, "
-          f"energy {m['serve_energy_eu_total']:.3g} eu "
-          f"({m['serve_energy_eu_per_token']:.3g} eu/token), "
-          f"{m['serve_cache_buckets_compiled']} buckets / "
-          f"{m['serve_cache_compile_count']} builds")
     results = pipe.target.last_serve_results
+    if m.get("serve_mode") == "fleet":
+        rep = pipe.target.last_fleet_report
+        print(f"fleet [{m['serve_plans']}]: {m['serve_requests']} requests "
+              f"({m['serve_tokens_per_s']:.1f} tok/s), "
+              f"{m['serve_level_degrades']} degrades / "
+              f"{m['serve_level_recovers']} recovers, "
+              f"{m['serve_recompiles_after_warmup']} recompiles after warmup")
+        for pid, p in rep["plans"].items():
+            print(f"  plan {pid}: {p['requests']} requests, "
+                  f"{p['new_tokens']} tokens, {p['energy_eu']:.3g} eu")
+        for tid, t in sorted(rep["tenants"].items()):
+            print(f"  tenant {tid}: {t['requests']} requests, "
+                  f"{t['new_tokens']} tokens, {t['energy_eu']:.3g} eu, "
+                  f"SLO {t['slo_hits']}/{t['slo_total']}")
+    else:
+        print(f"{args.mode}: {m['serve_requests']} requests, "
+              f"{m['serve_new_tokens']} tokens in {m['serve_wall_s']:.2f}s "
+              f"({m['serve_tokens_per_s']:.1f} tok/s), "
+              f"latency p50/p99 {m['serve_latency_p50_s'] * 1e3:.0f}/"
+              f"{m['serve_latency_p99_s'] * 1e3:.0f} ms, "
+              f"ttft p50 {m['serve_ttft_p50_s'] * 1e3:.0f} ms, "
+              f"energy {m['serve_energy_eu_total']:.3g} eu "
+              f"({m['serve_energy_eu_per_token']:.3g} eu/token), "
+              f"{m['serve_cache_buckets_compiled']} buckets / "
+              f"{m['serve_cache_compile_count']} builds")
     for rid in sorted(results)[:2]:
         print(f"  req{rid}: {results[rid].tokens[:10]}...")
     if args.plan_out:

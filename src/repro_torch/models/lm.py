@@ -17,7 +17,10 @@ reference's scan. On the serve path (``comp_mode="serve"``) units with a
 packed artifact run on the LUT GEMM (K2) and only the others take that
 launch. The serving engine's chunked prefill (`LMModel.prefill_chunk`) and
 its cache row shuffles (`gather_cache_rows`, `scatter_cache_rows`) follow
-the same layer walk and make the same one K3 launch a call.
+the same layer walk and make the same one K3 launch a call. `LMModel.loss`
+is the causal LM loss of the train step (`repro_torch.launch.train`); its
+forward may recompute each layer in the backward (``remat``) and take the
+flash backward of attention (``use_flash``).
 
 Ported families: dense decoder-only stacks of ``attn`` / ``local`` blocks.
 `build_lm` raises `NotImplementedError`, naming the ROADMAP.md item, for
@@ -31,6 +34,7 @@ import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import qat
 from repro_torch.core.export import ServeArtifact
@@ -155,9 +159,21 @@ class LMModel:
 
     def forward(self, params, tokens: torch.Tensor, *,
                 qcfg: QuantConfig = QuantConfig.off(), comp=None,
-                q_block: int = 512, kv_block: int = 512
+                remat: bool = False, q_block: int = 512,
+                kv_block: int = 512, use_flash: bool = False,
+                remat_policy: Optional[str] = None
                 ) -> Tuple[torch.Tensor, dict]:
-        """Returns (logits (B, S, padded_vocab) float32, aux)."""
+        """Returns (logits (B, S, padded_vocab) float32, aux).
+
+        ``remat``: each layer runs under `torch.utils.checkpoint`
+        (non-reentrant), so the backward recomputes its activations instead
+        of keeping them; the gradients are those without it, bit for bit.
+        The one grouped K3 launch stays outside the checkpointed layers,
+        and its fake-quantized weights are kept for the backward: that is
+        the JAX package's ``remat_policy="save_qat"``, which is therefore
+        what the port does under either policy (the argument is accepted
+        and changes nothing). ``use_flash``: attention's flash backward
+        (`repro_torch.nn.flash`)."""
         cfg = self.cfg
         b, s = tokens.shape
         x = _embed(params, tokens, cfg)
@@ -168,12 +184,44 @@ class LMModel:
         weff = self._fake_quant_units(params, comp, qcfg)
         for block_params, block_comp, block_weff, bt, _ in self._layers(
                 params, comp, weff):
-            x, a = apply_block(block_params, x, cfg, bt, positions=positions,
-                               qcfg=qcfg, comp=block_comp, q_block=q_block,
-                               kv_block=kv_block, w_eff=block_weff)
+            def layer(x, block_params=block_params, block_comp=block_comp,
+                      block_weff=block_weff, bt=bt):
+                return apply_block(block_params, x, cfg, bt,
+                                   positions=positions, qcfg=qcfg,
+                                   comp=block_comp, q_block=q_block,
+                                   kv_block=kv_block, w_eff=block_weff,
+                                   use_flash=use_flash)
+
+            if remat:
+                x, a = checkpoint(layer, x, use_reentrant=False)
+            else:
+                x, a = layer(x)
             aux = {k: aux[k] + a[k] for k in aux}
         x = T.apply_norm(params["final_norm"], x, cfg, qcfg.batch_invariant)
         return self._unembed(params, x, qcfg.batch_invariant), aux
+
+    # ----------------------------------------------------------------- loss
+
+    def loss(self, params, batch: Dict[str, torch.Tensor], **fwd_kwargs):
+        """Causal LM loss: (total, {"ce", "lb_loss", "z_loss"}). ``batch``
+        holds ``tokens`` and ``labels`` (B, S) and optionally ``loss_mask``;
+        the log-softmax is taken over the trailing label positions, and
+        ``total = ce + 0.01 * lb_loss + 1e-3 * z_loss`` (both zero for the
+        dense family). ``fwd_kwargs`` go to `forward`."""
+        logits, aux = self.forward(params, batch["tokens"], **fwd_kwargs)
+        labels = batch["labels"].long()
+        logits_tok = logits[:, logits.shape[1] - labels.shape[1]:]
+        logp = torch.log_softmax(logits_tok, dim=-1)
+        nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
+        mask = batch.get("loss_mask")
+        if mask is not None:
+            mask = mask.to(nll.dtype)
+            loss = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+        else:
+            loss = nll.mean()
+        total = loss + 0.01 * aux["lb_loss"] + 1e-3 * aux["z_loss"]
+        return total, {"ce": loss, "lb_loss": aux["lb_loss"],
+                       "z_loss": aux["z_loss"]}
 
     def _unembed(self, params, x, exact: bool = False):
         """Logits in float32 with the vocab padding masked to -1e30 (the

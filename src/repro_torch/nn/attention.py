@@ -174,7 +174,8 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       q_block: int = 512, kv_block: int = 512,
                       q_positions: Optional[torch.Tensor] = None,
                       kv_positions: Optional[torch.Tensor] = None,
-                      exact: bool = False) -> torch.Tensor:
+                      exact: bool = False,
+                      use_flash: bool = False) -> torch.Tensor:
     """Online-softmax attention. q: (B, Sq, Hq, D); k, v: (B, Sk, Hkv, D),
     Sq and Sk multiples of the block sizes (callers pad).
 
@@ -182,9 +183,11 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the key/value blocks in order with a running maximum, sum and output in
     float32 (the JAX package's ``lax.scan`` schedule, written as loops);
     fully masked key blocks add exactly zero once a real key has been seen.
-    The JAX package's ``use_flash`` branch (a training custom VJP) is not
-    ported (ROADMAP.md item 6b). ``exact``: products and sums round once
-    from float64 (see the module docstring).
+    ``use_flash`` takes the same forward through `repro_torch.nn.flash`,
+    whose backward recomputes the score tiles instead of saving them
+    (per-sequence positions raise; a softcap keeps the autograd path, as in
+    the JAX package). ``exact``: products and sums round once from float64
+    (see the module docstring).
     """
     b, sq, hq, hd = q.shape
     sk, hkv = k.shape[1], k.shape[2]
@@ -200,6 +203,15 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                               device=dev)
     if kv_positions is None:
         kv_positions = torch.arange(sk, dtype=torch.int32, device=dev)
+    if use_flash and (q_positions.ndim > 1 or kv_positions.ndim > 1):
+        raise ValueError("flash attention does not support per-sequence "
+                         "positions; use the blocked path")
+    if use_flash and dims.softcap == 0:
+        from repro_torch.nn.flash import flash_attention
+
+        out = flash_attention(qg, k, v, q_positions, kv_positions,
+                              dims.causal, dims.window, q_block, kv_block)
+        return out.reshape(b, sq, hq, hd)
     kt = k.permute(0, 2, 3, 1).unsqueeze(2)          # (b, hkv, 1, hd, sk)
     vt = v.permute(0, 2, 1, 3).unsqueeze(2)          # (b, hkv, 1, sk, hd)
 
@@ -278,10 +290,11 @@ def apply_attention(params, x: torch.Tensor, dims: AttnDims, *,
                     qcfg: QuantConfig = QuantConfig.off(), comp=None,
                     name: str = "attn", q_block: int = 512,
                     kv_block: int = 512, return_kv: bool = False,
-                    w_eff=None):
+                    w_eff=None, use_flash: bool = False):
     """Prefill attention over (B, S, d_model). Returns the output, or
     (output, (k, v)) with post-RoPE K/V when ``return_kv`` (prefill cache
-    capture). Cross-attention (the JAX package's ``kv``) belongs to the
+    capture). ``use_flash``: `blocked_attention`'s flash backward.
+    Cross-attention (the JAX package's ``kv``) belongs to the
     encoder-decoder family and is not ported (ROADMAP.md item 6c)."""
     b, s, _ = x.shape
     dev = x.device
@@ -305,7 +318,8 @@ def apply_attention(params, x: torch.Tensor, dims: AttnDims, *,
         k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad_k))
         v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad_k))
     out = blocked_attention(q, k, v, dims, q_block=q_block,
-                            kv_block=kv_block, exact=qcfg.batch_invariant)
+                            kv_block=kv_block, exact=qcfg.batch_invariant,
+                            use_flash=use_flash)
     if pad_q:
         out = out[:, :s]
     out = _project(params, out, qcfg, comp, name, "wo", w_eff=w_eff)

@@ -167,10 +167,12 @@ def apply_block(params, x: torch.Tensor, cfg: ArchConfig, block_type: str, *,
                 positions: Optional[torch.Tensor] = None,
                 qcfg: QuantConfig = QuantConfig.off(), comp=None,
                 q_block: int = 512, kv_block: int = 512,
-                return_state: bool = False, w_eff=None):
+                return_state: bool = False, w_eff=None,
+                use_flash: bool = False):
     """One residual block (prefill). Returns (x, aux), or ((x, aux), state)
     when ``return_state``: the state is the block's contribution to a
-    decode cache (K/V after RoPE)."""
+    decode cache (K/V after RoPE). ``use_flash``: the attention's flash
+    backward (`repro_torch.nn.flash`)."""
     _check_block(params, block_type)
     aux = {"lb_loss": torch.zeros((), device=x.device),
            "z_loss": torch.zeros((), device=x.device)}
@@ -179,7 +181,8 @@ def apply_block(params, x: torch.Tensor, cfg: ArchConfig, block_type: str, *,
                             cfg.attn_dims(block_type == "local"),
                             positions=positions, qcfg=qcfg, comp=comp,
                             name="attn", q_block=q_block, kv_block=kv_block,
-                            return_kv=return_state, w_eff=w_eff)
+                            return_kv=return_state, w_eff=w_eff,
+                            use_flash=use_flash)
     state = None
     if return_state:
         mix, (k_st, v_st) = mix

@@ -14,6 +14,7 @@
                                  [--prompt-len P] [--new-tokens T]
                                  [--mixed] [--max-batch B]
                                  [--temperature X] [--verify-oneshot]
+                                 [--plans SPEC ...] [--plans-dir DIR]
 
 ``profile`` runs the CNN target through ``energy_model``: ``--steps`` steps
 of QAT base training (``train.qat_steps``), the per-layer trace statistics
@@ -29,7 +30,8 @@ package.
 
 ``--target lm`` compresses an LM of
 `repro_torch.configs` (``--arch olmo-1b``; ``--reduced``: its scaled-down
-form, no LM QAT, ``--compress-k 4``): profile (seeded parameters),
+form, no LM QAT, ``--compress-k 4``): profile (seeded parameters, then
+``train.qat_steps`` of LM QAT, 300 by default, ``--steps N`` to override),
 energy_model (the uniform-trace LUT), schedule (every matmul restricted to
 the same k-value codebook) and export (packed 4-bit artifacts, one a layer).
 For an LM target ``compress`` runs through ``export`` and prints one line
@@ -38,9 +40,12 @@ naming ``serve --plan-in`` for the serve stage; the JAX package's
 runs the serve stage: the continuous-batching engine drains a
 deterministic request trace (the ``serve`` options override the plan's
 ``serve`` section; ``--verify-oneshot`` drains it through the oneshot
-fallback too and records whether every token agrees). Fleet serving
-(``--plans``) is not ported. ``--compress-k`` applies to an LM target
-only; with any other it is an error.
+fallback too and records whether every token agrees). ``--plans SPEC
+...`` / ``--plans-dir DIR`` serve a fleet instead of the plan's one
+variant: every SPEC (``base``, ``k<N>[m<M>]``, or a saved plan's base path)
+and every saved plan under DIR is a resident plan, and the fleet router
+picks one per request from queue pressure and budgets. ``--compress-k``
+applies to an LM target only; with any other it is an error.
 ``--plan-in`` resumes a plan (completed stages are skipped), ``--plan-out``
 saves the result as ``BASE.json`` + ``BASE.npz``. Every command takes
 ``--device``, which defaults to ``cuda``; on a host without CUDA that is an
@@ -121,6 +126,17 @@ def build_parser() -> argparse.ArgumentParser:
                            default=None,
                            help="cross-check engine tokens vs the oneshot "
                                 "fallback")
+            p.add_argument("--plans", nargs="+", default=None,
+                           metavar="SPEC",
+                           help="fleet serving: resident plan variants "
+                                "routed across by load/budget. Each SPEC is "
+                                "'base', 'k<N>[m<M>]' (k-value codebook + "
+                                "MSR bits), or a saved CompressionPlan "
+                                "base path")
+            p.add_argument("--plans-dir", default=None, metavar="DIR",
+                           help="fleet serving: load every saved "
+                                "CompressionPlan under DIR as a resident "
+                                "variant")
     return ap
 
 
@@ -135,6 +151,9 @@ def _serve_overrides(args) -> dict:
         "max_batch": getattr(args, "max_batch", None),
         "temperature": getattr(args, "temperature", None),
         "verify_oneshot": getattr(args, "verify_oneshot", None),
+        "plans": (tuple(args.plans)
+                  if getattr(args, "plans", None) else None),
+        "plans_dir": getattr(args, "plans_dir", None),
     }
     return {k: v for k, v in fields.items() if v is not None}
 

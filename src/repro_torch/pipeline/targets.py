@@ -6,17 +6,19 @@ mutates only the plan. The CNN target's five stages are ported operation for
 operation: ``profile`` (QAT base training, then the trace statistics),
 ``energy_model``, ``schedule`` (both search modes, the batched candidate
 sweep by default), ``export`` and ``serve``. The LM target's five are
-ported too (`LMTarget`): parameter initialisation, the uniform-trace
-energy model, the uniform k-value codebook restriction, the export of
-packed artifacts, and the serve stage (the continuous-batching engine over
-a deterministic trace). What is not ported (the cosim gate, LM QAT,
-checkpoint restore, fleets, the routed targets) raises
+ported too (`LMTarget`): parameter initialisation or a checkpoint restore
+followed by ``train.qat_steps`` of LM QAT, the uniform-trace energy model,
+the uniform k-value codebook restriction, the export of packed artifacts,
+and the serve stage (the continuous-batching engine over a deterministic
+trace, pinned to one plan or routed across a fleet of resident plans).
+What is not ported (the cosim gate, the routed targets) raises
 `NotImplementedError` naming the ROADMAP.md item that ports it, from a
 target's ``check_ported`` or `resolve_target` before any stage runs.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -29,7 +31,7 @@ from repro_torch.core.export import export_model, export_summary
 from repro_torch.core.runner import CnnRunner
 from repro_torch.core.schedule import energy_prioritized_compression
 from repro_torch.configs import get_config
-from repro_torch.data.synthetic import SyntheticImages
+from repro_torch.data.synthetic import SyntheticImages, SyntheticTokens
 from repro_torch.models.lm import build_lm
 from repro_torch.nn.cnn import CNN_FACTORIES
 from repro_torch.nn.layers import QuantConfig
@@ -37,14 +39,9 @@ from repro_torch.nn.spec import init_params, spec_count
 from repro_torch.pipeline.config import PipelineConfig
 from repro_torch.pipeline.plan import CompressionPlan, decision_dict
 from repro_torch.serving import metrics as serve_metrics
-from repro_torch.serving.fleet import FLEET_NOT_PORTED
 
 _NOT_PORTED = {
     "verify_cosim": "ROADMAP.md Queue 1 item 9, 'Bit-accurate cosim'",
-    "lm_qat": "ROADMAP.md Queue 1 item 6b, 'LM QAT'",
-    "ckpt_dir": "ROADMAP.md Queue 1 item 10, 'Multi-device, checkpointing, "
-                "launch'",
-    "fleet": FLEET_NOT_PORTED,
     "moe": "ROADMAP.md Queue 1, 'Routed targets'",
     "scan": "ROADMAP.md Queue 1, 'Routed targets'",
 }
@@ -286,7 +283,9 @@ class LMTarget:
     """LM compression and serving (port of
     `repro.pipeline.targets.LMTarget`) on one device. The model is
     `build_lm` of the config's architecture, scaled down where
-    ``target.reduced``."""
+    ``target.reduced``. ``data`` is the LM QAT's token stream: any object
+    with ``batch(step, batch_size, seq_len, *, device) -> (tokens,
+    labels)``, `SyntheticTokens` of ``target.data_seed`` unless replaced."""
 
     kind = "lm"
 
@@ -298,27 +297,17 @@ class LMTarget:
         self.model = build_lm(acfg)
         self.name = acfg.name
         self.device = device
+        self.data = SyntheticTokens(vocab=acfg.vocab,
+                                    seed=cfg.target.data_seed)
         self._unit_energy_cache: Optional[Dict[str, float]] = None
         self.last_serve_results: Dict = {}
+        self.last_fleet_report: Optional[dict] = None
+        self.last_qat: Dict[str, list] = {"loss": [], "step_s": []}
 
     @staticmethod
     def check_ported(cfg: PipelineConfig, stages) -> None:
-        """Raise `NotImplementedError`, naming its ROADMAP.md item, for what
-        the port's LM target does not have yet: LM QAT steps, a checkpoint
-        to restore and fleets. `Pipeline` calls this before the first stage
-        does work."""
-        if cfg.serve.plans or cfg.serve.plans_dir:
-            raise NotImplementedError(
-                "serve.plans / serve.plans_dir (fleet serving) is not "
-                f"ported yet: {_NOT_PORTED['fleet']}")
-        if "profile" in stages and cfg.train.qat_steps:
-            raise NotImplementedError(
-                f"LM QAT (train.qat_steps={cfg.train.qat_steps}) is not "
-                f"ported yet: {_NOT_PORTED['lm_qat']}; set qat_steps=0")
-        if "profile" in stages and cfg.target.ckpt_dir:
-            raise NotImplementedError(
-                "restoring an LM checkpoint (target.ckpt_dir) is not ported "
-                f"yet: {_NOT_PORTED['ckpt_dir']}")
+        """Every option of the LM target is ported; `Pipeline` calls this
+        before the first stage does work, as for the other targets."""
 
     def _on_device(self, plan: CompressionPlan) -> None:
         """Move the plan's tensors to this target's device (plans load on
@@ -342,21 +331,69 @@ class LMTarget:
 
     def stage_profile(self, plan: CompressionPlan, cfg: PipelineConfig,
                       verbose: bool = False) -> None:
-        """Seeded parameters (``target.seed``), unless the plan already
-        carries parameters (a plan of either package), and the identity
+        """Parameters: restored from ``target.ckpt_dir`` (its ``params``
+        subtree when the checkpoint holds a train state), else the plan's
+        own (a plan of either package), else seeded (``target.seed``);
+        then ``train.qat_steps`` of LM QAT (`_qat_train`) and the identity
         comp tree."""
-        if plan.params is None:
-            plan.params = init_params(cfg.target.seed, self.model.spec,
-                                      self.device)
+        if cfg.target.ckpt_dir:
+            from repro_torch.checkpoint.manager import CheckpointManager
+
+            step, state = CheckpointManager(cfg.target.ckpt_dir).restore(
+                device=self.device)
+            params = state["params"] if "params" in state else state
+            if verbose:
+                print(f"[pipeline] restored checkpoint step {step}")
+        elif plan.params is None:
+            params = init_params(cfg.target.seed, self.model.spec,
+                                 self.device)
         else:
-            plan.params = tree_to(plan.params, self.device)
-        plan.comp = lm_compress.init_lm_comp(self.model, device=self.device)
+            params = tree_to(plan.params, self.device)
+        comp = lm_compress.init_lm_comp(self.model, device=self.device)
+        if cfg.train.qat_steps:
+            params = self._qat_train(params, comp, cfg, verbose)
+        plan.params, plan.comp = params, comp
         plan.metrics["n_params"] = int(spec_count(self.model.spec))
         plan.metrics["n_units"] = len(lm_compress.lm_comp_layers(self.model))
         if verbose:
             print(f"[pipeline] {self.name}: "
                   f"{plan.metrics['n_params'] / 1e6:.1f}M params, "
                   f"{plan.metrics['n_units']} compressible units")
+
+    def _qat_train(self, params, comp, cfg: PipelineConfig, verbose: bool):
+        """LM QAT through the `repro_torch.launch.train` step factories:
+        the JAX stage's settings (QAT with the comp tree, no remat, 128-wide
+        attention blocks, ``target.lr``), ``target.batch_size`` sequences
+        of 64 tokens a step from ``data``. The forward keeps the JAX
+        package's numerics (`QuantConfig.batch_invariant` off). Each step's
+        loss and wall time (the loss read back, so the step has finished)
+        are kept in ``last_qat``."""
+        from repro_torch.launch.train import (
+            StepConfig,
+            make_optimizer,
+            make_train_step,
+        )
+
+        step_cfg = StepConfig(qat=True, with_comp=True, remat=False,
+                              q_block=128, kv_block=128, lr=cfg.target.lr)
+        train_step = make_train_step(self.model, step_cfg)
+        state = {"params": params,
+                 "opt": make_optimizer(step_cfg).init(params)}
+        self.last_qat = {"loss": [], "step_s": []}
+        loss = float("nan")
+        for i in range(cfg.train.qat_steps):
+            t0 = time.perf_counter()
+            x, y = self.data.batch(i, cfg.target.batch_size, 64,
+                                   device=self.device)
+            state, metrics = train_step(state, {"tokens": x, "labels": y},
+                                        comp)
+            loss = float(metrics["loss"])
+            self.last_qat["loss"].append(loss)
+            self.last_qat["step_s"].append(time.perf_counter() - t0)
+        if verbose:
+            print(f"[pipeline] LM QAT: {cfg.train.qat_steps} steps, "
+                  f"final loss={loss:.3f}")
+        return state["params"]
 
     def stage_energy_model(self, plan: CompressionPlan, cfg: PipelineConfig,
                            verbose: bool = False) -> None:
@@ -443,6 +480,29 @@ class LMTarget:
                                               device=self.device)
         return PlanHandle.uncompressed()
 
+    def _fleet_handles(self, plan: CompressionPlan, cfg: PipelineConfig):
+        """Resolve ``serve.plans`` specs and ``serve.plans_dir`` into a
+        `PlanRegistry`: every saved plan under the directory, then each
+        spec (``base``, ``k<N>[m<M>]``, or a saved plan's base path)."""
+        from repro_torch.pipeline.config import parse_plan_spec
+        from repro_torch.serving import PlanHandle, PlanRegistry
+
+        registry = PlanRegistry()
+        if cfg.serve.plans_dir:
+            for h in PlanRegistry.from_dir(cfg.serve.plans_dir):
+                registry.register(h)
+        for spec in cfg.serve.plans:
+            k, msr = parse_plan_spec(spec)
+            if k is None:
+                loaded = CompressionPlan.load(spec)
+                registry.register(PlanHandle.from_compression_plan(loaded))
+            elif k == 0:
+                registry.register(PlanHandle.uncompressed())
+            else:
+                registry.register(PlanHandle.from_compress_k(
+                    self.model, k, msr_bits=msr, device=self.device))
+        return registry
+
     def stage_serve(self, plan: CompressionPlan, cfg: PipelineConfig,
                     verbose: bool = False) -> None:
         """Drain a deterministic request trace through the serving engine
@@ -452,7 +512,8 @@ class LMTarget:
         ``verify_oneshot`` the oneshot fallback drains the same trace and
         ``serve_parity_engine_vs_oneshot`` records whether every request's
         tokens agree; ``serve_recompiles_after_warmup`` counts step builds
-        after warmup.
+        after warmup. With ``serve.plans`` / ``serve.plans_dir`` the trace
+        is routed across a fleet instead (`_serve_fleet`).
 
         Prompts (`lm_serve_trace`): request i draws
         ``np.random.default_rng(prompt_seed + i).integers(0, vocab,
@@ -465,6 +526,9 @@ class LMTarget:
         self._on_device(plan)
         s = cfg.serve
         shapes, ecfg, requests = lm_serve_trace(s, self.acfg.vocab)
+        if s.plans or s.plans_dir:
+            self._serve_fleet(plan, cfg, ecfg, shapes, requests, verbose)
+            return
         handle = self._serve_handle(plan, s.compress_k)
 
         def drain(mode):
@@ -498,3 +562,37 @@ class LMTarget:
             if parity is not None:
                 line += f", engine==oneshot: {parity}"
             print(line)
+
+    def _serve_fleet(self, plan: CompressionPlan, cfg: PipelineConfig, ecfg,
+                     shapes, requests, verbose: bool) -> None:
+        """Fleet path: route the trace across every resident plan
+        (`FleetRouter`; ``mode="oneshot"`` becomes ``"engine"`` for a fleet,
+        as in the JAX stage). Metrics: the fleet report's scalars as
+        ``serve_*``, ``serve_mode = "fleet"`` and ``serve_plans``, the plan
+        ids by level."""
+        from repro_torch.serving import FleetRouter
+
+        s = cfg.serve
+        registry = self._fleet_handles(plan, cfg)
+        fleet = FleetRouter(self.model, plan.params, registry,
+                            mode=s.mode if s.mode != "oneshot" else "engine",
+                            config=ecfg, device=self.device)
+        fleet.warmup(shapes)
+        results = fleet.serve(requests)
+        rep = fleet.report()
+        plan.metrics.update({f"serve_{key}": val for key, val in rep.items()
+                             if isinstance(val, (int, float, bool))})
+        plan.metrics["serve_mode"] = "fleet"
+        plan.metrics["serve_plans"] = ",".join(h.plan_id
+                                               for h in fleet.levels)
+        # engine-local rids repeat across the fleet; key on trace order
+        self.last_serve_results = dict(enumerate(results))
+        self.last_fleet_report = rep
+        if verbose:
+            routed = {pid: p["requests"] for pid, p in rep["plans"].items()}
+            print(f"[pipeline] fleet: {rep['requests']} requests over "
+                  f"{rep['plans_resident']} plans {routed}, "
+                  f"{rep['new_tokens']} tokens "
+                  f"({rep['tokens_per_s']:.1f} tok/s), "
+                  f"{rep['recompiles_after_warmup']} recompiles after "
+                  f"warmup")

@@ -1,5 +1,5 @@
-"""Continuous-batching compressed serving engine (port of `repro.serving`;
-the fleet router is not ported yet: `fleet.FLEET_NOT_PORTED`)."""
+"""Continuous-batching compressed serving engine and the multi-plan fleet
+router (port of `repro.serving`)."""
 
 from repro_torch.serving.bucketing import (  # noqa: F401
     BucketSpec,
@@ -24,7 +24,10 @@ from repro_torch.serving.engine import (  # noqa: F401
     ServingEngine,
 )
 from repro_torch.serving.fleet import (  # noqa: F401
+    FleetRouter,
     PlanHandle,
+    PlanRegistry,
+    RouterConfig,
     comp_fingerprint,
 )
 from repro_torch.serving.metrics import (  # noqa: F401

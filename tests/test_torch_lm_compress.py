@@ -289,29 +289,62 @@ def test_lm_plans_cross_between_packages(ref, monkeypatch, tmp_path):
 # -------------------------------------------------------------- boundaries
 
 
-class _WorkStarted(Exception):
-    pass
+def _lm_option(option, tmp_path):
+    """(config overrides, last stage) that exercise one LM option on the
+    reduced preset, with what the option needs on disk made under
+    ``tmp_path``."""
+    if option == "qat_steps":
+        return {"train": {"qat_steps": 2}}, "profile"
+    if option == "ckpt_dir":
+        from repro_torch.checkpoint import CheckpointManager
+
+        params = TPipeline(t_reduced_lm("olmo-1b"), device="cpu").run_until(
+            "profile").params
+        shifted = {"params": {k: v for k, v in params.items()}}
+        shifted["params"]["embed"] = {"table": params["embed"]["table"] + 1}
+        CheckpointManager(tmp_path / "ckpt", async_save=False).save(
+            7, shifted)
+        return {"target": {"ckpt_dir": str(tmp_path / "ckpt")}}, "profile"
+    if option == "plans_dir":
+        plans = tmp_path / "plans"
+        plans.mkdir()
+        TPipeline(t_reduced_lm("olmo-1b"), device="cpu").run_until(
+            "schedule").save(plans / "olmo-k4")
+        return {"serve": {"plans_dir": str(plans)}}, "serve"
+    return {"serve": {"plans": ("k4", "base")}}, "serve"
 
 
-@pytest.mark.parametrize("over,stage,match", [
-    ({"train": {"qat_steps": 2}}, "profile", "item 6b"),
-    ({"target": {"ckpt_dir": "/nonexistent"}}, "profile", "item 10"),
-    ({"serve": {"plans_dir": "/x"}}, "serve", "fleet"),
-    ({"serve": {"plans": ("k4",)}}, "export", "fleet"),
-])
-def test_unported_lm_options_raise_before_work(over, stage, match):
+@pytest.mark.parametrize("option", ["qat_steps", "ckpt_dir", "plans_dir",
+                                    "plans"])
+def test_unported_lm_options_raise_before_work(option, tmp_path):
+    """Each LM option the port once refused (LM QAT steps, a checkpoint to
+    restore, a fleet from a plan directory or from plan specs) now runs on
+    the reduced preset, and the stage it changes produces its result."""
+    over, stage = _lm_option(option, tmp_path)
     pipe = TPipeline(t_reduced_lm("olmo-1b").with_overrides(over),
                      device="cpu")
-
-    def started(*a, **kw):
-        raise _WorkStarted
-
-    pipe.target.stage_profile = started
-    with pytest.raises(NotImplementedError, match=match):
-        pipe.run_until(stage)
-    assert not pipe.plan.completed
-    # the preset itself, through export, passes the check
-    pipe.target.check_ported(t_reduced_lm("olmo-1b"), STAGES)
+    plan = pipe.run_until(stage)
+    assert list(plan.completed) == list(STAGES + ("serve",))[
+        :STAGES.index(stage) + 1 if stage in STAGES else None]
+    init = TPipeline(t_reduced_lm("olmo-1b"), device="cpu").run_until(
+        "profile").params
+    table = plan.params["embed"]["table"]
+    if option == "qat_steps":
+        losses = pipe.target.last_qat["loss"]
+        assert len(losses) == 2 and all(np.isfinite(losses))
+        assert not torch.equal(table, init["embed"]["table"])
+    elif option == "ckpt_dir":
+        assert torch.equal(table, init["embed"]["table"] + 1)
+        assert torch.equal(plan.params["blocks"]["g0"]["attn"]["wq"],
+                           init["blocks"]["g0"]["attn"]["wq"])
+    else:
+        m = plan.metrics
+        want = {"plans_dir": {"olmo-k4"}, "plans": {"k4", "base"}}[option]
+        assert m["serve_mode"] == "fleet"
+        assert set(m["serve_plans"].split(",")) == want
+        assert m["serve_requests"] == pipe.cfg.serve.requests
+        assert m["serve_recompiles_after_warmup"] == 0
+        assert len(pipe.target.last_serve_results) == m["serve_requests"]
 
 
 def test_default_lm_config_parses_in_both_packages():
