@@ -148,7 +148,29 @@
    rel-L2 1e-4, the CPU's own step (its own rounding, with the flips
    counted) at loss rel 1e-5; remat == no remat bit for bit on the card;
    the flash backward against autograd through ``blocked_attention``;
-17. prints the ``kernels`` JSON line, then the result line.
+17. ``[lm-recurrent]``: (a) mamba2-1.3b (1.344e9 parameters, 48 SSD
+   layers) and (b) recurrentgemma-2b (2.895e9, 8 x (rglru, rglru, local)
+   and a tail of 2 rglru blocks) at their published widths and depths,
+   seeded: each through export (k = 4; 96 and 200 matmuls, LUT parity
+   over each); K2 at the families' new shapes (2048 x 8512 and 4096 x
+   2048; 2560 x 2560, 2560 x 256, 2560 x 7680 with gelu, 7680 x 2560) at
+   M = 1024 and 4, float32 and bfloat16 X, timed as in 12; K3's grouped
+   launches (2 units x 48 layers; 23 units x 8 layers, then the tail's
+   16) bit for bit against the plain version; the stacked serve
+   artifacts; served (96 / 200 K2 launches a forward) against fake-quant
+   (1 / 2 K3 launches a forward) prefill of 4 x 256 tokens and 8 decode
+   steps at float32 (logits within 2e-2, and the artifact witness) and
+   bfloat16 (reported), with tokens/s and ms a step, and where a served
+   step's time goes (``[lm-recurrent-breakdown]``); prefill then decode
+   against the full forward (max abs < 1e-3, the JAX package's
+   contract); (c) the pipeline's serve stage on (a)'s plan (the
+   fake-quant engine with its single-chunk prefill, then the oneshot
+   fallback: tokens equal, no build after warmup, one K3 launch a forward
+   call, tokens/s, TTFT, peak memory); (d) ``compress --config <json>
+   --target lm --arch mamba2-1.3b --steps 2`` through the CLI, the QAT
+   batch 8 x 64 tokens (finite losses, one K3 launch a forward, step ms,
+   peak memory);
+18. prints the ``kernels`` JSON line, then the result line.
 
 Any failure raises and the script exits non-zero. It refuses to run without
 a CUDA device, and outside a checkout of the repository.
@@ -229,6 +251,17 @@ LM_BACKWARD_STEPS = 3       # steps of each exact_matmul backward variant
 # flash against autograd through blocked_attention on the card: the same
 # forward operations; the backward recomputes the probabilities
 FLASH_FWD_ATOL, FLASH_GRAD_RTOL = 1e-6, 1e-5
+# the [lm-recurrent] phase: mamba2-1.3b and recurrentgemma-2b at their
+# published widths and depths, seeded init, every matmul restricted to
+# LM_COMPRESS_K values; the engine serves mamba2's plan, and mamba2 trains
+# through the CLI at LM_RECURRENT_TRAIN_BATCH sequences a step
+LM_RECURRENT = ("mamba2-1.3b", "recurrentgemma-2b")
+LM_RECURRENT_UNITS = {"mamba2-1.3b": 96, "recurrentgemma-2b": 200}
+LM_RECURRENT_K2_REPS = 10
+LM_RECURRENT_TRAIN_BATCH = 8
+# prefill then decode against the full forward, float32, no QAT: the JAX
+# package's own contract (tests/test_lm.py)
+ROUNDTRIP_ATOL = 1e-3
 K2 = dict(name="lut_matmul",
           source="src/repro_torch/kernels/lut_matmul/csrc/lut_matmul.cu",
           replaces="src/repro/kernels/lut_matmul/lut_matmul.py:125")
@@ -378,7 +411,7 @@ def k2_cases(torch, r20_model, r50_model):
     return cases
 
 
-def k2_phase(torch, ops, ref, cases):
+def k2_phase(torch, ops, ref, cases, reps=REPS):
     """cases: `k2_cases`. Times kernel, plain version and library call a
     call at a time between CUDA events, the card idle before each call
     (``ms``, ``plain_ms``, ``library_ms``: the host's wrapper and launch
@@ -428,9 +461,9 @@ def k2_phase(torch, ops, ref, cases):
             "kernel": kernel,
             "plain": lambda: ref.lut_matmul_fused_ref(*args, **kw,
                                                       block_k=128),
-            "library": library}, REPS)
-        device_ms, k_method = graph_ms(torch, kernel)
-        library_device_ms, l_method = graph_ms(torch, library)
+            "library": library}, reps)
+        device_ms, k_method = graph_ms(torch, kernel, reps)
+        library_device_ms, l_method = graph_ms(torch, library, reps)
         k2.launches = launched
         b_ms, b_by = bound(m, k, n, c)
         gbps = k2_bytes(m, n, c) / (device_ms * 1e-3) / 1e9
@@ -1903,23 +1936,24 @@ def sweep_phase(torch, plan_dir):
 # ------------------------------------------------------------------ LM phase
 
 
-def lm_config():
-    """The [lm] phase's config: `reduced_lm_config` of olmo-1b at its
-    published width and depth (``reduced=False``), no LM QAT steps, every
-    matmul restricted to LM_COMPRESS_K values."""
+def lm_config(arch=LM_ARCH):
+    """The [lm] phase's config: `reduced_lm_config` of olmo-1b (or
+    ``arch``) at its published width and depth (``reduced=False``), no LM
+    QAT steps, every matmul restricted to LM_COMPRESS_K values."""
     import dataclasses
 
     from repro_torch.pipeline.config import reduced_lm_config
 
-    cfg = reduced_lm_config(LM_ARCH, compress_k=LM_COMPRESS_K)
+    cfg = reduced_lm_config(arch, compress_k=LM_COMPRESS_K)
     return dataclasses.replace(cfg, target=dataclasses.replace(
         cfg.target, reduced=False))
 
 
-def lm_export_path(torch):
-    """``Pipeline(lm_config(), device="cuda").run_until("export")`` with
-    every kernel's launches read per stage, then `lut_parity_report` over
-    every exported unit. Returns (target, plan, [lm] metrics)."""
+def lm_export_path(torch, arch=LM_ARCH, n_units=None, tag="lm"):
+    """``Pipeline(lm_config(arch), device="cuda").run_until("export")``
+    with every kernel's launches read per stage, then `lut_parity_report`
+    over every exported unit; ``n_units`` matmuls expected (7 a layer for
+    the dense family). Returns (target, plan, [``tag``] metrics)."""
     from repro_torch.core.lm_compress import lut_parity_report
     from repro_torch.kernels.fake_quant import fake_quant as k3
     from repro_torch.kernels.lut_matmul import lut_matmul as k2
@@ -1927,7 +1961,7 @@ def lm_export_path(torch):
     from repro_torch.pipeline.pipeline import Pipeline
 
     kernels = {"K1": k1, "K2": k2, "K3": k3}
-    pipe = Pipeline(lm_config(), device="cuda")
+    pipe = Pipeline(lm_config(arch), device="cuda")
     target = pipe.target
     stages = ("profile", "energy_model", "schedule", "export")
     per_stage = {}
@@ -1948,19 +1982,20 @@ def lm_export_path(torch):
     wall = time.perf_counter() - t0
 
     acfg = target.acfg
-    n_units = 7 * acfg.n_layers
+    if n_units is None:
+        n_units = 7 * acfg.n_layers
     arts = plan.artifacts
     if len(arts) != n_units:
-        raise AssertionError(f"[lm] exported {len(arts)} matmuls, expected "
-                             f"{n_units}")
+        raise AssertionError(f"[{tag}] exported {len(arts)} matmuls, "
+                             f"expected {n_units}")
     t0 = time.perf_counter()
     checked = lut_parity_report(target.model, plan.params, plan.comp, arts,
                                 check_units=len(arts))
     parity_s = time.perf_counter() - t0
     parity = max(checked.values())
     if len(checked) != n_units or not parity < LM_PARITY:
-        raise AssertionError(f"[lm] lut_parity_report: {len(checked)} units, "
-                             f"max rel err {parity:.3e} (required < "
+        raise AssertionError(f"[{tag}] lut_parity_report: {len(checked)} "
+                             f"units, max rel err {parity:.3e} (required < "
                              f"{LM_PARITY})")
     m = plan.metrics
     out = {k: v for k, v in m.items() if k.startswith(("wall_s_", "export_"))}
@@ -1973,7 +2008,7 @@ def lm_export_path(torch):
                parity_units=len(checked), parity_max_rel_err=parity,
                parity_wall_s=parity_s, export_path_wall_s=wall,
                launches_per_stage=per_stage)
-    print(f"[lm] {acfg.name}: {m['n_params']:,} params "
+    print(f"[{tag}] {acfg.name}: {m['n_params']:,} params "
           f"({m['n_params'] / 1e9:.3f}e9), {len(arts)} matmuls exported, "
           f"{out['packed_mb']:.1f} MB packed; stages "
           + ", ".join(f"{st} {m[f'wall_s_{st}']:.2f} s" for st in stages)
@@ -2000,39 +2035,42 @@ def lm_k2_cases(torch, acfg):
     return cases
 
 
-def lm_stacked_units(model, params, comp):
-    """(names, weights, comps) of every stacked unit of the model's blocks:
-    the entries of the one grouped K3 launch a fake-quant forward makes."""
+def lm_stacked_units(model, params, comp, top="blocks"):
+    """(names, weights, comps) of every unit of the model's stacked blocks
+    (or of its unstacked ``tail``): the entries of one grouped K3 launch
+    of a fake-quant forward."""
     from repro_torch.nn.transformer import block_matmuls
 
     names, ws, comps = [], [], []
-    for g, block in params["blocks"].items():
+    for g, block in params[top].items():
         for unit in block_matmuls(block):
             sub, key = unit.split("/")
-            names.append(f"blocks/{g}/{unit}")
+            names.append(f"{top}/{g}/{unit}")
             ws.append(block[sub][key])
-            comps.append({k: v for k, v in comp["blocks"][g][unit].items()
+            comps.append({k: v for k, v in comp[top][g][unit].items()
                           if k != "serve"})
     return names, ws, comps
 
 
-def lm_k3_phase(torch, model, params, comp):
+def lm_k3_phase(torch, model, params, comp, top="blocks", tag="lm-k3"):
     """K3 on the stacked units of the LM, as a fake-quant forward calls it:
     one launch of 7 entries x L candidates (the layer axis), held against
     its plain version bit for bit; one call timed between CUDA events (a
     launch of milliseconds: the host's share drops out) beside its bound
-    and the plain version. The launches here are not the main path's."""
+    and the plain version. ``top="tail"``: the launch of the unstacked
+    tail's units (no candidate axis). The launches here are not the main
+    path's."""
     from repro_torch.core import qat
     from repro_torch.kernels.fake_quant import fake_quant as k3
     from repro_torch.kernels.fake_quant import ref
 
-    names, ws, comps = lm_stacked_units(model, params, comp)
-    n = model.n_rep
+    names, ws, comps = lm_stacked_units(model, params, comp, top)
+    n = model.n_rep if top == "blocks" else None
     launched = k3.launches
     with torch.no_grad():
         got = qat.fake_quant_weights(ws, comps, cands=n)
         if k3.launches - launched != 1:
-            raise AssertionError(f"[lm-k3] {k3.launches - launched} "
+            raise AssertionError(f"[{tag}] {k3.launches - launched} "
                                  "launches, expected 1")
         torch.cuda.synchronize()
         max_err = 0.0
@@ -2041,7 +2079,7 @@ def lm_k3_phase(torch, model, params, comp):
             max_err = max(max_err, float((got[i] - want).abs().max()))
             if not equal_nan(torch, got[i], want):
                 raise AssertionError(
-                    f"[lm-k3] {names[i]} {tuple(w.shape)}: kernel differs "
+                    f"[{tag}] {names[i]} {tuple(w.shape)}: kernel differs "
                     f"from the plain version (max abs err {max_err:.3e}; "
                     "required: equal)")
             del want
@@ -2057,7 +2095,7 @@ def lm_k3_phase(torch, model, params, comp):
                timing="cuda events, one call", bound_ms=bound_ms,
                bound_by=bound_by,
                shapes=[[nm, list(w.shape)] for nm, w in zip(names, ws)])
-    print(f"[lm-k3] one launch of {len(ws)} entries x {n} candidates "
+    print(f"[{tag}] one launch of {len(ws)} entries x {n} candidates "
           f"({out['weights']:,} weights): equal to the plain version; "
           f"{ms['kernel']:.3f} ms (events), plain {ms['plain']:.1f} ms, "
           f"bound {bound_ms:.3f} ms ({bound_by})", flush=True)
@@ -2116,25 +2154,27 @@ def lm_generate(torch, model, params, comp, qcfg, prompts, cache_dtype,
 
 
 def lm_dequantized_units(torch, model, params, arts):
-    """{"blocks": {g: {unit: (L, ...)}}, "tail": {}}: every stacked unit's
-    weight as its exported artifacts serve it (each layer's artifact
-    dequantized, laid out as the parameter), in the form of
+    """{"blocks": {g: {unit: (L, ...)}}, "tail": {t: {unit: ...}}}: every
+    unit's weight as its exported artifacts serve it (each layer's
+    artifact dequantized, laid out as the parameter), in the form of
     `LMModel._fake_quant_units`."""
     from repro_torch.kernels.lut_matmul import ref
     from repro_torch.nn.transformer import block_matmuls
 
     out = {"blocks": {}, "tail": {}}
-    for g, block in params["blocks"].items():
-        out["blocks"][g] = {}
-        for unit in block_matmuls(block):
-            sub, key = unit.split("/")
-            w = block[sub][key]
-            layers = [arts[f"blocks/{g}/{unit}[{j}]"]
-                      for j in range(w.shape[0])]
-            out["blocks"][g][unit] = torch.stack([
-                ref.dequantize(a.packed, a.codebook, a.scale,
-                               a.block_k)[:a.k_dim] for a in layers
-            ]).reshape(w.shape).to(w.dtype)
+    for top in ("blocks", "tail"):
+        for g, block in params.get(top, {}).items():
+            out[top][g] = {}
+            for unit in block_matmuls(block):
+                sub, key = unit.split("/")
+                w = block[sub][key]
+                layers = ([arts[f"{top}/{g}/{unit}[{j}]"]
+                           for j in range(w.shape[0])] if top == "blocks"
+                          else [arts[f"{top}/{g}/{unit}"]])
+                out[top][g][unit] = torch.stack([
+                    ref.dequantize(a.packed, a.codebook, a.scale,
+                                   a.block_k)[:a.k_dim] for a in layers
+                ]).reshape(w.shape).to(w.dtype)
     return out
 
 
@@ -2157,12 +2197,13 @@ def lm_witness(torch, model, plan, prompts, dtype, feed, served):
     k3.launches = launched
     differ = total = 0
     max_diff = 0.0
-    for g, units in deq["blocks"].items():
-        for unit, w in units.items():
-            d = (st["blocks"][g][unit] - w).abs()
-            differ += int((d != 0).sum())
-            total += d.numel()
-            max_diff = max(max_diff, float(d.max()))
+    for top, groups in deq.items():
+        for g, units in groups.items():
+            for unit, w in units.items():
+                d = (st[top][g][unit] - w).abs()
+                differ += int((d != 0).sum())
+                total += d.numel()
+                max_diff = max(max_diff, float(d.max()))
     del st
     model._fake_quant_units = lambda params, comp, qcfg: deq
     try:
@@ -2180,15 +2221,17 @@ def lm_witness(torch, model, plan, prompts, dtype, feed, served):
         straight_through_max_abs_diff=max_diff)
 
 
-def lm_serve_phase(torch, target, plan, comp_serve, compute_dtype):
+def lm_serve_phase(torch, target, plan, comp_serve, compute_dtype,
+                   tag="lm-serve"):
     """Served (`QuantConfig.serve`, K2) against fake-quant
     (`QuantConfig.on()`, K3) prefill and decode at ``compute_dtype``:
     LM_PROMPTS seeded prompts of LM_PROMPT_LEN tokens, then LM_DECODE_STEPS
     greedy steps of the served model, the fake-quant model fed the same
     tokens. Each path runs once to warm up, then timed; the served warm-up
     records the dtype of each K2 launch's x. Launches: a served prefill or
-    decode step 7 K2 launches a layer and no K3, a fake-quant one one K3
-    launch and no K2. At float32 it runs `lm_witness` too. Returns the
+    decode step one K2 launch an exported matmul (7 a dense layer) and no
+    K3, a fake-quant one one K3 launch (one more for a tail of unstacked
+    blocks) and no K2. At float32 it runs `lm_witness` too. Returns the
     metrics; raises at float32 if the prefill logits differ by 2e-2 or
     more (the README's ``serve_forward_parity``), or the witness's differ
     from the served ones by WITNESS_PARITY or more."""
@@ -2205,7 +2248,8 @@ def lm_serve_phase(torch, target, plan, comp_serve, compute_dtype):
     prompts = torch.randint(0, acfg.vocab, (LM_PROMPTS, LM_PROMPT_LEN),
                             generator=gen, device="cuda", dtype=torch.int32)
     params = plan.params
-    n_units = 7 * acfg.n_layers
+    n_units = len(plan.artifacts)
+    k3_per_forward = sum(top in params for top in ("blocks", "tail"))
     real_k2 = export.lut_matmul_fused
     x_dtypes = []
 
@@ -2233,12 +2277,12 @@ def lm_serve_phase(torch, target, plan, comp_serve, compute_dtype):
     k2_x = {"prefill": x_dtypes[:n_units],
             "decode_step": x_dtypes[n_units:2 * n_units]}
     want = {"served": {"K2": n_units, "K3": 0},
-            "fake_quant": {"K2": 0, "K3": 1}}
+            "fake_quant": {"K2": 0, "K3": k3_per_forward}}
     for label, run in runs.items():
         for where, got in [("prefill", run[5])] + [
                 (f"decode step {i}", c) for i, c in enumerate(run[6])]:
             if got != want[label]:
-                raise AssertionError(f"[lm-serve] {compute_dtype} {label} "
+                raise AssertionError(f"[{tag}] {compute_dtype} {label} "
                                      f"{where}: launches {got}, expected "
                                      f"{want[label]}")
     srv, fq = runs["served"], runs["fake_quant"]
@@ -2246,7 +2290,7 @@ def lm_serve_phase(torch, target, plan, comp_serve, compute_dtype):
         shape = (LM_PROMPTS, LM_PROMPT_LEN, acfg.padded_vocab)
         if tuple(run[0].shape) != shape or not torch.isfinite(
                 run[0][..., :acfg.vocab]).all():
-            raise AssertionError(f"[lm-serve] {label}: bad prefill logits "
+            raise AssertionError(f"[{tag}] {label}: bad prefill logits "
                                  f"{tuple(run[0].shape)}")
     vocab = acfg.vocab
     prefill_rel = lm_rel(torch, srv[0], fq[0], vocab)
@@ -2280,16 +2324,16 @@ def lm_serve_phase(torch, target, plan, comp_serve, compute_dtype):
         out[f"{label}_decode_ms_per_step"] = [1e3 * t for t in run[4]]
         out[f"{label}_decode_ms_per_step_median"] = 1e3 * statistics.median(
             run[4])
-    print("[lm-serve] " + json.dumps(out, sort_keys=True), flush=True)
+    print(f"[{tag}] " + json.dumps(out, sort_keys=True), flush=True)
     if compute_dtype == "float32" and not prefill_rel < SERVE_PARITY:
-        raise AssertionError(f"[lm-serve] float32 prefill logit rel err "
+        raise AssertionError(f"[{tag}] float32 prefill logit rel err "
                              f"{prefill_rel:.3e} >= {SERVE_PARITY}")
     if "witness" in out:
         wit = out["witness"]
         worst = max([wit["prefill_logit_rel_err"]]
                     + wit["decode_logit_rel_err"])
         if not worst < WITNESS_PARITY:
-            raise AssertionError(f"[lm-serve] witness vs served logit rel "
+            raise AssertionError(f"[{tag}] witness vs served logit rel "
                                  f"err {worst:.3e} >= {WITNESS_PARITY}")
     del runs, srv, fq
     torch.cuda.empty_cache()
@@ -2420,30 +2464,35 @@ def serve_numbers(rep):
     return {k: rep[k] for k in keys if k in rep}
 
 
-def lm_engine_stage(torch, plan):
+def lm_engine_stage(torch, plan, arch=LM_ARCH, tag="[lm-engine] (a)"):
     """(a) The normal entry point: ``Pipeline.from_plan(plan, device=
-    "cuda")`` through ``serve`` on the [lm] plan (the fake-quant engine,
-    then the oneshot fallback: `LMTarget.stage_serve`), every forward call
-    counted. Gates: engine == oneshot, no build after warmup, one K3 launch
-    a forward call and no K2. Returns (metrics, the target, its results)."""
+    "cuda")`` through ``serve`` on the [lm] plan (or ``arch``'s; the
+    fake-quant engine, then the oneshot fallback: `LMTarget.stage_serve`),
+    every forward call counted, peak memory read. Gates: engine ==
+    oneshot, no build after warmup, one K3 launch a forward call (one a
+    forward and stacked/tail group of blocks) and no K2. Returns (metrics,
+    the target)."""
     from repro_torch.kernels.fake_quant import fake_quant as k3
     from repro_torch.kernels.lut_matmul import lut_matmul as k2
     from repro_torch.pipeline.pipeline import Pipeline
 
-    cfg = lm_config().with_overrides({"serve": LM_STAGE_SERVE})
+    cfg = lm_config(arch).with_overrides({"serve": LM_STAGE_SERVE})
     pipe = Pipeline.from_plan(plan, cfg=cfg, device="cuda")
     calls = counting_calls(pipe.target.model)
+    per_forward = sum(top in plan.params for top in ("blocks", "tail"))
     k2.launches = k3.launches = 0
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     pipe.run_until("serve", verbose=True)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
     launches = {"K2": k2.launches, "K3": k3.launches}
     for name in calls:
         pipe.target.model.__dict__.pop(name, None)
     m = plan.metrics
     forwards = sum(calls.values())
-    out = dict(serve=LM_STAGE_SERVE, stage_wall_s=wall,
+    out = dict(serve=LM_STAGE_SERVE, stage_wall_s=wall, peak_mem_gb=peak,
                forward_calls=dict(calls),
                launches=launches,
                parity_engine_vs_oneshot=m["serve_parity_engine_vs_oneshot"],
@@ -2454,16 +2503,16 @@ def lm_engine_stage(torch, plan):
                       "ttft_p50_s", "ttft_p99_s", "latency_p50_s",
                       "latency_p99_s", "slot_utilization",
                       "executed_positions")})
-    print("[lm-engine] (a) " + json.dumps(out, sort_keys=True), flush=True)
+    print(f"{tag} " + json.dumps(out, sort_keys=True), flush=True)
     if out["parity_engine_vs_oneshot"] is not True:
-        raise AssertionError("[lm-engine] (a) engine tokens != oneshot tokens")
+        raise AssertionError(f"{tag} engine tokens != oneshot tokens")
     if out["recompiles_after_warmup"] != 0:
-        raise AssertionError(f"[lm-engine] (a) {out['recompiles_after_warmup']}"
+        raise AssertionError(f"{tag} {out['recompiles_after_warmup']}"
                              " builds after warmup")
-    if launches != {"K2": 0, "K3": forwards}:
-        raise AssertionError(f"[lm-engine] (a) launches {launches}, expected "
-                             f"one K3 launch a forward call ({forwards}) and "
-                             "no K2")
+    if launches != {"K2": 0, "K3": per_forward * forwards}:
+        raise AssertionError(f"{tag} launches {launches}, expected "
+                             f"{per_forward} K3 launch(es) a forward call "
+                             f"({forwards}) and no K2")
     return out, pipe.target
 
 
@@ -2822,14 +2871,37 @@ def lm_engine_phase(torch, plan):
     return out
 
 
+def lm_attached(torch, target, plan, tag):
+    """The plan's comp tree with the serve artifacts attached, stacked
+    over layers (`attach_serve_artifacts`), each layer's held equal to the
+    exported one (``blocks/g0/attn/wq[3]``; a tail unit's unstacked).
+    Returns (comp tree, attached unit count)."""
+    from repro_torch.core.lm_compress import attach_serve_artifacts
+
+    comp_serve, n = attach_serve_artifacts(target.model, plan.params,
+                                           plan.comp)
+    for name, art in plan.artifacts.items():
+        unit, layer = (name[:-1].split("[") if name.endswith("]")
+                       else (name, None))
+        top, g, sub, key = unit.split("/")
+        attached = comp_serve[top][g][f"{sub}/{key}"]["serve"]
+        for f in ("packed", "codebook", "scale"):
+            got = getattr(attached, f)
+            if layer is not None:
+                got = got[int(layer)]
+            if not torch.equal(got, getattr(art, f)):
+                raise AssertionError(f"[{tag}] {name}.{f}: attached "
+                                     "artifact != exported artifact")
+    return comp_serve, n
+
+
 def lm_phase(torch, ops, ref, work):
     """[lm]: olmo-1b at full width and depth on the card. The pipeline
     through export (`lm_export_path`); K2 on the LM's shapes; K3's one
     launch over the stacked units; the serve artifacts stacked over layers
-    (`attach_serve_artifacts`, held equal to the exported ones); served vs
+    (`lm_attached`, held equal to the exported ones); served vs
     fake-quant prefill and decode at float32 (gated) and at the config's
     bfloat16 (reported); where a served step's time goes."""
-    from repro_torch.core.lm_compress import attach_serve_artifacts
     from repro_torch.kernels.fake_quant import fake_quant as k3
     from repro_torch.kernels.lut_matmul import lut_matmul as k2
 
@@ -2838,17 +2910,7 @@ def lm_phase(torch, ops, ref, work):
     k2_rows = k2_phase(torch, ops, ref, lm_k2_cases(torch, target.acfg))
     k3_out = lm_k3_phase(torch, target.model, plan.params, plan.comp)
     torch.cuda.empty_cache()
-    comp_serve, n = attach_serve_artifacts(target.model, plan.params,
-                                           plan.comp)
-    for name, art in plan.artifacts.items():
-        unit, layer = name[:-1].split("[")
-        top, g, sub, key = unit.split("/")
-        stacked = comp_serve[top][g][f"{sub}/{key}"]["serve"]
-        for f in ("packed", "codebook", "scale"):
-            if not torch.equal(getattr(stacked, f)[int(layer)],
-                               getattr(art, f)):
-                raise AssertionError(f"[lm] {name}.{f}: attached artifact "
-                                     "!= exported artifact")
+    comp_serve, n = lm_attached(torch, target, plan, "lm")
     launched = {"K2": k2.launches, "K3": k3.launches}
     k2.launches = k3.launches = 0
     serve = {dt: lm_serve_phase(torch, target, plan, comp_serve, dt)
@@ -3507,6 +3569,257 @@ def lm_train_parity_phase(torch):
     return out
 
 
+# ------------------------------------------------------- LM recurrent families
+
+
+def recurrent_k2_cases(torch, arch):
+    """`k2_phase` cases of the recurrent families' new (K, N) pairs at
+    prefill (M = prompts x prompt length) and decode (M = prompts), each at
+    float32 and bfloat16 X: mamba2's in_proj (2048 x 8512: a partial last
+    column tile of 128) and out_proj (4096 x 2048); recurrentgemma's
+    d x d units (RG-LRU projections, wq, wo: 2560 x 2560), its MQA wk/wv
+    (2560 x 256), the GeGLU gate with its gelu epilogue (2560 x 7680) and
+    w_down (7680 x 2560)."""
+    shapes = {"mamba2-1.3b": [("in_proj", 2048, 8512, "none"),
+                              ("out_proj", 4096, 2048, "none")],
+              "recurrentgemma-2b": [("d x d", 2560, 2560, "none"),
+                                    ("wk/wv", 2560, 256, "none"),
+                                    ("gate", 2560, 7680, "gelu"),
+                                    ("down", 7680, 2560, "none")]}[arch]
+    short = arch.split("-")[0]
+    cases = []
+    for step, m in (("prefill", LM_PROMPTS * LM_PROMPT_LEN),
+                    ("decode", LM_PROMPTS)):
+        for x_dtype, tag in ((torch.float32, ""), (torch.bfloat16, " bf16")):
+            for name, k, n, act in shapes:
+                cases.append((f"{short} {step} {name}{tag}", m, k, k, n, act,
+                              False, False, x_dtype, 0, True))
+    return cases
+
+
+def lm_roundtrip(torch, target, plan):
+    """JAX's roundtrip contract (`tests/test_lm.py`) at full width: the
+    float32 model (no QAT) prefills LM_PROMPTS seeded prompts of
+    LM_PROMPT_LEN tokens, then decodes LM_DECODE_STEPS fed tokens; each
+    position's logits against the full forward over all the tokens. Returns
+    the max abs error over the real vocab (gated < ROUNDTRIP_ATOL)."""
+    import dataclasses
+
+    from repro_torch.models.lm import build_lm
+
+    model = build_lm(dataclasses.replace(target.acfg,
+                                         compute_dtype="float32"))
+    vocab = model.cfg.vocab
+    gen = torch.Generator(device="cuda").manual_seed(LM_PROMPT_SEED + 1)
+    toks = torch.randint(0, vocab, (LM_PROMPTS,
+                                    LM_PROMPT_LEN + LM_DECODE_STEPS),
+                         generator=gen, device="cuda", dtype=torch.int32)
+    with torch.no_grad():
+        full = model.forward(plan.params, toks)[0][..., :vocab]
+        lg, cache = model.prefill(plan.params, toks[:, :LM_PROMPT_LEN],
+                                  LM_MAX_LEN, cache_dtype=torch.float32)
+        errs = [float((lg[..., :vocab] - full[:, :LM_PROMPT_LEN]).abs()
+                      .max())]
+        for t in range(LM_PROMPT_LEN, toks.shape[1]):
+            lg, cache = model.decode_step(plan.params, cache,
+                                          toks[:, t:t + 1])
+            errs.append(float((lg[:, 0, :vocab] - full[:, t]).abs().max()))
+        scale = float(full.abs().max())
+    del full, lg, cache
+    torch.cuda.empty_cache()
+    return dict(prefill_max_abs_err=errs[0], decode_max_abs_err=errs[1:],
+                max_abs_err=max(errs), logit_max_abs=scale)
+
+
+def lm_recurrent_breakdown(torch, target, plan, comp_serve):
+    """Where a served float32 prefill's and decode step's time goes on a
+    recurrent family (`breakdown`: each part's calls replayed alone): K2,
+    the SSD (`ssm.ssd_chunked`) or the RG-LRU scan (`rglru.linear_scan`),
+    the depthwise convs, the block norms and the SSD's gated norm, the
+    activation fake-quant, attention and RoPE (recurrentgemma's local
+    blocks), the unembedding, and ``other`` (the step less the parts)."""
+    import dataclasses
+
+    from repro_torch.core import export, qat
+    from repro_torch.models.lm import build_lm
+    from repro_torch.nn import attention, rglru, ssm, transformer
+    from repro_torch.nn.layers import QuantConfig
+
+    model = build_lm(dataclasses.replace(target.acfg,
+                                         compute_dtype="float32"))
+    gen = torch.Generator(device="cuda").manual_seed(LM_PROMPT_SEED)
+    prompts = torch.randint(0, model.cfg.vocab, (LM_PROMPTS, LM_PROMPT_LEN),
+                            generator=gen, device="cuda", dtype=torch.int32)
+    targets = {"k2": (export, "lut_matmul_fused"),
+               "norms": (transformer, "apply_norm"),
+               "fake_quant_acts": (qat, "fake_quant_act"),
+               "unembed": (model, "_unembed")}
+    if "ssm" in model.cfg.pattern:
+        targets.update(ssd=(ssm, "ssd_chunked"),
+                       conv=(ssm, "_causal_depthwise_conv"),
+                       gated_norm=(ssm, "apply_rmsnorm"))
+    else:
+        targets.update(scan=(rglru, "linear_scan"),
+                       conv=(rglru, "_causal_depthwise_conv"),
+                       attention=(attention, "blocked_attention"),
+                       decode_attention=(attention, "decode_attention"),
+                       rope=(attention, "apply_rope"))
+    qserve = QuantConfig.serve()
+    parts = {}
+    with torch.no_grad():
+        _, cache = model.prefill(plan.params, prompts, LM_MAX_LEN,
+                                 qcfg=qserve, comp=comp_serve,
+                                 cache_dtype=torch.float32)
+        tok = prompts[:, -1:]
+        for step, forward in (
+                ("prefill", lambda: model.prefill(
+                    plan.params, prompts, LM_MAX_LEN, qcfg=qserve,
+                    comp=comp_serve, cache_dtype=torch.float32)),
+                ("decode_step", lambda: model.decode_step(
+                    plan.params, cache, tok, qcfg=qserve,
+                    comp=comp_serve))):
+            ms, _ = breakdown(torch, forward, targets, 5)
+            ms["other"] = ms["forward"] - sum(
+                v for k, v in ms.items() if k not in ("forward", "calls"))
+            parts[step] = ms
+            torch.cuda.empty_cache()
+    print(f"[lm-recurrent-breakdown] {model.cfg.name} "
+          + json.dumps(parts, sort_keys=True), flush=True)
+    return parts
+
+
+def lm_recurrent_model(torch, ops, ref, arch, engine=False):
+    """One recurrent family at its published width and depth: the pipeline
+    through export (`lm_export_path`: LM_RECURRENT_UNITS[arch] matmuls,
+    LUT parity over each), K2 at the family's new shapes, K3's grouped
+    launches (the stacked groups with the layer axis as candidates, and
+    the tail's units) bit for bit, the stacked serve artifacts held equal
+    to the exported ones, served vs fake-quant prefill and decode at
+    float32 (gated) and bfloat16 (reported), where a served step's time
+    goes (`lm_recurrent_breakdown`), the roundtrip contract, and
+    with ``engine`` the pipeline's serve stage on the plan
+    (`lm_engine_stage`). Returns (metrics, K2 rows, K3 rows)."""
+    from repro_torch.kernels.fake_quant import fake_quant as k3
+    from repro_torch.kernels.lut_matmul import lut_matmul as k2
+
+    t0 = time.perf_counter()
+    tag = "lm-recurrent"
+    target, plan, metrics = lm_export_path(
+        torch, arch, LM_RECURRENT_UNITS[arch], tag)
+    k2_rows = k2_phase(torch, ops, ref, recurrent_k2_cases(torch, arch),
+                       LM_RECURRENT_K2_REPS)
+    k3_rows = [lm_k3_phase(torch, target.model, plan.params, plan.comp, top,
+                           f"{tag}-k3") for top in ("blocks", "tail")
+               if top in plan.params]
+    torch.cuda.empty_cache()
+    comp_serve, n = lm_attached(torch, target, plan, tag)
+    launched = {"K2": k2.launches, "K3": k3.launches}
+    k2.launches = k3.launches = 0
+    serve = {dt: lm_serve_phase(torch, target, plan, comp_serve, dt,
+                                f"{tag}-serve")
+             for dt in ("float32", "bfloat16")}
+    serve_launches = {"K2": k2.launches, "K3": k3.launches}
+    parts = lm_recurrent_breakdown(torch, target, plan, comp_serve)
+    k2.launches, k3.launches = launched["K2"], launched["K3"]
+    del comp_serve
+    torch.cuda.empty_cache()
+    roundtrip = lm_roundtrip(torch, target, plan)
+    print(f"[{tag}] {arch} roundtrip " + json.dumps(roundtrip,
+                                                   sort_keys=True),
+          flush=True)
+    if not roundtrip["max_abs_err"] < ROUNDTRIP_ATOL:
+        raise AssertionError(f"[{tag}] {arch}: prefill + decode vs the full "
+                             f"forward max abs err "
+                             f"{roundtrip['max_abs_err']:.3e} >= "
+                             f"{ROUNDTRIP_ATOL}")
+    stage = None
+    if engine:
+        stage, _ = lm_engine_stage(torch, plan, arch,
+                                   f"[{tag}-engine] {arch}")
+        k2.launches, k3.launches = launched["K2"], launched["K3"]
+    metrics.update(stacked_units_attached=n, serve=serve,
+                   roundtrip=roundtrip, engine=stage, breakdown=parts,
+                   serve_path_launches=serve_launches,
+                   model_wall_s=time.perf_counter() - t0,
+                   peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    print(f"[{tag}] " + json.dumps({k: v for k, v in metrics.items()
+                                    if k not in ("serve", "engine",
+                                                 "breakdown")},
+                                   sort_keys=True), flush=True)
+    del plan, target
+    torch.cuda.empty_cache()
+    return metrics, k2_rows, k3_rows
+
+
+def lm_recurrent_train(torch, work):
+    """(d) ``python -m repro_torch compress --config <json> --target lm
+    --arch mamba2-1.3b --steps 2`` through the CLI, the config's only
+    change from the default path the QAT batch (LM_RECURRENT_TRAIN_BATCH
+    sequences of 64 tokens: at the default 64 the SSD's padded (l x l)
+    products alone would keep ~2 GB a layer for the backward, 48 layers):
+    losses, step ms, peak memory, K3 launches against forward calls."""
+    from repro_torch.kernels.fake_quant import fake_quant as k3
+    from repro_torch.pipeline import cli
+    from repro_torch.pipeline.config import PipelineConfig
+
+    arch = LM_RECURRENT[0]
+    cfg = PipelineConfig().with_overrides({"target": {
+        "kind": "lm", "arch": arch,
+        "batch_size": LM_RECURRENT_TRAIN_BATCH}})
+    path = work / "lm_recurrent_train.json"
+    path.write_text(json.dumps(cfg.to_dict()))
+    k3.launches = 0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with _Captured() as cap:
+        rc = cli.main(["compress", "--config", str(path), "--target", "lm",
+                       "--arch", arch, "--steps", str(LM_COMPRESS_STEPS),
+                       "--device", "cuda"])
+    torch.cuda.synchronize()
+    target, plan = cap.runs[0]
+    out = qat_numbers(torch, target.last_qat,
+                      torch.cuda.max_memory_allocated() / 1e9)
+    out.update(rc=rc, command_wall_s=time.perf_counter() - t0,
+               batch=[plan.config["target"]["batch_size"], 64],
+               completed=list(plan.completed), k3_launches=k3.launches,
+               forward_calls=cap.forwards,
+               **{k: v for k, v in plan.metrics.items()
+                  if k.startswith("wall_s_")})
+    print("[lm-recurrent-train] compress " + json.dumps(out, sort_keys=True),
+          flush=True)
+    path.unlink()
+    if rc != 0 or not all(np.isfinite(out["losses"])):
+        raise AssertionError(f"[lm-recurrent-train] rc {rc}, losses "
+                             f"{out['losses']}")
+    if not k3.launches == cap.forwards == LM_COMPRESS_STEPS:
+        raise AssertionError(f"[lm-recurrent-train] {k3.launches} K3 "
+                             f"launches for {cap.forwards} forward calls "
+                             f"and {LM_COMPRESS_STEPS} steps: one a forward")
+    del target, plan, cap
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_recurrent_phase(torch, ops, ref, work):
+    """[lm-recurrent]: (a) mamba2-1.3b and (b) recurrentgemma-2b at their
+    published widths and depths (`lm_recurrent_model`), (c) the serving
+    engine on (a)'s plan, (d) mamba2's QAT through the CLI
+    (`lm_recurrent_train`)."""
+    t0 = time.perf_counter()
+    models, k2_rows, k3_rows = {}, [], {}
+    for arch in LM_RECURRENT:
+        m, k2r, k3r = lm_recurrent_model(torch, ops, ref, arch,
+                                         engine=arch == LM_RECURRENT[0])
+        models[arch], k3_rows[arch] = m, k3r
+        k2_rows += k2r
+    train = lm_recurrent_train(torch, work)
+    out = dict(models=models, train=train,
+               phase_wall_s=time.perf_counter() - t0)
+    print(f"[lm-recurrent] phase {out['phase_wall_s']:.1f} s", flush=True)
+    return out, k2_rows, k3_rows
+
+
 # --------------------------------------------------------------------- main
 
 
@@ -3562,6 +3875,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     lm_train = lm_train_phase(torch, work)
     lm_train_parity = lm_train_parity_phase(torch)
+    torch.cuda.empty_cache()
+    recurrent, rec_k2_rows, rec_k3 = lm_recurrent_phase(torch, ops, ref,
+                                                        work)
+    rec_models = recurrent["models"]
 
     padded = [r for r in k2_rows if r["per_forward"] and not r["serve_rows"]]
     unpadded = [r for r in k2_rows if r["per_forward"] and r["serve_rows"]]
@@ -3576,7 +3893,8 @@ def main() -> int:
                    if r["bound_by"] == "bytes")
     k2_entry = {
         **K2, "route": "cuda", "launches": k2_launches,
-        "max_abs_err": max(r["max_abs_err"] for r in k2_rows + lm_k2_rows),
+        "max_abs_err": max(r["max_abs_err"]
+                           for r in k2_rows + lm_k2_rows + rec_k2_rows),
         **total,
         "bound_by": "bytes" if by_bytes >= total["bound_ms"] / 2
         else "operations",
@@ -3648,6 +3966,31 @@ def main() -> int:
                     "launches"]["K2"],
             },
         },
+        "lm_recurrent": {
+            "scope": "[lm-recurrent]: mamba2-1.3b and recurrentgemma-2b at "
+                     "full width; shapes: their new (K, N) pairs at M = "
+                     f"{LM_PROMPTS * LM_PROMPT_LEN} and {LM_PROMPTS}, "
+                     "float32 and bfloat16 X, timed as the [lm] rows; "
+                     "launches: each family's served float32 and bfloat16 "
+                     "prefill and decode runs (counts set to 0 before, read "
+                     "after), one a matmul: 96 a mamba2 forward, 200 a "
+                     "recurrentgemma forward",
+            "launches": {arch: m["serve_path_launches"]["K2"]
+                         for arch, m in rec_models.items()},
+            "launches_per_prefill": {
+                arch: m["serve"]["float32"]["launches_prefill"]["served"][
+                    "K2"] for arch, m in rec_models.items()},
+            "launches_per_decode_step": {
+                arch: m["serve"]["float32"]["launches_decode_step"][
+                    "served"]["K2"] for arch, m in rec_models.items()},
+            "export_path_launches": {
+                arch: {st: v["K2"] for st, v in
+                       m["launches_per_stage"].items()}
+                for arch, m in rec_models.items()},
+            "engine_launches": rec_models[LM_RECURRENT[0]]["engine"][
+                "launches"]["K2"],
+            "shapes": rec_k2_rows,
+        },
     }
     k1_entry = {
         **K1, "route": "cuda", "launches": k1_launches,
@@ -3683,7 +4026,9 @@ def main() -> int:
     k3_entry = {
         **K3, "route": "cuda", "launches": compress_launches["K3"],
         "max_abs_err": max([r["max_abs_err"] for r in k3_all]
-                           + [lm_k3["max_abs_err"]]),
+                           + [lm_k3["max_abs_err"]]
+                           + [r["max_abs_err"] for rows in rec_k3.values()
+                              for r in rows]),
         "ms": k3_forward["device_ms"], "plain_ms": k3_forward["plain_ms"],
         "bound_ms": k3_forward["bound_ms"],
         "bound_by": k3_forward["bound_by"],
@@ -3757,6 +4102,28 @@ def main() -> int:
                        steps=LM_TRAIN_STEPS,
                        step_ms=lm_train["train"]["median_step_ms"],
                        parity=lm_train_parity)),
+        "lm_recurrent": dict(
+            scope="[lm-recurrent]: mamba2-1.3b (one launch a fake-quant "
+                  "forward: 2 units x 48 layers as candidates) and "
+                  "recurrentgemma-2b (two: 23 stacked units x 8 layers, then "
+                  "the tail's 16 units) at full width; groups: each launch "
+                  "held against its plain version bit for bit and timed "
+                  "between CUDA events beside its bound; launches: the "
+                  "fake-quant float32 and bfloat16 prefill and decode runs, "
+                  "the engine stage on mamba2's plan, and the CLI's QAT "
+                  "steps",
+            groups=rec_k3,
+            launches={arch: m["serve_path_launches"]["K3"]
+                      for arch, m in rec_models.items()},
+            launches_per_forward={
+                arch: m["serve"]["float32"]["launches_prefill"][
+                    "fake_quant"]["K3"] for arch, m in rec_models.items()},
+            engine_launches=rec_models[LM_RECURRENT[0]]["engine"][
+                "launches"]["K3"],
+            engine_forward_calls=rec_models[LM_RECURRENT[0]]["engine"][
+                "forward_calls"],
+            train_launches=recurrent["train"]["k3_launches"],
+            train_forward_calls=recurrent["train"]["forward_calls"]),
     }
     entries = [k2_entry, k1_entry, k1b_entry, k3_entry]
     print(f"[card] {card}", flush=True)

@@ -10,10 +10,10 @@ Builds a comp tree mirroring the LM's grouped parameter layout:
     }
 
 Eligible tensors are the matmul weights that occupy systolic
-weight-stationary registers: attention projections and FFN matrices (the
-table also names the expert, SSM and RG-LRU projections of the families
-`build_lm` does not build yet; an expert unit raises, naming ROADMAP.md's
-'Routed targets'). Masks are int8. Key paths, leaf shapes and dtypes are the JAX package's,
+weight-stationary registers: attention projections, FFN matrices and the
+SSM and RG-LRU mixers' projections (the table also names the expert
+projections of the MoE family, which `build_lm` does not build yet; an
+expert unit raises, naming ROADMAP.md's 'Routed targets'). Masks are int8. Key paths, leaf shapes and dtypes are the JAX package's,
 so comp trees and exported artifacts cross between the packages in plans.
 """
 

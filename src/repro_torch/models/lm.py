@@ -22,9 +22,13 @@ is the causal LM loss of the train step (`repro_torch.launch.train`); its
 forward may recompute each layer in the backward (``remat``) and take the
 flash backward of attention (``use_flash``).
 
-Ported families: dense decoder-only stacks of ``attn`` / ``local`` blocks.
-`build_lm` raises `NotImplementedError`, naming the ROADMAP.md item, for
-MoE, SSM, hybrid (RG-LRU), VLM-prefix and encoder-decoder configs.
+Ported families: decoder-only stacks of ``attn`` / ``local`` blocks (the
+dense family), of ``ssm`` blocks (Mamba-2) and of ``rglru`` and ``local``
+blocks (RecurrentGemma's hybrid). A recurrent block's decode cache is its
+mixer's state (no sequence axis, float32 whatever the cache dtype),
+passed through from prefill as the JAX package does. `build_lm` raises
+`NotImplementedError`, naming the ROADMAP.md item, for MoE, VLM-prefix and
+encoder-decoder configs.
 """
 
 from __future__ import annotations
@@ -242,7 +246,10 @@ class LMModel:
                    dtype=torch.bfloat16) -> dict:
         """Shape-and-dtype placeholders (meta tensors) of a decode cache:
         {"groups": {"g<i>": {"k", "v"} (L, B, Smax, Hkv, D)}, "tail":
-        {...}, "pos": (B,) int32, the per-sequence position}."""
+        {...}, "pos": (B,) int32, the per-sequence position}. A recurrent
+        block's leaves are its mixer's state ({"state", "conv"} or {"h",
+        "conv"}: batch, then no sequence axis), float32 whatever
+        ``dtype``."""
         cfg = self.cfg
         spec: Dict[str, Any] = {"groups": {}, "tail": {}}
         for i, bt in enumerate(cfg.pattern):
@@ -304,7 +311,8 @@ class LMModel:
     def _merge_active(old_cache: dict, new_cache: dict, active) -> dict:
         """Keep inactive rows' cache untouched. ``groups`` leaves carry the
         layer axis first (batch is axis 1); ``tail`` and ``pos`` leaves
-        have batch leading."""
+        have batch leading; a leaf's other axes (a sequence axis or none)
+        do not matter."""
         act = active.to(torch.bool)
 
         def merge(axis, new, old):
@@ -406,7 +414,7 @@ class LMModel:
     def gather_cache_rows(cache: dict, rows: torch.Tensor) -> dict:
         """Rows (int (Bc,)) of a decode cache as a smaller cache. ``groups``
         leaves carry the layer axis first (batch is axis 1); ``tail`` and
-        ``pos`` leaves have batch leading."""
+        ``pos`` leaves have batch leading, whatever axes follow."""
         rows = rows.long()
         return {
             "groups": {g: {k: v.index_select(1, rows) for k, v in c.items()}
@@ -421,7 +429,11 @@ class LMModel:
                            active: torch.Tensor) -> dict:
         """``row_cache`` (batch Bc) written back into ``cache`` at ``rows``.
         ``active`` (Bc,) bool masks padding rows; active entries of ``rows``
-        must be distinct. Inactive and unlisted rows keep their state."""
+        must be distinct. Inactive and unlisted rows keep their state. A
+        written leaf keeps ``cache``'s dtype (a recurrent row's conv
+        history comes out of a chunk in the activations' dtype; the
+        group cache holds it in float32, as the JAX package's ``where``
+        promotes it)."""
         b = cache["pos"].shape[0]
         sel = (torch.arange(b, device=rows.device)[:, None]
                == rows.long()[None, :]) & active.to(torch.bool)[None, :]
@@ -432,7 +444,8 @@ class LMModel:
             shape = [1] * old.ndim
             shape[axis] = b
             return torch.where(hit.reshape(shape),
-                               new.index_select(axis, src), old)
+                               new.index_select(axis, src).to(old.dtype),
+                               old)
 
         return {
             "groups": {g: {k: put(1, v, row_cache["groups"][g][k])
@@ -447,7 +460,10 @@ class LMModel:
     def _state_to_cache(self, st, bt, max_len, dtype):
         """A block's prefill K/V (B, S, Hkv, D) as its decode cache: the
         last ``min(S, cache_len)`` positions at their slots ``pos mod
-        cache_len``, zeros elsewhere."""
+        cache_len``, zeros elsewhere. A recurrent mixer's state is already
+        in cache layout and passes through unchanged (its dtypes too)."""
+        if bt in T.RECURRENT:
+            return st
         dims = self.cfg.attn_dims(bt == "local")
         cache_len = min(max_len, dims.window) if dims.window else max_len
         k, v = st["k"], st["v"]
@@ -465,10 +481,11 @@ class LMModel:
 
 
 def build_lm(cfg: ArchConfig) -> LMModel:
-    """The spec tree of a dense LM; raises `NotImplementedError`, naming the
-    ROADMAP.md item, for the families whose blocks are not ported (MoE FFNs,
-    SSM and RG-LRU mixers, cross-attention: `make_block_spec`) and for the
-    VLM prefix."""
+    """The spec tree of an LM of the dense, SSM (Mamba-2) or hybrid
+    (RecurrentGemma) family; raises `NotImplementedError`, naming the
+    ROADMAP.md item, for the families whose blocks are not ported (MoE FFNs
+    and the encoder-decoder family's cross-attention: `make_block_spec`)
+    and for the VLM prefix."""
     if cfg.prefix_len:
         raise NotImplementedError(f"{cfg.name}: the VLM prefix embeddings "
                                   f"are not ported yet: {T.NOT_PORTED['prefix']}")

@@ -1,13 +1,16 @@
-"""Transformer block assembly: norms + attention mixer + FFN (port of
-`repro.nn.transformer`).
+"""Transformer block assembly: norms + mixer (attn/local/rglru/ssm) + FFN
+(port of `repro.nn.transformer`).
 
 A *block* is one residual layer of the network. `make_block_spec` /
 `apply_block` / `apply_block_decode` dispatch on the block type string; the
 LM assembler (`repro_torch.models.lm`) stacks same-typed blocks over a
-leading layer axis and walks it. Block types ``attn`` and ``local`` are
-ported; ``rglru`` and ``ssm`` mixers, MoE FFNs and cross-attention raise
-`NotImplementedError` naming their ROADMAP.md item. ``apply_block_chunk``
-is the serving engine's chunked prefill through one block.
+leading layer axis and walks it. Block types ``attn``, ``local``,
+``rglru`` (Griffin's recurrent mixer, then the FFN) and ``ssm`` (Mamba-2's
+SSD mixer alone: no ``ln2``, no FFN) are ported; MoE FFNs and
+cross-attention raise `NotImplementedError` naming their ROADMAP.md item.
+``apply_block_chunk`` is the serving engine's chunked prefill through one
+block; a recurrent mixer there runs the whole prompt from its zero state
+(the engine gives recurrent models single-chunk plans).
 
 Every compressible matmul takes an optional ``w_eff``: {"attn/wq": the
 fake-quantized weight, ...}, computed for all layers at once by the
@@ -23,6 +26,8 @@ import torch
 from repro_torch.core.export import serve_dense
 from repro_torch.models.config import ArchConfig
 from repro_torch.nn import attention as A
+from repro_torch.nn import rglru as RG
+from repro_torch.nn import ssm as SSM
 from repro_torch.nn.layers import (
     ACTIVATIONS,
     QuantConfig,
@@ -33,14 +38,18 @@ from repro_torch.nn.layers import (
 )
 from repro_torch.nn.spec import ParamSpec, fan_in_init, ones_init, zeros_init
 
-# the compressible matmuls of a block, by sub-module (the JAX package's
-# `_project` and `apply_ffn` fake-quantize exactly these under QAT)
+# the compressible matmuls of a block, by sub-module, in
+# `lm_compress.ELIGIBLE`'s order (the JAX package's `_project`,
+# `apply_ffn` and the mixers' `quantized_mm` fake-quantize exactly these
+# under QAT)
 MATMULS = {"attn": ("wq", "wk", "wv", "wo"),
-           "mlp": ("w_gate", "w_up", "w_down")}
+           "mlp": ("w_gate", "w_up", "w_down"),
+           "ssm": ("in_proj", "out_proj"),
+           "rglru": ("in_proj", "gate_proj", "w_a", "w_x", "out_proj")}
+MIXERS = ("attn", "local", "rglru", "ssm")
+RECURRENT = ("rglru", "ssm")
 
 NOT_PORTED = {
-    "rglru": "ROADMAP.md Queue 1 item 6c, 'LM stack' (nn/rglru.py)",
-    "ssm": "ROADMAP.md Queue 1 item 6c, 'LM stack' (nn/ssm.py)",
     "moe": "ROADMAP.md Queue 1 item 8, 'Routed targets' (nn/moe.py)",
     "xattn": "ROADMAP.md Queue 1 item 6c, 'LM stack' (the encoder-decoder "
              "family's encoder and cross-attention)",
@@ -137,30 +146,52 @@ def apply_ffn(params, x, cfg: ArchConfig, *,
 
 def make_block_spec(cfg: ArchConfig, block_type: str, *,
                     cross_attn: bool = False):
-    if block_type in NOT_PORTED:
-        raise _not_ported(f"{cfg.name}: block type {block_type!r}",
-                          block_type)
-    if block_type not in ("attn", "local"):
+    if block_type not in MIXERS:
         raise ValueError(block_type)
-    if cfg.is_moe:
+    if cfg.is_moe and block_type in ("attn", "local"):
         raise _not_ported(f"{cfg.name}: the MoE FFN", "moe")
     if cross_attn:
         raise _not_ported(f"{cfg.name}: cross-attention", "xattn")
-    return {"ln1": make_norm_spec(cfg),
-            "attn": A.make_attention_spec(
-                cfg.attn_dims(block_type == "local"), cfg.pdtype),
-            "ln2": make_norm_spec(cfg),
-            "mlp": make_ffn_spec(cfg)}
+    spec = {"ln1": make_norm_spec(cfg)}
+    if block_type == "ssm":
+        spec["ssm"] = SSM.make_ssm_spec(cfg.ssm_dims(), cfg.pdtype)
+        return spec
+    if block_type == "rglru":
+        spec["rglru"] = RG.make_rglru_spec(cfg.rglru_dims(), cfg.pdtype)
+    else:
+        spec["attn"] = A.make_attention_spec(
+            cfg.attn_dims(block_type == "local"), cfg.pdtype)
+    spec["ln2"] = make_norm_spec(cfg)
+    spec["mlp"] = make_ffn_spec(cfg)
+    return spec
 
 
 def _check_block(params, block_type: str) -> None:
-    if block_type in NOT_PORTED:
-        raise _not_ported(f"block type {block_type!r}", block_type)
-    if block_type not in ("attn", "local"):
+    if block_type not in MIXERS:
         raise ValueError(block_type)
     for key in ("moe", "xattn"):
         if key in params:
             raise _not_ported(f"a block with {key!r}", key)
+
+
+def _ffn_half(params, x, cfg, qcfg, comp, w_eff):
+    """``x + ffn(ln2(x))``: the second half of every block but ``ssm``."""
+    h = apply_norm(params["ln2"], x, cfg, qcfg.batch_invariant)
+    return x + apply_ffn(params["mlp"], h, cfg, qcfg=qcfg, comp=comp,
+                         name="mlp", w_eff=w_eff)
+
+
+def _recurrent_prefill(params, h, cfg, block_type, qcfg, comp, w_eff,
+                       return_state):
+    """A recurrent mixer over the whole sequence from its zero state:
+    output, or (output, decode-cache state) with ``return_state``."""
+    if block_type == "rglru":
+        return RG.apply_rglru(params["rglru"], h, cfg.rglru_dims(),
+                              qcfg=qcfg, comp=comp, name="rglru",
+                              return_state=return_state, w_eff=w_eff)
+    return SSM.apply_ssm(params["ssm"], h, cfg.ssm_dims(), qcfg=qcfg,
+                         comp=comp, name="ssm", return_state=return_state,
+                         w_eff=w_eff)
 
 
 def apply_block(params, x: torch.Tensor, cfg: ArchConfig, block_type: str, *,
@@ -171,26 +202,31 @@ def apply_block(params, x: torch.Tensor, cfg: ArchConfig, block_type: str, *,
                 use_flash: bool = False):
     """One residual block (prefill). Returns (x, aux), or ((x, aux), state)
     when ``return_state``: the state is the block's contribution to a
-    decode cache (K/V after RoPE). ``use_flash``: the attention's flash
-    backward (`repro_torch.nn.flash`)."""
+    decode cache (K/V after RoPE, or the recurrent mixer's final state).
+    ``use_flash``: the attention's flash backward (`repro_torch.nn.flash`)."""
     _check_block(params, block_type)
     aux = {"lb_loss": torch.zeros((), device=x.device),
            "z_loss": torch.zeros((), device=x.device)}
     h = apply_norm(params["ln1"], x, cfg, qcfg.batch_invariant)
-    mix = A.apply_attention(params["attn"], h,
-                            cfg.attn_dims(block_type == "local"),
-                            positions=positions, qcfg=qcfg, comp=comp,
-                            name="attn", q_block=q_block, kv_block=kv_block,
-                            return_kv=return_state, w_eff=w_eff,
-                            use_flash=use_flash)
     state = None
-    if return_state:
-        mix, (k_st, v_st) = mix
-        state = {"k": k_st, "v": v_st}
+    if block_type in RECURRENT:
+        mix = _recurrent_prefill(params, h, cfg, block_type, qcfg, comp,
+                                 w_eff, return_state)
+        if return_state:
+            mix, state = mix
+    else:
+        mix = A.apply_attention(params["attn"], h,
+                                cfg.attn_dims(block_type == "local"),
+                                positions=positions, qcfg=qcfg, comp=comp,
+                                name="attn", q_block=q_block,
+                                kv_block=kv_block, return_kv=return_state,
+                                w_eff=w_eff, use_flash=use_flash)
+        if return_state:
+            mix, (k_st, v_st) = mix
+            state = {"k": k_st, "v": v_st}
     x = x + mix
-    h = apply_norm(params["ln2"], x, cfg, qcfg.batch_invariant)
-    x = x + apply_ffn(params["mlp"], h, cfg, qcfg=qcfg, comp=comp,
-                      name="mlp", w_eff=w_eff)
+    if block_type != "ssm":
+        x = _ffn_half(params, x, cfg, qcfg, comp, w_eff)
     return ((x, aux), state) if return_state else (x, aux)
 
 
@@ -199,10 +235,13 @@ def apply_block(params, x: torch.Tensor, cfg: ArchConfig, block_type: str, *,
 
 def block_cache_spec(cfg: ArchConfig, block_type: str, batch: int,
                      max_len: int, dtype=torch.bfloat16):
-    """Shape-and-dtype placeholders (meta tensors) of a block's cache."""
-    if block_type in NOT_PORTED:
-        raise _not_ported(f"block type {block_type!r}", block_type)
-    if block_type not in ("attn", "local"):
+    """Shape-and-dtype placeholders (meta tensors) of a block's cache; the
+    recurrent mixers' states are float32 whatever ``dtype``."""
+    if block_type == "rglru":
+        return RG.rglru_cache_spec(batch, cfg.rglru_dims(), torch.float32)
+    if block_type == "ssm":
+        return SSM.ssm_cache_spec(batch, cfg.ssm_dims(), torch.float32)
+    if block_type not in MIXERS:
         raise ValueError(block_type)
     dims = cfg.attn_dims(block_type == "local")
     cache_len = min(max_len, dims.window) if dims.window else max_len
@@ -224,17 +263,25 @@ def apply_block_decode(params, x: torch.Tensor, cache: dict, pos,
     Returns (x, updated cache)."""
     _check_block(params, block_type)
     h = apply_norm(params["ln1"], x, cfg, qcfg.batch_invariant)
-    new_cache = dict(cache)
-    mix, kv_new = A.apply_attention_decode(
-        params["attn"], h, {"k": cache["k"], "v": cache["v"]}, pos,
-        cfg.attn_dims(block_type == "local"), qcfg=qcfg, comp=comp,
-        name="attn", w_eff=w_eff)
-    new_cache.update(kv_new)
+    if block_type == "rglru":
+        mix, new_cache = RG.apply_rglru_decode(
+            params["rglru"], h, cache, cfg.rglru_dims(), qcfg=qcfg,
+            comp=comp, name="rglru", w_eff=w_eff)
+    elif block_type == "ssm":
+        mix, new_cache = SSM.apply_ssm_decode(
+            params["ssm"], h, cache, cfg.ssm_dims(), qcfg=qcfg, comp=comp,
+            name="ssm", w_eff=w_eff)
+    else:
+        new_cache = dict(cache)
+        mix, kv_new = A.apply_attention_decode(
+            params["attn"], h, {"k": cache["k"], "v": cache["v"]}, pos,
+            cfg.attn_dims(block_type == "local"), qcfg=qcfg, comp=comp,
+            name="attn", w_eff=w_eff)
+        new_cache.update(kv_new)
     x = x + mix
-    h = apply_norm(params["ln2"], x, cfg, qcfg.batch_invariant)
-    y = apply_ffn(params["mlp"], h, cfg, qcfg=qcfg, comp=comp, name="mlp",
-                  w_eff=w_eff)
-    return x + y, new_cache
+    if block_type != "ssm":
+        x = _ffn_half(params, x, cfg, qcfg, comp, w_eff)
+    return x, new_cache
 
 
 def apply_block_chunk(params, x: torch.Tensor, cache: dict,
@@ -246,18 +293,25 @@ def apply_block_chunk(params, x: torch.Tensor, cache: dict,
     chunk per row at absolute ``positions`` (B, C). Returns (x, updated
     cache). The attention mixer scatters the chunk's K/V into the row's
     cache and attends over the whole cache with per-row positions
-    (`attention.apply_attention_chunk`). Recurrent mixers, MoE FFNs and
-    cross-attention raise as `apply_block` does."""
+    (`attention.apply_attention_chunk`). Recurrent mixers have no
+    mid-sequence state injection: the chunk must be the whole prompt from
+    position 0, and the mixer runs it from its zero state (the engine
+    enforces single-chunk plans for them, as the JAX package's does). MoE
+    FFNs and cross-attention raise as `apply_block` does."""
     _check_block(params, block_type)
     h = apply_norm(params["ln1"], x, cfg, qcfg.batch_invariant)
-    new_cache = dict(cache)
-    mix, kv_new = A.apply_attention_chunk(
-        params["attn"], h, {"k": cache["k"], "v": cache["v"]}, positions,
-        cfg.attn_dims(block_type == "local"), qcfg=qcfg, comp=comp,
-        name="attn", q_block=q_block, kv_block=kv_block, w_eff=w_eff)
-    new_cache.update(kv_new)
+    if block_type in RECURRENT:
+        mix, new_cache = _recurrent_prefill(params, h, cfg, block_type,
+                                            qcfg, comp, w_eff, True)
+    else:
+        new_cache = dict(cache)
+        mix, kv_new = A.apply_attention_chunk(
+            params["attn"], h, {"k": cache["k"], "v": cache["v"]},
+            positions, cfg.attn_dims(block_type == "local"), qcfg=qcfg,
+            comp=comp, name="attn", q_block=q_block, kv_block=kv_block,
+            w_eff=w_eff)
+        new_cache.update(kv_new)
     x = x + mix
-    h = apply_norm(params["ln2"], x, cfg, qcfg.batch_invariant)
-    y = apply_ffn(params["mlp"], h, cfg, qcfg=qcfg, comp=comp, name="mlp",
-                  w_eff=w_eff)
-    return x + y, new_cache
+    if block_type != "ssm":
+        x = _ffn_half(params, x, cfg, qcfg, comp, w_eff)
+    return x, new_cache

@@ -38,7 +38,11 @@ engine and oneshot fallback may disagree).
 
 A compressed plan runs the fake-quant forward (one grouped K3 launch a
 step: `LMModel._fake_quant_units`) or, with ``EngineConfig.lut_serve``,
-the packed 4-bit artifacts on the LUT GEMM (K2, 7 launches a layer).
+the packed 4-bit artifacts on the LUT GEMM (K2, one launch an exported
+matmul: 7 a dense layer, 2 a Mamba-2 layer, 8 an RG-LRU layer). A
+recurrent model (rglru/ssm blocks) prefills each prompt bucket in one
+chunk from the mixer's zero state (`_check_chunkable`), as the JAX
+package's engine does.
 
 Accounting prices the compute actually performed: ``executed_positions``
 counts every padded/idle position pushed through the array (prefill rows x
@@ -66,6 +70,7 @@ import torch
 
 from repro_torch._device import DEFAULT_DEVICE, resolve_device, tree_to
 from repro_torch.nn.layers import QuantConfig
+from repro_torch.nn.transformer import RECURRENT
 from repro_torch.serving.bucketing import (
     BucketSpec,
     EngineConfig,
@@ -253,6 +258,7 @@ class ServingEngine:
         self.qcfg = dataclasses.replace(qcfg, batch_invariant=True)
         self.params = params
 
+        self._single_chunk_only = False
         if mode == "engine":
             self._check_chunkable()
 
@@ -275,21 +281,36 @@ class ServingEngine:
     # --------------------------------------------------------- chunk gating
 
     def _check_chunkable(self) -> None:
-        """Slot mode needs the chunk path: every attention window must cover
-        the group cache (a chunk cannot write through a ring buffer). The
-        port builds attention blocks only, so no recurrent mixer needs the
-        JAX package's single-chunk rule."""
+        """Slot mode needs the chunk path; reject models it cannot serve.
+        Every attention window must cover the group cache (a chunk cannot
+        write through a ring buffer). Recurrent mixers (rglru/ssm) have no
+        mid-sequence state injection, so every prompt bucket must be one
+        chunk: explicit chunk buckets that split one raise, and without
+        them each prompt bucket is its own chunk (``_single_chunk_only``),
+        the JAX package's rule."""
         cfg, ecfg = self.model.cfg, self.config
         for bt in set(cfg.pattern):
-            window = cfg.attn_dims(bt == "local").window
-            if 0 < window < ecfg.group_total_len:
-                raise ValueError(
-                    f"slot-level batching needs the attention window "
-                    f"({window}) to cover the group cache "
-                    f"({ecfg.group_total_len}): chunked prefill cannot "
-                    f"write through a ring buffer; use mode='wave'")
+            if bt in ("attn", "local"):
+                window = cfg.attn_dims(bt == "local").window
+                if 0 < window < ecfg.group_total_len:
+                    raise ValueError(
+                        f"slot-level batching needs the attention window "
+                        f"({window}) to cover the group cache "
+                        f"({ecfg.group_total_len}): chunked prefill cannot "
+                        f"write through a ring buffer; use mode='wave'")
+        recurrent = any(bt in RECURRENT for bt in cfg.pattern)
+        if recurrent and ecfg.chunk_buckets is not None:
+            for p in ecfg.prompt_buckets:
+                if chunk_plan(p, ecfg.chunk_buckets) != (p,):
+                    raise ValueError(
+                        "recurrent mixers (rglru/ssm) have no mid-sequence "
+                        "state injection: chunk buckets must give every "
+                        "prompt bucket a single-chunk plan")
+        self._single_chunk_only = recurrent and ecfg.chunk_buckets is None
 
     def _chunk_plan(self, padded_prompt: int) -> tuple:
+        if self._single_chunk_only:
+            return (padded_prompt,)
         return chunk_plan(padded_prompt, self.config.resolved_chunk_buckets)
 
     def _chunk_sizes(self) -> set:
