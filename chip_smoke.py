@@ -262,6 +262,28 @@ LM_RECURRENT_TRAIN_BATCH = 8
 # prefill then decode against the full forward, float32, no QAT: the JAX
 # package's own contract (tests/test_lm.py)
 ROUNDTRIP_ATOL = 1e-3
+# the [table1] phase: the paper's Table 1 rows for ResNet-20, the protocol
+# of benchmarks/table1_energy_savings.py at benchmarks/common.py's default
+# budget (`trained`: batch 64, lr 2e-3, 250 QAT steps, accuracy over 4
+# batches, profile n_batches=1, max_tiles=8)
+T1_BATCH, T1_LR, T1_QAT_STEPS, T1_DATA_SEED = 64, 2e-3, 250, 12
+T1_PP = dict(k=32, prune_ratio=0.5, finetune_steps=40, eval_batches=2)
+T1_SCHEDULE = dict(prune_ratios=(0.7, 0.5), k_targets=(16,), delta_acc=0.05,
+                   finetune_steps=20, trial_finetune_steps=12,
+                   eval_batches=2, max_layers=4, min_energy_share=0.0)
+T1_SELECTION = dict(k_init=24, k_target=16, delta_acc=0.05, score_batches=1,
+                    accept_batches=2, max_score_candidates=6)
+# the [lm-encdec] phase: whisper-large-v3 at its published width and depth,
+# seeded init; requests of ENCDEC_FRAMES stub encoder frames (the 30-second
+# window) and ENCDEC_PROMPT_LEN prompt tokens. The roundtrip runs with
+# ENCDEC_BLOCK-wide blocks, a divisor of the frame count: with 512 the
+# forward's cross-attention also takes the padded keys, decode's not (the
+# JAX package's non-causal mask keeps them), and the gap is reported
+ENCDEC_ARCH, ENCDEC_UNITS = "whisper-large-v3", 512
+ENCDEC_REQUESTS, ENCDEC_FRAMES, ENCDEC_PROMPT_LEN = 4, 1500, 64
+ENCDEC_MAX_LEN, ENCDEC_BLOCK = 128, 500
+ENCDEC_ROUNDTRIP_ATOL = 1e-4
+ENCDEC_TRAIN_STEPS = 2
 K2 = dict(name="lut_matmul",
           source="src/repro_torch/kernels/lut_matmul/csrc/lut_matmul.cu",
           replaces="src/repro/kernels/lut_matmul/lut_matmul.py:125")
@@ -2037,18 +2059,24 @@ def lm_k2_cases(torch, acfg):
 
 def lm_stacked_units(model, params, comp, top="blocks"):
     """(names, weights, comps) of every unit of the model's stacked blocks
-    (or of its unstacked ``tail``): the entries of one grouped K3 launch
-    of a fake-quant forward."""
+    (or of its unstacked ``tail``; ``top`` a tuple: of several, such as
+    ("blocks", "enc_blocks"), whose encoder block holds its units
+    directly): the entries of one grouped K3 launch of a fake-quant
+    forward."""
     from repro_torch.nn.transformer import block_matmuls
 
     names, ws, comps = [], [], []
-    for g, block in params[top].items():
-        for unit in block_matmuls(block):
-            sub, key = unit.split("/")
-            names.append(f"{top}/{g}/{unit}")
-            ws.append(block[sub][key])
-            comps.append({k: v for k, v in comp[top][g][unit].items()
-                          if k != "serve"})
+    for t in (top,) if isinstance(top, str) else top:
+        groups = {None: params[t]} if t == "enc_blocks" else params[t]
+        for g, block in groups.items():
+            node = comp[t] if g is None else comp[t][g]
+            for unit in block_matmuls(block):
+                sub, key = unit.split("/")
+                names.append(f"{t}/{unit}" if g is None
+                             else f"{t}/{g}/{unit}")
+                ws.append(block[sub][key])
+                comps.append({k: v for k, v in node[unit].items()
+                              if k != "serve"})
     return names, ws, comps
 
 
@@ -2065,7 +2093,7 @@ def lm_k3_phase(torch, model, params, comp, top="blocks", tag="lm-k3"):
     from repro_torch.kernels.fake_quant import ref
 
     names, ws, comps = lm_stacked_units(model, params, comp, top)
-    n = model.n_rep if top == "blocks" else None
+    n = None if top == "tail" else model.n_rep
     launched = k3.launches
     with torch.no_grad():
         got = qat.fake_quant_weights(ws, comps, cands=n)
@@ -2109,10 +2137,11 @@ def lm_rel(torch, a, b, vocab):
 
 
 def lm_generate(torch, model, params, comp, qcfg, prompts, cache_dtype,
-                feed=None):
-    """Prefill ``prompts`` (B, S) to LM_MAX_LEN, then LM_DECODE_STEPS
-    decode steps: greedy from this run's own logits, or fed the tokens
-    ``feed`` (B, steps) so two runs see the same inputs. Returns
+                feed=None, enc_embeds=None, max_len=LM_MAX_LEN):
+    """Prefill ``prompts`` (B, S) to ``max_len`` (with ``enc_embeds``: the
+    encoder-decoder family's frames), then LM_DECODE_STEPS decode steps:
+    greedy from this run's own logits, or fed the tokens ``feed`` (B,
+    steps) so two runs see the same inputs. Returns
     (prefill logits, [decode logits], fed tokens (B, steps), prefill s,
     [decode s], {kernel: launches} of the prefill, [of each step])."""
     from repro_torch.kernels.fake_quant import fake_quant as k3
@@ -2129,8 +2158,9 @@ def lm_generate(torch, model, params, comp, qcfg, prompts, cache_dtype,
         before = counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        logits, cache = model.prefill(params, prompts, LM_MAX_LEN, qcfg=qcfg,
-                                      comp=comp, cache_dtype=cache_dtype)
+        logits, cache = model.prefill(params, prompts, max_len, qcfg=qcfg,
+                                      comp=comp, cache_dtype=cache_dtype,
+                                      enc_embeds=enc_embeds)
         torch.cuda.synchronize()
         prefill_s = time.perf_counter() - t0
         prefill_launches = since(before)
@@ -2154,31 +2184,36 @@ def lm_generate(torch, model, params, comp, qcfg, prompts, cache_dtype,
 
 
 def lm_dequantized_units(torch, model, params, arts):
-    """{"blocks": {g: {unit: (L, ...)}}, "tail": {t: {unit: ...}}}: every
-    unit's weight as its exported artifacts serve it (each layer's
-    artifact dequantized, laid out as the parameter), in the form of
-    `LMModel._fake_quant_units`."""
+    """{"blocks": {g: {unit: (L, ...)}}, "tail": {t: {unit: ...}},
+    "enc_blocks": {unit: (L_enc, ...)}}: every unit's weight as its
+    exported artifacts serve it (each layer's artifact dequantized, laid
+    out as the parameter), in the form of `LMModel._fake_quant_units`."""
     from repro_torch.kernels.lut_matmul import ref
     from repro_torch.nn.transformer import block_matmuls
 
-    out = {"blocks": {}, "tail": {}}
-    for top in ("blocks", "tail"):
-        for g, block in params.get(top, {}).items():
-            out[top][g] = {}
+    tops = {top: ({None: params[top]} if top == "enc_blocks"
+                  else params[top])
+            for top in ("blocks", "tail", "enc_blocks") if top in params}
+    out = {"blocks": {}, "tail": {}, "enc_blocks": {}}
+    for top, groups in tops.items():
+        for g, block in groups.items():
+            node = out[top] if g is None else out[top].setdefault(g, {})
+            base = top if g is None else f"{top}/{g}"
             for unit in block_matmuls(block):
                 sub, key = unit.split("/")
                 w = block[sub][key]
-                layers = ([arts[f"{top}/{g}/{unit}[{j}]"]
-                           for j in range(w.shape[0])] if top == "blocks"
-                          else [arts[f"{top}/{g}/{unit}"]])
-                out[top][g][unit] = torch.stack([
+                layers = ([arts[f"{base}/{unit}[{j}]"]
+                           for j in range(w.shape[0])] if top != "tail"
+                          else [arts[f"{base}/{unit}"]])
+                node[unit] = torch.stack([
                     ref.dequantize(a.packed, a.codebook, a.scale,
                                    a.block_k)[:a.k_dim] for a in layers
                 ]).reshape(w.shape).to(w.dtype)
     return out
 
 
-def lm_witness(torch, model, plan, prompts, dtype, feed, served):
+def lm_witness(torch, model, plan, prompts, dtype, feed, served,
+               enc_embeds=None, max_len=LM_MAX_LEN):
     """The fake-quant forward with each weight set to its artifact's
     dequantized weight (`lm_dequantized_units`) in place of K3's
     straight-through value: on the same products and activation rounding
@@ -2186,6 +2221,7 @@ def lm_witness(torch, model, plan, prompts, dtype, feed, served):
     of the stacked artifacts, layouts, dtypes) from the straight-through
     rounding. Returns its logits' rel err against the served run's, and
     how far K3's straight-through weights are from the artifacts'."""
+    from repro_torch.core.lm_compress import _unit_nodes
     from repro_torch.kernels.fake_quant import fake_quant as k3
     from repro_torch.nn.layers import QuantConfig
 
@@ -2197,18 +2233,19 @@ def lm_witness(torch, model, plan, prompts, dtype, feed, served):
     k3.launches = launched
     differ = total = 0
     max_diff = 0.0
-    for top, groups in deq.items():
-        for g, units in groups.items():
-            for unit, w in units.items():
-                d = (st[top][g][unit] - w).abs()
-                differ += int((d != 0).sum())
-                total += d.numel()
-                max_diff = max(max_diff, float(d.max()))
+    for top, g, units in _unit_nodes(deq):
+        node = st[top] if g is None else st[top][g]
+        for unit, w in units.items():
+            d = (node[unit] - w).abs()
+            differ += int((d != 0).sum())
+            total += d.numel()
+            max_diff = max(max_diff, float(d.max()))
     del st
     model._fake_quant_units = lambda params, comp, qcfg: deq
     try:
         run = lm_generate(torch, model, plan.params, plan.comp,
-                          QuantConfig.on(), prompts, dtype, feed)
+                          QuantConfig.on(), prompts, dtype, feed,
+                          enc_embeds, max_len)
     finally:
         del model._fake_quant_units
     vocab = model.cfg.vocab
@@ -2883,8 +2920,10 @@ def lm_attached(torch, target, plan, tag):
     for name, art in plan.artifacts.items():
         unit, layer = (name[:-1].split("[") if name.endswith("]")
                        else (name, None))
-        top, g, sub, key = unit.split("/")
-        attached = comp_serve[top][g][f"{sub}/{key}"]["serve"]
+        parts = unit.split("/")
+        node = (comp_serve[parts[0]] if parts[0] == "enc_blocks"
+                else comp_serve[parts[0]][parts[1]])
+        attached = node["/".join(parts[-2:])]["serve"]
         for f in ("packed", "codebook", "scale"):
             got = getattr(attached, f)
             if layer is not None:
@@ -3406,18 +3445,21 @@ def lm_train_phase(torch, work):
 
 class _ActQuant:
     """Patches `qat.fake_quant_act` while open. Records each call's int8
-    codes and quantized value (on the CPU); given ``replay`` (another
-    instance's record), each call takes the recorded quantized value in
-    place of its own (straight-through as before) and counts the codes where
-    its own rounding differs: the step then runs on the recorded rounding
-    decisions."""
+    codes and quantized value (on ``device``, the CPU by default); given
+    ``replay`` (another instance's record), each call takes the recorded
+    quantized value in place of its own (straight-through as before),
+    records nothing and counts the codes where its own rounding differs:
+    the run then takes the recorded rounding decisions."""
 
-    def __init__(self, replay=None):
+    def __init__(self, replay=None, device="cpu"):
         self.codes, self.values = [], []
         self.replay = replay
-        self.flips = 0
+        self.device = device
+        self.calls = self.flips = 0
 
     def __enter__(self):
+        import torch
+
         from repro_torch.core import qat
 
         self._real = qat.fake_quant_act
@@ -3427,12 +3469,13 @@ class _ActQuant:
             codes = qat._round_clip(a / scale)
             q = codes * scale
             if self.replay is not None:
-                i = len(self.codes)
-                want = self.replay.codes[i].to(a.device)
+                want = self.replay.codes[self.calls].to(a.device)
                 self.flips += int((codes != want).sum())
-                q = self.replay.values[i].to(a.device)
-            self.codes.append(codes.detach().cpu())
-            self.values.append(q.detach().cpu())
+                q = self.replay.values[self.calls].to(a.device)
+            else:
+                self.codes.append(codes.detach().to(self.device, torch.int8))
+                self.values.append(q.detach().to(self.device))
+            self.calls += 1
             return a + (q - a).detach()
 
         qat.fake_quant_act = fake_quant_act
@@ -3820,6 +3863,372 @@ def lm_recurrent_phase(torch, ops, ref, work):
     return out, k2_rows, k3_rows
 
 
+# ------------------------------------------------------------ Table 1
+
+
+def table1_phase(torch):
+    """[table1]: the paper's Table 1 for ResNet-20 on the card, through the
+    port's `core.baselines` and schedule (`T1_*`): origin (QAT, 256
+    values), the PowerPruning-style global selection (32 values, 50%
+    pruning, 40 fine-tune steps) and ours (`energy_prioritized_compression`
+    with the script's configs), each from the same trained and profiled
+    state. Gates the structure, not the savings' size: the PowerPruning
+    codebook has 32 values and every layer carries it, every mask removes
+    half its weights (to one weight), energies are finite and positive and
+    fall, and K1 (the profile) and K3 (the QAT fine-tunes, the schedule)
+    launched. The QAT steps, the baselines and the schedule are functional
+    (new tensors and comp dicts), so each row starts from the same state."""
+    from repro_torch.core import baselines
+    from repro_torch.core.runner import CnnRunner
+    from repro_torch.core.schedule import energy_prioritized_compression
+    from repro_torch.data.synthetic import SyntheticImages
+    from repro_torch.kernels.fake_quant import fake_quant as k3
+    from repro_torch.kernels.transition_energy import transition_energy as k1
+    from repro_torch.nn.cnn import resnet20
+    from repro_torch.pipeline.config import ScheduleConfig, SelectionConfig
+
+    t_phase = time.perf_counter()
+    before = {"K1": k1.launches, "K3": k3.launches}
+    k1.launches = k3.launches = 0
+    runner = CnnRunner(resnet20(10), SyntheticImages(num_classes=10,
+                                                     seed=T1_DATA_SEED),
+                       batch_size=T1_BATCH, lr=T1_LR, seed=0, device="cuda")
+    t0 = time.perf_counter()
+    p, s, o, c = runner.init()
+    p, s, o, loss = runner.train(p, s, o, c, T1_QAT_STEPS)
+    acc0 = runner.accuracy(p, s, c, n_batches=4)
+    stats = runner.profile(p, s, c, n_batches=1, max_tiles=8)
+    torch.cuda.synchronize()
+    rows = [dict(method="origin", accuracy=acc0, energy_saving=0.0,
+                 selected_weights=256, qat_loss=loss,
+                 wall_s=time.perf_counter() - t0)]
+
+    t0 = time.perf_counter()
+    *_, pp_comp, pp = baselines.powerpruning_global(runner, p, s, o, c, stats,
+                                                    **T1_PP)
+    torch.cuda.synchronize()
+    rows.append(dict(method="powerpruning[15](32)", accuracy=pp.acc_after,
+                     energy_saving=pp.energy_saving,
+                     selected_weights=len(pp.codebook),
+                     energy_before=pp.energy_before,
+                     energy_after=pp.energy_after,
+                     wall_s=time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    *_, ours_comp, res = energy_prioritized_compression(
+        runner, p, s, o, c, stats, ScheduleConfig(**T1_SCHEDULE),
+        SelectionConfig(**T1_SELECTION))
+    torch.cuda.synchronize()
+    rows.append(dict(method="ours(16)", accuracy=res.acc_final,
+                     energy_saving=res.energy_saving, selected_weights=16,
+                     accepted_layers=sum(d.accepted for d in res.decisions),
+                     energy_before=res.energy_before,
+                     energy_after=res.energy_after,
+                     wall_s=time.perf_counter() - t0))
+    launches = {"K1": k1.launches, "K3": k3.launches}
+    out = dict(network="ResNet-20-c10", rows=rows, launches=launches,
+               ours_beats_pp=res.energy_saving > pp.energy_saving,
+               pp_codebook=pp.codebook,
+               phase_wall_s=time.perf_counter() - t_phase)
+    for r in rows:
+        print(f"[table1] {r['method']:<22} accuracy {r['accuracy']:.4f} "
+              f"energy saving {r['energy_saving']:.4f} selected weights "
+              f"{r['selected_weights']} wall {r['wall_s']:.1f} s",
+              flush=True)
+    print("[table1] " + json.dumps(out, sort_keys=True), flush=True)
+
+    problems = []
+    if len(set(pp.codebook)) != 32:
+        problems.append(f"PowerPruning codebook of {len(set(pp.codebook))} "
+                        "values")
+    for name, comp in pp_comp.items():
+        if int(comp["codebook_k"]) != 32 or \
+                comp["codebook"][:32].tolist() != pp.codebook:
+            problems.append(f"{name} does not carry the global codebook")
+        n, zeros = comp["mask"].numel(), int((comp["mask"] == 0).sum())
+        if abs(zeros - round(0.5 * n)) > 1:
+            problems.append(f"{name}: mask removes {zeros} of {n}")
+    for label, e0, e1 in (("powerpruning", pp.energy_before,
+                           pp.energy_after),
+                          ("ours", res.energy_before, res.energy_after)):
+        if not (np.isfinite([e0, e1]).all() and e0 > 0 and e1 > 0
+                and e1 <= e0):
+            problems.append(f"{label} energies {e0} -> {e1}")
+    if not (launches["K1"] > 0 and launches["K3"] > 0):
+        problems.append(f"launches {launches}")
+    if problems:
+        raise AssertionError("[table1] " + "; ".join(problems))
+    k1.launches += before["K1"]
+    k3.launches += before["K3"]
+    del runner, pp_comp, ours_comp
+    torch.cuda.empty_cache()
+    return out
+
+
+# ------------------------------------------------------------ LM encdec
+
+
+def encdec_k2_cases(torch, acfg):
+    """`k2_phase` cases of whisper's (K, N) pairs (d x d: the attention
+    and cross-attention projections; d x d_ff with the gelu epilogue;
+    d_ff x d) at the encoder's M (requests x frames), the decoder
+    prefill's (requests x prompt) and decode's (requests), float32 X."""
+    d, f = acfg.d_model, acfg.d_ff
+    shapes = [("qkvo", d, d, "none"), ("up", d, f, "gelu"),
+              ("down", f, d, "none")]
+    cases = []
+    for step, m in (("encoder", ENCDEC_REQUESTS * ENCDEC_FRAMES),
+                    ("prefill", ENCDEC_REQUESTS * ENCDEC_PROMPT_LEN),
+                    ("decode", ENCDEC_REQUESTS)):
+        for name, k, n, act in shapes:
+            cases.append((f"whisper {step} {name}", m, k, k, n, act, False,
+                          False, torch.float32, 0, True))
+    return cases
+
+
+def encdec_inputs(torch, vocab, d_model, seed=LM_PROMPT_SEED):
+    """Seeded stub frames (requests, frames, d) and prompts plus the fed
+    decode tokens (requests, prompt + steps), on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    frames = torch.randn((ENCDEC_REQUESTS, ENCDEC_FRAMES, d_model),
+                         generator=gen, device="cuda")
+    toks = torch.randint(0, vocab, (ENCDEC_REQUESTS,
+                                    ENCDEC_PROMPT_LEN + LM_DECODE_STEPS),
+                         generator=gen, device="cuda", dtype=torch.int32)
+    return frames, toks
+
+
+def encdec_serve(torch, model, plan, comp_serve, frames, toks):
+    """Served (K2) against fake-quant (K3) prefill of the requests and
+    LM_DECODE_STEPS decode steps (both fed the same tokens), float32; each
+    path once to warm up, then timed. Launches: a served prefill one K2
+    launch an exported matmul, a served decode step 8 a decoder layer (the
+    cross-attention's wk/wv are read from the cache), no K3; a fake-quant
+    forward one K3 launch (the encoder's units join the decoder's), no
+    K2. `lm_witness` (the fake-quant forward on the artifacts' dequantized
+    weights) tells the served plumbing from the straight-through rounding;
+    run on the served run's int8 activation codes (`_ActQuant` replay) it
+    also takes out the activation codes that K2's gelu epilogue, a float32
+    ulp off torch's, moved (reported: ``flipped_codes``). Gated: the
+    launches, finite logits, prefill logit rel err < SERVE_PARITY, that
+    witness's logits within WITNESS_PARITY of the served ones; the witness
+    on its own codes is reported."""
+    from repro_torch.nn.layers import QuantConfig
+
+    vocab = model.cfg.vocab
+    prompts, feed = toks[:, :ENCDEC_PROMPT_LEN], toks[:, ENCDEC_PROMPT_LEN:]
+    runs = {}
+    for label, qcfg, comp in (("served", QuantConfig.serve(), comp_serve),
+                              ("fake_quant", QuantConfig.on(), plan.comp)):
+        args = (torch, model, plan.params, comp, qcfg, prompts,
+                torch.float32, feed, frames, ENCDEC_MAX_LEN)
+        lm_generate(*args)
+        runs[label] = lm_generate(*args)
+        torch.cuda.empty_cache()
+    n_dec = model.cfg.n_layers
+    want = {"served": ({"K2": len(plan.artifacts), "K3": 0},
+                       {"K2": 8 * n_dec, "K3": 0}),
+            "fake_quant": ({"K2": 0, "K3": 1}, {"K2": 0, "K3": 1})}
+    for label, run in runs.items():
+        checks = [("prefill", run[5], want[label][0])] + [
+            (f"decode step {i}", c, want[label][1])
+            for i, c in enumerate(run[6])]
+        for where, got, expect in checks:
+            if got != expect:
+                raise AssertionError(f"[lm-encdec] {label} {where}: "
+                                     f"launches {got}, expected {expect}")
+        if not torch.isfinite(run[0][..., :vocab]).all() or tuple(
+                run[0].shape) != (ENCDEC_REQUESTS, ENCDEC_PROMPT_LEN,
+                                  model.cfg.padded_vocab):
+            raise AssertionError(f"[lm-encdec] {label}: bad prefill logits")
+    srv, fq = runs["served"], runs["fake_quant"]
+    out = dict(prefill_logit_rel_err=lm_rel(torch, srv[0], fq[0], vocab),
+               decode_logit_rel_err=[lm_rel(torch, a, b, vocab)
+                                     for a, b in zip(srv[1], fq[1])],
+               greedy_token_agreement=[
+                   float((a[..., :vocab].argmax(-1)
+                          == b[..., :vocab].argmax(-1)).float().mean())
+                   for a, b in zip(srv[1], fq[1])],
+               launches_prefill={k: r[5] for k, r in runs.items()},
+               launches_decode_step={k: r[6][0] for k, r in runs.items()})
+    out["witness"] = lm_witness(torch, model, plan, prompts, torch.float32,
+                                srv[2], srv, frames, ENCDEC_MAX_LEN)
+    # the witness again on the served run's int8 activation codes: K2's
+    # gelu epilogue differs from torch's by float32 ulps (the card's
+    # tanhf), which can move an activation across a rounding boundary
+    with _ActQuant(device="cuda") as record:
+        lm_generate(torch, model, plan.params, comp_serve,
+                    QuantConfig.serve(), prompts, torch.float32, feed,
+                    frames, ENCDEC_MAX_LEN)
+    with _ActQuant(replay=record) as replayed:
+        shared = lm_witness(torch, model, plan, prompts, torch.float32,
+                            srv[2], srv, frames, ENCDEC_MAX_LEN)
+    out["witness_on_served_codes"] = dict(
+        shared, flipped_codes=replayed.flips,
+        codes=sum(c.numel() for c in record.codes))
+    del record
+    torch.cuda.empty_cache()
+    for label, run in runs.items():
+        out[f"{label}_prefill_s"] = run[3]
+        out[f"{label}_prefill_tokens_per_s"] = (
+            ENCDEC_REQUESTS * ENCDEC_PROMPT_LEN / run[3])
+        out[f"{label}_prefill_frames_per_s"] = (
+            ENCDEC_REQUESTS * ENCDEC_FRAMES / run[3])
+        out[f"{label}_decode_ms_per_step"] = [1e3 * t for t in run[4]]
+        out[f"{label}_decode_ms_per_step_median"] = 1e3 * statistics.median(
+            run[4])
+    print("[lm-encdec-serve] " + json.dumps(out, sort_keys=True), flush=True)
+    if not out["prefill_logit_rel_err"] < SERVE_PARITY:
+        raise AssertionError(f"[lm-encdec] float32 prefill logit rel err "
+                             f"{out['prefill_logit_rel_err']:.3e} >= "
+                             f"{SERVE_PARITY}")
+    wit = out["witness_on_served_codes"]
+    worst = max([wit["prefill_logit_rel_err"]] + wit["decode_logit_rel_err"])
+    if not worst < WITNESS_PARITY:
+        raise AssertionError(f"[lm-encdec] witness on the served codes vs "
+                             f"served logit rel err {worst:.3e} >= "
+                             f"{WITNESS_PARITY}")
+    del runs, srv, fq
+    torch.cuda.empty_cache()
+    return out
+
+
+def encdec_roundtrip(torch, model, params, frames, toks):
+    """JAX's roundtrip contract at full width, float32, no QAT: prefill the
+    prompts over the frames, decode the fed tokens, each position's logits
+    against the full forward; with ENCDEC_BLOCK-wide blocks (gated <
+    ENCDEC_ROUNDTRIP_ATOL) and with the default 512 (reported: the
+    forward's cross-attention also takes the 36 padded keys)."""
+    vocab = model.cfg.vocab
+    out = {}
+    with torch.no_grad():
+        for label, blk in (("blocks_%d" % ENCDEC_BLOCK, ENCDEC_BLOCK),
+                           ("blocks_512", 512)):
+            kw = dict(q_block=blk, kv_block=blk)
+            full = model.forward(params, toks, enc_embeds=frames,
+                                 **kw)[0][..., :vocab]
+            lg, cache = model.prefill(params, toks[:, :ENCDEC_PROMPT_LEN],
+                                      ENCDEC_MAX_LEN, enc_embeds=frames,
+                                      cache_dtype=torch.float32, **kw)
+            errs = [float((lg[..., :vocab]
+                           - full[:, :ENCDEC_PROMPT_LEN]).abs().max())]
+            for t in range(ENCDEC_PROMPT_LEN, toks.shape[1]):
+                lg, cache = model.decode_step(params, cache,
+                                              toks[:, t:t + 1])
+                errs.append(float((lg[:, 0, :vocab] - full[:, t]).abs()
+                                  .max()))
+            out[label] = dict(prefill_max_abs_err=errs[0],
+                              decode_max_abs_err=errs[1:],
+                              max_abs_err=max(errs),
+                              logit_max_abs=float(full.abs().max()))
+            del full, lg, cache
+            torch.cuda.empty_cache()
+    print("[lm-encdec] roundtrip " + json.dumps(out, sort_keys=True),
+          flush=True)
+    gated = out["blocks_%d" % ENCDEC_BLOCK]["max_abs_err"]
+    if not gated <= ENCDEC_ROUNDTRIP_ATOL:
+        raise AssertionError(f"[lm-encdec] prefill + decode vs the full "
+                             f"forward max abs err {gated:.3e} > "
+                             f"{ENCDEC_ROUNDTRIP_ATOL}")
+    return out
+
+
+def encdec_train(torch, model, params, comp):
+    """`make_train_step` QAT steps (remat, the step's default blocks) at
+    batch 1 x (ENCDEC_FRAMES frames, WHISPER_DECODER_LEN tokens) on the
+    plan's k = 4 comp, at the config's compute dtype: each step's ms and
+    loss, the peak memory, K3 launches (one a step's forward)."""
+    from repro_torch.kernels.fake_quant import fake_quant as k3
+    from repro_torch.launch import train
+
+    gen = torch.Generator(device="cuda").manual_seed(LM_PROMPT_SEED + 2)
+    s_dec = train.WHISPER_DECODER_LEN
+    toks = torch.randint(0, model.cfg.vocab, (1, s_dec + 1), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:],
+             "enc_embeds": torch.randn((1, ENCDEC_FRAMES, model.cfg.d_model),
+                                       generator=gen, device="cuda")}
+    cfg = train.StepConfig(qat=True, with_comp=True, remat=True)
+    step = train.make_train_step(model, cfg)
+    state = {"params": params, "opt": train.make_optimizer(cfg).init(params)}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    launched = k3.launches
+    losses, ms = [], []
+    for _ in range(ENCDEC_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, met = step(state, batch, comp)
+        losses.append(float(met["loss"]))
+        ms.append(1e3 * (time.perf_counter() - t0))
+    out = dict(batch=[1, ENCDEC_FRAMES, s_dec], step_ms=ms, losses=losses,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               k3_launches=k3.launches - launched,
+               compute_dtype=str(model.cfg.cdtype).replace("torch.", ""))
+    print("[lm-encdec-train] " + json.dumps(out, sort_keys=True), flush=True)
+    if not all(np.isfinite(losses)) or out["k3_launches"] != len(losses):
+        raise AssertionError(f"[lm-encdec-train] losses {losses}, "
+                             f"{out['k3_launches']} K3 launches")
+    del state, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_encdec_phase(torch, ops, ref):
+    """[lm-encdec]: whisper-large-v3 at its published width and depth. The
+    pipeline through export (`lm_export_path`: ENCDEC_UNITS matmuls, LUT
+    parity over each), K2 at whisper's shapes, K3's one grouped launch
+    over the encoder's and the decoder's stacked units bit for bit, the
+    attached artifacts held to the exported ones, served vs fake-quant
+    (`encdec_serve`), the roundtrip (`encdec_roundtrip`) and QAT steps
+    (`encdec_train`). Returns (metrics, K2 rows, K3 row)."""
+    import dataclasses
+
+    from repro_torch.kernels.fake_quant import fake_quant as k3
+    from repro_torch.kernels.lut_matmul import lut_matmul as k2
+    from repro_torch.models.lm import build_lm
+
+    t_phase = time.perf_counter()
+    tag = "lm-encdec"
+    target, plan, metrics = lm_export_path(torch, ENCDEC_ARCH, ENCDEC_UNITS,
+                                           tag)
+    k2_rows = k2_phase(torch, ops, ref, encdec_k2_cases(torch, target.acfg),
+                       LM_RECURRENT_K2_REPS)
+    k3_row = lm_k3_phase(torch, target.model, plan.params, plan.comp,
+                         ("blocks", "enc_blocks"), f"{tag}-k3")
+    torch.cuda.empty_cache()
+    comp_serve, n = lm_attached(torch, target, plan, tag)
+    model = build_lm(dataclasses.replace(target.acfg,
+                                         compute_dtype="float32"))
+    frames, toks = encdec_inputs(torch, model.cfg.vocab, model.cfg.d_model)
+    launched = {"K2": k2.launches, "K3": k3.launches}
+    k2.launches = k3.launches = 0
+    serve = encdec_serve(torch, model, plan, comp_serve, frames, toks)
+    serve_launches = {"K2": k2.launches, "K3": k3.launches}
+    del comp_serve
+    torch.cuda.empty_cache()
+    roundtrip = encdec_roundtrip(torch, model, plan.params, frames, toks)
+    k2.launches = k3.launches = 0
+    trained = encdec_train(torch, target.model, plan.params, plan.comp)
+    k2.launches = launched["K2"] + serve_launches["K2"]
+    k3.launches = (launched["K3"] + serve_launches["K3"]
+                   + trained["k3_launches"])
+    metrics.update(stacked_units_attached=n, serve=serve,
+                   roundtrip=roundtrip, train=trained,
+                   serve_path_launches=serve_launches,
+                   phase_wall_s=time.perf_counter() - t_phase)
+    print(f"[{tag}] " + json.dumps({k: v for k, v in metrics.items()
+                                    if k not in ("serve", "roundtrip",
+                                                 "train")},
+                                   sort_keys=True), flush=True)
+    print(f"[{tag}] phase {metrics['phase_wall_s']:.1f} s; prefill "
+          f"{serve['served_prefill_tokens_per_s']:.0f} tokens/s "
+          f"({serve['served_prefill_frames_per_s']:.0f} frames/s), decode "
+          f"{serve['served_decode_ms_per_step_median']:.2f} ms a step",
+          flush=True)
+    del plan, target, model, frames, toks
+    torch.cuda.empty_cache()
+    return metrics, k2_rows, k3_row
+
+
 # --------------------------------------------------------------------- main
 
 
@@ -3879,6 +4288,9 @@ def main() -> int:
     recurrent, rec_k2_rows, rec_k3 = lm_recurrent_phase(torch, ops, ref,
                                                         work)
     rec_models = recurrent["models"]
+    torch.cuda.empty_cache()
+    table1 = table1_phase(torch)
+    encdec, encdec_k2_rows, encdec_k3 = lm_encdec_phase(torch, ops, ref)
 
     padded = [r for r in k2_rows if r["per_forward"] and not r["serve_rows"]]
     unpadded = [r for r in k2_rows if r["per_forward"] and r["serve_rows"]]
@@ -3894,7 +4306,8 @@ def main() -> int:
     k2_entry = {
         **K2, "route": "cuda", "launches": k2_launches,
         "max_abs_err": max(r["max_abs_err"]
-                           for r in k2_rows + lm_k2_rows + rec_k2_rows),
+                           for r in k2_rows + lm_k2_rows + rec_k2_rows
+                           + encdec_k2_rows),
         **total,
         "bound_by": "bytes" if by_bytes >= total["bound_ms"] / 2
         else "operations",
@@ -3991,6 +4404,24 @@ def main() -> int:
                 "launches"]["K2"],
             "shapes": rec_k2_rows,
         },
+        "lm_encdec": {
+            "scope": f"[lm-encdec]: {ENCDEC_ARCH} at full width; shapes: "
+                     f"its (K, N) pairs at M = "
+                     f"{ENCDEC_REQUESTS * ENCDEC_FRAMES} (encoder), "
+                     f"{ENCDEC_REQUESTS * ENCDEC_PROMPT_LEN} (decoder "
+                     f"prefill) and {ENCDEC_REQUESTS} (decode), float32 X, "
+                     "timed as the [lm] rows; launches: the served float32 "
+                     "warm-up, timed and code-recording prefill and decode "
+                     "runs (counts set to 0 before, read after)",
+            "launches": encdec["serve_path_launches"]["K2"],
+            "launches_per_prefill": encdec["serve"]["launches_prefill"][
+                "served"]["K2"],
+            "launches_per_decode_step": encdec["serve"][
+                "launches_decode_step"]["served"]["K2"],
+            "export_path_launches": {st: v["K2"] for st, v in
+                                     encdec["launches_per_stage"].items()},
+            "shapes": encdec_k2_rows,
+        },
     }
     k1_entry = {
         **K1, "route": "cuda", "launches": k1_launches,
@@ -4008,6 +4439,7 @@ def main() -> int:
                  "before it; device_ms one launch's device time in a CUDA "
                  "graph",
         "compress_path_launches": compress_launches["K1"],
+        "table1_launches": table1["launches"]["K1"],
         "main_path": k1_path,
         "shapes": k1_rows,
     }
@@ -4028,7 +4460,8 @@ def main() -> int:
         "max_abs_err": max([r["max_abs_err"] for r in k3_all]
                            + [lm_k3["max_abs_err"]]
                            + [r["max_abs_err"] for rows in rec_k3.values()
-                              for r in rows]),
+                              for r in rows]
+                           + [encdec_k3["max_abs_err"]]),
         "ms": k3_forward["device_ms"], "plain_ms": k3_forward["plain_ms"],
         "bound_ms": k3_forward["bound_ms"],
         "bound_by": k3_forward["bound_by"],
@@ -4124,6 +4557,25 @@ def main() -> int:
                 "forward_calls"],
             train_launches=recurrent["train"]["k3_launches"],
             train_forward_calls=recurrent["train"]["forward_calls"]),
+        "lm_encdec": dict(
+            encdec_k3,
+            scope=f"[lm-encdec]: {ENCDEC_ARCH} at full width, the one "
+                  "grouped launch of a fake-quant forward (the decoder's 10 "
+                  "and the encoder's 6 stacked units, 32 layers as "
+                  "candidates), held against its plain version bit for bit "
+                  "and timed between CUDA events beside its bound; "
+                  "launches: the fake-quant float32 warm-up and timed "
+                  f"prefill and decode runs, then {ENCDEC_TRAIN_STEPS} QAT "
+                  "steps",
+            launches=encdec["serve_path_launches"]["K3"],
+            launches_per_forward=encdec["serve"]["launches_prefill"][
+                "fake_quant"]["K3"],
+            train_launches=encdec["train"]["k3_launches"]),
+        "table1": dict(
+            scope="[table1]: ResNet-20's Table 1 rows (the QAT, the "
+                  "PowerPruning fine-tune, the schedule); launches: that "
+                  "phase",
+            launches=table1["launches"]["K3"]),
     }
     entries = [k2_entry, k1_entry, k1b_entry, k3_entry]
     print(f"[card] {card}", flush=True)

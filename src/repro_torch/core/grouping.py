@@ -6,8 +6,8 @@
   Stage 2: within each MSB group, Hamming weight partitioned into
            ``N_HD_SUBGROUPS = 5`` subgroups.
 
-=> 50 groups. ``stability_ratio`` (a grouping-quality diagnostic of the
-benchmarks) is not ported yet.
+=> 50 groups. ``stability_ratio`` scores a grouping (a diagnostic of the
+benchmarks).
 """
 
 from __future__ import annotations
@@ -49,6 +49,35 @@ def group_id(p) -> torch.Tensor:
 def group_transition_id(p_prev, p_cur) -> torch.Tensor:
     """Id in [0, 2500) of the (group(p_prev) -> group(p_cur)) transition."""
     return group_id(p_prev) * N_GROUPS + group_id(p_cur)
+
+
+def stability_ratio(values, groups, n_groups: int = N_GROUPS) -> torch.Tensor:
+    """Grouping-quality score: var(inter-group means) / mean(intra-group
+    var), a 0-d float32 tensor. Higher is better (tight groups, well
+    separated means).
+
+    ``values`` are per-sample scalars (e.g. measured MAC energies),
+    ``groups`` the group id of each sample. Empty groups are left out of
+    both terms; the intra-group variance is biased and clamped at 0. The
+    sums are taken in float64 and each term rounds to float32 once (the
+    JAX package sums in float32)."""
+    values = torch.as_tensor(values).to(torch.float64).reshape(-1)
+    groups = torch.as_tensor(groups, device=values.device).long().reshape(-1)
+    counts = torch.zeros(n_groups, dtype=torch.float64, device=values.device)
+    sums = torch.zeros_like(counts)
+    sq_sums = torch.zeros_like(counts)
+    counts.index_add_(0, groups, torch.ones_like(values))
+    sums.index_add_(0, groups, values)
+    sq_sums.index_add_(0, groups, values * values)
+    nonempty = counts > 0
+    safe = torch.clamp(counts, min=1.0)
+    means = sums / safe
+    variances = torch.clamp(sq_sums / safe - means * means, min=0.0)
+    n = max(int(nonempty.sum()), 1)
+    m = means[nonempty]
+    inter = ((m - m.sum() / n) ** 2).sum() / n
+    intra = variances[nonempty].sum() / n
+    return (inter / torch.clamp(intra, min=1e-12)).float()
 
 
 def _randint(gen: torch.Generator, n: int) -> int:

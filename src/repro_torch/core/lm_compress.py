@@ -7,6 +7,7 @@ Builds a comp tree mirroring the LM's grouped parameter layout:
       "blocks": {"g0": {"attn/wq": CompState, "mlp/w_gate": ...}, ...}
                 with leaves stacked over the layer axis,
       "tail":   {"t0": {...}},           # unstacked
+      "enc_blocks": {"attn/wq": ...},    # whisper's encoder (stacked)
     }
 
 Eligible tensors are the matmul weights that occupy systolic
@@ -90,7 +91,21 @@ def make_lm_comp_spec(model) -> dict:
         if top in spec:
             comp[top] = {g: _block_comp_spec(spec[top][g])
                          for g in spec[top]}
+    if "enc_blocks" in spec:
+        comp["enc_blocks"] = _block_comp_spec(spec["enc_blocks"])
     return comp
+
+
+def _unit_nodes(tree: dict):
+    """(top, group or None, node) of every block node of a comp-shaped
+    tree: ``blocks``/``tail`` hold groups of units, ``enc_blocks`` holds
+    its units directly."""
+    for top, node in tree.items():
+        if top == "enc_blocks":
+            yield top, None, node
+        else:
+            for g, entries in node.items():
+                yield top, g, entries
 
 
 def init_lm_comp(model, *, device) -> dict:
@@ -99,10 +114,11 @@ def init_lm_comp(model, *, device) -> dict:
 
 
 def lm_comp_layers(model) -> List[str]:
-    """Flat names of compressible units ('blocks/g0/attn/wq', ...)."""
-    return [f"{top}/{g}/{k}"
-            for top, groups in make_lm_comp_spec(model).items()
-            for g, entries in groups.items() for k in entries]
+    """Flat names of compressible units ('blocks/g0/attn/wq', ...,
+    'enc_blocks/attn/wq')."""
+    return [f"{top}/{k}" if g is None else f"{top}/{g}/{k}"
+            for top, g, entries in _unit_nodes(make_lm_comp_spec(model))
+            for k in entries]
 
 
 # ---------------------------------------------------------------- serving
@@ -148,28 +164,29 @@ def iter_eligible_units(model, params: dict, comp: Optional[dict] = None, *,
     the fake-quant forward. With ``comp=None`` the comp entries are None.
     With ``include_skipped``, units without a serving layout are yielded
     once (unsliced) with ``layout=None``."""
-    spec = make_lm_comp_spec(model)
-    for top, groups in spec.items():
-        for g, units in groups.items():
-            for unit in units:
-                sub, key = unit.split("/")
-                w = params[top][g][sub][key]
-                stacked = units[unit]["mask"].axes[:1] == ("layers",)
-                c = None if comp is None else comp[top][g][unit]
-                base = f"{top}/{g}/{unit}"
-                if stacked:
-                    layout = _serve_layout(key, w.ndim - 1)
-                    if layout is None:
-                        if include_skipped:
-                            yield base, w, c, None
-                        continue
-                    for li in range(w.shape[0]):
-                        yield (f"{base}[{li}]", w[li],
-                               _slice_comp(c, (li,)), layout)
-                else:
-                    layout = _serve_layout(key, w.ndim)
-                    if layout is not None or include_skipped:
-                        yield base, w, c, layout
+    for top, g, units in _unit_nodes(make_lm_comp_spec(model)):
+        node_p = params[top] if g is None else params[top][g]
+        node_c = None if comp is None else (comp[top] if g is None
+                                            else comp[top][g])
+        for unit in units:
+            sub, key = unit.split("/")
+            w = node_p[sub][key]
+            stacked = units[unit]["mask"].axes[:1] == ("layers",)
+            c = None if node_c is None else node_c[unit]
+            base = f"{top}/{unit}" if g is None else f"{top}/{g}/{unit}"
+            if stacked:
+                layout = _serve_layout(key, w.ndim - 1)
+                if layout is None:
+                    if include_skipped:
+                        yield base, w, c, None
+                    continue
+                for li in range(w.shape[0]):
+                    yield (f"{base}[{li}]", w[li], _slice_comp(c, (li,)),
+                           layout)
+            else:
+                layout = _serve_layout(key, w.ndim)
+                if layout is not None or include_skipped:
+                    yield base, w, c, layout
 
 
 def iter_restricted_units(model, params: dict, comp: dict):
@@ -264,7 +281,10 @@ def attach_serve_artifacts(model, params: dict, comp: dict, *,
 
     out, total = {}, 0
     for top, groups in comp.items():
-        if top in ("blocks", "tail"):
+        if top == "enc_blocks":
+            out[top], total_enc = attach_entries(params[top], groups)
+            total += total_enc
+        elif top in ("blocks", "tail"):
             out[top] = {}
             for g, entries in groups.items():
                 out[top][g], n = attach_entries(params[top][g], entries)

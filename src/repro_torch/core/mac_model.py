@@ -17,11 +17,13 @@ The energy is linear in four integer event counts (product toggles, partial-
 product activity, accumulator toggles, carry length) with a branch fixed by
 the weight, which is what lets the transition-statistics kernel sum integers
 per weight value and price them once (`price_event_sums`).
+`weight_static_energy_profile` is the paper's Fig. 1 profile.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 
@@ -97,3 +99,38 @@ def price_event_sums(events: torch.Tensor,
     is_zero = torch.arange(events.shape[0], device=events.device) == 128
     energy = torch.where(is_zero, gated, active) + coeffs.c_base * e[:, 0]
     return energy.to(torch.float32)
+
+
+def weight_static_energy_profile(coeffs: MacEnergyCoeffs = DEFAULT_COEFFS,
+                                 n_samples: int = 4096, seed: int = 0, *,
+                                 a_seq: Optional[torch.Tensor] = None,
+                                 p_seq: Optional[torch.Tensor] = None,
+                                 device=None) -> torch.Tensor:
+    """Mean MAC transition energy of every int8 weight under uniform random
+    traffic (the paper's Fig. 1 setting: random transitions, a fixed
+    weight), float32 (256,) indexed by ``w + 128``.
+
+    ``a_seq`` ((n_samples + 1,) activations in [-128, 128)) and ``p_seq``
+    ((n_samples + 1,) 22-bit partial sums) default to draws from a
+    `torch.Generator` seeded with ``seed`` on ``device`` (the JAX package
+    draws them from `jax.random`, which torch cannot replay; a test passes
+    JAX's sequences in). Each weight's mean is summed in float64 and
+    rounded once."""
+    if a_seq is None or p_seq is None:
+        dev = torch.device(device if device is not None else "cpu")
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        if a_seq is None:
+            a_seq = torch.randint(-128, 128, (n_samples + 1,),
+                                  generator=gen, device=dev,
+                                  dtype=torch.int32)
+        if p_seq is None:
+            p_seq = torch.randint(0, 1 << 22, (n_samples + 1,),
+                                  generator=gen, device=dev,
+                                  dtype=torch.int32)
+    a_seq = torch.as_tensor(a_seq).to(torch.int32)
+    p_seq = torch.as_tensor(p_seq).to(device=a_seq.device, dtype=torch.int32)
+    w = torch.arange(-128, 128, dtype=torch.int32,
+                     device=a_seq.device)[:, None]
+    e = mac_transition_energy(w, a_seq[None, :-1], a_seq[None, 1:],
+                              p_seq[None, :-1], p_seq[None, 1:], coeffs)
+    return e.mean(dim=1, dtype=torch.float64).float()

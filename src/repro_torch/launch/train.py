@@ -16,10 +16,16 @@ float64 and rounds once: on the H100 a float64 GEMM runs on the tensor
 cores, and a float32 backward (the JAX package's) took 3-4% more time a
 step (PERF.md).
 
+A batch may hold ``enc_embeds`` (the encoder-decoder family's frame
+embeddings); ``prefix_embeds`` (the VLM prefix) raises
+`NotImplementedError` naming ROADMAP.md item 6c. `batch_specs` and
+`decode_cache_specs` give a cell's abstract batch and decode cache (meta
+tensors; whisper's decoder context is `WHISPER_DECODER_LEN`).
+
 The JAX package's mesh, sharding and MoE-dispatch machinery (``mesh=``,
-``rules=``, ``moe_local_dispatch=``, the ``abstract_*``, ``*_shardings``,
-``batch_specs`` and ``cache_axes`` helpers) lays a step out over a device
-mesh; it raises `NotImplementedError` naming ROADMAP.md item 10.
+``rules=``, ``moe_local_dispatch=``, the ``abstract_*``, ``*_shardings``
+and ``cache_axes`` helpers) lays a step out over a device mesh; it raises
+`NotImplementedError` naming ROADMAP.md item 10.
 
     python -m repro_torch.launch.train --arch olmo-1b --steps 50 \\
         --plan-out BASE [--ckpt-dir DIR] [--device cpu]
@@ -41,6 +47,8 @@ from repro_torch._device import (
 from repro_torch.nn.layers import QuantConfig
 from repro_torch.nn.spec import init_params
 from repro_torch.optim.optimizers import Optimizer, adamw, apply_updates
+
+WHISPER_DECODER_LEN = 448  # whisper's decoder context (enc length = seq_len)
 
 MESH_NOT_PORTED = ("ROADMAP.md Queue 1 item 10, 'Multi-device, "
                    "checkpointing, launch'")
@@ -94,9 +102,9 @@ def _value_and_grad(loss_fn, params, batch, comp):
 def make_train_step(model, step_cfg: StepConfig, mesh=None, rules=None,
                     moe_local_dispatch: bool = False) -> Callable:
     """train_step(state, batch[, comp]) -> (state, metrics). ``state`` is
-    {"params", "opt"}, ``batch`` {"tokens", "labels"[, "loss_mask"]}
-    tensors on the params' device; metrics are 0-d tensors (``loss``,
-    ``ce``, ``lb_loss``, ``z_loss``)."""
+    {"params", "opt"}, ``batch`` {"tokens", "labels"[, "loss_mask",
+    "enc_embeds"]} tensors on the params' device; metrics are 0-d tensors
+    (``loss``, ``ce``, ``lb_loss``, ``z_loss``)."""
     if mesh is not None or rules is not None:
         raise _mesh_not_ported("make_train_step(mesh=, rules=)")
     if moe_local_dispatch:
@@ -136,6 +144,7 @@ def make_train_step(model, step_cfg: StepConfig, mesh=None, rules=None,
                 tree_map(lambda x: x * scale, g_acc))
 
     def step(state, batch, comp):
+        _check_batch(batch)
         (loss, metrics), grads = loss_grad(state["params"], batch, comp)
         updates, opt = optimizer.update(grads, state["opt"], state["params"])
         params = apply_updates(state["params"], updates)
@@ -147,13 +156,12 @@ def make_train_step(model, step_cfg: StepConfig, mesh=None, rules=None,
 
 
 def _check_batch(batch: Dict[str, torch.Tensor]) -> None:
-    for key in ("prefix_embeds", "enc_embeds"):
-        if batch.get(key) is not None:
-            from repro_torch.nn.transformer import NOT_PORTED
+    if batch.get("prefix_embeds") is not None:
+        from repro_torch.nn.transformer import NOT_PORTED
 
-            raise NotImplementedError(
-                f"a batch with {key!r} (VLM prefix / encoder-decoder) is not "
-                f"ported yet: {NOT_PORTED['prefix']}")
+        raise NotImplementedError(
+            "a batch with 'prefix_embeds' (the VLM prefix) is not ported "
+            f"yet: {NOT_PORTED['prefix']}")
 
 
 def make_prefill_step(model, step_cfg: StepConfig, mesh=None,
@@ -167,6 +175,7 @@ def make_prefill_step(model, step_cfg: StepConfig, mesh=None,
     def prefill_step(params, batch):
         _check_batch(batch)
         logits, _ = model.forward(params, batch["tokens"],
+                                  enc_embeds=batch.get("enc_embeds"),
                                   qcfg=QuantConfig.off(), remat=False,
                                   q_block=step_cfg.q_block,
                                   kv_block=step_cfg.kv_block)
@@ -215,11 +224,52 @@ abstract_serve_params = _sharding_helper("abstract_serve_params")
 comp_abstract = _sharding_helper("comp_abstract")
 train_state_shardings = _sharding_helper("train_state_shardings")
 comp_shardings = _sharding_helper("comp_shardings")
-batch_specs = _sharding_helper("batch_specs")
 batch_shardings = _sharding_helper("batch_shardings")
 cache_axes = _sharding_helper("cache_axes")
 cache_shardings = _sharding_helper("cache_shardings")
 moe_dispatch_constraint = _sharding_helper("moe_dispatch_constraint")
+
+
+# ================================================================== inputs
+
+
+def batch_specs(cfg, shape) -> Dict[str, torch.Tensor]:
+    """Abstract batch (meta tensors) of a train or prefill cell
+    (`repro_torch.configs.base.Shape`). The encoder-decoder family takes
+    ``shape.seq`` encoder frames (bfloat16) and at most
+    `WHISPER_DECODER_LEN` decoder tokens; a VLM prefix takes the first
+    ``prefix_len`` positions."""
+    b, s = shape.batch, shape.seq
+
+    def meta(shp, dtype):
+        return torch.empty(shp, dtype=dtype, device="meta")
+
+    specs: Dict[str, torch.Tensor] = {}
+    if cfg.encoder_decoder:
+        s_dec = min(s, WHISPER_DECODER_LEN)
+        specs["enc_embeds"] = meta((b, s, cfg.d_model), torch.bfloat16)
+        specs["tokens"] = meta((b, s_dec), torch.int32)
+        if shape.kind == "train":
+            specs["labels"] = meta((b, s_dec), torch.int32)
+        return specs
+    s_tok = s - cfg.prefix_len
+    if cfg.prefix_len:
+        specs["prefix_embeds"] = meta((b, cfg.prefix_len, cfg.d_model),
+                                      torch.bfloat16)
+    specs["tokens"] = meta((b, s_tok), torch.int32)
+    if shape.kind == "train":
+        specs["labels"] = meta((b, s_tok), torch.int32)
+    return specs
+
+
+def decode_cache_specs(model, shape, dtype=torch.bfloat16) -> dict:
+    """Abstract decode cache (meta tensors) of a decode cell: for the
+    encoder-decoder family a self-attention cache bounded by the decoder
+    context and cross-attention K/V over ``shape.seq`` frames."""
+    if model.cfg.encoder_decoder:
+        return model.cache_spec(shape.batch, WHISPER_DECODER_LEN, dtype,
+                                cross_len=shape.seq)
+    return model.cache_spec(shape.batch, shape.seq, dtype)
 
 
 # ====================================================================== CLI

@@ -24,11 +24,15 @@ flash backward of attention (``use_flash``).
 
 Ported families: decoder-only stacks of ``attn`` / ``local`` blocks (the
 dense family), of ``ssm`` blocks (Mamba-2) and of ``rglru`` and ``local``
-blocks (RecurrentGemma's hybrid). A recurrent block's decode cache is its
-mixer's state (no sequence axis, float32 whatever the cache dtype),
-passed through from prefill as the JAX package does. `build_lm` raises
-`NotImplementedError`, naming the ROADMAP.md item, for MoE, VLM-prefix and
-encoder-decoder configs.
+blocks (RecurrentGemma's hybrid), and whisper's encoder-decoder: a
+non-causal, RoPE-free encoder stack (``enc_blocks``, ``enc_norm``) over
+given frame embeddings (``enc_embeds``, the stub frontend) with sinusoidal
+positions, and decoder blocks with cross-attention over its output, whose
+K/V the decode cache holds as ``xk``/``xv``. A recurrent block's decode
+cache is its mixer's state (no sequence axis, float32 whatever the cache
+dtype), passed through from prefill as the JAX package does. `build_lm`
+raises `NotImplementedError`, naming the ROADMAP.md item, for MoE and
+VLM-prefix configs.
 """
 
 from __future__ import annotations
@@ -57,6 +61,7 @@ from repro_torch.nn.transformer import (
 
 NEG_INF = -1e30
 
+
 def _layer(tree, r: int):
     """Layer ``r`` of a stacked tree (tensors, and `ServeArtifact` leaves
     whose fields carry the layer axis); 0-d leaves are shared by every
@@ -72,11 +77,29 @@ def _layer(tree, r: int):
     return tree
 
 
-def _embed(params, tokens, cfg: ArchConfig):
+def _sinusoid(positions: torch.Tensor, d: int) -> torch.Tensor:
+    """(B, S) int positions -> (B, S, d) float32 sinusoidal embeddings
+    (whisper): sines of the first half, cosines of the second."""
+    half = d // 2
+    freqs = torch.exp(-math.log(10000.0) * torch.arange(
+        half, dtype=torch.float32, device=positions.device)
+        / max(half - 1, 1))
+    ang = positions[..., None].float() * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def _embed(params, tokens, cfg: ArchConfig, pos_ids=None):
+    """Token embeddings in the compute dtype; the encoder-decoder family
+    adds the sinusoid of ``pos_ids`` ((B, S); default 0..S-1)."""
     x = params["embed"]["table"][tokens.long()].to(cfg.cdtype)
     if cfg.embed_scale:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=cfg.cdtype,
                              device=x.device)
+    if cfg.encoder_decoder:
+        if pos_ids is None:
+            pos_ids = torch.arange(x.shape[1], dtype=torch.int32,
+                                   device=x.device).expand(x.shape[:2])
+        x = x + _sinusoid(pos_ids, cfg.d_model).to(x.dtype)
     return x
 
 
@@ -126,42 +149,89 @@ class LMModel:
 
     def _fake_quant_units(self, params, comp, qcfg: QuantConfig):
         """Every compressible weight of the model fake-quantized at once,
-        as {"blocks": {"g0": {"attn/wq": (L, ...)}}, "tail": {...}}, or
-        None without QAT. The stacked units of all groups take one grouped
-        K3 launch with the layer axis as K3's candidate axis (the tail's
-        units, unstacked, one more); a unit that serves from a packed
-        artifact on the serve path is left out (K2 runs it)."""
+        as {"blocks": {"g0": {"attn/wq": (L, ...)}}, "tail": {...},
+        "enc_blocks": {"attn/wq": (L_enc, ...)}}, or None without QAT. The
+        stacked units of all groups take one grouped K3 launch with the
+        layer axis as K3's candidate axis, the encoder's stacked units with
+        them when the two stacks are equally deep (else one launch of
+        their own); the tail's units, unstacked, one more. A unit that
+        serves from a packed artifact on the serve path is left out (K2
+        runs it)."""
         if not qcfg.enabled:
             return None
         serve = qcfg.comp_mode == "serve"
-        out: Dict[str, Dict[str, dict]] = {"blocks": {}, "tail": {}}
-        for top in ("blocks", "tail"):
+        out: Dict[str, Dict[str, dict]] = {"blocks": {}, "tail": {},
+                                           "enc_blocks": {}}
+        launches: Dict[Optional[int], list] = {}
+        for top in ("blocks", "enc_blocks", "tail"):
             if top not in params:
                 continue
             top_comp = None if comp is None else comp.get(top)
-            names, ws, comps = [], [], []
-            for g, block in params[top].items():
-                out[top][g] = {}
-                block_comp = None if top_comp is None else top_comp.get(g)
+            groups = ({None: params[top]} if top == "enc_blocks"
+                      else params[top])
+            depth = {"blocks": self.n_rep, "tail": None,
+                     "enc_blocks": self.cfg.n_enc_layers}[top]
+            for g, block in groups.items():
+                node = out[top] if g is None else out[top].setdefault(g, {})
+                block_comp = top_comp if top_comp is None or g is None \
+                    else top_comp.get(g)
                 for unit in T.block_matmuls(block):
                     c = None if block_comp is None else block_comp.get(unit)
                     if serve and c is not None and "serve" in c:
                         continue
                     sub, key = unit.split("/")
-                    names.append((g, unit))
-                    ws.append(block[sub][key])
-                    comps.append(None if c is None else
-                                 {k: v for k, v in c.items() if k != "serve"})
-            if ws:
-                outs = qat.fake_quant_weights(
-                    ws, comps, self.n_rep if top == "blocks" else None)
-                for (g, unit), w in zip(names, outs):
-                    out[top][g][unit] = w
+                    launches.setdefault(depth, []).append(
+                        (node, unit, block[sub][key],
+                         None if c is None else
+                         {k: v for k, v in c.items() if k != "serve"}))
+        for depth, entries in launches.items():
+            outs = qat.fake_quant_weights([e[2] for e in entries],
+                                          [e[3] for e in entries], depth)
+            for (node, unit, _, _), w in zip(entries, outs):
+                node[unit] = w
         return out
+
+    # ------------------------------------------------------------- encoder
+
+    def _encode(self, params, enc_embeds: torch.Tensor, *, qcfg, comp, weff,
+                remat: bool, q_block: int, kv_block: int) -> torch.Tensor:
+        """The encoder stack over frame embeddings (B, S_enc, d): sinusoidal
+        positions, non-causal RoPE-free ``attn`` blocks, ``enc_norm``."""
+        cfg = self.cfg
+        x = enc_embeds.to(cfg.cdtype)
+        b, s, _ = x.shape
+        pos = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
+        x = x + _sinusoid(pos, cfg.d_model).to(x.dtype)
+        enc_comp = None if comp is None else comp.get("enc_blocks")
+        for r in range(cfg.n_enc_layers):
+            def layer(x, r=r):
+                return apply_block(
+                    _layer(params["enc_blocks"], r), x, cfg, "attn",
+                    positions=pos, qcfg=qcfg,
+                    comp=None if enc_comp is None else _layer(enc_comp, r),
+                    q_block=q_block, kv_block=kv_block, encoder=True,
+                    w_eff=None if weff is None
+                    else _layer(weff["enc_blocks"], r))[0]
+
+            x = checkpoint(layer, x, use_reentrant=False) if remat \
+                else layer(x)
+        return T.apply_norm(params["enc_norm"], x, cfg, qcfg.batch_invariant)
+
+    def _enc_out(self, params, enc_embeds, **kw) -> Optional[torch.Tensor]:
+        """The encoder output of an encoder-decoder model (None for the
+        others, whatever ``enc_embeds``)."""
+        if not self.cfg.encoder_decoder:
+            return None
+        if enc_embeds is None:
+            raise ValueError(f"{self.cfg.name} is an encoder-decoder model: "
+                             f"its forward needs enc_embeds (B, S_enc, "
+                             f"{self.cfg.d_model})")
+        return self._encode(params, enc_embeds, **kw)
 
     # ------------------------------------------------------------- forward
 
     def forward(self, params, tokens: torch.Tensor, *,
+                enc_embeds: Optional[torch.Tensor] = None,
                 qcfg: QuantConfig = QuantConfig.off(), comp=None,
                 remat: bool = False, q_block: int = 512,
                 kv_block: int = 512, use_flash: bool = False,
@@ -177,7 +247,8 @@ class LMModel:
         the JAX package's ``remat_policy="save_qat"``, which is therefore
         what the port does under either policy (the argument is accepted
         and changes nothing). ``use_flash``: attention's flash backward
-        (`repro_torch.nn.flash`)."""
+        (`repro_torch.nn.flash`). ``enc_embeds`` (B, S_enc, d): the
+        encoder-decoder family's frame embeddings (required there)."""
         cfg = self.cfg
         b, s = tokens.shape
         x = _embed(params, tokens, cfg)
@@ -186,15 +257,18 @@ class LMModel:
         aux = {"lb_loss": torch.zeros((), device=x.device),
                "z_loss": torch.zeros((), device=x.device)}
         weff = self._fake_quant_units(params, comp, qcfg)
+        enc_out = self._enc_out(params, enc_embeds, qcfg=qcfg, comp=comp,
+                                weff=weff, remat=remat, q_block=q_block,
+                                kv_block=kv_block)
         for block_params, block_comp, block_weff, bt, _ in self._layers(
                 params, comp, weff):
             def layer(x, block_params=block_params, block_comp=block_comp,
                       block_weff=block_weff, bt=bt):
                 return apply_block(block_params, x, cfg, bt,
                                    positions=positions, qcfg=qcfg,
-                                   comp=block_comp, q_block=q_block,
-                                   kv_block=kv_block, w_eff=block_weff,
-                                   use_flash=use_flash)
+                                   comp=block_comp, enc_out=enc_out,
+                                   q_block=q_block, kv_block=kv_block,
+                                   w_eff=block_weff, use_flash=use_flash)
 
             if remat:
                 x, a = checkpoint(layer, x, use_reentrant=False)
@@ -208,11 +282,14 @@ class LMModel:
 
     def loss(self, params, batch: Dict[str, torch.Tensor], **fwd_kwargs):
         """Causal LM loss: (total, {"ce", "lb_loss", "z_loss"}). ``batch``
-        holds ``tokens`` and ``labels`` (B, S) and optionally ``loss_mask``;
-        the log-softmax is taken over the trailing label positions, and
-        ``total = ce + 0.01 * lb_loss + 1e-3 * z_loss`` (both zero for the
-        dense family). ``fwd_kwargs`` go to `forward`."""
-        logits, aux = self.forward(params, batch["tokens"], **fwd_kwargs)
+        holds ``tokens`` and ``labels`` (B, S), optionally ``loss_mask`` and
+        (the encoder-decoder family) ``enc_embeds``; the log-softmax is
+        taken over the trailing label positions, and ``total = ce + 0.01 *
+        lb_loss + 1e-3 * z_loss`` (both zero for the dense family).
+        ``fwd_kwargs`` go to `forward`."""
+        logits, aux = self.forward(params, batch["tokens"],
+                                   enc_embeds=batch.get("enc_embeds"),
+                                   **fwd_kwargs)
         labels = batch["labels"].long()
         logits_tok = logits[:, logits.shape[1] - labels.shape[1]:]
         logp = torch.log_softmax(logits_tok, dim=-1)
@@ -242,34 +319,37 @@ class LMModel:
 
     # --------------------------------------------------------------- caches
 
-    def cache_spec(self, batch: int, max_len: int,
-                   dtype=torch.bfloat16) -> dict:
+    def cache_spec(self, batch: int, max_len: int, dtype=torch.bfloat16,
+                   cross_len: int = 0) -> dict:
         """Shape-and-dtype placeholders (meta tensors) of a decode cache:
         {"groups": {"g<i>": {"k", "v"} (L, B, Smax, Hkv, D)}, "tail":
         {...}, "pos": (B,) int32, the per-sequence position}. A recurrent
         block's leaves are its mixer's state ({"state", "conv"} or {"h",
         "conv"}: batch, then no sequence axis), float32 whatever
-        ``dtype``."""
+        ``dtype``. ``cross_len``: each attention block also holds the
+        cross-attention K/V ``xk``/``xv`` (B, cross_len, Hkv, D)."""
         cfg = self.cfg
         spec: Dict[str, Any] = {"groups": {}, "tail": {}}
         for i, bt in enumerate(cfg.pattern):
-            one = block_cache_spec(cfg, bt, batch, max_len, dtype)
+            one = block_cache_spec(cfg, bt, batch, max_len, dtype,
+                                   cross_len=cross_len)
             spec["groups"][f"g{i}"] = {
                 k: torch.empty((self.n_rep, *s.shape), dtype=s.dtype,
                                device="meta") for k, s in one.items()}
         for j in range(self.n_tail):
             spec["tail"][f"t{j}"] = block_cache_spec(
-                cfg, cfg.pattern[j], batch, max_len, dtype)
+                cfg, cfg.pattern[j], batch, max_len, dtype,
+                cross_len=cross_len)
         spec["pos"] = torch.empty((batch,), dtype=torch.int32, device="meta")
         return spec
 
-    def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16, *,
-                   device) -> dict:
+    def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16,
+                   cross_len: int = 0, *, device) -> dict:
         from repro_torch._device import tree_map
 
         return tree_map(lambda s: torch.zeros(s.shape, dtype=s.dtype,
                                               device=device),
-                        self.cache_spec(batch, max_len, dtype))
+                        self.cache_spec(batch, max_len, dtype, cross_len))
 
     # --------------------------------------------------------------- decode
 
@@ -280,10 +360,17 @@ class LMModel:
         """One token for every sequence of the batch: tokens (B, 1).
         Returns (logits (B, 1, padded_vocab), new cache); ``cache["pos"]``
         is per sequence (B,). Rows where ``active`` (B,) is False keep
-        their cache and position (their logits are to be ignored)."""
+        their cache and position (their logits are to be ignored). The
+        encoder-decoder family's cross-attention reads the cache's
+        ``xk``/``xv``."""
         cfg = self.cfg
         pos = cache["pos"]
-        x = _embed(params, tokens, cfg)
+        pos_ids = None
+        if cfg.encoder_decoder:
+            pos_ids = pos.to(torch.int32)
+            pos_ids = pos_ids[:, None] if pos_ids.ndim \
+                else pos_ids.expand(tokens.shape)
+        x = _embed(params, tokens, cfg, pos_ids)
         weff = self._fake_quant_units(params, comp, qcfg)
         new_cache: Dict[str, Any] = {"groups": {}, "tail": {},
                                      "pos": pos + 1}
@@ -333,12 +420,14 @@ class LMModel:
     # --------------------------------------------------------------- prefill
 
     def prefill(self, params, tokens: torch.Tensor, max_len: int, *,
+                enc_embeds: Optional[torch.Tensor] = None,
                 qcfg: QuantConfig = QuantConfig.off(), comp=None,
                 cache_dtype=torch.bfloat16, q_block: int = 512,
                 kv_block: int = 512) -> Tuple[torch.Tensor, dict]:
         """Forward over the prompt (B, S), capturing each layer's K/V into
-        a decode cache. Returns (logits (B, S, V), cache ready at
-        pos = S)."""
+        a decode cache (and, with ``enc_embeds``, the cross-attention K/V
+        over the encoder output as ``xk``/``xv`` in ``cache_dtype``).
+        Returns (logits (B, S, V), cache ready at pos = S)."""
         cfg = self.cfg
         b, s = tokens.shape
         x = _embed(params, tokens, cfg)
@@ -350,13 +439,16 @@ class LMModel:
         group_states: Dict[str, list] = {f"g{i}": []
                                          for i in range(self.n_pattern)}
         weff = self._fake_quant_units(params, comp, qcfg)
+        enc_out = self._enc_out(params, enc_embeds, qcfg=qcfg, comp=comp,
+                                weff=weff, remat=False, q_block=q_block,
+                                kv_block=kv_block)
         for block_params, block_comp, block_weff, bt, (top, key, _) in \
                 self._layers(params, comp, weff):
             (x, _), st = apply_block(block_params, x, cfg, bt,
                                      positions=positions, qcfg=qcfg,
-                                     comp=block_comp, q_block=q_block,
-                                     kv_block=kv_block, return_state=True,
-                                     w_eff=block_weff)
+                                     comp=block_comp, enc_out=enc_out,
+                                     q_block=q_block, kv_block=kv_block,
+                                     return_state=True, w_eff=block_weff)
             st = self._state_to_cache(st, bt, max_len, cache_dtype)
             if top == "groups":
                 group_states[key].append(st)
@@ -379,8 +471,13 @@ class LMModel:
         """One prefill chunk per row against an existing decode cache:
         tokens (B, C), row r at positions ``start[r] .. start[r] + C - 1``.
         Returns (logits (B, C, V), the cache with ``pos = start + C``); the
-        last chunk's final position seeds the first sampled token."""
+        last chunk's final position seeds the first sampled token.
+        Encoder-decoder models have no chunk path (`ValueError`, as in the
+        JAX package)."""
         cfg = self.cfg
+        if cfg.encoder_decoder:
+            raise ValueError("chunked prefill does not support "
+                             "encoder-decoder models; use the oneshot path")
         b, c = tokens.shape
         start = start.to(torch.int32)
         positions = start[:, None] + torch.arange(
@@ -460,8 +557,9 @@ class LMModel:
     def _state_to_cache(self, st, bt, max_len, dtype):
         """A block's prefill K/V (B, S, Hkv, D) as its decode cache: the
         last ``min(S, cache_len)`` positions at their slots ``pos mod
-        cache_len``, zeros elsewhere. A recurrent mixer's state is already
-        in cache layout and passes through unchanged (its dtypes too)."""
+        cache_len``, zeros elsewhere; cross-attention K/V (``xk``/``xv``)
+        whole, in ``dtype``. A recurrent mixer's state is already in cache
+        layout and passes through unchanged (its dtypes too)."""
         if bt in T.RECURRENT:
             return st
         dims = self.cfg.attn_dims(bt == "local")
@@ -477,15 +575,19 @@ class LMModel:
                          device=v.device)
         kc[:, slots] = k[:, s - take:].to(dtype)
         vc[:, slots] = v[:, s - take:].to(dtype)
-        return {"k": kc, "v": vc}
+        out = {"k": kc, "v": vc}
+        if "xk" in st:
+            out["xk"], out["xv"] = st["xk"].to(dtype), st["xv"].to(dtype)
+        return out
 
 
 def build_lm(cfg: ArchConfig) -> LMModel:
-    """The spec tree of an LM of the dense, SSM (Mamba-2) or hybrid
-    (RecurrentGemma) family; raises `NotImplementedError`, naming the
-    ROADMAP.md item, for the families whose blocks are not ported (MoE FFNs
-    and the encoder-decoder family's cross-attention: `make_block_spec`)
-    and for the VLM prefix."""
+    """The spec tree of an LM of the dense, SSM (Mamba-2), hybrid
+    (RecurrentGemma) or encoder-decoder (whisper: ``enc_blocks`` stacked
+    over ``n_enc_layers``, ``enc_norm``, decoder blocks with
+    cross-attention) family; raises `NotImplementedError`, naming the
+    ROADMAP.md item, for MoE FFNs (`make_block_spec`) and the VLM
+    prefix."""
     if cfg.prefix_len:
         raise NotImplementedError(f"{cfg.name}: the VLM prefix embeddings "
                                   f"are not ported yet: {T.NOT_PORTED['prefix']}")
@@ -507,6 +609,11 @@ def build_lm(cfg: ArchConfig) -> LMModel:
         spec["tail"] = {f"t{j}": make_block_spec(
             cfg, cfg.pattern[j], cross_attn=cfg.encoder_decoder)
             for j in range(n_tail)}
+    if cfg.encoder_decoder:
+        spec["enc_blocks"] = stack_specs(
+            make_block_spec(cfg, "attn", cross_attn=False),
+            cfg.n_enc_layers, "layers")
+        spec["enc_norm"] = T.make_norm_spec(cfg)
     if not cfg.tie_embeddings:
         spec["lm_head"] = {"w": ParamSpec((cfg.d_model, cfg.padded_vocab),
                                           cfg.pdtype, ("embed", "vocab"),

@@ -22,6 +22,16 @@ and the product is correctly rounded (`exact_matmul`), so the two paths
 agree to float32 ulps. ``apply_attention_chunk`` is the serving engine's
 chunked prefill: one chunk of each row's prompt written into that row's
 cache, then attended over the whole cache with per-row positions.
+
+Cross-attention (the encoder-decoder family): `apply_attention` takes the
+keys and values from ``kv`` (the encoder output's projections), and
+`apply_attention_decode` attends one query over ``cross_kv``. Keys are
+padded to a multiple of the key block as in the JAX package. Its
+non-causal mask (the encoder's self-attention, cross-attention) masks
+nothing, so the padded keys, zeros, take part in the softmax with score 0
+exactly as they do in the reference; decode over an unpadded ``cross_kv``
+has none, so prefill + decode equals the full forward only when the
+encoder length is a multiple of the key block.
 """
 
 from __future__ import annotations
@@ -288,28 +298,37 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 def apply_attention(params, x: torch.Tensor, dims: AttnDims, *,
                     positions: Optional[torch.Tensor] = None,
                     qcfg: QuantConfig = QuantConfig.off(), comp=None,
-                    name: str = "attn", q_block: int = 512,
-                    kv_block: int = 512, return_kv: bool = False,
-                    w_eff=None, use_flash: bool = False):
+                    name: str = "attn",
+                    kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                    q_block: int = 512, kv_block: int = 512,
+                    return_kv: bool = False, w_eff=None,
+                    use_flash: bool = False):
     """Prefill attention over (B, S, d_model). Returns the output, or
     (output, (k, v)) with post-RoPE K/V when ``return_kv`` (prefill cache
-    capture). ``use_flash``: `blocked_attention`'s flash backward.
-    Cross-attention (the JAX package's ``kv``) belongs to the
-    encoder-decoder family and is not ported (ROADMAP.md item 6c)."""
+    capture). ``kv``: cross-attention, keys and values (B, S_kv, Hkv, D)
+    given (no RoPE), at positions 0..S_kv-1. ``use_flash``:
+    `blocked_attention`'s flash backward."""
     b, s, _ = x.shape
     dev = x.device
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32,
                                  device=dev).expand(b, s)
     q = _project(params, x, qcfg, comp, name, "wq", "bq", w_eff)
-    k = _project(params, x, qcfg, comp, name, "wk", "bk", w_eff)
-    v = _project(params, x, qcfg, comp, name, "wv", "bv", w_eff)
-    if dims.rope_theta > 0:
-        q = apply_rope(q, positions, dims.rope_theta)
-        k = apply_rope(k, positions, dims.rope_theta)
+    kv_positions = None
+    if kv is None:
+        k = _project(params, x, qcfg, comp, name, "wk", "bk", w_eff)
+        v = _project(params, x, qcfg, comp, name, "wv", "bv", w_eff)
+        if dims.rope_theta > 0:
+            q = apply_rope(q, positions, dims.rope_theta)
+            k = apply_rope(k, positions, dims.rope_theta)
+    else:
+        k, v = kv
+        kv_positions = torch.arange(k.shape[1], dtype=torch.int32,
+                                    device=dev)
     k_ret, v_ret = k, v
 
-    # pad S to block multiples (padded keys sit past every query: causal)
+    # pad S to block multiples: padded keys sit past every query (causal);
+    # the non-causal mask keeps them, as the JAX package's does
     pad_q = (-s) % q_block
     pad_k = (-k.shape[1]) % kv_block
     if pad_q:
@@ -317,9 +336,12 @@ def apply_attention(params, x: torch.Tensor, dims: AttnDims, *,
     if pad_k:
         k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad_k))
         v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad_k))
+        if kv_positions is not None:
+            kv_positions = torch.cat([kv_positions, torch.full(
+                (pad_k,), 1 << 30, dtype=torch.int32, device=dev)])
     out = blocked_attention(q, k, v, dims, q_block=q_block,
-                            kv_block=kv_block, exact=qcfg.batch_invariant,
-                            use_flash=use_flash)
+                            kv_block=kv_block, kv_positions=kv_positions,
+                            exact=qcfg.batch_invariant, use_flash=use_flash)
     if pad_q:
         out = out[:, :s]
     out = _project(params, out, qcfg, comp, name, "wo", w_eff=w_eff)
@@ -345,17 +367,28 @@ def kv_cache_spec(batch: int, max_len: int, dims: AttnDims,
 def apply_attention_decode(params, x: torch.Tensor, cache: dict, pos,
                            dims: AttnDims, *,
                            qcfg: QuantConfig = QuantConfig.off(), comp=None,
-                           name: str = "attn", w_eff=None
+                           name: str = "attn", w_eff=None,
+                           cross_kv: Optional[Tuple[torch.Tensor,
+                                                    torch.Tensor]] = None
                            ) -> Tuple[torch.Tensor, dict]:
     """One decode step: x (B, 1, d_model), cache {"k", "v"} (B, Smax, Hkv,
     D), pos () or (B,) the current position(s). Returns (output (B, 1, d),
     updated cache). Each row writes its own slot (``pos mod Smax``: a ring
-    for windowed layers) and masks against its own position."""
+    for windowed layers) and masks against its own position.
+    ``cross_kv``: cross-attention, the query attends over every key of
+    (xk, xv) and the cache passes through unchanged."""
     b = x.shape[0]
     dev = x.device
     pos_b = torch.as_tensor(pos, dtype=torch.int32, device=dev).expand(b)
     positions = pos_b[:, None]  # (B, 1)
     q = _project(params, x, qcfg, comp, name, "wq", "bq", w_eff)
+    if cross_kv is not None:
+        out = decode_attention(
+            q, cross_kv[0], cross_kv[1],
+            dataclasses.replace(dims, causal=False, window=0),
+            cur_pos=1 << 30, exact=qcfg.batch_invariant)
+        return _project(params, out, qcfg, comp, name, "wo",
+                        w_eff=w_eff), cache
     k_new = _project(params, x, qcfg, comp, name, "wk", "bk", w_eff)
     v_new = _project(params, x, qcfg, comp, name, "wv", "bv", w_eff)
     if dims.rope_theta > 0:

@@ -6,11 +6,17 @@ A *block* is one residual layer of the network. `make_block_spec` /
 LM assembler (`repro_torch.models.lm`) stacks same-typed blocks over a
 leading layer axis and walks it. Block types ``attn``, ``local``,
 ``rglru`` (Griffin's recurrent mixer, then the FFN) and ``ssm`` (Mamba-2's
-SSD mixer alone: no ``ln2``, no FFN) are ported; MoE FFNs and
-cross-attention raise `NotImplementedError` naming their ROADMAP.md item.
-``apply_block_chunk`` is the serving engine's chunked prefill through one
-block; a recurrent mixer there runs the whole prompt from its zero state
-(the engine gives recurrent models single-chunk plans).
+SSD mixer alone: no ``ln2``, no FFN) are ported; MoE FFNs raise
+`NotImplementedError` naming their ROADMAP.md item. A block built with
+``cross_attn`` (the encoder-decoder family's decoder) attends over the
+encoder output between its mixer and its FFN (``ln_x``, ``xattn``: keys and
+values projected from the encoder output, no RoPE; in decode, read from the
+cache's ``xk``/``xv``); ``encoder=True`` runs an ``attn`` block as the
+encoder's (non-causal, no RoPE). ``apply_block_chunk`` is the serving
+engine's chunked prefill through one block; a recurrent mixer there runs the
+whole prompt from its zero state (the engine gives recurrent models
+single-chunk plans); cross-attention has no chunk path and raises, as in
+the JAX package.
 
 Every compressible matmul takes an optional ``w_eff``: {"attn/wq": the
 fake-quantized weight, ...}, computed for all layers at once by the
@@ -43,6 +49,7 @@ from repro_torch.nn.spec import ParamSpec, fan_in_init, ones_init, zeros_init
 # `apply_ffn` and the mixers' `quantized_mm` fake-quantize exactly these
 # under QAT)
 MATMULS = {"attn": ("wq", "wk", "wv", "wo"),
+           "xattn": ("wq", "wk", "wv", "wo"),
            "mlp": ("w_gate", "w_up", "w_down"),
            "ssm": ("in_proj", "out_proj"),
            "rglru": ("in_proj", "gate_proj", "w_a", "w_x", "out_proj")}
@@ -51,8 +58,6 @@ RECURRENT = ("rglru", "ssm")
 
 NOT_PORTED = {
     "moe": "ROADMAP.md Queue 1 item 8, 'Routed targets' (nn/moe.py)",
-    "xattn": "ROADMAP.md Queue 1 item 6c, 'LM stack' (the encoder-decoder "
-             "family's encoder and cross-attention)",
     "prefix": "ROADMAP.md Queue 1 item 6c, 'LM stack'",
 }
 
@@ -150,28 +155,29 @@ def make_block_spec(cfg: ArchConfig, block_type: str, *,
         raise ValueError(block_type)
     if cfg.is_moe and block_type in ("attn", "local"):
         raise _not_ported(f"{cfg.name}: the MoE FFN", "moe")
-    if cross_attn:
-        raise _not_ported(f"{cfg.name}: cross-attention", "xattn")
     spec = {"ln1": make_norm_spec(cfg)}
     if block_type == "ssm":
         spec["ssm"] = SSM.make_ssm_spec(cfg.ssm_dims(), cfg.pdtype)
-        return spec
-    if block_type == "rglru":
-        spec["rglru"] = RG.make_rglru_spec(cfg.rglru_dims(), cfg.pdtype)
     else:
-        spec["attn"] = A.make_attention_spec(
-            cfg.attn_dims(block_type == "local"), cfg.pdtype)
-    spec["ln2"] = make_norm_spec(cfg)
-    spec["mlp"] = make_ffn_spec(cfg)
+        if block_type == "rglru":
+            spec["rglru"] = RG.make_rglru_spec(cfg.rglru_dims(), cfg.pdtype)
+        else:
+            spec["attn"] = A.make_attention_spec(
+                cfg.attn_dims(block_type == "local"), cfg.pdtype)
+        spec["ln2"] = make_norm_spec(cfg)
+        spec["mlp"] = make_ffn_spec(cfg)
+    if cross_attn:
+        spec["ln_x"] = make_norm_spec(cfg)
+        spec["xattn"] = A.make_attention_spec(cfg.enc_attn_dims(),
+                                              cfg.pdtype)
     return spec
 
 
 def _check_block(params, block_type: str) -> None:
     if block_type not in MIXERS:
         raise ValueError(block_type)
-    for key in ("moe", "xattn"):
-        if key in params:
-            raise _not_ported(f"a block with {key!r}", key)
+    if "moe" in params:
+        raise _not_ported("a block with 'moe'", "moe")
 
 
 def _ffn_half(params, x, cfg, qcfg, comp, w_eff):
@@ -179,6 +185,32 @@ def _ffn_half(params, x, cfg, qcfg, comp, w_eff):
     h = apply_norm(params["ln2"], x, cfg, qcfg.batch_invariant)
     return x + apply_ffn(params["mlp"], h, cfg, qcfg=qcfg, comp=comp,
                          name="mlp", w_eff=w_eff)
+
+
+def _cross_kv(attn_params, enc_out, qcfg, comp, w_eff):
+    """Cross-attention K/V (B, S_enc, Hkv, D) from the encoder output (no
+    RoPE)."""
+    return (A._project(attn_params, enc_out, qcfg, comp, "xattn", "wk", "bk",
+                       w_eff),
+            A._project(attn_params, enc_out, qcfg, comp, "xattn", "wv", "bv",
+                       w_eff))
+
+
+def _cross_half(params, x, cfg, qcfg, comp, w_eff, enc_out, q_block,
+                kv_block):
+    """``x + xattn(ln_x(x), enc_out)`` and the cross K/V it used (None, x
+    for a block without cross-attention)."""
+    if "xattn" not in params:
+        return x, None
+    if enc_out is None:
+        raise ValueError("a cross-attention block needs the encoder output "
+                         "(enc_embeds)")
+    h = apply_norm(params["ln_x"], x, cfg, qcfg.batch_invariant)
+    kv = _cross_kv(params["xattn"], enc_out, qcfg, comp, w_eff)
+    xa = A.apply_attention(params["xattn"], h, cfg.enc_attn_dims(),
+                           qcfg=qcfg, comp=comp, name="xattn", kv=kv,
+                           q_block=q_block, kv_block=kv_block, w_eff=w_eff)
+    return x + xa, kv
 
 
 def _recurrent_prefill(params, h, cfg, block_type, qcfg, comp, w_eff,
@@ -197,12 +229,16 @@ def _recurrent_prefill(params, h, cfg, block_type, qcfg, comp, w_eff,
 def apply_block(params, x: torch.Tensor, cfg: ArchConfig, block_type: str, *,
                 positions: Optional[torch.Tensor] = None,
                 qcfg: QuantConfig = QuantConfig.off(), comp=None,
+                enc_out: Optional[torch.Tensor] = None,
                 q_block: int = 512, kv_block: int = 512,
-                return_state: bool = False, w_eff=None,
-                use_flash: bool = False):
+                encoder: bool = False, return_state: bool = False,
+                w_eff=None, use_flash: bool = False):
     """One residual block (prefill). Returns (x, aux), or ((x, aux), state)
     when ``return_state``: the state is the block's contribution to a
-    decode cache (K/V after RoPE, or the recurrent mixer's final state).
+    decode cache (K/V after RoPE, or the recurrent mixer's final state; a
+    cross-attention block adds its cross K/V as ``xk``/``xv``).
+    ``enc_out``: the encoder output a cross-attention block attends over.
+    ``encoder``: the encoder's self-attention (non-causal, no RoPE).
     ``use_flash``: the attention's flash backward (`repro_torch.nn.flash`)."""
     _check_block(params, block_type)
     aux = {"lb_loss": torch.zeros((), device=x.device),
@@ -215,8 +251,9 @@ def apply_block(params, x: torch.Tensor, cfg: ArchConfig, block_type: str, *,
         if return_state:
             mix, state = mix
     else:
-        mix = A.apply_attention(params["attn"], h,
-                                cfg.attn_dims(block_type == "local"),
+        dims = cfg.enc_attn_dims() if encoder \
+            else cfg.attn_dims(block_type == "local")
+        mix = A.apply_attention(params["attn"], h, dims,
                                 positions=positions, qcfg=qcfg, comp=comp,
                                 name="attn", q_block=q_block,
                                 kv_block=kv_block, return_kv=return_state,
@@ -225,6 +262,10 @@ def apply_block(params, x: torch.Tensor, cfg: ArchConfig, block_type: str, *,
             mix, (k_st, v_st) = mix
             state = {"k": k_st, "v": v_st}
     x = x + mix
+    x, kv = _cross_half(params, x, cfg, qcfg, comp, w_eff, enc_out, q_block,
+                        kv_block)
+    if return_state and kv is not None:
+        state = {**state, "xk": kv[0], "xv": kv[1]}
     if block_type != "ssm":
         x = _ffn_half(params, x, cfg, qcfg, comp, w_eff)
     return ((x, aux), state) if return_state else (x, aux)
@@ -234,9 +275,12 @@ def apply_block(params, x: torch.Tensor, cfg: ArchConfig, block_type: str, *,
 
 
 def block_cache_spec(cfg: ArchConfig, block_type: str, batch: int,
-                     max_len: int, dtype=torch.bfloat16):
+                     max_len: int, dtype=torch.bfloat16, *,
+                     cross_len: int = 0):
     """Shape-and-dtype placeholders (meta tensors) of a block's cache; the
-    recurrent mixers' states are float32 whatever ``dtype``."""
+    recurrent mixers' states are float32 whatever ``dtype``. ``cross_len``:
+    an attention block's cross-attention K/V ``xk``/``xv`` (B, cross_len,
+    Hkv, D) in ``dtype``."""
     if block_type == "rglru":
         return RG.rglru_cache_spec(batch, cfg.rglru_dims(), torch.float32)
     if block_type == "ssm":
@@ -245,12 +289,20 @@ def block_cache_spec(cfg: ArchConfig, block_type: str, batch: int,
         raise ValueError(block_type)
     dims = cfg.attn_dims(block_type == "local")
     cache_len = min(max_len, dims.window) if dims.window else max_len
-    return A.kv_cache_spec(batch, cache_len, dims, dtype)
+    spec = A.kv_cache_spec(batch, cache_len, dims, dtype)
+    if cross_len:
+        xdims = cfg.enc_attn_dims()
+        shape = (batch, cross_len, xdims.n_kv_heads, xdims.head_dim)
+        for key in ("xk", "xv"):
+            spec[key] = torch.empty(shape, dtype=dtype, device="meta")
+    return spec
 
 
 def init_block_cache(cfg: ArchConfig, block_type: str, batch: int,
-                     max_len: int, dtype=torch.bfloat16, *, device):
-    spec = block_cache_spec(cfg, block_type, batch, max_len, dtype)
+                     max_len: int, dtype=torch.bfloat16, *, device,
+                     cross_len: int = 0):
+    spec = block_cache_spec(cfg, block_type, batch, max_len, dtype,
+                            cross_len=cross_len)
     return {k: torch.zeros(s.shape, dtype=s.dtype, device=device)
             for k, s in spec.items()}
 
@@ -279,6 +331,13 @@ def apply_block_decode(params, x: torch.Tensor, cache: dict, pos,
             name="attn", w_eff=w_eff)
         new_cache.update(kv_new)
     x = x + mix
+    if "xattn" in params:
+        h = apply_norm(params["ln_x"], x, cfg, qcfg.batch_invariant)
+        xa, _ = A.apply_attention_decode(
+            params["xattn"], h, {}, pos, cfg.enc_attn_dims(), qcfg=qcfg,
+            comp=comp, name="xattn", w_eff=w_eff,
+            cross_kv=(cache["xk"], cache["xv"]))
+        x = x + xa
     if block_type != "ssm":
         x = _ffn_half(params, x, cfg, qcfg, comp, w_eff)
     return x, new_cache
@@ -296,8 +355,12 @@ def apply_block_chunk(params, x: torch.Tensor, cache: dict,
     (`attention.apply_attention_chunk`). Recurrent mixers have no
     mid-sequence state injection: the chunk must be the whole prompt from
     position 0, and the mixer runs it from its zero state (the engine
-    enforces single-chunk plans for them, as the JAX package's does). MoE
-    FFNs and cross-attention raise as `apply_block` does."""
+    enforces single-chunk plans for them, as the JAX package's does).
+    Cross-attention has no chunk path (`ValueError`, as in the JAX
+    package); MoE FFNs raise as `apply_block` does."""
+    if "xattn" in params:
+        raise ValueError("chunked prefill does not support cross-attention "
+                         "blocks; use the oneshot/wave path")
     _check_block(params, block_type)
     h = apply_norm(params["ln1"], x, cfg, qcfg.batch_invariant)
     if block_type in RECURRENT:

@@ -374,6 +374,14 @@ class LMTarget:
             make_train_step,
         )
 
+        if self.acfg.encoder_decoder:
+            # the JAX stage feeds tokens only and its forward asserts
+            raise ValueError(
+                f"{self.name}: LM QAT feeds token batches only, and an "
+                "encoder-decoder model's forward needs enc_embeds; run "
+                "compress with --steps 0, or train through "
+                "launch.train.make_train_step with an enc_embeds batch")
+
         step_cfg = StepConfig(qat=True, with_comp=True, remat=False,
                               q_block=128, kv_block=128, lr=cfg.target.lr)
         train_step = make_train_step(self.model, step_cfg)

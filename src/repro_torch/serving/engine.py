@@ -287,8 +287,13 @@ class ServingEngine:
         mid-sequence state injection, so every prompt bucket must be one
         chunk: explicit chunk buckets that split one raise, and without
         them each prompt bucket is its own chunk (``_single_chunk_only``),
-        the JAX package's rule."""
+        the JAX package's rule. Encoder-decoder models have no chunk path
+        at all."""
         cfg, ecfg = self.model.cfg, self.config
+        if cfg.encoder_decoder:
+            raise ValueError("slot-level batching has no chunk path for "
+                             "encoder-decoder models; use mode='wave' or "
+                             "'oneshot'")
         for bt in set(cfg.pattern):
             if bt in ("attn", "local"):
                 window = cfg.attn_dims(bt == "local").window

@@ -36,6 +36,37 @@ def test_no_jax_or_reference_imports(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+# the modules the baselines and the encoder-decoder family added or changed
+BASELINES_AND_ENCDEC = ("core/baselines.py", "core/mac_model.py",
+                        "core/grouping.py", "core/lm_compress.py",
+                        "nn/attention.py", "nn/transformer.py",
+                        "models/lm.py", "launch/train.py",
+                        "serving/engine.py", "pipeline/targets.py")
+
+
+@pytest.mark.parametrize("rel", BASELINES_AND_ENCDEC)
+def test_new_modules_are_checked_and_a_stray_import_fails(rel, tmp_path):
+    """Each module is among the files the import check walks, imports
+    cleanly alone, and the check catches a stray ``import jax`` or ``from
+    repro...`` added to it."""
+    path = PORT / rel
+    assert path in FILES
+    assert not {r for r in _imported_roots(path) if r in FORBIDDEN}
+    for stray in ("import jax.numpy as jnp\n",
+                  "from repro.core import qat\n"):
+        bad = tmp_path / path.name
+        bad.write_text(stray + path.read_text())
+        assert {r for r in _imported_roots(bad) if r in FORBIDDEN}
+    mod = "repro_torch." + rel[:-3].replace("/", ".")
+    code = (f"import sys, {mod}\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro'))\n"
+            "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, env=_env(), timeout=300)
+    assert proc.returncode == 0, proc.stderr
+
+
 def test_importing_every_module_loads_no_jax():
     code = (
         "import importlib, pkgutil, sys\n"

@@ -68,7 +68,7 @@ DENSE = ("olmo-1b", "phi3-mini-3.8b", "qwen2.5-14b", "gemma3-4b")
 NOT_PORTED = {"phi3.5-moe-42b-a6.6b": "Routed targets",
               "moonshot-v1-16b-a3b": "Routed targets",
               "mamba2-1.3b": None, "recurrentgemma-2b": None,
-              "internvl2-26b": "item 6c", "whisper-large-v3": "item 6c"}
+              "internvl2-26b": "item 6c", "whisper-large-v3": None}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -187,8 +187,9 @@ def test_other_dense_families_build(arch):
 @pytest.mark.parametrize("arch", sorted(NOT_PORTED))
 def test_unported_families_name_their_item(arch):
     """A family not ported raises, naming its ROADMAP.md item; the
-    recurrent families (mamba2, recurrentgemma) build, spec for spec the
-    JAX package's, and JAX's parameters carry across."""
+    recurrent families (mamba2, recurrentgemma) and the encoder-decoder
+    (whisper) build, spec for spec the JAX package's, and JAX's parameters
+    carry across."""
     if NOT_PORTED[arch] is not None:
         with pytest.raises(NotImplementedError, match=NOT_PORTED[arch]):
             tbuild(tget(arch).scaled_down())
@@ -348,6 +349,67 @@ def test_forward_on_within_stated_bound(ref):
     logits, _ = ref["tm"].forward(ref["tp"], torch.from_numpy(ref["tokens"]),
                                   qcfg=TQ.on(), comp=ref["tcomp"])
     assert logit_rel(logits, ref["on"], ref["jcfg"].vocab) < ON_TOL
+
+
+# the other dense families: qkv_bias (qwen2.5), rope_theta_local,
+# embed_scale and a layer tail (gemma3 at 10 layers: one 6-layer repeat of
+# its 5:1 local:global pattern, then a 4-layer tail)
+OTHER_DENSE = {"phi3-mini-3.8b": {}, "qwen2.5-14b": {},
+               "gemma3-4b": {"n_layers": 10}}
+
+
+@pytest.fixture(scope="module", params=sorted(OTHER_DENSE))
+def dense_ref(request):
+    """A reduced dense family in both packages, JAX's parameters and its
+    k = 4 comp carried across, and the JAX reference outputs."""
+    arch = request.param
+    kw = dict(compute_dtype="float32", **OTHER_DENSE[arch])
+    jcfg, tcfg = jget(arch).scaled_down(**kw), tget(arch).scaled_down(**kw)
+    jm, tm = jbuild(jcfg), tbuild(tcfg)
+    jp = jinit(jax.random.PRNGKey(0), jm.spec)
+    jcomp = jlc.restrict_all_codebooks(jm, jlc.init_lm_comp(jm),
+                                       jlc.symmetric_codebook_values(4))
+    rng = np.random.default_rng(5)
+    tokens = rng.integers(0, jcfg.vocab, (B, S)).astype(np.int32)
+    nxt = rng.integers(0, jcfg.vocab, (DECODE_STEPS, B, 1)).astype(np.int32)
+    tok = jnp.asarray(tokens)
+    out = dict(jcfg=jcfg, tm=tm, tp=j2t(jp), tcomp=j2t(jcomp),
+               tokens=tokens, decode_tokens=nxt)
+    out["off"] = jax.jit(lambda p, t: jm.forward(p, t)[0])(jp, tok)
+    out["on"] = jax.jit(lambda p, t, c: jm.forward(
+        p, t, qcfg=JQ.on(), comp=c)[0])(jp, tok, jcomp)
+    logits, cache = jax.jit(lambda p, t: jm.prefill(
+        p, t, MAX_LEN, cache_dtype=jnp.float32))(jp, tok)
+    out["prefill"], out["decode"] = logits, []
+    decode = jax.jit(jm.decode_step)
+    for i in range(DECODE_STEPS):
+        logits, cache = decode(jp, cache, jnp.asarray(nxt[i]))
+        out["decode"].append(logits)
+    return out
+
+
+def test_other_dense_family_forward_prefill_decode_match_jax(dense_ref):
+    """The olmo-1b parity tests' forward, prefill and decode, at TOL, for
+    phi3-mini, qwen2.5 (qkv_bias) and gemma3 (local/global RoPE thetas,
+    embed_scale, a 4-layer tail)."""
+    r = dense_ref
+    tm, tp, vocab = r["tm"], r["tp"], r["jcfg"].vocab
+    tok = torch.from_numpy(r["tokens"])
+    assert logit_rel(tm.forward(tp, tok)[0], r["off"], vocab) < TOL
+    logits, cache = tm.prefill(tp, tok, MAX_LEN, cache_dtype=torch.float32)
+    assert logit_rel(logits, r["prefill"], vocab) < TOL
+    for i in range(DECODE_STEPS):
+        logits, cache = tm.decode_step(
+            tp, cache, torch.from_numpy(r["decode_tokens"][i]))
+        assert logit_rel(logits, r["decode"][i], vocab) < TOL, i
+
+
+def test_other_dense_family_fake_quant_forward_within_stated_bound(
+        dense_ref):
+    r = dense_ref
+    logits, _ = r["tm"].forward(r["tp"], torch.from_numpy(r["tokens"]),
+                                qcfg=TQ.on(), comp=r["tcomp"])
+    assert logit_rel(logits, r["on"], r["jcfg"].vocab) < ON_TOL
 
 
 def _counting_group(calls):

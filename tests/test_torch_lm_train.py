@@ -279,7 +279,7 @@ def test_mesh_arguments_raise_naming_item_10(lm):
     with pytest.raises(NotImplementedError, match="item 10"):
         ttrain.make_train_step(tm, cfg, mesh=object())
     with pytest.raises(NotImplementedError, match="item 10"):
-        ttrain.batch_specs(tm.cfg, None)
+        ttrain.batch_shardings(None, None)
     with pytest.raises(NotImplementedError, match="item 10"):
         ttrain.abstract_train_state(tm)
 
