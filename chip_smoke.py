@@ -121,7 +121,8 @@
    (``[lm-engine-sums]``); (c) (a)'s trace through a LUT engine: the share
    of greedy tokens equal to (a)'s (reported);
 14. ``[lm-fleet]``: the fleet router on that plan's parameters at full
-   width, three resident plans (base, k8, k4; 8 slots, the JAX fleet
+   width and 2 of its 16 layers (the whole model's fleet took 202.3 s,
+   PR 21), three resident plans (base, k8, k4; 8 slots, the JAX fleet
    tests' router: watermarks 0.5 / 0.25, hysteresis 2), a burst of 16
    requests of 64 prompt and 16 new tokens from two tenants, then a
    trickle of 6, each drained before the next: the burst degrades to the
@@ -129,10 +130,10 @@
    per-plan and per-tenant accounting sums to the totals, no build after
    warmup, one K3 launch a compressed engine's forward call; each plan's
    routed tokens equal an engine pinned to that plan (engine mode); the
-   same drain on ``lut_serve=True`` engines (112 K2 launches a compressed
-   forward, K2 launches per plan); then ``serve --plan-in <the [lm] plan>
-   --plans k4 base`` through the CLI (every request served, no build after
-   warmup);
+   same drain on ``lut_serve=True`` engines (7 K2 launches a layer a
+   compressed forward, K2 launches per plan); then ``serve --plan-in <the
+   whole [lm] plan> --plans k4 base`` through the CLI (every request
+   served, no build after warmup);
 15. ``[lm-train]``: ``repro_torch.launch.train.main`` at olmo-1b's full
    width (8 QAT steps at batch 8 x 64 tokens, the plan saved): step ms,
    peak memory, the losses (finite, the last below the first), one K3
@@ -170,7 +171,36 @@
    --target lm --arch mamba2-1.3b --steps 2`` through the CLI, the QAT
    batch 8 x 64 tokens (finite losses, one K3 launch a forward, step ms,
    peak memory);
-18. prints the ``kernels`` JSON line, then the result line.
+18. ``[lm-scan]``: ``Pipeline(cfg, device="cuda")`` of the routed scan
+   target on mamba2-1.3b at its published width and depth, from
+   [lm-recurrent]'s seeded parameters: the calibration prefills on the
+   card, each of the 48 layers' k from the ladder 4 / 8 / 16 by its
+   activity rank over the k = 4 floor, export (96 matmuls, LUT parity),
+   96 routed entries with k monotone in the activity share and the
+   energy after below the energy before; served (96 K2 launches a
+   forward) against fake-quant (one K3) prefill of 4 x 256 tokens and 8
+   decode steps at float32, the fake-quant forward and the witness both
+   held to the served logits on the served run's int8 activation codes
+   (< 1e-5), the logits on each run's own codes reported with the codes
+   that flip; then the same pipeline's serve stage (one K3 launch a
+   forward call, no build after warmup);
+19. ``[lm-moe]``: the routed MoE target on phi3.5-moe-42b-a6.6b at its
+   published width (16 experts, top-2) and 2 of its 32 layers, seeded
+   on the host: calibration, each expert's k by its traffic rank within
+   its layer, export (104 matmuls: 4 attention and 16 x 3 expert matmuls
+   a layer, LUT parity), 96 routed entries monotone, energy falls; K2 at
+   the expert shapes (4096 x 6400 and 6400 x 4096 at M = 160, a prefill's
+   4 x capacity 40, and M = 32, a decode step's 4 x 8) against its plain
+   version, its bound and `torch.matmul`; K3's one launch of a fake-quant
+   forward (attention units with 2 layers as candidates, expert units
+   with 2 x 16) bit for bit against its plain version; served (104 K2
+   launches a forward) against fake-quant prefill and decode at float32
+   (< 2e-2; on the served codes < 1e-5), each MoE call's dropped fraction;
+   the serve stage's engine (4 requests of 256 + 8 tokens: tokens/s,
+   TTFT, one K3 launch a forward call, engine vs oneshot token agreement
+   reported); card against CPU routing at depth 1 (kept-dispatch counts,
+   top-k choices differing counted);
+20. prints the ``kernels`` JSON line, then the result line.
 
 Any failure raises and the script exits non-zero. It refuses to run without
 a CUDA device, and outside a checkout of the repository.
@@ -242,6 +272,11 @@ LM_FLEET_K = (8, 4)
 LM_FLEET_BURST, LM_FLEET_TRICKLE = 16, 6
 LM_FLEET_PROMPT_LEN, LM_FLEET_NEW_TOKENS = 64, 16
 LM_FLEET_PROMPT_SEED = 300
+# the fleet's engines run the [lm] model's first LM_FLEET_LAYERS layers (its
+# gates are structural: levels, accounting, routed == pinned; the 16-layer
+# fleet took 202.3 s of the script, PR 21); its CLI stage serves the whole
+# [lm] plan
+LM_FLEET_LAYERS = 2
 # the [lm-train] phase: launch.train's QAT steps at full width, then the
 # pipeline's default compress path for LM_COMPRESS_STEPS QAT steps
 LM_TRAIN_STEPS, LM_TRAIN_BATCH = 8, 8
@@ -284,6 +319,15 @@ ENCDEC_REQUESTS, ENCDEC_FRAMES, ENCDEC_PROMPT_LEN = 4, 1500, 64
 ENCDEC_MAX_LEN, ENCDEC_BLOCK = 128, 500
 ENCDEC_ROUNDTRIP_ATOL = 1e-4
 ENCDEC_TRAIN_STEPS = 2
+# the [lm-scan] phase: ScanTarget on mamba2-1.3b at its published width and
+# depth, from [lm-recurrent]'s seeded parameters (2 units x 48 layers)
+SCAN_ARCH, SCAN_UNITS = "mamba2-1.3b", 96
+# the [lm-moe] phase: MoETarget on phi3.5-moe-42b-a6.6b at its published
+# width, MOE_LAYERS of its 32 layers (2.86e9 parameters; all 32 are 41.9e9,
+# 168 GB in float32), seeded; a layer is 4 attention and 16 x 3 expert
+# matmuls; card vs CPU dispatch at MOE_CHECK_LAYERS layers
+MOE_ARCH, MOE_LAYERS, MOE_UNITS_A_LAYER = "phi3.5-moe-42b-a6.6b", 2, 52
+MOE_CHECK_LAYERS = 1
 K2 = dict(name="lut_matmul",
           source="src/repro_torch/kernels/lut_matmul/csrc/lut_matmul.cu",
           replaces="src/repro/kernels/lut_matmul/lut_matmul.py:125")
@@ -1971,11 +2015,13 @@ def lm_config(arch=LM_ARCH):
         cfg.target, reduced=False))
 
 
-def lm_export_path(torch, arch=LM_ARCH, n_units=None, tag="lm"):
+def lm_export_path(torch, arch=LM_ARCH, n_units=None, tag="lm", pipe=None):
     """``Pipeline(lm_config(arch), device="cuda").run_until("export")``
-    with every kernel's launches read per stage, then `lut_parity_report`
-    over every exported unit; ``n_units`` matmuls expected (7 a layer for
-    the dense family). Returns (target, plan, [``tag``] metrics)."""
+    (or ``pipe``'s: a routed target's pipeline, its plan's parameters
+    injected) with every kernel's launches read per stage, then
+    `lut_parity_report` over every exported unit; ``n_units`` matmuls
+    expected (7 a layer for the dense family). Returns (target, plan,
+    [``tag``] metrics)."""
     from repro_torch.core.lm_compress import lut_parity_report
     from repro_torch.kernels.fake_quant import fake_quant as k3
     from repro_torch.kernels.lut_matmul import lut_matmul as k2
@@ -1983,7 +2029,8 @@ def lm_export_path(torch, arch=LM_ARCH, n_units=None, tag="lm"):
     from repro_torch.pipeline.pipeline import Pipeline
 
     kernels = {"K1": k1, "K2": k2, "K3": k3}
-    pipe = Pipeline(lm_config(arch), device="cuda")
+    if pipe is None:
+        pipe = Pipeline(lm_config(arch), device="cuda")
     target = pipe.target
     stages = ("profile", "energy_model", "schedule", "export")
     per_stage = {}
@@ -2186,8 +2233,10 @@ def lm_generate(torch, model, params, comp, qcfg, prompts, cache_dtype,
 def lm_dequantized_units(torch, model, params, arts):
     """{"blocks": {g: {unit: (L, ...)}}, "tail": {t: {unit: ...}},
     "enc_blocks": {unit: (L_enc, ...)}}: every unit's weight as its
-    exported artifacts serve it (each layer's artifact dequantized, laid
-    out as the parameter), in the form of `LMModel._fake_quant_units`."""
+    exported artifacts serve it (each layer's, or each (layer, expert)'s,
+    artifact dequantized, laid out as the parameter), in the form of
+    `LMModel._fake_quant_units`."""
+    from repro_torch.core.lm_compress import MOE_EXPERT_KEYS
     from repro_torch.kernels.lut_matmul import ref
     from repro_torch.nn.transformer import block_matmuls
 
@@ -2202,12 +2251,16 @@ def lm_dequantized_units(torch, model, params, arts):
             for unit in block_matmuls(block):
                 sub, key = unit.split("/")
                 w = block[sub][key]
-                layers = ([arts[f"{base}/{unit}[{j}]"]
-                           for j in range(w.shape[0])] if top != "tail"
-                          else [arts[f"{base}/{unit}"]])
+                slices = [f"{base}/{unit}[{j}]" for j in range(w.shape[0])] \
+                    if top != "tail" else [f"{base}/{unit}"]
+                if sub == "moe" and key in MOE_EXPERT_KEYS:
+                    n_exp = w.shape[1 if top != "tail" else 0]
+                    slices = [f"{name}[e{e}]" for name in slices
+                              for e in range(n_exp)]
                 node[unit] = torch.stack([
                     ref.dequantize(a.packed, a.codebook, a.scale,
-                                   a.block_k)[:a.k_dim] for a in layers
+                                   a.block_k)[:a.k_dim]
+                    for a in (arts[name] for name in slices)
                 ]).reshape(w.shape).to(w.dtype)
     return out
 
@@ -2259,7 +2312,7 @@ def lm_witness(torch, model, plan, prompts, dtype, feed, served,
 
 
 def lm_serve_phase(torch, target, plan, comp_serve, compute_dtype,
-                   tag="lm-serve"):
+                   tag="lm-serve", shared_codes=False, own_code_gate=True):
     """Served (`QuantConfig.serve`, K2) against fake-quant
     (`QuantConfig.on()`, K3) prefill and decode at ``compute_dtype``:
     LM_PROMPTS seeded prompts of LM_PROMPT_LEN tokens, then LM_DECODE_STEPS
@@ -2271,7 +2324,17 @@ def lm_serve_phase(torch, target, plan, comp_serve, compute_dtype,
     blocks) and no K2. At float32 it runs `lm_witness` too. Returns the
     metrics; raises at float32 if the prefill logits differ by 2e-2 or
     more (the README's ``serve_forward_parity``), or the witness's differ
-    from the served ones by WITNESS_PARITY or more."""
+    from the served ones by WITNESS_PARITY or more. ``shared_codes``: the
+    witness and the fake-quant forward run again on the served run's int8
+    activation codes (`_ActQuant` replay, as `encdec_serve`), with the
+    codes their own rounding would flip counted, and both are gated at
+    WITNESS_PARITY; the witness on its own codes is reported (queue 3's
+    rule: the straight-through weight differs from the artifact's by
+    float32 ulps, which can move a code that sits at a rounding
+    boundary, and a deep model at random init carries a few such moves to
+    the logits). ``own_code_gate=False`` (with ``shared_codes``): the
+    served-vs-fake-quant logits on each run's own codes are reported, not
+    gated at 2e-2; the shared-code gates stand in for them."""
     import dataclasses
 
     from repro_torch.core import export
@@ -2354,6 +2417,26 @@ def lm_serve_phase(torch, target, plan, comp_serve, compute_dtype,
     if compute_dtype == "float32":
         out["witness"] = lm_witness(torch, model, plan, prompts, dtype,
                                     srv[2], srv)
+    if compute_dtype == "float32" and shared_codes:
+        with _ActQuant(device="cuda") as record:
+            lm_generate(torch, model, params, comp_serve,
+                        QuantConfig.serve(), prompts, dtype, srv[2])
+        with _ActQuant(replay=record) as replayed:
+            shared = lm_witness(torch, model, plan, prompts, dtype, srv[2],
+                                srv)
+        codes = sum(c.numel() for c in record.codes)
+        out["witness_on_served_codes"] = dict(
+            shared, flipped_codes=replayed.flips, codes=codes)
+        with _ActQuant(replay=record) as replayed:
+            fq_shared = lm_generate(torch, model, params, plan.comp,
+                                    QuantConfig.on(), prompts, dtype, srv[2])
+        out["fake_quant_on_served_codes"] = dict(
+            prefill_logit_rel_err=lm_rel(torch, srv[0], fq_shared[0], vocab),
+            decode_logit_rel_err=[lm_rel(torch, a, b, vocab)
+                                  for a, b in zip(srv[1], fq_shared[1])],
+            flipped_codes=replayed.flips, codes=codes)
+        del record, fq_shared
+        torch.cuda.empty_cache()
     for label, run in runs.items():
         out[f"{label}_prefill_s"] = run[3]
         out[f"{label}_prefill_tokens_per_s"] = (LM_PROMPTS * LM_PROMPT_LEN
@@ -2362,15 +2445,19 @@ def lm_serve_phase(torch, target, plan, comp_serve, compute_dtype,
         out[f"{label}_decode_ms_per_step_median"] = 1e3 * statistics.median(
             run[4])
     print(f"[{tag}] " + json.dumps(out, sort_keys=True), flush=True)
-    if compute_dtype == "float32" and not prefill_rel < SERVE_PARITY:
+    if (compute_dtype == "float32" and own_code_gate
+            and not prefill_rel < SERVE_PARITY):
         raise AssertionError(f"[{tag}] float32 prefill logit rel err "
                              f"{prefill_rel:.3e} >= {SERVE_PARITY}")
-    if "witness" in out:
-        wit = out["witness"]
+    gated = ["witness"] if "witness" in out else []
+    if "witness_on_served_codes" in out:
+        gated = ["witness_on_served_codes", "fake_quant_on_served_codes"]
+    for key in gated:
+        wit = out[key]
         worst = max([wit["prefill_logit_rel_err"]]
                     + wit["decode_logit_rel_err"])
         if not worst < WITNESS_PARITY:
-            raise AssertionError(f"[{tag}] witness vs served logit rel "
+            raise AssertionError(f"[{tag}] {key} vs served logit rel "
                                  f"err {worst:.3e} >= {WITNESS_PARITY}")
     del runs, srv, fq
     torch.cuda.empty_cache()
@@ -2910,24 +2997,25 @@ def lm_engine_phase(torch, plan):
 
 def lm_attached(torch, target, plan, tag):
     """The plan's comp tree with the serve artifacts attached, stacked
-    over layers (`attach_serve_artifacts`), each layer's held equal to the
-    exported one (``blocks/g0/attn/wq[3]``; a tail unit's unstacked).
-    Returns (comp tree, attached unit count)."""
+    over layers (and experts) (`attach_serve_artifacts`), each slice's held
+    equal to the exported one (``blocks/g0/attn/wq[3]``,
+    ``blocks/g0/moe/w_up[1][e5]``; a tail unit's unstacked). Returns (comp
+    tree, attached unit count)."""
     from repro_torch.core.lm_compress import attach_serve_artifacts
 
     comp_serve, n = attach_serve_artifacts(target.model, plan.params,
                                            plan.comp)
     for name, art in plan.artifacts.items():
-        unit, layer = (name[:-1].split("[") if name.endswith("]")
-                       else (name, None))
+        unit, *idx = name.replace("]", "").split("[")
+        idx = [int(i.lstrip("e")) for i in idx]   # layer, then expert
         parts = unit.split("/")
         node = (comp_serve[parts[0]] if parts[0] == "enc_blocks"
                 else comp_serve[parts[0]][parts[1]])
         attached = node["/".join(parts[-2:])]["serve"]
         for f in ("packed", "codebook", "scale"):
             got = getattr(attached, f)
-            if layer is not None:
-                got = got[int(layer)]
+            for i in idx:
+                got = got[i]
             if not torch.equal(got, getattr(art, f)):
                 raise AssertionError(f"[{tag}] {name}.{f}: attached "
                                      "artifact != exported artifact")
@@ -3197,22 +3285,29 @@ def lm_fleet_stage(torch, plan, work):
 
 def lm_fleet_phase(torch, target, plan, work):
     """[lm-fleet]: the fleet router over three plans of the [lm] model at
-    full width (base, k8, k4; fake-quant engines, then LUT engines), the
-    routed tokens against pinned engines, then the CLI's fleet stage."""
+    full width and LM_FLEET_LAYERS of its layers (base, k8, k4; fake-quant
+    engines, then LUT engines), the routed tokens against pinned engines,
+    then the CLI's fleet stage on the whole [lm] plan."""
+    import dataclasses
+
+    from repro_torch._device import tree_map
     from repro_torch.kernels.fake_quant import fake_quant as k3
     from repro_torch.kernels.lut_matmul import lut_matmul as k2
+    from repro_torch.models.lm import build_lm
 
     t_phase = time.perf_counter()
+    model = build_lm(dataclasses.replace(target.acfg,
+                                         n_layers=LM_FLEET_LAYERS))
+    params = dict(plan.params, blocks=tree_map(
+        lambda t: t[:LM_FLEET_LAYERS], plan.params["blocks"]))
     k2.launches = k3.launches = 0
-    fq, fleet, requests, results = lm_fleet_run(torch, target.model,
-                                                plan.params, False)
+    fq, fleet, requests, results = lm_fleet_run(torch, model, params, False)
     fq["launches"] = {"K2": k2.launches, "K3": k3.launches}
-    pinned = lm_fleet_pinned(torch, target.model, plan.params, fleet,
-                             requests, results)
+    pinned = lm_fleet_pinned(torch, model, params, fleet, requests, results)
     del fleet, results
     torch.cuda.empty_cache()
     k2.launches = k3.launches = 0
-    lut, fleet, _, _ = lm_fleet_run(torch, target.model, plan.params, True)
+    lut, fleet, _, _ = lm_fleet_run(torch, model, params, True)
     lut["launches"] = {"K2": k2.launches, "K3": k3.launches}
     del fleet
     torch.cuda.empty_cache()
@@ -3731,7 +3826,7 @@ def lm_recurrent_breakdown(torch, target, plan, comp_serve):
     return parts
 
 
-def lm_recurrent_model(torch, ops, ref, arch, engine=False):
+def lm_recurrent_model(torch, ops, ref, arch, engine=False, keep=False):
     """One recurrent family at its published width and depth: the pipeline
     through export (`lm_export_path`: LM_RECURRENT_UNITS[arch] matmuls,
     LUT parity over each), K2 at the family's new shapes, K3's grouped
@@ -3741,7 +3836,8 @@ def lm_recurrent_model(torch, ops, ref, arch, engine=False):
     float32 (gated) and bfloat16 (reported), where a served step's time
     goes (`lm_recurrent_breakdown`), the roundtrip contract, and
     with ``engine`` the pipeline's serve stage on the plan
-    (`lm_engine_stage`). Returns (metrics, K2 rows, K3 rows)."""
+    (`lm_engine_stage`). Returns (metrics, K2 rows, K3 rows, the seeded
+    parameters moved to the host with ``keep``, else None)."""
     from repro_torch.kernels.fake_quant import fake_quant as k3
     from repro_torch.kernels.lut_matmul import lut_matmul as k2
 
@@ -3789,9 +3885,12 @@ def lm_recurrent_model(torch, ops, ref, arch, engine=False):
                                     if k not in ("serve", "engine",
                                                  "breakdown")},
                                    sort_keys=True), flush=True)
+    from repro_torch._device import tree_to
+
+    kept = tree_to(plan.params, "cpu") if keep else None
     del plan, target
     torch.cuda.empty_cache()
-    return metrics, k2_rows, k3_rows
+    return metrics, k2_rows, k3_rows, kept
 
 
 def lm_recurrent_train(torch, work):
@@ -3848,19 +3947,496 @@ def lm_recurrent_phase(torch, ops, ref, work):
     """[lm-recurrent]: (a) mamba2-1.3b and (b) recurrentgemma-2b at their
     published widths and depths (`lm_recurrent_model`), (c) the serving
     engine on (a)'s plan, (d) mamba2's QAT through the CLI
-    (`lm_recurrent_train`)."""
+    (`lm_recurrent_train`). Returns (metrics, K2 rows, K3 rows, (a)'s
+    seeded parameters on the host, for [lm-scan])."""
     t0 = time.perf_counter()
-    models, k2_rows, k3_rows = {}, [], {}
+    models, k2_rows, k3_rows, kept = {}, [], {}, None
     for arch in LM_RECURRENT:
-        m, k2r, k3r = lm_recurrent_model(torch, ops, ref, arch,
-                                         engine=arch == LM_RECURRENT[0])
+        m, k2r, k3r, params = lm_recurrent_model(
+            torch, ops, ref, arch, engine=arch == LM_RECURRENT[0],
+            keep=arch == SCAN_ARCH)
         models[arch], k3_rows[arch] = m, k3r
         k2_rows += k2r
+        kept = params if params is not None else kept
     train = lm_recurrent_train(torch, work)
     out = dict(models=models, train=train,
                phase_wall_s=time.perf_counter() - t0)
     print(f"[lm-recurrent] phase {out['phase_wall_s']:.1f} s", flush=True)
-    return out, k2_rows, k3_rows
+    return out, k2_rows, k3_rows, kept
+
+
+# ------------------------------------------------------ routed LM targets
+
+
+def routed_config(kind, arch):
+    """The routed phases' config: `reduced_scan_config` /
+    `reduced_moe_config` of ``arch`` at its published width
+    (``reduced=False``): no LM QAT steps, the LM_COMPRESS_K floor, the
+    routing section's defaults (2 calibration batches of 2 x 32 tokens, the
+    k ladder 4 / 8 / 16), the reduced preset's small serve trace."""
+    import dataclasses
+
+    from repro_torch.pipeline.config import (
+        reduced_moe_config,
+        reduced_scan_config,
+    )
+
+    preset = {"moe": reduced_moe_config, "scan": reduced_scan_config}[kind]
+    cfg = preset(arch, compress_k=LM_COMPRESS_K)
+    return dataclasses.replace(cfg, target=dataclasses.replace(
+        cfg.target, reduced=False))
+
+
+class _Depth:
+    """While open, the pipeline's targets build ``arch`` with its first
+    ``n_layers`` layers (`repro_torch.pipeline.targets.get_config`
+    patched): a depth cut, every width as published."""
+
+    def __init__(self, arch, n_layers):
+        self.arch, self.n_layers = arch, n_layers
+
+    def __enter__(self):
+        import dataclasses
+
+        from repro_torch.pipeline import targets
+
+        self._real = real = targets.get_config
+
+        def get_config(name):
+            cfg = real(name)
+            if name == self.arch:
+                cfg = dataclasses.replace(cfg, n_layers=self.n_layers)
+            return cfg
+
+        targets.get_config = get_config
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.pipeline import targets
+
+        targets.get_config = self._real
+
+
+def routed_gates(plan, tag, n_routed, per_layer):
+    """The routed schedule's decisions: ``n_routed`` routed slices (a
+    traffic share each); k monotone in the traffic share within each
+    layer's experts (``per_layer``: MoE) or within each scan stack; the
+    energy after below the energy before. Returns the summary."""
+    from repro_torch.pipeline.targets import _slice_key
+
+    groups, ks = {}, {}
+    for d in plan.decisions:
+        if "traffic_share" not in d:
+            continue
+        path, li, ei = _slice_key(d["layer"])
+        key = (path, li) if per_layer else path
+        groups.setdefault(key, []).append((d["traffic_share"], d["k"]))
+        ks[d["k"]] = ks.get(d["k"], 0) + 1
+    routed = sum(len(v) for v in groups.values())
+    monotone = all(k0 <= k1 for pts in groups.values()
+                   for (_, k0), (_, k1) in zip(sorted(pts), sorted(pts)[1:]))
+    m = plan.metrics
+    out = dict(routed_slices=routed, routed_units=m["routed_units"],
+               k_counts={str(k): v for k, v in sorted(ks.items())},
+               monotone=monotone, routing_tokens=m["routing_tokens"],
+               energy_before=m["energy_before"],
+               energy_after=m["energy_after"],
+               energy_saving=1 - m["energy_after"] / m["energy_before"])
+    print(f"[{tag}] routed " + json.dumps(out, sort_keys=True), flush=True)
+    if routed != n_routed or m["routed_units"] != n_routed:
+        raise AssertionError(f"[{tag}] {routed} routed slices "
+                             f"({m['routed_units']} units), expected "
+                             f"{n_routed}")
+    if not monotone:
+        raise AssertionError(f"[{tag}] k is not monotone in traffic share")
+    if not m["energy_after"] < m["energy_before"]:
+        raise AssertionError(f"[{tag}] energy_after {m['energy_after']} >= "
+                             f"energy_before {m['energy_before']}")
+    return out
+
+
+def lm_scan_phase(torch, ops, ref, params_host):
+    """[lm-scan]: `ScanTarget` on mamba2-1.3b at its published width and
+    depth, from [lm-recurrent]'s seeded parameters: ``Pipeline(cfg,
+    device="cuda")`` through export (calibration on the card, each of the
+    48 layers' k from the ladder by its activity rank, 96 matmuls, LUT
+    parity over each), the routed gates, served (96 K2 launches a forward)
+    against fake-quant (one K3 launch a forward) prefill of 4 x 256 tokens
+    and 8 decode steps at float32 (< 2e-2, the witness), then the same
+    pipeline's serve stage (the fake-quant engine on the reduced preset's
+    trace)."""
+    from repro_torch._device import tree_to
+    from repro_torch.kernels.fake_quant import fake_quant as k3
+    from repro_torch.kernels.lut_matmul import lut_matmul as k2
+    from repro_torch.pipeline.pipeline import Pipeline
+
+    t_phase = time.perf_counter()
+    tag = "lm-scan"
+    pipe = Pipeline(routed_config("scan", SCAN_ARCH), device="cuda")
+    pipe.plan.params = tree_to(params_host, "cuda")
+    target, plan, metrics = lm_export_path(torch, SCAN_ARCH, SCAN_UNITS, tag,
+                                           pipe=pipe)
+    routed = routed_gates(plan, tag, SCAN_UNITS, per_layer=False)
+    comp_serve, n = lm_attached(torch, target, plan, tag)
+    k2.launches = k3.launches = 0
+    serve = lm_serve_phase(torch, target, plan, comp_serve, "float32",
+                           f"{tag}-serve", shared_codes=True,
+                           own_code_gate=False)
+    serve_launches = {"K2": k2.launches, "K3": k3.launches}
+    del comp_serve
+    torch.cuda.empty_cache()
+    calls = counting_calls(target.model)
+    k2.launches = k3.launches = 0
+    t0 = time.perf_counter()
+    pipe.run_until("serve", verbose=True)
+    torch.cuda.synchronize()
+    stage = dict(stage_wall_s=time.perf_counter() - t0,
+                 forward_calls=dict(calls),
+                 launches={"K2": k2.launches, "K3": k3.launches},
+                 **{k[len("serve_"):]: v for k, v in plan.metrics.items()
+                    if k.startswith("serve_")
+                    and isinstance(v, (int, float, bool, str))})
+    for name in calls:
+        target.model.__dict__.pop(name, None)
+    print(f"[{tag}] serve stage " + json.dumps(stage, sort_keys=True),
+          flush=True)
+    forwards = sum(calls.values())
+    if stage["launches"] != {"K2": 0, "K3": forwards} or not forwards \
+            or stage["recompiles_after_warmup"] != 0:
+        raise AssertionError(f"[{tag}] serve stage: {stage}, expected one "
+                             "K3 launch a forward call, no K2, no build "
+                             "after warmup")
+    metrics.update(routed=routed, stacked_units_attached=n, serve=serve,
+                   serve_path_launches=serve_launches, stage=stage,
+                   phase_wall_s=time.perf_counter() - t_phase)
+    print(f"[{tag}] phase {metrics['phase_wall_s']:.1f} s", flush=True)
+    del plan, target, pipe
+    torch.cuda.empty_cache()
+    return metrics
+
+
+def moe_k2_cases(torch, acfg):
+    """`k2_phase` cases of the MoE's expert matmuls: one LUT GEMM an
+    (expert, matrix) at M = prompts x the expert capacity, C(256) = 40 in
+    a prefill of LM_PROMPT_LEN tokens and C(1) = 8 in a decode step (`capacity`);
+    w_gate / w_up (d x f) and w_down (f x d), float32 X."""
+    from repro_torch.nn.moe import capacity
+
+    dims = acfg.moe_dims()
+    d, f = dims.d_model, dims.d_ff
+    cases = []
+    for step, s in (("prefill", LM_PROMPT_LEN), ("decode", 1)):
+        m = LM_PROMPTS * capacity(dims, s)
+        for name, k, n in (("w_gate/w_up", d, f), ("w_down", f, d)):
+            cases.append((f"moe {step} {name}", m, k, k_pad(k), n, "none",
+                          False, False, torch.float32, 0, True))
+    return cases
+
+
+def moe_k3_phase(torch, model, plan, tag="lm-moe-k3"):
+    """K3 as a fake-quant forward of the MoE calls it
+    (`LMModel._fake_quant_units`): one launch, the attention units with the
+    layers as candidates and each expert unit with layers x experts (each
+    expert its own scales and codebook), held against the plain version
+    (the same entries through `ref.fake_quant_group_ref`) bit for bit; one
+    call timed between CUDA events beside its bound and the plain
+    version's. Returns the metrics."""
+    from repro_torch.core import qat
+    from repro_torch.kernels.fake_quant import fake_quant as k3
+    from repro_torch.kernels.fake_quant import ref as k3ref
+    from repro_torch.nn.layers import QuantConfig
+
+    def units():
+        return model._fake_quant_units(plan.params, plan.comp,
+                                       QuantConfig.on())
+
+    def plain():
+        real = k3.launch_group
+        k3.launch_group = k3ref.fake_quant_group_ref
+        try:
+            return units()
+        finally:
+            k3.launch_group = real
+
+    launched = k3.launches
+    entries = []
+    real_qat = qat.fake_quant_weights
+
+    def recording(ws, comps, cands=None):
+        entries.append((ws, comps, cands))
+        return real_qat(ws, comps, cands)
+
+    with torch.no_grad():
+        qat.fake_quant_weights = recording
+        try:
+            got = units()
+        finally:
+            qat.fake_quant_weights = real_qat
+        if k3.launches - launched != 1 or len(entries) != 1:
+            raise AssertionError(f"[{tag}] {k3.launches - launched} launches "
+                                 f"in {len(entries)} calls, expected 1")
+        want = plain()
+        torch.cuda.synchronize()
+        max_err, n_leaves = 0.0, 0
+        for g, node in got["blocks"].items():
+            for unit, w in node.items():
+                ref_w = want["blocks"][g][unit]
+                max_err = max(max_err, float((w - ref_w).abs().max()))
+                n_leaves += 1
+                if not equal_nan(torch, w, ref_w):
+                    raise AssertionError(
+                        f"[{tag}] {g}/{unit} {tuple(w.shape)}: kernel "
+                        f"differs from the plain version (max abs err "
+                        f"{max_err:.3e}; required: equal)")
+        del got, want
+        torch.cuda.empty_cache()
+        ms = time_turns(torch, {"kernel": units, "plain": plain}, 3)
+    k3.launches = launched
+    ws, comps, cands = entries[0]
+    bound_ms, bound_by = k3_bound(ws, comps)
+    out = dict(entries=len(ws), candidates=list(cands), units=n_leaves,
+               weights=sum(w.numel() for w in ws), max_abs_err=max_err,
+               device_ms=ms["kernel"], plain_ms=ms["plain"],
+               timing="cuda events, one call", bound_ms=bound_ms,
+               bound_by=bound_by,
+               shapes=[list(w.shape) for w in ws])
+    print(f"[{tag}] one launch of {len(ws)} entries (candidates {cands}; "
+          f"{out['weights']:,} weights): equal to the plain version; "
+          f"{ms['kernel']:.3f} ms (events), plain {ms['plain']:.1f} ms, "
+          f"bound {bound_ms:.3f} ms ({bound_by})", flush=True)
+    return out
+
+
+class _MoEAux:
+    """Records every `apply_moe` call's ``dropped_frac`` while open."""
+
+    def __enter__(self):
+        from repro_torch.nn import moe
+
+        self.dropped = []
+        self._real = real = moe.apply_moe
+
+        def apply_moe(*a, **kw):
+            y, aux = real(*a, **kw)
+            self.dropped.append(float(aux["dropped_frac"]))
+            return y, aux
+
+        moe.apply_moe = apply_moe
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.nn import moe
+
+        moe.apply_moe = self._real
+
+
+def moe_dispatch_check(torch, model, params_host, params_card, tag):
+    """Card against CPU on the same parameters and tokens, the MoE's first
+    MOE_CHECK_LAYERS layers: `collect_lm_routing_stats` (the pipeline's
+    calibration batches) on each device, the kept-dispatch counts and
+    every token's top-k choices compared; the choices that differ are
+    counted and stated (the router's float32 logits can differ by an ulp
+    between the devices and flip a near-tie)."""
+    import dataclasses
+
+    from repro_torch._device import tree_map
+    from repro_torch.core import routing_stats
+    from repro_torch.models.lm import build_lm
+    from repro_torch.nn import moe
+    from repro_torch.pipeline.config import RoutingStageConfig
+
+    r = RoutingStageConfig()
+    small = build_lm(dataclasses.replace(model.cfg,
+                                         n_layers=MOE_CHECK_LAYERS))
+    runs = {}
+    for dev, params in (("cuda", params_card), ("cpu", params_host)):
+        cut = dict(params, blocks=tree_map(lambda t: t[:MOE_CHECK_LAYERS],
+                                           params["blocks"]))
+        chosen = []
+        real = moe.top_k
+
+        def recording(probs, k, _real=real, _chosen=chosen):
+            v, i = _real(probs, k)
+            _chosen.append(i.cpu())
+            return v, i
+
+        moe.top_k = recording
+        t0 = time.perf_counter()
+        try:
+            stats = routing_stats.collect_lm_routing_stats(
+                small, cut, batches=r.calib_batches,
+                batch_size=r.calib_batch_size, seq_len=r.calib_seq_len,
+                seed=r.calib_seed)
+        finally:
+            moe.top_k = real
+        runs[dev] = (stats, chosen, time.perf_counter() - t0)
+    (card, card_top, card_s), (cpu, cpu_top, cpu_s) = runs["cuda"], \
+        runs["cpu"]
+    flips = sum(int((a != b).sum()) for a, b in zip(card_top, cpu_top))
+    n_choices = sum(a.numel() for a in card_top)
+    unit = "blocks/g0/moe"
+    diff = np.abs(card.moe_counts[unit] - cpu.moe_counts[unit])
+    out = dict(layers=MOE_CHECK_LAYERS, tokens=card.tokens,
+               choices=n_choices, choices_differing=flips,
+               kept_counts_equal=bool((diff == 0).all()),
+               kept_counts_abs_diff=float(diff.sum()),
+               kept_counts_card=card.moe_counts[unit].tolist(),
+               card_s=card_s, cpu_s=cpu_s)
+    print(f"[{tag}] card vs CPU dispatch " + json.dumps(out, sort_keys=True),
+          flush=True)
+    if flips == 0 and not out["kept_counts_equal"]:
+        raise AssertionError(f"[{tag}] equal top-k choices but kept counts "
+                             f"differ: {out}")
+    return out
+
+
+def moe_engine_stage(torch, target, plan, tag):
+    """The pipeline's serve stage on the MoE plan: ``Pipeline.from_plan(
+    plan, device="cuda")`` through ``serve`` (the fake-quant engine) on
+    LM_PROMPTS requests of LM_PROMPT_LEN prompt and LM_DECODE_STEPS new
+    tokens, every forward call counted; then a oneshot engine on the same
+    requests: the share of greedy tokens that agree is reported, not gated
+    (a capacity depends on the call's sequence length, so the engine's
+    chunked prefill and the oneshot prefill may drop different tokens, in
+    the JAX package too). Gates: no build after warmup, one K3 launch a
+    forward call, no K2. Reports tokens/s, TTFT, ms a step and each MoE
+    call's dropped fraction."""
+    from repro_torch.kernels.fake_quant import fake_quant as k3
+    from repro_torch.kernels.lut_matmul import lut_matmul as k2
+    from repro_torch.pipeline.pipeline import Pipeline
+    from repro_torch.pipeline.targets import lm_serve_trace
+    from repro_torch.serving import ServingEngine
+
+    serve = dict(compress_k=LM_COMPRESS_K, requests=LM_PROMPTS,
+                 prompt_len=LM_PROMPT_LEN, new_tokens=LM_DECODE_STEPS,
+                 mixed=False, max_batch=LM_PROMPTS, verify_oneshot=False)
+    cfg = routed_config("moe", MOE_ARCH).with_overrides({"serve": serve})
+    pipe = Pipeline.from_plan(plan, cfg=cfg, device="cuda")
+    calls = counting_calls(pipe.target.model)
+    k2.launches = k3.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with _MoEAux() as aux:
+        pipe.run_until("serve", verbose=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"K2": k2.launches, "K3": k3.launches}
+    for name in calls:
+        pipe.target.model.__dict__.pop(name, None)
+    forwards = sum(calls.values())
+    engine = pipe.target.last_serve_results
+    shapes, ecfg, requests = lm_serve_trace(cfg.serve, target.acfg.vocab)
+    oneshot = ServingEngine(pipe.target.model, plan.params, mode="oneshot",
+                            config=ecfg, plan=pipe.target._serve_handle(
+                                plan, LM_COMPRESS_K), device="cuda")
+    with _MoEAux() as aux1:
+        ref = {r.rid: r for r in oneshot.serve(requests)}
+    same = sum(a == b for rid, r in engine.items()
+               for a, b in zip(r.tokens, ref[rid].tokens))
+    total = sum(len(r.tokens) for r in engine.values())
+    m = plan.metrics
+    out = dict(serve=serve, stage_wall_s=wall, forward_calls=dict(calls),
+               launches=launches,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               engine_vs_oneshot_tokens_equal=same,
+               engine_vs_oneshot_tokens=total,
+               engine_vs_oneshot_agreement=same / max(total, 1),
+               dropped_frac_engine_mean=sum(aux.dropped)
+               / max(len(aux.dropped), 1),
+               dropped_frac_engine_max=max(aux.dropped, default=0.0),
+               dropped_frac_oneshot_mean=sum(aux1.dropped)
+               / max(len(aux1.dropped), 1),
+               **{k[len("serve_"):]: v for k, v in m.items()
+                  if k.startswith("serve_") and k[len("serve_"):] in (
+                      "requests", "new_tokens", "wall_s", "tokens_per_s",
+                      "ttft_p50_s", "ttft_p99_s", "latency_p50_s",
+                      "latency_p99_s", "slot_utilization",
+                      "recompiles_after_warmup")})
+    print(f"[{tag}] serve stage " + json.dumps(out, sort_keys=True),
+          flush=True)
+    del oneshot, pipe
+    torch.cuda.empty_cache()
+    if out["recompiles_after_warmup"] != 0:
+        raise AssertionError(f"[{tag}] {out['recompiles_after_warmup']} "
+                             "builds after warmup")
+    if launches != {"K2": 0, "K3": forwards} or not forwards:
+        raise AssertionError(f"[{tag}] serve stage launches {launches}, "
+                             f"expected one K3 launch a forward call "
+                             f"({forwards}) and no K2")
+    return out
+
+
+def lm_moe_phase(torch, ops, ref):
+    """[lm-moe]: `MoETarget` on phi3.5-moe-42b-a6.6b at its published width
+    (all 16 experts, top-2) and MOE_LAYERS of its 32 layers, seeded (init
+    on the host, moved to the card): ``Pipeline(cfg, device="cuda")``
+    through export (calibration on the card; each expert's k from the
+    ladder by its traffic rank within its layer; MOE_LAYERS x 52 matmuls,
+    LUT parity over each), the routed gates, K2 at the expert shapes (M =
+    160 and 32), K3's one launch with the per-expert entries bit for bit,
+    served (52 K2 launches a layer a forward) against fake-quant (one K3)
+    prefill of 4 x 256 tokens and 8 decode steps at float32 (< 2e-2; the
+    witness on shared activation codes), each MoE call's dropped
+    fraction, the serve stage's engine (`moe_engine_stage`), and card vs
+    CPU dispatch at depth MOE_CHECK_LAYERS (`moe_dispatch_check`).
+    Returns (metrics, K2 rows, K3 metrics)."""
+    from repro_torch._device import tree_to
+    from repro_torch.kernels.fake_quant import fake_quant as k3
+    from repro_torch.kernels.lut_matmul import lut_matmul as k2
+    from repro_torch.nn.spec import init_params
+    from repro_torch.pipeline.pipeline import Pipeline
+
+    t_phase = time.perf_counter()
+    tag = "lm-moe"
+    with _Depth(MOE_ARCH, MOE_LAYERS):
+        cfg = routed_config("moe", MOE_ARCH)
+        pipe = Pipeline(cfg, device="cuda")
+        t0 = time.perf_counter()
+        params_host = init_params(cfg.target.seed, pipe.target.model.spec,
+                                  "cpu")
+        pipe.plan.params = tree_to(params_host, "cuda")
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_units = MOE_UNITS_A_LAYER * MOE_LAYERS
+        n_exp = pipe.target.acfg.n_experts
+        target, plan, metrics = lm_export_path(torch, MOE_ARCH, n_units,
+                                               tag, pipe=pipe)
+        routed = routed_gates(plan, tag, 3 * n_exp * MOE_LAYERS,
+                              per_layer=True)
+        k2_rows = k2_phase(torch, ops, ref, moe_k2_cases(torch, target.acfg),
+                           LM_RECURRENT_K2_REPS)
+        k3_out = moe_k3_phase(torch, target.model, plan)
+        torch.cuda.empty_cache()
+        comp_serve, n = lm_attached(torch, target, plan, tag)
+        k2.launches = k3.launches = 0
+        with _MoEAux() as aux:
+            serve = lm_serve_phase(torch, target, plan, comp_serve,
+                                   "float32", f"{tag}-serve",
+                                   shared_codes=True)
+        serve_launches = {"K2": k2.launches, "K3": k3.launches}
+        serve["dropped_frac_prefill"] = aux.dropped[:MOE_LAYERS]
+        serve["dropped_frac_decode_max"] = max(
+            aux.dropped[MOE_LAYERS:(1 + LM_DECODE_STEPS) * MOE_LAYERS])
+        print(f"[{tag}-serve] dropped_frac: prefill "
+              f"{serve['dropped_frac_prefill']}, decode max "
+              f"{serve['dropped_frac_decode_max']}", flush=True)
+        del comp_serve
+        torch.cuda.empty_cache()
+        engine = moe_engine_stage(torch, target, plan, tag)
+        dispatch = moe_dispatch_check(torch, target.model, params_host,
+                                      plan.params, tag)
+    metrics.update(layers=MOE_LAYERS, init_s=init_s, routed=routed,
+                   stacked_units_attached=n, serve=serve, engine=engine,
+                   dispatch=dispatch, serve_path_launches=serve_launches,
+                   phase_wall_s=time.perf_counter() - t_phase,
+                   peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    print(f"[{tag}] " + json.dumps({k: v for k, v in metrics.items()
+                                    if k not in ("serve", "engine")},
+                                   sort_keys=True), flush=True)
+    print(f"[{tag}] phase {metrics['phase_wall_s']:.1f} s", flush=True)
+    del plan, target, pipe, params_host
+    torch.cuda.empty_cache()
+    return metrics, k2_rows, k3_out
 
 
 # ------------------------------------------------------------ Table 1
@@ -4285,12 +4861,16 @@ def main() -> int:
     lm_train = lm_train_phase(torch, work)
     lm_train_parity = lm_train_parity_phase(torch)
     torch.cuda.empty_cache()
-    recurrent, rec_k2_rows, rec_k3 = lm_recurrent_phase(torch, ops, ref,
-                                                        work)
+    recurrent, rec_k2_rows, rec_k3, scan_params = lm_recurrent_phase(
+        torch, ops, ref, work)
     rec_models = recurrent["models"]
     torch.cuda.empty_cache()
+    scan = lm_scan_phase(torch, ops, ref, scan_params)
+    del scan_params
     table1 = table1_phase(torch)
     encdec, encdec_k2_rows, encdec_k3 = lm_encdec_phase(torch, ops, ref)
+    torch.cuda.empty_cache()
+    moe, moe_k2_rows, moe_k3 = lm_moe_phase(torch, ops, ref)
 
     padded = [r for r in k2_rows if r["per_forward"] and not r["serve_rows"]]
     unpadded = [r for r in k2_rows if r["per_forward"] and r["serve_rows"]]
@@ -4307,7 +4887,7 @@ def main() -> int:
         **K2, "route": "cuda", "launches": k2_launches,
         "max_abs_err": max(r["max_abs_err"]
                            for r in k2_rows + lm_k2_rows + rec_k2_rows
-                           + encdec_k2_rows),
+                           + encdec_k2_rows + moe_k2_rows),
         **total,
         "bound_by": "bytes" if by_bytes >= total["bound_ms"] / 2
         else "operations",
@@ -4365,11 +4945,12 @@ def main() -> int:
             },
             "fleet": {
                 "scope": "[lm-fleet]: the fleet router over base / k8 / k4 "
-                         f"of {LM_ARCH} at full width with lut_serve=True "
-                         "engines, burst then trickle; launches: that run "
-                         "(counts set to 0 before the fleet was built, read "
-                         "after its trace), per_plan by engine, 112 a "
-                         "forward call of a compressed plan's engine",
+                         f"of {LM_ARCH} at full width, {LM_FLEET_LAYERS} "
+                         "layers, with lut_serve=True engines, burst then "
+                         "trickle; launches: that run (counts set to 0 "
+                         "before the fleet was built, read after its "
+                         f"trace), per_plan by engine, {7 * LM_FLEET_LAYERS}"
+                         " a forward call of a compressed plan's engine",
                 "launches": lm["fleet"]["lut"]["launches"]["K2"],
                 "per_plan": {pid: c["K2"] for pid, c in
                              lm["fleet"]["lut"]["per_plan"].items()},
@@ -4422,6 +5003,39 @@ def main() -> int:
                                      encdec["launches_per_stage"].items()},
             "shapes": encdec_k2_rows,
         },
+        "lm_scan": {
+            "scope": f"[lm-scan]: ScanTarget on {SCAN_ARCH} at full width "
+                     "and depth (per-layer k from the ladder by activity "
+                     "rank); launches: the served float32 warm-up and timed "
+                     "prefill and decode runs (counts set to 0 before, read "
+                     f"after), one a matmul: {SCAN_UNITS} a forward",
+            "launches": scan["serve_path_launches"]["K2"],
+            "launches_per_prefill": scan["serve"]["launches_prefill"][
+                "served"]["K2"],
+            "launches_per_decode_step": scan["serve"][
+                "launches_decode_step"]["served"]["K2"],
+            "export_path_launches": {st: v["K2"] for st, v in
+                                     scan["launches_per_stage"].items()},
+        },
+        "lm_moe": {
+            "scope": f"[lm-moe]: MoETarget on {MOE_ARCH} at full width, "
+                     f"{MOE_LAYERS} layers; shapes: one LUT GEMM an (expert, "
+                     f"matrix) at M = {LM_PROMPTS} x the expert capacity "
+                     "(prefill of 256 tokens: 40; decode: 8), float32 X, "
+                     "timed as the [lm] rows; launches: the served float32 "
+                     "warm-up, timed and code-recording prefill and decode "
+                     "runs (counts set to 0 before, read after), one an "
+                     f"(expert, matrix) and one an attention matmul: "
+                     f"{MOE_UNITS_A_LAYER} a layer a forward",
+            "launches": moe["serve_path_launches"]["K2"],
+            "launches_per_prefill": moe["serve"]["launches_prefill"][
+                "served"]["K2"],
+            "launches_per_decode_step": moe["serve"][
+                "launches_decode_step"]["served"]["K2"],
+            "export_path_launches": {st: v["K2"] for st, v in
+                                     moe["launches_per_stage"].items()},
+            "shapes": moe_k2_rows,
+        },
     }
     k1_entry = {
         **K1, "route": "cuda", "launches": k1_launches,
@@ -4461,7 +5075,8 @@ def main() -> int:
                            + [lm_k3["max_abs_err"]]
                            + [r["max_abs_err"] for rows in rec_k3.values()
                               for r in rows]
-                           + [encdec_k3["max_abs_err"]]),
+                           + [encdec_k3["max_abs_err"],
+                              moe_k3["max_abs_err"]]),
         "ms": k3_forward["device_ms"], "plain_ms": k3_forward["plain_ms"],
         "bound_ms": k3_forward["bound_ms"],
         "bound_by": k3_forward["bound_by"],
@@ -4512,7 +5127,8 @@ def main() -> int:
                            lm["engine"]["lut"]["runs"].items()}),
                    fleet=dict(
                        scope="[lm-fleet]: the fleet router over base / k8 / "
-                             f"k4 of {LM_ARCH} at full width with fake-quant "
+                             f"k4 of {LM_ARCH} at full width, "
+                             f"{LM_FLEET_LAYERS} layers, with fake-quant "
                              "engines, burst then trickle; launches: that "
                              "run, one a forward call of a compressed "
                              "plan's engine",
@@ -4576,6 +5192,38 @@ def main() -> int:
                   "PowerPruning fine-tune, the schedule); launches: that "
                   "phase",
             launches=table1["launches"]["K3"]),
+        "lm_scan": dict(
+            scope=f"[lm-scan]: ScanTarget on {SCAN_ARCH} at full width and "
+                  "depth, one launch a fake-quant forward (2 units x 48 "
+                  "layers as candidates, each layer its own k); launches: "
+                  "the fake-quant float32 warm-up and timed prefill and "
+                  "decode runs, then the pipeline's serve stage (one a "
+                  "forward call)",
+            launches=scan["serve_path_launches"]["K3"],
+            launches_per_forward=scan["serve"]["launches_prefill"][
+                "fake_quant"]["K3"],
+            export_path_launches={st: v["K3"] for st, v in
+                                  scan["launches_per_stage"].items()},
+            stage_launches=scan["stage"]["launches"]["K3"],
+            stage_forward_calls=scan["stage"]["forward_calls"]),
+        "lm_moe": dict(
+            moe_k3,
+            scope=f"[lm-moe]: MoETarget on {MOE_ARCH} at full width, "
+                  f"{MOE_LAYERS} layers: the one grouped launch of a "
+                  "fake-quant forward (4 attention units with the layers as "
+                  "candidates, 3 expert units with layers x 16 experts: "
+                  "each expert its own scales and codebook), held against "
+                  "its plain version bit for bit and timed between CUDA "
+                  "events beside its bound; launches: the fake-quant "
+                  "float32 warm-up and timed prefill and decode runs, then "
+                  "the serve stage's engine (one a forward call)",
+            launches=moe["serve_path_launches"]["K3"],
+            launches_per_forward=moe["serve"]["launches_prefill"][
+                "fake_quant"]["K3"],
+            export_path_launches={st: v["K3"] for st, v in
+                                  moe["launches_per_stage"].items()},
+            engine_launches=moe["engine"]["launches"]["K3"],
+            engine_forward_calls=moe["engine"]["forward_calls"]),
     }
     entries = [k2_entry, k1_entry, k1b_entry, k3_entry]
     print(f"[card] {card}", flush=True)

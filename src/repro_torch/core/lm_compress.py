@@ -11,10 +11,13 @@ Builds a comp tree mirroring the LM's grouped parameter layout:
     }
 
 Eligible tensors are the matmul weights that occupy systolic
-weight-stationary registers: attention projections, FFN matrices and the
-SSM and RG-LRU mixers' projections (the table also names the expert
-projections of the MoE family, which `build_lm` does not build yet; an
-expert unit raises, naming ROADMAP.md's 'Routed targets'). Masks are int8. Key paths, leaf shapes and dtypes are the JAX package's,
+weight-stationary registers: attention projections, FFN and expert
+matrices and the SSM and RG-LRU mixers' projections. Expert-batched MoE
+units carry a leading expert axis (after the layer axis of a stack) and get
+one codebook an expert: the walks below slice them per (layer, expert)
+into plain 2-D matrices (``blocks/g0/moe/w_gate[3][e2]``), each exported
+with its own scale, and the serve artifacts stack back over both axes.
+Masks are int8. Key paths, leaf shapes and dtypes are the JAX package's,
 so comp trees and exported artifacts cross between the packages in plans.
 """
 
@@ -42,21 +45,15 @@ ELIGIBLE: Dict[str, Tuple[str, ...]] = {
     "ssm": ("in_proj", "out_proj"),
     "rglru": ("in_proj", "gate_proj", "w_a", "w_x", "out_proj"),
 }
+# expert-batched MoE tensors: per-expert codebooks and k (the "mlp" sub
+# reuses the key names for plain 2-D matrices)
 MOE_EXPERT_KEYS: Tuple[str, ...] = ("w_gate", "w_up", "w_down")
-_EXPERTS_NOT_PORTED = ("ROADMAP.md Queue 1 item 8, 'Routed targets' "
-                       "(per-expert codebooks of MoE units)")
 
 
 def is_expert_unit(unit: str) -> bool:
     """True for 'moe/w_gate'-style expert-batched units ('sub/key' form)."""
     sub, key = unit.split("/")
     return sub == "moe" and key in MOE_EXPERT_KEYS
-
-
-def _no_experts(unit: str) -> None:
-    if is_expert_unit(unit):
-        raise NotImplementedError(f"expert unit {unit!r} is not ported yet: "
-                                  f"{_EXPERTS_NOT_PORTED}")
 
 
 def _block_comp_spec(block_spec: dict) -> dict:
@@ -68,11 +65,15 @@ def _block_comp_spec(block_spec: dict) -> dict:
         for key in keys:
             if key not in block_spec[sub]:
                 continue
-            _no_experts(f"{sub}/{key}")
             p: ParamSpec = block_spec[sub][key]
             stacked = bool(p.axes and p.axes[0] == "layers")
-            lead = (p.shape[0],) if stacked else ()
-            lead_axes = ("layers",) if stacked else ()
+            if is_expert_unit(f"{sub}/{key}"):
+                # leading (layers?, expert) axes: one codebook an expert
+                lead = p.shape[:2] if stacked else p.shape[:1]
+                lead_axes = ("layers", "expert") if stacked else ("expert",)
+            else:
+                lead = (p.shape[0],) if stacked else ()
+                lead_axes = ("layers",) if stacked else ()
             out[f"{sub}/{key}"] = {
                 "mask": ParamSpec(p.shape, torch.int8, p.axes, ones_init),
                 "codebook": ParamSpec((*lead, qat.K_MAX), torch.int32,
@@ -141,14 +142,15 @@ def _serve_layout(key: str, ndim: int) -> Optional[str]:
 
 
 def _slice_comp(c: Optional[dict], idx: tuple) -> Optional[dict]:
-    """Per-slice comp entry for one layer slice of a unit."""
+    """Per-slice comp entry for one (layer[, expert]) slice of a unit."""
     if c is None:
         return None
     out = {"mask": c["mask"][idx], "codebook": c["codebook"][idx],
            "codebook_k": c["codebook_k"][idx]}
     if "msr_bits" in c:
         mb = c["msr_bits"]
-        # msr_bits is a Python int, a 0-d tensor or per-layer
+        # msr_bits is a Python int, a 0-d tensor or per-layer; never
+        # per-expert
         out["msr_bits"] = mb if not isinstance(mb, torch.Tensor) \
             or mb.ndim == 0 else mb[idx[0]]
     return out
@@ -161,7 +163,10 @@ def iter_eligible_units(model, params: dict, comp: Optional[dict] = None, *,
 
     Stacked units are yielded per layer (``blocks/g0/attn/wq[3]`` for layer
     3), each slice with its own comp slice: the per-slice semantics of
-    the fake-quant forward. With ``comp=None`` the comp entries are None.
+    the fake-quant forward. Expert units are yielded per (layer, expert)
+    (``blocks/g0/moe/w_gate[3][e2]``; ``tail/t0/moe/w_up[e1]`` unstacked),
+    the per-expert fake-quant's slices. With ``comp=None`` the comp entries
+    are None.
     With ``include_skipped``, units without a serving layout are yielded
     once (unsliced) with ``layout=None``."""
     for top, g, units in _unit_nodes(make_lm_comp_spec(model)):
@@ -174,7 +179,16 @@ def iter_eligible_units(model, params: dict, comp: Optional[dict] = None, *,
             stacked = units[unit]["mask"].axes[:1] == ("layers",)
             c = None if node_c is None else node_c[unit]
             base = f"{top}/{unit}" if g is None else f"{top}/{g}/{unit}"
-            if stacked:
+            if is_expert_unit(unit):
+                layers = range(w.shape[0]) if stacked else (None,)
+                for li in layers:
+                    lw = w if li is None else w[li]
+                    for ei in range(lw.shape[0]):
+                        idx = (ei,) if li is None else (li, ei)
+                        name = (f"{base}[e{ei}]" if li is None
+                                else f"{base}[{li}][e{ei}]")
+                        yield name, lw[ei], _slice_comp(c, idx), "out_last"
+            elif stacked:
                 layout = _serve_layout(key, w.ndim - 1)
                 if layout is None:
                     if include_skipped:
@@ -228,8 +242,8 @@ def export_lm_matmuls(model, params: dict, comp: dict, *,
 
 
 def _stack_arts(slices):
-    """Per-layer artifacts -> one artifact whose fields carry a leading
-    layer axis (None if any layer is not servable)."""
+    """Per-slice artifacts -> one artifact whose fields carry a leading
+    (layer or expert) axis (None if any slice is not servable)."""
     if any(s is None for s in slices):
         return None
     return dataclasses.replace(
@@ -247,8 +261,11 @@ def attach_serve_artifacts(model, params: dict, comp: dict, *,
     forwards (attention `_project`, the FFN's matmuls, `quantized_mm`)
     dispatch on that key to the LUT GEMM. Stacked units export per layer,
     each with its own scale and codebook (the per-slice fake-quant
-    semantics), stacked along the layer axis. Units that are not servable
-    keep their entries unchanged and run on fake-quant."""
+    semantics), stacked along the layer axis. Expert units export per
+    (layer, expert) and stack over the expert axis, then the layer axis
+    (`export_expert`; `repro_torch.nn.moe` slices them back per expert).
+    Units that are not servable keep their entries unchanged and run on
+    fake-quant."""
 
     def all_servable(c) -> bool:
         ks = c["codebook_k"].reshape(-1)
@@ -257,11 +274,13 @@ def attach_serve_artifacts(model, params: dict, comp: dict, *,
     def attach_entries(node_p, entries):
         new, n = {}, 0
         for unit, c in entries.items():
-            _no_experts(unit)
             sub, key = unit.split("/")
             w = node_p[sub][key]
             entry = {k: v for k, v in c.items() if k != "serve"}
-            if c["codebook"].ndim == 2:        # stacked over layers
+            if is_expert_unit(unit):
+                art = export_expert(w, c, block_k=block_k) \
+                    if all_servable(c) else None
+            elif c["codebook"].ndim == 2:        # stacked over layers
                 layout = _serve_layout(key, w.ndim - 1)
                 art = None if layout is None or not all_servable(c) else \
                     _stack_arts([_export.export_layer(
@@ -292,6 +311,23 @@ def attach_serve_artifacts(model, params: dict, comp: dict, *,
         else:
             out[top] = groups
     return out, total
+
+
+def export_expert(w: torch.Tensor, c: dict, *, block_k: int = 128):
+    """The serve artifact of an expert unit, (L, E, ...) stacked or (E,
+    ...) unstacked (its codebook (L, E, 32) or (E, 32)): one export a
+    (layer, expert) slice with that slice's comp, stacked over the expert
+    axis and then the layer axis."""
+    def experts(lw, lc_idx):
+        return _stack_arts([_export.export_layer(
+            lw[ei], _slice_comp(c, (*lc_idx, ei)), kind="dense",
+            layout="out_last", block_k=block_k)
+            for ei in range(lw.shape[0])])
+
+    if c["codebook"].ndim == 3:
+        return _stack_arts([experts(w[li], (li,))
+                            for li in range(w.shape[0])])
+    return experts(w, ())
 
 
 def lut_parity_report(model, params: dict, comp: dict, arts: Dict, *,
@@ -353,29 +389,29 @@ def restrict_all_codebooks(model, comp: dict, values) -> dict:
 def set_codebook(comp: dict, path: str, values, layer: Optional[int] = None,
                  expert: Optional[int] = None) -> dict:
     """Functional codebook update for unit ``path``
-    ('blocks/g0/mlp/w_down'). For stacked units ``layer`` selects the layer;
-    None sets every layer. Expert units raise ('Routed targets')."""
+    ('blocks/g0/mlp/w_down'). For stacked units ``layer`` selects the
+    layer; for expert units ``expert`` selects the expert. A None index
+    sets the codebook over that whole axis."""
     parts = path.split("/")
     unit = "/".join(parts[-2:])
-    _no_experts(unit)
-    if expert is not None:
-        raise NotImplementedError(f"expert codebooks are not ported yet: "
-                                  f"{_EXPERTS_NOT_PORTED}")
     node_path = parts[:-2]
 
     def set_entry(entry):
         cb, k = qat.make_codebook(values, device=entry["codebook"].device)
-        if entry["codebook"].ndim == 1:
+        lead = entry["codebook"].ndim - 1      # () | (L,) | (E,) | (L, E)
+        if lead == 0:
             entry["codebook"], entry["codebook_k"] = cb, k
-        elif layer is None:
-            entry["codebook"] = cb.expand(entry["codebook"].shape).clone()
-            entry["codebook_k"] = torch.full_like(entry["codebook_k"],
-                                                  int(k))
+            return entry
+        if lead == 2:
+            idx = (layer, expert)
         else:
-            entry["codebook"] = entry["codebook"].clone()
-            entry["codebook_k"] = entry["codebook_k"].clone()
-            entry["codebook"][layer] = cb
-            entry["codebook_k"][layer] = k
+            idx = (expert,) if is_expert_unit(unit) else (layer,)
+        # a None index covers its whole axis
+        sel = tuple(slice(None) if i is None else i for i in idx)
+        entry["codebook"] = entry["codebook"].clone()
+        entry["codebook_k"] = entry["codebook_k"].clone()
+        entry["codebook"][sel] = cb
+        entry["codebook_k"][sel] = k
         return entry
 
     def update(tree, keys):

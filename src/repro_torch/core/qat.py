@@ -219,11 +219,13 @@ def fake_quant_weights(ws: Sequence[torch.Tensor],
     n x len(ws) weights still take one launch. The LM's fake-quant forward
     passes its stacked ``(L, ...)`` units this way, the layer axis as the
     candidate axis (`repro_torch.models.lm`): layer j gets the per-slice
-    value of the JAX package's scan, its own scale included."""
-    shape = (lambda w: tuple(w.shape[1:])) if cands else (
-        lambda w: tuple(w.shape))
-    comps = [identity_comp(shape(w), w.dtype, device=w.device)
-             if c is None else c for w, c in zip(ws, comps, strict=True)]
+    value of the JAX package's scan, its own scale included. ``cands`` a
+    sequence: one count (or None) an entry, so stacked units (layers as
+    candidates) and expert units (layers x experts) share one launch."""
+    per_entry = fake_quant_ops.entry_cands(cands, len(ws))
+    comps = [identity_comp(tuple(w.shape[1:] if n else w.shape), w.dtype,
+                           device=w.device) if c is None else c
+             for w, c, n in zip(ws, comps, per_entry, strict=True)]
     return fake_quant_ops.fake_quant_group(list(ws), comps, cands)
 
 

@@ -97,9 +97,9 @@ def launch_group(ws, comps, cands=None):
     any shape (the last axis is the output channel), ``comps[i]`` its
     compression state (``mask``, ``codebook``, ``codebook_k`` and an
     optional ``msr_bits``); with ``cands=n``, ``ws[i]`` is ``(n, *shape)``
-    and each leaf carries that axis or is shared (``ops.candidate_leaf``).
-    Returns the straight-through forward values, ``wm + (wq - wm)``, one
-    float32 tensor of ``ws[i]``'s shape each (contiguous); one launch per
+    and each leaf carries that axis or is shared (``ops.candidate_leaf``);
+    ``cands`` a sequence: one count (or None) an entry. Returns the
+    straight-through forward values, ``wm + (wq - wm)``, one float32 tensor of ``ws[i]``'s shape each (contiguous); one launch per
     `group_capacity` layers, whatever the number of candidates. Raises
     `RuntimeError` if a launch failed."""
     global launches
@@ -107,23 +107,25 @@ def launch_group(ws, comps, cands=None):
     if dev.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
     outs, words = [], []
-    for w, comp in zip(ws, comps):
-        base = w.ndim - (cands is not None)
+    per_entry = (cands if isinstance(cands, (list, tuple))
+                 else [cands] * len(ws))
+    for w, comp, n_c in zip(ws, comps, per_entry, strict=True):
+        base = w.ndim - (n_c is not None)
         n = w.shape[-1]
         mask = comp["mask"]
-        w_ptr, _, w_shared = _leaf(w, base, cands)
-        m_ptr, _, m_shared = _leaf(mask, base, cands)
-        cb_ptr, _, cb_shared = _leaf(comp["codebook"], 1, cands)
-        k_ptr, k_val, k_shared = _leaf(comp["codebook_k"], 0, cands)
+        w_ptr, _, w_shared = _leaf(w, base, n_c)
+        m_ptr, _, m_shared = _leaf(mask, base, n_c)
+        cb_ptr, _, cb_shared = _leaf(comp["codebook"], 1, n_c)
+        k_ptr, k_val, k_shared = _leaf(comp["codebook_k"], 0, n_c)
         msr_ptr, msr_val, msr_shared = _leaf(comp.get("msr_bits", 0), 0,
-                                             cands)
+                                             n_c)
         out = torch.empty_like(w, memory_format=torch.contiguous_format)
         bits = (int(mask.dtype == torch.int8) | w_shared << 1
                 | m_shared << 2 | cb_shared << 3 | k_shared << 4
                 | msr_shared << 5)
-        per_cand = out[0].numel() if cands is not None else out.numel()
+        per_cand = out[0].numel() if n_c is not None else out.numel()
         words.append((w_ptr, m_ptr, cb_ptr, k_ptr, msr_ptr, out.data_ptr(),
-                      per_cand // n, n, bits, k_val, msr_val, cands or 1))
+                      per_cand // n, n, bits, k_val, msr_val, n_c or 1))
         outs.append(out)
     lib = LIBRARY.load()
     cap = group_capacity()
@@ -137,7 +139,7 @@ def launch_group(ws, comps, cands=None):
         if err != 0:
             raise RuntimeError(f"fake_quant group launch failed: CUDA error "
                                f"{err} at {len(group)} layers x "
-                               f"{cands or 1} candidates")
+                               f"{[e[11] for e in group]} candidates")
         launches += 1
     return outs
 

@@ -117,6 +117,19 @@ def check_inputs(w, mask, scale, codebook, k, msr_bits) -> None:
     _check_layer(w, mask, codebook, k, msr_bits)
 
 
+def entry_cands(cands, n: int) -> list:
+    """``cands`` of a grouped call as one value an entry: None (no
+    candidate axis) or an int for every entry, or a sequence of ``n`` such
+    values, one an entry (an LM's stacked units take their layer count, its
+    expert units layers x experts)."""
+    if cands is None or isinstance(cands, numbers.Integral):
+        return [cands] * n
+    cands = list(cands)
+    if len(cands) != n:
+        raise ValueError(f"{n} weights but {len(cands)} candidate counts")
+    return cands
+
+
 def check_group(ws, comps, cands=None) -> None:
     """Raise `ValueError` on anything the grouped kernel does not take,
     naming the entry: an empty group, a count of comps that differs from
@@ -125,18 +138,21 @@ def check_group(ws, comps, cands=None) -> None:
     every weight has a leading candidate axis of ``n`` (contiguous slices,
     or stride 0 for one weight shared by all) and every comp leaf either
     the same axis or none (`candidate_leaf`); the checks of `_check_layer`
-    then apply to one candidate's slices."""
+    then apply to one candidate's slices. ``cands`` may also give one count
+    (or None) an entry (`entry_cands`)."""
     if not len(ws):
         raise ValueError("empty group: no weights to fake-quantize")
     if len(comps) != len(ws):
         raise ValueError(f"{len(ws)} weights but {len(comps)} comp states")
-    if cands is not None and (isinstance(cands, bool)
-                              or not isinstance(cands, numbers.Integral)
-                              or not 1 <= cands <= MAX_CANDIDATES):
-        raise ValueError(f"cands must be an int in [1, {MAX_CANDIDATES}], "
-                         f"got {cands!r}")
+    per_entry = entry_cands(cands, len(ws))
+    for n in per_entry:
+        if n is not None and (isinstance(n, bool)
+                              or not isinstance(n, numbers.Integral)
+                              or not 1 <= n <= MAX_CANDIDATES):
+            raise ValueError(f"cands must be an int in [1, "
+                             f"{MAX_CANDIDATES}], got {n!r}")
     dev = ws[0].device
-    for i, (w, comp) in enumerate(zip(ws, comps)):
+    for i, (w, comp, n) in enumerate(zip(ws, comps, per_entry)):
         try:
             if w.device != dev:
                 raise ValueError(f"w is on {w.device}, the group's first "
@@ -144,16 +160,16 @@ def check_group(ws, comps, cands=None) -> None:
             mask, codebook = comp["mask"], comp["codebook"]
             k, msr = comp["codebook_k"], comp.get("msr_bits", 0)
             ndims = (0,)
-            if cands is not None:
+            if n is not None:
                 if w.ndim < 2:
                     raise ValueError(f"w must have a leading candidate axis "
-                                     f"of {cands} and an output axis, got "
+                                     f"of {n} and an output axis, got "
                                      f"shape {tuple(w.shape)}")
-                w, _ = candidate_leaf("w", w, w.ndim - 1, cands)
-                mask, _ = candidate_leaf("mask", mask, w.ndim, cands)
-                codebook, _ = candidate_leaf("codebook", codebook, 1, cands)
-                candidate_leaf("k", k, 0, cands)
-                candidate_leaf("msr_bits", msr, 0, cands)
+                w, _ = candidate_leaf("w", w, w.ndim - 1, n)
+                mask, _ = candidate_leaf("mask", mask, w.ndim, n)
+                codebook, _ = candidate_leaf("codebook", codebook, 1, n)
+                candidate_leaf("k", k, 0, n)
+                candidate_leaf("msr_bits", msr, 0, n)
                 ndims = (0, 1)
             if w.ndim < 1 or w.numel() == 0:
                 raise ValueError(f"w must have an output axis and elements, "
@@ -233,10 +249,12 @@ def fake_quant_group(ws, comps, cands=None) -> list:
     candidates of the layer, and each comp leaf carries the same leading
     axis or is shared (`check_group`); output ``i`` is ``(n, *shape)``,
     candidate ``j`` the value for ``ws[i][j]`` under candidate ``j``'s comp
-    (`ref.candidate_comp`). Every entry is checked before the dispatch;
+    (`ref.candidate_comp`); a sequence gives each entry its own ``n`` or
+    None (`entry_cands`). Every entry is checked before the dispatch;
     CUDA tensors take one kernel launch (up to the kernel's table of
     layers), CPU tensors the plain version."""
     check_group(ws, comps, cands)
     if ws[0].device.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {ws[0].device}")
-    return list(_SteFakeQuantGroup.apply(list(comps), cands, *ws))
+    return list(_SteFakeQuantGroup.apply(list(comps),
+                                         entry_cands(cands, len(ws)), *ws))

@@ -12,8 +12,6 @@ the CUDA kernels against them on the same inputs.
 
 from __future__ import annotations
 
-from typing import Optional
-
 import torch
 
 from repro_torch.core import qat
@@ -63,14 +61,15 @@ def candidate_comp(comp, w_ndim: int, j: int):
     return out
 
 
-def fake_quant_group_ref(ws, comps, cands: Optional[int] = None) -> list:
+def fake_quant_group_ref(ws, comps, cands=None) -> list:
     """The grouped kernel's function: `fake_quant_ste_ref` of every layer,
     and with ``cands=n`` of every candidate ``j`` of every layer
     (``ws[i][j]`` under `candidate_comp`), stacked back along the candidate
-    axis."""
-    if cands is None:
-        return [fake_quant_ste_ref(w, c) for w, c in zip(ws, comps)]
-    return [torch.stack([fake_quant_ste_ref(w[j],
+    axis. ``cands`` may give one count (or None) an entry."""
+    if cands is None or isinstance(cands, int):
+        cands = [cands] * len(ws)
+    return [fake_quant_ste_ref(w, c) if n is None else
+            torch.stack([fake_quant_ste_ref(w[j],
                                             candidate_comp(c, w.ndim - 1, j))
-                         for j in range(cands)])
-            for w, c in zip(ws, comps)]
+                         for j in range(n)])
+            for w, c, n in zip(ws, comps, cands, strict=True)]

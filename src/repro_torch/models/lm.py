@@ -30,24 +30,29 @@ given frame embeddings (``enc_embeds``, the stub frontend) with sinusoidal
 positions, and decoder blocks with cross-attention over its output, whose
 K/V the decode cache holds as ``xk``/``xv``. A recurrent block's decode
 cache is its mixer's state (no sequence axis, float32 whatever the cache
-dtype), passed through from prefill as the JAX package does. `build_lm`
-raises `NotImplementedError`, naming the ROADMAP.md item, for MoE and
-VLM-prefix configs.
+dtype), passed through from prefill as the JAX package does. The MoE
+family (phi3.5-moe, moonshot) puts `repro_torch.nn.moe`'s FFN in its
+attention blocks; a forward sums the blocks' load-balance and z losses into
+its aux, layer by layer in float32, as the JAX package's scan does, and
+`loss` adds them. `build_lm` raises `NotImplementedError`, naming the
+ROADMAP.md item, for VLM-prefix configs.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.core import qat
+from repro_torch.core import lm_compress, qat
 from repro_torch.core.export import ServeArtifact
 from repro_torch.kernels.lut_matmul.ref import exact_matmul
 from repro_torch.models.config import ArchConfig
+from repro_torch.kernels.fake_quant.ops import MAX_CANDIDATES
 from repro_torch.nn import transformer as T
 from repro_torch.nn.layers import QuantConfig
 from repro_torch.nn.spec import ParamSpec, normal_init, stack_specs
@@ -75,6 +80,38 @@ def _layer(tree, r: int):
     if isinstance(tree, torch.Tensor) and tree.ndim:
         return tree[r]
     return tree
+
+
+def _expert_entries(w: torch.Tensor, c, depth: Optional[int]):
+    """K3 entries (weight, comp, candidates) of an expert unit: its leading
+    (layer, expert) axes (or the tail's expert axis) flattened into one
+    candidate axis, cut into entries of whole layers of at most
+    `MAX_CANDIDATES` candidates each (contiguous slices)."""
+    lead = 1 if depth is None else 2
+    inner = tuple(w.shape[lead:])
+    n_exp = w.shape[lead - 1]
+    flat_w = w.reshape(-1, *inner)
+    flat_c = None
+    if c is not None:
+        flat_c = {"mask": c["mask"].reshape(-1, *inner),
+                  "codebook": c["codebook"].reshape(-1, c["codebook"]
+                                                    .shape[-1]),
+                  "codebook_k": c["codebook_k"].reshape(-1)}
+        if "msr_bits" in c:
+            mb = c["msr_bits"]
+            flat_c["msr_bits"] = (mb.repeat_interleave(n_exp)
+                                  if isinstance(mb, torch.Tensor) and mb.ndim
+                                  else mb)
+    rows = max(1, MAX_CANDIDATES // n_exp) * n_exp
+    n = flat_w.shape[0]
+    out = []
+    for r0 in range(0, n, rows):
+        r1 = min(r0 + rows, n)
+        sl = None if flat_c is None else {
+            k: v[r0:r1] if isinstance(v, torch.Tensor) and v.ndim else v
+            for k, v in flat_c.items()}
+        out.append((flat_w[r0:r1], sl, r1 - r0))
+    return out
 
 
 def _sinusoid(positions: torch.Tensor, d: int) -> torch.Tensor:
@@ -156,13 +193,17 @@ class LMModel:
         them when the two stacks are equally deep (else one launch of
         their own); the tail's units, unstacked, one more. A unit that
         serves from a packed artifact on the serve path is left out (K2
-        runs it)."""
+        runs it). An expert unit ((L, E, ...) stacked, (E, ...) in the
+        tail) joins its launch with layers x experts as its candidates, so
+        every expert keeps its own scales and codebook (`_expert_entries`).
+        """
         if not qcfg.enabled:
             return None
         serve = qcfg.comp_mode == "serve"
         out: Dict[str, Dict[str, dict]] = {"blocks": {}, "tail": {},
                                            "enc_blocks": {}}
         launches: Dict[Optional[int], list] = {}
+        experts: list = []
         for top in ("blocks", "enc_blocks", "tail"):
             if top not in params:
                 continue
@@ -180,15 +221,29 @@ class LMModel:
                     if serve and c is not None and "serve" in c:
                         continue
                     sub, key = unit.split("/")
-                    launches.setdefault(depth, []).append(
-                        (node, unit, block[sub][key],
-                         None if c is None else
-                         {k: v for k, v in c.items() if k != "serve"}))
-        for depth, entries in launches.items():
-            outs = qat.fake_quant_weights([e[2] for e in entries],
-                                          [e[3] for e in entries], depth)
-            for (node, unit, _, _), w in zip(entries, outs):
-                node[unit] = w
+                    w = block[sub][key]
+                    c = None if c is None else \
+                        {k: v for k, v in c.items() if k != "serve"}
+                    todo = launches.setdefault(depth, [])
+                    if lm_compress.is_expert_unit(unit):
+                        pieces: list = []
+                        todo.extend((*e, pieces.append)
+                                    for e in _expert_entries(w, c, depth))
+                        experts.append((node, unit, w.shape, pieces))
+                    else:
+                        todo.append((w, c, depth,
+                                     functools.partial(node.__setitem__,
+                                                       unit)))
+        for entries in launches.values():
+            cands = [e[2] for e in entries]
+            outs = qat.fake_quant_weights(
+                [e[0] for e in entries], [e[1] for e in entries],
+                cands[0] if len(set(cands)) == 1 else cands)
+            for (*_, put), w in zip(entries, outs):
+                put(w)
+        for node, unit, shape, pieces in experts:
+            node[unit] = (pieces[0] if len(pieces) == 1
+                          else torch.cat(pieces)).reshape(shape)
         return out
 
     # ------------------------------------------------------------- encoder
@@ -582,12 +637,11 @@ class LMModel:
 
 
 def build_lm(cfg: ArchConfig) -> LMModel:
-    """The spec tree of an LM of the dense, SSM (Mamba-2), hybrid
+    """The spec tree of an LM of the dense, MoE, SSM (Mamba-2), hybrid
     (RecurrentGemma) or encoder-decoder (whisper: ``enc_blocks`` stacked
     over ``n_enc_layers``, ``enc_norm``, decoder blocks with
     cross-attention) family; raises `NotImplementedError`, naming the
-    ROADMAP.md item, for MoE FFNs (`make_block_spec`) and the VLM
-    prefix."""
+    ROADMAP.md item, for the VLM prefix."""
     if cfg.prefix_len:
         raise NotImplementedError(f"{cfg.name}: the VLM prefix embeddings "
                                   f"are not ported yet: {T.NOT_PORTED['prefix']}")

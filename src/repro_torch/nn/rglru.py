@@ -21,8 +21,9 @@ the reference's float32 order; it is elementwise over batch and channels,
 so a row's result never depends on the rows beside it. Decode is the
 single-step update. Gate matrices are full dense (the reference's
 documented simplification). The recurrence parameters Lambda are float32
-and are not compressible units. The JAX mixer's ``routing_stats``
-collector is not ported here: ROADMAP.md item 8.
+and are not compressible units. While a `repro_torch.core.routing_stats`
+collector is set, `apply_rglru` emits the mean square of its float32 input
+(the scan target's calibration tap).
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ from typing import List, Tuple
 
 import torch
 
+from repro_torch.core import routing_stats
 from repro_torch.models.config import RGLRUDims
 from repro_torch.nn.layers import QuantConfig, gelu, lm_fake_quant_act
 from repro_torch.nn.spec import ParamSpec, fan_in_init, normal_init, zeros_init
@@ -142,6 +144,9 @@ def apply_rglru(params, x: torch.Tensor, dims: RGLRUDims, *,
     also returns the decode cache ({"h", "conv"}) at the end of the
     sequence. ``w_eff``: {"rglru/in_proj": fake-quantized weight, ...}
     where the model computed them."""
+    collector = routing_stats.get_collector()
+    if collector is not None:
+        collector("rglru", name, routing_stats.mean_square(x))
     mm = _mm_fn(params, qcfg, comp, name, x.dtype, w_eff)
     xin = lm_fake_quant_act(x, qcfg)
     branch = mm("in_proj", xin)

@@ -17,9 +17,9 @@ result does not depend on how many rows the call holds.
 
 Projections (in/out) are compressible units like every other matmul; the
 per-head A/dt/D scalars are not (they never occupy a systolic weight
-register) and stay float32 whatever the parameter dtype. The JAX mixer's
-``routing_stats`` collector (a calibration tap of the routed targets) is
-not ported here: ROADMAP.md item 8.
+register) and stay float32 whatever the parameter dtype. While a
+`repro_torch.core.routing_stats` collector is set, `apply_ssm` emits the
+mean square of its float32 input (the scan target's calibration tap).
 """
 
 from __future__ import annotations
@@ -30,6 +30,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import routing_stats
 from repro_torch.kernels.lut_matmul.ref import exact_matmul
 from repro_torch.models.config import SSMDims
 from repro_torch.nn.layers import (
@@ -218,6 +219,9 @@ def apply_ssm(params, x: torch.Tensor, dims: SSMDims, *,
     where the model computed them."""
     bsz, s, _ = x.shape
     exact = qcfg.batch_invariant
+    collector = routing_stats.get_collector()
+    if collector is not None:
+        collector("ssm", name, routing_stats.mean_square(x))
     mm = _mm_fn(params, qcfg, comp, name, x.dtype, w_eff)
 
     z = mm("in_proj", lm_fake_quant_act(x, qcfg))

@@ -6,8 +6,10 @@ A *block* is one residual layer of the network. `make_block_spec` /
 LM assembler (`repro_torch.models.lm`) stacks same-typed blocks over a
 leading layer axis and walks it. Block types ``attn``, ``local``,
 ``rglru`` (Griffin's recurrent mixer, then the FFN) and ``ssm`` (Mamba-2's
-SSD mixer alone: no ``ln2``, no FFN) are ported; MoE FFNs raise
-`NotImplementedError` naming their ROADMAP.md item. A block built with
+SSD mixer alone: no ``ln2``, no FFN) are ported; an attention block of a
+MoE config holds the MoE FFN (``moe``, `repro_torch.nn.moe`) in place of
+the dense one, and its prefill returns the MoE's load-balance and z losses
+as its aux. A block built with
 ``cross_attn`` (the encoder-decoder family's decoder) attends over the
 encoder output between its mixer and its FFN (``ln_x``, ``xattn``: keys and
 values projected from the encoder output, no RoPE; in decode, read from the
@@ -32,6 +34,7 @@ import torch
 from repro_torch.core.export import serve_dense
 from repro_torch.models.config import ArchConfig
 from repro_torch.nn import attention as A
+from repro_torch.nn import moe as MOE
 from repro_torch.nn import rglru as RG
 from repro_torch.nn import ssm as SSM
 from repro_torch.nn.layers import (
@@ -51,19 +54,16 @@ from repro_torch.nn.spec import ParamSpec, fan_in_init, ones_init, zeros_init
 MATMULS = {"attn": ("wq", "wk", "wv", "wo"),
            "xattn": ("wq", "wk", "wv", "wo"),
            "mlp": ("w_gate", "w_up", "w_down"),
+           "moe": ("w_gate", "w_up", "w_down",
+                   "shared_gate", "shared_up", "shared_down"),
            "ssm": ("in_proj", "out_proj"),
            "rglru": ("in_proj", "gate_proj", "w_a", "w_x", "out_proj")}
 MIXERS = ("attn", "local", "rglru", "ssm")
 RECURRENT = ("rglru", "ssm")
 
 NOT_PORTED = {
-    "moe": "ROADMAP.md Queue 1 item 8, 'Routed targets' (nn/moe.py)",
     "prefix": "ROADMAP.md Queue 1 item 6c, 'LM stack'",
 }
-
-
-def _not_ported(what: str, key: str):
-    return NotImplementedError(f"{what} is not ported yet: {NOT_PORTED[key]}")
 
 
 def block_matmuls(block_params) -> list:
@@ -153,8 +153,6 @@ def make_block_spec(cfg: ArchConfig, block_type: str, *,
                     cross_attn: bool = False):
     if block_type not in MIXERS:
         raise ValueError(block_type)
-    if cfg.is_moe and block_type in ("attn", "local"):
-        raise _not_ported(f"{cfg.name}: the MoE FFN", "moe")
     spec = {"ln1": make_norm_spec(cfg)}
     if block_type == "ssm":
         spec["ssm"] = SSM.make_ssm_spec(cfg.ssm_dims(), cfg.pdtype)
@@ -165,7 +163,10 @@ def make_block_spec(cfg: ArchConfig, block_type: str, *,
             spec["attn"] = A.make_attention_spec(
                 cfg.attn_dims(block_type == "local"), cfg.pdtype)
         spec["ln2"] = make_norm_spec(cfg)
-        spec["mlp"] = make_ffn_spec(cfg)
+        if cfg.is_moe and block_type != "rglru":
+            spec["moe"] = MOE.make_moe_spec(cfg.moe_dims(), cfg.pdtype)
+        else:
+            spec["mlp"] = make_ffn_spec(cfg)
     if cross_attn:
         spec["ln_x"] = make_norm_spec(cfg)
         spec["xattn"] = A.make_attention_spec(cfg.enc_attn_dims(),
@@ -176,15 +177,18 @@ def make_block_spec(cfg: ArchConfig, block_type: str, *,
 def _check_block(params, block_type: str) -> None:
     if block_type not in MIXERS:
         raise ValueError(block_type)
-    if "moe" in params:
-        raise _not_ported("a block with 'moe'", "moe")
 
 
 def _ffn_half(params, x, cfg, qcfg, comp, w_eff):
-    """``x + ffn(ln2(x))``: the second half of every block but ``ssm``."""
+    """``(x + ffn(ln2(x)), MoE aux or None)``: the second half of every
+    block but ``ssm``, the dense FFN or the MoE."""
     h = apply_norm(params["ln2"], x, cfg, qcfg.batch_invariant)
+    if "moe" in params:
+        y, aux = MOE.apply_moe(params["moe"], h, cfg.moe_dims(), qcfg=qcfg,
+                               comp=comp, name="moe", w_eff=w_eff)
+        return x + y, aux
     return x + apply_ffn(params["mlp"], h, cfg, qcfg=qcfg, comp=comp,
-                         name="mlp", w_eff=w_eff)
+                         name="mlp", w_eff=w_eff), None
 
 
 def _cross_kv(attn_params, enc_out, qcfg, comp, w_eff):
@@ -267,7 +271,10 @@ def apply_block(params, x: torch.Tensor, cfg: ArchConfig, block_type: str, *,
     if return_state and kv is not None:
         state = {**state, "xk": kv[0], "xv": kv[1]}
     if block_type != "ssm":
-        x = _ffn_half(params, x, cfg, qcfg, comp, w_eff)
+        x, moe_aux = _ffn_half(params, x, cfg, qcfg, comp, w_eff)
+        if moe_aux is not None:
+            aux = {"lb_loss": moe_aux["lb_loss"],
+                   "z_loss": moe_aux["z_loss"]}
     return ((x, aux), state) if return_state else (x, aux)
 
 
@@ -339,7 +346,7 @@ def apply_block_decode(params, x: torch.Tensor, cache: dict, pos,
             cross_kv=(cache["xk"], cache["xv"]))
         x = x + xa
     if block_type != "ssm":
-        x = _ffn_half(params, x, cfg, qcfg, comp, w_eff)
+        x, _ = _ffn_half(params, x, cfg, qcfg, comp, w_eff)
     return x, new_cache
 
 
@@ -357,7 +364,7 @@ def apply_block_chunk(params, x: torch.Tensor, cache: dict,
     position 0, and the mixer runs it from its zero state (the engine
     enforces single-chunk plans for them, as the JAX package's does).
     Cross-attention has no chunk path (`ValueError`, as in the JAX
-    package); MoE FFNs raise as `apply_block` does."""
+    package)."""
     if "xattn" in params:
         raise ValueError("chunked prefill does not support cross-attention "
                          "blocks; use the oneshot/wave path")
@@ -376,5 +383,5 @@ def apply_block_chunk(params, x: torch.Tensor, cache: dict,
         new_cache.update(kv_new)
     x = x + mix
     if block_type != "ssm":
-        x = _ffn_half(params, x, cfg, qcfg, comp, w_eff)
+        x, _ = _ffn_half(params, x, cfg, qcfg, comp, w_eff)
     return x, new_cache

@@ -1,10 +1,11 @@
 """`repro_torch` command-line entry point: drive the port's Pipeline.
 
     python -m repro_torch profile  [--config cfg.json | --reduced]
-                                   [--target cnn|lm] [--arch A] [--steps N]
-                                   [--seed S] [--plan-out BASE]
+                                   [--target cnn|lm|moe|scan] [--arch A]
+                                   [--steps N] [--seed S] [--plan-out BASE]
     python -m repro_torch compress [--config cfg.json | --reduced]
-                                   [--target cnn|lm] [--arch A] [--steps N]
+                                   [--target cnn|lm|moe|scan] [--arch A]
+                                   [--steps N]
                                    [--search-mode MODE] [--compress-k K]
                                    [--seed S] [--plan-in BASE]
                                    [--plan-out BASE]
@@ -44,8 +45,15 @@ fallback too and records whether every token agrees). ``--plans SPEC
 ...`` / ``--plans-dir DIR`` serve a fleet instead of the plan's one
 variant: every SPEC (``base``, ``k<N>[m<M>]``, or a saved plan's base path)
 and every saved plan under DIR is a resident plan, and the fleet router
-picks one per request from queue pressure and budgets. ``--compress-k``
-applies to an LM target only; with any other it is an error.
+picks one per request from queue pressure and budgets. ``--target moe``
+(``--arch phi3.5-moe-42b-a6.6b`` by default with ``--reduced``) and
+``--target scan`` (``mamba2-1.3b``; or recurrentgemma-2b) are the routed LM
+targets: the profile stage also measures each expert's dispatch traffic
+or each scan layer's activity on a calibration trace, and the schedule
+gives every unit the ``--compress-k`` floor, then each routed slice a
+codebook size from the k ladder by its traffic rank; ``compress`` runs
+them through ``export``, as an LM target. ``--compress-k`` applies to the
+LM targets only (lm, moe, scan); with a CNN it is an error.
 ``--plan-in`` resumes a plan (completed stages are skipped), ``--plan-out``
 saves the result as ``BASE.json`` + ``BASE.npz``. Every command takes
 ``--device``, which defaults to ``cuda``; on a host without CUDA that is an
@@ -82,16 +90,19 @@ def build_parser() -> argparse.ArgumentParser:
             p.add_argument("--target", choices=("cnn", "lm", "moe", "scan"),
                            default=None,
                            help="target kind when building a config from "
-                                "flags (moe/scan are not ported yet)")
+                                "flags (moe/scan: the routed LM targets)")
             p.add_argument("--arch", default=None,
                            help="cnn: lenet5|resnet8|resnet20|resnet50; "
-                                "lm: a repro_torch.configs id (olmo-1b)")
+                                "lm/moe/scan: a repro_torch.configs id "
+                                "(olmo-1b, phi3.5-moe-42b-a6.6b, "
+                                "mamba2-1.3b)")
             p.add_argument("--reduced", action="store_true",
                            help="CPU-smoke preset (cnn: LeNet-5, tiny "
                                 "budgets; lm: the scaled-down config)")
             p.add_argument("--compress-k", type=int, default=None,
-                           help="lm: restrict every eligible matmul to a "
-                                "k-value codebook")
+                           help="lm/moe/scan: restrict every eligible "
+                                "matmul to a k-value codebook (the routed "
+                                "targets' floor)")
             p.add_argument("--steps", type=int, default=None,
                            help="override train.qat_steps")
             p.add_argument("--search-mode", choices=("batched", "serial"),
@@ -176,14 +187,22 @@ def _build_config(args):
         PipelineConfig,
         reduced_cnn_config,
         reduced_lm_config,
+        reduced_moe_config,
+        reduced_scan_config,
     )
 
     kind = args.target
     if args.config:
         cfg = PipelineConfig.load(args.config)
     elif args.reduced:
-        cfg = (reduced_cnn_config() if kind in (None, "cnn")
-               else reduced_lm_config(args.arch or "olmo-1b"))
+        presets = {"lm": (reduced_lm_config, "olmo-1b"),
+                   "moe": (reduced_moe_config, "phi3.5-moe-42b-a6.6b"),
+                   "scan": (reduced_scan_config, "mamba2-1.3b")}
+        if kind in presets:
+            preset, arch = presets[kind]
+            cfg = preset(args.arch or arch)
+        else:
+            cfg = reduced_cnn_config()
     else:
         cfg = PipelineConfig()
     overrides = _overrides(args)
@@ -217,11 +236,11 @@ def main(argv: Optional[list] = None) -> int:
         else:
             pipe = Pipeline(_build_config(args), device=device)
         if (getattr(args, "compress_k", None) is not None
-                and pipe.cfg.target.kind != "lm"):
+                and pipe.cfg.target.kind == "cnn"):
             ap.error("--compress-k restricts an LM's codebooks: pass "
-                     "--target lm")
+                     "--target lm, moe or scan")
         stage = COMMAND_STAGE[args.command]
-        if args.command == "compress" and pipe.target.kind == "lm":
+        if args.command == "compress" and pipe.target.kind != "cnn":
             stage = "export"
             print("[repro_torch] compress runs an LM target through export; "
                   "run its serve stage with `serve --plan-in BASE` on the "

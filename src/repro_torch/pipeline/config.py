@@ -90,7 +90,10 @@ class ProfileStageConfig:
 
 @dataclasses.dataclass
 class RoutingStageConfig:
-    """Routing/activity calibration for the moe/scan targets."""
+    """Routing/activity calibration for the moe/scan targets: the
+    calibration prefills' batches (drawn from ``np.random.default_rng``
+    seeded by ``calib_seed``; the JAX package seeds a ``jax.random`` chain)
+    and the ladder of codebook sizes routed units are ranked onto."""
 
     calib_batches: int = 2
     calib_batch_size: int = 2
@@ -290,6 +293,27 @@ def reduced_lm_config(arch: str = "olmo-1b", *, compress_k: int = 4,
         train=TrainStageConfig(qat_steps=0, final_finetune_steps=0),
         serve=serve,
     )
+
+
+def reduced_moe_config(arch: str = "phi3.5-moe-42b-a6.6b", *,
+                       compress_k: int = 4, **serve_kw) -> PipelineConfig:
+    """CPU-smoke preset for a routed MoE target (port of
+    `repro.pipeline.config.reduced_moe_config`): `reduced_lm_config` with
+    ``kind="moe"``, a uniform codebook floor plus per-expert k sized by
+    measured dispatch traffic."""
+    cfg = reduced_lm_config(arch, compress_k=compress_k, **serve_kw)
+    return dataclasses.replace(
+        cfg, target=dataclasses.replace(cfg.target, kind="moe"))
+
+
+def reduced_scan_config(arch: str = "mamba2-1.3b", *, compress_k: int = 4,
+                        **serve_kw) -> PipelineConfig:
+    """CPU-smoke preset for a routed SSM / RG-LRU target (port of
+    `repro.pipeline.config.reduced_scan_config`): per-scan-unit k sized by
+    measured activation activity."""
+    cfg = reduced_lm_config(arch, compress_k=compress_k, **serve_kw)
+    return dataclasses.replace(
+        cfg, target=dataclasses.replace(cfg.target, kind="scan"))
 
 
 def parse_plan_spec(spec: str) -> Tuple[Optional[int], int]:

@@ -11,13 +11,18 @@ followed by ``train.qat_steps`` of LM QAT, the uniform-trace energy model,
 the uniform k-value codebook restriction, the export of packed artifacts,
 and the serve stage (the continuous-batching engine over a deterministic
 trace, pinned to one plan or routed across a fleet of resident plans).
-What is not ported (the cosim gate, the routed targets) raises
-`NotImplementedError` naming the ROADMAP.md item that ports it, from a
-target's ``check_ported`` or `resolve_target` before any stage runs.
+The routed targets (`MoETarget`, `ScanTarget`) are LM targets whose profile
+stage also measures the traffic through each routed unit on a calibration
+trace (`repro_torch.core.routing_stats`), whose energy model weighs each
+unit's energy by that share, and whose schedule gives hot units larger
+codebooks from the k ladder than cold ones. What is not ported (the cosim
+gate) raises `NotImplementedError` naming the ROADMAP.md item that ports
+it, from a target's ``check_ported`` before any stage runs.
 """
 
 from __future__ import annotations
 
+import re
 import time
 from typing import Dict, List, Optional, Tuple
 
@@ -26,6 +31,7 @@ import torch
 
 from repro_torch._device import tree_to
 from repro_torch.core import lm_compress
+from repro_torch.core import routing_stats as rs
 from repro_torch.core.energy_lut import uniform_trace_lut
 from repro_torch.core.export import export_model, export_summary
 from repro_torch.core.runner import CnnRunner
@@ -42,21 +48,15 @@ from repro_torch.serving import metrics as serve_metrics
 
 _NOT_PORTED = {
     "verify_cosim": "ROADMAP.md Queue 1 item 9, 'Bit-accurate cosim'",
-    "moe": "ROADMAP.md Queue 1, 'Routed targets'",
-    "scan": "ROADMAP.md Queue 1, 'Routed targets'",
 }
 
 
 def resolve_target(cfg: PipelineConfig, device: torch.device):
-    if cfg.target.kind == "cnn":
-        return CnnTarget(cfg, device)
-    if cfg.target.kind == "lm":
-        return LMTarget(cfg, device)
-    if cfg.target.kind in _NOT_PORTED:
-        raise NotImplementedError(
-            f"target kind {cfg.target.kind!r} is not ported yet: "
-            f"{_NOT_PORTED[cfg.target.kind]}")
-    raise ValueError(f"unknown target kind {cfg.target.kind!r}")
+    kinds = {"cnn": CnnTarget, "lm": LMTarget, "moe": MoETarget,
+             "scan": ScanTarget}
+    if cfg.target.kind not in kinds:
+        raise ValueError(f"unknown target kind {cfg.target.kind!r}")
+    return kinds[cfg.target.kind](cfg, device)
 
 
 def lm_trace_shapes(n_requests: int, prompt_len: int, new_tokens: int,
@@ -604,3 +604,217 @@ class LMTarget:
                   f"({rep['tokens_per_s']:.1f} tok/s), "
                   f"{rep['recompiles_after_warmup']} recompiles after "
                   f"warmup")
+
+
+# ==================================================== routing-aware targets
+
+
+# per-(layer, expert) slice names of `lm_compress.iter_eligible_units`:
+# "blocks/g0/moe/w_gate[1][e2]", "tail/t0/moe/w_up[e0]",
+# "blocks/g0/ssm/in_proj[1]", "tail/t0/mlp/w_down"
+_EXPERT_SLICE_RE = re.compile(
+    r"^(?P<base>.+)/(?P<key>[^/\[]+)(?:\[(?P<li>\d+)\])?\[e(?P<ei>\d+)\]$")
+_LAYER_SLICE_RE = re.compile(
+    r"^(?P<base>.+)/(?P<key>[^/\[]+)(?:\[(?P<li>\d+)\])?$")
+
+
+def _slice_key(name: str) -> Tuple[str, int, Optional[int]]:
+    """(unit path, layer index, expert index|None) of one energy-slice
+    name."""
+    m = _EXPERT_SLICE_RE.match(name)
+    if m:
+        return (f"{m.group('base')}/{m.group('key')}",
+                int(m.group("li") or 0), int(m.group("ei")))
+    m = _LAYER_SLICE_RE.match(name)
+    if m:
+        return (f"{m.group('base')}/{m.group('key')}",
+                int(m.group("li") or 0), None)
+    return (name, 0, None)
+
+
+def traffic_weighted_unit_energies(energies: Dict[str, float],
+                                   stats: rs.RoutingStats) -> Dict[str, float]:
+    """Scale per-slice tile energies by measured routing traffic: expert
+    slices are charged ``energy * share * E`` (uniform traffic changes
+    nothing), scan-layer slices likewise against the activity share;
+    slices without routing statistics pass through."""
+    moe = {u: rs.traffic_shares(c) for u, c in stats.moe_counts.items()}
+    scan = {u: rs.activity_shares(a) for u, a in stats.scan_activity.items()}
+    out: Dict[str, float] = {}
+    for name, e in energies.items():
+        path, li, ei = _slice_key(name)
+        base = path.rsplit("/", 1)[0]
+        if ei is not None and base in moe:
+            shares = moe[base]
+            out[name] = float(e * shares[li, ei] * shares.shape[-1])
+        elif ei is None and base in scan:
+            shares = scan[base]
+            out[name] = float(e * shares[li] * shares.size)
+        else:
+            out[name] = float(e)
+    return out
+
+
+class _RoutedTarget(LMTarget):
+    """LM target with traffic-weighted per-unit compression (port of
+    `repro.pipeline.targets._RoutedTarget`).
+
+    The profile stage runs a calibration pass
+    (`routing_stats.collect_lm_routing_stats`, batches from
+    ``np.random.default_rng``) and stores it in ``plan.stats["routing"]``
+    (the JAX package's keys, so plans cross both ways); the energy model
+    scales each unit's tile energy by its measured share; the schedule
+    gives every unit the uniform ``compress_k`` floor, then each routed
+    slice a k from ``routing.k_ladder`` by traffic rank (hot units gentler,
+    cold ones aggressive). Subclasses say which units are routed."""
+
+    def _collect_routing(self, plan: CompressionPlan, cfg: PipelineConfig,
+                         verbose: bool = False) -> rs.RoutingStats:
+        self._on_device(plan)
+        r = cfg.routing
+        stats = rs.collect_lm_routing_stats(
+            self.model, plan.params, comp=plan.comp,
+            batches=r.calib_batches, batch_size=r.calib_batch_size,
+            seq_len=r.calib_seq_len, seed=r.calib_seed)
+        if plan.stats is None:
+            plan.stats = {}
+        plan.stats["routing"] = stats.as_arrays()
+        self._routing_cache = stats
+        if verbose:
+            units = len(stats.moe_counts) + len(stats.scan_activity)
+            print(f"[pipeline] routing calibration: {stats.tokens} tokens "
+                  f"over {units} routed units")
+        return stats
+
+    def _routing_stats(self, plan: CompressionPlan,
+                       cfg: PipelineConfig) -> rs.RoutingStats:
+        """Cached -> plan-recorded -> freshly collected, in that order."""
+        stats = getattr(self, "_routing_cache", None)
+        if stats is not None:
+            return stats
+        arrays = (plan.stats or {}).get("routing")
+        if arrays:
+            self._routing_cache = rs.RoutingStats.from_arrays(dict(arrays))
+            return self._routing_cache
+        return self._collect_routing(plan, cfg)
+
+    def _unit_energies(self, params, comp) -> Dict[str, float]:
+        energies = super()._unit_energies(params, comp)
+        stats = getattr(self, "_routing_cache", None)
+        if stats is None:
+            return energies
+        return traffic_weighted_unit_energies(energies, stats)
+
+    def _routed_assignments(self, stats: rs.RoutingStats,
+                            cfg: PipelineConfig) -> List[Tuple]:
+        """(path, layer, expert|None, k, traffic_share) per routed slice."""
+        raise NotImplementedError
+
+    # ------------------------------------------------------------- stages
+
+    def stage_profile(self, plan: CompressionPlan, cfg: PipelineConfig,
+                      verbose: bool = False) -> None:
+        super().stage_profile(plan, cfg, verbose)
+        self._collect_routing(plan, cfg, verbose)
+
+    def stage_energy_model(self, plan: CompressionPlan, cfg: PipelineConfig,
+                           verbose: bool = False) -> None:
+        self._on_device(plan)
+        self._routing_stats(plan, cfg)   # the traffic prior is live
+        super().stage_energy_model(plan, cfg, verbose)
+
+    def stage_schedule(self, plan: CompressionPlan, cfg: PipelineConfig,
+                       verbose: bool = False) -> None:
+        self._on_device(plan)
+        k = cfg.serve.compress_k
+        e_before = self._unit_energy_cache
+        if e_before is None:
+            e_before = self._unit_energies(plan.params, plan.comp)
+        total_before = sum(e_before.values())
+        plan.metrics["energy_before"] = float(total_before)
+        if not k:
+            plan.metrics["energy_after"] = float(total_before)
+            return
+
+        # the uniform floor first (every eligible unit gets the serve
+        # codebook), then the traffic-ranked per-unit overrides
+        plan.comp = lm_compress.restrict_all_codebooks(
+            self.model, plan.comp, lm_compress.symmetric_codebook_values(k))
+        stats = self._routing_stats(plan, cfg)
+        routed = self._routed_assignments(stats, cfg)
+        for path, li, ei, kk, _share in routed:
+            plan.comp = lm_compress.set_codebook(
+                plan.comp, path, lm_compress.symmetric_codebook_values(
+                    int(kk)), layer=li, expert=ei)
+        e_after = self._unit_energies(plan.params, plan.comp)
+
+        assign = {(p, li, ei): (kk, share)
+                  for p, li, ei, kk, share in routed}
+        plan.decisions = []
+        for name in e_before:
+            kk, tshare = assign.get(_slice_key(name), (k, None))
+            d = {"layer": name,
+                 "share": e_before[name] / max(total_before, 1e-12),
+                 "prune_ratio": None, "k": int(kk),
+                 "energy_before": e_before[name],
+                 "energy_after": e_after[name],
+                 "accuracy": None, "accepted": True,
+                 "tried": [[0.0, int(kk)]]}
+            if tshare is not None:
+                d["traffic_share"] = float(tshare)
+            plan.decisions.append(d)
+
+        plan.metrics["energy_after"] = float(sum(e_after.values()))
+        plan.metrics["compress_k"] = k
+        plan.metrics["routed_units"] = len(routed)
+        plan.metrics["routing_tokens"] = int(stats.tokens)
+        if verbose:
+            ks = sorted({int(kk) for _, _, _, kk, _ in routed})
+            print(f"[pipeline] routed {len(routed)} unit slices onto "
+                  f"k ladder {ks} (uniform floor k={k}; per-token energy "
+                  f"{total_before:.3g} -> "
+                  f"{plan.metrics['energy_after']:.3g} eu)")
+
+
+class MoETarget(_RoutedTarget):
+    """MoE LM: per-expert codebooks sized by measured dispatch frequency,
+    each expert's k by its rank within its layer."""
+
+    kind = "moe"
+
+    def _routed_assignments(self, stats: rs.RoutingStats,
+                            cfg: PipelineConfig) -> List[Tuple]:
+        ladder = tuple(cfg.routing.k_ladder)
+        out: List[Tuple] = []
+        for base, counts in sorted(stats.moe_counts.items()):
+            shares = rs.traffic_shares(counts)
+            for li in range(shares.shape[0]):
+                ks = rs.assign_rank_k(shares[li], ladder)
+                for key in lm_compress.MOE_EXPERT_KEYS:
+                    for ei in range(shares.shape[1]):
+                        out.append((f"{base}/{key}", li, ei, int(ks[ei]),
+                                    float(shares[li, ei])))
+        return out
+
+
+class ScanTarget(_RoutedTarget):
+    """SSM / RG-LRU LM: per-scan-unit codebooks sized by measured activity,
+    each layer's k by its rank within its stack."""
+
+    kind = "scan"
+
+    def _routed_assignments(self, stats: rs.RoutingStats,
+                            cfg: PipelineConfig) -> List[Tuple]:
+        ladder = tuple(cfg.routing.k_ladder)
+        by_base: Dict[str, List[str]] = {}
+        for path in lm_compress.lm_comp_layers(self.model):
+            by_base.setdefault(path.rsplit("/", 1)[0], []).append(path)
+        out: List[Tuple] = []
+        for base, act in sorted(stats.scan_activity.items()):
+            shares = rs.activity_shares(act)
+            ks = rs.assign_rank_k(shares, ladder)
+            for li in range(shares.size):
+                for path in by_base.get(base, ()):
+                    out.append((path, li, None, int(ks[li]),
+                                float(shares[li])))
+        return out

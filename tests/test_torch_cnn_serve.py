@@ -368,10 +368,10 @@ class _WorkStarted(Exception):
 
 def test_unported_stages_and_targets_name_their_roadmap_item():
     """The default config (``search_mode="batched"``, ported) is not
-    refused: its run starts work. A dense LM target builds; the routed
-    targets still raise, naming their ROADMAP.md item. An LM pipeline
-    passes the port check for every stage, serve included (the engine is
-    not run here)."""
+    refused: its run starts work. A dense LM target builds, and so do the
+    routed targets (moe, scan); the cosim gate still raises, naming its
+    ROADMAP.md item, before any stage works. An LM pipeline passes the port
+    check for every stage, serve included (the engine is not run here)."""
     pipe = TPipeline(TConfig(), device="cpu")     # search_mode="batched"
     assert pipe.cfg.schedule.search_mode == "batched"
 
@@ -387,11 +387,18 @@ def test_unported_stages_and_targets_name_their_roadmap_item():
                             "train": {"qat_steps": 0}})
     lm_pipe = TPipeline(lm, device="cpu")
     assert lm_pipe.target.kind == "lm"
-    for kind in ("moe", "scan"):
-        routed = TConfig.from_dict({"target": {"kind": kind,
-                                               "arch": "olmo-1b"}})
-        with pytest.raises(NotImplementedError, match="'Routed targets'"):
-            TPipeline(routed, device="cpu")
+    for kind, arch in (("moe", "phi3.5-moe-42b-a6.6b"),
+                       ("scan", "mamba2-1.3b")):
+        routed = TConfig.from_dict({"target": {"kind": kind, "arch": arch,
+                                               "reduced": True}})
+        routed_pipe = TPipeline(routed, device="cpu")
+        assert routed_pipe.target.kind == kind
+        assert type(routed_pipe.target).__name__ == \
+            {"moe": "MoETarget", "scan": "ScanTarget"}[kind]
+        assert not routed_pipe.plan.completed
+    cosim = TConfig.from_dict({"profile": {"verify_cosim": True}})
+    with pytest.raises(NotImplementedError, match="Bit-accurate cosim"):
+        TPipeline(cosim, device="cpu").run()
     lm_pipe.target.check_ported(lm_pipe.cfg, lm_pipe.STAGES)
     assert "serve" in lm_pipe.STAGES
     assert not lm_pipe.plan.completed

@@ -29,13 +29,17 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import get_config as jget
 from repro.core import energy_lut as jelut
 from repro.core import lm_compress as jlc
+from repro.models.lm import build_lm as jbuild
 from repro.pipeline.config import reduced_lm_config as j_reduced_lm
 from repro.pipeline.pipeline import Pipeline as JPipeline
 from repro.pipeline.plan import CompressionPlan as JPlan
+from repro_torch.configs import get_config as tget
 from repro_torch.core import lm_compress as tlc
 from repro_torch.core.energy_lut import uniform_lut_from_draws, uniform_trace_lut
+from repro_torch.models.lm import build_lm as tbuild
 from repro_torch.nn.spec import flatten_with_names as tflat
 from repro_torch.nn.spec import params_from_numpy
 from repro_torch.pipeline import targets as ttargets
@@ -153,8 +157,26 @@ def test_codebook_updates_match_jax(ref):
     for k in (1, 4, 5, 16, 32):
         assert tlc.symmetric_codebook_values(k) == \
             jlc.symmetric_codebook_values(k)
-    with pytest.raises(NotImplementedError, match="Routed targets"):
-        tlc.set_codebook(tc, "blocks/g0/moe/w_gate", [0, 1])
+    # the expert units: per-(layer, expert) codebooks, a None index over its
+    # whole axis, on the reduced phi3.5-moe
+    jmm = jbuild(jget("phi3.5-moe-42b-a6.6b").scaled_down())
+    tmm = tbuild(tget("phi3.5-moe-42b-a6.6b").scaled_down())
+    jc = jlc.init_lm_comp(jmm)
+    tc = tlc.init_lm_comp(tmm, device="cpu")
+    for path, values, layer, expert in (
+            ("blocks/g0/moe/w_gate", [0, 1], None, None),
+            ("blocks/g0/moe/w_gate", [-3, 0, 5], 1, 2),
+            ("blocks/g0/moe/w_up", [-8, 0, 8, 9], None, 3),
+            ("blocks/g0/moe/w_down", [1, 2], 0, None),
+            ("blocks/g0/attn/wq", [0, 4], 1, None)):
+        jc = jlc.set_codebook(jc, path, values, layer=layer, expert=expert)
+        tc = tlc.set_codebook(tc, path, values, layer=layer, expert=expert)
+        jf, tf = tflat(jax.device_get(jc)), tflat(tc)
+        assert list(jf) == list(tf)
+        for name, v in jf.items():
+            np.testing.assert_array_equal(t2n(tf[name]), v, err_msg=name)
+    assert tuple(tc["blocks"]["g0"]["moe/w_gate"]["codebook"].shape) == \
+        (tmm.n_rep, tmm.cfg.n_experts, 32)
 
 
 # ------------------------------------------------------------ energy model

@@ -53,6 +53,7 @@ from repro_torch.models import config as tmc
 from repro_torch.models.lm import build_lm as tbuild
 from repro_torch.nn import attention as tA
 from repro_torch.nn import layers as tL
+from repro_torch.nn import moe as tmoe
 from repro_torch.nn import transformer as tT
 from repro_torch.nn.layers import QuantConfig as TQ
 from repro_torch.nn.spec import flatten_with_names as tflat
@@ -64,11 +65,12 @@ ON_TOL = 1e-3
 B, S, MAX_LEN, DECODE_STEPS = 2, 12, 16, 4
 DENSE = ("olmo-1b", "phi3-mini-3.8b", "qwen2.5-14b", "gemma3-4b")
 # the families beyond the dense one: the ROADMAP.md item a refusal names,
-# or None for a family the port builds (the recurrent half of item 6c)
-NOT_PORTED = {"phi3.5-moe-42b-a6.6b": "Routed targets",
-              "moonshot-v1-16b-a3b": "Routed targets",
+# or None for a family the port builds (the recurrent half of item 6c, the
+# MoE family of the routed targets, the encoder-decoder)
+NOT_PORTED = {"phi3.5-moe-42b-a6.6b": None, "moonshot-v1-16b-a3b": None,
               "mamba2-1.3b": None, "recurrentgemma-2b": None,
               "internvl2-26b": "item 6c", "whisper-large-v3": None}
+MOE = ("phi3.5-moe-42b-a6.6b", "moonshot-v1-16b-a3b")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -187,9 +189,11 @@ def test_other_dense_families_build(arch):
 @pytest.mark.parametrize("arch", sorted(NOT_PORTED))
 def test_unported_families_name_their_item(arch):
     """A family not ported raises, naming its ROADMAP.md item; the
-    recurrent families (mamba2, recurrentgemma) and the encoder-decoder
-    (whisper) build, spec for spec the JAX package's, and JAX's parameters
-    carry across."""
+    recurrent families (mamba2, recurrentgemma), the MoE family (phi3.5-moe,
+    moonshot: its forward, prefill and decode are held to JAX's in
+    `test_moe_family_forward_prefill_decode_match_jax`) and the
+    encoder-decoder (whisper) build, spec for spec the JAX package's, and
+    JAX's parameters carry across."""
     if NOT_PORTED[arch] is not None:
         with pytest.raises(NotImplementedError, match=NOT_PORTED[arch]):
             tbuild(tget(arch).scaled_down())
@@ -409,6 +413,86 @@ def test_other_dense_family_fake_quant_forward_within_stated_bound(
     r = dense_ref
     logits, _ = r["tm"].forward(r["tp"], torch.from_numpy(r["tokens"]),
                                 qcfg=TQ.on(), comp=r["tcomp"])
+    assert logit_rel(logits, r["on"], r["jcfg"].vocab) < ON_TOL
+
+
+@pytest.fixture(scope="module", params=MOE)
+def moe_ref(request):
+    """A reduced MoE family (2 layers, 4 experts, top-2; moonshot with a
+    shared expert) in both packages, and the JAX outputs: the forward off
+    and at k = 4, prefill and decode, with each prefill layer's top-k
+    choices recorded in both packages (JAX's prefill runs eagerly)."""
+    arch = request.param
+    jcfg = jget(arch).scaled_down(compute_dtype="float32")
+    tcfg = tget(arch).scaled_down(compute_dtype="float32")
+    jm, tm = jbuild(jcfg), tbuild(tcfg)
+    jp = jinit(jax.random.PRNGKey(0), jm.spec)
+    jcomp = jlc.restrict_all_codebooks(jm, jlc.init_lm_comp(jm),
+                                       jlc.symmetric_codebook_values(4))
+    rng = np.random.default_rng(2)
+    tokens = rng.integers(0, jcfg.vocab, (B, S)).astype(np.int32)
+    nxt = rng.integers(0, jcfg.vocab, (DECODE_STEPS, B, 1)).astype(np.int32)
+    tok = jnp.asarray(tokens)
+    out = dict(jcfg=jcfg, tm=tm, tp=j2t(jp), tcomp=j2t(jcomp),
+               tokens=tokens, decode_tokens=nxt)
+    out["off"] = jax.jit(lambda p, t: jm.forward(p, t)[0])(jp, tok)
+    out["on"] = jax.jit(lambda p, t, c: jm.forward(
+        p, t, qcfg=JQ.on(), comp=c)[0])(jp, tok, jcomp)
+    chosen = []
+    real_top_k = jax.lax.top_k
+
+    def recording(x, k):
+        v, i = real_top_k(x, k)
+        chosen.append(np.asarray(i))
+        return v, i
+
+    jax.lax.top_k = recording
+    try:
+        logits, cache = jm.prefill(jp, tok, MAX_LEN, cache_dtype=jnp.float32)
+    finally:
+        jax.lax.top_k = real_top_k
+    out["prefill"], out["prefill_choices"], out["decode"] = logits, chosen, []
+    for i in range(DECODE_STEPS):
+        logits, cache = jm.decode_step(jp, cache, jnp.asarray(nxt[i]))
+        out["decode"].append(logits)
+    return out
+
+
+def test_moe_family_forward_prefill_decode_match_jax(moe_ref, monkeypatch):
+    """The olmo-1b bounds on the MoE family: forward, prefill and decode at
+    TOL on shared routing (each prefill layer's top-k choices equal in both
+    packages: the count that differs is 0), the forward's load-balance and
+    z losses nonzero."""
+    r = moe_ref
+    tm, tp, vocab = r["tm"], r["tp"], r["jcfg"].vocab
+    tok = torch.from_numpy(r["tokens"])
+    with torch.no_grad():
+        logits, aux = tm.forward(tp, tok)
+        assert logit_rel(logits, r["off"], vocab) < TOL
+        assert float(aux["lb_loss"]) > 0 and float(aux["z_loss"]) > 0
+        chosen = []
+        real = tmoe.top_k
+        monkeypatch.setattr(tmoe, "top_k", lambda p, k: (
+            lambda v_i: chosen.append(t2n(v_i[1])) or v_i)(real(p, k)))
+        logits, cache = tm.prefill(tp, tok, MAX_LEN,
+                                   cache_dtype=torch.float32)
+        monkeypatch.setattr(tmoe, "top_k", real)
+        assert len(chosen) == len(r["prefill_choices"]) == tm.n_rep
+        flips = sum(int((a != b).sum())
+                    for a, b in zip(chosen, r["prefill_choices"]))
+        assert flips == 0, f"{flips} routing choices differ"
+        assert logit_rel(logits, r["prefill"], vocab) < TOL
+        for i in range(DECODE_STEPS):
+            logits, cache = tm.decode_step(
+                tp, cache, torch.from_numpy(r["decode_tokens"][i]))
+            assert logit_rel(logits, r["decode"][i], vocab) < TOL, i
+
+
+def test_moe_family_fake_quant_forward_within_stated_bound(moe_ref):
+    r = moe_ref
+    with torch.no_grad():
+        logits, _ = r["tm"].forward(r["tp"], torch.from_numpy(r["tokens"]),
+                                    qcfg=TQ.on(), comp=r["tcomp"])
     assert logit_rel(logits, r["on"], r["jcfg"].vocab) < ON_TOL
 
 
