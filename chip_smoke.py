@@ -41,7 +41,15 @@
    on ResNet-20 at batch 256 (seeded random weights, no QAT steps, 16 tiles
    per layer), with K1's launch count read around that run; the card's
    statistics are then held against the plain version on the CPU for the
-   same taps and tile indices;
+   same taps and tile indices; then ``[cosim]``: the same pipeline with
+   ``profile.verify_cosim`` (22 K1 launches for the statistics and 22 for
+   the check, ``cosim_match``, ``cosim_max_abs_diff`` 0 and ``cosim_tiles``
+   over every profiled tile), the same through ``python -m repro_torch
+   profile --verify-cosim``'s entry point, and K1 against the bit-accurate
+   systolic cosim (`repro_torch.cosim`) bin for bin on K1's cases (the
+   profile path's tile counts, all 12,288 tiles of a stage-1 conv,
+   masked and boundary tiles, one tile) and on random tiles at T from 2
+   to 64, K1's ms beside the cosim's seconds;
 7. K3, the weight fake-quant: holds the per-layer kernel against its plain
    version, bit for bit, at every weight shape of ResNet-20's 22
    compressible layers (kh*kw*c_in, c_out) with k in {0, 5, 16, 32}, a 50%
@@ -200,7 +208,19 @@
    TTFT, one K3 launch a forward call, engine vs oneshot token agreement
    reported); card against CPU routing at depth 1 (kept-dispatch counts,
    top-k choices differing counted);
-20. prints the ``kernels`` JSON line, then the result line.
+20. ``[lm-vlm]``: internvl2-26b at its published width and 8 of its 48
+   layers, seeded: export (56 matmuls, LUT parity), K2 at its shapes
+   (6144 x 6144, 6144 x 1024, 6144 x 16384 with the SiLU, 16384 x 6144)
+   at M = 2048 and 4 against its plain version, its bound and
+   `torch.matmul`; K3's one launch (7 entries x 8 layers) bit for bit;
+   served (56 K2 launches a forward) against fake-quant (one K3) prefill
+   of 4 x (256 stub patch embeddings + 256 tokens) and 8 decode steps at
+   float32 (< 2e-2 on each run's codes; the fake-quant forward and the
+   witness on the served codes < 1e-5); prefill + decode against the
+   full forward (max abs < 1e-3) and the prefix's effect on the token
+   logits; one QAT step with ``prefix_embeds`` at 2 layers (finite loss,
+   ms, peak memory);
+21. prints the ``kernels`` JSON line, then the result line.
 
 Any failure raises and the script exits non-zero. It refuses to run without
 a CUDA device, and outside a checkout of the repository.
@@ -328,6 +348,19 @@ SCAN_ARCH, SCAN_UNITS = "mamba2-1.3b", 96
 # matmuls; card vs CPU dispatch at MOE_CHECK_LAYERS layers
 MOE_ARCH, MOE_LAYERS, MOE_UNITS_A_LAYER = "phi3.5-moe-42b-a6.6b", 2, 52
 MOE_CHECK_LAYERS = 1
+# the [lm-vlm] phase: internvl2-26b at its published width, VLM_LAYERS of its
+# 48 layers (4.259e9 parameters; all 48 are 1.986e10, 79.4 GB in float32),
+# seeded; LM_PROMPTS requests of 256 stub patch embeddings and LM_PROMPT_LEN
+# prompt tokens, decoded to VLM_MAX_LEN; one QAT step at VLM_TRAIN_LAYERS
+# layers (1.919e9 parameters) on 1 x (256 patches, VLM_TRAIN_TOKENS tokens)
+VLM_ARCH, VLM_LAYERS, VLM_TRAIN_LAYERS = "internvl2-26b", 8, 2
+VLM_MAX_LEN = 256 + LM_PROMPT_LEN + LM_DECODE_STEPS
+VLM_TRAIN_TOKENS = 64
+# the token positions' logits after the prefix against the tokens alone:
+# the prefix must move them by more than this (rel)
+VLM_PREFIX_MATTERS = 1e-2
+# the [cosim] phase's T sweep: COSIM_TILES random tiles at each T
+COSIM_T, COSIM_TILES = (2, 3, 7, 16, 33, 64), 8
 K2 = dict(name="lut_matmul",
           source="src/repro_torch/kernels/lut_matmul/csrc/lut_matmul.cu",
           replaces="src/repro/kernels/lut_matmul/lut_matmul.py:125")
@@ -2184,9 +2217,11 @@ def lm_rel(torch, a, b, vocab):
 
 
 def lm_generate(torch, model, params, comp, qcfg, prompts, cache_dtype,
-                feed=None, enc_embeds=None, max_len=LM_MAX_LEN):
+                feed=None, enc_embeds=None, max_len=LM_MAX_LEN,
+                prefix_embeds=None):
     """Prefill ``prompts`` (B, S) to ``max_len`` (with ``enc_embeds``: the
-    encoder-decoder family's frames), then LM_DECODE_STEPS decode steps:
+    encoder-decoder family's frames; with ``prefix_embeds``: a VLM's patch
+    embeddings in front of the prompt), then LM_DECODE_STEPS decode steps:
     greedy from this run's own logits, or fed the tokens ``feed`` (B,
     steps) so two runs see the same inputs. Returns
     (prefill logits, [decode logits], fed tokens (B, steps), prefill s,
@@ -2207,7 +2242,8 @@ def lm_generate(torch, model, params, comp, qcfg, prompts, cache_dtype,
         t0 = time.perf_counter()
         logits, cache = model.prefill(params, prompts, max_len, qcfg=qcfg,
                                       comp=comp, cache_dtype=cache_dtype,
-                                      enc_embeds=enc_embeds)
+                                      enc_embeds=enc_embeds,
+                                      prefix_embeds=prefix_embeds)
         torch.cuda.synchronize()
         prefill_s = time.perf_counter() - t0
         prefill_launches = since(before)
@@ -2266,7 +2302,7 @@ def lm_dequantized_units(torch, model, params, arts):
 
 
 def lm_witness(torch, model, plan, prompts, dtype, feed, served,
-               enc_embeds=None, max_len=LM_MAX_LEN):
+               enc_embeds=None, max_len=LM_MAX_LEN, prefix_embeds=None):
     """The fake-quant forward with each weight set to its artifact's
     dequantized weight (`lm_dequantized_units`) in place of K3's
     straight-through value: on the same products and activation rounding
@@ -2298,7 +2334,7 @@ def lm_witness(torch, model, plan, prompts, dtype, feed, served,
     try:
         run = lm_generate(torch, model, plan.params, plan.comp,
                           QuantConfig.on(), prompts, dtype, feed,
-                          enc_embeds, max_len)
+                          enc_embeds, max_len, prefix_embeds)
     finally:
         del model._fake_quant_units
     vocab = model.cfg.vocab
@@ -4805,6 +4841,455 @@ def lm_encdec_phase(torch, ops, ref):
     return metrics, k2_rows, k3_row
 
 
+# ------------------------------------------------------------ the VLM prefix
+
+
+def vlm_k2_cases(torch, acfg):
+    """`k2_phase` cases of internvl2's (K, N) pairs (d x d: wq, wo; d x the
+    KV width: wk, wv; d x d_ff with the gate's SiLU: w_gate, w_up; d_ff x
+    d: w_down) at a served prefill's M (prompts x (patches + tokens)) and
+    a decode step's (prompts), float32 X."""
+    d, f = acfg.d_model, acfg.d_ff
+    kv = acfg.n_kv_heads * acfg.resolved_head_dim
+    shapes = [("qo", d, d, "none"), ("kv", d, kv, "none"),
+              ("gate/up", d, f, "silu"), ("down", f, d, "none")]
+    cases = []
+    for step, m in (("prefill", LM_PROMPTS * (acfg.prefix_len
+                                              + LM_PROMPT_LEN)),
+                    ("decode", LM_PROMPTS)):
+        for name, k, n, act in shapes:
+            cases.append((f"internvl2 {step} {name}", m, k, k, n, act, False,
+                          False, torch.float32, 0, True))
+    return cases
+
+
+def vlm_inputs(torch, acfg, seed=LM_PROMPT_SEED):
+    """The stub frontend's patch embeddings (prompts, prefix_len, d),
+    float32 from ``np.random.default_rng(seed)`` (as whisper's frames are
+    drawn), and the prompts with the fed decode tokens (prompts, prompt
+    length + steps), on the card."""
+    rng = np.random.default_rng(seed)
+    prefix = rng.standard_normal((LM_PROMPTS, acfg.prefix_len,
+                                  acfg.d_model), dtype=np.float32)
+    toks = rng.integers(0, acfg.vocab, (LM_PROMPTS,
+                                        LM_PROMPT_LEN + LM_DECODE_STEPS))
+    return (torch.from_numpy(prefix).cuda(),
+            torch.from_numpy(toks.astype(np.int32)).cuda())
+
+
+def vlm_serve(torch, model, plan, comp_serve, prefix, toks):
+    """Served (K2) against fake-quant (K3) prefill of the prompts after
+    their patch embeddings, then LM_DECODE_STEPS decode steps fed the same
+    tokens, float32; each path once to warm up, then timed. Launches: a
+    served prefill or decode step one K2 launch an exported matmul (7 a
+    layer) and no K3; a fake-quant one one K3 launch and no K2. Gated: the
+    launches, finite logits over every position, the prefill and decode
+    logits on each run's own activation codes < SERVE_PARITY, and on the
+    served run's int8 codes (`_ActQuant` replay, queue 3's rule) the
+    fake-quant forward and `lm_witness` < WITNESS_PARITY."""
+    from repro_torch.nn.layers import QuantConfig
+
+    vocab = model.cfg.vocab
+    prompts, feed = toks[:, :LM_PROMPT_LEN], toks[:, LM_PROMPT_LEN:]
+    n_units = len(plan.artifacts)
+    gen = dict(feed=feed, max_len=VLM_MAX_LEN, prefix_embeds=prefix)
+    runs = {}
+    for label, qcfg, comp in (("served", QuantConfig.serve(), comp_serve),
+                              ("fake_quant", QuantConfig.on(), plan.comp)):
+        args = (torch, model, plan.params, comp, qcfg, prompts,
+                torch.float32)
+        lm_generate(*args, **gen)
+        runs[label] = lm_generate(*args, **gen)
+        torch.cuda.empty_cache()
+    want = {"served": {"K2": n_units, "K3": 0},
+            "fake_quant": {"K2": 0, "K3": 1}}
+    positions = model.cfg.prefix_len + LM_PROMPT_LEN
+    for label, run in runs.items():
+        for where, got in [("prefill", run[5])] + [
+                (f"decode step {i}", c) for i, c in enumerate(run[6])]:
+            if got != want[label]:
+                raise AssertionError(f"[lm-vlm] {label} {where}: launches "
+                                     f"{got}, expected {want[label]}")
+        if tuple(run[0].shape) != (LM_PROMPTS, positions,
+                                   model.cfg.padded_vocab) or not \
+                torch.isfinite(run[0][..., :vocab]).all():
+            raise AssertionError(f"[lm-vlm] {label}: bad prefill logits "
+                                 f"{tuple(run[0].shape)}")
+    srv, fq = runs["served"], runs["fake_quant"]
+    out = dict(prefill_logit_rel_err=lm_rel(torch, srv[0], fq[0], vocab),
+               decode_logit_rel_err=[lm_rel(torch, a, b, vocab)
+                                     for a, b in zip(srv[1], fq[1])],
+               greedy_token_agreement=[
+                   float((a[..., :vocab].argmax(-1)
+                          == b[..., :vocab].argmax(-1)).float().mean())
+                   for a, b in zip(srv[1], fq[1])],
+               launches_prefill={k: r[5] for k, r in runs.items()},
+               launches_decode_step={k: r[6][0] for k, r in runs.items()})
+    out["witness"] = lm_witness(torch, model, plan, prompts, torch.float32,
+                                srv[2], srv, max_len=VLM_MAX_LEN,
+                                prefix_embeds=prefix)
+    with _ActQuant(device="cuda") as record:
+        lm_generate(torch, model, plan.params, comp_serve,
+                    QuantConfig.serve(), prompts, torch.float32, **gen)
+    codes = sum(c.numel() for c in record.codes)
+    with _ActQuant(replay=record) as replayed:
+        shared = lm_witness(torch, model, plan, prompts, torch.float32,
+                            srv[2], srv, max_len=VLM_MAX_LEN,
+                            prefix_embeds=prefix)
+    out["witness_on_served_codes"] = dict(
+        shared, flipped_codes=replayed.flips, codes=codes)
+    with _ActQuant(replay=record) as replayed:
+        fq_shared = lm_generate(torch, model, plan.params, plan.comp,
+                                QuantConfig.on(), prompts, torch.float32,
+                                **gen)
+    out["fake_quant_on_served_codes"] = dict(
+        prefill_logit_rel_err=lm_rel(torch, srv[0], fq_shared[0], vocab),
+        decode_logit_rel_err=[lm_rel(torch, a, b, vocab)
+                              for a, b in zip(srv[1], fq_shared[1])],
+        flipped_codes=replayed.flips, codes=codes)
+    del record, fq_shared
+    torch.cuda.empty_cache()
+    for label, run in runs.items():
+        out[f"{label}_prefill_s"] = run[3]
+        out[f"{label}_prefill_positions_per_s"] = (LM_PROMPTS * positions
+                                                   / run[3])
+        out[f"{label}_decode_ms_per_step"] = [1e3 * t for t in run[4]]
+        out[f"{label}_decode_ms_per_step_median"] = 1e3 * statistics.median(
+            run[4])
+    print("[lm-vlm-serve] " + json.dumps(out, sort_keys=True), flush=True)
+    own = max([out["prefill_logit_rel_err"]] + out["decode_logit_rel_err"])
+    if not own < SERVE_PARITY:
+        raise AssertionError(f"[lm-vlm] served vs fake-quant float32 logit "
+                             f"rel err {own:.3e} >= {SERVE_PARITY}")
+    for key in ("witness_on_served_codes", "fake_quant_on_served_codes"):
+        worst = max([out[key]["prefill_logit_rel_err"]]
+                    + out[key]["decode_logit_rel_err"])
+        if not worst < WITNESS_PARITY:
+            raise AssertionError(f"[lm-vlm] {key} vs served logit rel err "
+                                 f"{worst:.3e} >= {WITNESS_PARITY}")
+    del runs, srv, fq
+    torch.cuda.empty_cache()
+    return out
+
+
+def vlm_roundtrip(torch, model, params, prefix, toks):
+    """JAX's roundtrip contract after a prefix, float32, no QAT: prefill
+    the patches and prompts (blocks of 256, a divisor of the 512
+    positions), decode the fed tokens, each position's logits against the
+    full forward over patches + prompts + fed tokens (blocks of 260, a
+    divisor of its 520), gated at ROUNDTRIP_ATOL; then the token
+    positions' logits of that forward against the same tokens' forward
+    without the prefix, which must differ (rel > VLM_PREFIX_MATTERS)."""
+    vocab = model.cfg.vocab
+    p = model.cfg.prefix_len
+    s_all = p + toks.shape[1]
+    with torch.no_grad():
+        full = model.forward(params, toks, prefix_embeds=prefix,
+                             q_block=s_all // 2,
+                             kv_block=s_all // 2)[0][..., :vocab]
+        s_pre = p + LM_PROMPT_LEN
+        lg, cache = model.prefill(params, toks[:, :LM_PROMPT_LEN],
+                                  VLM_MAX_LEN, prefix_embeds=prefix,
+                                  cache_dtype=torch.float32,
+                                  q_block=s_pre // 2, kv_block=s_pre // 2)
+        errs = [float((lg[..., :vocab] - full[:, :s_pre]).abs().max())]
+        pos = int(cache["pos"][0])
+        for t in range(LM_PROMPT_LEN, toks.shape[1]):
+            lg, cache = model.decode_step(params, cache, toks[:, t:t + 1])
+            errs.append(float((lg[:, 0, :vocab] - full[:, p + t]).abs()
+                              .max()))
+        del lg, cache
+        alone = model.forward(params, toks)[0][..., :vocab]
+        matters = lm_rel(torch, full[:, p:], alone, vocab)
+    out = dict(prefill_max_abs_err=errs[0], decode_max_abs_err=errs[1:],
+               max_abs_err=max(errs), logit_max_abs=float(full.abs().max()),
+               cache_pos_after_prefill=pos,
+               prefix_vs_none_token_logit_rel=matters)
+    print("[lm-vlm] roundtrip " + json.dumps(out, sort_keys=True),
+          flush=True)
+    del full, alone
+    torch.cuda.empty_cache()
+    if pos != s_pre:
+        raise AssertionError(f"[lm-vlm] prefill cache at pos {pos}, "
+                             f"expected {s_pre}")
+    if not out["max_abs_err"] < ROUNDTRIP_ATOL:
+        raise AssertionError(f"[lm-vlm] prefill + decode vs the full "
+                             f"forward max abs err {out['max_abs_err']:.3e} "
+                             f">= {ROUNDTRIP_ATOL}")
+    if not matters > VLM_PREFIX_MATTERS:
+        raise AssertionError(f"[lm-vlm] the prefix moves the token logits "
+                             f"by rel {matters:.3e} only")
+    return out
+
+
+def vlm_train(torch, acfg, params, comp):
+    """One `make_train_step` QAT step at VLM_TRAIN_LAYERS of the model's
+    layers (the first ones of ``params`` and ``comp``, copied), at the
+    config's compute dtype, on a batch of 1 x (prefix_len patches,
+    VLM_TRAIN_TOKENS tokens) with ``prefix_embeds``: the step's ms and
+    loss, the peak memory, K3 launches (one a step's forward)."""
+    import dataclasses
+
+    from repro_torch.kernels.fake_quant import fake_quant as k3
+    from repro_torch.launch import train
+    from repro_torch.models.lm import build_lm
+    from repro_torch.nn.spec import spec_count
+
+    model = build_lm(dataclasses.replace(acfg, n_layers=VLM_TRAIN_LAYERS))
+    rng = np.random.default_rng(LM_PROMPT_SEED + 2)
+    toks = torch.from_numpy(rng.integers(
+        0, acfg.vocab, (1, VLM_TRAIN_TOKENS + 1)).astype(np.int32)).cuda()
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:],
+             "prefix_embeds": torch.from_numpy(rng.standard_normal(
+                 (1, acfg.prefix_len, acfg.d_model),
+                 dtype=np.float32)).cuda()}
+    cfg = train.StepConfig(qat=True, with_comp=True, remat=False)
+    step = train.make_train_step(model, cfg)
+    state = {"params": params, "opt": train.make_optimizer(cfg).init(params)}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    launched = k3.launches
+    t0 = time.perf_counter()
+    state, met = step(state, batch, comp)
+    loss = float(met["loss"])
+    ms = 1e3 * (time.perf_counter() - t0)
+    out = dict(layers=VLM_TRAIN_LAYERS, n_params=spec_count(model.spec),
+               batch=[1, acfg.prefix_len, VLM_TRAIN_TOKENS], step_ms=ms,
+               loss=loss, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               k3_launches=k3.launches - launched,
+               compute_dtype=str(model.cfg.cdtype).replace("torch.", ""))
+    print("[lm-vlm-train] " + json.dumps(out, sort_keys=True), flush=True)
+    if not np.isfinite(loss) or out["k3_launches"] != 1:
+        raise AssertionError(f"[lm-vlm-train] loss {loss}, "
+                             f"{out['k3_launches']} K3 launches")
+    del state, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_vlm_phase(torch, ops, ref):
+    """[lm-vlm]: internvl2-26b at its published width and VLM_LAYERS of its
+    48 layers (`_Depth`), seeded. The pipeline through export
+    (`lm_export_path`: 7 matmuls a layer, LUT parity over each), K2 at
+    internvl2's shapes at M = 2048 and 4, K3's one grouped launch (7
+    entries x VLM_LAYERS layers) bit for bit, the attached artifacts held
+    to the exported ones, served vs fake-quant after the patch embeddings
+    (`vlm_serve`), the roundtrip and the prefix's effect (`vlm_roundtrip`),
+    and one QAT step with ``prefix_embeds`` at VLM_TRAIN_LAYERS layers
+    (`vlm_train`). Returns (metrics, K2 rows, K3 row)."""
+    import dataclasses
+
+    from repro_torch._device import tree_map
+    from repro_torch.kernels.fake_quant import fake_quant as k3
+    from repro_torch.kernels.lut_matmul import lut_matmul as k2
+    from repro_torch.models.lm import build_lm
+    from repro_torch.pipeline.pipeline import Pipeline
+
+    t_phase = time.perf_counter()
+    tag = "lm-vlm"
+    torch.cuda.reset_peak_memory_stats()
+    with _Depth(VLM_ARCH, VLM_LAYERS):
+        pipe = Pipeline(lm_config(VLM_ARCH), device="cuda")
+        target, plan, metrics = lm_export_path(
+            torch, VLM_ARCH, 7 * VLM_LAYERS, tag, pipe=pipe)
+    acfg = target.acfg
+    k2_rows = k2_phase(torch, ops, ref, vlm_k2_cases(torch, acfg),
+                       LM_RECURRENT_K2_REPS)
+    k3_row = lm_k3_phase(torch, target.model, plan.params, plan.comp,
+                         tag=f"{tag}-k3")
+    torch.cuda.empty_cache()
+    comp_serve, n = lm_attached(torch, target, plan, tag)
+    model = build_lm(dataclasses.replace(acfg, compute_dtype="float32"))
+    prefix, toks = vlm_inputs(torch, acfg)
+    launched = {"K2": k2.launches, "K3": k3.launches}
+    k2.launches = k3.launches = 0
+    serve = vlm_serve(torch, model, plan, comp_serve, prefix, toks)
+    serve_launches = {"K2": k2.launches, "K3": k3.launches}
+    del comp_serve
+    torch.cuda.empty_cache()
+    roundtrip = vlm_roundtrip(torch, model, plan.params, prefix, toks)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # the QAT step's model: the first VLM_TRAIN_LAYERS layers, copied, and
+    # the shared embedding, norm and head; the rest of the plan is freed
+    params = dict(plan.params, blocks=tree_map(
+        lambda x: x[:VLM_TRAIN_LAYERS].clone(), plan.params["blocks"]))
+    comp = dict(plan.comp, blocks=tree_map(
+        lambda x: x[:VLM_TRAIN_LAYERS].clone(), plan.comp["blocks"]))
+    del plan, target, pipe, model, prefix, toks
+    torch.cuda.empty_cache()
+    k2.launches = launched["K2"] + serve_launches["K2"]
+    k3.launches = launched["K3"] + serve_launches["K3"]
+    trained = vlm_train(torch, acfg, params, comp)
+    del params, comp
+    torch.cuda.empty_cache()
+    metrics.update(layers=VLM_LAYERS, reduced=dict(
+        n_layers=[VLM_LAYERS, 48], train_layers=VLM_TRAIN_LAYERS,
+        why="48 layers are 1.986e10 parameters, 79.4 GB in float32"),
+        stacked_units_attached=n, serve=serve, roundtrip=roundtrip,
+        train=trained, serve_path_launches=serve_launches,
+        peak_mem_gb=peak_gb, phase_wall_s=time.perf_counter() - t_phase)
+    print(f"[{tag}] " + json.dumps({k: v for k, v in metrics.items()
+                                    if k not in ("serve", "roundtrip",
+                                                 "train")},
+                                   sort_keys=True), flush=True)
+    print(f"[{tag}] phase {metrics['phase_wall_s']:.1f} s; prefill "
+          f"{serve['served_prefill_positions_per_s']:.0f} positions/s, "
+          f"decode {serve['served_decode_ms_per_step_median']:.2f} ms a "
+          f"step; peak {peak_gb:.1f} GB", flush=True)
+    return metrics, k2_rows, k3_row
+
+
+# ------------------------------------------------------------ the cosim
+
+
+def cosim_cases(torch):
+    """[(label, w_tiles, a_blocks, mask)]: the K1 phase's own cases (the
+    profile path's tile counts, all 12,288 tiles of a ResNet-20 stage-1
+    conv, masked tiles, boundary tiles with extreme psums of both signs and
+    all-zero psums, one tile), then COSIM_TILES random tiles at each T of
+    COSIM_T."""
+    from repro_torch.nn.cnn import resnet20
+
+    cases = [(label, w, a, m) for label, w, a, m, _ in
+             k1_cases(torch, resnet20().comp_layers)]
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    for t_len in COSIM_T:
+        w = torch.randint(-127, 128, (COSIM_TILES, 64, 64), generator=gen,
+                          device="cuda", dtype=torch.int32)
+        a = torch.randint(-128, 128, (COSIM_TILES, 64, t_len), generator=gen,
+                          device="cuda", dtype=torch.int32)
+        cases.append((f"T = {t_len}, {COSIM_TILES} tiles", w, a,
+                      torch.ones(COSIM_TILES, device="cuda")))
+    return cases
+
+
+def cosim_profile_config(verify):
+    """The [profile] phase's config (ResNet-20, batch 256, no QAT steps,
+    PROFILE_TILES tiles a layer) with ``profile.verify_cosim``."""
+    from repro_torch.pipeline.config import (
+        PipelineConfig,
+        ProfileStageConfig,
+        TargetConfig,
+        TrainStageConfig,
+    )
+
+    return PipelineConfig(
+        target=TargetConfig(kind="cnn", arch="resnet20", batch_size=BATCH),
+        train=TrainStageConfig(qat_steps=0),
+        profile=ProfileStageConfig(batches=1, max_tiles=PROFILE_TILES,
+                                   verify_cosim=verify))
+
+
+def cosim_gate(metrics, tiles, tag):
+    """The plan's cosim metrics: every bin equal over ``tiles`` tiles."""
+    if not (metrics["cosim_match"] is True
+            and metrics["cosim_max_abs_diff"] == 0.0
+            and metrics["cosim_tiles"] == tiles):
+        raise AssertionError(f"[{tag}] cosim metrics {metrics}, expected a "
+                             f"match over {tiles} tiles")
+
+
+def cosim_profile(torch, work):
+    """``Pipeline(cfg, device="cuda").run_until("energy_model")`` with
+    ``profile.verify_cosim`` on the [profile] phase's setup: 22 K1 launches
+    for the statistics and 22 for the check, the cosim metrics over every
+    profiled tile; then ``python -m repro_torch profile --config <the same>
+    --verify-cosim`` (its entry point, `cli.main`) writes the same metrics
+    to its plan. Returns the metrics."""
+    from repro_torch.core.stats import TILE
+    from repro_torch.kernels.transition_energy import transition_energy as k1
+    from repro_torch.pipeline import cli
+    from repro_torch.pipeline.pipeline import Pipeline
+
+    cfg = cosim_profile_config(True)
+    pipe = Pipeline(cfg, device="cuda")
+    k1.launches = 0
+    t0 = time.perf_counter()
+    plan = pipe.run_until("energy_model", verbose=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = k1.launches
+    n_layers = len(pipe.target.model.comp_layers)
+    tiles = sum(int(s.n_transitions) for s in plan.stats.values()) \
+        // (TILE * TILE * (TILE - 1))
+    cosim = {k: v for k, v in plan.metrics.items() if k.startswith("cosim_")}
+    out = dict(pipeline=dict(cosim, wall_s=wall, k1_launches=launches,
+                             profiled_tiles=tiles,
+                             wall_s_profile=plan.metrics["wall_s_profile"]))
+    cosim_gate(plan.metrics, tiles, "cosim")
+    if launches != 2 * n_layers:
+        raise AssertionError(f"[cosim] {launches} K1 launches, expected "
+                             f"{n_layers} for the statistics and {n_layers} "
+                             "for the check")
+    del pipe, plan
+    path = work / "cosim_profile.json"
+    path.write_text(json.dumps(cosim_profile_config(False).to_dict()))
+    k1.launches = 0
+    t0 = time.perf_counter()
+    rc = cli.main(["profile", "--config", str(path), "--verify-cosim",
+                   "--device", "cuda", "--quiet", "--plan-out",
+                   str(work / "cosim_cli")])
+    torch.cuda.synchronize()
+    doc = json.loads((work / "cosim_cli.json").read_text())
+    out["cli"] = dict({k: v for k, v in doc["metrics"].items()
+                       if k.startswith("cosim_")}, rc=rc,
+                      k1_launches=k1.launches,
+                      command_wall_s=time.perf_counter() - t0,
+                      plan_verify_cosim=doc["config"]["profile"][
+                          "verify_cosim"])
+    print("[cosim] profile " + json.dumps(out, sort_keys=True), flush=True)
+    cosim_gate(doc["metrics"], tiles, "cosim cli")
+    if rc != 0 or k1.launches != 2 * n_layers:
+        raise AssertionError(f"[cosim] cli rc {rc}, {k1.launches} K1 "
+                             "launches")
+    return out
+
+
+def cosim_phase(torch, work):
+    """[cosim]: the profile path with the cosim gate (`cosim_profile`),
+    then K1 against the cosim (`repro_torch.cosim.verify_tiles`) on every
+    case of `cosim_cases`: every bin equal, K1's ms a call (CUDA events)
+    beside the cosim's seconds (host clock, synchronized). Returns the
+    metrics; the check's K1 launches are not the main path's."""
+    from repro_torch.core.profiler import batched_layer_counts
+    from repro_torch.cosim import verify_tiles
+    from repro_torch.kernels.transition_energy import transition_energy as k1
+
+    t_phase = time.perf_counter()
+    profile = cosim_profile(torch, work)
+    launched = k1.launches
+    rows = []
+    for label, w, a, m in cosim_cases(torch):
+        k1_ms = time_turns(torch, {"k1": lambda: batched_layer_counts(
+            w, a, mask=m)}, 3)["k1"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = verify_tiles(w, a, mask=m)
+        torch.cuda.synchronize()
+        row = dict(case=label, T=int(a.shape[2]), k1_ms=k1_ms,
+                   cosim_s=time.perf_counter() - t0,
+                   **{k: res[k] for k in ("n_tiles", "n_transitions",
+                                          "match", "max_abs_diff",
+                                          "kernel_total", "cosim_total",
+                                          "toggles", "exactness_ok")})
+        rows.append(row)
+        print(f"[cosim] {label:<34} T={row['T']:<3} live tiles "
+              f"{res['n_tiles']:<6} transitions {res['n_transitions']:.3e} "
+              f"match={res['match']} max_abs_diff={res['max_abs_diff']} "
+              f"toggles={res['toggles']} K1 {k1_ms:.4f} ms, cosim "
+              f"{row['cosim_s']:.3f} s", flush=True)
+        if not res["match"] or res["kernel_total"] != res["cosim_total"]:
+            raise AssertionError(f"[cosim] {label}: K1 differs from the "
+                                 f"cosim ({res})")
+        del w, a, m
+    k1.launches = launched
+    torch.cuda.empty_cache()
+    out = dict(profile=profile, cases=rows,
+               phase_wall_s=time.perf_counter() - t_phase)
+    print(f"[cosim] phase {out['phase_wall_s']:.1f} s", flush=True)
+    return out
+
+
 # --------------------------------------------------------------------- main
 
 
@@ -4846,6 +5331,10 @@ def main() -> int:
 
     k2_launches = serve_path(torch, ROOT / "build" / "chip_smoke")
     k1_launches, k1_path = profile_path(torch)
+    work = ROOT / "build" / "chip_smoke"
+    work.mkdir(parents=True, exist_ok=True)
+    cosim = cosim_phase(torch, work)
+    torch.cuda.empty_cache()
     train_phase(torch)
     torch.cuda.empty_cache()
     serial_launches, _, _ = compress_path(torch, "serial")
@@ -4854,8 +5343,6 @@ def main() -> int:
     torch.cuda.empty_cache()
     compress_launches, compress_stages, compress_fwds = compress_path(torch)
     torch.cuda.empty_cache()
-    work = ROOT / "build" / "chip_smoke"
-    work.mkdir(parents=True, exist_ok=True)
     lm, lm_k2_rows, lm_k3 = lm_phase(torch, ops, ref, work)
     torch.cuda.empty_cache()
     lm_train = lm_train_phase(torch, work)
@@ -4871,6 +5358,8 @@ def main() -> int:
     encdec, encdec_k2_rows, encdec_k3 = lm_encdec_phase(torch, ops, ref)
     torch.cuda.empty_cache()
     moe, moe_k2_rows, moe_k3 = lm_moe_phase(torch, ops, ref)
+    torch.cuda.empty_cache()
+    vlm, vlm_k2_rows, vlm_k3 = lm_vlm_phase(torch, ops, ref)
 
     padded = [r for r in k2_rows if r["per_forward"] and not r["serve_rows"]]
     unpadded = [r for r in k2_rows if r["per_forward"] and r["serve_rows"]]
@@ -4887,7 +5376,7 @@ def main() -> int:
         **K2, "route": "cuda", "launches": k2_launches,
         "max_abs_err": max(r["max_abs_err"]
                            for r in k2_rows + lm_k2_rows + rec_k2_rows
-                           + encdec_k2_rows + moe_k2_rows),
+                           + encdec_k2_rows + moe_k2_rows + vlm_k2_rows),
         **total,
         "bound_by": "bytes" if by_bytes >= total["bound_ms"] / 2
         else "operations",
@@ -5036,6 +5525,24 @@ def main() -> int:
                                      moe["launches_per_stage"].items()},
             "shapes": moe_k2_rows,
         },
+        "lm_vlm": {
+            "scope": f"[lm-vlm]: {VLM_ARCH} at full width, {VLM_LAYERS} of "
+                     "its 48 layers; shapes: its (K, N) pairs at M = "
+                     f"{LM_PROMPTS} x (256 patches + {LM_PROMPT_LEN} "
+                     f"tokens) (prefill) and {LM_PROMPTS} (decode), float32 "
+                     "X, timed as the [lm] rows; launches: the served "
+                     "float32 warm-up, timed and code-recording prefill and "
+                     "decode runs (counts set to 0 before, read after), "
+                     f"one a matmul: {7 * VLM_LAYERS} a forward",
+            "launches": vlm["serve_path_launches"]["K2"],
+            "launches_per_prefill": vlm["serve"]["launches_prefill"][
+                "served"]["K2"],
+            "launches_per_decode_step": vlm["serve"][
+                "launches_decode_step"]["served"]["K2"],
+            "export_path_launches": {st: v["K2"] for st, v in
+                                     vlm["launches_per_stage"].items()},
+            "shapes": vlm_k2_rows,
+        },
     }
     k1_entry = {
         **K1, "route": "cuda", "launches": k1_launches,
@@ -5054,6 +5561,19 @@ def main() -> int:
                  "graph",
         "compress_path_launches": compress_launches["K1"],
         "table1_launches": table1["launches"]["K1"],
+        "cosim": {
+            "scope": "[cosim]: the ResNet-20 profile stage with "
+                     "profile.verify_cosim (launches: 22 for the statistics "
+                     "and 22 for the check, in the pipeline and again "
+                     "through the CLI), then K1 against the bit-accurate "
+                     "systolic cosim on the K1 phase's cases and a T sweep: "
+                     "k1_ms one call between CUDA events, cosim_s the "
+                     "cosim's host time for the same tiles",
+            "profile_launches": cosim["profile"]["pipeline"]["k1_launches"],
+            "cli_launches": cosim["profile"]["cli"]["k1_launches"],
+            "cosim_tiles": cosim["profile"]["pipeline"]["cosim_tiles"],
+            "cases": cosim["cases"],
+        },
         "main_path": k1_path,
         "shapes": k1_rows,
     }
@@ -5224,6 +5744,21 @@ def main() -> int:
                                   moe["launches_per_stage"].items()},
             engine_launches=moe["engine"]["launches"]["K3"],
             engine_forward_calls=moe["engine"]["forward_calls"]),
+        "lm_vlm": dict(
+            vlm_k3,
+            scope=f"[lm-vlm]: {VLM_ARCH} at full width, {VLM_LAYERS} "
+                  "layers: the one grouped launch of a fake-quant forward "
+                  f"(7 stacked units, {VLM_LAYERS} layers as candidates), "
+                  "held against its plain version bit for bit and timed "
+                  "between CUDA events beside its bound; launches: the "
+                  "fake-quant float32 warm-up and timed prefill and decode "
+                  f"runs, then the QAT step at {VLM_TRAIN_LAYERS} layers",
+            launches=vlm["serve_path_launches"]["K3"],
+            launches_per_forward=vlm["serve"]["launches_prefill"][
+                "fake_quant"]["K3"],
+            export_path_launches={st: v["K3"] for st, v in
+                                  vlm["launches_per_stage"].items()},
+            train_launches=vlm["train"]["k3_launches"]),
     }
     entries = [k2_entry, k1_entry, k1b_entry, k3_entry]
     print(f"[card] {card}", flush=True)

@@ -6,7 +6,8 @@ paper 3.1.2).
      activation batches with one indexing op per operand.
   2. ``batched_layer_stats`` — the whole batch runs as one transition-
      statistics launch (`repro_torch.kernels.transition_energy.ops`): the
-     CUDA kernel for CUDA tensors, the plain version for CPU tensors.
+     CUDA kernel for CUDA tensors, the plain version for CPU tensors;
+     ``batched_layer_counts`` returns that launch's integer statistics.
   3. ``profile_layer`` — sampling + gather + trace + `LayerStats` assembly.
 
 Padding semantics are the JAX package's: partial tiles are zero-padded by
@@ -25,7 +26,10 @@ import torch
 from repro_torch.core.mac_model import DEFAULT_COEFFS, MacEnergyCoeffs
 from repro_torch.core.stats import TILE, LayerStats, StatsTuple, pad_to_tiles
 from repro_torch.kernels.transition_energy import ops as te_ops
-from repro_torch.kernels.transition_energy.ref import transition_stats_ref
+from repro_torch.kernels.transition_energy.ref import (
+    CountsTuple,
+    transition_stats_ref,
+)
 
 
 def gather_layer_tiles(w_pad: torch.Tensor, x_pad: torch.Tensor,
@@ -69,6 +73,16 @@ def batched_layer_stats(w_tiles: torch.Tensor, a_blocks: torch.Tensor,
     the CPU."""
     return te_ops.batched_transition_stats(w_tiles, a_blocks, coeffs,
                                            mask=mask)
+
+
+def batched_layer_counts(w_tiles: torch.Tensor, a_blocks: torch.Tensor, *,
+                         mask: Optional[torch.Tensor] = None
+                         ) -> CountsTuple:
+    """The same launch as `batched_layer_stats`, its int64 statistics
+    returned before pricing and the float32 conversion: exact at any tile
+    count. The cosim gate compares these, and reaches K1 only through this
+    function (`repro_torch.cosim` imports nothing of the kernels)."""
+    return te_ops.batched_transition_counts(w_tiles, a_blocks, mask=mask)
 
 
 def sample_tiles(total_tiles: int, max_tiles: int, seed: int) -> torch.Tensor:

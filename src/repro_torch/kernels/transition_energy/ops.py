@@ -1,8 +1,9 @@
 """Device dispatch of the transition-statistics kernel (port of
 `repro.kernels.transition_energy.ops`).
 
-`batched_transition_stats` (K1) and `tile_transition_stats` (K1b, a batch
-of one) check their inputs, then dispatch by the device of the tensors: CPU
+`batched_transition_stats` (K1), `batched_transition_counts` (K1's integer
+statistics, unpriced) and `tile_transition_stats` (K1b, a batch of one)
+check their inputs, then dispatch by the device of the tensors: CPU
 tensors take the plain version (`ref.py`), CUDA tensors launch the
 hand-written kernel (`transition_energy.py`) or raise. Both routes return
 integer statistics that `ref.finish_stats` prices and converts once, so the
@@ -59,6 +60,24 @@ def check_inputs(w_tiles: torch.Tensor, a_blocks: torch.Tensor,
                                  "range")
 
 
+def batched_transition_counts(w_tiles: torch.Tensor, a_blocks: torch.Tensor,
+                              *, mask: Optional[torch.Tensor] = None
+                              ) -> ref.CountsTuple:
+    """The integer statistics of a tile batch in one kernel launch, before
+    pricing: int64 ``(events (256, 5), group_hist (2500,), act_hist
+    (65536,))`` (`ref.transition_counts`). Inputs as
+    `batched_transition_stats`."""
+    if mask is None:
+        mask = torch.ones((w_tiles.shape[0],), dtype=torch.float32,
+                          device=w_tiles.device)
+    check_inputs(w_tiles, a_blocks, mask)
+    if w_tiles.device.type == "cuda":
+        return _kernel.launch(w_tiles, a_blocks, mask)
+    if w_tiles.device.type == "cpu":
+        return ref.transition_counts(w_tiles, a_blocks, mask)
+    raise ValueError(f"unsupported device {w_tiles.device}")
+
+
 def batched_transition_stats(w_tiles: torch.Tensor, a_blocks: torch.Tensor,
                              coeffs: MacEnergyCoeffs = DEFAULT_COEFFS, *,
                              mask: Optional[torch.Tensor] = None
@@ -70,17 +89,8 @@ def batched_transition_stats(w_tiles: torch.Tensor, a_blocks: torch.Tensor,
     is 0 contribute nothing (any other value counts the tile once). Returns
     float32 ``(energy_sum (256,), count (256,), group_hist (50, 50),
     act_hist (256, 256))`` summed over the batch."""
-    if mask is None:
-        mask = torch.ones((w_tiles.shape[0],), dtype=torch.float32,
-                          device=w_tiles.device)
-    check_inputs(w_tiles, a_blocks, mask)
-    if w_tiles.device.type == "cuda":
-        counts = _kernel.launch(w_tiles, a_blocks, mask)
-    elif w_tiles.device.type == "cpu":
-        counts = ref.transition_counts(w_tiles, a_blocks, mask)
-    else:
-        raise ValueError(f"unsupported device {w_tiles.device}")
-    return ref.finish_stats(*counts, coeffs)
+    return ref.finish_stats(
+        *batched_transition_counts(w_tiles, a_blocks, mask=mask), coeffs)
 
 
 def tile_transition_stats(w_tile: torch.Tensor, a_block: torch.Tensor,

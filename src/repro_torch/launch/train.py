@@ -17,8 +17,8 @@ cores, and a float32 backward (the JAX package's) took 3-4% more time a
 step (PERF.md).
 
 A batch may hold ``enc_embeds`` (the encoder-decoder family's frame
-embeddings); ``prefix_embeds`` (the VLM prefix) raises
-`NotImplementedError` naming ROADMAP.md item 6c. `batch_specs` and
+embeddings) or ``prefix_embeds`` (a VLM's patch embeddings, put in front
+of the tokens; the loss scores the token positions). `batch_specs` and
 `decode_cache_specs` give a cell's abstract batch and decode cache (meta
 tensors; whisper's decoder context is `WHISPER_DECODER_LEN`).
 
@@ -103,8 +103,8 @@ def make_train_step(model, step_cfg: StepConfig, mesh=None, rules=None,
                     moe_local_dispatch: bool = False) -> Callable:
     """train_step(state, batch[, comp]) -> (state, metrics). ``state`` is
     {"params", "opt"}, ``batch`` {"tokens", "labels"[, "loss_mask",
-    "enc_embeds"]} tensors on the params' device; metrics are 0-d tensors
-    (``loss``, ``ce``, ``lb_loss``, ``z_loss``)."""
+    "prefix_embeds", "enc_embeds"]} tensors on the params' device; metrics
+    are 0-d tensors (``loss``, ``ce``, ``lb_loss``, ``z_loss``)."""
     if mesh is not None or rules is not None:
         raise _mesh_not_ported("make_train_step(mesh=, rules=)")
     if moe_local_dispatch:
@@ -144,7 +144,6 @@ def make_train_step(model, step_cfg: StepConfig, mesh=None, rules=None,
                 tree_map(lambda x: x * scale, g_acc))
 
     def step(state, batch, comp):
-        _check_batch(batch)
         (loss, metrics), grads = loss_grad(state["params"], batch, comp)
         updates, opt = optimizer.update(grads, state["opt"], state["params"])
         params = apply_updates(state["params"], updates)
@@ -155,26 +154,17 @@ def make_train_step(model, step_cfg: StepConfig, mesh=None, rules=None,
     return lambda state, batch: step(state, batch, None)
 
 
-def _check_batch(batch: Dict[str, torch.Tensor]) -> None:
-    if batch.get("prefix_embeds") is not None:
-        from repro_torch.nn.transformer import NOT_PORTED
-
-        raise NotImplementedError(
-            "a batch with 'prefix_embeds' (the VLM prefix) is not ported "
-            f"yet: {NOT_PORTED['prefix']}")
-
-
 def make_prefill_step(model, step_cfg: StepConfig, mesh=None,
                       rules=None) -> Callable:
     """prefill_step(params, batch) -> logits (inference forward at length
-    S, no QAT)."""
+    P + S, no QAT; ``batch`` as the train step's, no labels)."""
     if mesh is not None or rules is not None:
         raise _mesh_not_ported("make_prefill_step(mesh=, rules=)")
 
     @torch.no_grad()
     def prefill_step(params, batch):
-        _check_batch(batch)
         logits, _ = model.forward(params, batch["tokens"],
+                                  prefix_embeds=batch.get("prefix_embeds"),
                                   enc_embeds=batch.get("enc_embeds"),
                                   qcfg=QuantConfig.off(), remat=False,
                                   q_block=step_cfg.q_block,

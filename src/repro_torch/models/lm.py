@@ -34,8 +34,10 @@ dtype), passed through from prefill as the JAX package does. The MoE
 family (phi3.5-moe, moonshot) puts `repro_torch.nn.moe`'s FFN in its
 attention blocks; a forward sums the blocks' load-balance and z losses into
 its aux, layer by layer in float32, as the JAX package's scan does, and
-`loss` adds them. `build_lm` raises `NotImplementedError`, naming the
-ROADMAP.md item, for VLM-prefix configs.
+`loss` adds them. A VLM (internvl2) takes its stub frontend's patch
+embeddings as ``prefix_embeds`` (B, P, d): `forward` and `prefill` put them,
+cast to the compute dtype, in front of the token embeddings, and positions
+run over all P + S; `loss` scores the trailing label positions only.
 """
 
 from __future__ import annotations
@@ -125,13 +127,18 @@ def _sinusoid(positions: torch.Tensor, d: int) -> torch.Tensor:
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
-def _embed(params, tokens, cfg: ArchConfig, pos_ids=None):
-    """Token embeddings in the compute dtype; the encoder-decoder family
-    adds the sinusoid of ``pos_ids`` ((B, S); default 0..S-1)."""
+def _embed(params, tokens, cfg: ArchConfig, pos_ids=None,
+           prefix_embeds=None):
+    """Token embeddings in the compute dtype (``embed_scale`` on the tokens
+    only), with ``prefix_embeds`` (B, P, d) cast and put in front; the
+    encoder-decoder family adds the sinusoid of ``pos_ids`` ((B, S);
+    default 0..S-1 over every position)."""
     x = params["embed"]["table"][tokens.long()].to(cfg.cdtype)
     if cfg.embed_scale:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=cfg.cdtype,
                              device=x.device)
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(cfg.cdtype), x], dim=1)
     if cfg.encoder_decoder:
         if pos_ids is None:
             pos_ids = torch.arange(x.shape[1], dtype=torch.int32,
@@ -286,13 +293,15 @@ class LMModel:
     # ------------------------------------------------------------- forward
 
     def forward(self, params, tokens: torch.Tensor, *,
+                prefix_embeds: Optional[torch.Tensor] = None,
                 enc_embeds: Optional[torch.Tensor] = None,
                 qcfg: QuantConfig = QuantConfig.off(), comp=None,
                 remat: bool = False, q_block: int = 512,
                 kv_block: int = 512, use_flash: bool = False,
                 remat_policy: Optional[str] = None
                 ) -> Tuple[torch.Tensor, dict]:
-        """Returns (logits (B, S, padded_vocab) float32, aux).
+        """Returns (logits (B, P + S, padded_vocab) float32, aux), P the
+        length of ``prefix_embeds`` (B, P, d) (0 without).
 
         ``remat``: each layer runs under `torch.utils.checkpoint`
         (non-reentrant), so the backward recomputes its activations instead
@@ -305,8 +314,8 @@ class LMModel:
         (`repro_torch.nn.flash`). ``enc_embeds`` (B, S_enc, d): the
         encoder-decoder family's frame embeddings (required there)."""
         cfg = self.cfg
-        b, s = tokens.shape
-        x = _embed(params, tokens, cfg)
+        x = _embed(params, tokens, cfg, prefix_embeds=prefix_embeds)
+        b, s = x.shape[:2]
         positions = torch.arange(s, dtype=torch.int32,
                                  device=x.device).expand(b, s)
         aux = {"lb_loss": torch.zeros((), device=x.device),
@@ -337,12 +346,14 @@ class LMModel:
 
     def loss(self, params, batch: Dict[str, torch.Tensor], **fwd_kwargs):
         """Causal LM loss: (total, {"ce", "lb_loss", "z_loss"}). ``batch``
-        holds ``tokens`` and ``labels`` (B, S), optionally ``loss_mask`` and
-        (the encoder-decoder family) ``enc_embeds``; the log-softmax is
-        taken over the trailing label positions, and ``total = ce + 0.01 *
+        holds ``tokens`` and ``labels`` (B, S), optionally ``loss_mask``,
+        (a VLM) ``prefix_embeds`` and (the encoder-decoder family)
+        ``enc_embeds``; the log-softmax is taken over the trailing label
+        positions (a prefix's are not scored), and ``total = ce + 0.01 *
         lb_loss + 1e-3 * z_loss`` (both zero for the dense family).
         ``fwd_kwargs`` go to `forward`."""
         logits, aux = self.forward(params, batch["tokens"],
+                                   prefix_embeds=batch.get("prefix_embeds"),
                                    enc_embeds=batch.get("enc_embeds"),
                                    **fwd_kwargs)
         labels = batch["labels"].long()
@@ -475,17 +486,19 @@ class LMModel:
     # --------------------------------------------------------------- prefill
 
     def prefill(self, params, tokens: torch.Tensor, max_len: int, *,
+                prefix_embeds: Optional[torch.Tensor] = None,
                 enc_embeds: Optional[torch.Tensor] = None,
                 qcfg: QuantConfig = QuantConfig.off(), comp=None,
                 cache_dtype=torch.bfloat16, q_block: int = 512,
                 kv_block: int = 512) -> Tuple[torch.Tensor, dict]:
-        """Forward over the prompt (B, S), capturing each layer's K/V into
-        a decode cache (and, with ``enc_embeds``, the cross-attention K/V
-        over the encoder output as ``xk``/``xv`` in ``cache_dtype``).
-        Returns (logits (B, S, V), cache ready at pos = S)."""
+        """Forward over the prompt (B, S), after ``prefix_embeds`` (B, P,
+        d) where given, capturing each layer's K/V into a decode cache
+        (and, with ``enc_embeds``, the cross-attention K/V over the encoder
+        output as ``xk``/``xv`` in ``cache_dtype``). Returns (logits (B,
+        P + S, V), cache ready at pos = P + S)."""
         cfg = self.cfg
-        b, s = tokens.shape
-        x = _embed(params, tokens, cfg)
+        x = _embed(params, tokens, cfg, prefix_embeds=prefix_embeds)
+        b, s = x.shape[:2]
         dev = x.device
         positions = torch.arange(s, dtype=torch.int32, device=dev).expand(b, s)
         cache: Dict[str, Any] = {
@@ -637,14 +650,11 @@ class LMModel:
 
 
 def build_lm(cfg: ArchConfig) -> LMModel:
-    """The spec tree of an LM of the dense, MoE, SSM (Mamba-2), hybrid
+    """The spec tree of an LM of the dense (a VLM's backbone too: its
+    prefix is an input, no parameter), MoE, SSM (Mamba-2), hybrid
     (RecurrentGemma) or encoder-decoder (whisper: ``enc_blocks`` stacked
     over ``n_enc_layers``, ``enc_norm``, decoder blocks with
-    cross-attention) family; raises `NotImplementedError`, naming the
-    ROADMAP.md item, for the VLM prefix."""
-    if cfg.prefix_len:
-        raise NotImplementedError(f"{cfg.name}: the VLM prefix embeddings "
-                                  f"are not ported yet: {T.NOT_PORTED['prefix']}")
+    cross-attention) family."""
     spec: Dict[str, Any] = {
         "embed": {"table": ParamSpec((cfg.padded_vocab, cfg.d_model),
                                      cfg.pdtype, ("vocab", "embed"),

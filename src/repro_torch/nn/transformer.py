@@ -61,11 +61,6 @@ MATMULS = {"attn": ("wq", "wk", "wv", "wo"),
 MIXERS = ("attn", "local", "rglru", "ssm")
 RECURRENT = ("rglru", "ssm")
 
-NOT_PORTED = {
-    "prefix": "ROADMAP.md Queue 1 item 6c, 'LM stack'",
-}
-
-
 def block_matmuls(block_params) -> list:
     """["attn/wq", ..., "mlp/w_down"]: the compressible matmul weights a
     block's parameters hold, in `MATMULS` order."""

@@ -3,6 +3,7 @@
     python -m repro_torch profile  [--config cfg.json | --reduced]
                                    [--target cnn|lm|moe|scan] [--arch A]
                                    [--steps N] [--seed S] [--plan-out BASE]
+                                   [--verify-cosim]
     python -m repro_torch compress [--config cfg.json | --reduced]
                                    [--target cnn|lm|moe|scan] [--arch A]
                                    [--steps N]
@@ -54,6 +55,11 @@ gives every unit the ``--compress-k`` floor, then each routed slice a
 codebook size from the k ladder by its traffic rank; ``compress`` runs
 them through ``export``, as an LM target. ``--compress-k`` applies to the
 LM targets only (lm, moe, scan); with a CNN it is an error.
+``--verify-cosim`` (every command) gates a CNN profile stage's transition
+histograms, bin for bin, against the bit-accurate systolic cosim
+(`repro_torch.cosim`) on the sampled tiles, and writes the ``cosim_*``
+metrics to the plan; a stage that does not run (a resumed plan past
+profile) and an LM target ignore it, as in the JAX package.
 ``--plan-in`` resumes a plan (completed stages are skipped), ``--plan-out``
 saves the result as ``BASE.json`` + ``BASE.npz``. Every command takes
 ``--device``, which defaults to ``cuda``; on a host without CUDA that is an
@@ -116,6 +122,10 @@ def build_parser() -> argparse.ArgumentParser:
                        help="resume from a saved plan (BASE.json + BASE.npz)")
         p.add_argument("--plan-out", default=None, metavar="BASE",
                        help="save the resulting plan to BASE.json + BASE.npz")
+        p.add_argument("--verify-cosim", action="store_true",
+                       help="gate the profiler's transition histograms "
+                            "against the bit-accurate systolic cosim "
+                            "(repro_torch.cosim) on the sampled tiles")
         p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                        help="where to run (default: cuda; an error on a "
                             "host without CUDA)")
@@ -176,6 +186,8 @@ def _overrides(args) -> dict:
         over["train"] = {"qat_steps": args.steps}
     if getattr(args, "search_mode", None) is not None:
         over["schedule"] = {"search_mode": args.search_mode}
+    if args.verify_cosim:
+        over["profile"] = {"verify_cosim": True}
     serve = _serve_overrides(args)
     if serve:
         over["serve"] = serve

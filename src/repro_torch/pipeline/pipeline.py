@@ -12,9 +12,6 @@ incomplete stage. Typical use::
     Pipeline(cfg).run()                     # all five stages on the card
     plan = CompressionPlan.load("plan")     # either package's plan
     Pipeline.from_plan(plan, device="cpu").run()
-
-Options the port does not have yet raise `NotImplementedError` before the
-first stage of a run does any work (`CnnTarget.check_ported`).
 """
 
 from __future__ import annotations
@@ -70,7 +67,6 @@ class Pipeline:
         last = stage_index(stage)
         to_run = [name for name in STAGES[: last + 1]
                   if not self.plan.is_done(name)]
-        self.target.check_ported(cfg, to_run)
         for name in to_run:
             t0 = time.time()
             getattr(self.target, f"stage_{name}")(self.plan, cfg,

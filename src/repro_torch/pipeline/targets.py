@@ -15,9 +15,10 @@ The routed targets (`MoETarget`, `ScanTarget`) are LM targets whose profile
 stage also measures the traffic through each routed unit on a calibration
 trace (`repro_torch.core.routing_stats`), whose energy model weighs each
 unit's energy by that share, and whose schedule gives hot units larger
-codebooks from the k ladder than cold ones. What is not ported (the cosim
-gate) raises `NotImplementedError` naming the ROADMAP.md item that ports
-it, from a target's ``check_ported`` before any stage runs.
+codebooks from the k ladder than cold ones. With ``profile.verify_cosim``
+the CNN target's profile stage also gates the transition-statistics kernel
+against the bit-accurate systolic cosim (`repro_torch.cosim`) on the tiles
+the statistics came from.
 """
 
 from __future__ import annotations
@@ -45,10 +46,6 @@ from repro_torch.nn.spec import init_params, spec_count
 from repro_torch.pipeline.config import PipelineConfig
 from repro_torch.pipeline.plan import CompressionPlan, decision_dict
 from repro_torch.serving import metrics as serve_metrics
-
-_NOT_PORTED = {
-    "verify_cosim": "ROADMAP.md Queue 1 item 9, 'Bit-accurate cosim'",
-}
 
 
 def resolve_target(cfg: PipelineConfig, device: torch.device):
@@ -118,16 +115,6 @@ class CnnTarget:
         self.device = runner.device
         self.name = self.model.name
 
-    @staticmethod
-    def check_ported(cfg: PipelineConfig, stages) -> None:
-        """Raise `NotImplementedError`, naming its ROADMAP.md item, for any
-        option of the ``stages`` about to run that the port does not have
-        yet. `Pipeline` calls this before the first of them does work."""
-        if "profile" in stages and cfg.profile.verify_cosim:
-            raise NotImplementedError(
-                "profile with verify_cosim=True is not ported yet: "
-                f"{_NOT_PORTED['verify_cosim']}")
-
     def _on_device(self, plan: CompressionPlan) -> None:
         """Move the plan's tensors to this target's device (plans load on
         the CPU)."""
@@ -147,7 +134,11 @@ class CnnTarget:
                       verbose: bool = False) -> None:
         """Fresh parameters, ``train.qat_steps`` of QAT base training,
         base accuracy, then the per-layer trace statistics (one K1 launch
-        per compressible layer on the card)."""
+        per compressible layer on the card). With ``profile.verify_cosim``
+        the same layers' sampled tiles go through K1 again and through the
+        cosim (`repro_torch.cosim.verify_runner_profile`): the ``cosim_*``
+        metrics, and `RuntimeError` naming the layers whose histograms
+        differ."""
         runner = self.runner
         params, state, opt_state, comp = runner.init()
         loss = float("nan")
@@ -166,6 +157,27 @@ class CnnTarget:
         plan.stats = stats
         plan.metrics["acc_base"] = float(acc_base)
         plan.metrics["qat_loss"] = float(loss)
+        if cfg.profile.verify_cosim:
+            from repro_torch.cosim import verify_runner_profile
+
+            res = verify_runner_profile(
+                runner, params, state, comp,
+                n_batches=cfg.profile.batches,
+                max_tiles=cfg.profile.max_tiles)
+            plan.metrics["cosim_match"] = bool(res["match"])
+            plan.metrics["cosim_tiles"] = int(res["n_tiles"])
+            plan.metrics["cosim_max_abs_diff"] = float(res["max_abs_diff"])
+            plan.metrics["cosim_toggles"] = int(res["toggles"])
+            if verbose:
+                print(f"[pipeline] cosim verify: match={res['match']} "
+                      f"tiles={res['n_tiles']} "
+                      f"max_abs_diff={res['max_abs_diff']}")
+            if not res["match"]:
+                bad = {n: r["max_abs_diff"] for n, r in res["layers"].items()
+                       if not r["match"]}
+                raise RuntimeError(
+                    "transition-statistics kernel disagrees with the "
+                    f"bit-accurate cosim on layers {bad}")
 
     def stage_energy_model(self, plan: CompressionPlan, cfg: PipelineConfig,
                            verbose: bool = False) -> None:
@@ -303,11 +315,6 @@ class LMTarget:
         self.last_serve_results: Dict = {}
         self.last_fleet_report: Optional[dict] = None
         self.last_qat: Dict[str, list] = {"loss": [], "step_s": []}
-
-    @staticmethod
-    def check_ported(cfg: PipelineConfig, stages) -> None:
-        """Every option of the LM target is ported; `Pipeline` calls this
-        before the first stage does work, as for the other targets."""
 
     def _on_device(self, plan: CompressionPlan) -> None:
         """Move the plan's tensors to this target's device (plans load on

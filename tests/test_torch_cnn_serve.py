@@ -369,9 +369,9 @@ class _WorkStarted(Exception):
 def test_unported_stages_and_targets_name_their_roadmap_item():
     """The default config (``search_mode="batched"``, ported) is not
     refused: its run starts work. A dense LM target builds, and so do the
-    routed targets (moe, scan); the cosim gate still raises, naming its
-    ROADMAP.md item, before any stage works. An LM pipeline passes the port
-    check for every stage, serve included (the engine is not run here)."""
+    routed targets (moe, scan); the cosim gate (item 9) is ported, so its
+    run starts work too. An LM pipeline's stages run through serve (the
+    engine is not run here)."""
     pipe = TPipeline(TConfig(), device="cpu")     # search_mode="batched"
     assert pipe.cfg.schedule.search_mode == "batched"
 
@@ -396,9 +396,11 @@ def test_unported_stages_and_targets_name_their_roadmap_item():
         assert type(routed_pipe.target).__name__ == \
             {"moe": "MoETarget", "scan": "ScanTarget"}[kind]
         assert not routed_pipe.plan.completed
-    cosim = TConfig.from_dict({"profile": {"verify_cosim": True}})
-    with pytest.raises(NotImplementedError, match="Bit-accurate cosim"):
-        TPipeline(cosim, device="cpu").run()
-    lm_pipe.target.check_ported(lm_pipe.cfg, lm_pipe.STAGES)
+    cosim = TPipeline(TConfig.from_dict({"profile": {"verify_cosim": True}}),
+                      device="cpu")
+    cosim.target.runner.init = init
+    with pytest.raises(_WorkStarted):
+        cosim.run()
+    assert not cosim.plan.completed
     assert "serve" in lm_pipe.STAGES
     assert not lm_pipe.plan.completed

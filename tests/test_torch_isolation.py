@@ -49,7 +49,13 @@ ROUTED = ("core/routing_stats.py", "nn/moe.py", "nn/ssm.py", "nn/rglru.py",
           "kernels/fake_quant/ops.py")
 
 
-@pytest.mark.parametrize("rel", BASELINES_AND_ENCDEC + ROUTED)
+# the modules the VLM prefix and the cosim gate added or changed
+VLM_AND_COSIM = ("cosim/__init__.py", "cosim/pe.py", "cosim/systolic.py",
+                 "cosim/verify.py", "core/profiler.py",
+                 "kernels/transition_energy/ops.py", "pipeline/cli.py")
+
+
+@pytest.mark.parametrize("rel", BASELINES_AND_ENCDEC + ROUTED + VLM_AND_COSIM)
 def test_new_modules_are_checked_and_a_stray_import_fails(rel, tmp_path):
     """Each module is among the files the import check walks, imports
     cleanly alone, and the check catches a stray ``import jax`` or ``from
@@ -70,6 +76,44 @@ def test_new_modules_are_checked_and_a_stray_import_fails(rel, tmp_path):
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, env=_env(), timeout=300)
     assert proc.returncode == 0, proc.stderr
+
+
+COSIM_INDEPENDENT_OF = ("repro_torch.core.bitops", "repro_torch.core.grouping",
+                       "repro_torch.core.mac_model", "repro_torch.kernels")
+
+
+def _imported_modules(path: Path):
+    """Every module a file names in an import (``from a import b`` names
+    ``a`` and ``a.b``)."""
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+            yield from (f"{node.module}.{alias.name}" for alias in node.names)
+
+
+def test_cosim_shares_no_code_with_the_kernel_it_gates(tmp_path):
+    """The cosim's independence contract: no module of `repro_torch.cosim`
+    imports K1, its plain version or their bit helpers (`core.bitops`,
+    `core.grouping`, `core.mac_model`, `repro_torch.kernels`); the check
+    catches such an import added to one."""
+    files = sorted((PORT / "cosim").glob("*.py"))
+    assert {f.name for f in files} >= {"pe.py", "systolic.py", "verify.py"}
+
+    def shared(path):
+        return sorted(m for m in _imported_modules(path)
+                      if m.startswith(COSIM_INDEPENDENT_OF))
+
+    for path in files:
+        assert not shared(path), f"{path.relative_to(ROOT)} imports " \
+            f"{shared(path)}"
+    for stray in ("from repro_torch.core.bitops import popcount\n",
+                  "from repro_torch.core import grouping\n",
+                  "import repro_torch.kernels.transition_energy.ref\n"):
+        bad = tmp_path / "pe.py"
+        bad.write_text(stray + (PORT / "cosim" / "pe.py").read_text())
+        assert shared(bad)
 
 
 def test_importing_every_module_loads_no_jax():

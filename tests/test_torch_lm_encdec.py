@@ -53,6 +53,7 @@ from repro_torch.models.lm import build_lm as tbuild
 from repro_torch.nn import attention as tA
 from repro_torch.nn.layers import QuantConfig as TQ
 from repro_torch.nn.spec import flatten_with_names as tflat
+from repro_torch.nn.spec import init_params as tinit
 from repro_torch.nn.spec import params_from_numpy
 from repro_torch.pipeline import targets as ttargets
 from repro_torch.pipeline.plan import CompressionPlan as TPlan
@@ -344,11 +345,22 @@ def test_train_step_with_enc_embeds_matches_jax(wref):
     for name in jpar:
         np.testing.assert_allclose(t2n(tpar[name]), np.asarray(jpar[name]),
                                    rtol=0, atol=2e-4, err_msg=name)
-    with pytest.raises(NotImplementedError, match="item 6c"):
-        ttrain.make_train_step(wref["tm"], tcfg)(
-            {"params": tp, "opt": ttrain.make_optimizer(tcfg).init(tp)},
-            {"tokens": torch.from_numpy(tok), "labels": torch.from_numpy(tok),
-             "prefix_embeds": torch.from_numpy(fr)}, wref["tcomp"])
+    # the VLM prefix (item 6c's other half) is ported: a batch with
+    # prefix_embeds trains a VLM, its loss that of the forward's trailing
+    # token positions (held to JAX's in tests/test_torch_lm_vlm.py)
+    vm = tbuild(tget("internvl2-26b").scaled_down(compute_dtype="float32"))
+    vp = tinit(0, vm.spec, "cpu")
+    vtok = torch.from_numpy(tok[:, :9])
+    prefix = torch.from_numpy(fr[:, :vm.cfg.prefix_len])
+    vcfg = ttrain.StepConfig(qat=False, with_comp=False, remat=False)
+    vbatch = {"tokens": vtok[:, :-1], "labels": vtok[:, 1:],
+              "prefix_embeds": prefix}
+    with torch.no_grad():
+        want, _ = vm.loss(vp, vbatch)
+    _, vmet = ttrain.make_train_step(vm, vcfg)(
+        {"params": vp, "opt": ttrain.make_optimizer(vcfg).init(vp)}, vbatch)
+    assert np.isfinite(float(vmet["loss"]))
+    np.testing.assert_allclose(float(vmet["loss"]), float(want), rtol=1e-6)
 
 
 def test_batch_and_cache_specs_match_jax(wref):

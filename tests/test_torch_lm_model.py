@@ -66,10 +66,10 @@ B, S, MAX_LEN, DECODE_STEPS = 2, 12, 16, 4
 DENSE = ("olmo-1b", "phi3-mini-3.8b", "qwen2.5-14b", "gemma3-4b")
 # the families beyond the dense one: the ROADMAP.md item a refusal names,
 # or None for a family the port builds (the recurrent half of item 6c, the
-# MoE family of the routed targets, the encoder-decoder)
+# MoE family of the routed targets, the encoder-decoder, the VLM)
 NOT_PORTED = {"phi3.5-moe-42b-a6.6b": None, "moonshot-v1-16b-a3b": None,
               "mamba2-1.3b": None, "recurrentgemma-2b": None,
-              "internvl2-26b": "item 6c", "whisper-large-v3": None}
+              "internvl2-26b": None, "whisper-large-v3": None}
 MOE = ("phi3.5-moe-42b-a6.6b", "moonshot-v1-16b-a3b")
 
 
@@ -191,9 +191,10 @@ def test_unported_families_name_their_item(arch):
     """A family not ported raises, naming its ROADMAP.md item; the
     recurrent families (mamba2, recurrentgemma), the MoE family (phi3.5-moe,
     moonshot: its forward, prefill and decode are held to JAX's in
-    `test_moe_family_forward_prefill_decode_match_jax`) and the
-    encoder-decoder (whisper) build, spec for spec the JAX package's, and
-    JAX's parameters carry across."""
+    `test_moe_family_forward_prefill_decode_match_jax`), the
+    encoder-decoder (whisper) and the VLM (internvl2: its prefix is held
+    to JAX's in `tests/test_torch_lm_vlm.py`) build, spec for spec the JAX
+    package's, and JAX's parameters carry across."""
     if NOT_PORTED[arch] is not None:
         with pytest.raises(NotImplementedError, match=NOT_PORTED[arch]):
             tbuild(tget(arch).scaled_down())

@@ -354,9 +354,9 @@ class _WorkStarted(Exception):
     ({"schedule": {"search_mode": "batched"}}, "Queue 1 item 4b"),
     ({"profile": {"verify_cosim": True}}, "Queue 1 item 9")])
 def test_unported_profile_options_raise_before_work(override, item):
-    """An option that is not ported raises, naming its ROADMAP.md item,
-    before any work; item 4b (the batched schedule sweep) is ported, so its
-    config goes on to work."""
+    """An option that is not ported would raise, naming its ROADMAP.md
+    item, before any work; item 4b (the batched schedule sweep) and item 9
+    (the cosim gate) are ported, so their configs go on to work."""
     cfg = TConfig.from_dict(_cfg_dict()).with_overrides(override)
     pipe = TPipeline(cfg, device="cpu")
 
@@ -364,9 +364,7 @@ def test_unported_profile_options_raise_before_work(override, item):
         raise _WorkStarted
 
     pipe.target.runner.init = init
-    shipped = item == "Queue 1 item 4b"
-    with pytest.raises(_WorkStarted if shipped else NotImplementedError,
-                       match=None if shipped else f"ROADMAP.md {item}"):
+    with pytest.raises(_WorkStarted):
         pipe.run()
     assert not pipe.plan.completed
 
