@@ -119,7 +119,8 @@
    (``lut_serve=True``, float32, 16 requests of 256/249/242 prompt and
    32/29 new tokens, each prompt prefilled in two 128-token chunks) in the
    engine, wave and oneshot modes: greedy tokens equal across the modes,
-   no build after warmup, 112 K2 launches a forward call and no K3, with
+   no build after warmup, 7 K2 launches a layer a forward call and no K3
+   (on the first 4 of the 16 layers), with
    tokens/s, TTFT and latency p50/p99, slot utilization and peak memory,
    and a split of one group decode step and one 4-row chunk step
    (``[lm-engine-breakdown]``); then the engine's row sums (float64,
@@ -220,7 +221,30 @@
    full forward (max abs < 1e-3) and the prefix's effect on the token
    logits; one QAT step with ``prefix_embeds`` at 2 layers (finite loss,
    ms, peak memory);
-21. prints the ``kernels`` JSON line, then the result line.
+21. ``[mesh]``, the 1-D device meshes of one process, every shard on
+   cuda:0, each part run beside the phase whose models it reuses: after
+   6, the profile stage with ``profile_mesh`` over 1 and 4 shards (22 and
+   88 K1 launches) and at 15 tiles a layer over 3 and 4 shards (padded
+   with masked tiles), every statistic equal to the unsharded stage's bin
+   for bin, and the 12,288 tiles of a stage-1 conv over 4 shards against
+   one K1 call, both timed; in 10, the batched schedule with a 4-shard
+   ``sweep_mesh`` (6 candidates padded to 8): decisions, ``comp_sha256``
+   and params equal to the unsharded sweep's, trials/s; in 13 (b), the
+   LUT engine in wave mode on a 2-shard request mesh: tokens and every
+   float32 logits array equal to the unsharded wave's, twice the forward
+   calls and K2 launches a step, tokens/s; in 14, the LUT fleet with wave
+   engines without and with that mesh: route log and tokens equal, twice
+   the serving K2 launches; a ``[mesh]`` summary line at the end;
+   ``[fault]`` (after 8): `run_resilient_loop` over 25 ResNet-20 QAT
+   steps at batch 256 (K3 at every step, a checkpoint every 5), twice
+   without faults and once with faults at steps 3, 13 and 22: 3 failures,
+   3 restores, final step 25, the faulty run's final state bit-equal to
+   the fault-free run's (or within the two fault-free runs' gap, printed,
+   if the card's step is not deterministic), a `StragglerMonitor`'s
+   flags; then 10 steps of AdamW wrapped in the int8 gradient compressor
+   (finite losses, ``wire_bytes / raw_bytes``) and one step's gradients'
+   int8 codes on the card equal to the CPU's;
+22. prints the ``kernels`` JSON line, then the result line.
 
 Any failure raises and the script exits non-zero. It refuses to run without
 a CUDA device, and outside a checkout of the repository.
@@ -280,6 +304,10 @@ LM_STAGE_SERVE = dict(compress_k=LM_COMPRESS_K, requests=8, prompt_len=64,
                       verify_oneshot=True)
 LM_LUT_REQUESTS, LM_LUT_PROMPT_LEN, LM_LUT_NEW_TOKENS = 16, 256, 32
 LM_LUT_PROMPT_SEED = 200
+# (b) runs the [lm] model's first LM_ENGINE_LAYERS layers: its gates are
+# per row and per forward call (modes equal, builds, launches a call), and
+# at 16 layers it took 120-170 s of the script on an H100
+LM_ENGINE_LAYERS = 4
 LM_LUT_ENGINE = dict(max_batch=8, prompt_buckets=(128, 256),
                      new_token_buckets=(32,), max_waves=2, q_block=128,
                      kv_block=128, cache_dtype="float32", lut_serve=True)
@@ -361,6 +389,14 @@ VLM_TRAIN_TOKENS = 64
 VLM_PREFIX_MATTERS = 1e-2
 # the [cosim] phase's T sweep: COSIM_TILES random tiles at each T
 COSIM_T, COSIM_TILES = (2, 3, 7, 16, 33, 64), 8
+# [mesh]: shards of the tile and candidate meshes and of the request mesh,
+# every shard on cuda:0 (one card checks the split, padding and reduction)
+MESH_SHARDS, MESH_REQUEST_SHARDS = 4, 2
+MESH_PAD_TILES = 15         # tiles a layer at which the shards pad
+MESH_FLOAT_RTOL = 1e-6      # sharded energy sums, if they are not exact
+# [fault]: the resilient loop's steps, checkpoint period and injected faults
+FAULT_STEPS, FAULT_EVERY, FAULT_AT = 25, 5, (3, 13, 22)
+FAULT_COMPRESS_STEPS = 10
 K2 = dict(name="lut_matmul",
           source="src/repro_torch/kernels/lut_matmul/csrc/lut_matmul.cu",
           replaces="src/repro/kernels/lut_matmul/lut_matmul.py:125")
@@ -940,7 +976,7 @@ def stats_equal(torch, a, b):
 
 def profile_path(torch):
     """Run profile + energy_model on the card; returns (K1 launches, the
-    per-layer main-path rows)."""
+    per-layer main-path rows, the [mesh] profile metrics)."""
     from repro_torch.core.profiler import (
         batched_layer_stats,
         gather_layer_tiles,
@@ -1051,7 +1087,7 @@ def profile_path(torch):
     print("[profile] " + json.dumps(metrics, sort_keys=True), flush=True)
     print("[profile-breakdown] " + json.dumps(parts, sort_keys=True),
           flush=True)
-    return launches, rows
+    return launches, rows, mesh_profile(torch, runner, plan)
 
 
 # ------------------------------------------------------------ K3 phase
@@ -1966,6 +2002,7 @@ def sweep_phase(torch, plan_dir):
     trial: one (layer, candidate) fine-tune with its weight selection and
     accept check). Returns the [sweep] metrics."""
     from repro_torch._device import tree_leaves
+    from repro_torch.distributed.sharding import sweep_mesh
     from repro_torch.kernels.fake_quant import fake_quant as k3
     from repro_torch.pipeline.pipeline import Pipeline
     from repro_torch.pipeline.plan import CompressionPlan
@@ -1976,10 +2013,15 @@ def sweep_phase(torch, plan_dir):
     Pipeline(base, device="cuda").run_until("energy_model").save(plan_dir)
     torch.cuda.empty_cache()
     runs, plans = {}, {}
-    for mode in ("serial", "batched"):
-        cfg = base.with_overrides({"schedule": {"search_mode": mode}})
+    for mode, shards in (("serial", None), ("batched", None),
+                         ("batched_mesh", MESH_SHARDS)):
+        cfg = base.with_overrides({"schedule": {
+            "search_mode": "serial" if mode == "serial" else "batched"}})
         pipe = Pipeline.from_plan(CompressionPlan.load(plan_dir), cfg=cfg,
                                   device="cuda")
+        if shards:
+            pipe.target.runner.sweep_mesh = card_mesh(torch, sweep_mesh,
+                                                      shards)
         forwards = {"fake_quant": 0, "serve": 0, "candidates": 0}
         model = pipe.target.runner.model
         real_apply = counting_forwards(model, forwards)
@@ -2020,6 +2062,8 @@ def sweep_phase(torch, plan_dir):
     if not bat["forwards"]["candidates"]:
         raise AssertionError("sweep: the batched run made no candidate-axis "
                              "forward")
+    mesh = runs.pop("batched_mesh")
+    meshed = plans.pop("batched_mesh")
     out = dict(runs=runs, candidates=n_cands,
                batched_vs_serial_trials_per_s=bat["trials_per_s"]
                / ser["trials_per_s"],
@@ -2029,6 +2073,23 @@ def sweep_phase(torch, plan_dir):
                    tree_leaves(plans["serial"].params),
                    tree_leaves(plans["batched"].params))))
     print("[sweep] " + json.dumps(out, sort_keys=True), flush=True)
+    mesh.update(
+        shards=MESH_SHARDS,
+        padded_candidates=-(-n_cands // MESH_SHARDS) * MESH_SHARDS,
+        decisions_equal_all_fields=meshed.decisions
+        == plans["batched"].decisions,
+        comp_sha256_equal=mesh["comp_sha256"] == bat["comp_sha256"],
+        params_equal=all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(meshed.params),
+            tree_leaves(plans["batched"].params))),
+        vs_unsharded_trials_per_s=mesh["trials_per_s"] / bat["trials_per_s"])
+    print("[mesh] sweep " + json.dumps(mesh, sort_keys=True), flush=True)
+    if not (mesh["decisions_equal_all_fields"] and mesh["comp_sha256_equal"]
+            and mesh["params_equal"]):
+        raise AssertionError("[mesh] sweep: the sharded sweep's decisions, "
+                             "masks and codebooks or params differ from the "
+                             "unsharded sweep's")
+    out["mesh"] = mesh
     return out
 
 
@@ -2894,15 +2955,18 @@ def lm_engine_sums(torch, model, params, handle, cfg, shapes, requests,
 
 def lm_engine_lut(torch, target, plan):
     """(b) The packed-LUT engine built directly (``lut_serve=True``: the
-    stage never sets it), on a float32 olmo-1b over the [lm] plan's
-    parameters and comp tree: LM_LUT_REQUESTS requests of the mixed trace
+    stage never sets it), on a float32 olmo-1b cut to its first
+    LM_ENGINE_LAYERS layers, over the [lm] plan's parameters and comp tree
+    of those layers: LM_LUT_REQUESTS requests of the mixed trace
     (`lm_trace_shapes`), seeded numpy prompts, served in each mode. Gates:
-    greedy tokens equal across the modes, no build after warmup, 112 K2
-    launches a forward call (prefill, chunk step or decode step) and no
+    greedy tokens equal across the modes, no build after warmup, 7 K2
+    launches a layer a forward call (prefill, chunk step or decode step) and no
     K3. Then the step split (`lm_engine_split`) and what the engine's
     float64 sums cost against the alternatives (`lm_engine_sums`)."""
     import dataclasses
 
+    from repro_torch._device import tree_map
+    from repro_torch.distributed.sharding import request_mesh
     from repro_torch.kernels.fake_quant import fake_quant as k3
     from repro_torch.kernels.lut_matmul import lut_matmul as k2
     from repro_torch.models.lm import build_lm
@@ -2914,11 +2978,15 @@ def lm_engine_lut(torch, target, plan):
         ServingEngine,
     )
 
-    model = build_lm(dataclasses.replace(target.acfg,
+    layers = min(LM_ENGINE_LAYERS, target.acfg.n_layers)
+    model = build_lm(dataclasses.replace(target.acfg, n_layers=layers,
                                          compute_dtype="float32"))
+    params, comp = (dict(t, blocks=tree_map(lambda x: x[:layers],
+                                            t["blocks"]))
+                    for t in (plan.params, plan.comp))
     n_units = 7 * model.cfg.n_layers
     cfg = EngineConfig(**LM_LUT_ENGINE)
-    handle = PlanHandle.from_comp(plan.comp, compress_k=LM_COMPRESS_K,
+    handle = PlanHandle.from_comp(comp, compress_k=LM_COMPRESS_K,
                                   plan_id=f"k{LM_COMPRESS_K}")
     shapes = lm_trace_shapes(LM_LUT_REQUESTS, LM_LUT_PROMPT_LEN,
                              LM_LUT_NEW_TOKENS, True)
@@ -2926,14 +2994,18 @@ def lm_engine_lut(torch, target, plan):
         tokens=np.random.default_rng(LM_LUT_PROMPT_SEED + i).integers(
             0, model.cfg.vocab, plen).astype(np.int32), max_new_tokens=ntok)
         for i, (plen, ntok) in enumerate(shapes)]
-    runs, tokens = {}, {}
+    runs, tokens, logits = {}, {}, {}
     split = None
-    for mode in ("engine", "wave", "oneshot"):
+    mesh = card_mesh(torch, request_mesh, MESH_REQUEST_SHARDS)
+    for mode in ("engine", "wave", "oneshot", "wave_mesh"):
         calls = counting_calls(model)
         k2.launches = k3.launches = 0
         t0 = time.perf_counter()
-        engine = ServingEngine(model, plan.params, mode=mode, config=cfg,
-                               plan=handle, device="cuda")
+        engine = ServingEngine(model, params, mode=mode.split("_")[0],
+                               config=cfg, plan=handle, device="cuda",
+                               mesh=mesh if mode == "wave_mesh" else None)
+        if mode.startswith("wave"):
+            logits[mode] = recording_host(engine)
         engine.warmup(shapes)
         torch.cuda.synchronize()
         warm_s = time.perf_counter() - t0
@@ -2965,10 +3037,13 @@ def lm_engine_lut(torch, target, plan):
             model.__dict__.pop(name, None)
         del engine, results
         torch.cuda.empty_cache()
+    mesh_run = lm_engine_mesh(runs.pop("wave_mesh"), runs["wave"],
+                              tokens.pop("wave_mesh"), tokens["wave"],
+                              logits)
     equal = {mode: tokens[mode] == tokens["engine"] for mode in tokens}
     out = dict(config=LM_LUT_ENGINE, requests=LM_LUT_REQUESTS,
                shapes=sorted(set(shapes)), runs=runs,
-               tokens_equal_to_engine=equal)
+               tokens_equal_to_engine=equal, mesh=mesh_run)
     print("[lm-engine] (b) " + json.dumps(out, sort_keys=True), flush=True)
     if not all(equal.values()):
         differ = {mode: sum(a != b for x, y in zip(t, tokens["engine"])
@@ -2978,8 +3053,63 @@ def lm_engine_lut(torch, target, plan):
                              f"modes: {differ} of "
                              f"{sum(len(t) for t in tokens['engine'])}")
     out["split"] = split
-    out["sums"] = lm_engine_sums(torch, model, plan.params, handle, cfg,
+    out["sums"] = lm_engine_sums(torch, model, params, handle, cfg,
                                  shapes, requests, tokens["engine"])
+    return out
+
+
+def recording_host(engine):
+    """Record every float32 logits array the engine reads back to the host
+    (its `_host`), in order; returns the list it fills."""
+    seen = []
+    host = engine._host
+
+    def record(rows, vocab):
+        out = host(rows, vocab)
+        seen.append(out)
+        return out
+
+    engine._host = record
+    return seen
+
+
+def lm_engine_mesh(mesh, wave, mesh_tokens, wave_tokens, logits):
+    """[mesh] engine: the wave engine on a MESH_REQUEST_SHARDS-shard request
+    mesh (every shard on cuda:0) against the wave engine without it, both
+    from `lm_engine_lut`'s loop: tokens and every float32 logits array
+    bit-equal, K2 launches and forward calls MESH_REQUEST_SHARDS times the
+    unsharded run's while serving (each shard's rows run the built step;
+    `lm_engine_lut`'s loop holds K2 to 7 launches a layer a forward call).
+    Returns
+    the metrics."""
+    got, want = logits["wave_mesh"], logits["wave"]
+    logits_equal = (len(got) == len(want)
+                    and all(np.array_equal(a, b) for a, b in zip(got, want)))
+    # forward calls while serving: each build runs its step once at warmup
+    # (the shards on cuda:0 share one build a bucket)
+    fwd = sum(mesh["forward_calls"].values()) - mesh["builds"]
+    fwd_wave = sum(wave["forward_calls"].values()) - wave["builds"]
+    per_call = wave["launches"]["K2"] / sum(wave["forward_calls"].values())
+    out = dict(shards=MESH_REQUEST_SHARDS, tokens_equal=mesh_tokens
+               == wave_tokens, logits_equal=logits_equal,
+               logits_arrays=len(got),
+               k2_launches=mesh["launches"]["K2"],
+               k2_launches_unsharded=wave["launches"]["K2"],
+               serve_forward_calls=fwd,
+               serve_forward_calls_unsharded=fwd_wave,
+               k2_launches_per_step=per_call * fwd / fwd_wave,
+               k2_launches_per_step_unsharded=per_call,
+               tokens_per_s=mesh["tokens_per_s"],
+               tokens_per_s_unsharded=wave["tokens_per_s"],
+               builds_after_warmup=mesh["builds_after_warmup"],
+               run_s=mesh["warmup_s"] + mesh["wall_s"],
+               peak_mem_gb=mesh["peak_mem_gb"])
+    print("[mesh] engine " + json.dumps(out, sort_keys=True), flush=True)
+    if not (out["tokens_equal"] and logits_equal):
+        raise AssertionError(f"[mesh] engine: sharded wave != unsharded "
+                             f"wave: {out}")
+    if fwd != MESH_REQUEST_SHARDS * fwd_wave:
+        raise AssertionError(f"[mesh] engine: forward calls {out}")
     return out
 
 
@@ -3179,10 +3309,14 @@ def fleet_gates(fleet, rep, tag):
                              "warmup")
 
 
-def lm_fleet_run(torch, model, params, lut):
+def lm_fleet_run(torch, model, params, lut, mode="engine", mesh=None):
     """One fleet of base / k8 / k4 over the [lm] parameters driven through
     the burst then the trickle (each trickle request drained before the
-    next). Returns (metrics, fleet, requests in submit order, results)."""
+    next), its engines in ``mode``, on ``mesh`` when given. The router's
+    gates (`fleet_gates`) hold for the slot engines' pressure; other modes
+    are compared with each other instead. Returns (metrics, fleet, requests
+    in submit order, results)."""
+    from repro_torch.kernels.lut_matmul import lut_matmul as k2
     from repro_torch.serving import (
         EngineConfig,
         FleetRouter,
@@ -3190,21 +3324,25 @@ def lm_fleet_run(torch, model, params, lut):
         RouterConfig,
     )
 
-    tag = "lut" if lut else "fake_quant"
+    tag = ("lut" if lut else "fake_quant") + (
+        "" if mode == "engine" else f" {mode}") + (
+        "" if mesh is None else f" mesh x{mesh.size}")
     calls = counting_calls(model)
     handles = [PlanHandle.uncompressed()] + [
         PlanHandle.from_compress_k(model, k, device="cuda")
         for k in LM_FLEET_K]
     ecfg = EngineConfig(**LM_FLEET_ENGINE, lut_serve=lut)
     torch.cuda.reset_peak_memory_stats()
-    fleet = FleetRouter(model, params, handles, config=ecfg,
-                        router=RouterConfig(**LM_FLEET_ROUTER),
+    fleet = FleetRouter(model, params, handles, mode=mode, config=ecfg,
+                        router=RouterConfig(**LM_FLEET_ROUTER), mesh=mesh,
                         device="cuda")
     counts = per_plan_counts(fleet, calls)
+    k2_start = k2.launches
     t0 = time.perf_counter()
     fleet.warmup([(LM_FLEET_PROMPT_LEN, LM_FLEET_NEW_TOKENS)])
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
+    k2_warmup = k2.launches - k2_start
     burst, trickle = fleet_requests(model.cfg.vocab)
     rids = [fleet.submit(r) for r in burst]
     out = fleet.run()
@@ -3218,6 +3356,7 @@ def lm_fleet_run(torch, model, params, lut):
         model.__dict__.pop(name, None)
     metrics = dict(
         engine=LM_FLEET_ENGINE, lut_serve=lut, warmup_s=warm_s,
+        k2_warmup_launches=k2_warmup,
         levels=[h.plan_id for h in fleet.levels],
         energy_per_token={h.plan_id: h.energy_per_token
                           for h in fleet.levels},
@@ -3232,7 +3371,8 @@ def lm_fleet_run(torch, model, params, lut):
         **serve_numbers(rep))
     print(f"[lm-fleet] {tag} " + json.dumps(metrics, sort_keys=True),
           flush=True)
-    fleet_gates(fleet, rep, tag)
+    if mode == "engine":
+        fleet_gates(fleet, rep, tag)
     n_units = 7 * model.cfg.n_layers
     for h in fleet.levels:
         c = counts[h.plan_id]
@@ -3272,6 +3412,53 @@ def lm_fleet_pinned(torch, model, params, fleet, requests, results):
           flush=True)
     if any(v["equal"] != v["requests"] for v in out.values()):
         raise AssertionError(f"[lm-fleet] routed tokens != pinned: {out}")
+    return out
+
+
+def lm_fleet_mesh(torch, model, params):
+    """[mesh] fleet: the LUT fleet of [lm-fleet] with wave engines, without
+    and with a MESH_REQUEST_SHARDS-shard request mesh on cuda:0 (the slot
+    engines run a mesh's rows on its first device: nothing to split), the
+    same burst and trickle: route log and tokens equal, K2 launches while
+    serving (after the warmup's builds) MESH_REQUEST_SHARDS times the
+    unsharded run's. Returns the metrics."""
+    from repro_torch.distributed.sharding import request_mesh
+    from repro_torch.kernels.lut_matmul import lut_matmul as k2
+
+    t_phase = time.perf_counter()
+    runs = {}
+    for name, mesh in (("wave", None), ("wave_mesh", card_mesh(
+            torch, request_mesh, MESH_REQUEST_SHARDS))):
+        k2.launches = 0
+        metrics, fleet, _, results = lm_fleet_run(torch, model, params, True,
+                                                  "wave", mesh)
+        runs[name] = dict(k2_launches=k2.launches,
+                          k2_serve_launches=k2.launches
+                          - metrics["k2_warmup_launches"],
+                          tokens_per_s=metrics["tokens_per_s"],
+                          route_log=list(fleet.route_log),
+                          tokens=[r.tokens for r in results])
+        del fleet, results
+        torch.cuda.empty_cache()
+    plain, meshed = runs["wave"], runs["wave_mesh"]
+    out = dict(shards=MESH_REQUEST_SHARDS,
+               route_log_equal=meshed["route_log"] == plain["route_log"],
+               tokens_equal=meshed["tokens"] == plain["tokens"],
+               route_levels=[e["level"] for e in meshed["route_log"]],
+               k2_launches=meshed["k2_launches"],
+               k2_launches_unsharded=plain["k2_launches"],
+               k2_serve_launches=meshed["k2_serve_launches"],
+               k2_serve_launches_unsharded=plain["k2_serve_launches"],
+               tokens_per_s=meshed["tokens_per_s"],
+               tokens_per_s_unsharded=plain["tokens_per_s"],
+               phase_s=time.perf_counter() - t_phase)
+    print("[mesh] fleet " + json.dumps(out, sort_keys=True), flush=True)
+    if not (out["route_log_equal"] and out["tokens_equal"]):
+        raise AssertionError(f"[mesh] fleet: the meshed fleet routed or "
+                             f"served otherwise: {out}")
+    if out["k2_serve_launches"] != MESH_REQUEST_SHARDS * out[
+            "k2_serve_launches_unsharded"]:
+        raise AssertionError(f"[mesh] fleet: launches {out}")
     return out
 
 
@@ -3347,8 +3534,9 @@ def lm_fleet_phase(torch, target, plan, work):
     lut["launches"] = {"K2": k2.launches, "K3": k3.launches}
     del fleet
     torch.cuda.empty_cache()
+    mesh = lm_fleet_mesh(torch, model, params)
     stage = lm_fleet_stage(torch, plan, work)
-    out = dict(fake_quant=fq, lut=lut, pinned=pinned, stage=stage,
+    out = dict(fake_quant=fq, lut=lut, pinned=pinned, stage=stage, mesh=mesh,
                phase_wall_s=time.perf_counter() - t_phase)
     print(f"[lm-fleet] phase {out['phase_wall_s']:.1f} s", flush=True)
     return out
@@ -5293,6 +5481,312 @@ def cosim_phase(torch, work):
 # --------------------------------------------------------------------- main
 
 
+# ------------------------------------------------ 1-D meshes and faults
+
+
+def card_mesh(torch, make, n):
+    """An ``n``-shard mesh of ``make`` (`tile_mesh`, `sweep_mesh`,
+    `request_mesh`), every shard on cuda:0."""
+    return make([torch.device("cuda", 0)] * n)
+
+
+def stats_gap(torch, got, want):
+    """(every integer statistic equal, energy sums bit-equal, largest
+    relative gap of the energy sums) of two {layer: LayerStats}."""
+    ints, exact, gap = True, True, 0.0
+    for name, w in want.items():
+        g = got[name]
+        for f in ("count", "group_hist", "act_hist"):
+            ints &= torch.equal(getattr(g, f).cpu(), getattr(w, f).cpu())
+        a, b = g.energy_sum.cpu().double(), w.energy_sum.cpu().double()
+        exact &= torch.equal(g.energy_sum.cpu(), w.energy_sum.cpu())
+        gap = max(gap, float((a - b).abs().max()
+                             / torch.clamp(b.abs().max(), min=1e-30)))
+    return ints, exact, gap
+
+
+def mesh_profile(torch, runner, plan):
+    """[mesh] profile: the runner's profile stage (ResNet-20, batch 256, the
+    [profile] pipeline's runner and plan) with ``profile_mesh`` over 1 and
+    MESH_SHARDS shards on cuda:0 against the stage's own statistics, then at
+    MESH_PAD_TILES tiles a layer over 3 and MESH_SHARDS shards (padded
+    with masked tiles) against the unsharded stage at that count: every
+    integer statistic bin for bin, the energy sums bit-equal or within
+    MESH_FLOAT_RTOL; K1 launches one a shard a layer. Then all tiles of a
+    stage-1 conv over MESH_SHARDS shards against one K1 call, bin for bin,
+    both timed between CUDA events. Returns the metrics."""
+    from repro_torch.core.profiler import (
+        batched_layer_counts,
+        gather_layer_tiles,
+        sharded_layer_counts,
+    )
+    from repro_torch.core.stats import pad_to_tiles
+    from repro_torch.distributed.sharding import tile_mesh
+    from repro_torch.kernels.transition_energy import transition_energy as k1
+
+    n_layers = len(runner.model.comp_layers)
+
+    def stage(shards, tiles):
+        runner.profile_mesh = (None if shards is None
+                               else card_mesh(torch, tile_mesh, shards))
+        k1.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stats = runner.profile(plan.params, plan.state, plan.comp,
+                               n_batches=1, max_tiles=tiles)
+        torch.cuda.synchronize()
+        return stats, k1.launches, time.perf_counter() - t0
+
+    t_phase = time.perf_counter()
+    runs = {}
+    base = {PROFILE_TILES: plan.stats}
+    base[MESH_PAD_TILES], _, _ = stage(None, MESH_PAD_TILES)
+    for shards, tiles in ((1, PROFILE_TILES), (MESH_SHARDS, PROFILE_TILES),
+                          (3, MESH_PAD_TILES),
+                          (MESH_SHARDS, MESH_PAD_TILES)):
+        stats, launches, wall = stage(shards, tiles)
+        ints, exact, gap = stats_gap(torch, stats, base[tiles])
+        padded = sorted(n for n, s in stats.items()
+                        if (s.n_transitions // (64 * 64 * 63)) % shards)
+        key = f"{shards}_shards_{tiles}_tiles"
+        runs[key] = dict(k1_launches=launches, stage_s=wall,
+                         integers_equal=ints, energy_sum_exact=exact,
+                         energy_sum_max_rel_gap=gap, padded_layers=padded)
+        if launches != shards * n_layers:
+            raise AssertionError(f"[mesh] profile {key}: {launches} K1 "
+                                 f"launches, expected {shards * n_layers}")
+        if not ints or gap > MESH_FLOAT_RTOL:
+            raise AssertionError(f"[mesh] profile {key}: sharded statistics "
+                                 f"differ from the unsharded stage: "
+                                 f"{runs[key]}")
+    runner.profile_mesh = None
+
+    cl = next(c for c in runner.model.comp_layers if c.name == "s1b1/conv1")
+    tap = runner.capture_taps(plan.params, plan.state, plan.comp, 1)[cl.name]
+    w_pad, x_pad = pad_to_tiles(*runner.layer_trace_inputs(cl, tap))
+    n_all = (w_pad.shape[0] * w_pad.shape[1] * x_pad.shape[1]) // 64 ** 3
+    w_t, a_t = gather_layer_tiles(w_pad, x_pad,
+                                  torch.arange(n_all, device="cuda"))
+    del tap, w_pad, x_pad
+    mesh = card_mesh(torch, tile_mesh, MESH_SHARDS)
+    one = batched_layer_counts(w_t, a_t)
+    k1.launches = 0
+    sharded = sharded_layer_counts(w_t, a_t, mesh=mesh)
+    all_launches = k1.launches
+    equal = all(torch.equal(a, b) for a, b in zip(one, sharded))
+    ms = time_turns(torch, {
+        "one_call": lambda: batched_layer_counts(w_t, a_t),
+        "sharded": lambda: sharded_layer_counts(w_t, a_t, mesh=mesh)}, 5)
+    all_tiles = dict(layer=cl.name, tiles=n_all, shards=MESH_SHARDS,
+                     k1_launches=all_launches, bins_equal=equal,
+                     one_call_ms=ms["one_call"], sharded_ms=ms["sharded"])
+    del w_t, a_t, one, sharded
+    if not equal or all_launches != MESH_SHARDS:
+        raise AssertionError(f"[mesh] profile all tiles: {all_tiles}")
+    out = dict(runs=runs, all_tiles=all_tiles,
+               phase_s=time.perf_counter() - t_phase)
+    print("[mesh] profile " + json.dumps(out, sort_keys=True), flush=True)
+    return out
+
+
+def fault_runner(torch):
+    """(runner, params, state, opt_state, comp) of ResNet-20 QAT at batch
+    BATCH on the card: seeded init, `SyntheticImages(seed=7)`, the
+    `restricted_comp` tree (K3 through projection, mask and truncation)."""
+    from repro_torch.core.runner import CnnRunner
+    from repro_torch.data.synthetic import SyntheticImages
+    from repro_torch.nn.cnn import resnet20
+
+    runner = CnnRunner(resnet20(), SyntheticImages(seed=7), batch_size=BATCH,
+                       device="cuda")
+    params, state, opt_state, _ = runner.init()
+    comp = restricted_comp(torch, runner.model, params, "cuda")
+    return runner, params, state, opt_state, comp
+
+
+def fault_loop(torch, work, faults, monitor=None):
+    """`run_resilient_loop` over FAULT_STEPS QAT steps of `fault_runner`
+    (checkpoint every FAULT_EVERY steps, asynchronous saves), with a fault
+    injected before each step in ``faults`` (once each). Returns (final
+    state, report, K3 launches, wall s)."""
+    import shutil
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.distributed.fault import run_resilient_loop
+    from repro_torch.kernels.fake_quant import fake_quant as k3
+
+    runner, params, state, opt_state, comp = fault_runner(torch)
+    fired = set()
+
+    def hook(step):
+        if step in faults and step not in fired:
+            fired.add(step)
+            raise RuntimeError(f"injected device failure at step {step}")
+
+    def step_fn(s, batch):
+        p, st, o, loss = runner.train_step(s["params"], s["state"], s["opt"],
+                                           comp, batch)
+        return {"params": p, "state": st, "opt": o}, {"loss": loss}
+
+    path = work / f"fault_{len(faults)}"
+    shutil.rmtree(path, ignore_errors=True)
+    k3.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    final, report = run_resilient_loop(
+        step_fn=step_fn,
+        data_fn=lambda step: runner.dataset.batch(step, BATCH, "train",
+                                                  device="cuda"),
+        state={"params": params, "state": state, "opt": opt_state},
+        ckpt=CheckpointManager(path), n_steps=FAULT_STEPS,
+        checkpoint_every=FAULT_EVERY, fault_hook=hook, monitor=monitor,
+        device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    shutil.rmtree(path, ignore_errors=True)
+    return final, report, k3.launches, wall
+
+
+def max_gap(torch, a, b):
+    """Largest absolute difference over the matching leaves of two trees."""
+    la, lb = leaves(a), leaves(b)
+    return max(float((la[n].double() - lb[n].double()).abs().max())
+               if la[n].numel() else 0.0 for n in lb)
+
+
+def fault_compression(torch):
+    """FAULT_COMPRESS_STEPS QAT steps with AdamW wrapped in
+    ``compressed(..., int8_compressor())``: finite losses, one K3 launch a
+    step, the compressor's ``wire_bytes / raw_bytes``; then one step's
+    gradients quantized on the card and on the CPU: int8 codes and scales
+    equal leaf for leaf."""
+    from repro_torch.kernels.fake_quant import fake_quant as k3
+    from repro_torch.optim import compression
+
+    runner, params, state, _, comp = fault_runner(torch)
+    comp8 = compression.int8_compressor()
+    runner.optimizer = compression.compressed(runner.optimizer, comp8)
+    opt_state = runner.optimizer.init(params)
+    losses = []
+    k3.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for step in range(FAULT_COMPRESS_STEPS):
+        batch = runner.dataset.batch(step, BATCH, "train", device="cuda")
+        params, state, opt_state, loss = runner.train_step(
+            params, state, opt_state, comp, batch)
+        losses.append(float(loss))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = k3.launches
+    batch = runner.dataset.batch(FAULT_COMPRESS_STEPS, BATCH, "train",
+                                 device="cuda")
+    _, grads, _ = runner.loss_and_grads(params, state, comp, batch)
+    _, _, stats = comp8.compress(grads, opt_state["ef"])
+    leaves_equal = codes = 0
+    for name, g in leaves(grads).items():
+        e = leaves(opt_state["ef"])[name]
+        q, scale, _ = compression.int8_codes(g, e)
+        q_cpu, scale_cpu, _ = compression.int8_codes(g.cpu(), e.cpu())
+        leaves_equal += bool(torch.equal(q.cpu(), q_cpu)
+                             and torch.equal(scale.cpu(), scale_cpu))
+        codes += q.numel()
+    n_leaves = len(leaves(grads))
+    out = dict(steps=FAULT_COMPRESS_STEPS, losses=losses,
+               ms_per_step=1e3 * wall / FAULT_COMPRESS_STEPS,
+               k3_launches=launches, wire_bytes=stats["wire_bytes"],
+               raw_bytes=stats["raw_bytes"],
+               wire_over_raw=stats["wire_bytes"] / stats["raw_bytes"],
+               codes=codes, leaves=n_leaves,
+               leaves_with_equal_codes=leaves_equal)
+    print("[fault] compression " + json.dumps(out, sort_keys=True),
+          flush=True)
+    if not all(np.isfinite(losses)) or launches != FAULT_COMPRESS_STEPS:
+        raise AssertionError(f"[fault] compression: losses {losses}, "
+                             f"{launches} K3 launches")
+    if leaves_equal != n_leaves:
+        raise AssertionError(f"[fault] compression: int8 codes differ "
+                             f"between card and CPU on "
+                             f"{n_leaves - leaves_equal} of {n_leaves} leaves")
+    return out
+
+
+class _Deterministic:
+    """cuDNN's deterministic algorithms, and PyTorch's deterministic mode
+    (warning, not raising, on an operation without a deterministic
+    implementation), while the block runs; the previous settings after."""
+
+    def __init__(self, torch):
+        self.torch = torch
+
+    def __enter__(self):
+        t = self.torch
+        self.saved = (t.backends.cudnn.deterministic,
+                      t.backends.cudnn.benchmark,
+                      t.are_deterministic_algorithms_enabled(),
+                      t.is_deterministic_algorithms_warn_only_enabled())
+        t.backends.cudnn.deterministic, t.backends.cudnn.benchmark = True, False
+        t.use_deterministic_algorithms(True, warn_only=True)
+
+    def __exit__(self, *exc):
+        t = self.torch
+        cudnn_det, bench, det, warn = self.saved
+        t.backends.cudnn.deterministic, t.backends.cudnn.benchmark = (
+            cudnn_det, bench)
+        t.use_deterministic_algorithms(det, warn_only=warn)
+
+
+def fault_phase(torch, work):
+    """[fault]: `run_resilient_loop` over ResNet-20 QAT steps (K3 at every
+    step) twice without faults and once with faults at FAULT_AT, under
+    deterministic algorithms (`_Deterministic`: with PyTorch's defaults
+    cuDNN's float64 convolution backward may sum in another order on a
+    replayed step; on an H100 a faulty run ended 1.9e-9 from two
+    fault-free runs that agreed); the
+    report (failures == restores == 3, final step FAULT_STEPS); the faulty
+    run's final state bit-equal to the fault-free run's, or, if the two
+    fault-free runs differ (the card's step not deterministic), within
+    their gap; a `StragglerMonitor`'s flags; then `fault_compression`."""
+    from repro_torch.distributed.fault import StragglerMonitor
+
+    t_phase = time.perf_counter()
+    monitor = StragglerMonitor()
+    with _Deterministic(torch):
+        clean, clean_rep, clean_k3, clean_s = fault_loop(torch, work, ())
+        again, _, _, _ = fault_loop(torch, work, ())
+        faulty, rep, k3_launches, faulty_s = fault_loop(
+            torch, work, set(FAULT_AT), monitor)
+    run_gap = max_gap(torch, again, clean)
+    gap = max_gap(torch, faulty, clean)
+    out = dict(steps=FAULT_STEPS, checkpoint_every=FAULT_EVERY,
+               faults=list(FAULT_AT), failures=rep.failures,
+               restores=rep.restores, final_step=rep.final_step,
+               steps_run=rep.steps_run, stragglers=rep.stragglers,
+               step_s_median=statistics.median(monitor.times),
+               k3_launches=k3_launches, clean_k3_launches=clean_k3,
+               clean_wall_s=clean_s, faulty_wall_s=faulty_s,
+               fault_free_runs_gap=run_gap, faulty_vs_fault_free_gap=gap,
+               deterministic_algorithms=True,
+               fault_free_runs_equal=run_gap == 0.0,
+               losses_last=rep.losses[-1])
+    print("[fault] loop " + json.dumps(out, sort_keys=True), flush=True)
+    if (rep.failures, rep.restores, rep.final_step) != (
+            len(FAULT_AT), len(FAULT_AT), FAULT_STEPS):
+        raise AssertionError(f"[fault] report {rep.failures} failures, "
+                             f"{rep.restores} restores, final step "
+                             f"{rep.final_step}")
+    if clean_k3 != FAULT_STEPS or k3_launches != rep.steps_run:
+        raise AssertionError(f"[fault] K3 launches {clean_k3} / "
+                             f"{k3_launches}, expected one a step")
+    if gap > run_gap:
+        raise AssertionError(f"[fault] the faulty run ends {gap} from the "
+                             f"fault-free run (fault-free runs: {run_gap})")
+    out["compression"] = fault_compression(torch)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[fault] phase {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -5330,12 +5824,14 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     k2_launches = serve_path(torch, ROOT / "build" / "chip_smoke")
-    k1_launches, k1_path = profile_path(torch)
+    k1_launches, k1_path, mesh_prof = profile_path(torch)
     work = ROOT / "build" / "chip_smoke"
     work.mkdir(parents=True, exist_ok=True)
     cosim = cosim_phase(torch, work)
     torch.cuda.empty_cache()
     train_phase(torch)
+    torch.cuda.empty_cache()
+    fault = fault_phase(torch, work)
     torch.cuda.empty_cache()
     serial_launches, _, _ = compress_path(torch, "serial")
     torch.cuda.empty_cache()
@@ -5418,10 +5914,11 @@ def main() -> int:
             "engine": {
                 "scope": "[lm-engine] (b): the packed-LUT serving engine "
                          f"(lut_serve=True) on {LM_ARCH} at full width, "
-                         f"{LM_LUT_REQUESTS} requests; launches: its "
-                         "engine-mode run (counts set to 0 before the "
-                         "engine was built, read after its trace), 112 a "
-                         "forward call; by mode: each mode's run",
+                         f"{LM_ENGINE_LAYERS} layers, {LM_LUT_REQUESTS} "
+                         "requests; launches: its engine-mode run (counts "
+                         "set to 0 before the engine was built, read after "
+                         f"its trace), {7 * LM_ENGINE_LAYERS} a forward "
+                         "call; by mode: each mode's run",
                 "launches": lm["engine"]["lut"]["runs"]["engine"][
                     "launches"]["K2"],
                 "launches_by_mode": {
@@ -5760,7 +6257,56 @@ def main() -> int:
                                   vlm["launches_per_stage"].items()},
             train_launches=vlm["train"]["k3_launches"]),
     }
+    mesh = dict(profile=mesh_prof, sweep=sweep["mesh"],
+                engine=lm["engine"]["lut"]["mesh"], fleet=lm["fleet"]["mesh"])
+    mesh_s = {"profile": mesh_prof["phase_s"],
+              "sweep": sweep["mesh"]["wall_s_schedule"],
+              "engine": mesh["engine"]["run_s"],
+              "fleet": mesh["fleet"]["phase_s"]}
+    print(f"[mesh] {sum(mesh_s.values()):.1f} s "
+          + json.dumps(mesh_s, sort_keys=True)
+          + f"; [fault] {fault['phase_s']:.1f} s", flush=True)
+    k1_entry["mesh"] = dict(
+        scope="[mesh] profile: the ResNet-20 profile stage with profile_mesh "
+              f"on cuda:0 (one launch a shard a layer), and the "
+              f"{mesh_prof['all_tiles']['tiles']}-tile stage-1 conv over "
+              f"{MESH_SHARDS} shards",
+        launches={k: r["k1_launches"]
+                  for k, r in mesh_prof["runs"].items()},
+        all_tiles=mesh_prof["all_tiles"])
+    k2_entry["mesh"] = dict(
+        scope=f"[mesh] engine and fleet: {LM_ARCH}'s wave engine (the "
+              f"[lm-engine] (b) requests, {LM_ENGINE_LAYERS} layers) and the "
+              "[lm-fleet] LUT fleet in "
+              f"wave mode on a {MESH_REQUEST_SHARDS}-shard request mesh on "
+              "cuda:0, each shard's rows one launch a matmul",
+        engine_launches=mesh["engine"]["k2_launches"],
+        engine_launches_unsharded=mesh["engine"]["k2_launches_unsharded"],
+        fleet_launches=mesh["fleet"]["k2_launches"],
+        fleet_launches_unsharded=mesh["fleet"]["k2_launches_unsharded"])
+    k3_entry["mesh"] = dict(
+        scope=f"[mesh] sweep: the [sweep] schedule stage under the batched "
+              f"sweep with a {MESH_SHARDS}-shard sweep_mesh on cuda:0 (one "
+              "launch a shard a forward)",
+        launches=sweep["mesh"]["k3_launches"],
+        forwards=sweep["mesh"]["forwards"])
+    k3_entry["fault"] = dict(
+        scope="[fault]: run_resilient_loop over ResNet-20 QAT steps, "
+              f"faults at {list(FAULT_AT)} (one launch a step, replays "
+              "included), then the int8-compressed AdamW steps",
+        launches=fault["k3_launches"],
+        compression_launches=fault["compression"]["k3_launches"])
     entries = [k2_entry, k1_entry, k1b_entry, k3_entry]
+    print("[mesh] " + json.dumps({
+        "profile_all_tiles": mesh_prof["all_tiles"],
+        "sweep_trials_per_s": sweep["mesh"]["trials_per_s"],
+        "engine": {k: mesh["engine"][k] for k in (
+            "tokens_equal", "logits_equal", "k2_launches_per_step",
+            "k2_launches_per_step_unsharded", "tokens_per_s",
+            "tokens_per_s_unsharded")},
+        "fleet": {k: mesh["fleet"][k] for k in (
+            "route_log_equal", "tokens_equal", "tokens_per_s",
+            "tokens_per_s_unsharded")}}, sort_keys=True), flush=True)
     print(f"[card] {card}", flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -300,11 +300,14 @@ def index_pytree(tree, i: int):
 
 def pad_leading(tree, n_to: int):
     """The leading axis padded up to ``n_to`` by repeating its last entry
-    (callers discard the padded slots)."""
+    (callers discard the padded slots). A stride-0 leaf
+    (`broadcast_pytree`) stays a stride-0 view."""
     def one(x):
         pad = n_to - x.shape[0]
         if pad <= 0:
             return x
+        if x.stride(0) == 0:
+            return x[:1].expand((n_to,) + tuple(x.shape[1:]))
         return torch.cat([x, x[-1:].expand((pad,) + tuple(x.shape[1:]))])
 
     return tree_map(one, tree)

@@ -10,9 +10,19 @@ K3), training loops, accuracy, the schedule's batched candidate sweep
 n candidates in one forward a batch, the JAX package's ``vmap`` written out
 as a candidate axis), the profiling taps, the per-layer trace statistics
 (one transition-statistics kernel launch per layer) and the per-layer
-energy models. The JAX package's ``sweep_mesh`` (the candidate axis sharded
-over devices) is not ported: one device, so its padding to a multiple of
-the mesh is a no-op.
+energy models.
+
+Two optional 1-D meshes (`repro_torch.distributed.sharding`), as in the JAX
+package: ``profile_mesh`` splits each layer's tile batch over ("tiles",)
+(`profiler.sharded_layer_stats`), and ``sweep_mesh`` splits the batched
+sweep's candidate axis over ("candidates",). `train_batched`,
+`accuracy_batched` and `accuracy_comps` pad the candidates to a multiple of
+the mesh size (`qat.pad_leading`), run each shard's slice on its device
+(one grouped K3 launch a shard and forward), gather the results on the
+runner's device and drop the padded slots. A candidate's arithmetic does
+not depend on how many candidates share a call, so the sharded sweep equals
+the unsharded one bit for bit. `accuracy_gather` stays unsharded, as in the
+JAX package.
 
 The dataset is any object with ``batch(step, batch_size, split, *,
 device) -> (images, labels)``.
@@ -41,6 +51,16 @@ from repro_torch.core.layer_energy import LayerEnergyModel, weight_value_counts
 from repro_torch.core.profiler import profile_layer
 from repro_torch.core.stats import LayerStats, conv_weight_matrix, im2col
 from repro_torch.data.synthetic import SyntheticImages
+from repro_torch.distributed.sharding import (
+    SWEEP_AXIS,
+    TILE_AXIS,
+    LocalMesh,
+    check_mesh,
+    concat_leading,
+    device_scope,
+    split_leading,
+    to_device,
+)
 from repro_torch.nn.cnn import CNNModel
 from repro_torch.nn.layers import QuantConfig
 from repro_torch.nn.spec import init_params
@@ -81,9 +101,15 @@ class CnnRunner:
     qcfg: QuantConfig = QuantConfig.on()
     seed: int = 0
     device: Any = DEFAULT_DEVICE
+    profile_mesh: Optional[LocalMesh] = None   # sharding.tile_mesh
+    sweep_mesh: Optional[LocalMesh] = None     # sharding.sweep_mesh
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
+        if self.profile_mesh is not None:
+            check_mesh(self.profile_mesh, TILE_AXIS)
+        if self.sweep_mesh is not None:
+            check_mesh(self.sweep_mesh, SWEEP_AXIS)
         self.optimizer = adamw(self.lr)
         self._stats_cache: Optional[Dict[str, LayerStats]] = None
 
@@ -163,15 +189,39 @@ class CnnRunner:
         `train` would feed it, so candidate j's trajectory is the serial
         trial fine-tune of candidate j.
         Returns (params, state, opt_state, per-candidate final loss as a
-        numpy array, NaN for no step), read back once."""
+        numpy array, NaN for no step), read back once. Under
+        ``sweep_mesh`` each shard's candidates take their steps on the
+        shard's device."""
         n = self._n_candidates(comps)
-        loss = torch.full((n,), float("nan"))
+        cands, shards = self._shards(self.sweep_mesh, params, state,
+                                     opt_state, comps)
+        losses = [torch.full((cands,), float("nan"))] * len(shards)
         for i in range(n_steps):
             batch = self.dataset.batch(start_step + i, self.batch_size,
                                        "train", device=self.device)
-            params, state, opt_state, loss = self.train_step(
-                params, state, opt_state, comps, batch, cands=n)
-        return params, state, opt_state, loss.cpu().numpy()
+            for j, (dev, (p, s, o, c)) in enumerate(shards):
+                with device_scope(dev):
+                    p, s, o, losses[j] = self.train_step(
+                        p, s, o, c, to_device(batch, dev), cands=cands)
+                shards[j] = (dev, (p, s, o, c))
+        params, state, opt_state = (
+            tree_map(lambda x: x[:n], concat_leading(
+                [sh[k] for _, sh in shards], self.device))
+            for k in range(3))
+        loss = torch.cat([x.cpu() for x in losses])[:n]
+        return params, state, opt_state, loss.numpy()
+
+    def _shards(self, mesh, *trees):
+        """(candidates a shard, [(device, trees of the shard)]): the stacked
+        trees padded to a multiple of ``mesh``'s size and split into one
+        slice a shard, each on its shard's device; without a mesh one
+        shard, all of them on the runner's device."""
+        devices = (self.device,) if mesh is None else mesh.devices
+        m = len(devices)
+        n_pad = -(-self._n_candidates(trees[-1]) // m) * m
+        parts = [split_leading(qat.pad_leading(t, n_pad), m) for t in trees]
+        return n_pad // m, [(dev, tuple(to_device(p[i], dev) for p in parts))
+                            for i, dev in enumerate(devices)]
 
     def _correct(self, params, state, comp, x, y, cands=None):
         """Correct predictions on one batch, on the device: a 0-d count, or
@@ -194,21 +244,33 @@ class CnnRunner:
     def accuracy_batched(self, params, state, comps, n_batches: int = 8,
                          split: str = "val") -> np.ndarray:
         """Per-candidate accuracy vector of stacked params/state/comps: one
-        forward of all candidates a batch, the counts read back once."""
+        forward of all candidates a batch (one a shard under
+        ``sweep_mesh``), the counts read back once."""
+        return self._accuracy(self.sweep_mesh, params, state, comps,
+                              n_batches, split)
+
+    def _accuracy(self, mesh, params, state, comps, n_batches, split):
         n = self._n_candidates(comps)
-        correct = torch.zeros((n,), dtype=torch.int64, device=self.device)
+        cands, shards = self._shards(mesh, params, state, comps)
+        correct = [torch.zeros((cands,), dtype=torch.int64, device=dev)
+                   for dev, _ in shards]
         with torch.no_grad():
             for i in range(n_batches):
                 x, y = self.dataset.batch(i, self.batch_size, split,
                                           device=self.device)
-                correct += self._correct(params, state, comps, x, y, n)
-        return (correct.cpu().numpy().astype(np.float64)
+                for j, (dev, (p, s, c)) in enumerate(shards):
+                    with device_scope(dev):
+                        correct[j] += self._correct(p, s, c, x.to(dev),
+                                                    y.to(dev), cands)
+        counts = torch.cat([c.cpu() for c in correct])[:n]
+        return (counts.numpy().astype(np.float64)
                 / (n_batches * self.batch_size))
 
     def accuracy_comps(self, params, state, comps, n_batches: int = 8,
                        split: str = "val") -> np.ndarray:
         """Accuracy of n stacked comp variants sharing one params/state (not
-        copied: stride-0 views, which K3 reads once)."""
+        copied: stride-0 views, which K3 reads once; they stay views on each
+        shard under ``sweep_mesh``)."""
         n = self._n_candidates(comps)
         return self.accuracy_batched(qat.broadcast_pytree(params, n),
                                      qat.broadcast_pytree(state, n), comps,
@@ -221,11 +283,10 @@ class CnnRunner:
         (the lockstep elimination's fused requests, each against its own
         candidate's fine-tuned weights)."""
         idx = torch.as_tensor(idx, dtype=torch.long, device=self.device)
-        return self.accuracy_batched(tree_map(lambda x: _take(x, idx),
-                                              params_s),
-                                     tree_map(lambda x: _take(x, idx),
-                                              state_s), comps_e,
-                                     n_batches, split)
+        return self._accuracy(None, tree_map(lambda x: _take(x, idx),
+                                             params_s),
+                              tree_map(lambda x: _take(x, idx), state_s),
+                              comps_e, n_batches, split)
 
     # ---------------------------------------------------------------- profile
 
@@ -263,13 +324,15 @@ class CnnRunner:
         """Per-layer systolic trace statistics from captured activations:
         one transition-statistics launch per compressible layer, tiles
         sampled with the layer's `layer_seed`. The result is cached for
-        `energy_models`."""
+        `energy_models`. Each layer's tiles are split over ``profile_mesh``
+        when it is set."""
         taps = self.capture_taps(params, state, comp, n_batches)
         out: Dict[str, LayerStats] = {}
         for cl in self.model.comp_layers:
             w_mat, x_col = self.layer_trace_inputs(cl, taps.pop(cl.name))
             out[cl.name] = profile_layer(w_mat, x_col, max_tiles=max_tiles,
-                                         seed=layer_seed(cl.name))
+                                         seed=layer_seed(cl.name),
+                                         mesh=self.profile_mesh)
         self._stats_cache = out
         return out
 

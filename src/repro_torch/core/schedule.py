@@ -24,7 +24,11 @@ Two search modes make the same decisions, as in the JAX package:
   round's trial codebooks across candidates fused into one gathered
   evaluation (`CnnRunner.accuracy_gather`). The first candidate in
   `_candidate_order` whose accuracy passes is the one the serial walk
-  accepts.
+  accepts. An optional 1-D device mesh (`CnnRunner.sweep_mesh`,
+  `repro_torch.distributed.sharding.sweep_mesh`) splits the candidate axis
+  of the fine-tune and accept stages over its shards, as the JAX package's
+  ``shard_map`` does; the decisions, masks, codebooks and params are the
+  unsharded sweep's bit for bit.
 
 `ScheduleConfig` is the one in `repro_torch.pipeline.config`.
 """

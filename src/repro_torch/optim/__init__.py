@@ -1,2 +1,2 @@
-"""Optimizers and learning-rate schedules over plain tensor trees (port of
-`repro.optim`, without the compression-aware optimizer wrapper)."""
+"""Optimizers, learning-rate schedules and gradient compression over plain
+tensor trees (port of `repro.optim`)."""

@@ -129,7 +129,28 @@ class ServeCompileCache:
         self.device = resolve_device(device)
         self._steps: Dict[Tuple, object] = {}
         self._artifacts: Dict[Tuple, Tuple[dict, dict]] = {}
-        self.compile_count = 0
+        self._builds = 0
+        self._replicas: Dict[torch.device, "ServeCompileCache"] = {}
+
+    @property
+    def compile_count(self) -> int:
+        """Steps built by this cache and its `replica` caches."""
+        return self._builds + sum(r._builds for r in self._replicas.values())
+
+    def replica(self, device, comp) -> "ServeCompileCache":
+        """This cache on another device, for a request mesh's shards there:
+        the same identity and config, ``comp`` (the plan's comp tree on
+        that device) for its steps. Its builds count in this cache's
+        `compile_count`; ``device`` equal to this cache's returns self."""
+        device = resolve_device(device)
+        if device == self.device:
+            return self
+        if device not in self._replicas:
+            self._replicas[device] = ServeCompileCache(
+                self.model, arch=self.arch, fingerprint=self.fingerprint,
+                compress_k=self.compress_k, qcfg=self.qcfg, comp=comp,
+                config=self.config, device=device)
+        return self._replicas[device]
 
     def _zeros(self, shape, dtype=torch.int32):
         return torch.zeros(shape, dtype=dtype, device=self.device)
@@ -138,7 +159,7 @@ class ServeCompileCache:
         """A `_Step` of ``fn`` at the example arguments' shapes, run once on
         them; returns (step, that run's output)."""
         step = _Step(fn, name, example_args)
-        self.compile_count += 1
+        self._builds += 1
         return step, step(params, *example_args)
 
     # ------------------------------------------------------------ step fns
@@ -269,6 +290,7 @@ class ServeCompileCache:
             "arch": self.arch,
             "compress_k": self.compress_k,
             "fingerprint": self.fingerprint,
-            "buckets_compiled": len(self._steps),
+            "buckets_compiled": len(self._steps) + sum(
+                len(r._steps) for r in self._replicas.values()),
             "compile_count": self.compile_count,
         }

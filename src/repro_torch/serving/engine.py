@@ -54,7 +54,20 @@ The engine serves exactly one compression variant, identified by a
 `repro_torch.serving.fleet.PlanHandle` (``plan=``) whose content
 fingerprint keys the step and artifact cache. ``ServingEngine(compress_k=
 ...)`` survives as a deprecated shim that builds the uniform-restriction
-handle. A serving mesh (``mesh=``) is not ported (`MESH_NOT_PORTED`).
+handle.
+
+``mesh=`` takes a 1-D ("requests",) mesh
+(`repro_torch.distributed.sharding.request_mesh`). A wave or oneshot batch
+whose row count divides the mesh size is split over it: each shard's rows
+run the bucket's built step (built at the shard's row count) on the
+shard's device, with one copy of the params and the plan's comp tree a
+distinct device (shards on the same device share it, and run one after
+another), and the logits come back concatenated in row order on the
+mesh's first device. Other batches, and the slot path (``mode="engine"``,
+whose row gathers and scatters would cross shards), run on the first
+device, as the JAX package runs them replicated. A row's result does not
+depend on its batch-mates (``batch_invariant``), so the sharded tokens and
+logits equal the unsharded ones bit for bit.
 """
 
 from __future__ import annotations
@@ -63,12 +76,18 @@ import collections
 import dataclasses
 import time
 import warnings
-from typing import Dict, List, Optional, Sequence, Union
+from typing import Callable, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 from repro_torch._device import DEFAULT_DEVICE, resolve_device, tree_to
+from repro_torch.distributed.sharding import (
+    REQUEST_AXIS,
+    check_mesh,
+    device_scope,
+    to_device,
+)
 from repro_torch.nn.layers import QuantConfig
 from repro_torch.nn.transformer import RECURRENT
 from repro_torch.serving.bucketing import (
@@ -82,9 +101,6 @@ from repro_torch.serving.bucketing import (
 from repro_torch.serving.cache import ServeCompileCache
 from repro_torch.serving.fleet import PlanHandle
 from repro_torch.serving.metrics import RequestStats, per_token_energy, summarize
-
-MESH_NOT_PORTED = ("ROADMAP.md Queue 1 item 10, 'Multi-device, "
-                   "checkpointing, launch'")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -158,16 +174,26 @@ class _Slot:
         return self.next_chunk < len(self.chunks)
 
 
+@dataclasses.dataclass(frozen=True)
+class _WaveFns:
+    """A wave bucket's built steps on host arrays: ``prefill(prompts)`` ->
+    (logits, cache), ``decode(cache, tok)`` -> (logits, cache); int32 numpy
+    in, logits on the engine's device out."""
+
+    prefill: Callable
+    decode: Callable
+
+
 class _Wave:
     """A fixed-shape micro-batch mid-decode (wave/oneshot modes)."""
 
-    def __init__(self, bucket: BucketSpec, slots: List[_Slot], fns, cache,
-                 tok):
+    def __init__(self, bucket: BucketSpec, slots: List[_Slot],
+                 fns: _WaveFns, cache, tok: np.ndarray):
         self.bucket = bucket
         self.slots = slots
         self.fns = fns
-        self.cache = cache
-        self.tok = tok            # (batch, 1) int32 tensor on the device
+        self.cache = cache        # one cache a request shard under a mesh
+        self.tok = tok            # (batch, 1) int32 host array
 
     @property
     def done(self) -> bool:
@@ -191,7 +217,8 @@ class _SlotGroup:
 class ServingEngine:
     """Queue + micro-batcher + step cache over one LM and its params, on one
     device (``"cuda"`` unless the caller asks for ``"cpu"``; the params and
-    the plan's comp tree are moved there)."""
+    the plan's comp tree are moved there), or with ``mesh=`` on the request
+    mesh's first device, wave rows split over its shards."""
 
     def __init__(self, model, params, *, mode: str = "engine",
                  config: EngineConfig = EngineConfig(), plan=None,
@@ -201,10 +228,14 @@ class ServingEngine:
         if mode not in ("engine", "wave", "oneshot"):
             raise ValueError(
                 f"mode must be 'engine', 'wave' or 'oneshot', got {mode!r}")
-        if mesh is not None:
-            raise NotImplementedError(f"a serving mesh (mesh=) is not ported "
-                                      f"yet: {MESH_NOT_PORTED}")
         self.device = resolve_device(device)
+        self.mesh = mesh
+        if mesh is not None:
+            check_mesh(mesh, REQUEST_AXIS)
+            if mesh.first.type != self.device.type:
+                raise ValueError(f"device {str(self.device)!r} but the "
+                                 f"request mesh starts on {mesh.first}")
+            self.device = mesh.first
         self.model = model
         self.config = config
         self.mode = mode
@@ -266,6 +297,13 @@ class ServingEngine:
             model, arch=self.arch, fingerprint=plan.fingerprint,
             compress_k=self.compress_k, qcfg=self.qcfg, comp=self.comp,
             config=config, device=self.device)
+        # (params, step cache) a distinct device of the request mesh
+        self._replicas = {self.device: (self.params, self.cache)}
+        for dev in (mesh.distinct() if mesh is not None else ()):
+            if dev not in self._replicas:
+                self._replicas[dev] = (
+                    to_device(params, dev),
+                    self.cache.replica(dev, to_device(self.comp, dev)))
 
         self._queue: collections.deque[Request] = collections.deque()
         self._waves: List[_Wave] = []
@@ -331,6 +369,42 @@ class ServingEngine:
     def _place(self, x) -> torch.Tensor:
         """A host array as a tensor on the engine's device."""
         return torch.as_tensor(np.asarray(x), device=self.device)
+
+    def _wave_fns(self, bucket: BucketSpec) -> _WaveFns:
+        """The bucket's built steps, split over the request mesh when its
+        rows divide the mesh size (builds on first use)."""
+        n = 1 if self.mesh is None else self.mesh.size
+        if n == 1 or bucket.batch % n:
+            step = self.cache.fns(bucket, self.params)
+            return _WaveFns(
+                prefill=lambda prompts: step.prefill(self.params,
+                                                     self._place(prompts)),
+                decode=lambda cache, tok: step.decode(self.params, cache,
+                                                      self._place(tok)))
+        rows = bucket.batch // n
+        shard = dataclasses.replace(bucket, batch=rows)
+        shards = []
+        for i, dev in enumerate(self.mesh.devices):
+            params, cache = self._replicas[dev]
+            shards.append((slice(i * rows, (i + 1) * rows), dev, params,
+                           cache.fns(shard, params)))
+
+        def run(call, x, caches):
+            logits, new = [], []
+            for (sl, dev, params, step), c in zip(shards, caches):
+                with device_scope(dev):
+                    out = call(step, params, c, torch.as_tensor(
+                        np.asarray(x[sl]), device=dev))
+                logits.append(out[0].to(self.device))
+                new.append(out[1])
+            return torch.cat(logits), new
+
+        return _WaveFns(
+            prefill=lambda prompts: run(
+                lambda st, p, _c, x: st.prefill(p, x), prompts,
+                [None] * n),
+            decode=lambda caches, tok: run(
+                lambda st, p, c, x: st.decode(p, c, x), tok, caches))
 
     @staticmethod
     def _host(logits: torch.Tensor, vocab: int) -> np.ndarray:
@@ -401,7 +475,7 @@ class ServingEngine:
         for plen, ntok in shapes:
             bucket = bucket_for(plen, ntok, self.config, self.wave_width)
             if self.mode != "engine":
-                self.cache.fns(bucket, self.params)
+                self._wave_fns(bucket)
         if self.mode == "engine":
             self.cache.group_fns(self.params)
             for size in sorted(self._chunk_sizes()):
@@ -444,11 +518,11 @@ class ServingEngine:
                 kept.append(r)
         self._queue = kept
 
-        fns = self.cache.fns(bucket, self.params)
+        fns = self._wave_fns(bucket)
         prompts = pad_prompts([r.prompt for r in taken], bucket,
                               self.config.pad_token)
         t_admit = time.perf_counter()
-        logits, kv = fns.prefill(self.params, self._place(prompts))
+        logits, kv = fns.prefill(prompts)
         self.executed_positions += bucket.batch * bucket.prompt_len
         last = self._host(logits[:, -1], self.model.cfg.vocab)
 
@@ -467,7 +541,7 @@ class ServingEngine:
             if slot is not None:
                 slot.tokens.append(int(tok[i, 0]))
                 slot.stats.t_first_token = t_first
-        wave = _Wave(bucket, slots, fns, kv, self._place(tok))
+        wave = _Wave(bucket, slots, fns, kv, tok)
         self._finish_done(wave)
         if not wave.done:
             self._waves.append(wave)
@@ -476,7 +550,7 @@ class ServingEngine:
     # ------------------------------------------------- decode (wave modes)
 
     def _step(self, wave: _Wave) -> None:
-        logits, wave.cache = wave.fns.decode(self.params, wave.cache, wave.tok)
+        logits, wave.cache = wave.fns.decode(wave.cache, wave.tok)
         self.executed_positions += wave.bucket.batch
         rows = self._host(logits[:, 0], self.model.cfg.vocab)
         tok = np.zeros((wave.bucket.batch, 1), np.int32)
@@ -489,7 +563,7 @@ class ServingEngine:
                 slot.tokens.append(int(tok[i, 0]))
                 if slot.done:
                     slot.stats.t_finish = t
-        wave.tok = self._place(tok)
+        wave.tok = tok
         self._finish_done(wave)
 
     def _finish_done(self, wave: _Wave) -> None:

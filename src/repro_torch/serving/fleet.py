@@ -42,7 +42,9 @@ the same trace.
 The fingerprint hashes the same bytes in the same order as the JAX
 package's (dtype string, shape string, then the contiguous bytes of each
 leaf, dict keys sorted), so a comp tree has one fingerprint in both
-packages. A serving mesh (``mesh=``) is not ported (ROADMAP.md item 10).
+packages. ``FleetRouter(mesh=)`` hands a request mesh
+(`repro_torch.distributed.sharding.request_mesh`) to each of its engines,
+as the JAX package does.
 """
 
 from __future__ import annotations
@@ -334,7 +336,8 @@ class RouterConfig:
 
 class FleetRouter:
     """One `ServingEngine` per resident plan + an SLO-aware admission layer,
-    on one device (``"cuda"`` unless the caller asks for ``"cpu"``).
+    on one device (``"cuda"`` unless the caller asks for ``"cpu"``) or a
+    request mesh (``mesh=``, passed to every engine).
 
     Levels are the handles sorted by measured per-token energy, *highest
     first* — level 0 is the high-fidelity default served when idle, the last
@@ -348,11 +351,8 @@ class FleetRouter:
                  arch: Optional[str] = None, mesh=None,
                  device=DEFAULT_DEVICE):
         from repro_torch.serving.bucketing import EngineConfig
-        from repro_torch.serving.engine import MESH_NOT_PORTED, ServingEngine
+        from repro_torch.serving.engine import ServingEngine
 
-        if mesh is not None:
-            raise NotImplementedError(f"a serving mesh (mesh=) is not ported "
-                                      f"yet: {MESH_NOT_PORTED}")
         if config is None:
             config = EngineConfig()
         self.registry = (plans if isinstance(plans, PlanRegistry)
@@ -365,7 +365,7 @@ class FleetRouter:
         for h in self.registry:
             self.engines[h.plan_id] = ServingEngine(
                 model, params, mode=mode, config=config, plan=h, arch=arch,
-                device=device)
+                mesh=mesh, device=device)
         # measure any handle the plan metrics didn't already price — the
         # engine's lazy per-token energy is the same model the charge uses
         for h in self.registry:

@@ -185,11 +185,29 @@ def test_router_config_validation_and_plan_specs():
     assert parse_plan_spec("plans/olmo-k4") == (None, 0)
 
 
-def test_mesh_raises_naming_item_10(lm):
+def test_mesh_raises_naming_item_10(lm, driven):
+    """The serving mesh, once refused naming ROADMAP.md item 10, is ported:
+    a fleet over a 2-shard CPU request mesh hands it to every engine, then
+    routes and serves the trace as the fleet without one does (route log
+    and tokens equal)."""
+    from repro_torch.distributed import request_mesh
+
     _, tm, _, tp = lm
-    with pytest.raises(NotImplementedError, match="item 10"):
-        FleetRouter(tm, tp, [PlanHandle.uncompressed()], config=CFG,
-                    mesh=object(), device="cpu")
+    fleet, results, _ = driven
+    lut = torch.from_numpy(np.array(jelut.uniform_trace_lut()))
+    mesh = request_mesh(["cpu", "cpu"])
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tmetrics, "uniform_trace_lut",
+                   lambda device="cpu": lut.to(device))
+        meshed = FleetRouter(tm, tp, _handles(tm), config=CFG,
+                             router=RouterConfig(**ROUTER), mesh=mesh,
+                             device="cpu")
+    assert all(e.mesh is mesh for e in meshed.engines.values())
+    meshed.warmup(SHAPES)
+    got = _drive(meshed, lambda p, t: ServeRequest(
+        tokens=p, max_new_tokens=4, tenant=t), tm.cfg.vocab)
+    assert meshed.route_log == fleet.route_log[:BURST + TRICKLE]
+    assert [r.tokens for r in got] == [r.tokens for r in results]
 
 
 # ---------------------------------------------------------------- routing

@@ -55,7 +55,14 @@ VLM_AND_COSIM = ("cosim/__init__.py", "cosim/pe.py", "cosim/systolic.py",
                  "kernels/transition_energy/ops.py", "pipeline/cli.py")
 
 
-@pytest.mark.parametrize("rel", BASELINES_AND_ENCDEC + ROUTED + VLM_AND_COSIM)
+# the modules the 1-D meshes, the resilient loop and gradient compression
+# added
+MESH_AND_FAULT = ("distributed/__init__.py", "distributed/sharding.py",
+                  "distributed/fault.py", "optim/compression.py")
+
+
+@pytest.mark.parametrize("rel", BASELINES_AND_ENCDEC + ROUTED + VLM_AND_COSIM
+                         + MESH_AND_FAULT)
 def test_new_modules_are_checked_and_a_stray_import_fails(rel, tmp_path):
     """Each module is among the files the import check walks, imports
     cleanly alone, and the check catches a stray ``import jax`` or ``from

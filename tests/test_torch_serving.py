@@ -409,7 +409,7 @@ def test_engine_rejects_unknown_mode_and_mesh(lm):
     model, params = lm
     with pytest.raises(ValueError, match="mode"):
         ServingEngine(model, params, mode="waves", config=CFG, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(TypeError, match="LocalMesh"):
         ServingEngine(model, params, config=CFG, mesh=object(), device="cpu")
 
 
