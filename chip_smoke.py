@@ -244,7 +244,24 @@
    flags; then 10 steps of AdamW wrapped in the int8 gradient compressor
    (finite losses, ``wire_bytes / raw_bytes``) and one step's gradients'
    int8 codes on the card equal to the CPU's;
-22. prints the ``kernels`` JSON line, then the result line.
+22. ``[mesh2d]`` (after 16), the 2-D ("data", "model") meshes of
+   processes, olmo-1b at full width computing in float32: (a) one
+   process over NCCL, a 1 x 1 process mesh on cuda:0, full depth: two
+   QAT train steps at 8 x 64 tokens with ``mesh=`` and ``rules=``
+   bit-equal to the same steps without a mesh (losses, every leaf of the
+   final state), one K3 launch a step; the meshed prefill and serve
+   step's logits (and cache) equal to the unmeshed ones; meanwhile four
+   processes ask NCCL for an all-reduce with four ranks on cuda:0
+   (``[mesh2d] nccl``); (b) four processes on cuda:0 (gloo, CUDA tensors
+   through the host, unless that all-reduce worked), a 2 x 2 mesh, 2 of
+   the 16 layers (each rank gathers the full parameters): the same two
+   steps against the unmeshed steps at that depth (on rank 0), at lr
+   1e-5: loss rel 1e-5, gradient (the first Adam moment after step 1)
+   rel-L2 1e-4, params abs 2e-4; at the LM target's lr 6e-4 the same gaps
+   reported; at both, the int8 activation codes of the first step equal,
+   the data ranks' rows put together (the second step's flips counted);
+   each rank's K3 launches a step, ms a step and peak memory;
+23. prints the ``kernels`` JSON line, then the result line.
 
 Any failure raises and the script exits non-zero. It refuses to run without
 a CUDA device, and outside a checkout of the repository.
@@ -397,6 +414,23 @@ MESH_FLOAT_RTOL = 1e-6      # sharded energy sums, if they are not exact
 # [fault]: the resilient loop's steps, checkpoint period and injected faults
 FAULT_STEPS, FAULT_EVERY, FAULT_AT = 25, 5, (3, 13, 22)
 FAULT_COMPRESS_STEPS = 10
+# [mesh2d]: (a) olmo-1b at full depth on a 1 x 1 mesh; (b) 2 of its 16
+# layers (four ranks, each with the gathered parameters, share one card) on
+# a 2 x 2 mesh of four processes; two QAT steps of batch x tokens each;
+# the prefill and serve check's rows x prompt tokens
+MESH2D_STEPS, MESH2D_BATCH, MESH2D_TOKENS = 2, 8, 64
+MESH2D_LAYERS, MESH2D_SHAPE = 2, (2, 2)
+MESH2D_PREFILL = (4, 64)
+MESH2D_TIMEOUT_S = 120      # init_process_group(timeout=) of every rank
+MESH2D_DEADLINE_S = 300     # (b)'s ranks are killed after this
+MESH2D_NCCL_DEADLINE_S = 90
+# the steps' learning rate. At the LM target's 6e-4 one AdamW step from the
+# random init moves every weight by about lr and more than halves the
+# loss; the first Adam moment's rounding-level differences then grow into
+# parameter gaps of the order of lr a step later (PERF.md section 6): (b)
+# gates at MESH2D_LR and reports MESH2D_LR_TARGET
+MESH2D_LR, MESH2D_LR_TARGET = 1e-5, 6e-4
+PARAM_ATOL = 2e-4           # LM train parity: params after the steps
 K2 = dict(name="lut_matmul",
           source="src/repro_torch/kernels/lut_matmul/csrc/lut_matmul.cu",
           replaces="src/repro/kernels/lut_matmul/lut_matmul.py:125")
@@ -5787,6 +5821,331 @@ def fault_phase(torch, work):
     return out
 
 
+# ------------------------------------------------------------- 2-D meshes
+
+
+def mesh2d_inputs(torch, n_layers=None, lr=None):
+    """olmo-1b at full width (``n_layers`` of its layers; all by default),
+    computing in float32: (model, step config, seeded train state and k = 8
+    comp on the card, the batch). In bfloat16 each rank's weight gradient
+    is rounded to bfloat16 before the ranks' sum, where the unmeshed step
+    rounds the whole batch's sum once, which is past the train-parity
+    bound; in float32 the two differ by the order of float32 sums."""
+    import dataclasses
+
+    from repro_torch._device import tree_to
+    from repro_torch.configs import get_config
+    from repro_torch.core import lm_compress
+    from repro_torch.launch.train import StepConfig, make_optimizer
+    from repro_torch.models.lm import build_lm
+    from repro_torch.nn.spec import init_params
+
+    cfg = dataclasses.replace(get_config(LM_ARCH), compute_dtype="float32")
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    model = build_lm(cfg)
+    step_cfg = StepConfig(qat=True, with_comp=True, remat=True, q_block=128,
+                          kv_block=128, lr=MESH2D_LR if lr is None else lr)
+    params = tree_to(init_params(0, model.spec, "cpu"), "cuda")
+    comp = lm_compress.restrict_all_codebooks(
+        model, lm_compress.init_lm_comp(model, device="cuda"),
+        lm_compress.symmetric_codebook_values(8))
+    toks = np.random.default_rng(LM_PROMPT_SEED).integers(
+        0, cfg.vocab, (MESH2D_BATCH, MESH2D_TOKENS + 1)).astype(np.int32)
+    batch = {"tokens": torch.as_tensor(toks[:, :-1], device="cuda"),
+             "labels": torch.as_tensor(toks[:, 1:], device="cuda")}
+    state = {"params": params,
+             "opt": make_optimizer(step_cfg).init(params)}
+    return model, step_cfg, state, comp, batch
+
+
+def mesh2d_steps(torch, step, state, batch, comp, on_first=None):
+    """MESH2D_STEPS steps: (final state, losses, K3 launches a step (counts
+    set to 0 before each step, read after it), ms a step)."""
+    from repro_torch.kernels.fake_quant import fake_quant as k3
+
+    losses, launches, ms = [], [], []
+    for i in range(MESH2D_STEPS):
+        torch.cuda.synchronize()
+        k3.launches = 0
+        t0 = time.perf_counter()
+        state, met = step(state, batch, comp)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        launches.append(k3.launches)
+        losses.append({k: float(v) for k, v in met.items()})
+        if i == 0 and on_first is not None:
+            on_first(state)
+    return state, losses, launches, ms
+
+
+def mesh2d_one(torch, work):
+    """(a): one process over NCCL, a 1 x 1 ("data", "model") process mesh
+    on cuda:0, olmo-1b at full width and depth."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import Shape
+    from repro_torch.distributed import sharding as S
+    from repro_torch.launch import train as T
+
+    init = work / "mesh2d-a.rendezvous"
+    init.unlink(missing_ok=True)
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "nccl", init_method=f"file://{init}", world_size=1, rank=0,
+        timeout=datetime.timedelta(seconds=MESH2D_TIMEOUT_S))
+    try:
+        t0 = time.perf_counter()
+        mesh = S.process_mesh((1, 1), ("data", "model"), device_type="cuda")
+        model, cfg, state0, comp, batch = mesh2d_inputs(torch)
+        init_s = time.perf_counter() - t0
+        want, want_losses, want_k3, want_ms = mesh2d_steps(
+            torch, T.make_train_step(model, cfg), state0, batch, comp)
+        want = {n: t.cpu() for n, t in leaves(want).items()}
+        sh = T.train_state_shardings(model, mesh, S.DEFAULT_RULES)
+        local = S.shard_tree(state0, sh)
+        local_comp = S.shard_tree(comp, T.comp_shardings(model, mesh))
+        del state0
+        got, losses, k3_launches, ms = mesh2d_steps(
+            torch, T.make_train_step(model, cfg, mesh=mesh,
+                                     rules=S.DEFAULT_RULES),
+            local, batch, local_comp)
+        fw, fg = want, leaves(S.gather_tree(got, sh))
+        equal = sum(torch.equal(fw[n], fg[n].cpu()) for n in fw)
+        params = got["params"]
+        del want, got, local
+        torch.cuda.empty_cache()
+
+        rows, plen = MESH2D_PREFILL
+        toks = batch["tokens"][:rows, :plen]
+        p_sh = S.make_param_shardings(model.spec, mesh)
+        local_params = S.shard_tree(params, p_sh)
+        logits = T.make_prefill_step(model, cfg)(params, {"tokens": toks})
+        m_logits = T.make_prefill_step(model, cfg, mesh=mesh)(
+            local_params, {"tokens": toks})
+        with torch.no_grad():
+            _, cache = model.prefill(params, toks, plen + 1)
+        c_sh = T.cache_shardings(model, Shape("mesh2d", "decode", plen + 1,
+                                              rows), mesh)
+        nxt = batch["tokens"][:rows, plen - 1:plen]
+        s_logits, s_cache = T.make_serve_step(model, cfg)(params, cache, nxt)
+        m_s_logits, m_s_cache = T.make_serve_step(
+            model, cfg, mesh=mesh, cache_shardings=c_sh)(
+            local_params, S.shard_tree(cache, c_sh), nxt)
+        cache_equal = all(torch.equal(a, b) for a, b in zip(
+            leaves(s_cache).values(),
+            leaves(S.gather_tree(m_s_cache, c_sh)).values()))
+        out = dict(
+            arch=LM_ARCH, layers=model.cfg.n_layers, mesh=mesh.shape,
+            backend=dist.get_backend(), tokens=[MESH2D_BATCH, MESH2D_TOKENS],
+            losses=losses, unmeshed_losses=want_losses,
+            losses_equal=losses == want_losses,
+            state_leaves_equal=equal, state_leaves=len(fw),
+            k3_launches_per_step=k3_launches,
+            unmeshed_k3_launches_per_step=want_k3,
+            ms_per_step=ms, unmeshed_ms_per_step=want_ms,
+            prefill_logits_equal=bool(torch.equal(logits, m_logits)),
+            serve_logits_equal=bool(torch.equal(s_logits, m_s_logits)),
+            serve_cache_equal=cache_equal, init_s=init_s)
+    finally:
+        dist.destroy_process_group()
+        init.unlink(missing_ok=True)
+    print("[mesh2d] (a) " + json.dumps(out, sort_keys=True), flush=True)
+    if not (out["losses_equal"] and equal == len(fw)
+            and out["prefill_logits_equal"] and out["serve_logits_equal"]
+            and cache_equal):
+        raise AssertionError(
+            f"[mesh2d] (a) the 1 x 1 mesh's steps differ from the unmeshed "
+            f"ones: losses equal {out['losses_equal']}, {equal} of "
+            f"{len(fw)} state leaves equal, prefill "
+            f"{out['prefill_logits_equal']}, serve "
+            f"{out['serve_logits_equal']} / cache {cache_equal}")
+    if k3_launches != [1] * MESH2D_STEPS:
+        raise AssertionError(f"[mesh2d] (a) K3 launches a step {k3_launches}")
+    return out
+
+
+def mesh2d_nccl_probe(rank, world):
+    """One all-reduce over NCCL with ``world`` ranks on cuda:0."""
+    import torch
+    import torch.distributed as dist
+
+    x = torch.full((4,), float(rank + 1), device="cuda")
+    dist.all_reduce(x)
+    torch.cuda.synchronize()
+    return float(x[0])
+
+
+def mesh2d_rank(rank, world, layers, lrs):
+    """(b): one rank of the 2 x 2 mesh on cuda:0. At each learning rate
+    every rank first runs the unmeshed steps at the same depth (rank 0
+    keeps them as the reference; on the others they warm the process up),
+    then the meshed steps on its slices; rank 0 compares."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distributed import sharding as S
+    from repro_torch.launch import train as T
+
+    torch.cuda.set_device(0)
+    torch.set_float32_matmul_precision("highest")
+    out = dict(rank=rank, backend=dist.get_backend(), runs={})
+    mesh = S.process_mesh(MESH2D_SHAPE, ("data", "model"),
+                          device_type="cuda")
+    out["coords"] = mesh.coords
+    for lr in lrs:
+        model, cfg, state0, comp, batch = mesh2d_inputs(torch, layers, lr)
+        firsts = {}
+        with _ActQuant() as rec:
+            ref_state, ref_losses, _, ref_ms = mesh2d_steps(
+                torch, T.make_train_step(model, cfg), state0, batch, comp,
+                lambda st: firsts.update(mu=leaves(st["opt"]["mu"])))
+        ref = dict(state=leaves(ref_state), losses=ref_losses, ms=ref_ms,
+                   mu=firsts["mu"], codes=[c.numpy() for c in rec.codes])
+        del ref_state
+        if rank != 0:
+            ref = None
+        dist.barrier()
+        sh = T.train_state_shardings(model, mesh)
+        local = S.shard_tree(state0, sh)
+        local_comp = S.shard_tree(comp, T.comp_shardings(model, mesh))
+        del state0, comp
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        firsts = {}
+        with _ActQuant() as rec:
+            got, losses, k3_launches, ms = mesh2d_steps(
+                torch, T.make_train_step(model, cfg, mesh=mesh), local,
+                batch, local_comp,
+                lambda st: firsts.update(mu=leaves(S.gather_tree(
+                    st["opt"]["mu"], sh["opt"]["mu"]))))
+        peak = torch.cuda.max_memory_allocated()
+        full = leaves(S.gather_tree(got, sh))
+        run = dict(lr=lr, losses=losses, k3_launches_per_step=k3_launches,
+                   ms_per_step=ms, peak_gb=peak / 1e9,
+                   codes=[c.numpy() for c in rec.codes]
+                   if mesh.coords["model"] == 0 else None)
+        if rank == 0:
+            run.update(
+                ref_losses=ref["losses"], ref_ms_per_step=ref["ms"],
+                loss_rel=max(abs(g[k] - w[k]) / max(abs(w[k]), 1e-30)
+                             for g, w in zip(losses, ref["losses"])
+                             for k in w),
+                grad_rel_l2_max=max(
+                    float(torch.linalg.norm((firsts["mu"][n]
+                                             - ref["mu"][n]).double())
+                          / max(float(torch.linalg.norm(
+                              ref["mu"][n].double())), 1e-30))
+                    for n in ref["mu"]),
+                param_max_abs=max(
+                    float((full[n] - ref["state"][n]).abs().max())
+                    for n in ref["state"] if n.startswith("params/")),
+                ref_codes=ref["codes"])
+        out["runs"][lr] = run
+        del got, full, ref, local, local_comp
+        torch.cuda.empty_cache()
+    return out
+
+
+def mesh2d_codes(ranks, lr):
+    """The int8 activation codes of (b)'s meshed run at ``lr``, the data
+    ranks' rows put together, against rank 0's unmeshed codes: (flips a
+    step, codes, calls, shapes equal)."""
+    by_data = {r["coords"]["data"]: r["runs"][lr]["codes"] for r in ranks
+               if r["coords"]["model"] == 0}
+    ref = ranks[0]["runs"][lr].pop("ref_codes")
+    got = [np.concatenate([by_data[d][i] for d in sorted(by_data)])
+           for i in range(len(ref))]
+    n = len(ref) // MESH2D_STEPS
+    flips = [int(sum((got[i] != ref[i]).sum()
+                     for i in range(s * n, (s + 1) * n) if
+                     got[i].shape == ref[i].shape))
+             for s in range(MESH2D_STEPS)]
+    return (flips, int(sum(c.size for c in ref)), len(ref),
+            all(g.shape == r.shape for g, r in zip(got, ref)))
+
+
+def mesh2d_phase(torch, work):
+    """[mesh2d]: (a) the 1 x 1 mesh in this process over NCCL, while four
+    ranks probe NCCL on one card; (b) the 2 x 2 mesh of four processes,
+    over gloo unless the probe all-reduced."""
+    from repro_torch.distributed.spawn import run_ranks
+
+    t0 = time.perf_counter()
+    # NCCL refuses two ranks on one card in the versions known; the probe
+    # says what this one does (its ranks run beside (a))
+    with ThreadPoolExecutor(1) as pool:
+        probe = pool.submit(run_ranks, mesh2d_nccl_probe, 4, backend="nccl",
+                            timeout_s=MESH2D_NCCL_DEADLINE_S / 2,
+                            deadline_s=MESH2D_NCCL_DEADLINE_S,
+                            workdir=str(work))
+        one = mesh2d_one(torch, work)
+        try:
+            got = probe.result()
+            backend = "nccl" if got == [10.0] * 4 else "gloo"
+            nccl = f"four ranks on cuda:0 all-reduce to {got}"
+        except RuntimeError as e:
+            backend = "gloo"
+            nccl = "refused: " + " | ".join(
+                line.strip() for line in str(e).strip().splitlines()[-3:]
+            )[:400]
+    print(f"[mesh2d] nccl {nccl}", flush=True)
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    lrs = (MESH2D_LR, MESH2D_LR_TARGET)
+    ranks = run_ranks(mesh2d_rank, 4, args=(MESH2D_LAYERS, lrs),
+                      backend=backend, timeout_s=MESH2D_TIMEOUT_S,
+                      deadline_s=MESH2D_DEADLINE_S, threads=None,
+                      workdir=str(work))
+    b_s = time.perf_counter() - t1
+    runs = {}
+    for lr in lrs:
+        r0 = ranks[0]["runs"][lr]
+        flips, n_codes, calls, shapes_equal = mesh2d_codes(ranks, lr)
+        runs[lr] = dict(
+            losses=r0["losses"], ref_losses=r0["ref_losses"],
+            loss_rel=r0["loss_rel"], grad_rel_l2_max=r0["grad_rel_l2_max"],
+            param_max_abs=r0["param_max_abs"], act_code_calls=calls,
+            act_codes=n_codes, act_code_flips_by_step=flips,
+            act_code_shapes_equal=shapes_equal,
+            ref_ms_per_step=r0["ref_ms_per_step"],
+            ranks=[{k: r["runs"][lr][k] for k in (
+                "k3_launches_per_step", "ms_per_step", "peak_gb")}
+                   | {"rank": r["rank"], "coords": r["coords"]}
+                   for r in ranks])
+    two = dict(arch=LM_ARCH, layers=MESH2D_LAYERS, mesh=dict(zip(
+        ("data", "model"), MESH2D_SHAPE)), transport=backend if backend
+        == "nccl" else "gloo (CUDA tensors through the host)", nccl=nccl,
+        tokens=[MESH2D_BATCH, MESH2D_TOKENS], gated_lr=MESH2D_LR,
+        runs=runs, backends=[r["backend"] for r in ranks], phase_b_s=b_s)
+    print("[mesh2d] (b) " + json.dumps(two, sort_keys=True), flush=True)
+    gated = runs[MESH2D_LR]
+    if not (gated["loss_rel"] <= LOSS_RTOL
+            and gated["grad_rel_l2_max"] <= GRAD_RTOL
+            and gated["param_max_abs"] <= PARAM_ATOL):
+        raise AssertionError(
+            f"[mesh2d] (b) 2 x 2 against unmeshed at lr {MESH2D_LR}: loss "
+            f"rel {gated['loss_rel']:.3e}, gradient rel-L2 "
+            f"{gated['grad_rel_l2_max']:.3e}, params abs "
+            f"{gated['param_max_abs']:.3e}")
+    for lr, run in runs.items():
+        if not run["act_code_shapes_equal"] or run["act_code_flips_by_step"][0]:
+            raise AssertionError(
+                f"[mesh2d] (b) lr {lr}: the first step's activation codes "
+                f"differ ({run['act_code_flips_by_step'][0]} flips, shapes "
+                f"equal {run['act_code_shapes_equal']})")
+        if any(r["k3_launches_per_step"] != [1] * MESH2D_STEPS
+               for r in run["ranks"]):
+            raise AssertionError("[mesh2d] (b) K3 launches a step: "
+                                 + str([r["k3_launches_per_step"]
+                                        for r in run["ranks"]]))
+    out = dict(one=one, two=two, phase_s=time.perf_counter() - t0)
+    print(f"[mesh2d] {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -5843,6 +6202,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     lm_train = lm_train_phase(torch, work)
     lm_train_parity = lm_train_parity_phase(torch)
+    torch.cuda.empty_cache()
+    mesh2d = mesh2d_phase(torch, work)
     torch.cuda.empty_cache()
     recurrent, rec_k2_rows, rec_k3, scan_params = lm_recurrent_phase(
         torch, ops, ref, work)
@@ -6296,6 +6657,17 @@ def main() -> int:
               "included), then the int8-compressed AdamW steps",
         launches=fault["k3_launches"],
         compression_launches=fault["compression"]["k3_launches"])
+    k3_entry["mesh2d"] = dict(
+        scope=f"[mesh2d]: {LM_ARCH}'s QAT step with mesh= and rules=, "
+              f"{MESH2D_STEPS} steps at {MESH2D_BATCH} x {MESH2D_TOKENS} "
+              "tokens; (a) a 1 x 1 mesh over NCCL, full depth; (b) a "
+              f"{'x'.join(map(str, MESH2D_SHAPE))} mesh of four processes "
+              f"on cuda:0 (gloo), {MESH2D_LAYERS} layers; launches a step "
+              "(counts set to 0 before each step, read after), each rank",
+        one_by_one=mesh2d["one"]["k3_launches_per_step"],
+        ranks={lr: {r["rank"]: r["k3_launches_per_step"]
+                    for r in run["ranks"]}
+               for lr, run in mesh2d["two"]["runs"].items()})
     entries = [k2_entry, k1_entry, k1b_entry, k3_entry]
     print("[mesh] " + json.dumps({
         "profile_all_tiles": mesh_prof["all_tiles"],

@@ -17,8 +17,12 @@ A checkpoint written by either package restores in the other: a bfloat16
 leaf is stored as its raw 16-bit words under the manifest's dtype string
 ``"bfloat16"`` (what numpy writes for the JAX package's bfloat16 arrays),
 and `restore` reads those words back as `torch.bfloat16`. ``restore``
-places every leaf on one device; the JAX package's restore onto a mesh of
-shardings is ROADMAP.md item 10 (multi-device).
+places every leaf on one device, or with ``shardings`` (a tree of
+`repro_torch.distributed.sharding.NamedSharding`) keeps each rank's own
+slice of every host array on its mesh's device: host arrays make restores
+elastic, any later mesh can take them
+(`repro_torch.distributed.elastic`). A sharded state is saved whole:
+`gather_tree` it, and let one rank save.
 """
 
 from __future__ import annotations
@@ -175,11 +179,20 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def restore(self, step: Optional[int] = None, *,
-                device=DEFAULT_DEVICE) -> Tuple[int, Any]:
+                device=DEFAULT_DEVICE, shardings: Any = None
+                ) -> Tuple[int, Any]:
         """Returns (step, state): the checkpoint at ``step`` (default the
         latest) as a nested dict of tensors on ``device`` (``"cuda"``
-        unless the caller asks for ``"cpu"``)."""
+        unless the caller asks for ``"cpu"``). With ``shardings`` (a tree
+        of shardings matching the saved structure) every leaf is this
+        rank's slice on its sharding, on the mesh's device (``device`` for
+        a mesh without one): the elastic-restart path."""
         self.wait()
+        flat_sh = None
+        if shardings is not None:
+            flat_sh = flatten_with_names(shardings)
+            mesh_device = next(iter(flat_sh.values())).mesh.device
+            device = device if mesh_device is None else mesh_device
         device = resolve_device(device)
         if step is None:
             step = self.latest_step()
@@ -198,5 +211,7 @@ class CheckpointManager:
         flat = {}
         for name, info in manifest["leaves"].items():
             arr = shard(info["shard"])[name.replace("/", "::")]
+            if flat_sh is not None:
+                arr = np.array(flat_sh[name].local(arr))
             flat[name] = _tensor(arr, info["dtype"], device)
         return step, _unflatten(flat)

@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from repro_torch._device import tree_map
+from repro_torch.distributed.sharding import batch_reduce
 from repro_torch.kernels.fake_quant import ops as fake_quant_ops
 
 K_MAX = 32          # maximum codebook size the pipeline ever uses (paper: 32)
@@ -235,7 +236,11 @@ def _act_scale(a: torch.Tensor, cand_dim: Optional[int] = None,
         return _over_qmax(a.abs().amax(dim=tuple(range(token_dims, a.ndim)),
                                        keepdim=True))
     if cand_dim is None:
-        return _over_qmax(a.abs().amax())
+        amax = a.abs().amax()
+        red = batch_reduce()
+        if red is not None:             # a meshed step's rows: the global amax
+            amax = red.max(amax)
+        return _over_qmax(amax)
     dims = [d for d in range(a.ndim) if d != cand_dim % a.ndim]
     return _over_qmax(a.abs().amax(dim=dims, keepdim=True))
 
@@ -247,7 +252,10 @@ def fake_quant_act(a: torch.Tensor, cand_dim: Optional[int] = None, *,
     candidate's slice then gets its own scale (its own amax), the value a
     forward of that candidate alone computes. ``token_dims`` > 0: the first
     ``token_dims`` axes index token positions, and each position gets its
-    own scale (the amax over the remaining axes)."""
+    own scale (the amax over the remaining axes). Inside a meshed step
+    whose batch is split over ranks (`repro_torch.distributed.sharding
+    .batch_reduction`), the one per-tensor amax is the global batch's (a
+    MAX over those ranks), as in the JAX package's sharded step."""
     scale = _act_scale(a, cand_dim, token_dims)
     q = _round_clip(a / scale) * scale
     return a + (q - a).detach()

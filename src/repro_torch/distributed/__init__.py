@@ -1,13 +1,20 @@
-"""Distribution (port of `repro.distributed`): the 1-D device meshes of one
-process (`sharding`) and the resilient training loop (`fault`). The
-logical-axis sharding rules and elastic restore (the 2-D half) are not
-ported yet: ROADMAP.md item 10."""
+"""Distribution (port of `repro.distributed`): the device meshes and the
+logical-axis sharding rules (`sharding`), elastic restore onto any mesh
+(`elastic`), the process launcher of the meshed steps (`spawn`) and the
+resilient training loop (`fault`)."""
 
 from repro_torch.distributed.sharding import (  # noqa: F401
+    DEFAULT_RULES,
     REQUEST_AXIS,
     SWEEP_AXIS,
     TILE_AXIS,
+    AbstractMesh,
     LocalMesh,
+    NamedSharding,
+    PartitionSpec,
+    ProcessMesh,
+    ShardingRules,
+    process_mesh,
     request_mesh,
     sweep_mesh,
     tile_mesh,

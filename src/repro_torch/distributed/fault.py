@@ -10,9 +10,8 @@ Fault injection hooks let tests exercise the recovery path.
 
 `StragglerMonitor` tracks per-step wall times against a rolling median and
 flags outliers; `Heartbeat` records per logical worker when it was last
-seen, so a coordinator can tell slow from dead. The JAX package's elastic
-rescale on a straggler (`repro.distributed.elastic`) is the 2-D half of
-ROADMAP.md item 10 and is not ported.
+seen, so a coordinator can tell slow from dead. Resuming on another mesh
+after a lost card is `repro_torch.distributed.elastic.elastic_restore`.
 """
 
 from __future__ import annotations

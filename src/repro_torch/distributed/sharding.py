@@ -1,14 +1,15 @@
-"""1-D device meshes of one process (port of the 1-D part of
+"""Device meshes and the logical-axis sharding rules (port of
 `repro.distributed.sharding`).
 
-The JAX package's 1-D meshes belong to one controller and need no
-collective beyond a sum (the profiler's four trace statistics) or a gather
-(per-candidate and per-row results). Their counterpart here is one Python
-process: `LocalMesh` is an ordered tuple of `torch.device` and one axis
-name; a caller splits a leading axis into one slice a shard
-(`split_leading`), runs each shard's slice on that shard's device
-(`to_device`, `device_scope`) and sums or concatenates the results on one
-device (`concat_leading`). No launcher, no rendezvous, no process group.
+**The 1-D meshes of one process.** The JAX package's 1-D meshes belong to
+one controller and need no collective beyond a sum (the profiler's four
+trace statistics) or a gather (per-candidate and per-row results). Their
+counterpart here is one Python process: `LocalMesh` is an ordered tuple of
+`torch.device` and one axis name; a caller splits a leading axis into one
+slice a shard (`split_leading`), runs each shard's slice on that shard's
+device (`to_device`, `device_scope`) and sums or concatenates the results
+on one device (`concat_leading`). No launcher, no rendezvous, no process
+group.
 
 A device may appear more than once: its shards then run one after another
 on it. That is how one card, or the CPU, checks the split, the padding and
@@ -20,17 +21,58 @@ the reduction of a mesh of any size (``LocalMesh(("cpu",) * 4, "tiles")``).
 
 Called with no argument each takes every visible CUDA card once, as the
 JAX package's take ``jax.devices()``; on a host without CUDA that raises
-(pass CPU devices to build a CPU mesh). The logical-axis rules
-(`ShardingRules`, `logical_to_spec`, parameter shardings) are the 2-D half
-of ROADMAP.md item 10 and are not ported here.
+(pass CPU devices to build a CPU mesh).
+
+**The 2-D meshes and the rules.** Parameters and caches carry *logical*
+axis names (`repro_torch.nn.spec.ParamSpec`); `DEFAULT_RULES` maps them
+onto mesh axes, as in the JAX package:
+
+    batch    -> ("pod", "data")   data parallel, across pods too
+    vocab, heads, kv_heads, mlp, expert, inner -> "model"
+    embed    -> "data"            FSDP: parameters and optimizer state
+                                  sharded over the data axis
+    layers   -> None
+
+**Divisibility guard**: a logical axis whose dimension does not divide the
+product of its mesh axes replicates for that tensor, and the guard report
+names it (`logical_to_spec`; the text is the JAX package's, letter for
+letter).
+
+A mesh here is one of two things, both with ``shape`` (an ordered dict)
+and ``axis_names`` as a JAX mesh has:
+
+  * `AbstractMesh`: axis names and sizes only, no process and no device,
+    for the rules and the dry run (`repro_torch.launch.dryrun`); one whose
+    every axis has size 1 also runs a step in the calling process;
+  * `ProcessMesh`: one process a mesh position over a
+    `torch.distributed.device_mesh.DeviceMesh` with ``mesh_dim_names``
+    (`process_mesh`); each rank holds its own slice of every sharded
+    tensor, and the collectives run over the mesh's process groups. Over
+    gloo a CUDA tensor goes through the host (gloo has no CUDA all-gather).
+
+`NamedSharding` (mesh, `PartitionSpec`) gives a tensor's shard shape, this
+rank's slice (JAX's device -> slice order: a tuple of axes on one tensor
+dim puts its first axis outer) and the DTensor placements of the layout
+(`Shard(d)` on each mesh dim the spec names at tensor dim d, else
+`Replicate()`). `shard_tree` / `gather_tree` / `reshard` move trees
+between the full tensors and a rank's slices.
+
+Steps over a mesh reduce over the global batch where the JAX package's
+SPMD partitioner would: `batch_reduction` installs a `BatchReduce` that
+`repro_torch.core.qat` (the activation amax, MAX), `repro_torch.models.lm`
+(the loss's sums and counts) and `repro_torch.nn.moe` (the auxiliary
+losses' token means) read while a meshed step runs.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Iterable, List, Optional, Sequence, Tuple
+import itertools
+import math
+from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 from repro_torch._device import resolve_device, tree_leaves, tree_map
@@ -206,3 +248,617 @@ def sum_on(tensors: Iterable[torch.Tensor], device: torch.device
         t = t.to(device)
         total = t if total is None else total + t
     return total
+
+
+# ===================================================== 2-D: logical-axis rules
+
+AxisVal = Union[None, str, Tuple[str, ...]]
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardingRules:
+    rules: Tuple[Tuple[str, AxisVal], ...]
+
+    def lookup(self, logical: Optional[str]) -> AxisVal:
+        if logical is None:
+            return None
+        for k, v in self.rules:
+            if k == logical:
+                return v
+        return None
+
+    def replace(self, **kw) -> "ShardingRules":
+        new = []
+        for k, v in self.rules:
+            new.append((k, kw.pop(k, v)))
+        for k, v in kw.items():
+            new.append((k, v))
+        return ShardingRules(tuple(new))
+
+
+DEFAULT_RULES = ShardingRules((
+    ("batch", ("pod", "data")),
+    ("seq", "model"),        # sequence parallelism opt-in (a knob)
+    ("kv_seq", "model"),     # decode-cache sequence sharding (opt-in; used
+                             # when kv_heads cannot divide the model axis)
+    ("vocab", "model"),
+    ("heads", "model"),
+    ("kv_heads", "model"),
+    ("mlp", "model"),
+    ("expert", "model"),
+    ("moe_ff", None),        # expert FFN dim; switch with expert=None,
+                             # moe_ff=model for tensor-parallel experts
+    ("moe_embed", "data"),   # expert d_model dim (FSDP by default)
+    ("inner", "model"),
+    ("embed", "data"),
+    ("layers", None),
+))
+
+
+class PartitionSpec(tuple):
+    """A tensor's layout: one entry a tensor dim, each None (replicated),
+    a mesh axis name, or a tuple of names (sharded over their product, the
+    first outer). Missing trailing entries are None."""
+
+    def __new__(cls, *parts):
+        return super().__new__(cls, parts)
+
+    def __getnewargs__(self):
+        return tuple(self)
+
+    def __repr__(self) -> str:
+        return "PartitionSpec(" + ", ".join(map(repr, self)) + ")"
+
+
+def _axes_of(entry: AxisVal) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def _mesh_size(mesh, axis: AxisVal) -> int:
+    if axis is None:
+        return 1
+    if isinstance(axis, str):
+        return mesh.shape[axis] if axis in mesh.axis_names else 1
+    return int(math.prod(mesh.shape[a] for a in axis
+                         if a in mesh.axis_names))
+
+
+def _present(mesh, axis: AxisVal) -> AxisVal:
+    """Drop mesh axes that don't exist in this mesh (e.g. 'pod' single-pod)."""
+    if axis is None:
+        return None
+    if isinstance(axis, str):
+        return axis if axis in mesh.axis_names else None
+    kept = tuple(a for a in axis if a in mesh.axis_names)
+    if not kept:
+        return None
+    return kept if len(kept) > 1 else kept[0]
+
+
+# ------------------------------------------------------------------ meshes
+
+
+@dataclasses.dataclass(frozen=True)
+class AbstractMesh:
+    """Axis names and sizes, no process and no device (JAX's
+    ``AbstractMesh(axis_sizes, axis_names)``): what the rules and the dry
+    run need. A mesh whose every axis has size 1 is one process's whole
+    world, so a step runs on it in the calling process."""
+
+    axis_sizes: Tuple[int, ...]
+    axis_names: Tuple[str, ...]
+
+    def __post_init__(self):
+        object.__setattr__(self, "axis_sizes",
+                           tuple(int(n) for n in self.axis_sizes))
+        object.__setattr__(self, "axis_names", tuple(self.axis_names))
+        if len(self.axis_sizes) != len(self.axis_names):
+            raise ValueError(f"axis sizes {self.axis_sizes} and names "
+                             f"{self.axis_names} differ in length")
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return dict(zip(self.axis_names, self.axis_sizes))
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.axis_sizes)
+
+    @property
+    def device(self) -> Optional[torch.device]:
+        return None
+
+    @property
+    def coords(self) -> Dict[str, int]:
+        if self.size != 1:
+            raise TypeError(
+                f"an AbstractMesh {self.axis_sizes} has no processes: run "
+                "steps on a ProcessMesh (process_mesh) or a 1x1 mesh")
+        return {a: 0 for a in self.axis_names}
+
+    def group(self, axes: Sequence[str]):
+        """The process group over ``axes``: None, the mesh being one
+        process (`coords` raises otherwise)."""
+        self.coords
+        return None
+
+
+class ProcessMesh:
+    """One process a mesh position: a `DeviceMesh` over the default
+    process group's ranks, ``mesh_dim_names`` as axis names. Builds every
+    process group a step may reduce over at construction, which every rank
+    of the mesh must therefore call together."""
+
+    def __init__(self, device_mesh):
+        import torch.distributed as dist
+
+        self.device_mesh = device_mesh
+        self.axis_names = tuple(device_mesh.mesh_dim_names)
+        self.axis_sizes = tuple(int(n) for n in device_mesh.mesh.shape)
+        self.ranks: List[int] = [int(r) for r in
+                                 device_mesh.mesh.flatten().tolist()]
+        rank = dist.get_rank()
+        if rank not in self.ranks:
+            raise ValueError(f"rank {rank} is not in the mesh {self.ranks}")
+        self.coords = self.coords_of(rank)
+        if device_mesh.device_type == "cuda":
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        else:
+            self.device = torch.device(device_mesh.device_type)
+        self._groups: Dict[Tuple[str, ...], Any] = {}
+        grid = np.asarray(self.ranks).reshape(self.axis_sizes)
+        names = self.axis_names
+        for k in range(1, len(names) + 1):
+            for subset in itertools.combinations(names, k):
+                if k == 1:
+                    self._groups[subset] = device_mesh.get_group(subset[0])
+                    continue
+                dims = [names.index(a) for a in subset]
+                rest = [i for i in range(len(names)) if i not in dims]
+                rows = grid.transpose(rest + dims).reshape(
+                    -1, math.prod(self.axis_sizes[i] for i in dims))
+                for row in rows.tolist():
+                    g = dist.new_group(row)
+                    if rank in row:
+                        self._groups[subset] = g
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return dict(zip(self.axis_names, self.axis_sizes))
+
+    @property
+    def size(self) -> int:
+        return len(self.ranks)
+
+    def coords_of(self, rank: int) -> Dict[str, int]:
+        pos = np.unravel_index(self.ranks.index(rank), self.axis_sizes)
+        return {a: int(i) for a, i in zip(self.axis_names, pos)}
+
+    def group(self, axes: Sequence[str]):
+        """The process group of this rank's mesh positions that differ only
+        along ``axes``; None where that is this process alone."""
+        key = tuple(a for a in self.axis_names if a in set(axes))
+        if math.prod(self.shape[a] for a in key) <= 1:
+            return None
+        return self._groups[key]
+
+
+def process_mesh(axis_sizes: Sequence[int],
+                 axis_names: Sequence[str] = ("data", "model"), *,
+                 device_type: Optional[str] = None,
+                 ranks: Optional[Sequence[int]] = None) -> ProcessMesh:
+    """A `ProcessMesh` of ``axis_sizes`` over the initialized default
+    process group (every rank calls it). ``ranks``: the mesh's ranks in
+    row-major order (default: the whole world, rank r at position r);
+    ``device_type`` (default: ``"cuda"`` when the card is there, else
+    ``"cpu"``): where each rank's slices live. Several ranks may share one
+    card."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
+
+    if not dist.is_initialized():
+        raise RuntimeError(
+            "a process mesh needs torch.distributed.init_process_group("
+            "backend, init_method=..., world_size=..., rank=...) first")
+    axis_sizes = tuple(int(n) for n in axis_sizes)
+    n = math.prod(axis_sizes)
+    if device_type is None:
+        device_type = "cuda" if torch.cuda.is_available() else "cpu"
+    names = tuple(axis_names)
+    if ranks is None:
+        world = dist.get_world_size()
+        if world != n:
+            raise RuntimeError(
+                f"mesh {axis_sizes} needs {n} processes, found {world} in "
+                "the process group: launch one process a mesh position")
+        dm = init_device_mesh(device_type, axis_sizes, mesh_dim_names=names)
+    else:
+        if len(ranks) != n:
+            raise ValueError(f"mesh {axis_sizes} needs {n} ranks, got "
+                             f"{len(ranks)}")
+        dm = DeviceMesh(device_type,
+                        torch.tensor(list(ranks)).reshape(axis_sizes),
+                        mesh_dim_names=names)
+    return ProcessMesh(dm)
+
+
+# --------------------------------------------------------------- shardings
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A layout (JAX's ``NamedSharding``): ``spec`` over ``mesh``."""
+
+    mesh: Any
+    spec: PartitionSpec
+
+    def entries(self, ndim: int) -> Tuple[AxisVal, ...]:
+        parts = tuple(self.spec)
+        if len(parts) > ndim:
+            raise ValueError(f"spec {self.spec} has more entries than the "
+                             f"tensor's {ndim} dims")
+        return parts + (None,) * (ndim - len(parts))
+
+    def shard_shape(self, shape: Sequence[int]) -> Tuple[int, ...]:
+        """The shape of one mesh position's slice of a ``shape`` tensor."""
+        out = []
+        for dim, entry in zip(shape, self.entries(len(shape))):
+            n = _mesh_size(self.mesh, entry)
+            if dim % n:
+                raise ValueError(f"dim {dim} does not split over {entry} "
+                                 f"(size {n})")
+            out.append(dim // n)
+        return tuple(out)
+
+    @property
+    def replication(self) -> int:
+        """How many mesh positions hold each slice."""
+        used = {a for e in self.spec for a in _axes_of(e)
+                if a in self.mesh.axis_names}
+        return math.prod(n for a, n in self.mesh.shape.items()
+                         if a not in used)
+
+    @property
+    def placements(self) -> tuple:
+        """DTensor placements, one a mesh dim: ``Shard(d)`` where the spec
+        names that axis at tensor dim d, else ``Replicate()``. DTensor
+        splits a tensor dim over several mesh dims in mesh order, so a
+        tuple of axes out of the mesh's order has no placements."""
+        from torch.distributed.tensor import Replicate, Shard
+
+        names = list(self.mesh.axis_names)
+        out: list = [Replicate()] * len(names)
+        for d, entry in enumerate(self.spec):
+            idx = [names.index(a) for a in _axes_of(entry) if a in names]
+            if idx != sorted(idx):
+                raise ValueError(f"{entry} at dim {d} is not in the mesh's "
+                                 f"axis order {tuple(names)}")
+            for i in idx:
+                out[i] = Shard(d)
+        return tuple(out)
+
+    def _chunk(self, entry: AxisVal, coords: Dict[str, int]) -> int:
+        idx = 0
+        for a in _axes_of(entry):
+            if a in self.mesh.axis_names:
+                idx = idx * self.mesh.shape[a] + coords[a]
+        return idx
+
+    def index(self, shape: Sequence[int], coords=None) -> Tuple[slice, ...]:
+        """The slice of a ``shape`` tensor at the mesh position ``coords``
+        (default: this process's), JAX's device -> index order."""
+        coords = self.mesh.coords if coords is None else coords
+        out = []
+        for dim, entry, n in zip(shape, self.entries(len(shape)),
+                                 self.shard_shape(shape)):
+            i = self._chunk(entry, coords)
+            out.append(slice(i * n, (i + 1) * n) if n != dim
+                       else slice(None))
+        return tuple(out)
+
+    def local(self, full, coords=None):
+        """This position's slice of the full tensor (or numpy array), a
+        view."""
+        return full[self.index(full.shape, coords)]
+
+
+def logical_to_spec(
+    logical_axes: Sequence[Optional[str]],
+    shape: Sequence[int],
+    mesh,
+    rules: ShardingRules = DEFAULT_RULES,
+    *,
+    guard_report: Optional[List[str]] = None,
+    tensor_name: str = "",
+) -> PartitionSpec:
+    """PartitionSpec for one tensor, applying the divisibility guard and
+    ensuring no mesh axis is consumed twice."""
+    used: set = set()
+    parts = []
+    for dim, logical in zip(shape, logical_axes):
+        axis = _present(mesh, rules.lookup(logical))
+        if axis is None:
+            parts.append(None)
+            continue
+        axis_tuple = (axis,) if isinstance(axis, str) else tuple(axis)
+        if any(a in used for a in axis_tuple):
+            parts.append(None)
+            continue
+        size = _mesh_size(mesh, axis)
+        if size <= 1:
+            parts.append(None)
+            continue
+        if dim % size != 0:
+            if guard_report is not None:
+                guard_report.append(
+                    f"{tensor_name}: dim {dim} (logical '{logical}') not "
+                    f"divisible by mesh axis {axis} (size {size}); replicated")
+            parts.append(None)
+            continue
+        parts.append(axis)
+        used.update(axis_tuple)
+    return PartitionSpec(*parts)
+
+
+def _sorted_walk(tree, leaf_fn, *rest):
+    """``leaf_fn`` over the leaves of nested dicts in sorted key order (the
+    order JAX flattens a dict in, which the guard report follows)."""
+    if isinstance(tree, dict):
+        return {k: _sorted_walk(tree[k], leaf_fn, *(r[k] for r in rest))
+                for k in sorted(tree)}
+    return leaf_fn(tree, *rest)
+
+
+def make_param_shardings(
+    spec_tree,
+    mesh,
+    rules: ShardingRules = DEFAULT_RULES,
+    *,
+    guard_report: Optional[List[str]] = None,
+):
+    """NamedSharding tree for a ParamSpec tree."""
+
+    def one(s) -> NamedSharding:
+        axes = s.axes if s.axes else (None,) * len(s.shape)
+        spec = logical_to_spec(axes, s.shape, mesh, rules,
+                               guard_report=guard_report,
+                               tensor_name="x".join(map(str, s.shape)))
+        return NamedSharding(mesh, spec)
+
+    return _sorted_walk(spec_tree, one)
+
+
+def shardings_from_axes_tree(
+    axes_tree,
+    shape_tree,
+    mesh,
+    rules: ShardingRules = DEFAULT_RULES,
+    *,
+    guard_report: Optional[List[str]] = None,
+):
+    """NamedShardings for a tree given parallel axes / shape trees (caches
+    and batches): axes leaves are tuples (or None: replicated), shape
+    leaves anything with a ``shape`` (meta tensors)."""
+
+    def one(axes, sds) -> NamedSharding:
+        shape = tuple(sds.shape)
+        axes = axes if axes is not None else (None,) * len(shape)
+        spec = logical_to_spec(axes, shape, mesh, rules,
+                               guard_report=guard_report,
+                               tensor_name="x".join(map(str, shape)))
+        return NamedSharding(mesh, spec)
+
+    return _sorted_walk(axes_tree, one, shape_tree)
+
+
+def batch_sharding(mesh, shape: Sequence[int],
+                   rules: ShardingRules = DEFAULT_RULES,
+                   batch_dim: int = 0) -> NamedSharding:
+    """Shard only the batch dim of an activation/batch tensor (guarded:
+    a batch that does not divide the data axes replicates, e.g. batch=1
+    long-context decode)."""
+    axis = _present(mesh, rules.lookup("batch"))
+    parts: list = [None] * len(shape)
+    if axis is not None and shape[batch_dim] % _mesh_size(mesh, axis) == 0:
+        parts[batch_dim] = axis
+    return NamedSharding(mesh, PartitionSpec(*parts))
+
+
+def tile_batch_sharding(mesh, axis: str = TILE_AXIS) -> NamedSharding:
+    """NamedSharding for a stacked tile batch: leading (tile) dim over
+    ``axis``, tile contents replicated (`LocalMesh` or a 2-D mesh)."""
+    return NamedSharding(mesh, PartitionSpec(axis))
+
+
+def logits_constraint(mesh, rules: ShardingRules = DEFAULT_RULES):
+    """The JAX package's layout constraint on (B, S, V) logits (batch over
+    ("pod", "data"), vocab over "model"): the port's steps compute the
+    full vocab on each rank's rows, so the hook is the identity on values."""
+    del mesh, rules
+    return lambda x: x
+
+
+def activation_constraint(mesh, rules: ShardingRules = DEFAULT_RULES,
+                          *, sequence_parallel: bool = False):
+    """The JAX package's layout constraint on (B, S, d) residual-stream
+    activations; the identity on values here (each rank computes its own
+    batch rows whole: no sequence or tensor parallelism)."""
+    del mesh, rules, sequence_parallel
+    return lambda x: x
+
+
+# ------------------------------------------------------------- collectives
+
+
+def _staged(t: torch.Tensor, group) -> bool:
+    """Gloo has no CUDA all-gather: its CUDA tensors go through the host."""
+    import torch.distributed as dist
+
+    return t.is_cuda and dist.get_backend(group) == "gloo"
+
+
+def all_reduce(t: torch.Tensor, op: str, group) -> torch.Tensor:
+    """A new tensor: ``t`` reduced (``"sum"`` or ``"max"``) over ``group``
+    (``t`` itself when the group is None)."""
+    import torch.distributed as dist
+
+    if group is None:
+        return t
+    x = t.detach().to("cpu", copy=True) if _staged(t, group) \
+        else t.detach().clone()
+    dist.all_reduce(x, op={"sum": dist.ReduceOp.SUM,
+                           "max": dist.ReduceOp.MAX}[op], group=group)
+    return x.to(t.device)
+
+
+def _all_gather(t: torch.Tensor, group) -> List[torch.Tensor]:
+    import torch.distributed as dist
+
+    x = t.detach().contiguous()
+    if _staged(x, group):
+        x = x.cpu()
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x, group=group)
+    return [p.to(t.device) for p in parts]
+
+
+def gather(x: torch.Tensor, sharding: NamedSharding,
+           dims: Optional[Sequence[int]] = None) -> torch.Tensor:
+    """The tensor whose slice ``x`` is, gathered along ``dims`` (default:
+    every sharded dim) from the mesh positions that hold its other slices;
+    ``x`` itself where nothing is to gather."""
+    import torch.distributed as dist
+
+    mesh = sharding.mesh
+    entries = sharding.entries(x.ndim)
+    if dims is None:
+        dims = [d for d, e in enumerate(entries) if e is not None]
+    axes = [a for d in dims for a in _axes_of(entries[d])]
+    group = mesh.group(axes) if axes else None
+    if group is None:
+        return x
+    parts = _all_gather(x, group)
+    shape = list(x.shape)
+    for d in dims:
+        shape[d] *= _mesh_size(mesh, entries[d])
+    out = x.new_empty(shape)
+    for i, part in enumerate(parts):
+        coords = mesh.coords_of(dist.get_global_rank(group, i))
+        idx = [slice(None)] * x.ndim
+        for d in dims:
+            c = sharding._chunk(entries[d], coords)
+            idx[d] = slice(c * x.shape[d], (c + 1) * x.shape[d])
+        out[tuple(idx)] = part
+    return out
+
+
+def reshard(x: torch.Tensor, src: NamedSharding,
+            dst: NamedSharding) -> torch.Tensor:
+    """This position's slice on ``dst`` of the tensor whose slice on
+    ``src`` is ``x`` (same mesh): gathers only the dims whose layout
+    changes from sharded, slices the ones that become sharded."""
+    es, ed = src.entries(x.ndim), dst.entries(x.ndim)
+    gdims = [d for d in range(x.ndim) if es[d] is not None and es[d] != ed[d]]
+    y = gather(x, src, gdims) if gdims else x
+    idx = [slice(None)] * x.ndim
+    for d in range(x.ndim):
+        if ed[d] is not None and (es[d] is None or d in gdims):
+            n = y.shape[d] // _mesh_size(dst.mesh, ed[d])
+            c = dst._chunk(ed[d], dst.mesh.coords)
+            idx[d] = slice(c * n, (c + 1) * n)
+    return y[tuple(idx)]
+
+
+def shard_tree(tree, shardings, device=None):
+    """Each full leaf (tensor or numpy array) -> this position's slice on
+    its sharding, a tensor of its own (on ``device`` when given)."""
+    def one(x, s):
+        y = s.local(x)
+        if isinstance(y, np.ndarray):
+            y = torch.from_numpy(np.array(y))
+        elif y.numel() != x.numel():
+            y = y.clone()
+        return y if device is None else y.to(device)
+
+    return tree_map(one, tree, shardings)
+
+
+def gather_tree(tree, shardings):
+    """Each leaf (this position's slice) -> the full tensor (`gather`)."""
+    return tree_map(gather, tree, shardings)
+
+
+def reshard_tree(tree, src, dst):
+    return tree_map(reshard, tree, src, dst)
+
+
+# -------------------------------------------------- global-batch reductions
+
+
+class _GlobalSum(torch.autograd.Function):
+    """All-reduce SUM forward; identity backward: every rank holds the same
+    global value, and each rank's gradient then covers its own rows (the
+    per-rank parameter gradients are summed afterwards)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce(x, "sum", group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class BatchReduce:
+    """The reductions over the global batch that a split batch needs (the
+    ranks along ``axes`` hold different rows)."""
+
+    def __init__(self, mesh, axes: Sequence[str]):
+        self.group = mesh.group(axes)
+
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        return _GlobalSum.apply(x, self.group)
+
+    def max(self, x: torch.Tensor) -> torch.Tensor:
+        return all_reduce(x.detach(), "max", self.group)
+
+
+_BATCH_REDUCE: Optional[BatchReduce] = None
+
+
+def batch_reduce() -> Optional[BatchReduce]:
+    """The reductions of the running meshed step (None outside one or when
+    its batch is not split). A module global, not a context variable: the
+    backward's recomputation of checkpointed layers runs on autograd's
+    device threads."""
+    return _BATCH_REDUCE
+
+
+@contextlib.contextmanager
+def batch_reduction(red: Optional[BatchReduce]):
+    global _BATCH_REDUCE
+    prev, _BATCH_REDUCE = _BATCH_REDUCE, red
+    try:
+        yield red
+    finally:
+        _BATCH_REDUCE = prev
+
+
+def sharded_global_norm(grads, shardings) -> torch.Tensor:
+    """`repro_torch.optim.optimizers.global_norm` of the full gradients
+    from each rank's slices: each leaf's float64 sum of squares over its
+    slice, divided by how many positions hold that slice, all-reduced over
+    the mesh, then summed and rounded once."""
+    from repro_torch.optim.optimizers import sq_sum
+
+    mesh = None
+    parts = []
+    for g, s in zip(tree_leaves(grads),
+                    tree_leaves(tree_map(lambda g, s: s, grads, shardings))):
+        mesh = s.mesh
+        parts.append(sq_sum(g) / s.replication)
+    total = torch.stack(parts)
+    total = all_reduce(total, "sum", mesh.group(mesh.axis_names))
+    return torch.sqrt(total.sum(0)).float()

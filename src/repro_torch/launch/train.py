@@ -22,10 +22,29 @@ of the tokens; the loss scores the token positions). `batch_specs` and
 `decode_cache_specs` give a cell's abstract batch and decode cache (meta
 tensors; whisper's decoder context is `WHISPER_DECODER_LEN`).
 
-The JAX package's mesh, sharding and MoE-dispatch machinery (``mesh=``,
-``rules=``, ``moe_local_dispatch=``, the ``abstract_*``, ``*_shardings``
-and ``cache_axes`` helpers) lays a step out over a device mesh; it raises
-`NotImplementedError` naming ROADMAP.md item 10.
+**Over a mesh** (``mesh=``, ``rules=``; `repro_torch.distributed
+.sharding`): every rank calls the step with its own slices of the state,
+the comp tree, the serve params and the decode cache, each on its
+sharding (`train_state_shardings`, `comp_shardings`,
+`make_param_shardings`, `cache_shardings`), and with the whole batch, of
+which it takes its rows (`batch_sharding`'s guard: a batch that does not
+divide the batch axes replicates). FSDP a step: the rank gathers the full
+parameters (and comp) once at the start of the step, runs the forward and
+backward on its rows, sums the gradients over the batch ranks and keeps
+its slice; AdamW updates the slices, the global-norm clip summing the
+slices' float64 squares over the mesh (`sharded_global_norm`). Where the
+JAX package's partitioner reduces over the global batch, the step does
+too (`batch_reduction`): the activation fake-quant's amax (MAX), the
+loss's sum and count and the MoE auxiliary losses' token sums. The
+``"model"`` axis shards storage only: no tensor-parallel compute, and the
+JAX package's layout hooks (`activation_constraint`, `logits_constraint`,
+``moe_local_dispatch``'s `moe_dispatch_constraint`) are identities on
+values. A step's metrics are the global batch's; a prefill step returns
+the rank's rows of the logits, a serve step its rows of the logits and
+its slice of the new cache. On a mesh whose batch axes have size 1 (1 x
+1, or a replicated batch) no collective runs and the step is the
+unmeshed one, bit for bit. `abstract_train_state`,
+`abstract_serve_params` and `comp_abstract` are meta tensors.
 
     python -m repro_torch.launch.train --arch olmo-1b --steps 50 \\
         --plan-out BASE [--ckpt-dir DIR] [--device cpu]
@@ -34,7 +53,7 @@ and ``cache_axes`` helpers) lays a step out over a device mesh; it raises
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -44,19 +63,28 @@ from repro_torch._device import (
     tree_map,
     tree_unflatten,
 )
+from repro_torch.distributed.sharding import (
+    DEFAULT_RULES,
+    BatchReduce,
+    NamedSharding,
+    PartitionSpec,
+    ShardingRules,
+    _axes_of,
+    _mesh_size,
+    all_reduce,
+    batch_reduction,
+    batch_sharding,
+    gather_tree,
+    make_param_shardings,
+    reshard_tree,
+    sharded_global_norm,
+    shardings_from_axes_tree,
+)
 from repro_torch.nn.layers import QuantConfig
-from repro_torch.nn.spec import init_params
+from repro_torch.nn.spec import abstract_params, init_params
 from repro_torch.optim.optimizers import Optimizer, adamw, apply_updates
 
 WHISPER_DECODER_LEN = 448  # whisper's decoder context (enc length = seq_len)
-
-MESH_NOT_PORTED = ("ROADMAP.md Queue 1 item 10, 'Multi-device, "
-                   "checkpointing, launch'")
-
-
-def _mesh_not_ported(what: str):
-    return NotImplementedError(f"{what} (device meshes and shardings) is not "
-                               f"ported yet: {MESH_NOT_PORTED}")
 
 
 # ===================================================================== steps
@@ -99,17 +127,21 @@ def _value_and_grad(loss_fn, params, batch, comp):
             tree_unflatten(params, iter(grads)))
 
 
-def make_train_step(model, step_cfg: StepConfig, mesh=None, rules=None,
-                    moe_local_dispatch: bool = False) -> Callable:
-    """train_step(state, batch[, comp]) -> (state, metrics). ``state`` is
-    {"params", "opt"}, ``batch`` {"tokens", "labels"[, "loss_mask",
-    "prefix_embeds", "enc_embeds"]} tensors on the params' device; metrics
-    are 0-d tensors (``loss``, ``ce``, ``lb_loss``, ``z_loss``)."""
-    if mesh is not None or rules is not None:
-        raise _mesh_not_ported("make_train_step(mesh=, rules=)")
-    if moe_local_dispatch:
-        raise _mesh_not_ported("make_train_step(moe_local_dispatch=True)")
-    optimizer = make_optimizer(step_cfg)
+def moe_dispatch_constraint(mesh, rules: ShardingRules = DEFAULT_RULES):
+    """The dispatch-buffer hook of `repro_torch.nn.moe` for ``mesh``. In
+    the JAX package it pins the (B, E, C, d) buffer's layout for the SPMD
+    partitioner ('scatter': model-replicated, 'expert': E over the expert
+    axis); each rank here runs every expert on its own rows, so the hook
+    returns its tensor unchanged."""
+    del mesh, rules
+
+    def hook(t, kind):
+        return t
+
+    return hook
+
+
+def _loss_fn(model, step_cfg: StepConfig):
     qcfg = step_cfg.qcfg
     policy = "save_qat" if step_cfg.remat_save_qat else None
 
@@ -119,32 +151,122 @@ def make_train_step(model, step_cfg: StepConfig, mesh=None, rules=None,
                           kv_block=step_cfg.kv_block,
                           use_flash=step_cfg.flash, remat_policy=policy)
 
+    return loss_fn
+
+
+def _micro_batches(batch, n_micro: int) -> list:
+    if n_micro <= 1:
+        return [batch]
+    b = batch["tokens"].shape[0]
+    if b % n_micro:
+        raise ValueError(f"batch {b} is not a multiple of grad_accum "
+                         f"{n_micro}")
+    return [{k: v.reshape(n_micro, b // n_micro, *v.shape[1:])[i]
+             for k, v in batch.items()} for i in range(n_micro)]
+
+
+def _accumulate(parts):
+    """((loss, metrics), grads) of the micro-batches, summed in order and
+    scaled by 1 / n as the JAX package's scan; ``parts`` yields each
+    micro-batch's ((loss, metrics), grads)."""
+    g_acc = loss = metrics = None
+    for (l_i, m_i), g in parts:
+        if g_acc is None:
+            g_acc, loss, metrics = g, l_i, m_i
+        else:
+            g_acc = tree_map(torch.add, g_acc, g)
+            loss = loss + l_i
+            metrics = {k: metrics[k] + m_i[k] for k in metrics}
+    return (loss, metrics), g_acc
+
+
+def _scaled(acc, n_micro: int):
+    (loss, metrics), grads = acc
+    if n_micro <= 1:
+        return acc
+    scale = 1.0 / n_micro
+    return ((loss * scale, {k: v * scale for k, v in metrics.items()}),
+            tree_map(lambda x: x * scale, grads))
+
+
+def make_train_step(model, step_cfg: StepConfig, mesh=None,
+                    rules: Optional[ShardingRules] = None,
+                    moe_local_dispatch: bool = False) -> Callable:
+    """train_step(state, batch[, comp]) -> (state, metrics). ``state`` is
+    {"params", "opt"}, ``batch`` {"tokens", "labels"[, "loss_mask",
+    "prefix_embeds", "enc_embeds"]} tensors on the params' device; metrics
+    are 0-d tensors (``loss``, ``ce``, ``lb_loss``, ``z_loss``). With
+    ``mesh``: the state and comp are this rank's slices (module
+    docstring), ``rules`` default `DEFAULT_RULES`; ``moe_local_dispatch``
+    sets `moe_dispatch_constraint`'s hook while the step runs."""
+    if mesh is not None:
+        return _meshed_train_step(model, step_cfg, mesh,
+                                  DEFAULT_RULES if rules is None else rules,
+                                  moe_local_dispatch)
+    optimizer = make_optimizer(step_cfg)
+    loss_fn = _loss_fn(model, step_cfg)
     n_micro = step_cfg.grad_accum
 
-    def loss_grad(params, batch, comp):
-        if n_micro <= 1:
-            return _value_and_grad(loss_fn, params, batch, comp)
-        b = batch["tokens"].shape[0]
-        if b % n_micro:
-            raise ValueError(f"batch {b} is not a multiple of grad_accum "
-                             f"{n_micro}")
-        g_acc = loss = metrics = None
-        for i in range(n_micro):
-            mb = {k: v.reshape(n_micro, b // n_micro, *v.shape[1:])[i]
-                  for k, v in batch.items()}
-            (l_i, m_i), g = _value_and_grad(loss_fn, params, mb, comp)
-            if g_acc is None:
-                g_acc, loss, metrics = g, l_i, m_i
-            else:
-                g_acc = tree_map(torch.add, g_acc, g)
-                loss = loss + l_i
-                metrics = {k: metrics[k] + m_i[k] for k in metrics}
-        scale = 1.0 / n_micro
-        return ((loss * scale, {k: v * scale for k, v in metrics.items()}),
-                tree_map(lambda x: x * scale, g_acc))
+    def step(state, batch, comp):
+        (loss, metrics), grads = _scaled(_accumulate(
+            _value_and_grad(loss_fn, state["params"], mb, comp)
+            for mb in _micro_batches(batch, n_micro)), n_micro)
+        updates, opt = optimizer.update(grads, state["opt"], state["params"])
+        params = apply_updates(state["params"], updates)
+        return {"params": params, "opt": opt}, dict(metrics, loss=loss)
+
+    if step_cfg.with_comp:
+        return step
+    return lambda state, batch: step(state, batch, None)
+
+
+def _batch_axes(batch, mesh, rules) -> Tuple[str, ...]:
+    """The mesh axes the batch's rows split over: () where it replicates
+    (`batch_sharding`'s guard)."""
+    b = next(iter(batch.values())).shape[0]
+    return _axes_of(batch_sharding(mesh, (b,), rules).spec[0])
+
+
+def _rows(batch, mesh, rules):
+    """This rank's rows of every batch tensor."""
+    return {k: batch_sharding(mesh, v.shape, rules).local(v)
+            for k, v in batch.items()}
+
+
+def _meshed_train_step(model, step_cfg, mesh, rules, moe_local_dispatch):
+    from repro_torch.nn import moe
+
+    p_sh = train_state_shardings(model, mesh, rules)["params"]
+    c_sh = comp_shardings(model, mesh, rules) if step_cfg.with_comp \
+        else None
+    optimizer = adamw(step_cfg.lr, weight_decay=step_cfg.weight_decay,
+                      max_grad_norm=1.0,
+                      norm_fn=lambda g: sharded_global_norm(g, p_sh))
+    loss_fn = _loss_fn(model, step_cfg)
+    hook = moe_dispatch_constraint(mesh, rules) if moe_local_dispatch \
+        else None
+    n_micro = step_cfg.grad_accum
 
     def step(state, batch, comp):
-        (loss, metrics), grads = loss_grad(state["params"], batch, comp)
+        params = gather_tree(state["params"], p_sh)
+        comp = None if comp is None else gather_tree(comp, c_sh)
+        micro = _micro_batches(batch, n_micro)
+        axes = _batch_axes(micro[0], mesh, rules)
+        group = mesh.group(axes)
+        red = None if group is None else BatchReduce(mesh, axes)
+        token = None if hook is None else moe.set_dispatch_constraint(hook)
+        try:
+            with batch_reduction(red):
+                (loss, metrics), grads = _accumulate(
+                    _value_and_grad(loss_fn, params, _rows(mb, mesh, rules),
+                                    comp) for mb in micro)
+        finally:
+            if token is not None:
+                moe.reset_dispatch_constraint(token)
+        if group is not None:
+            grads = tree_map(lambda g: all_reduce(g, "sum", group), grads)
+        (loss, metrics), grads = _scaled(((loss, metrics), grads), n_micro)
+        grads = tree_map(lambda g, s: s.local(g), grads, p_sh)
         updates, opt = optimizer.update(grads, state["opt"], state["params"])
         params = apply_updates(state["params"], updates)
         return {"params": params, "opt": opt}, dict(metrics, loss=loss)
@@ -155,14 +277,20 @@ def make_train_step(model, step_cfg: StepConfig, mesh=None, rules=None,
 
 
 def make_prefill_step(model, step_cfg: StepConfig, mesh=None,
-                      rules=None) -> Callable:
+                      rules: Optional[ShardingRules] = None) -> Callable:
     """prefill_step(params, batch) -> logits (inference forward at length
-    P + S, no QAT; ``batch`` as the train step's, no labels)."""
-    if mesh is not None or rules is not None:
-        raise _mesh_not_ported("make_prefill_step(mesh=, rules=)")
+    P + S, no QAT; ``batch`` as the train step's, no labels). With
+    ``mesh``: ``params`` are this rank's slices on `make_param_shardings`
+    and the logits its rows of the batch."""
+    rules = DEFAULT_RULES if rules is None else rules
+    p_sh = None if mesh is None else make_param_shardings(model.spec, mesh,
+                                                          rules)
 
     @torch.no_grad()
     def prefill_step(params, batch):
+        if mesh is not None:
+            params = gather_tree(params, p_sh)
+            batch = _rows(batch, mesh, rules)
         logits, _ = model.forward(params, batch["tokens"],
                                   prefix_embeds=batch.get("prefix_embeds"),
                                   enc_embeds=batch.get("enc_embeds"),
@@ -175,16 +303,51 @@ def make_prefill_step(model, step_cfg: StepConfig, mesh=None,
 
 
 def make_serve_step(model, step_cfg: StepConfig, mesh=None,
-                    rules=None) -> Callable:
+                    rules: Optional[ShardingRules] = None, *,
+                    cache_shardings=None) -> Callable:
     """serve_step(params, cache, tokens) -> (logits, cache): one decode
-    step."""
-    if mesh is not None or rules is not None:
-        raise _mesh_not_ported("make_serve_step(mesh=, rules=)")
+    step. With ``mesh``: ``params`` are this rank's slices on
+    `make_param_shardings`, ``tokens`` (B, 1) the whole batch; the cache
+    is held on ``cache_shardings`` (the tree `cache_shardings` gives) or,
+    without it, on its batch rows alone; the step returns the rank's rows
+    of the logits and its slice of the new cache. The cache's sharded
+    non-batch dims (kv_heads or kv_seq over "model") are gathered for the
+    step and sliced again after it."""
+    rules = DEFAULT_RULES if rules is None else rules
+    p_sh = None if mesh is None else make_param_shardings(model.spec, mesh,
+                                                          rules)
+    rows_rules = ShardingRules((("batch", rules.lookup("batch")),))
+
+    def layouts(cache, b):
+        axes = cache_axes(cache)
+
+        def full(x, ax, s=None):
+            if s is not None:
+                shape = [d * _mesh_size(mesh, e)
+                         for d, e in zip(x.shape, s.entries(x.ndim))]
+            else:
+                shape = list(x.shape)
+                shape[ax.index("batch")] = b
+            return torch.empty(shape, dtype=x.dtype, device="meta")
+
+        store = cache_shardings
+        shapes = tree_map(full, cache, axes) if store is None \
+            else tree_map(full, cache, axes, store)
+        rows = shardings_from_axes_tree(axes, shapes, mesh, rows_rules)
+        return rows, rows if store is None else store
 
     @torch.no_grad()
     def serve_step(params, cache, tokens):
-        return model.decode_step(params, cache, tokens,
-                                 qcfg=QuantConfig.off())
+        if mesh is None:
+            return model.decode_step(params, cache, tokens,
+                                     qcfg=QuantConfig.off())
+        params = gather_tree(params, p_sh)
+        rows, store = layouts(cache, tokens.shape[0])
+        logits, new = model.decode_step(
+            params, reshard_tree(cache, store, rows),
+            batch_sharding(mesh, tokens.shape, rules).local(tokens),
+            qcfg=QuantConfig.off())
+        return logits, reshard_tree(new, rows, store)
 
     return serve_step
 
@@ -199,25 +362,43 @@ def init_train_state(model, step_cfg: StepConfig, seed: int = 0, *,
     return {"params": params, "opt": make_optimizer(step_cfg).init(params)}
 
 
-def _sharding_helper(name: str):
-    def helper(*args, **kwargs):
-        raise _mesh_not_ported(name)
+def abstract_train_state(model) -> dict:
+    """The train state as meta tensors (no storage): {"params", "opt":
+    {"step", "mu", "nu"}}."""
+    params = abstract_params(model.spec)
+    like = lambda t: tree_map(torch.empty_like, t)  # noqa: E731
+    return {"params": params,
+            "opt": {"step": torch.empty((), dtype=torch.int32,
+                                        device="meta"),
+                    "mu": like(params), "nu": like(params)}}
 
-    helper.__name__ = name
-    helper.__doc__ = (f"The JAX package's ``{name}``: raises "
-                      "`NotImplementedError` (ROADMAP.md item 10).")
-    return helper
+
+def train_state_shardings(model, mesh, rules: ShardingRules = DEFAULT_RULES,
+                          guard_report=None) -> dict:
+    p_sh = make_param_shardings(model.spec, mesh, rules,
+                                guard_report=guard_report)
+    return {"params": p_sh,
+            "opt": {"step": NamedSharding(mesh, PartitionSpec()),
+                    "mu": p_sh, "nu": p_sh}}
 
 
-abstract_train_state = _sharding_helper("abstract_train_state")
-abstract_serve_params = _sharding_helper("abstract_serve_params")
-comp_abstract = _sharding_helper("comp_abstract")
-train_state_shardings = _sharding_helper("train_state_shardings")
-comp_shardings = _sharding_helper("comp_shardings")
-batch_shardings = _sharding_helper("batch_shardings")
-cache_axes = _sharding_helper("cache_axes")
-cache_shardings = _sharding_helper("cache_shardings")
-moe_dispatch_constraint = _sharding_helper("moe_dispatch_constraint")
+def abstract_serve_params(model):
+    """Serve-time parameters in bfloat16 (meta tensors)."""
+    return abstract_params(model.spec, torch.bfloat16)
+
+
+def comp_abstract(model):
+    from repro_torch.core.lm_compress import make_lm_comp_spec
+
+    return abstract_params(make_lm_comp_spec(model))
+
+
+def comp_shardings(model, mesh, rules: ShardingRules = DEFAULT_RULES,
+                   guard_report=None):
+    from repro_torch.core.lm_compress import make_lm_comp_spec
+
+    return make_param_shardings(make_lm_comp_spec(model), mesh, rules,
+                                guard_report=guard_report)
 
 
 # ================================================================== inputs
@@ -252,6 +433,11 @@ def batch_specs(cfg, shape) -> Dict[str, torch.Tensor]:
     return specs
 
 
+def batch_shardings(specs, mesh, rules: ShardingRules = DEFAULT_RULES):
+    return {k: batch_sharding(mesh, v.shape, rules)
+            for k, v in specs.items()}
+
+
 def decode_cache_specs(model, shape, dtype=torch.bfloat16) -> dict:
     """Abstract decode cache (meta tensors) of a decode cell: for the
     encoder-decoder family a self-attention cache bounded by the decoder
@@ -260,6 +446,51 @@ def decode_cache_specs(model, shape, dtype=torch.bfloat16) -> dict:
         return model.cache_spec(shape.batch, WHISPER_DECODER_LEN, dtype,
                                 cross_len=shape.seq)
     return model.cache_spec(shape.batch, shape.seq, dtype)
+
+
+_CACHE_AXES_BY_NAME = {
+    "k": ("batch", None, "kv_heads", None),
+    "v": ("batch", None, "kv_heads", None),
+    "xk": ("batch", None, "kv_heads", None),
+    "xv": ("batch", None, "kv_heads", None),
+    "state": ("batch", "inner", None, None),
+    "conv": ("batch", None, "inner"),
+    "h": ("batch", "inner"),
+    "pos": ("batch",),
+}
+
+
+def cache_axes(cache_spec, *, kv_seq_shard: bool = False):
+    """Logical axes tree for a cache (layer-stacked leaves detected by
+    rank: stacked leaves get a leading None for the layer axis).
+
+    ``kv_seq_shard`` shards the K/V cache *sequence* dim over the model axis
+    instead of the head dim: the fallback when kv_heads does not divide
+    the model axis (MQA/GQA with few KV heads)."""
+    kv_axes = (("batch", "kv_seq", None, None) if kv_seq_shard
+               else ("batch", None, "kv_heads", None))
+    by_name = dict(_CACHE_AXES_BY_NAME)
+    for key in ("k", "v", "xk", "xv"):
+        by_name[key] = kv_axes
+
+    def walk(node, name=None):
+        if isinstance(node, dict):
+            return {k: walk(v, k) for k, v in node.items()}
+        base = by_name[name]
+        extra = len(node.shape) - len(base)
+        assert extra in (0, 1), (name, node.shape)
+        return (None,) * extra + base
+
+    return walk(cache_spec)
+
+
+def cache_shardings(model, shape, mesh, rules: ShardingRules = DEFAULT_RULES,
+                    dtype=torch.bfloat16, guard_report=None, *,
+                    kv_seq_shard: bool = False):
+    spec = decode_cache_specs(model, shape, dtype)
+    axes = cache_axes(spec, kv_seq_shard=kv_seq_shard)
+    return shardings_from_axes_tree(axes, spec, mesh, rules,
+                                    guard_report=guard_report)
 
 
 # ====================================================================== CLI

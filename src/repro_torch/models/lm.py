@@ -52,6 +52,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import lm_compress, qat
 from repro_torch.core.export import ServeArtifact
+from repro_torch.distributed.sharding import batch_reduce
 from repro_torch.kernels.lut_matmul.ref import exact_matmul
 from repro_torch.models.config import ArchConfig
 from repro_torch.kernels.fake_quant.ops import MAX_CANDIDATES
@@ -351,7 +352,11 @@ class LMModel:
         ``enc_embeds``; the log-softmax is taken over the trailing label
         positions (a prefix's are not scored), and ``total = ce + 0.01 *
         lb_loss + 1e-3 * z_loss`` (both zero for the dense family).
-        ``fwd_kwargs`` go to `forward`."""
+        ``fwd_kwargs`` go to `forward`. Inside a meshed step whose batch
+        is split over ranks (`repro_torch.distributed.sharding
+        .batch_reduction`) ``batch`` is this rank's rows and the loss is
+        the global batch's: the masked sum and the count are summed over
+        the ranks in float64."""
         logits, aux = self.forward(params, batch["tokens"],
                                    prefix_embeds=batch.get("prefix_embeds"),
                                    enc_embeds=batch.get("enc_embeds"),
@@ -361,7 +366,16 @@ class LMModel:
         logp = torch.log_softmax(logits_tok, dim=-1)
         nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
         mask = batch.get("loss_mask")
-        if mask is not None:
+        red = batch_reduce()
+        if red is not None:
+            # a meshed step's rows: sums and counts over the global batch
+            # (a mean of per-rank means would weigh ranks, not tokens)
+            mask = torch.ones_like(nll) if mask is None \
+                else mask.to(nll.dtype)
+            num = red.sum((nll * mask).sum(dtype=torch.float64))
+            den = red.sum(mask.sum(dtype=torch.float64))
+            loss = (num / torch.clamp(den, min=1.0)).float()
+        elif mask is not None:
             mask = mask.to(nll.dtype)
             loss = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
         else:

@@ -32,14 +32,16 @@ Shared (always-on) experts (the moonshot family) are plain FFN matrices.
 
 from __future__ import annotations
 
+import contextvars
 import dataclasses
-from typing import Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.core import qat, routing_stats
 from repro_torch.core.export import ServeArtifact, serve_dense
+from repro_torch.distributed.sharding import batch_reduce
 from repro_torch.kernels.lut_matmul.ref import exact_matmul
 from repro_torch.models.config import MoEDims
 from repro_torch.nn.layers import (
@@ -51,16 +53,30 @@ from repro_torch.nn.layers import (
 from repro_torch.nn.spec import ParamSpec, fan_in_init, normal_init
 
 __all__ = ["MoEDims", "apply_moe", "capacity", "make_moe_spec",
-           "set_dispatch_constraint", "top_k"]
+           "reset_dispatch_constraint", "set_dispatch_constraint", "top_k"]
 
 
-def set_dispatch_constraint(fn):
-    """The JAX package's mesh hook on the dispatch buffer; the port runs on
-    one device and has no mesh yet."""
-    raise NotImplementedError(
-        "set_dispatch_constraint (device meshes and shardings) is not "
-        "ported yet: ROADMAP.md Queue 1 item 10, 'Multi-device, "
-        "checkpointing, launch'")
+# Optional dispatch-buffer hook (set by a meshed train step with
+# ``moe_local_dispatch``): hook(tensor, kind), kind in {"scatter",
+# "expert"}. In the JAX package it pins the (B, E, C, d) buffer's layout
+# for the SPMD partitioner; each rank here computes its rows with every
+# expert, so the hook returns its tensor unchanged.
+_DISPATCH_CONSTRAINT: contextvars.ContextVar[Optional[Callable]] = \
+    contextvars.ContextVar("moe_dispatch_constraint", default=None)
+
+
+def set_dispatch_constraint(fn: Optional[Callable]):
+    """Returns a contextvars token; reset with the token when done
+    (`reset_dispatch_constraint`)."""
+    return _DISPATCH_CONSTRAINT.set(fn)
+
+
+def reset_dispatch_constraint(token) -> None:
+    _DISPATCH_CONSTRAINT.reset(token)
+
+
+def dispatch_constraint() -> Optional[Callable]:
+    return _DISPATCH_CONSTRAINT.get()
 
 
 def make_moe_spec(dims: MoEDims, dtype=torch.float32) -> dict:
@@ -166,8 +182,11 @@ def apply_moe(params, x: torch.Tensor, dims: MoEDims, *,
     # ---- scatter tokens into (B, E, C, d); dropped rows to spare slot C
     xk = torch.repeat_interleave(x, k, dim=1)                # (B, S*k, d)
     bidx = torch.arange(b, device=dev)[:, None].expand(b, s * k)
+    hook = dispatch_constraint()
     buf = x.new_zeros((b, e, c + 1, d)).index_put(
         (bidx, expert, torch.where(keep, slot, c)), xk)[:, :, :c]
+    if hook is not None:
+        buf = hook(hook(buf, "scatter"), "expert")
 
     tokens_dims = 3 if exact else 0
 
@@ -222,13 +241,23 @@ def apply_moe(params, x: torch.Tensor, dims: MoEDims, *,
                   dims.ffn)
         y = y + shared_mm("shared_down", sh)
 
-    # ---- aux losses (Switch/GShard load balance + z-loss), float64 sums
+    # ---- aux losses (Switch/GShard load balance + z-loss), float64 sums;
+    # in a meshed step whose batch is split, the token sums and counts are
+    # the global batch's (lb_loss is a product of two token means)
+    red = batch_reduce()
+    total = (lambda t: t) if red is None else red.sum
     n_tok = b * s
-    me = probs.reshape(-1, e).sum(dim=0, dtype=torch.float64) / n_tok
-    ce = onehot.reshape(n_tok, k, e).sum(dim=(0, 1), dtype=torch.float64) \
-        / n_tok
+    n_all = n_tok if red is None else int(total(
+        torch.tensor(float(n_tok), dtype=torch.float64, device=dev)))
+    me = total(probs.reshape(-1, e).sum(dim=0, dtype=torch.float64)) / n_all
+    ce = total(onehot.reshape(n_tok, k, e).sum(dim=(0, 1),
+                                               dtype=torch.float64)) / n_all
     lb_loss = (e * (me * ce).sum() / k).float()
     z = torch.logsumexp(logits, dim=-1)
-    z_loss = (z.double() ** 2).mean().float()
-    dropped = (1.0 - keep.sum(dtype=torch.float64) / keep.numel()).float()
+    if red is None:
+        z_loss = (z.double() ** 2).mean().float()
+    else:
+        z_loss = (total((z.double() ** 2).sum()) / n_all).float()
+    dropped = (1.0 - total(keep.sum(dtype=torch.float64))
+               / (n_all * k)).float()
     return y, {"lb_loss": lb_loss, "z_loss": z_loss, "dropped_frac": dropped}

@@ -101,6 +101,14 @@ def init_params(seed: int, spec_tree, device) -> Any:
     return init(spec_tree, "")
 
 
+def abstract_params(spec_tree, dtype=None) -> Any:
+    """The spec tree as meta tensors (shape and dtype, no storage):
+    ``dtype`` in place of every leaf's own when given."""
+    return tree_map(lambda s: torch.empty(
+        s.shape, dtype=s.dtype if dtype is None else dtype, device="meta"),
+        spec_tree)
+
+
 def _spec_leaves(spec_tree) -> list:
     if isinstance(spec_tree, dict):
         return [s for v in spec_tree.values() for s in _spec_leaves(v)]

@@ -52,23 +52,31 @@ def _per_candidate(v: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return v.reshape(v.shape + (1,) * (like.ndim - v.ndim)) if v.ndim else v
 
 
+def sq_sum(x: torch.Tensor) -> torch.Tensor:
+    """One leaf's float64 sum of squares, as `global_norm` sums it."""
+    return x.double().square().sum(-1).sum()
+
+
 @torch.no_grad()
 def global_norm(tree, cands: bool = False) -> torch.Tensor:
     """The float32 norm of every leaf together, its squares summed in
     float64 and rounded once; ``cands``: one norm a candidate (the leading
     axis of every leaf), shape (n,)."""
-    def sq(x):
-        x = x.double()
-        return (x.reshape(x.shape[0], -1) if cands else x).square().sum(-1)
-
-    total = torch.stack([sq(x).reshape(-1) if cands else sq(x).sum()
+    if not cands:
+        total = torch.stack([sq_sum(x) for x in tree_leaves(tree)]).sum(0)
+        return torch.sqrt(total).float()
+    total = torch.stack([x.double().reshape(x.shape[0], -1).square().sum(-1)
                          for x in tree_leaves(tree)]).sum(0)
     return torch.sqrt(total).float()
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads, max_norm: float, cands: bool = False):
-    norm = global_norm(grads, cands)
+def clip_by_global_norm(grads, max_norm: float, cands: bool = False,
+                        norm_fn=None):
+    """``grads`` scaled to a global norm of at most ``max_norm``.
+    ``norm_fn(grads)``: the norm where the leaves are slices of sharded
+    tensors (`repro_torch.distributed.sharding.sharded_global_norm`)."""
+    norm = global_norm(grads, cands) if norm_fn is None else norm_fn(grads)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     return tree_map(lambda g: g * _per_candidate(scale, g), grads), norm
 
@@ -76,7 +84,9 @@ def clip_by_global_norm(grads, max_norm: float, cands: bool = False):
 def adamw(lr: Union[Callable[[torch.Tensor], torch.Tensor], float], *,
           b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
           weight_decay: float = 0.0,
-          max_grad_norm: Optional[float] = 1.0) -> Optimizer:
+          max_grad_norm: Optional[float] = 1.0, norm_fn=None) -> Optimizer:
+    """AdamW with global-norm clipping (``norm_fn``: see
+    `clip_by_global_norm`)."""
     lr_fn = _lr_fn(lr)
 
     def init(params):
@@ -89,7 +99,8 @@ def adamw(lr: Union[Callable[[torch.Tensor], torch.Tensor], float], *,
     def update(grads, state, params):
         cands = state["step"].ndim == 1
         if max_grad_norm is not None:
-            grads, _ = clip_by_global_norm(grads, max_grad_norm, cands)
+            grads, _ = clip_by_global_norm(grads, max_grad_norm, cands,
+                                           norm_fn)
         step = state["step"] + 1
         stepf = step.float()
         mu = tree_map(lambda m, g: b1 * m + (1 - b1) * g, state["mu"], grads)

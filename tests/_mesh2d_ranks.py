@@ -1,0 +1,190 @@
+"""Rank side of `tests/test_torch_mesh2d.py`: what each of the four gloo
+processes of the 2 x 2 ("data", "model") CPU mesh runs (torch and the port
+only; importable by name from a spawned process)."""
+
+import numpy as np
+import torch
+
+
+class ActCodes:
+    """Patches `qat.fake_quant_act` while open and records each call's int8
+    codes (numpy); the value returned is the function's own."""
+
+    def __init__(self):
+        self.codes = []
+
+    def __enter__(self):
+        from repro_torch.core import qat
+
+        self._real = qat.fake_quant_act
+
+        def fake_quant_act(a, cand_dim=None, *, token_dims=0):
+            scale = qat._act_scale(a, cand_dim, token_dims)
+            codes = qat._round_clip(a / scale)
+            self.codes.append(codes.detach().to(torch.int8).numpy())
+            return a + (codes * scale - a).detach()
+
+        qat.fake_quant_act = fake_quant_act
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core import qat
+
+        qat.fake_quant_act = self._real
+
+
+def host(tree):
+    from repro_torch.nn.spec import flatten_with_names
+
+    return {k: v.detach().cpu().numpy()
+            for k, v in flatten_with_names(tree).items()}
+
+
+def _batch(toks):
+    return {"tokens": torch.as_tensor(toks[:, :-1]),
+            "labels": torch.as_tensor(toks[:, 1:])}
+
+
+def _train(model, cfg, mesh, params, comp, toks, *, steps, dispatch=False):
+    """``steps`` meshed train steps from the full numpy state: (losses, the
+    gathered state after step 1 and after the last, this rank's codes)."""
+    from repro_torch.distributed import sharding as S
+    from repro_torch.launch import train as T
+    from repro_torch.nn.spec import params_from_numpy
+
+    p = params_from_numpy(params, "cpu")
+    c = params_from_numpy(comp, "cpu")
+    sh = T.train_state_shardings(model, mesh)
+    state = S.shard_tree({"params": p, "opt": T.make_optimizer(cfg).init(p)},
+                         sh)
+    local_comp = S.shard_tree(c, T.comp_shardings(model, mesh))
+    step = T.make_train_step(model, cfg, mesh=mesh,
+                             moe_local_dispatch=dispatch)
+    losses, firsts = [], None
+    with ActCodes() as rec:
+        for i in range(steps):
+            state, met = step(state, _batch(toks), local_comp)
+            losses.append({k: float(v) for k, v in met.items()})
+            if i == 0:
+                firsts = host(S.gather_tree(state, sh))
+    return losses, firsts, host(S.gather_tree(state, sh)), rec.codes
+
+
+def rank_checks(rank, world, inputs, ckpt_dir):
+    """Every check of the 2 x 2 mesh in one process group."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import Shape, get_config
+    from repro_torch.distributed import elastic
+    from repro_torch.distributed import sharding as S
+    from repro_torch.launch import train as T
+    from repro_torch.models.lm import build_lm
+    from repro_torch.nn.spec import params_from_numpy
+
+    mesh = S.process_mesh((2, 2), ("data", "model"), device_type="cpu")
+    out = {"rank": rank, "coords": mesh.coords}
+
+    # DTensor's slices == the port's == (tests) JAX's device order
+    full = torch.arange(8 * 4 * 6, dtype=torch.float32).reshape(8, 4, 6)
+    dt = {}
+    for spec in ((("data", "model"),), (None, "data", "model"),
+                 ("model", None, "data"), ("data",)):
+        s = S.NamedSharding(mesh, S.PartitionSpec(*spec))
+        mine = distribute_tensor(full, mesh.device_mesh,
+                                 list(s.placements)).to_local()
+        dt[repr(spec)] = bool(torch.equal(mine, s.local(full)))
+        back = S.gather(s.local(full).clone(), s)
+        dt[repr(spec) + " gather"] = bool(torch.equal(back, full))
+    out["dtensor"] = dt
+    out["rows_of_shard0_shard0"] = S.NamedSharding(
+        mesh, S.PartitionSpec(("data", "model"))).local(full)[:, 0, 0] \
+        .tolist()
+
+    cfg = T.StepConfig(**inputs["step_cfg"])
+    trained = None
+    for arch, item in inputs["archs"].items():
+        model = build_lm(get_config(arch).scaled_down(
+            compute_dtype="float32"))
+        losses, first, last, codes = _train(
+            model, cfg, mesh, item["params"], item["comp"], item["toks"],
+            steps=2, dispatch=item["dispatch"])
+        trained = last if arch == "olmo-1b" else trained
+        out[arch] = {"losses": losses, "first": first if rank == 0 else None,
+                     "last": last if rank == 0 else None,
+                     "codes": codes if mesh.coords["model"] == 0 else None}
+
+    olmo = inputs["archs"]["olmo-1b"]
+    model = build_lm(get_config("olmo-1b").scaled_down(
+        compute_dtype="float32"))
+    # a batch of 3 rows does not divide the data axis: it replicates
+    rep = _train(model, cfg, mesh, olmo["params"], olmo["comp"],
+                 olmo["toks"][:3], steps=1)
+    out["replicated"] = {"losses": rep[0],
+                         "last": rep[2] if rank == 0 else None}
+
+    # prefill and decode over the mesh
+    params = params_from_numpy(olmo["params"], "cpu")
+    p_sh = S.make_param_shardings(model.spec, mesh)
+    local_params = S.shard_tree(params, p_sh)
+    prompt = torch.as_tensor(olmo["toks"][:, :16])
+    logits_rows = T.make_prefill_step(model, cfg, mesh=mesh)(
+        local_params, {"tokens": prompt})
+    logits = S.gather(logits_rows, S.batch_sharding(mesh, (4, 16, 1)))
+    max_len = 24
+    with torch.no_grad():
+        _, cache = model.prefill(params, prompt, max_len,
+                                 cache_dtype=torch.float32)
+    c_sh = T.cache_shardings(model, Shape("d", "decode", max_len, 4), mesh,
+                             dtype=torch.float32)
+    served = {}
+    for name, shardings in (("heads", c_sh), ("rows", None)):
+        step = T.make_serve_step(model, cfg, mesh=mesh,
+                                 cache_shardings=shardings)
+        rows_sh = T.cache_shardings(
+            model, Shape("d", "decode", max_len, 4), mesh,
+            rules=S.ShardingRules((("batch", ("pod", "data")),)),
+            dtype=torch.float32)
+        store = rows_sh if shardings is None else shardings
+        local = S.shard_tree(cache, store)
+        outs = []
+        for t in range(2):
+            tok = torch.as_tensor(olmo["toks"][:, 16 + t:17 + t])
+            lg, local = step(local_params, local, tok)
+            outs.append(S.gather(lg, S.batch_sharding(mesh, (4, 1, 1))))
+        served[name] = {"logits": [o.numpy() for o in outs],
+                        "cache": host(S.gather_tree(local, store)),
+                        "local_k": tuple(local["groups"]["g0"]["k"].shape)}
+    out["prefill_logits"] = logits.numpy() if rank == 0 else None
+    out["served"] = served if rank == 0 else {
+        k: {"local_k": v["local_k"]} for k, v in served.items()}
+
+    # a checkpoint saved under 2 x 2, restored onto 4 x 1 and 1 x 4
+    from repro_torch.checkpoint.manager import _unflatten
+
+    state = S.shard_tree(params_from_numpy(_unflatten(trained), "cpu"),
+                         T.train_state_shardings(model, mesh))
+    whole = S.gather_tree(state, T.train_state_shardings(model, mesh))
+    ckpt = CheckpointManager(ckpt_dir, async_save=False)
+    if rank == 0:
+        ckpt.save(3, whole, block=True)
+    dist.barrier()
+    restored = {}
+    for shape in ((4, 1), (1, 4)):
+        mesh2 = elastic.available_mesh(shape[1])
+        step_n, st = elastic.elastic_restore(ckpt, model, mesh2)
+        sh2 = T.train_state_shardings(model, mesh2)
+        got = host(S.gather_tree(st, sh2))
+        want = host(whole)
+        local_ok = all(S.tree_leaves(S.tree_map(
+            lambda v, s, w: tuple(v.shape) == s.shard_shape(w.shape),
+            st, sh2, whole)))
+        restored["x".join(map(str, shape))] = {
+            "step": step_n, "mesh": mesh2.shape, "local_shapes": local_ok,
+            "equal": all(np.array_equal(got[k], want[k]) for k in want),
+            "sharded_leaves": sum(
+                1 for s in S.tree_leaves(sh2) if any(e is not None
+                                                     for e in s.spec))}
+    out["restored"] = restored
+    return out

@@ -61,8 +61,15 @@ MESH_AND_FAULT = ("distributed/__init__.py", "distributed/sharding.py",
                   "distributed/fault.py", "optim/compression.py")
 
 
+# the modules the 2-D meshes (rules, elastic restore, the dry run, the
+# meshed steps) added or changed
+MESH2D = ("distributed/elastic.py", "distributed/spawn.py",
+          "launch/mesh.py", "launch/dryrun.py", "checkpoint/manager.py",
+          "optim/optimizers.py", "core/qat.py")
+
+
 @pytest.mark.parametrize("rel", BASELINES_AND_ENCDEC + ROUTED + VLM_AND_COSIM
-                         + MESH_AND_FAULT)
+                         + MESH_AND_FAULT + MESH2D)
 def test_new_modules_are_checked_and_a_stray_import_fails(rel, tmp_path):
     """Each module is among the files the import check walks, imports
     cleanly alone, and the check catches a stray ``import jax`` or ``from

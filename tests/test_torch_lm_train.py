@@ -274,14 +274,48 @@ def test_remat_gradients_equal_bit_for_bit(lm, flash):
 
 
 def test_mesh_arguments_raise_naming_item_10(lm):
-    _, tm, *_ = lm
-    cfg = ttrain.StepConfig()
-    with pytest.raises(NotImplementedError, match="item 10"):
-        ttrain.make_train_step(tm, cfg, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 10"):
-        ttrain.batch_shardings(None, None)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        ttrain.abstract_train_state(tm)
+    """The mesh arguments and helpers, once refused naming ROADMAP.md item
+    10, build: abstract states on meta, shardings on a 1 x 1 abstract mesh,
+    and the steps on it are the unmeshed ones bit for bit (no collective:
+    the mesh is this one process)."""
+    from repro_torch.distributed import sharding as tsh
+
+    _, tm, _, tp, _, tc, batch = lm
+    mesh = tsh.AbstractMesh((1, 1), ("data", "model"))
+    cfg = ttrain.StepConfig(qat=True, remat=True, q_block=BLOCK,
+                            kv_block=BLOCK, lr=LR)
+    for fn in (ttrain.abstract_train_state, ttrain.abstract_serve_params,
+               ttrain.comp_abstract):
+        tree = fn(tm)
+        assert all(t.device.type == "meta" for t in tflat(tree).values())
+    specs = {"tokens": torch.empty((B, S), dtype=torch.int32,
+                                   device="meta")}
+    for tree, sh in ((specs, ttrain.batch_shardings(specs, mesh)),
+                     (ttrain.abstract_train_state(tm),
+                      ttrain.train_state_shardings(tm, mesh)),
+                     (ttrain.comp_abstract(tm),
+                      ttrain.comp_shardings(tm, mesh))):
+        shards = tflat(sh)
+        for name, t in tflat(tree).items():   # one position holds it all
+            assert shards[name].shard_shape(t.shape) == tuple(t.shape)
+    hook = ttrain.moe_dispatch_constraint(mesh, tsh.DEFAULT_RULES)
+    x = torch.ones(2, 4, 8, 16)
+    assert hook(x, "scatter") is x and hook(x, "expert") is x
+
+    state = {"params": tp, "opt": ttrain.make_optimizer(cfg).init(tp)}
+    want, wmet = ttrain.make_train_step(tm, cfg)(state, tbatch(batch), tc)
+    got, gmet = ttrain.make_train_step(tm, cfg, mesh=mesh,
+                                       rules=tsh.DEFAULT_RULES,
+                                       moe_local_dispatch=True)(
+        state, tbatch(batch), tc)
+    assert all(torch.equal(gmet[k], wmet[k]) for k in wmet)
+    fw, fg = tflat(want), tflat(got)
+    assert all(torch.equal(fg[n], fw[n]) for n in fw)
+    toks = tbatch(batch)["tokens"]
+    prefill = ttrain.make_prefill_step(tm, cfg, mesh=mesh)(tp,
+                                                           {"tokens": toks})
+    assert torch.equal(prefill, ttrain.make_prefill_step(tm, cfg)(
+        tp, {"tokens": toks}))
 
 
 # ------------------------------------------------------------ the target

@@ -168,8 +168,24 @@ def test_capacity_and_spec_match_jax(moe):
     for k in js:
         assert tuple(js[k].shape) == tuple(ts[k].shape), k
         assert tuple(js[k].axes) == tuple(ts[k].axes), k
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tmoe.set_dispatch_constraint(lambda t, kind: t)
+    # the dispatch hook (a layout constraint in JAX) is set, leaves the
+    # values alone, and is cleared
+    tparams = j2t(layer0(moe["jp"]["blocks"]["g0"]["moe"]))
+    x = moe["x"]
+    with torch.no_grad():
+        want, _ = tmoe.apply_moe(tparams, torch.from_numpy(x),
+                                 moe["tdims"])
+    kinds = []
+    token = tmoe.set_dispatch_constraint(
+        lambda t, kind: kinds.append((kind, tuple(t.shape))) or t)
+    assert tmoe.dispatch_constraint() is not None
+    with torch.no_grad():
+        got, _ = tmoe.apply_moe(tparams, torch.from_numpy(x),
+                                moe["tdims"])
+    tmoe.reset_dispatch_constraint(token)
+    assert tmoe.dispatch_constraint() is None
+    assert [k for k, _ in kinds] == ["scatter", "expert"]
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("k", [1, 2, 3])
