@@ -6,10 +6,16 @@
 1. prints the card's name and power limit (nvidia-smi);
 2. builds every kernel of the port from the sources in this checkout (one
    nvcc per source, all started together, sm_90a) and prints each build
-   time and the ptxas resource lines;
-3. K2, the LUT GEMM: prints its configuration per output width (MMA
-   shape, ring stages, tiles, registers, shared memory, blocks per SM:
-   ``[k2-design]``); holds the kernel against its plain PyTorch version at
+   time and the ptxas resource lines; K2's build, the longest, runs on
+   while the phases that launch no K2 run, which come first: K1's and
+   K3's (4 and 7), ``[cosim]``, the train step (8), ``[fault]`` and
+   ``[mesh2d]`` (22); ``[time]`` lines give the seconds since the start
+   at the end of each group of phases;
+3. K2, the LUT GEMM: prints each of its configurations (MMA shape, ring
+   stages, tiles, registers, shared memory, blocks per SM:
+   ``[k2-design]``); every call without a configuration takes the one the
+   process-wide tuner's model resolves; holds the kernel against its
+   plain PyTorch version at
    every (M, K, N, epilogue) the ResNet-20 serve pass launches at batch 256,
    both with X padded to K_pad (the pack block) and with the serve path's
    unpadded rows (K rounded up to 8), at two ResNet-50 shapes, at each
@@ -244,7 +250,7 @@
    flags; then 10 steps of AdamW wrapped in the int8 gradient compressor
    (finite losses, ``wire_bytes / raw_bytes``) and one step's gradients'
    int8 codes on the card equal to the CPU's;
-22. ``[mesh2d]`` (after 16), the 2-D ("data", "model") meshes of
+22. ``[mesh2d]`` (after ``[fault]``), the 2-D ("data", "model") meshes of
    processes, olmo-1b at full width computing in float32: (a) one
    process over NCCL, a 1 x 1 process mesh on cuda:0, full depth: two
    QAT train steps at 8 x 64 tokens with ``mesh=`` and ``rules=``
@@ -254,14 +260,32 @@
    processes ask NCCL for an all-reduce with four ranks on cuda:0
    (``[mesh2d] nccl``); (b) four processes on cuda:0 (gloo, CUDA tensors
    through the host, unless that all-reduce worked), a 2 x 2 mesh, 2 of
-   the 16 layers (each rank gathers the full parameters): the same two
-   steps against the unmeshed steps at that depth (on rank 0), at lr
+   the 16 layers (FSDP a layer: each rank keeps its slices and gathers one
+   block at a time where the model runs it, K3's one launch on its
+   slices): the same two steps against the unmeshed steps at that depth
+   (on rank 0), at lr
    1e-5: loss rel 1e-5, gradient (the first Adam moment after step 1)
    rel-L2 1e-4, params abs 2e-4; at the LM target's lr 6e-4 the same gaps
    reported; at both, the int8 activation codes of the first step equal,
    the data ranks' rows put together (the second step's flips counted);
-   each rank's K3 launches a step, ms a step and peak memory;
-23. prints the ``kernels`` JSON line, then the result line.
+   each rank's K3 launches a step, ms a step, peak memory and its peak of
+   gathered bytes alive at once, gated at the dry run's bound (the
+   embedding plus one block's parameters, fake-quantized copy and
+   gradient);
+23. ``[k2-tune]`` (after 3): K2's configuration tuner on the card's
+   balance, measuring the model's top 3 and the untuned configuration at
+   olmo-1b's seven units at M = 4 and at its prefill's M = 4 x 256, one
+   M = 4 shape each of mamba2, whisper and internvl2, phi3.5-moe's expert
+   at M = 32 and ResNet-20's serve shapes at batch 256: tuned == untuned
+   bit for bit, tuned against the plain version within 1e-4, untuned /
+   tuned / torch.matmul device ms beside the bound, and the main path's
+   configuration (the default tuner's model, unmeasured) with its ms, no
+   slower than the untuned one within 3%; the saved cache loaded into
+   another tuner resolves every shape with 0 retunes; olmo-1b's decode
+   step's 112 K2 calls untuned against tuned, and the host ms to issue
+   them resolving each configuration against given it;
+24. prints the ``kernels`` JSON line (K2's with the configurations it
+   launched and ``tune``), then the result line.
 
 Any failure raises and the script exits non-zero. It refuses to run without
 a CUDA device, and outside a checkout of the repository.
@@ -298,6 +322,10 @@ PROFILE_TILES = 16          # profile.max_tiles of the profile path
 TRAIN_CHECK_BATCH = 32      # card vs CPU train-step check
 LOSS_RTOL, GRAD_RTOL = 1e-5, 1e-4
 GRAPH_LAUNCHES = 20         # K3 launches per timed CUDA graph replay
+K2_TUNE_REPS = 10           # graph replays timing a configuration ([k2-tune])
+K2_TUNE_TOP = 3             # configurations [k2-tune] times: the model's best
+K2_TUNE_STEP_REPS = 10      # timed turns of the 112-call decode step
+K2_PICK_SLACK = 0.03        # timer spread a main-path pick may show
 HOST_CALLS = 200            # K3 wrapper calls timed on the host clock
 # candidate axes of the K3 candidate phase: one; the sweep phase's 6
 # candidates; the largest gathered evaluation of the default schedule (9
@@ -415,9 +443,9 @@ MESH_FLOAT_RTOL = 1e-6      # sharded energy sums, if they are not exact
 FAULT_STEPS, FAULT_EVERY, FAULT_AT = 25, 5, (3, 13, 22)
 FAULT_COMPRESS_STEPS = 10
 # [mesh2d]: (a) olmo-1b at full depth on a 1 x 1 mesh; (b) 2 of its 16
-# layers (four ranks, each with the gathered parameters, share one card) on
-# a 2 x 2 mesh of four processes; two QAT steps of batch x tokens each;
-# the prefill and serve check's rows x prompt tokens
+# layers (four ranks, each holding its slices and gathering a block at a
+# time, share one card) on a 2 x 2 mesh of four processes; two QAT steps of
+# batch x tokens each; the prefill and serve check's rows x prompt tokens
 MESH2D_STEPS, MESH2D_BATCH, MESH2D_TOKENS = 2, 8, 64
 MESH2D_LAYERS, MESH2D_SHAPE = 2, (2, 2)
 MESH2D_PREFILL = (4, 64)
@@ -656,6 +684,234 @@ def k2_phase(torch, ops, ref, cases, reps=REPS):
               f"bound={b_ms:.4f} ms ({b_by})", flush=True)
         del c, y_kernel, y_plain, w_deq
     return rows
+
+
+def k2_tune_shapes(torch):
+    """[(label, M, K_x, K_pad, N)] of `k2_tune_phase`: olmo-1b's seven units
+    at a decode step's M (LM_PROMPTS) and at its prefill's (LM_PROMPTS x
+    LM_PROMPT_LEN), one decode shape each of mamba2,
+    whisper and internvl2, phi3.5-moe's expert w_gate at M = 32, and
+    ResNet-20's serve shapes at batch BATCH as the serve path feeds them
+    (rows K rounded up to 8, weights padded to the pack block)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.lut_matmul.lut_matmul import x_width
+    from repro_torch.nn.cnn import resnet20
+
+    acfg = get_config(LM_ARCH)
+    d, f = acfg.d_model, acfg.d_ff
+    kv = acfg.n_kv_heads * acfg.resolved_head_dim
+    m = LM_PROMPTS
+    units = (("wq", d, d), ("wk", d, kv), ("wv", d, kv), ("wo", d, d),
+             ("w_gate", d, f), ("w_up", d, f), ("w_down", f, d))
+    shapes = [(f"{LM_ARCH} {u}", m, k, k, n) for u, k, n in units]
+    shapes += [(f"{LM_ARCH} prefill {u}", m * LM_PROMPT_LEN, k, k, n)
+               for u, k, n in units]
+    whisper, vlm = get_config(ENCDEC_ARCH), get_config(VLM_ARCH)
+    dims = get_config(MOE_ARCH).moe_dims()
+    shapes += [("mamba2-1.3b out_proj", m, 4096, 4096, 2048),
+               (f"{ENCDEC_ARCH} w_up", ENCDEC_REQUESTS, whisper.d_model,
+                whisper.d_model, whisper.d_ff),
+               (f"{VLM_ARCH} w_gate", m, vlm.d_model, vlm.d_model, vlm.d_ff),
+               (f"{MOE_ARCH} expert w_gate", 32, dims.d_model,
+                k_pad(dims.d_model), dims.d_ff)]
+    for (mm, k, n, _), cnt in sorted(main_path_shapes(
+            resnet20().comp_layers, BATCH).items(), reverse=True):
+        shapes.append((f"resnet20 x{cnt} M={mm} K={k} N={n}", mm,
+                       x_width(k), k_pad(k), n))
+    return shapes
+
+
+def k2_tune_phase(torch, ops, ref, work):
+    """[k2-tune]: K2's configuration tuner on the card. At each
+    `k2_tune_shapes` shape a fresh `BlockAutotuner` on the card's balance
+    times the model's top K2_TUNE_TOP configurations (device time in a CUDA
+    graph, `graph_ms`) and keeps the fastest; the tuned output must equal
+    the untuned one (`default_config`, the choice from N alone) bit for bit
+    and the plain version within RTOL / ATOL. Untuned, tuned and
+    torch.matmul device ms beside the bound, and the configuration the main
+    path takes (a call without one: the default tuner's model, no
+    measurement) with its device ms; where it is not the untuned
+    configuration it must be no slower than the untuned one (within
+    K2_PICK_SLACK, the timer's spread). The cache is saved, loaded into
+    another tuner and every shape resolved again: 0 retunes. Then olmo-1b's
+    decode step's 112 K2 calls (16 layers x 7 units, each its own weights)
+    untuned against tuned, between CUDA events and in a CUDA graph, and the
+    host's cost of resolving a configuration: the host ms to issue the 112
+    calls without a configuration against the same calls with the
+    configurations they resolve to. Timing launches are not counted as the
+    main path's."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.lut_matmul import autotune as at
+    from repro_torch.kernels.lut_matmul import lut_matmul as k2
+
+    t0 = time.perf_counter()
+    launched, configs = k2.launches, k2.configs.copy()
+    balance = at.MachineBalance.from_device(0)
+    print("[k2-tune] balance " + json.dumps(dataclasses.asdict(balance),
+                                            sort_keys=True), flush=True)
+    tuner = at.BlockAutotuner(balance)
+    dev = torch.device("cuda", 0)
+    rows, problems, chosen = [], [], {}
+    for i, (label, m, kx, kp, n) in enumerate(k2_tune_shapes(torch)):
+        c = make_case(torch, ops, m, kx, kp, n, seed=5000 + i, bias=False,
+                      residual=False, x_dtype=torch.float32)
+        args = (c["x"], c["packed"], c["codebook"], c["scale"])
+
+        def run(cfg, args=args):
+            return ops.lut_matmul_fused(*args, pack_block=128, config=cfg)
+
+        def measure(cfg, run=run):
+            return graph_ms(torch, lambda: run(cfg), K2_TUNE_REPS)[0] * 1e-3
+
+        problem = dict(m=m, k_x=kx, k_pad=kp, n=n, pack_block=128,
+                       x_dtype=torch.float32, device=dev)
+        problems.append(problem)
+        tuned = tuner.best(**problem, measure=measure, top_k=K2_TUNE_TOP)
+        untuned = k2.default_config(n)
+        main = at.get_default_autotuner().best(**problem)
+        chosen[label] = (untuned, tuned)
+        y_t, y_u = run(tuned), run(untuned)
+        y_p = ref.lut_matmul_fused_ref(*args, block_k=128)
+        err = (y_t - y_p).abs()
+        w_deq = ref.weight_rows(ref.dequantize(c["packed"], c["codebook"],
+                                               c["scale"], 128), kx)
+        b_ms, b_by = bound(m, kx, n, c)
+        entry = tuner.entries()[at.shape_fingerprint(
+            m, kx, kp, n, pack_block=128, x_dtype=torch.float32,
+            device=at.device_name(dev))]
+        row = dict(case=label, M=m, K_x=kx, K_pad=kp, N=n,
+                   untuned=str(untuned), tuned=str(tuned),
+                   timed={k: v * 1e3 for k, v in entry["measured_s"].items()}
+                   if entry["measured_s"] else None,
+                   model_ms=entry["model_s"] * 1e3,
+                   bit_equal=bool(torch.equal(y_t, y_u)),
+                   max_abs_err=float(err.max()),
+                   within_tol=bool((err <= ATOL + RTOL * y_p.abs()).all()),
+                   untuned_ms=graph_ms(torch, lambda: run(untuned),
+                                       K2_TUNE_REPS)[0],
+                   tuned_ms=graph_ms(torch, lambda: run(tuned),
+                                     K2_TUNE_REPS)[0],
+                   main=str(main),
+                   library_ms=graph_ms(
+                       torch, lambda: torch.matmul(c["x"], w_deq),
+                       K2_TUNE_REPS)[0],
+                   bound_ms=b_ms, bound_by=b_by)
+        row["main_ms"] = row["untuned_ms"] if main == untuned else graph_ms(
+            torch, lambda: run(main), K2_TUNE_REPS)[0]
+        rows.append(row)
+        print(f"[k2-tune] {label:<36} M={m:<6} K_x={kx:<5} N={n:<5} "
+              f"{row['untuned']} -> {row['tuned']} (main path "
+              f"{row['main']}): untuned={row['untuned_ms']:.4f} tuned="
+              f"{row['tuned_ms']:.4f} main={row['main_ms']:.4f} "
+              f"torch.matmul={row['library_ms']:.4f} bound={b_ms:.4f} ms "
+              f"({b_by}); bit-equal {row['bit_equal']}, err "
+              f"{row['max_abs_err']:.2e}", flush=True)
+        del c, y_t, y_u, y_p, w_deq
+    bad = [r["case"] for r in rows if not (r["bit_equal"] and r["within_tol"])]
+    if bad:
+        raise AssertionError(f"[k2-tune] tuned != untuned bit for bit, or "
+                             f"tuned vs the plain version past tolerance: "
+                             f"{bad}")
+    slow = [(r["case"], r["main"], r["main_ms"], r["untuned_ms"])
+            for r in rows
+            if r["main_ms"] > r["untuned_ms"] * (1 + K2_PICK_SLACK)]
+    if slow:
+        raise AssertionError(f"[k2-tune] the main path's configuration is "
+                             f"slower than the untuned one: {slow}")
+
+    path = tuner.save(work / "k2_autotune.json")
+    warm = at.BlockAutotuner(balance, path=str(path))
+    again = [warm.best(**p) for p in problems]
+    warm_stats = warm.stats()
+    if warm_stats["retune_events"] or [str(c) for c in again] \
+            != [r["tuned"] for r in rows]:
+        raise AssertionError(f"[k2-tune] the saved cache resolved with "
+                             f"{warm_stats}: {[str(c) for c in again]}")
+
+    # olmo-1b's decode step: 16 layers x its seven units, own weights each
+    olmo = [r for r in rows
+            if r["case"].startswith(LM_ARCH) and r["M"] == LM_PROMPTS]
+    depth = get_config(LM_ARCH).n_layers
+    layers = []
+    for layer in range(depth):
+        for j, r in enumerate(olmo):
+            c = make_case(torch, ops, r["M"], r["K_x"], r["K_pad"], r["N"],
+                          seed=7000 + 7 * layer + j, bias=False,
+                          residual=False, x_dtype=torch.float32)
+            layers.append(((c["x"], c["packed"], c["codebook"], c["scale"]),
+                           *chosen[r["case"]]))
+
+    def step(which):
+        def calls():
+            for args, untuned, tuned in layers:
+                ops.lut_matmul_fused(*args, pack_block=128,
+                                     config=untuned if which == 0 else tuned)
+        return calls
+
+    event_ms = time_turns(torch, {"untuned": step(0), "tuned": step(1)},
+                          K2_TUNE_STEP_REPS)
+    step_rows = {"calls": len(layers), **{f"{k}_ms": v
+                                          for k, v in event_ms.items()},
+                 "bound_ms": depth * sum(r["bound_ms"] for r in olmo)}
+    for which, name in ((0, "untuned"), (1, "tuned")):
+        fn = step(which)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            fn()
+        graph.replay()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(K2_TUNE_STEP_REPS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            graph.replay()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        step_rows[f"{name}_device_ms"] = statistics.median(times)
+        del graph
+
+    # the host's side of a call: issue the 112 calls without waiting (the
+    # queue holds them), resolving each configuration or handed it
+    def issue(resolve):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for args, _, _, cfg in layers:
+            ops.lut_matmul_fused(*args, pack_block=128,
+                                 config=None if resolve else cfg)
+        t = time.perf_counter() - t
+        torch.cuda.synchronize()
+        return t * 1e3
+
+    layers = [(args, u, t, at.get_default_autotuner().best(
+        m=args[0].shape[0], k_x=args[0].shape[1],
+        k_pad=2 * args[1].shape[0], n=args[1].shape[1], pack_block=128,
+        x_dtype=args[0].dtype, device=args[0].device))
+        for args, u, t in layers]
+    host = {"resolved": [], "given": []}
+    for rep in range(K2_TUNE_STEP_REPS + 1):
+        for resolve in ((True, False) if rep % 2 else (False, True)):
+            ms = issue(resolve)
+            if rep:       # the first turn warms up
+                host["resolved" if resolve else "given"].append(ms)
+    step_rows.update({f"host_issue_{k}_ms": statistics.median(v)
+                      for k, v in host.items()})
+    step_rows["host_resolve_us_a_call"] = 1e3 * (
+        step_rows["host_issue_resolved_ms"]
+        - step_rows["host_issue_given_ms"]) / len(layers)
+    del layers
+    k2.launches, k2.configs = launched, configs
+    out = dict(shapes=rows, warm_cache=warm_stats, cache=str(
+        path.relative_to(ROOT)), decode_step=step_rows,
+        phase_s=time.perf_counter() - t0)
+    print("[k2-tune] decode step " + json.dumps(step_rows, sort_keys=True)
+          + f"; warm cache {json.dumps(warm_stats, sort_keys=True)}; "
+          f"{out['phase_s']:.1f} s", flush=True)
+    return out
 
 
 # ------------------------------------------------------------ K1 phase
@@ -2034,7 +2290,13 @@ def sweep_phase(torch, plan_dir):
     (`comp_digest`) equal, and K3 to one launch a forward, a candidate
     axis's included; prints each mode's schedule wall time and trials/s (a
     trial: one (layer, candidate) fine-tune with its weight selection and
-    accept check). Returns the [sweep] metrics."""
+    accept check). Each run's schedule stage runs under deterministic
+    algorithms (`_Deterministic`): with PyTorch's defaults cuDNN's float64
+    convolution backward may sum in another order on a run, and a float32
+    rounding it moves can flip an int8 activation code and part the runs'
+    params (seen once on an H100: decisions and masks equal, params not);
+    `conv_backward_repeats` reports how many distinct results that backward
+    gives over repeats under either setting. Returns the [sweep] metrics."""
     from repro_torch._device import tree_leaves
     from repro_torch.distributed.sharding import sweep_mesh
     from repro_torch.kernels.fake_quant import fake_quant as k3
@@ -2062,7 +2324,8 @@ def sweep_phase(torch, plan_dir):
         k3.launches = 0
         try:
             t0 = time.perf_counter()
-            plan = pipe.run_until("schedule")
+            with _Deterministic(torch):
+                plan = pipe.run_until("schedule")
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         finally:
@@ -2105,7 +2368,8 @@ def sweep_phase(torch, plan_dir):
                == plans["batched"].decisions,
                params_equal=all(torch.equal(a, b) for a, b in zip(
                    tree_leaves(plans["serial"].params),
-                   tree_leaves(plans["batched"].params))))
+                   tree_leaves(plans["batched"].params))),
+               conv_backward_distinct=conv_backward_repeats(torch))
     print("[sweep] " + json.dumps(out, sort_keys=True), flush=True)
     mesh.update(
         shards=MESH_SHARDS,
@@ -2124,6 +2388,48 @@ def sweep_phase(torch, plan_dir):
                              "masks and codebooks or params differ from the "
                              "unsharded sweep's")
     out["mesh"] = mesh
+    return out
+
+
+def conv_backward_repeats(torch, repeats=8):
+    """Why `sweep_phase` runs deterministic: the float64 convolution
+    backward of a ResNet-20 stage-1 layer at batch BATCH (one kernel, and
+    the sweep's 6 candidates as one grouped convolution), repeated on the
+    same inputs, under PyTorch's default algorithms and under
+    `_Deterministic`. Returns {setting: {shape: distinct input-gradient /
+    weight-gradient results in ``repeats`` runs}}; 1 means every run gave
+    the same bits."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    out = {}
+    for setting in ("default", "deterministic"):
+        got = {}
+        for name, groups in (("16->16 3x3", 1), ("6 x 16->16 3x3", 6)):
+            c = 16 * groups
+            x = torch.randn((BATCH, c, 32, 32), generator=gen, device="cuda",
+                            dtype=torch.float64)
+            w = torch.randn((c, 16, 3, 3), generator=gen, device="cuda",
+                            dtype=torch.float64)
+            g = torch.randn((BATCH, c, 32, 32), generator=gen, device="cuda",
+                            dtype=torch.float64)
+            seen = {"input": set(), "weight": set()}
+            for _ in range(repeats):
+                xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+                if setting == "deterministic":
+                    with _Deterministic(torch):
+                        y = F.conv2d(xr, wr, padding=1, groups=groups)
+                        y.backward(g)
+                else:
+                    y = F.conv2d(xr, wr, padding=1, groups=groups)
+                    y.backward(g)
+                for key, t in (("input", xr.grad), ("weight", wr.grad)):
+                    seen[key].add(hashlib.sha256(
+                        t.cpu().numpy().tobytes()).hexdigest())
+            got[name] = {k: len(v) for k, v in seen.items()}
+            del x, w, g, xr, wr, y
+        out[setting] = got
+    torch.cuda.empty_cache()
     return out
 
 
@@ -2995,13 +3301,17 @@ def lm_engine_lut(torch, target, plan):
     (`lm_trace_shapes`), seeded numpy prompts, served in each mode. Gates:
     greedy tokens equal across the modes, no build after warmup, 7 K2
     launches a layer a forward call (prefill, chunk step or decode step) and no
-    K3. Then the step split (`lm_engine_split`) and what the engine's
+    K3. Every engine has ``autotune_cache``: the first saves K2's tuner
+    cache after its warmup; then a restart (the process-wide tuner dropped)
+    builds an engine-mode engine that loads it and warms up with 0
+    retunes. Then the step split (`lm_engine_split`) and what the engine's
     float64 sums cost against the alternatives (`lm_engine_sums`)."""
     import dataclasses
 
     from repro_torch._device import tree_map
     from repro_torch.distributed.sharding import request_mesh
     from repro_torch.kernels.fake_quant import fake_quant as k3
+    from repro_torch.kernels.lut_matmul import autotune as at
     from repro_torch.kernels.lut_matmul import lut_matmul as k2
     from repro_torch.models.lm import build_lm
     from repro_torch.pipeline.targets import lm_trace_shapes
@@ -3019,7 +3329,9 @@ def lm_engine_lut(torch, target, plan):
                                             t["blocks"]))
                     for t in (plan.params, plan.comp))
     n_units = 7 * model.cfg.n_layers
-    cfg = EngineConfig(**LM_LUT_ENGINE)
+    tune_cache = ROOT / "build" / "chip_smoke" / "lm_engine_autotune.json"
+    tune_cache.unlink(missing_ok=True)
+    cfg = EngineConfig(**LM_LUT_ENGINE, autotune_cache=str(tune_cache))
     handle = PlanHandle.from_comp(comp, compress_k=LM_COMPRESS_K,
                                   plan_id=f"k{LM_COMPRESS_K}")
     shapes = lm_trace_shapes(LM_LUT_REQUESTS, LM_LUT_PROMPT_LEN,
@@ -3067,6 +3379,7 @@ def lm_engine_lut(torch, target, plan):
                                  "builds after warmup")
         if mode == "engine":
             split = lm_engine_split(torch, engine)
+            saved = tune_cache.exists()
         for name in calls:
             model.__dict__.pop(name, None)
         del engine, results
@@ -3074,10 +3387,19 @@ def lm_engine_lut(torch, target, plan):
     mesh_run = lm_engine_mesh(runs.pop("wave_mesh"), runs["wave"],
                               tokens.pop("wave_mesh"), tokens["wave"],
                               logits)
+    at.reset_default_autotuner()          # a restart: the tuner's cache lost
+    restarted = ServingEngine(model, params, mode="engine", config=cfg,
+                              plan=handle, device="cuda")
+    restarted.warmup(shapes)
+    restart = at.get_default_autotuner().stats()
+    del restarted
+    torch.cuda.empty_cache()
     equal = {mode: tokens[mode] == tokens["engine"] for mode in tokens}
-    out = dict(config=LM_LUT_ENGINE, requests=LM_LUT_REQUESTS,
+    out = dict(config=dict(LM_LUT_ENGINE, autotune_cache=str(
+        tune_cache.relative_to(ROOT))), requests=LM_LUT_REQUESTS,
                shapes=sorted(set(shapes)), runs=runs,
-               tokens_equal_to_engine=equal, mesh=mesh_run)
+               tokens_equal_to_engine=equal, mesh=mesh_run,
+               autotune_cache=dict(saved_by_warmup=saved, restart=restart))
     print("[lm-engine] (b) " + json.dumps(out, sort_keys=True), flush=True)
     if not all(equal.values()):
         differ = {mode: sum(a != b for x, y in zip(t, tokens["engine"])
@@ -3086,6 +3408,10 @@ def lm_engine_lut(torch, target, plan):
         raise AssertionError(f"[lm-engine] (b) greedy tokens differ across "
                              f"modes: {differ} of "
                              f"{sum(len(t) for t in tokens['engine'])}")
+    if not (saved and restart["hits"] and restart["retune_events"] == 0):
+        raise AssertionError(f"[lm-engine] (b) autotune_cache: saved after "
+                             f"warmup {saved}, the restarted engine's tuner "
+                             f"{restart}")
     out["split"] = split
     out["sums"] = lm_engine_sums(torch, model, params, handle, cfg,
                                  shapes, requests, tokens["engine"])
@@ -5861,10 +6187,11 @@ def mesh2d_inputs(torch, n_layers=None, lr=None):
 
 def mesh2d_steps(torch, step, state, batch, comp, on_first=None):
     """MESH2D_STEPS steps: (final state, losses, K3 launches a step (counts
-    set to 0 before each step, read after it), ms a step)."""
+    set to 0 before each step, read after it), ms a step, the peak bytes of
+    gathered tensors a meshed step reports (None unmeshed))."""
     from repro_torch.kernels.fake_quant import fake_quant as k3
 
-    losses, launches, ms = [], [], []
+    losses, launches, ms, peaks = [], [], [], []
     for i in range(MESH2D_STEPS):
         torch.cuda.synchronize()
         k3.launches = 0
@@ -5873,10 +6200,12 @@ def mesh2d_steps(torch, step, state, batch, comp, on_first=None):
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
         launches.append(k3.launches)
+        peak = met.pop("gathered_peak_bytes", None)
+        peaks.append(None if peak is None else int(peak))
         losses.append({k: float(v) for k, v in met.items()})
         if i == 0 and on_first is not None:
             on_first(state)
-    return state, losses, launches, ms
+    return state, losses, launches, ms, peaks
 
 
 def mesh2d_one(torch, work):
@@ -5901,14 +6230,14 @@ def mesh2d_one(torch, work):
         mesh = S.process_mesh((1, 1), ("data", "model"), device_type="cuda")
         model, cfg, state0, comp, batch = mesh2d_inputs(torch)
         init_s = time.perf_counter() - t0
-        want, want_losses, want_k3, want_ms = mesh2d_steps(
+        want, want_losses, want_k3, want_ms, _ = mesh2d_steps(
             torch, T.make_train_step(model, cfg), state0, batch, comp)
         want = {n: t.cpu() for n, t in leaves(want).items()}
         sh = T.train_state_shardings(model, mesh, S.DEFAULT_RULES)
         local = S.shard_tree(state0, sh)
         local_comp = S.shard_tree(comp, T.comp_shardings(model, mesh))
         del state0
-        got, losses, k3_launches, ms = mesh2d_steps(
+        got, losses, k3_launches, ms, peaks = mesh2d_steps(
             torch, T.make_train_step(model, cfg, mesh=mesh,
                                      rules=S.DEFAULT_RULES),
             local, batch, local_comp)
@@ -5945,6 +6274,7 @@ def mesh2d_one(torch, work):
             state_leaves_equal=equal, state_leaves=len(fw),
             k3_launches_per_step=k3_launches,
             unmeshed_k3_launches_per_step=want_k3,
+            gathered_peak_bytes=peaks,
             ms_per_step=ms, unmeshed_ms_per_step=want_ms,
             prefill_logits_equal=bool(torch.equal(logits, m_logits)),
             serve_logits_equal=bool(torch.equal(s_logits, m_s_logits)),
@@ -5999,7 +6329,7 @@ def mesh2d_rank(rank, world, layers, lrs):
         model, cfg, state0, comp, batch = mesh2d_inputs(torch, layers, lr)
         firsts = {}
         with _ActQuant() as rec:
-            ref_state, ref_losses, _, ref_ms = mesh2d_steps(
+            ref_state, ref_losses, _, ref_ms, _ = mesh2d_steps(
                 torch, T.make_train_step(model, cfg), state0, batch, comp,
                 lambda st: firsts.update(mu=leaves(st["opt"]["mu"])))
         ref = dict(state=leaves(ref_state), losses=ref_losses, ms=ref_ms,
@@ -6016,7 +6346,7 @@ def mesh2d_rank(rank, world, layers, lrs):
         torch.cuda.reset_peak_memory_stats()
         firsts = {}
         with _ActQuant() as rec:
-            got, losses, k3_launches, ms = mesh2d_steps(
+            got, losses, k3_launches, ms, peaks = mesh2d_steps(
                 torch, T.make_train_step(model, cfg, mesh=mesh), local,
                 batch, local_comp,
                 lambda st: firsts.update(mu=leaves(S.gather_tree(
@@ -6025,6 +6355,7 @@ def mesh2d_rank(rank, world, layers, lrs):
         full = leaves(S.gather_tree(got, sh))
         run = dict(lr=lr, losses=losses, k3_launches_per_step=k3_launches,
                    ms_per_step=ms, peak_gb=peak / 1e9,
+                   gathered_peak_bytes=peaks,
                    codes=[c.numpy() for c in rec.codes]
                    if mesh.coords["model"] == 0 else None)
         if rank == 0:
@@ -6067,6 +6398,27 @@ def mesh2d_codes(ranks, lr):
             all(g.shape == r.shape for g, r in zip(got, ref)))
 
 
+def gathered_bound(n_layers):
+    """(the dry run's ``gathered_peak_bytes`` of a train step of LM_ARCH
+    (float32) at ``n_layers``: the embedding plus one block's parameters,
+    fake-quantized copy and gradient; the bytes of all its parameters,
+    which a step that gathered the whole model would hold)."""
+    import dataclasses
+
+    from repro_torch._device import tree_leaves
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import gathered_peak_bytes
+    from repro_torch.models.lm import build_lm
+    from repro_torch.nn.spec import abstract_params
+
+    cfg = dataclasses.replace(get_config(LM_ARCH), compute_dtype="float32",
+                              n_layers=n_layers)
+    model = build_lm(cfg)
+    whole = sum(t.numel() * t.element_size()
+                for t in tree_leaves(abstract_params(model.spec)))
+    return gathered_peak_bytes(model, "train"), whole
+
+
 def mesh2d_phase(torch, work):
     """[mesh2d]: (a) the 1 x 1 mesh in this process over NCCL, while four
     ranks probe NCCL on one card; (b) the 2 x 2 mesh of four processes,
@@ -6100,6 +6452,7 @@ def mesh2d_phase(torch, work):
                       deadline_s=MESH2D_DEADLINE_S, threads=None,
                       workdir=str(work))
     b_s = time.perf_counter() - t1
+    bound_bytes, whole_bytes = gathered_bound(MESH2D_LAYERS)
     runs = {}
     for lr in lrs:
         r0 = ranks[0]["runs"][lr]
@@ -6112,11 +6465,14 @@ def mesh2d_phase(torch, work):
             act_code_shapes_equal=shapes_equal,
             ref_ms_per_step=r0["ref_ms_per_step"],
             ranks=[{k: r["runs"][lr][k] for k in (
-                "k3_launches_per_step", "ms_per_step", "peak_gb")}
+                "k3_launches_per_step", "ms_per_step", "peak_gb",
+                "gathered_peak_bytes")}
                    | {"rank": r["rank"], "coords": r["coords"]}
                    for r in ranks])
     two = dict(arch=LM_ARCH, layers=MESH2D_LAYERS, mesh=dict(zip(
-        ("data", "model"), MESH2D_SHAPE)), transport=backend if backend
+        ("data", "model"), MESH2D_SHAPE)),
+        gathered_bound_bytes=bound_bytes, param_bytes=whole_bytes,
+        transport=backend if backend
         == "nccl" else "gloo (CUDA tensors through the host)", nccl=nccl,
         tokens=[MESH2D_BATCH, MESH2D_TOKENS], gated_lr=MESH2D_LR,
         runs=runs, backends=[r["backend"] for r in ranks], phase_b_s=b_s)
@@ -6141,6 +6497,16 @@ def mesh2d_phase(torch, work):
             raise AssertionError("[mesh2d] (b) K3 launches a step: "
                                  + str([r["k3_launches_per_step"]
                                         for r in run["ranks"]]))
+        # at 2 layers the bound (the embedding and one block) is above the
+        # model's parameter bytes, which a rank that gathered every
+        # parameter up front would reach: the peak stays below both
+        if any(not 0 < max(r["gathered_peak_bytes"])
+               <= min(bound_bytes, whole_bytes - 1) for r in run["ranks"]):
+            raise AssertionError(
+                f"[mesh2d] (b) lr {lr}: gathered bytes a step past the dry "
+                f"run's bound {bound_bytes} or not below the model's "
+                f"parameters, {whole_bytes}: "
+                + str([r["gathered_peak_bytes"] for r in run["ranks"]]))
     out = dict(one=one, two=two, phase_s=time.perf_counter() - t0)
     print(f"[mesh2d] {out['phase_s']:.1f} s", flush=True)
     return out
@@ -6165,58 +6531,92 @@ def main() -> int:
     from repro_torch.nn.cnn import resnet20, resnet50
 
     torch.set_float32_matmul_precision("highest")   # no TF32 in the library call
+    t_start = time.perf_counter()
+
+    def mark(phase):
+        """Where the script's time goes: seconds since the start, each
+        phase."""
+        print(f"[time] {phase} done at {time.perf_counter() - t_start:.1f} s",
+              flush=True)
+
     card = card_line()
     print(f"[card] {card}", flush=True)
     print(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}",
           flush=True)
-    build_kernels([k2.LIBRARY, k1.LIBRARY, k3.LIBRARY])
+    # every nvcc starts now; K2's (its 36 kernels, the longest build)
+    # finishes while the phases that launch no K2 run: K1's, K3's, [cosim],
+    # [train], [fault] and [mesh2d]
+    work = ROOT / "build" / "chip_smoke"
+    work.mkdir(parents=True, exist_ok=True)
+    with ThreadPoolExecutor(1) as pool:
+        k2_build = pool.submit(build_kernels, [k2.LIBRARY])
+        build_kernels([k1.LIBRARY, k3.LIBRARY])
+        mark("K1 and K3 builds")
+        k1_rows = k1_phase(torch, k1_cases(torch, resnet20().comp_layers))
+        k3_rows = k3_phase(torch, k3_cases(torch, resnet20().comp_layers))
+        k3_group_rows, k3_forward = k3_group_phase(torch,
+                                                   resnet20().comp_layers)
+        k3_cand_rows, k3_cand = k3_candidate_phase(torch,
+                                                   resnet20().comp_layers)
+        mark("K1 and K3 phases")
+        cosim = cosim_phase(torch, work)
+        torch.cuda.empty_cache()
+        train_phase(torch)
+        torch.cuda.empty_cache()
+        fault = fault_phase(torch, work)
+        torch.cuda.empty_cache()
+        mark("[cosim], [train], [fault]")
+        mesh2d = mesh2d_phase(torch, work)
+        torch.cuda.empty_cache()
+        mark("[mesh2d]")
+        k2_build.result()
+    mark("K2 build")
 
-    k2_design = {f"N<={n}": k2.config(n) for n in (16, 32, 64)}
+    k2_design = {str(cfg): k2.config(cfg) for cfg in (
+        k2.K2Config(bm, bn, dq) for bm, bn in k2.TILES
+        for dq in k2.DEQUANT)}
     print("[k2-design] " + json.dumps(k2_design, sort_keys=True), flush=True)
     k2_rows = k2_phase(torch, ops, ref, k2_cases(torch, resnet20(),
                                                  resnet50()))
-    k1_rows = k1_phase(torch, k1_cases(torch, resnet20().comp_layers))
-    k3_rows = k3_phase(torch, k3_cases(torch, resnet20().comp_layers))
-    k3_group_rows, k3_forward = k3_group_phase(torch, resnet20().comp_layers)
-    k3_cand_rows, k3_cand = k3_candidate_phase(torch, resnet20().comp_layers)
-    torch.cuda.empty_cache()
+    mark("K2")
+    k2_tune = k2_tune_phase(torch, ops, ref, work)
+    mark("[k2-tune]")
 
     k2_launches = serve_path(torch, ROOT / "build" / "chip_smoke")
     k1_launches, k1_path, mesh_prof = profile_path(torch)
-    work = ROOT / "build" / "chip_smoke"
-    work.mkdir(parents=True, exist_ok=True)
-    cosim = cosim_phase(torch, work)
-    torch.cuda.empty_cache()
-    train_phase(torch)
-    torch.cuda.empty_cache()
-    fault = fault_phase(torch, work)
-    torch.cuda.empty_cache()
+    mark("[serve], [profile]")
     serial_launches, _, _ = compress_path(torch, "serial")
     torch.cuda.empty_cache()
     sweep = sweep_phase(torch, ROOT / "build" / "chip_smoke" / "sweep")
     torch.cuda.empty_cache()
     compress_launches, compress_stages, compress_fwds = compress_path(torch)
     torch.cuda.empty_cache()
+    mark("[compress], [sweep]")
     lm, lm_k2_rows, lm_k3 = lm_phase(torch, ops, ref, work)
     torch.cuda.empty_cache()
+    mark("[lm] .. [lm-fleet]")
     lm_train = lm_train_phase(torch, work)
     lm_train_parity = lm_train_parity_phase(torch)
     torch.cuda.empty_cache()
-    mesh2d = mesh2d_phase(torch, work)
-    torch.cuda.empty_cache()
+    mark("[lm-train], [lm-train-parity]")
     recurrent, rec_k2_rows, rec_k3, scan_params = lm_recurrent_phase(
         torch, ops, ref, work)
     rec_models = recurrent["models"]
     torch.cuda.empty_cache()
     scan = lm_scan_phase(torch, ops, ref, scan_params)
     del scan_params
+    mark("[lm-recurrent], [lm-scan]")
     table1 = table1_phase(torch)
+    mark("[table1]")
     encdec, encdec_k2_rows, encdec_k3 = lm_encdec_phase(torch, ops, ref)
     torch.cuda.empty_cache()
+    mark("[lm-encdec]")
     moe, moe_k2_rows, moe_k3 = lm_moe_phase(torch, ops, ref)
     torch.cuda.empty_cache()
+    mark("[lm-moe]")
     vlm, vlm_k2_rows, vlm_k3 = lm_vlm_phase(torch, ops, ref)
+    mark("[lm-vlm]")
 
     padded = [r for r in k2_rows if r["per_forward"] and not r["serve_rows"]]
     unpadded = [r for r in k2_rows if r["per_forward"] and r["serve_rows"]]
@@ -6248,6 +6648,24 @@ def main() -> int:
         "timing": sorted({t for r in k2_rows for t in r["timing"]}),
         "compress_path_launches": compress_launches["K2"],
         "design": k2_design,
+        "configs_launched": {str(cfg): n for cfg, n in
+                             sorted(k2.configs.items(), key=str)},
+        "configs_scope": "launches a configuration over the whole script "
+                         "(a call without one resolves through the default "
+                         "tuner's model), the phases' timing launches "
+                         "included, [k2-tune]'s not",
+        "tune": dict(k2_tune, scope="[k2-tune]: a BlockAutotuner on the "
+                     "card's balance, measuring the model's top "
+                     f"{K2_TUNE_TOP} configurations (device time in a CUDA "
+                     "graph) at each shape; untuned = default_config(N); "
+                     "main = what a call without a configuration resolves "
+                     "to (the default tuner's model); ms are device time in "
+                     "a CUDA graph, library_ms torch.matmul on the "
+                     "dequantized weights; decode_step: "
+                     f"{LM_ARCH}'s 112 K2 calls at M = {LM_PROMPTS} between "
+                     "CUDA events (*_ms) and as one CUDA graph "
+                     "(*_device_ms); host_issue_*_ms: host ms to issue "
+                     "them, resolving each configuration or given it"),
         "shapes": k2_rows,
         "lm": {
             "scope": f"{LM_ARCH} at full width: per-shape rows (M = "
@@ -6662,8 +7080,10 @@ def main() -> int:
               f"{MESH2D_STEPS} steps at {MESH2D_BATCH} x {MESH2D_TOKENS} "
               "tokens; (a) a 1 x 1 mesh over NCCL, full depth; (b) a "
               f"{'x'.join(map(str, MESH2D_SHAPE))} mesh of four processes "
-              f"on cuda:0 (gloo), {MESH2D_LAYERS} layers; launches a step "
-              "(counts set to 0 before each step, read after), each rank",
+              f"on cuda:0 (gloo), {MESH2D_LAYERS} layers, the one grouped "
+              "launch on each rank's slices with the gathered weights' "
+              "scales (FSDP a layer); launches a step (counts set to 0 "
+              "before each step, read after), each rank",
         one_by_one=mesh2d["one"]["k3_launches_per_step"],
         ranks={lr: {r["rank"]: r["k3_launches_per_step"]
                     for r in run["ranks"]}

@@ -62,6 +62,17 @@ SPMD partitioner would: `batch_reduction` installs a `BatchReduce` that
 `repro_torch.core.qat` (the activation amax, MAX), `repro_torch.models.lm`
 (the loss's sums and counts) and `repro_torch.nn.moe` (the auxiliary
 losses' token means) read while a meshed step runs.
+
+**FSDP a layer.** A meshed step keeps every parameter as this rank's slice
+and gathers one layer at a time where the model uses it: `layer_gathering`
+installs a `LayerGather` that `repro_torch.models.lm` calls on each block's
+slices inside its layer (so remat's recompute gathers again instead of
+keeping the full tensors), on the embedding and the read-out at use, and on
+the norms. Its gather is `gather_at_use`, an autograd function whose
+backward turns the full gradient of this rank's rows into the gradient of
+its slice of the global batch (`reduce_to_slice`). `gathered_bytes` counts
+the bytes of the gathered tensors (and of the full gradients being reduced)
+alive at once, and their peak.
 """
 
 from __future__ import annotations
@@ -70,6 +81,8 @@ import contextlib
 import dataclasses
 import itertools
 import math
+import threading
+import weakref
 from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -862,3 +875,198 @@ def sharded_global_norm(grads, shardings) -> torch.Tensor:
     total = torch.stack(parts)
     total = all_reduce(total, "sum", mesh.group(mesh.axis_names))
     return torch.sqrt(total.sum(0)).float()
+
+
+# ------------------------------------------------------- FSDP: a layer at use
+
+
+_gathered_lock = threading.Lock()
+_gathered = {"alive": 0, "peak": 0}
+
+
+def _release(nbytes: int) -> None:
+    with _gathered_lock:
+        _gathered["alive"] -= nbytes
+
+
+def _track(t: torch.Tensor) -> None:
+    """Count ``t``'s bytes as gathered until its storage is freed."""
+    nbytes = t.numel() * t.element_size()
+    with _gathered_lock:
+        _gathered["alive"] += nbytes
+        _gathered["peak"] = max(_gathered["peak"], _gathered["alive"])
+    weakref.finalize(t.untyped_storage(), _release, nbytes)
+
+
+def gathered_bytes() -> Dict[str, int]:
+    """{"alive", "peak"}: bytes of gathered parameters and of full gradients
+    being reduced that this process holds now, and the most it held at once
+    since `reset_gathered_peak`."""
+    with _gathered_lock:
+        return dict(_gathered)
+
+
+def reset_gathered_peak() -> None:
+    with _gathered_lock:
+        _gathered["peak"] = _gathered["alive"]
+
+
+def _slice_at(x: torch.Tensor, sharding: NamedSharding, dims,
+              coords=None) -> torch.Tensor:
+    """The chunk of ``x`` (full along ``dims``) that the mesh position
+    ``coords`` (default: this process's) holds along those dims."""
+    coords = sharding.mesh.coords if coords is None else coords
+    entries = sharding.entries(x.ndim)
+    idx = [slice(None)] * x.ndim
+    for d in dims:
+        n = x.shape[d] // _mesh_size(sharding.mesh, entries[d])
+        c = sharding._chunk(entries[d], coords)
+        idx[d] = slice(c * n, (c + 1) * n)
+    return x[tuple(idx)]
+
+
+def _reduce_scatter(x: torch.Tensor, sharding: NamedSharding, dims,
+                    group) -> torch.Tensor:
+    """This position's chunk along ``dims`` of the sum of ``x`` over
+    ``group`` (whose ranks hold the other chunks): one reduce-scatter (gloo
+    has one on CPU tensors; a CUDA tensor goes through the host there)."""
+    import torch.distributed as dist
+
+    staged = _staged(x, group)
+    src = x.detach().cpu() if staged else x.detach()
+    mesh = sharding.mesh
+    chunks = [_slice_at(src, sharding, dims,
+                        mesh.coords_of(dist.get_global_rank(group, i)))
+              .contiguous() for i in range(dist.get_world_size(group))]
+    out = torch.empty_like(chunks[0])
+    dist.reduce_scatter(out, chunks, group=group)
+    return out.to(x.device)
+
+
+def reduce_to_slice(g: torch.Tensor, sharding: NamedSharding,
+                    batch_axes: Sequence[str]) -> torch.Tensor:
+    """The gradient of this position's slice on ``sharding``, from ``g``,
+    the full gradient of this rank's rows of a batch split over
+    ``batch_axes``: summed over the batch ranks, and only this slice kept.
+    Dims sharded over axes that do not split the batch are sliced locally
+    (those ranks hold the same rows, hence the same gradient); dims sharded
+    over batch axes alone take one reduce-scatter over those axes; the
+    batch axes on which the leaf is replicated (and a dim that mixes the
+    two kinds) take an all-reduce, then the slice."""
+    mesh = sharding.mesh
+    batch = {a for a in batch_axes if a in mesh.axis_names}
+    entries = sharding.entries(g.ndim)
+    local, scatter, mixed = [], [], []
+    for d, e in enumerate(entries):
+        axes = [a for a in _axes_of(e) if a in mesh.axis_names]
+        if not axes:
+            continue
+        kind = {a in batch for a in axes}
+        (scatter if kind == {True} else local if kind == {False}
+         else mixed).append(d)
+    y = _slice_at(g, sharding, local) if local else g
+    scatter_axes = {a for d in scatter for a in _axes_of(entries[d])}
+    group = mesh.group(sorted(scatter_axes)) if scatter else None
+    if group is not None:
+        y = _reduce_scatter(y, sharding, scatter, group)
+    elif scatter:
+        y = _slice_at(y, sharding, scatter)
+    rest = mesh.group(sorted(batch - scatter_axes)) \
+        if batch - scatter_axes else None
+    if rest is not None:
+        y = all_reduce(y, "sum", rest)
+    return _slice_at(y, sharding, mixed) if mixed else y
+
+
+class _GatherAtUse(torch.autograd.Function):
+    """Forward: the full tensor of a slice (`gather`). Backward: the
+    gradient of the slice (`reduce_to_slice`)."""
+
+    @staticmethod
+    def forward(ctx, x, sharding, batch_axes):
+        ctx.sharding, ctx.batch_axes = sharding, batch_axes
+        y = gather(x, sharding)
+        if y is x:
+            return x.view_as(x)
+        _track(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        if g.shape != ctx.sharding.shard_shape(g.shape):
+            _track(g)
+        return reduce_to_slice(g, ctx.sharding, ctx.batch_axes), None, None
+
+
+def gather_at_use(x: torch.Tensor, sharding: NamedSharding,
+                  batch_axes: Sequence[str] = ()) -> torch.Tensor:
+    """The full tensor of the slice ``x`` on ``sharding``; its gradient is
+    the slice's gradient of a batch split over ``batch_axes``
+    (`reduce_to_slice`)."""
+    return _GatherAtUse.apply(x, sharding, tuple(batch_axes))
+
+
+def _layer_sharding(s: NamedSharding, ndim: int) -> NamedSharding:
+    """The sharding of one layer of a leaf stacked over a leading layer
+    axis, which no rule shards."""
+    entries = s.entries(ndim + 1)
+    if entries[0] is not None:
+        raise ValueError(f"a stacked leaf's layer axis is sharded ({s.spec})")
+    return NamedSharding(s.mesh, PartitionSpec(*entries[1:]))
+
+
+class LayerGather:
+    """What a meshed step's model calls on a tree of parameter slices where
+    it uses them (`repro_torch.models.lm`): each leaf gathered with
+    `gather_at_use` on its sharding in ``shardings`` (the params' tree),
+    the gradients reduced over ``batch_axes``."""
+
+    def __init__(self, shardings, batch_axes: Sequence[str] = ()):
+        self.shardings = shardings
+        self.batch_axes = tuple(batch_axes)
+
+    def sharding(self, *path: str, stacked: bool = False, ndim: int = 0):
+        """The sharding at ``path`` (a unit name ``"attn/wq"`` counts as two
+        keys), of one layer of it with ``stacked`` (``ndim``: the layer's)."""
+        s = self.shardings
+        for key in path:
+            for part in key.split("/"):
+                s = s[part]
+        return _layer_sharding(s, ndim) if stacked else s
+
+    def __call__(self, tree, *path: str, stacked: bool = False,
+                 skip: Sequence[str] = ()):
+        """``tree`` (the subtree at ``path``; one layer of it with
+        ``stacked``) with every leaf gathered, but the leaves at the unit
+        names in ``skip`` (``"attn/wq"``, relative to ``path``), passed on
+        as they are. Leaves keyed by unit names are found the same way."""
+        def walk(node, rel):
+            if isinstance(node, dict):
+                return {k: walk(v, rel + (k,)) for k, v in node.items()}
+            if not isinstance(node, torch.Tensor) \
+                    or "/".join(rel) in skip:
+                return node
+            s = self.sharding(*path, *rel, stacked=stacked, ndim=node.ndim)
+            return gather_at_use(node, s, self.batch_axes)
+
+        return walk(tree, ())
+
+
+_LAYER_GATHER: Optional[LayerGather] = None
+
+
+def layer_gather() -> Optional[LayerGather]:
+    """The running meshed step's `LayerGather` (None outside one). A module
+    global, as `batch_reduce`: remat's recompute runs on autograd's
+    threads."""
+    return _LAYER_GATHER
+
+
+@contextlib.contextmanager
+def layer_gathering(hook: Optional[LayerGather]):
+    global _LAYER_GATHER
+    prev, _LAYER_GATHER = _LAYER_GATHER, hook
+    try:
+        yield hook
+    finally:
+        _LAYER_GATHER = prev

@@ -2,9 +2,13 @@
 
 Port of `repro.kernels.lut_matmul.ops`. `lut_matmul_fused` dispatches by the
 device of its tensors: CPU tensors take the plain version (`ref.py`), CUDA
-tensors launch the hand-written kernel (`lut_matmul.py`) or raise. Block
-shapes are fixed inside the kernel (no autotuner yet), so the JAX wrapper's
-``block_*`` / ``interpret`` / ``use_ref`` knobs have no counterpart.
+tensors launch the hand-written kernel (`lut_matmul.py`) or raise. The
+kernel's configuration (`lut_matmul.K2Config`, the JAX wrapper's
+``block_*`` knobs) is the caller's ``config`` or, when None, what the
+process-wide tuner resolves (`repro_torch.kernels.lut_matmul.autotune`),
+before the dispatch, so the CPU path reaches the tuner's cache too (the
+plain version ignores the configuration). The ``interpret`` / ``use_ref``
+knobs have no counterpart.
 """
 
 from __future__ import annotations
@@ -14,6 +18,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core import qat
+from repro_torch.kernels.lut_matmul import autotune
 from repro_torch.kernels.lut_matmul import lut_matmul as _kernel
 from repro_torch.kernels.lut_matmul.ref import N_CODES, lut_matmul_fused_ref
 
@@ -56,23 +61,32 @@ def lut_matmul_fused(x: torch.Tensor, packed: torch.Tensor,
                      bias: Optional[torch.Tensor] = None,
                      residual: Optional[torch.Tensor] = None,
                      activation: str = "none",
-                     pack_block: int = 128) -> torch.Tensor:
+                     pack_block: int = 128,
+                     config: Optional[_kernel.K2Config] = None
+                     ) -> torch.Tensor:
     """Fused serve matmul: Y = act(X @ dequant(packed) + bias) + residual.
 
     x (M, K_x) float32/bfloat16 with K_x a multiple of 8 and at most K_pad
     (columns past K_x count as zero; the serve path passes K rounded up to
     8); packed (K_pad//2, N) int8 with K_pad a ``pack_block`` multiple;
     codebook (16,) int8; scale/bias (N,) float32; residual (M, N) float32.
-    All contiguous, all on one device.
+    All contiguous, all on one device. ``config``: the kernel's
+    configuration; None resolves through `autotune.get_default_autotuner`
+    (every configuration gives the same output bit for bit).
     Returns float32 (M, N). CPU tensors run the plain version; CUDA tensors
-    launch the kernel.
+    launch the kernel in that configuration (a failed launch raises; no
+    other configuration is tried).
     """
     _kernel.check_inputs(x, packed, codebook, scale, bias, residual,
                          activation, pack_block)
+    if config is None:
+        config = autotune.get_default_autotuner().best(
+            x.shape[0], x.shape[1], 2 * packed.shape[0], packed.shape[1],
+            pack_block=pack_block, x_dtype=x.dtype, device=x.device)
     if x.device.type == "cuda":
         return _kernel.launch(x, packed, codebook, scale, bias=bias,
                               residual=residual, activation=activation,
-                              pack_block=pack_block)
+                              pack_block=pack_block, config=config)
     if x.device.type == "cpu":
         return lut_matmul_fused_ref(x, packed, codebook, scale, bias=bias,
                                     residual=residual, activation=activation,

@@ -8,6 +8,12 @@ under ``build/dryrun/`` with
   * the bytes each device holds of the step's arguments, from every leaf's
     local shard shape: params, optimizer state, comp, batch and decode
     cache (the counterpart of XLA's ``argument_size_in_bytes``);
+  * ``gathered_peak_bytes``: the most bytes a device holds gathered at
+    once in the step, which gathers one block at a time where the model
+    uses it (`gathered_peak_bytes`: the embedding, plus the largest block's
+    full parameters and, where the step trains, its fake-quantized copy and
+    its gradient), and ``per_device_peak_bytes``, that plus the arguments'
+    bytes (activations not counted);
   * the sharding guard report (which logical axes fell back to
     replication);
   * ``n_devices``; a cell `cell_is_runnable` skips is written as skipped.
@@ -53,6 +59,38 @@ def device_bytes(tree, shardings) -> int:
         lambda t, s: math.prod(s.shard_shape(t.shape)) * t.element_size(),
         tree, shardings)
     return int(sum(tree_leaves(sizes)))
+
+
+def _nbytes(tree) -> int:
+    return int(sum(t.numel() * t.element_size() for t in tree_leaves(tree)))
+
+
+def gathered_peak_bytes(model, kind: str) -> int:
+    """Bytes a device holds gathered at once, at most, in a meshed step of
+    ``kind`` (``"train"``, ``"prefill"``, ``"decode"``): the embedding (the
+    larger of the token table and the read-out, gathered at use) plus the
+    largest block's full parameters (a stacked group's one layer, a tail
+    block, an encoder layer) and, in training, its fake-quantized matmul
+    weights and its gradient. Train steps hold the parameters in their
+    own dtype, serve steps in bfloat16 (`abstract_serve_params`). Every
+    parameter is gathered whole on every device, whatever its sharding."""
+    from repro_torch.launch import train as TR
+    from repro_torch.nn.transformer import block_matmuls
+
+    params = (TR.abstract_train_state(model)["params"] if kind == "train"
+              else TR.abstract_serve_params(model))
+    embed = max(_nbytes(params["embed"]), _nbytes(params.get("lm_head", {})))
+    blocks = []
+    for top in ("blocks", "enc_blocks", "tail"):
+        groups = params.get(top, {})
+        for block in ([groups] if top == "enc_blocks" and groups
+                      else groups.values()):
+            depth = 1 if top == "tail" else tree_leaves(block)[0].shape[0]
+            full = _nbytes(block) // depth
+            fq = sum(_nbytes(block[u.split("/")[0]][u.split("/")[1]])
+                     for u in block_matmuls(block)) // depth
+            blocks.append(full + (fq + full if kind == "train" else 0))
+    return embed + max(blocks)
 
 
 def run_cell(arch: str, shape_name: str, multi_pod: bool) -> dict:
@@ -114,11 +152,14 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool) -> dict:
         per_device["batch"] = device_bytes(
             tokens, TR.batch_shardings(tokens, mesh))
     per_device["total"] = sum(per_device.values())
+    gathered = gathered_peak_bytes(model, shape.kind)
     result.update({
         "status": "ok",
         "layout_s": round(time.time() - t0, 3),
         "per_device_bytes": per_device,
         "argument_size_in_bytes": per_device["total"],
+        "gathered_peak_bytes": gathered,
+        "per_device_peak_bytes": per_device["total"] + gathered,
         "guard_report": guard,
         "n_devices": mesh.size,
         "hlo_only": {"fields": list(HLO_ONLY), "why": HLO_ONLY_REASON},

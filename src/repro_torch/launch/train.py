@@ -28,23 +28,35 @@ the comp tree, the serve params and the decode cache, each on its
 sharding (`train_state_shardings`, `comp_shardings`,
 `make_param_shardings`, `cache_shardings`), and with the whole batch, of
 which it takes its rows (`batch_sharding`'s guard: a batch that does not
-divide the batch axes replicates). FSDP a step: the rank gathers the full
-parameters (and comp) once at the start of the step, runs the forward and
-backward on its rows, sums the gradients over the batch ranks and keeps
-its slice; AdamW updates the slices, the global-norm clip summing the
-slices' float64 squares over the mesh (`sharded_global_norm`). Where the
+divide the batch axes replicates). FSDP a layer: the model gathers each
+block's parameters where it runs that block and frees them after it
+(`repro_torch.distributed.sharding.layer_gathering`), the embedding and
+the read-out at use; under remat the backward's recompute gathers the
+block again, so the full tensors alive at once are about one block's
+(with ``remat=False`` autograd keeps every gathered block for the
+backward, the whole model). Under QAT the one grouped K3 launch runs on
+this rank's slices with the gathered weights' per-column scales (a MAX
+over the ranks that hold the other rows), and the block gathers the
+fake-quantized slices. A gathered tensor's gradient comes back as this
+rank's slice of the global batch's (`reduce_to_slice`: a reduce-scatter
+over the batch ranks); AdamW updates the slices, the global-norm clip
+summing the slices' float64 squares over the mesh
+(`sharded_global_norm`). A step's metrics carry ``gathered_peak_bytes``,
+the most bytes of gathered tensors and full gradients it held at once
+(`gathered_bytes`); the prefill and serve steps' peak is read with
+`gathered_bytes` after them. Where the
 JAX package's partitioner reduces over the global batch, the step does
 too (`batch_reduction`): the activation fake-quant's amax (MAX), the
 loss's sum and count and the MoE auxiliary losses' token sums. The
 ``"model"`` axis shards storage only: no tensor-parallel compute, and the
 JAX package's layout hooks (`activation_constraint`, `logits_constraint`,
 ``moe_local_dispatch``'s `moe_dispatch_constraint`) are identities on
-values. A step's metrics are the global batch's; a prefill step returns
+values. A step's losses are the global batch's; a prefill step returns
 the rank's rows of the logits, a serve step its rows of the logits and
-its slice of the new cache. On a mesh whose batch axes have size 1 (1 x
-1, or a replicated batch) no collective runs and the step is the
-unmeshed one, bit for bit. `abstract_train_state`,
-`abstract_serve_params` and `comp_abstract` are meta tensors.
+its slice of the new cache. On a mesh of one process (1 x 1) nothing is
+gathered or reduced and the step is the unmeshed one, bit for bit.
+`abstract_train_state`, `abstract_serve_params` and `comp_abstract` are
+meta tensors.
 
     python -m repro_torch.launch.train --arch olmo-1b --steps 50 \\
         --plan-out BASE [--ckpt-dir DIR] [--device cpu]
@@ -71,11 +83,13 @@ from repro_torch.distributed.sharding import (
     ShardingRules,
     _axes_of,
     _mesh_size,
-    all_reduce,
+    LayerGather,
     batch_reduction,
     batch_sharding,
-    gather_tree,
+    gathered_bytes,
+    layer_gathering,
     make_param_shardings,
+    reset_gathered_peak,
     reshard_tree,
     sharded_global_norm,
     shardings_from_axes_tree,
@@ -233,12 +247,16 @@ def _rows(batch, mesh, rules):
             for k, v in batch.items()}
 
 
+def _layer_gather(mesh, p_sh, batch_axes) -> Optional[LayerGather]:
+    """The step's `LayerGather`; None on a mesh of one process, where every
+    slice is the whole tensor and nothing is gathered or reduced."""
+    return None if mesh.size == 1 else LayerGather(p_sh, batch_axes)
+
+
 def _meshed_train_step(model, step_cfg, mesh, rules, moe_local_dispatch):
     from repro_torch.nn import moe
 
     p_sh = train_state_shardings(model, mesh, rules)["params"]
-    c_sh = comp_shardings(model, mesh, rules) if step_cfg.with_comp \
-        else None
     optimizer = adamw(step_cfg.lr, weight_decay=step_cfg.weight_decay,
                       max_grad_norm=1.0,
                       norm_fn=lambda g: sharded_global_norm(g, p_sh))
@@ -248,28 +266,29 @@ def _meshed_train_step(model, step_cfg, mesh, rules, moe_local_dispatch):
     n_micro = step_cfg.grad_accum
 
     def step(state, batch, comp):
-        params = gather_tree(state["params"], p_sh)
-        comp = None if comp is None else gather_tree(comp, c_sh)
         micro = _micro_batches(batch, n_micro)
         axes = _batch_axes(micro[0], mesh, rules)
         group = mesh.group(axes)
         red = None if group is None else BatchReduce(mesh, axes)
+        gather = _layer_gather(mesh, p_sh, axes)
         token = None if hook is None else moe.set_dispatch_constraint(hook)
+        reset_gathered_peak()
         try:
-            with batch_reduction(red):
+            with batch_reduction(red), layer_gathering(gather):
                 (loss, metrics), grads = _accumulate(
-                    _value_and_grad(loss_fn, params, _rows(mb, mesh, rules),
-                                    comp) for mb in micro)
+                    _value_and_grad(loss_fn, state["params"],
+                                    _rows(mb, mesh, rules), comp)
+                    for mb in micro)
         finally:
             if token is not None:
                 moe.reset_dispatch_constraint(token)
-        if group is not None:
-            grads = tree_map(lambda g: all_reduce(g, "sum", group), grads)
         (loss, metrics), grads = _scaled(((loss, metrics), grads), n_micro)
-        grads = tree_map(lambda g, s: s.local(g), grads, p_sh)
         updates, opt = optimizer.update(grads, state["opt"], state["params"])
         params = apply_updates(state["params"], updates)
-        return {"params": params, "opt": opt}, dict(metrics, loss=loss)
+        peak = torch.tensor(float(gathered_bytes()["peak"]),
+                            dtype=torch.float64)
+        return {"params": params, "opt": opt}, dict(
+            metrics, loss=loss, gathered_peak_bytes=peak)
 
     if step_cfg.with_comp:
         return step
@@ -288,15 +307,18 @@ def make_prefill_step(model, step_cfg: StepConfig, mesh=None,
 
     @torch.no_grad()
     def prefill_step(params, batch):
+        gather = None
         if mesh is not None:
-            params = gather_tree(params, p_sh)
+            gather = _layer_gather(mesh, p_sh, ())
             batch = _rows(batch, mesh, rules)
-        logits, _ = model.forward(params, batch["tokens"],
-                                  prefix_embeds=batch.get("prefix_embeds"),
-                                  enc_embeds=batch.get("enc_embeds"),
-                                  qcfg=QuantConfig.off(), remat=False,
-                                  q_block=step_cfg.q_block,
-                                  kv_block=step_cfg.kv_block)
+        reset_gathered_peak()
+        with layer_gathering(gather):
+            logits, _ = model.forward(
+                params, batch["tokens"],
+                prefix_embeds=batch.get("prefix_embeds"),
+                enc_embeds=batch.get("enc_embeds"), qcfg=QuantConfig.off(),
+                remat=False, q_block=step_cfg.q_block,
+                kv_block=step_cfg.kv_block)
         return logits
 
     return prefill_step
@@ -341,12 +363,13 @@ def make_serve_step(model, step_cfg: StepConfig, mesh=None,
         if mesh is None:
             return model.decode_step(params, cache, tokens,
                                      qcfg=QuantConfig.off())
-        params = gather_tree(params, p_sh)
         rows, store = layouts(cache, tokens.shape[0])
-        logits, new = model.decode_step(
-            params, reshard_tree(cache, store, rows),
-            batch_sharding(mesh, tokens.shape, rules).local(tokens),
-            qcfg=QuantConfig.off())
+        reset_gathered_peak()
+        with layer_gathering(_layer_gather(mesh, p_sh, ())):
+            logits, new = model.decode_step(
+                params, reshard_tree(cache, store, rows),
+                batch_sharding(mesh, tokens.shape, rules).local(tokens),
+                qcfg=QuantConfig.off())
         return logits, reshard_tree(new, rows, store)
 
     return serve_step

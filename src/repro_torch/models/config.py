@@ -9,8 +9,8 @@ derived value is the JAX package's; ``pdtype`` / ``cdtype`` are torch dtypes.
 `MoEDims`, `SSMDims` and `RGLRUDims` are copies of the JAX package's frozen
 dataclasses (from `repro.nn.moe`, `repro.nn.ssm`, `repro.nn.rglru`), kept
 here so that every config loads and `model_param_count` counts every
-family; `repro_torch.nn.ssm` and `repro_torch.nn.rglru` take theirs from
-here (the MoE block is not ported).
+family; `repro_torch.nn.moe`, `repro_torch.nn.ssm` and
+`repro_torch.nn.rglru` take theirs from here.
 """
 
 from __future__ import annotations

@@ -17,7 +17,12 @@ reference's scan. On the serve path (``comp_mode="serve"``) units with a
 packed artifact run on the LUT GEMM (K2) and only the others take that
 launch. The serving engine's chunked prefill (`LMModel.prefill_chunk`) and
 its cache row shuffles (`gather_cache_rows`, `scatter_cache_rows`) follow
-the same layer walk and make the same one K3 launch a call. `LMModel.loss`
+the same layer walk and make the same one K3 launch a call. In a meshed
+step (`repro_torch.distributed.sharding.layer_gathering`) the parameters
+are the rank's slices: the K3 launch runs on them with the gathered
+weights' per-column scales (`_global_amax_row`), and each block, the
+embedding, the read-out and the norms are gathered where they are used
+(`_run_block`, `_at_use`). `LMModel.loss`
 is the causal LM loss of the train step (`repro_torch.launch.train`); its
 forward may recompute each layer in the backward (``remat``) and take the
 flash backward of attention (``use_flash``).
@@ -43,7 +48,6 @@ run over all P + S; `loss` scores the trailing label positions only.
 from __future__ import annotations
 
 import dataclasses
-import functools
 import math
 from typing import Any, Dict, Optional, Tuple
 
@@ -52,7 +56,12 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import lm_compress, qat
 from repro_torch.core.export import ServeArtifact
-from repro_torch.distributed.sharding import batch_reduce
+from repro_torch.distributed.sharding import (
+    _axes_of,
+    all_reduce,
+    batch_reduce,
+    layer_gather,
+)
 from repro_torch.kernels.lut_matmul.ref import exact_matmul
 from repro_torch.models.config import ArchConfig
 from repro_torch.kernels.fake_quant.ops import MAX_CANDIDATES
@@ -117,6 +126,68 @@ def _expert_entries(w: torch.Tensor, c, depth: Optional[int]):
     return out
 
 
+def _at_use(tree, *path: str):
+    """``tree``, the params' subtree at ``path``, gathered where a meshed
+    step holds it as slices (`repro_torch.distributed.sharding
+    .layer_gather`); itself elsewhere."""
+    hook = layer_gather()
+    return tree if hook is None else hook(tree, *path)
+
+
+def _run_block(fn, block_params, block_weff, key, *args, **kw):
+    """``fn(params, *args, w_eff=block_weff, **kw)`` on one block. In a
+    meshed step the block is gathered for this call and let go when it
+    returns: every parameter but the matmul weights that ``block_weff``
+    replaces, whose fake-quantized copies are gathered instead. ``key``:
+    `LMModel._layers`'s (top, name, layer) of the block."""
+    hook = layer_gather()
+    if hook is not None:
+        top, name, r = key
+        path = ("blocks" if top == "groups" else top, name)
+        stacked = r is not None
+        if block_weff is not None:
+            block_weff = hook(block_weff, *path, stacked=stacked)
+        block_params = hook(block_params, *path, stacked=stacked,
+                            skip=tuple(block_weff or ()))
+    return fn(block_params, *args, w_eff=block_weff, **kw)
+
+
+def _global_amax_row(w, c, path, lead):
+    """A meshed step's unit slice ``w`` (and its comp ``c``) viewed as
+    (lead dims, rows, columns), with one more row holding each column's
+    amax of ``|w * mask|`` over the whole tensor: the slice's amax,
+    MAX-all-reduced over the mesh axes that shard the reduced dims (a max
+    is exact in any order). K3's per-column scale of the result is then
+    the gathered weight's, so its other rows are fake-quantized exactly as
+    the gathered weight's would be. Returns (w, c, cut), ``cut`` taking
+    K3's output back to ``w``'s shape; ``w`` itself and `_unchanged` where
+    no axis shards the reduced dims."""
+    s = layer_gather().sharding(*path)
+    axes = [a for e in s.entries(w.ndim)[lead:-1] for a in _axes_of(e)]
+    group = s.mesh.group(axes) if axes else None
+    if group is None:
+        return w, c, _unchanged
+    shape = w.shape
+    x = w.reshape(*shape[:lead], -1, shape[-1])
+    mask = None if c is None else c["mask"].reshape(x.shape)
+    wm = x.detach() if mask is None else x.detach() * mask.to(x.dtype)
+    amax = all_reduce(wm.abs().amax(dim=-2, keepdim=True), "max", group)
+    if c is None:
+        c = qat.identity_comp(tuple(x.shape[lead:]), x.dtype,
+                              device=x.device)
+        if lead:
+            c["mask"] = c["mask"].expand(x.shape)
+        mask = c["mask"]
+    c = dict(c, mask=torch.cat([mask, torch.ones_like(amax, dtype=mask.dtype)],
+                               dim=-2))
+    return (torch.cat([x, amax], dim=-2), c,
+            lambda out: out[..., :-1, :].reshape(shape))
+
+
+def _unchanged(y):
+    return y
+
+
 def _sinusoid(positions: torch.Tensor, d: int) -> torch.Tensor:
     """(B, S) int positions -> (B, S, d) float32 sinusoidal embeddings
     (whisper): sines of the first half, cosines of the second."""
@@ -134,7 +205,8 @@ def _embed(params, tokens, cfg: ArchConfig, pos_ids=None,
     only), with ``prefix_embeds`` (B, P, d) cast and put in front; the
     encoder-decoder family adds the sinusoid of ``pos_ids`` ((B, S);
     default 0..S-1 over every position)."""
-    x = params["embed"]["table"][tokens.long()].to(cfg.cdtype)
+    x = _at_use(params["embed"], "embed")["table"][tokens.long()].to(
+        cfg.cdtype)
     if cfg.embed_scale:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=cfg.cdtype,
                              device=x.device)
@@ -208,6 +280,7 @@ class LMModel:
         if not qcfg.enabled:
             return None
         serve = qcfg.comp_mode == "serve"
+        meshed = layer_gather() is not None
         out: Dict[str, Dict[str, dict]] = {"blocks": {}, "tail": {},
                                            "enc_blocks": {}}
         launches: Dict[Optional[int], list] = {}
@@ -232,16 +305,23 @@ class LMModel:
                     w = block[sub][key]
                     c = None if c is None else \
                         {k: v for k, v in c.items() if k != "serve"}
+                    expert = lm_compress.is_expert_unit(unit)
+                    cut = _unchanged
+                    if meshed:     # this rank's slices, the global scales
+                        path = (top,) if g is None else (top, g)
+                        w, c, cut = _global_amax_row(
+                            w, c, (*path, unit),
+                            (depth is not None) + expert)
                     todo = launches.setdefault(depth, [])
-                    if lm_compress.is_expert_unit(unit):
+                    if expert:
                         pieces: list = []
                         todo.extend((*e, pieces.append)
                                     for e in _expert_entries(w, c, depth))
-                        experts.append((node, unit, w.shape, pieces))
+                        experts.append((node, unit, w.shape, pieces, cut))
                     else:
                         todo.append((w, c, depth,
-                                     functools.partial(node.__setitem__,
-                                                       unit)))
+                                     lambda y, node=node, unit=unit, cut=cut:
+                                     node.__setitem__(unit, cut(y))))
         for entries in launches.values():
             cands = [e[2] for e in entries]
             outs = qat.fake_quant_weights(
@@ -249,9 +329,9 @@ class LMModel:
                 cands[0] if len(set(cands)) == 1 else cands)
             for (*_, put), w in zip(entries, outs):
                 put(w)
-        for node, unit, shape, pieces in experts:
-            node[unit] = (pieces[0] if len(pieces) == 1
-                          else torch.cat(pieces)).reshape(shape)
+        for node, unit, shape, pieces, cut in experts:
+            node[unit] = cut((pieces[0] if len(pieces) == 1
+                              else torch.cat(pieces)).reshape(shape))
         return out
 
     # ------------------------------------------------------------- encoder
@@ -268,17 +348,18 @@ class LMModel:
         enc_comp = None if comp is None else comp.get("enc_blocks")
         for r in range(cfg.n_enc_layers):
             def layer(x, r=r):
-                return apply_block(
-                    _layer(params["enc_blocks"], r), x, cfg, "attn",
-                    positions=pos, qcfg=qcfg,
+                return _run_block(
+                    apply_block, _layer(params["enc_blocks"], r),
+                    None if weff is None else _layer(weff["enc_blocks"], r),
+                    ("enc_blocks", None, r), x, cfg, "attn", positions=pos,
+                    qcfg=qcfg,
                     comp=None if enc_comp is None else _layer(enc_comp, r),
-                    q_block=q_block, kv_block=kv_block, encoder=True,
-                    w_eff=None if weff is None
-                    else _layer(weff["enc_blocks"], r))[0]
+                    q_block=q_block, kv_block=kv_block, encoder=True)[0]
 
             x = checkpoint(layer, x, use_reentrant=False) if remat \
                 else layer(x)
-        return T.apply_norm(params["enc_norm"], x, cfg, qcfg.batch_invariant)
+        return T.apply_norm(_at_use(params["enc_norm"], "enc_norm"), x, cfg,
+                            qcfg.batch_invariant)
 
     def _enc_out(self, params, enc_embeds, **kw) -> Optional[torch.Tensor]:
         """The encoder output of an encoder-decoder model (None for the
@@ -311,9 +392,11 @@ class LMModel:
         and its fake-quantized weights are kept for the backward: that is
         the JAX package's ``remat_policy="save_qat"``, which is therefore
         what the port does under either policy (the argument is accepted
-        and changes nothing). ``use_flash``: attention's flash backward
-        (`repro_torch.nn.flash`). ``enc_embeds`` (B, S_enc, d): the
-        encoder-decoder family's frame embeddings (required there)."""
+        and changes nothing); in a meshed step those are the rank's slices,
+        and each layer gathers its block inside the checkpoint.
+        ``use_flash``: attention's flash backward (`repro_torch.nn.flash`).
+        ``enc_embeds`` (B, S_enc, d): the encoder-decoder family's frame
+        embeddings (required there)."""
         cfg = self.cfg
         x = _embed(params, tokens, cfg, prefix_embeds=prefix_embeds)
         b, s = x.shape[:2]
@@ -325,22 +408,24 @@ class LMModel:
         enc_out = self._enc_out(params, enc_embeds, qcfg=qcfg, comp=comp,
                                 weff=weff, remat=remat, q_block=q_block,
                                 kv_block=kv_block)
-        for block_params, block_comp, block_weff, bt, _ in self._layers(
+        for block_params, block_comp, block_weff, bt, key in self._layers(
                 params, comp, weff):
             def layer(x, block_params=block_params, block_comp=block_comp,
-                      block_weff=block_weff, bt=bt):
-                return apply_block(block_params, x, cfg, bt,
-                                   positions=positions, qcfg=qcfg,
-                                   comp=block_comp, enc_out=enc_out,
-                                   q_block=q_block, kv_block=kv_block,
-                                   w_eff=block_weff, use_flash=use_flash)
+                      block_weff=block_weff, bt=bt, key=key):
+                # a meshed step gathers the block here, inside the
+                # checkpointed layer: remat's recompute gathers it again
+                return _run_block(apply_block, block_params, block_weff, key,
+                                  x, cfg, bt, positions=positions, qcfg=qcfg,
+                                  comp=block_comp, enc_out=enc_out,
+                                  q_block=q_block, kv_block=kv_block,
+                                  use_flash=use_flash)
 
             if remat:
                 x, a = checkpoint(layer, x, use_reentrant=False)
             else:
                 x, a = layer(x)
             aux = {k: aux[k] + a[k] for k in aux}
-        x = T.apply_norm(params["final_norm"], x, cfg, qcfg.batch_invariant)
+        x = self._final_norm(params, x, qcfg)
         return self._unembed(params, x, qcfg.batch_invariant), aux
 
     # ----------------------------------------------------------------- loss
@@ -384,13 +469,18 @@ class LMModel:
         return total, {"ce": loss, "lb_loss": aux["lb_loss"],
                        "z_loss": aux["z_loss"]}
 
+    def _final_norm(self, params, x, qcfg):
+        return T.apply_norm(_at_use(params["final_norm"], "final_norm"), x,
+                            self.cfg, qcfg.batch_invariant)
+
     def _unembed(self, params, x, exact: bool = False):
         """Logits in float32 with the vocab padding masked to -1e30 (the
         tied read-out is a plain product in the activations' dtype, or with
         ``exact`` a correctly rounded one: `QuantConfig.batch_invariant`)."""
         cfg = self.cfg
-        w = (params["embed"]["table"].T if cfg.tie_embeddings
-             else params["lm_head"]["w"]).to(x.dtype)
+        w = (_at_use(params["embed"], "embed")["table"].T
+             if cfg.tie_embeddings
+             else _at_use(params["lm_head"], "lm_head")["w"]).to(x.dtype)
         logits = exact_matmul(x, w) if exact else torch.matmul(x, w)
         pad_mask = torch.arange(cfg.padded_vocab,
                                 device=x.device) >= cfg.vocab
@@ -459,9 +549,9 @@ class LMModel:
                 self._layers(params, comp, weff):
             layer_cache = (_layer(cache["groups"][key], r) if top == "groups"
                            else cache["tail"][key])
-            x, c_new = apply_block_decode(block_params, x, layer_cache, pos,
-                                          cfg, bt, qcfg=qcfg, comp=block_comp,
-                                          w_eff=block_weff)
+            x, c_new = _run_block(apply_block_decode, block_params,
+                                  block_weff, (top, key, r), x, layer_cache,
+                                  pos, cfg, bt, qcfg=qcfg, comp=block_comp)
             if top == "groups":
                 group_layers[key].append(c_new)
             else:
@@ -471,7 +561,7 @@ class LMModel:
                                       for k in caches[0]}
         if active is not None:
             new_cache = self._merge_active(cache, new_cache, active)
-        x = T.apply_norm(params["final_norm"], x, cfg, qcfg.batch_invariant)
+        x = self._final_norm(params, x, qcfg)
         return self._unembed(params, x, qcfg.batch_invariant), new_cache
 
     @staticmethod
@@ -524,13 +614,14 @@ class LMModel:
         enc_out = self._enc_out(params, enc_embeds, qcfg=qcfg, comp=comp,
                                 weff=weff, remat=False, q_block=q_block,
                                 kv_block=kv_block)
-        for block_params, block_comp, block_weff, bt, (top, key, _) in \
+        for block_params, block_comp, block_weff, bt, (top, key, r) in \
                 self._layers(params, comp, weff):
-            (x, _), st = apply_block(block_params, x, cfg, bt,
-                                     positions=positions, qcfg=qcfg,
-                                     comp=block_comp, enc_out=enc_out,
-                                     q_block=q_block, kv_block=kv_block,
-                                     return_state=True, w_eff=block_weff)
+            (x, _), st = _run_block(apply_block, block_params, block_weff,
+                                    (top, key, r), x, cfg, bt,
+                                    positions=positions, qcfg=qcfg,
+                                    comp=block_comp, enc_out=enc_out,
+                                    q_block=q_block, kv_block=kv_block,
+                                    return_state=True)
             st = self._state_to_cache(st, bt, max_len, cache_dtype)
             if top == "groups":
                 group_states[key].append(st)
@@ -540,7 +631,7 @@ class LMModel:
             if sts:
                 cache["groups"][g] = {k: torch.stack([st[k] for st in sts])
                                       for k in sts[0]}
-        x = T.apply_norm(params["final_norm"], x, cfg, qcfg.batch_invariant)
+        x = self._final_norm(params, x, qcfg)
         return self._unembed(params, x, qcfg.batch_invariant), cache
 
     # ------------------------------------------------------- chunked prefill
@@ -573,10 +664,11 @@ class LMModel:
                 self._layers(params, comp, weff):
             layer_cache = (_layer(cache["groups"][key], r) if top == "groups"
                            else cache["tail"][key])
-            x, c_new = apply_block_chunk(block_params, x, layer_cache,
-                                         positions, cfg, bt, qcfg=qcfg,
-                                         comp=block_comp, q_block=q_block,
-                                         kv_block=kv_block, w_eff=block_weff)
+            x, c_new = _run_block(apply_block_chunk, block_params,
+                                  block_weff, (top, key, r), x, layer_cache,
+                                  positions, cfg, bt, qcfg=qcfg,
+                                  comp=block_comp, q_block=q_block,
+                                  kv_block=kv_block)
             if top == "groups":
                 group_layers[key].append(c_new)
             else:
@@ -584,7 +676,7 @@ class LMModel:
         for g, caches in group_layers.items():
             new_cache["groups"][g] = {k: torch.stack([ch[k] for ch in caches])
                                       for k in caches[0]}
-        x = T.apply_norm(params["final_norm"], x, cfg, qcfg.batch_invariant)
+        x = self._final_norm(params, x, qcfg)
         return self._unembed(params, x, qcfg.batch_invariant), new_cache
 
     # ---------------------------------------------------- cache row shuffles

@@ -29,10 +29,6 @@ import torch
 CACHE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
                 "float16": torch.float16, "float64": torch.float64}
 
-AUTOTUNE_NOT_PORTED = ("ROADMAP.md Queue 1 item 1, 'export and serve "
-                       "leftovers' (K2's block autotuner)")
-
-
 @dataclasses.dataclass(frozen=True)
 class BucketSpec:
     """One fixed step shape: batch rows, padded prompt, total cache len."""
@@ -62,8 +58,11 @@ class EngineConfig:
     ``lut_serve`` dispatches compressed plans to the packed 4-bit LUT GEMM
     (K2). ``lut_use_ref`` is accepted so configs cross-load with the JAX
     package and selects nothing: CPU tensors take the plain LUT GEMM and
-    CUDA tensors launch the kernel. ``autotune_cache`` must be None: K2's
-    block autotuner is not ported (`AUTOTUNE_NOT_PORTED`).
+    CUDA tensors launch the kernel. ``autotune_cache``: a path (string) for
+    K2's configuration tuner (`repro_torch.kernels.lut_matmul.autotune`);
+    with ``lut_serve`` the engine loads it into the process-wide tuner at
+    construction (when the file exists) and saves the tuner there after
+    `warmup`, so a warm restart resolves its shapes with zero retunes.
     """
 
     max_batch: int = 8                 # slot-group width (wave width in wave mode)
@@ -96,9 +95,6 @@ class EngineConfig:
                 raise ValueError(f"EngineConfig.autotune_cache must be None "
                                  f"or a path string, got "
                                  f"{self.autotune_cache!r}")
-            raise NotImplementedError(
-                f"EngineConfig.autotune_cache is not ported yet: "
-                f"{AUTOTUNE_NOT_PORTED}")
         if self.cache_dtype not in CACHE_DTYPES:
             raise ValueError(f"EngineConfig.cache_dtype must be one of "
                              f"{sorted(CACHE_DTYPES)}, got "

@@ -39,7 +39,9 @@ engine and oneshot fallback may disagree).
 A compressed plan runs the fake-quant forward (one grouped K3 launch a
 step: `LMModel._fake_quant_units`) or, with ``EngineConfig.lut_serve``,
 the packed 4-bit artifacts on the LUT GEMM (K2, one launch an exported
-matmul: 7 a dense layer, 2 a Mamba-2 layer, 8 an RG-LRU layer). A
+matmul: 7 a dense layer, 2 a Mamba-2 layer, 8 an RG-LRU layer), each in
+the configuration K2's tuner resolves; ``EngineConfig.autotune_cache``
+loads the tuner's cache at construction and saves it after `warmup`. A
 recurrent model (rglru/ssm blocks) prefills each prompt bucket in one
 chunk from the mixer's zero state (`_check_chunkable`), as the JAX
 package's engine does.
@@ -74,6 +76,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import os
 import time
 import warnings
 from typing import Callable, Dict, List, Optional, Sequence, Union
@@ -88,6 +91,7 @@ from repro_torch.distributed.sharding import (
     device_scope,
     to_device,
 )
+from repro_torch.kernels.lut_matmul.autotune import get_default_autotuner
 from repro_torch.nn.layers import QuantConfig
 from repro_torch.nn.transformer import RECURRENT
 from repro_torch.serving.bucketing import (
@@ -276,6 +280,8 @@ class ServingEngine:
             # content and excluded from comp hashing)
             from repro_torch.core.lm_compress import attach_serve_artifacts
 
+            if config.autotune_cache and os.path.exists(config.autotune_cache):
+                get_default_autotuner().load(config.autotune_cache)
             self.comp, self.serve_units = attach_serve_artifacts(
                 model, params, self.comp)
             if self.serve_units == 0:
@@ -482,6 +488,9 @@ class ServingEngine:
                 for rows in self.config.chunk_row_buckets:
                     self.cache.chunk_fns(size, rows, self.params)
         _ = self.per_token_energy_eu
+        if self.config.lut_serve and self.config.autotune_cache:
+            # the configurations resolved while building, for a warm restart
+            get_default_autotuner().save(self.config.autotune_cache)
         return self.cache.stats()
 
     def _sample_row(self, row: np.ndarray, slot: Optional[_Slot]) -> int:

@@ -47,7 +47,8 @@ def _batch(toks):
 
 def _train(model, cfg, mesh, params, comp, toks, *, steps, dispatch=False):
     """``steps`` meshed train steps from the full numpy state: (losses, the
-    gathered state after step 1 and after the last, this rank's codes)."""
+    gathered state after step 1 and after the last, this rank's codes, each
+    step's peak of gathered bytes)."""
     from repro_torch.distributed import sharding as S
     from repro_torch.launch import train as T
     from repro_torch.nn.spec import params_from_numpy
@@ -60,14 +61,47 @@ def _train(model, cfg, mesh, params, comp, toks, *, steps, dispatch=False):
     local_comp = S.shard_tree(c, T.comp_shardings(model, mesh))
     step = T.make_train_step(model, cfg, mesh=mesh,
                              moe_local_dispatch=dispatch)
-    losses, firsts = [], None
+    losses, firsts, peaks = [], None, []
     with ActCodes() as rec:
         for i in range(steps):
             state, met = step(state, _batch(toks), local_comp)
+            peaks.append(int(met.pop("gathered_peak_bytes")))
             losses.append({k: float(v) for k, v in met.items()})
             if i == 0:
                 firsts = host(S.gather_tree(state, sh))
-    return losses, firsts, host(S.gather_tree(state, sh)), rec.codes
+    return losses, firsts, host(S.gather_tree(state, sh)), rec.codes, peaks
+
+
+def gather_backward_checks(mesh):
+    """`gather_at_use`'s forward and backward on this rank, for leaves of
+    several layouts, the batch split over "data": the full tensor, and the
+    slice's gradient against the slice of the two data rows' summed
+    gradients."""
+    from repro_torch.distributed import sharding as S
+
+    def grad_of(data, shape):
+        return torch.from_numpy(np.random.default_rng(
+            [data, *shape]).standard_normal(shape).astype(np.float32))
+
+    out = {}
+    specs = {"data x model": ((8, 6), ("data", "model")),
+             "model": ((8, 6), (None, "model")),
+             "data": ((6, 8), (None, "data")),
+             "replicated": ((4, 3), ()),
+             "data+model": ((8,), (("data", "model"),))}
+    full_ok = True
+    for name, (shape, spec) in specs.items():
+        s = S.NamedSharding(mesh, S.PartitionSpec(*spec))
+        full = torch.arange(np.prod(shape), dtype=torch.float32) \
+            .reshape(shape)
+        x = s.local(full).clone().requires_grad_(True)
+        y = S.gather_at_use(x, s, ("data",))
+        full_ok &= bool(torch.equal(y, full))
+        (y * grad_of(mesh.coords["data"], shape)).sum().backward()
+        want = s.local(grad_of(0, shape) + grad_of(1, shape))
+        out[name] = bool(torch.equal(x.grad, want))
+    out["forward gathers the full tensor"] = full_ok
+    return out
 
 
 def rank_checks(rank, world, inputs, ckpt_dir):
@@ -107,13 +141,15 @@ def rank_checks(rank, world, inputs, ckpt_dir):
     for arch, item in inputs["archs"].items():
         model = build_lm(get_config(arch).scaled_down(
             compute_dtype="float32"))
-        losses, first, last, codes = _train(
+        losses, first, last, codes, peaks = _train(
             model, cfg, mesh, item["params"], item["comp"], item["toks"],
             steps=2, dispatch=item["dispatch"])
         trained = last if arch == "olmo-1b" else trained
         out[arch] = {"losses": losses, "first": first if rank == 0 else None,
                      "last": last if rank == 0 else None,
-                     "codes": codes if mesh.coords["model"] == 0 else None}
+                     "codes": codes if mesh.coords["model"] == 0 else None,
+                     "gathered_peaks": peaks}
+    out["gather_backward"] = gather_backward_checks(mesh)
 
     olmo = inputs["archs"]["olmo-1b"]
     model = build_lm(get_config("olmo-1b").scaled_down(
@@ -122,7 +158,8 @@ def rank_checks(rank, world, inputs, ckpt_dir):
     rep = _train(model, cfg, mesh, olmo["params"], olmo["comp"],
                  olmo["toks"][:3], steps=1)
     out["replicated"] = {"losses": rep[0],
-                         "last": rep[2] if rank == 0 else None}
+                         "last": rep[2] if rank == 0 else None,
+                         "gathered_peaks": rep[4]}
 
     # prefill and decode over the mesh
     params = params_from_numpy(olmo["params"], "cpu")
@@ -131,6 +168,7 @@ def rank_checks(rank, world, inputs, ckpt_dir):
     prompt = torch.as_tensor(olmo["toks"][:, :16])
     logits_rows = T.make_prefill_step(model, cfg, mesh=mesh)(
         local_params, {"tokens": prompt})
+    out["prefill_gathered_peak"] = S.gathered_bytes()["peak"]
     logits = S.gather(logits_rows, S.batch_sharding(mesh, (4, 16, 1)))
     max_len = 24
     with torch.no_grad():
@@ -152,6 +190,8 @@ def rank_checks(rank, world, inputs, ckpt_dir):
         for t in range(2):
             tok = torch.as_tensor(olmo["toks"][:, 16 + t:17 + t])
             lg, local = step(local_params, local, tok)
+            out.setdefault("serve_gathered_peaks", []).append(
+                S.gathered_bytes()["peak"])
             outs.append(S.gather(lg, S.batch_sharding(mesh, (4, 1, 1))))
         served[name] = {"logits": [o.numpy() for o in outs],
                         "cache": host(S.gather_tree(local, store)),

@@ -366,12 +366,11 @@ class _WorkStarted(Exception):
     pass
 
 
-def test_unported_stages_and_targets_name_their_roadmap_item():
-    """The default config (``search_mode="batched"``, ported) is not
-    refused: its run starts work. A dense LM target builds, and so do the
-    routed targets (moe, scan); the cosim gate (item 9) is ported, so its
-    run starts work too. An LM pipeline's stages run through serve (the
-    engine is not run here)."""
+def test_default_config_and_every_target_start_work():
+    """The default config (``search_mode="batched"``) starts work. A dense
+    LM target builds, and so do the routed targets (moe, scan); the cosim
+    gate's run starts work too. An LM pipeline's stages run through serve
+    (the engine is not run here)."""
     pipe = TPipeline(TConfig(), device="cpu")     # search_mode="batched"
     assert pipe.cfg.schedule.search_mode == "batched"
 

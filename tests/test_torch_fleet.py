@@ -185,11 +185,10 @@ def test_router_config_validation_and_plan_specs():
     assert parse_plan_spec("plans/olmo-k4") == (None, 0)
 
 
-def test_mesh_raises_naming_item_10(lm, driven):
-    """The serving mesh, once refused naming ROADMAP.md item 10, is ported:
-    a fleet over a 2-shard CPU request mesh hands it to every engine, then
-    routes and serves the trace as the fleet without one does (route log
-    and tokens equal)."""
+def test_fleet_over_a_request_mesh_routes_as_without(lm, driven):
+    """A fleet over a 2-shard CPU request mesh hands it to every engine,
+    then routes and serves the trace as the fleet without one does (route
+    log and tokens equal)."""
     from repro_torch.distributed import request_mesh
 
     _, tm, _, tp = lm

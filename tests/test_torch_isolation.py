@@ -68,8 +68,13 @@ MESH2D = ("distributed/elastic.py", "distributed/spawn.py",
           "optim/optimizers.py", "core/qat.py")
 
 
+# the modules K2's configuration tuner added or changed
+AUTOTUNE = ("kernels/lut_matmul/autotune.py", "kernels/lut_matmul/lut_matmul.py",
+            "kernels/lut_matmul/ops.py", "serving/bucketing.py")
+
+
 @pytest.mark.parametrize("rel", BASELINES_AND_ENCDEC + ROUTED + VLM_AND_COSIM
-                         + MESH_AND_FAULT + MESH2D)
+                         + MESH_AND_FAULT + MESH2D + AUTOTUNE)
 def test_new_modules_are_checked_and_a_stray_import_fails(rel, tmp_path):
     """Each module is among the files the import check walks, imports
     cleanly alone, and the check catches a stray ``import jax`` or ``from

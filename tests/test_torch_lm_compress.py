@@ -338,10 +338,10 @@ def _lm_option(option, tmp_path):
 
 @pytest.mark.parametrize("option", ["qat_steps", "ckpt_dir", "plans_dir",
                                     "plans"])
-def test_unported_lm_options_raise_before_work(option, tmp_path):
-    """Each LM option the port once refused (LM QAT steps, a checkpoint to
-    restore, a fleet from a plan directory or from plan specs) now runs on
-    the reduced preset, and the stage it changes produces its result."""
+def test_lm_options_run_the_stage_they_change(option, tmp_path):
+    """Each LM option (LM QAT steps, a checkpoint to restore, a fleet from
+    a plan directory or from plan specs) runs on the reduced preset, and
+    the stage it changes produces its result."""
     over, stage = _lm_option(option, tmp_path)
     pipe = TPipeline(t_reduced_lm("olmo-1b").with_overrides(over),
                      device="cpu")

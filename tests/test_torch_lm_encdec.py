@@ -345,7 +345,7 @@ def test_train_step_with_enc_embeds_matches_jax(wref):
     for name in jpar:
         np.testing.assert_allclose(t2n(tpar[name]), np.asarray(jpar[name]),
                                    rtol=0, atol=2e-4, err_msg=name)
-    # the VLM prefix (item 6c's other half) is ported: a batch with
+    # the VLM prefix is ported: a batch with
     # prefix_embeds trains a VLM, its loss that of the forward's trailing
     # token positions (held to JAX's in tests/test_torch_lm_vlm.py)
     vm = tbuild(tget("internvl2-26b").scaled_down(compute_dtype="float32"))

@@ -64,12 +64,11 @@ TOL = 1e-5
 ON_TOL = 1e-3
 B, S, MAX_LEN, DECODE_STEPS = 2, 12, 16, 4
 DENSE = ("olmo-1b", "phi3-mini-3.8b", "qwen2.5-14b", "gemma3-4b")
-# the families beyond the dense one: the ROADMAP.md item a refusal names,
-# or None for a family the port builds (the recurrent half of item 6c, the
-# MoE family of the routed targets, the encoder-decoder, the VLM)
-NOT_PORTED = {"phi3.5-moe-42b-a6.6b": None, "moonshot-v1-16b-a3b": None,
-              "mamba2-1.3b": None, "recurrentgemma-2b": None,
-              "internvl2-26b": None, "whisper-large-v3": None}
+# the families beyond the dense one: recurrent, MoE, the encoder-decoder,
+# the VLM backbone
+OTHER_FAMILIES = ("internvl2-26b", "mamba2-1.3b", "moonshot-v1-16b-a3b",
+                  "phi3.5-moe-42b-a6.6b", "recurrentgemma-2b",
+                  "whisper-large-v3")
 MOE = ("phi3.5-moe-42b-a6.6b", "moonshot-v1-16b-a3b")
 
 
@@ -186,19 +185,14 @@ def test_other_dense_families_build(arch):
     assert list(jflat(jm.spec)) == list(tflat(tm.spec))
 
 
-@pytest.mark.parametrize("arch", sorted(NOT_PORTED))
-def test_unported_families_name_their_item(arch):
-    """A family not ported raises, naming its ROADMAP.md item; the
-    recurrent families (mamba2, recurrentgemma), the MoE family (phi3.5-moe,
-    moonshot: its forward, prefill and decode are held to JAX's in
-    `test_moe_family_forward_prefill_decode_match_jax`), the
+@pytest.mark.parametrize("arch", OTHER_FAMILIES)
+def test_other_families_build_as_jax_and_take_its_params(arch):
+    """The recurrent families (mamba2, recurrentgemma), the MoE family
+    (phi3.5-moe, moonshot: its forward, prefill and decode are held to
+    JAX's in `test_moe_family_forward_prefill_decode_match_jax`), the
     encoder-decoder (whisper) and the VLM (internvl2: its prefix is held
     to JAX's in `tests/test_torch_lm_vlm.py`) build, spec for spec the JAX
     package's, and JAX's parameters carry across."""
-    if NOT_PORTED[arch] is not None:
-        with pytest.raises(NotImplementedError, match=NOT_PORTED[arch]):
-            tbuild(tget(arch).scaled_down())
-        return
     jm, tm = jbuild(jget(arch).scaled_down()), tbuild(tget(arch).scaled_down())
     assert tcount(tm.spec) == jcount(jm.spec)
     jp = jflat(jax.device_get(jinit(jax.random.PRNGKey(0), jm.spec)))

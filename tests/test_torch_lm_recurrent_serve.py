@@ -245,10 +245,11 @@ def test_compress_cli_runs_the_family(arch, tmp_path, capsys):
 
 @pytest.mark.parametrize("arch,n_units", [("whisper-large-v3", 16),
                                           ("internvl2-26b", 7)])
-def test_other_half_of_item_6c_still_raises(arch, n_units, tmp_path, capsys):
-    """Both halves of item 6c are ported: the encoder-decoder (whisper) and
-    the VLM prefix (internvl2), whose compress runs through export (its
-    prefix is held to JAX's in `tests/test_torch_lm_vlm.py`)."""
+def test_encdec_and_vlm_compress_through_export(arch, n_units, tmp_path,
+                                                capsys):
+    """The encoder-decoder (whisper) and the VLM prefix (internvl2) compress
+    through export (the prefix is held to JAX's in
+    `tests/test_torch_lm_vlm.py`)."""
     from repro_torch.pipeline import cli
 
     argv = ["compress", "--target", "lm", "--arch", arch, "--reduced",

@@ -273,11 +273,11 @@ def test_remat_gradients_equal_bit_for_bit(lm, flash):
         assert torch.equal(f0[name], f1[name]), name
 
 
-def test_mesh_arguments_raise_naming_item_10(lm):
-    """The mesh arguments and helpers, once refused naming ROADMAP.md item
-    10, build: abstract states on meta, shardings on a 1 x 1 abstract mesh,
-    and the steps on it are the unmeshed ones bit for bit (no collective:
-    the mesh is this one process)."""
+def test_one_by_one_mesh_steps_equal_the_unmeshed(lm):
+    """The mesh arguments and helpers build: abstract states on meta,
+    shardings on a 1 x 1 abstract mesh, and the steps on it are the
+    unmeshed ones bit for bit (nothing gathered or reduced: the mesh is
+    this one process)."""
     from repro_torch.distributed import sharding as tsh
 
     _, tm, _, tp, _, tc, batch = lm

@@ -16,6 +16,13 @@ on the same numpy params, comp and batch:
     kv_heads over "model", and on its batch rows alone): logits and cache
     against the unmeshed forward and decode, abs 1e-5 (each rank's
     float32 products run on its own rows);
+  * FSDP a layer: each rank's peak of gathered bytes (parameters gathered
+    at use and the full gradients being reduced) stays within the
+    embedding plus one block's parameters, fake-quantized copy and
+    gradient, the dry run's ``gathered_peak_bytes`` of the cell, and below
+    the model's parameter bytes, which the step gathered whole before;
+    `gather_at_use` gathers the full tensor and its backward gives the
+    slice of the data rows' summed gradient, for five layouts;
   * DTensor's ``distribute_tensor`` slices equal `NamedSharding.local`
     (whose order `tests/test_torch_sharding_rules.py` holds to JAX's);
   * a train state saved under 2 x 2 and restored by `elastic_restore` onto
@@ -40,9 +47,11 @@ from repro.nn.spec import flatten_with_names as jflat
 from repro.nn.spec import init_params as jinit
 from repro_torch.configs import get_config as tget
 from repro_torch.distributed.spawn import run_ranks
+from repro_torch.launch import dryrun as tdry
 from repro_torch.launch import train as ttrain
 from repro_torch.models.lm import build_lm as tbuild
-from repro_torch.nn.spec import params_from_numpy
+from repro_torch.nn.spec import abstract_params, params_from_numpy
+from repro_torch.nn.transformer import block_matmuls
 
 ARCHS = {"olmo-1b": False, "phi3.5-moe-42b-a6.6b": True}
 STEP = dict(qat=True, with_comp=True, remat=True, q_block=16, kv_block=16,
@@ -229,3 +238,55 @@ def test_elastic_restore_across_mesh_shapes(runs, shape):
         assert got["sharded_leaves"] > 0
         assert list(got["mesh"].values()) == [int(n) for n in
                                               shape.split("x")]
+
+
+# ------------------------------------------------------------ FSDP a layer
+
+
+def nbytes(tree):
+    return sum(t.numel() * t.element_size()
+               for t in ttrain.tree_leaves(tree))
+
+
+def one_block_bound(model, train=True):
+    """The embedding plus one block's parameters and, in training, its
+    fake-quantized copy and its gradient (each reduced model here has one
+    stacked group, float32)."""
+    params = abstract_params(model.spec)
+    block = params["blocks"]["g0"]
+    depth = model.n_rep
+    layer = nbytes(block) // depth
+    fq = sum(nbytes(block[u.split("/")[0]][u.split("/")[1]])
+             for u in block_matmuls(block)) // depth
+    embed = max(nbytes(params["embed"]), nbytes(params.get("lm_head", {})))
+    return embed + layer + (fq + layer if train else 0), nbytes(params)
+
+
+@pytest.mark.parametrize("arch", list(ARCHS))
+def test_meshed_train_step_gathers_one_block_at_a_time(runs, arch):
+    model = tbuild(tget(arch).scaled_down(compute_dtype="float32"))
+    bound, whole = one_block_bound(model)
+    assert tdry.gathered_peak_bytes(model, "train") == bound
+    for r in runs["ranks"]:
+        peaks = r[arch]["gathered_peaks"]
+        assert len(peaks) == 2 and min(peaks) > 0, peaks
+        assert max(peaks) <= bound, (r["rank"], peaks, bound)
+        assert max(peaks) < whole, (r["rank"], peaks, whole)
+
+
+def test_replicated_batch_and_serving_steps_gather_one_block(runs):
+    model = tbuild(tget("olmo-1b").scaled_down(compute_dtype="float32"))
+    bound, whole = one_block_bound(model)
+    serve_bound, _ = one_block_bound(model, train=False)
+    for r in runs["ranks"]:
+        assert 0 < max(r["replicated"]["gathered_peaks"]) <= bound
+        assert 0 < r["prefill_gathered_peak"] <= serve_bound < whole
+        assert len(r["serve_gathered_peaks"]) == 4
+        assert 0 < max(r["serve_gathered_peaks"]) <= serve_bound
+
+
+def test_gather_backward_is_the_slice_of_the_summed_gradient(runs):
+    for r in runs["ranks"]:
+        checks = r["gather_backward"]
+        assert len(checks) == 6 and all(checks.values()), (r["rank"],
+                                                            checks)

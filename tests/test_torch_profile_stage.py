@@ -350,13 +350,12 @@ class _WorkStarted(Exception):
     pass
 
 
-@pytest.mark.parametrize("override,item", [
-    ({"schedule": {"search_mode": "batched"}}, "Queue 1 item 4b"),
-    ({"profile": {"verify_cosim": True}}, "Queue 1 item 9")])
-def test_unported_profile_options_raise_before_work(override, item):
-    """An option that is not ported would raise, naming its ROADMAP.md
-    item, before any work; item 4b (the batched schedule sweep) and item 9
-    (the cosim gate) are ported, so their configs go on to work."""
+@pytest.mark.parametrize("override,option", [
+    ({"schedule": {"search_mode": "batched"}}, "batched sweep"),
+    ({"profile": {"verify_cosim": True}}, "cosim gate")])
+def test_batched_sweep_and_cosim_configs_start_work(override, option):
+    """The batched schedule sweep's and the cosim gate's configs go on to
+    work."""
     cfg = TConfig.from_dict(_cfg_dict()).with_overrides(override)
     pipe = TPipeline(cfg, device="cpu")
 
@@ -369,10 +368,9 @@ def test_unported_profile_options_raise_before_work(override, item):
     assert not pipe.plan.completed
 
 
-def test_runner_training_names_its_roadmap_item():
-    """The runner's batched candidate sweep (ROADMAP.md Queue 1 item 4b)
-    runs: two stacked LeNet-5 candidates train and evaluate as each does
-    alone, bit for bit."""
+def test_runner_batched_sweep_equals_each_candidate_alone():
+    """The runner's batched candidate sweep runs: two stacked LeNet-5
+    candidates train and evaluate as each does alone, bit for bit."""
     from repro_torch._device import tree_leaves
     from repro_torch.core import qat as tqat
 

@@ -21,6 +21,8 @@ tokens are compared for equality.
 import dataclasses
 import warnings
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -173,8 +175,11 @@ def test_engine_config_derived_values():
     assert chunk_plan(24, (16, 8)) == (16, 8)
     with pytest.raises(ValueError):
         chunk_plan(12, (16, 8))                      # greedy remainder 4
-    with pytest.raises(NotImplementedError, match="item 1"):
-        EngineConfig(autotune_cache="tune.json")
+    # K2's tuner cache: a path string is taken, anything else refused
+    assert EngineConfig(autotune_cache="tune.json").autotune_cache \
+        == "tune.json"
+    with pytest.raises(ValueError, match="autotune_cache"):
+        EngineConfig(autotune_cache=Path("tune.json"))
 
 
 def test_request_stats_guard_unset_timestamps():
