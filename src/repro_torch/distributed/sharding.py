@@ -73,6 +73,27 @@ backward turns the full gradient of this rank's rows into the gradient of
 its slice of the global batch (`reduce_to_slice`). `gathered_bytes` counts
 the bytes of the gathered tensors (and of the full gradients being reduced)
 alive at once, and their peak.
+
+**Tensor parallel over "model".** With the step's rules a `LayerGather`
+also names the sub-modules that split their features over the model axes
+(`tp_axes`: a decoder block's attention and dense FFN, the token table and
+the read-out, where the layout shards their heads, hidden width or
+vocabulary there): their leaves are gathered over the other axes only,
+keeping this rank's chunk (`without_axes`), and `ModelSplit` carries the
+model group to the model code. The model-group collectives are autograd
+functions: `copy_to_model` (identity forward, SUM backward: once a
+sub-module, on the input its column-parallel products share),
+`reduce_from_model` (SUM forward, identity backward); a MAX over the
+model group (exact in any order) takes a split activation's amax
+(`ModelSplit.act`) and the cross-entropy's maximum; `tp_matmul` runs a
+column- or row-parallel product whose float64 partial sums (under QAT)
+are summed across the ranks before the one rounding (a row-parallel
+output in its forward, the shared input's gradient in `copy_to_model`);
+`vocab_lookup` and `vocab_parallel_nll` split the embedding and the
+cross-entropy by vocabulary. `activation_constraint` and
+`logits_sharding` are the JAX package's layouts, as this rank's slice.
+Every collective counts its result's bytes (`collective_counts`), the
+figure the dry run's ``collectives`` predicts.
 """
 
 from __future__ import annotations
@@ -685,21 +706,25 @@ def tile_batch_sharding(mesh, axis: str = TILE_AXIS) -> NamedSharding:
     return NamedSharding(mesh, PartitionSpec(axis))
 
 
-def logits_constraint(mesh, rules: ShardingRules = DEFAULT_RULES):
-    """The JAX package's layout constraint on (B, S, V) logits (batch over
-    ("pod", "data"), vocab over "model"): the port's steps compute the
-    full vocab on each rank's rows, so the hook is the identity on values."""
-    del mesh, rules
-    return lambda x: x
+def logits_sharding(mesh, shape: Sequence[int],
+                    rules: ShardingRules = DEFAULT_RULES) -> NamedSharding:
+    """The JAX package's layout of (B, S, V) logits: batch over ("pod",
+    "data"), vocab over "model", each guarded (a dim that does not divide
+    its axes replicates)."""
+    parts: list = [None] * len(shape)
+    for d, logical in ((0, "batch"), (len(shape) - 1, "vocab")):
+        axis = _present(mesh, rules.lookup(logical))
+        n = _mesh_size(mesh, axis)
+        if axis is not None and n > 1 and shape[d] % n == 0:
+            parts[d] = axis
+    return NamedSharding(mesh, PartitionSpec(*parts))
 
 
-def activation_constraint(mesh, rules: ShardingRules = DEFAULT_RULES,
-                          *, sequence_parallel: bool = False):
-    """The JAX package's layout constraint on (B, S, d) residual-stream
-    activations; the identity on values here (each rank computes its own
-    batch rows whole: no sequence or tensor parallelism)."""
-    del mesh, rules, sequence_parallel
-    return lambda x: x
+def activation_constraint(mesh, rules: ShardingRules = DEFAULT_RULES):
+    """The JAX package's layout constraint on (B, S, ...) residual-stream
+    activations and batch tensors, as this rank's slice of the full
+    tensor: its rows (`batch_sharding`)."""
+    return lambda x: batch_sharding(mesh, x.shape, rules).local(x)
 
 
 # ------------------------------------------------------------- collectives
@@ -710,6 +735,38 @@ def _staged(t: torch.Tensor, group) -> bool:
     import torch.distributed as dist
 
     return t.is_cuda and dist.get_backend(group) == "gloo"
+
+
+_collectives_lock = threading.Lock()
+COLLECTIVE_KINDS = ("all-gather", "reduce-scatter", "all-reduce")
+_collectives = {k: {"bytes": 0, "count": 0} for k in COLLECTIVE_KINDS}
+
+
+def _count(kind: str, nbytes: int) -> None:
+    with _collectives_lock:
+        _collectives[kind]["bytes"] += int(nbytes)
+        _collectives[kind]["count"] += 1
+
+
+def collective_counts() -> Dict[str, Any]:
+    """{kind: {"bytes", "count"}, "total_bytes"}: what this process's
+    collectives moved since `reset_collective_counts`, each counted by its
+    result's bytes (the gathered tensor, the scattered slice, the reduced
+    tensor), as the JAX package's dry run parses XLA's collectives."""
+    with _collectives_lock:
+        out = {k: dict(v) for k, v in _collectives.items()}
+    out["total_bytes"] = sum(v["bytes"] for v in out.values())
+    return out
+
+
+def reset_collective_counts() -> None:
+    with _collectives_lock:
+        for v in _collectives.values():
+            v["bytes"] = v["count"] = 0
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
 
 
 def all_reduce(t: torch.Tensor, op: str, group) -> torch.Tensor:
@@ -723,6 +780,7 @@ def all_reduce(t: torch.Tensor, op: str, group) -> torch.Tensor:
         else t.detach().clone()
     dist.all_reduce(x, op={"sum": dist.ReduceOp.SUM,
                            "max": dist.ReduceOp.MAX}[op], group=group)
+    _count("all-reduce", _nbytes(x))
     return x.to(t.device)
 
 
@@ -734,6 +792,7 @@ def _all_gather(t: torch.Tensor, group) -> List[torch.Tensor]:
         x = x.cpu()
     parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, x, group=group)
+    _count("all-gather", _nbytes(x) * len(parts))
     return [p.to(t.device) for p in parts]
 
 
@@ -940,7 +999,48 @@ def _reduce_scatter(x: torch.Tensor, sharding: NamedSharding, dims,
               .contiguous() for i in range(dist.get_world_size(group))]
     out = torch.empty_like(chunks[0])
     dist.reduce_scatter(out, chunks, group=group)
+    _count("reduce-scatter", _nbytes(out))
     return out.to(x.device)
+
+
+def _reduce_kinds(sharding: NamedSharding, ndim: int,
+                  batch_axes: Sequence[str]):
+    """`reduce_to_slice`'s split of a leaf's dims: (local, scatter, mixed
+    dims, the scatter axes, the batch axes left for an all-reduce)."""
+    mesh = sharding.mesh
+    batch = {a for a in batch_axes if a in mesh.axis_names}
+    entries = sharding.entries(ndim)
+    local, scatter, mixed = [], [], []
+    for d, e in enumerate(entries):
+        axes = [a for a in _axes_of(e) if a in mesh.axis_names]
+        if not axes:
+            continue
+        kind = {a in batch for a in axes}
+        (scatter if kind == {True} else local if kind == {False}
+         else mixed).append(d)
+    scatter_axes = {a for d in scatter for a in _axes_of(entries[d])}
+    return local, scatter, mixed, scatter_axes, batch - scatter_axes
+
+
+def reduce_plan(sharding: NamedSharding, shape: Sequence[int],
+                batch_axes: Sequence[str]) -> List[Tuple[str, Tuple[int,
+                                                                    ...]]]:
+    """The collectives `reduce_to_slice` runs on a gradient of ``shape``:
+    [(kind, result shape)], in order (no process needed: the dry run's
+    count)."""
+    mesh = sharding.mesh
+    local, scatter, _, scatter_axes, rest = _reduce_kinds(
+        sharding, len(shape), batch_axes)
+    entries = sharding.entries(len(shape))
+    shape = list(shape)
+    for d in local + scatter:
+        shape[d] //= _mesh_size(mesh, entries[d])
+    out = []
+    if scatter and _mesh_size(mesh, tuple(sorted(scatter_axes))) > 1:
+        out.append(("reduce-scatter", tuple(shape)))
+    if rest and _mesh_size(mesh, tuple(sorted(rest))) > 1:
+        out.append(("all-reduce", tuple(shape)))
+    return out
 
 
 def reduce_to_slice(g: torch.Tensor, sharding: NamedSharding,
@@ -952,27 +1052,17 @@ def reduce_to_slice(g: torch.Tensor, sharding: NamedSharding,
     (those ranks hold the same rows, hence the same gradient); dims sharded
     over batch axes alone take one reduce-scatter over those axes; the
     batch axes on which the leaf is replicated (and a dim that mixes the
-    two kinds) take an all-reduce, then the slice."""
+    two kinds) take an all-reduce, then the slice (`reduce_plan`)."""
     mesh = sharding.mesh
-    batch = {a for a in batch_axes if a in mesh.axis_names}
-    entries = sharding.entries(g.ndim)
-    local, scatter, mixed = [], [], []
-    for d, e in enumerate(entries):
-        axes = [a for a in _axes_of(e) if a in mesh.axis_names]
-        if not axes:
-            continue
-        kind = {a in batch for a in axes}
-        (scatter if kind == {True} else local if kind == {False}
-         else mixed).append(d)
+    local, scatter, mixed, scatter_axes, rest = _reduce_kinds(
+        sharding, g.ndim, batch_axes)
     y = _slice_at(g, sharding, local) if local else g
-    scatter_axes = {a for d in scatter for a in _axes_of(entries[d])}
     group = mesh.group(sorted(scatter_axes)) if scatter else None
     if group is not None:
         y = _reduce_scatter(y, sharding, scatter, group)
     elif scatter:
         y = _slice_at(y, sharding, scatter)
-    rest = mesh.group(sorted(batch - scatter_axes)) \
-        if batch - scatter_axes else None
+    rest = mesh.group(sorted(rest)) if rest else None
     if rest is not None:
         y = all_reduce(y, "sum", rest)
     return _slice_at(y, sharding, mixed) if mixed else y
@@ -1015,15 +1105,79 @@ def _layer_sharding(s: NamedSharding, ndim: int) -> NamedSharding:
     return NamedSharding(s.mesh, PartitionSpec(*entries[1:]))
 
 
+def _drop_axes(entry: AxisVal, axes: Sequence[str]) -> AxisVal:
+    kept = tuple(a for a in _axes_of(entry) if a not in axes)
+    if not kept:
+        return None
+    return kept[0] if len(kept) == 1 else kept
+
+
+def without_axes(s: NamedSharding, axes: Sequence[str]) -> NamedSharding:
+    """``s`` with ``axes`` taken out of every entry: the layout, over the
+    other axes, of the chunk that this rank holds along ``axes`` (what a
+    tensor-parallel unit gathers: its model shard, whole along the rest)."""
+    return NamedSharding(s.mesh, PartitionSpec(
+        *[_drop_axes(e, axes) for e in s.spec]))
+
+
+# the sub-modules that split their compute over the model axes when the
+# layout shards their defining dim there, and that (leaf, dim): a decoder
+# block's attention (heads) and dense FFN (mlp), the token table (vocab)
+# and the untied read-out (vocab)
+TP_UNITS = {"attn": ("wq", 1), "mlp": ("w_up", 1), "embed": ("table", 0),
+            "lm_head": ("w", 1)}
+
+
+def tp_axes(shardings, path: Sequence[str],
+            rules: ShardingRules) -> Tuple[str, ...]:
+    """The mesh axes over which the sub-module at ``path`` of a params'
+    sharding tree computes this rank's share of its features, () where it
+    computes whole. ``path``: ``("blocks", "g0", "attn")``, ``("tail",
+    "t0", "mlp")``, ``("embed",)``, ``("lm_head",)``. A `TP_UNITS` entry
+    splits over the axes that shard its defining dim (after the
+    divisibility guard), unless they split the batch too; an encoder block,
+    cross-attention, the MoE and the recurrent mixers compute whole."""
+    path = tuple(path)
+    if not path or path[-1] not in TP_UNITS \
+            or (len(path) > 1 and path[0] not in ("blocks", "tail")):
+        return ()
+    leaf, dim = TP_UNITS[path[-1]]
+    s = shardings
+    try:
+        for key in (*path, leaf):
+            s = s[key]
+    except KeyError:
+        return ()
+    mesh, spec = s.mesh, tuple(s.spec)
+    dim += path[0] == "blocks"              # the stacked layer axis
+    entry = spec[dim] if dim < len(spec) else None
+    axes = tuple(a for a in _axes_of(entry) if a in mesh.axis_names)
+    batch = set(_axes_of(_present(mesh, rules.lookup("batch"))))
+    return () if batch & set(axes) else axes
+
+
 class LayerGather:
     """What a meshed step's model calls on a tree of parameter slices where
     it uses them (`repro_torch.models.lm`): each leaf gathered with
     `gather_at_use` on its sharding in ``shardings`` (the params' tree),
-    the gradients reduced over ``batch_axes``."""
+    the gradients reduced over ``batch_axes``.
 
-    def __init__(self, shardings, batch_axes: Sequence[str] = ()):
+    **Tensor-parallel units.** With ``rules`` (the step's), a sub-module of
+    `TP_UNITS` whose defining dim the layout shards over mesh axes that do
+    not split the batch (after the divisibility guard: "model" by default)
+    computes its share of the features on each of those ranks
+    (`model_split`): its leaves are gathered over their other axes only,
+    each rank keeping its model chunk (`without_axes`), and the model code
+    runs it column- or row-parallel (`tp_matmul`). Every other leaf is
+    gathered whole. Without ``rules`` every leaf is gathered whole (the
+    storage-only step)."""
+
+    def __init__(self, shardings, batch_axes: Sequence[str] = (), *,
+                 rules: Optional[ShardingRules] = None):
         self.shardings = shardings
         self.batch_axes = tuple(batch_axes)
+        self.rules = rules
+        self._splits: Dict[tuple, Optional["ModelSplit"]] = {}
 
     def sharding(self, *path: str, stacked: bool = False, ndim: int = 0):
         """The sharding at ``path`` (a unit name ``"attn/wq"`` counts as two
@@ -1034,12 +1188,38 @@ class LayerGather:
                 s = s[part]
         return _layer_sharding(s, ndim) if stacked else s
 
+    def model_split(self, *path: str) -> Optional["ModelSplit"]:
+        """The `ModelSplit` of the tensor-parallel sub-module at ``path``
+        (`tp_axes`), or None where it computes whole."""
+        if path not in self._splits:
+            axes = () if self.rules is None \
+                else tp_axes(self.shardings, path, self.rules)
+            split = None
+            if axes:
+                mesh = self.sharding(*path, TP_UNITS[path[-1]][0]).mesh
+                split = ModelSplit(
+                    axes, mesh.group(axes),
+                    NamedSharding(mesh, PartitionSpec())._chunk(
+                        axes, mesh.coords), _mesh_size(mesh, axes),
+                    BatchReduce(mesh, self.batch_axes + axes))
+            self._splits[path] = split
+        return self._splits[path]
+
+    def block_splits(self, *path: str) -> Optional[Dict[str, "ModelSplit"]]:
+        """{"attn": split, "mlp": split} of the decoder block at ``path``,
+        the sub-modules that compute whole left out; None where none
+        splits."""
+        out = {sub: self.model_split(*path, sub) for sub in ("attn", "mlp")}
+        out = {k: v for k, v in out.items() if v is not None}
+        return out or None
+
     def __call__(self, tree, *path: str, stacked: bool = False,
                  skip: Sequence[str] = ()):
         """``tree`` (the subtree at ``path``; one layer of it with
         ``stacked``) with every leaf gathered, but the leaves at the unit
         names in ``skip`` (``"attn/wq"``, relative to ``path``), passed on
-        as they are. Leaves keyed by unit names are found the same way."""
+        as they are. Leaves keyed by unit names are found the same way. A
+        tensor-parallel sub-module's leaves keep their model chunk."""
         def walk(node, rel):
             if isinstance(node, dict):
                 return {k: walk(v, rel + (k,)) for k, v in node.items()}
@@ -1047,6 +1227,11 @@ class LayerGather:
                     or "/".join(rel) in skip:
                 return node
             s = self.sharding(*path, *rel, stacked=stacked, ndim=node.ndim)
+            parts = tuple(p for r in (*path, *rel) for p in r.split("/"))
+            split = self.model_split(*parts[:-1]) if len(parts) > 1 \
+                else None
+            if split is not None:
+                s = without_axes(s, split.axes)
             return gather_at_use(node, s, self.batch_axes)
 
         return walk(tree, ())
@@ -1070,3 +1255,224 @@ def layer_gathering(hook: Optional[LayerGather]):
         yield hook
     finally:
         _LAYER_GATHER = prev
+
+
+# ------------------------------------------- tensor parallel over "model"
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelSplit:
+    """A unit's features split over the mesh axes ``axes`` ("model" by
+    default): this rank computes chunk ``index`` of ``size`` of them, with
+    the ranks of ``group`` (the same rows, the other chunks). ``act``: the
+    reductions of an activation split that way (its amax is a MAX over the
+    batch ranks and ``group``)."""
+
+    axes: Tuple[str, ...]
+    group: Any
+    index: int
+    size: int
+    act: BatchReduce
+
+    def chunk(self, n: int) -> Tuple[int, int]:
+        """(length, start) of this rank's chunk of ``n`` features."""
+        if n % self.size:
+            raise ValueError(f"{n} features do not split over {self.axes} "
+                             f"(size {self.size})")
+        return n // self.size, self.index * (n // self.size)
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Identity forward (every model rank holds ``x``); backward the SUM of
+    the ranks' gradients over the model group (each rank's covers only its
+    features)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, "sum", ctx.group), None
+
+
+class _ReadAs(torch.autograd.Function):
+    """``value`` in ``src``'s dtype forward; backward the gradient to
+    ``src`` unchanged, none to ``value``."""
+
+    @staticmethod
+    def forward(ctx, value, src):
+        return value.to(src.dtype) if value.dtype != src.dtype \
+            else value.view_as(value)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, g
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """SUM over the model group forward; identity backward (the sum's
+    gradient is each term's)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        y = all_reduce(x, "sum", group)
+        return x.view_as(x) if y is x else y
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_model(x: torch.Tensor, split: ModelSplit,
+                  exact: bool = False) -> torch.Tensor:
+    """``x``, which every model rank of ``split`` holds whole (the input
+    that a sub-module's column-parallel products share, or a replicated
+    weight whose rows each rank reads its share of): identity forward,
+    and backward the SUM over the model ranks, once, of the gradients of
+    every product of this rank that reads it. ``exact``: the copy is
+    float64, so that those products' float64 gradients (`tp_matmul`) are
+    summed, over the products and then the ranks, and rounded once (a
+    product reads a fake-quantized ``x`` through `read_as`)."""
+    return _CopyToModel.apply(x.double() if exact else x, split.group)
+
+
+def read_as(value: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """``value`` (``src`` as a product reads it: fake-quantized, whose
+    gradient is the straight-through one) in ``src``'s dtype, with its
+    gradient going to ``src`` unchanged."""
+    return _ReadAs.apply(value, src)
+
+
+def reduce_from_model(x: torch.Tensor, split: ModelSplit) -> torch.Tensor:
+    return _ReduceFromModel.apply(x, split.group)
+
+
+def _sum_dtype(exact: bool, g: torch.Tensor) -> torch.dtype:
+    return torch.float64 if exact else g.dtype
+
+
+class _ColumnMatmul(torch.autograd.Function):
+    """``x @ w`` of a column-parallel unit: ``x`` (..., K) whole on every
+    model rank (the sub-module's `copy_to_model` copy), ``w`` (K, N /
+    size) this rank's columns. ``exact``: the product is summed in float64
+    and rounded once (`exact_matmul`). The backward's ``x`` gradient is
+    this rank's partial sum over its columns, in the sum's own dtype
+    (float64 when ``exact``), with no collective: `copy_to_model` sums it
+    over the model ranks."""
+
+    @staticmethod
+    def forward(ctx, x, w, group, exact):
+        ctx.save_for_backward(x, w)
+        ctx.exact = exact
+        if exact:
+            return (x.double() @ w.double()).float()
+        return torch.matmul(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        dt = _sum_dtype(ctx.exact, g)
+        g = g.to(dt)
+        gx = gw = None
+        if ctx.needs_input_grad[0]:
+            gx = (g @ w.to(dt).mT).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            gw = (x.to(dt).reshape(-1, x.shape[-1]).mT
+                  @ g.reshape(-1, g.shape[-1])).to(w.dtype)
+        return gx, gw, None, None
+
+
+class _RowMatmul(torch.autograd.Function):
+    """``x @ w`` of a row-parallel unit: ``x`` (..., K / size) this rank's
+    features, ``w`` (K / size, N) its rows. Forward: each rank's partial
+    sum, all-reduced over the model group (in float64 when ``exact``) and
+    rounded once after the SUM; backward: each rank's own gradients (no
+    collective)."""
+
+    @staticmethod
+    def forward(ctx, x, w, group, exact):
+        ctx.save_for_backward(x, w)
+        ctx.exact = exact
+        y = (x.double() @ w.double()) if exact else torch.matmul(x, w)
+        y = all_reduce(y, "sum", group)
+        return y.float() if exact else y
+
+    @staticmethod
+    def backward(ctx, g):
+        from repro_torch.kernels.lut_matmul.ref import matmul_grads
+
+        x, w = ctx.saved_tensors
+        gx, gw = matmul_grads(x, w, g, _sum_dtype(ctx.exact, g),
+                              ctx.needs_input_grad[:2])
+        return gx, gw, None, None
+
+
+def tp_matmul(x: torch.Tensor, w: torch.Tensor, split: ModelSplit,
+              kind: str, exact: bool) -> torch.Tensor:
+    """``x @ w`` (``w`` 2-D) of a unit split over ``split``'s ranks:
+    ``kind`` ``"column"`` (``w`` this rank's output columns; the result is
+    its columns; ``x`` the `copy_to_model` copy of the sub-module's input,
+    which sums its gradient over the ranks) or ``"row"`` (``x`` and ``w``
+    this rank's share of the reduced dim; the result is whole). ``exact``:
+    float32 out, summed in float64 across the ranks too and rounded once,
+    as `exact_matmul`; else the operands' dtype, as ``torch.matmul``."""
+    fn = {"column": _ColumnMatmul, "row": _RowMatmul}[kind]
+    return fn.apply(x, w, split.group, exact)
+
+
+def vocab_lookup(table: torch.Tensor, tokens: torch.Tensor,
+                 split: ModelSplit) -> torch.Tensor:
+    """Rows of this rank's vocabulary chunk ``table`` (V / size, d) for the
+    token ids ``tokens``, zeros where another rank owns the id: the SUM of
+    the ranks' results (`reduce_from_model`) is the lookup, exactly, one
+    rank contributing each row."""
+    v = table.shape[0]
+    local = tokens.long() - split.index * v
+    own = (local >= 0) & (local < v)
+    rows = table[local.clamp(0, v - 1)]
+    return torch.where(own[..., None], rows, torch.zeros(
+        (), dtype=rows.dtype, device=rows.device))
+
+
+class _VocabParallelNLL(torch.autograd.Function):
+    """-log softmax(logits)[label] over a vocabulary split over the model
+    group: ``logits`` (..., V / size) float32, this rank's chunk starting
+    at id ``start``. The MAX of the chunks' maxima, the SUM of the shifted
+    exponentials and the label's logit from the rank that owns it (the
+    others add zero), then log_softmax's own order of operations; backward
+    ``g * (softmax - onehot)`` on the chunk."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, start, group):
+        v = logits.shape[-1]
+        m = all_reduce(logits.amax(dim=-1), "max", group)
+        e = torch.exp(logits - m[..., None])
+        s = all_reduce(e.sum(dim=-1), "sum", group)
+        local = labels.long() - start
+        own = (local >= 0) & (local < v)
+        local = local.clamp(0, v - 1)
+        picked = torch.gather(logits, -1, local[..., None])[..., 0]
+        picked = all_reduce(torch.where(own, picked,
+                                        torch.zeros_like(picked)),
+                            "sum", group)
+        ctx.save_for_backward(e, s, local, own)
+        return -((picked - m) - torch.log(s))
+
+    @staticmethod
+    def backward(ctx, g):
+        e, s, local, own = ctx.saved_tensors
+        grad = e / s[..., None] * g[..., None]
+        hit = torch.where(own, g, torch.zeros_like(g))
+        grad.scatter_add_(-1, local[..., None], -hit[..., None])
+        return grad, None, None, None
+
+
+def vocab_parallel_nll(logits: torch.Tensor, labels: torch.Tensor,
+                       split: ModelSplit) -> torch.Tensor:
+    """Per-position negative log-likelihood (..., ) of ``labels`` under
+    logits whose vocabulary ``split`` chunks over the model ranks
+    (``logits`` this rank's chunk, float32)."""
+    start = split.chunk(logits.shape[-1] * split.size)[1]
+    return _VocabParallelNLL.apply(logits, labels, start, split.group)

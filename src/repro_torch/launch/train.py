@@ -47,14 +47,31 @@ the most bytes of gathered tensors and full gradients it held at once
 `gathered_bytes` after them. Where the
 JAX package's partitioner reduces over the global batch, the step does
 too (`batch_reduction`): the activation fake-quant's amax (MAX), the
-loss's sum and count and the MoE auxiliary losses' token sums. The
-``"model"`` axis shards storage only: no tensor-parallel compute, and the
-JAX package's layout hooks (`activation_constraint`, `logits_constraint`,
-``moe_local_dispatch``'s `moe_dispatch_constraint`) are identities on
-values. A step's losses are the global batch's; a prefill step returns
-the rank's rows of the logits, a serve step its rows of the logits and
-its slice of the new cache. On a mesh of one process (1 x 1) nothing is
-gathered or reduced and the step is the unmeshed one, bit for bit.
+loss's sum and count and the MoE auxiliary losses' token sums.
+
+**Tensor-parallel compute over "model"**, as the JAX package's
+partitioner divides the meshed step: the rows split over ("pod", "data")
+(`batch_sharding`), and the ranks of one model group share them
+and split the features. A decoder block's attention (heads), its dense FFN
+(hidden width) and the token table and read-out (vocabulary) compute this
+rank's share where the layout shards that dim over "model" (after the
+divisibility guard; `repro_torch.distributed.sharding.tp_axes`): the
+block keeps its model chunk when gathered, wq/wk/wv and w_gate/w_up run
+column-parallel, wo and w_down row-parallel (their float64 partial sums
+all-reduced and rounded once under QAT), the embedding is a masked lookup
+summed over "model", the loss a vocabulary-parallel cross-entropy, and
+each activation split over "model" takes its amax over those ranks too.
+K/V heads that the guard replicates are computed, on each rank, for the
+query heads it holds. MoE experts, the recurrent mixers, cross-attention
+and an encoder compute whole on a rank's rows (so phi3.5-moe runs both
+paths in one step); ``--rules heads=None,mlp=None,vocab=None,kv_heads=None``
+gives the storage-only step. ``moe_local_dispatch``'s
+`moe_dispatch_constraint` stays an identity on values. A step's losses
+are the global batch's; a prefill step returns the rank's block of the
+logits on `logits_sharding` (its rows, its vocabulary chunk), a serve
+step that block and its slice of the new cache. On a mesh of one process
+(1 x 1) nothing is gathered, split or reduced and the step is the
+unmeshed one, bit for bit.
 `abstract_train_state`, `abstract_serve_params` and `comp_abstract` are
 meta tensors.
 
@@ -145,8 +162,9 @@ def moe_dispatch_constraint(mesh, rules: ShardingRules = DEFAULT_RULES):
     """The dispatch-buffer hook of `repro_torch.nn.moe` for ``mesh``. In
     the JAX package it pins the (B, E, C, d) buffer's layout for the SPMD
     partitioner ('scatter': model-replicated, 'expert': E over the expert
-    axis); each rank here runs every expert on its own rows, so the hook
-    returns its tensor unchanged."""
+    axis); the MoE block is not tensor- or expert-parallel here (each rank
+    runs every expert on its own rows), so the hook returns its tensor
+    unchanged."""
     del mesh, rules
 
     def hook(t, kind):
@@ -247,10 +265,12 @@ def _rows(batch, mesh, rules):
             for k, v in batch.items()}
 
 
-def _layer_gather(mesh, p_sh, batch_axes) -> Optional[LayerGather]:
-    """The step's `LayerGather`; None on a mesh of one process, where every
-    slice is the whole tensor and nothing is gathered or reduced."""
-    return None if mesh.size == 1 else LayerGather(p_sh, batch_axes)
+def _layer_gather(mesh, p_sh, batch_axes, rules) -> Optional[LayerGather]:
+    """The step's `LayerGather` (its tensor-parallel units by ``rules``);
+    None on a mesh of one process, where every slice is the whole tensor
+    and nothing is gathered, split or reduced."""
+    return None if mesh.size == 1 else LayerGather(p_sh, batch_axes,
+                                                   rules=rules)
 
 
 def _meshed_train_step(model, step_cfg, mesh, rules, moe_local_dispatch):
@@ -270,7 +290,7 @@ def _meshed_train_step(model, step_cfg, mesh, rules, moe_local_dispatch):
         axes = _batch_axes(micro[0], mesh, rules)
         group = mesh.group(axes)
         red = None if group is None else BatchReduce(mesh, axes)
-        gather = _layer_gather(mesh, p_sh, axes)
+        gather = _layer_gather(mesh, p_sh, axes, rules)
         token = None if hook is None else moe.set_dispatch_constraint(hook)
         reset_gathered_peak()
         try:
@@ -300,7 +320,8 @@ def make_prefill_step(model, step_cfg: StepConfig, mesh=None,
     """prefill_step(params, batch) -> logits (inference forward at length
     P + S, no QAT; ``batch`` as the train step's, no labels). With
     ``mesh``: ``params`` are this rank's slices on `make_param_shardings`
-    and the logits its rows of the batch."""
+    and the logits its block on `logits_sharding` (its rows of the batch,
+    its chunk of the vocabulary where the read-out is split)."""
     rules = DEFAULT_RULES if rules is None else rules
     p_sh = None if mesh is None else make_param_shardings(model.spec, mesh,
                                                           rules)
@@ -309,7 +330,7 @@ def make_prefill_step(model, step_cfg: StepConfig, mesh=None,
     def prefill_step(params, batch):
         gather = None
         if mesh is not None:
-            gather = _layer_gather(mesh, p_sh, ())
+            gather = _layer_gather(mesh, p_sh, (), rules)
             batch = _rows(batch, mesh, rules)
         reset_gathered_peak()
         with layer_gathering(gather):
@@ -331,16 +352,21 @@ def make_serve_step(model, step_cfg: StepConfig, mesh=None,
     step. With ``mesh``: ``params`` are this rank's slices on
     `make_param_shardings`, ``tokens`` (B, 1) the whole batch; the cache
     is held on ``cache_shardings`` (the tree `cache_shardings` gives) or,
-    without it, on its batch rows alone; the step returns the rank's rows
-    of the logits and its slice of the new cache. The cache's sharded
-    non-batch dims (kv_heads or kv_seq over "model") are gathered for the
-    step and sliced again after it."""
+    without it, on its batch rows alone; the step returns its block of the
+    logits on `logits_sharding` and its slice of the new cache. The step
+    reads the cache on its rows and, where attention is tensor-parallel,
+    its K/V heads (`compute_cache_shardings`); the held layout's other sharded
+    dims (K/V heads the step does not split, or ``kv_seq_shard``'s
+    sequence over "model": a storage layout) are gathered for the step
+    and sliced again after it."""
     rules = DEFAULT_RULES if rules is None else rules
     p_sh = None if mesh is None else make_param_shardings(model.spec, mesh,
                                                           rules)
     rows_rules = ShardingRules((("batch", rules.lookup("batch")),))
 
     def layouts(cache, b):
+        """(the layout the step computes on, the layout the cache is held
+        on)."""
         axes = cache_axes(cache)
 
         def full(x, ax, s=None):
@@ -355,24 +381,50 @@ def make_serve_step(model, step_cfg: StepConfig, mesh=None,
         store = cache_shardings
         shapes = tree_map(full, cache, axes) if store is None \
             else tree_map(full, cache, axes, store)
-        rows = shardings_from_axes_tree(axes, shapes, mesh, rows_rules)
-        return rows, rows if store is None else store
+        if store is None:
+            store = shardings_from_axes_tree(axes, shapes, mesh, rows_rules)
+        return compute_cache_shardings(shapes, mesh, rules), store
 
     @torch.no_grad()
     def serve_step(params, cache, tokens):
         if mesh is None:
             return model.decode_step(params, cache, tokens,
                                      qcfg=QuantConfig.off())
-        rows, store = layouts(cache, tokens.shape[0])
+        compute, store = layouts(cache, tokens.shape[0])
         reset_gathered_peak()
-        with layer_gathering(_layer_gather(mesh, p_sh, ())):
+        with layer_gathering(_layer_gather(mesh, p_sh, (), rules)):
             logits, new = model.decode_step(
-                params, reshard_tree(cache, store, rows),
+                params, reshard_tree(cache, store, compute),
                 batch_sharding(mesh, tokens.shape, rules).local(tokens),
                 qcfg=QuantConfig.off())
-        return logits, reshard_tree(new, rows, store)
+        return logits, reshard_tree(new, compute, store)
 
     return serve_step
+
+
+def compute_cache_shardings(cache, mesh,
+                            rules: ShardingRules = DEFAULT_RULES):
+    """The layout a meshed serve step computes a decode cache (full
+    shapes, e.g. meta tensors) on: its batch rows, and the K/V heads
+    (``k``, ``v``) over the axes that split attention's heads where the
+    heads and K/V heads share them (the guard replicating K/V heads that
+    do not divide). Cross-attention's ``xk`` / ``xv`` (computed whole) and
+    the recurrent states keep only their batch rows."""
+    heads = rules.lookup("heads")
+    compute_rules = ShardingRules((
+        ("batch", rules.lookup("batch")),
+        ("kv_heads", heads if heads is not None
+         and rules.lookup("kv_heads") == heads else None)))
+
+    def walk(node, ax, name=None):
+        if isinstance(node, dict):
+            return {k: walk(v, ax[k], k) for k, v in node.items()}
+        if name in ("k", "v"):
+            return ax
+        return tuple(a if a == "batch" else None for a in ax)
+
+    axes = walk(cache, cache_axes(cache))
+    return shardings_from_axes_tree(axes, cache, mesh, compute_rules)
 
 
 # ================================================================== state

@@ -52,7 +52,7 @@ import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from repro_torch.core import lm_compress, qat
 from repro_torch.core.export import ServeArtifact
@@ -60,7 +60,12 @@ from repro_torch.distributed.sharding import (
     _axes_of,
     all_reduce,
     batch_reduce,
+    copy_to_model,
     layer_gather,
+    reduce_from_model,
+    tp_matmul,
+    vocab_lookup,
+    vocab_parallel_nll,
 )
 from repro_torch.kernels.lut_matmul.ref import exact_matmul
 from repro_torch.models.config import ArchConfig
@@ -138,18 +143,44 @@ def _run_block(fn, block_params, block_weff, key, *args, **kw):
     """``fn(params, *args, w_eff=block_weff, **kw)`` on one block. In a
     meshed step the block is gathered for this call and let go when it
     returns: every parameter but the matmul weights that ``block_weff``
-    replaces, whose fake-quantized copies are gathered instead. ``key``:
-    `LMModel._layers`'s (top, name, layer) of the block."""
+    replaces, whose fake-quantized copies are gathered instead; a
+    tensor-parallel sub-module keeps this rank's model chunk and runs split
+    (``tp=``). ``key``: `LMModel._layers`'s (top, name, layer) of the
+    block."""
     hook = layer_gather()
     if hook is not None:
         top, name, r = key
-        path = ("blocks" if top == "groups" else top, name)
+        path = ("blocks" if top == "groups" else top,
+                *(() if name is None else (name,)))
         stacked = r is not None
         if block_weff is not None:
             block_weff = hook(block_weff, *path, stacked=stacked)
         block_params = hook(block_params, *path, stacked=stacked,
                             skip=tuple(block_weff or ()))
+        tp = hook.block_splits(*path) if name is not None else None
+        if tp is not None:
+            kw = dict(kw, tp=tp)
     return fn(block_params, *args, w_eff=block_weff, **kw)
+
+
+def _remat(layer, x):
+    """``layer(x)`` under `torch.utils.checkpoint`. In a meshed step the
+    recompute runs the whole layer, its collectives included, without
+    stopping at the last tensor the backward needs, so that a layer's
+    collectives run twice, always (the dry run's count)."""
+    if layer_gather() is None:
+        return checkpoint(layer, x, use_reentrant=False)
+    with set_checkpoint_early_stop(False):
+        return checkpoint(layer, x, use_reentrant=False)
+
+
+def _readout_split(cfg: ArchConfig):
+    """The vocabulary split of the read-out in a meshed step (the tied
+    table's or the untied head's), or None."""
+    hook = layer_gather()
+    if hook is None:
+        return None
+    return hook.model_split("embed" if cfg.tie_embeddings else "lm_head")
 
 
 def _global_amax_row(w, c, path, lead):
@@ -204,9 +235,17 @@ def _embed(params, tokens, cfg: ArchConfig, pos_ids=None,
     """Token embeddings in the compute dtype (``embed_scale`` on the tokens
     only), with ``prefix_embeds`` (B, P, d) cast and put in front; the
     encoder-decoder family adds the sinusoid of ``pos_ids`` ((B, S);
-    default 0..S-1 over every position)."""
-    x = _at_use(params["embed"], "embed")["table"][tokens.long()].to(
-        cfg.cdtype)
+    default 0..S-1 over every position). A meshed step whose table is split
+    by vocabulary looks up its chunk's rows and sums over the model ranks
+    (exact: one rank contributes each row)."""
+    hook = layer_gather()
+    split = None if hook is None else hook.model_split("embed")
+    table = _at_use(params["embed"], "embed")["table"]
+    if split is None:
+        x = table[tokens.long()].to(cfg.cdtype)
+    else:       # this rank's vocabulary chunk: masked rows, SUM over model
+        x = reduce_from_model(vocab_lookup(table, tokens, split)
+                              .to(cfg.cdtype), split)
     if cfg.embed_scale:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=cfg.cdtype,
                              device=x.device)
@@ -356,8 +395,7 @@ class LMModel:
                     comp=None if enc_comp is None else _layer(enc_comp, r),
                     q_block=q_block, kv_block=kv_block, encoder=True)[0]
 
-            x = checkpoint(layer, x, use_reentrant=False) if remat \
-                else layer(x)
+            x = _remat(layer, x) if remat else layer(x)
         return T.apply_norm(_at_use(params["enc_norm"], "enc_norm"), x, cfg,
                             qcfg.batch_invariant)
 
@@ -421,7 +459,7 @@ class LMModel:
                                   use_flash=use_flash)
 
             if remat:
-                x, a = checkpoint(layer, x, use_reentrant=False)
+                x, a = _remat(layer, x)
             else:
                 x, a = layer(x)
             aux = {k: aux[k] + a[k] for k in aux}
@@ -441,15 +479,20 @@ class LMModel:
         is split over ranks (`repro_torch.distributed.sharding
         .batch_reduction`) ``batch`` is this rank's rows and the loss is
         the global batch's: the masked sum and the count are summed over
-        the ranks in float64."""
+        the ranks in float64; where the read-out is split by vocabulary the
+        log-softmax is too (`vocab_parallel_nll`)."""
         logits, aux = self.forward(params, batch["tokens"],
                                    prefix_embeds=batch.get("prefix_embeds"),
                                    enc_embeds=batch.get("enc_embeds"),
                                    **fwd_kwargs)
         labels = batch["labels"].long()
         logits_tok = logits[:, logits.shape[1] - labels.shape[1]:]
-        logp = torch.log_softmax(logits_tok, dim=-1)
-        nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
+        split = _readout_split(self.cfg)
+        if split is None:
+            logp = torch.log_softmax(logits_tok, dim=-1)
+            nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
+        else:   # this rank's vocabulary chunk of the logits
+            nll = vocab_parallel_nll(logits_tok, labels, split)
         mask = batch.get("loss_mask")
         red = batch_reduce()
         if red is not None:
@@ -476,13 +519,22 @@ class LMModel:
     def _unembed(self, params, x, exact: bool = False):
         """Logits in float32 with the vocab padding masked to -1e30 (the
         tied read-out is a plain product in the activations' dtype, or with
-        ``exact`` a correctly rounded one: `QuantConfig.batch_invariant`)."""
+        ``exact`` a correctly rounded one: `QuantConfig.batch_invariant`).
+        In a meshed step whose read-out is split by vocabulary: this rank's
+        chunk of the vocabulary (column-parallel)."""
         cfg = self.cfg
         w = (_at_use(params["embed"], "embed")["table"].T
              if cfg.tie_embeddings
              else _at_use(params["lm_head"], "lm_head")["w"]).to(x.dtype)
-        logits = exact_matmul(x, w) if exact else torch.matmul(x, w)
-        pad_mask = torch.arange(cfg.padded_vocab,
+        split = _readout_split(cfg)
+        start = 0
+        if split is not None:
+            logits = tp_matmul(copy_to_model(x, split, exact), w, split,
+                               "column", exact)
+            start = split.chunk(w.shape[-1] * split.size)[1]
+        else:
+            logits = exact_matmul(x, w) if exact else torch.matmul(x, w)
+        pad_mask = torch.arange(start, start + w.shape[-1],
                                 device=x.device) >= cfg.vocab
         return torch.where(pad_mask, torch.full((), NEG_INF, device=x.device),
                            logits.float())

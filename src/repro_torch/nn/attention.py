@@ -43,6 +43,11 @@ import torch
 
 from repro_torch.core import qat
 from repro_torch.core.export import serve_dense
+from repro_torch.distributed.sharding import (
+    copy_to_model,
+    read_as,
+    tp_matmul,
+)
 from repro_torch.kernels.lut_matmul.ref import exact_matmul
 from repro_torch.nn.layers import QuantConfig, lm_fake_quant_act
 from repro_torch.nn.spec import ParamSpec, fan_in_init, zeros_init
@@ -111,15 +116,24 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 def _project(params, x, qcfg: QuantConfig, comp, name: str, key: str,
-             bias_key: Optional[str] = None, w_eff=None):
+             bias_key: Optional[str] = None, w_eff=None, tp=None,
+             kv_select: Optional[slice] = None,
+             shared: Optional[torch.Tensor] = None):
     """One projection: wq/wk/wv ``(B, S, d) -> (B, S, H, hd)`` (served
     ``in_first`` as (d, H*hd)), wo ``(B, S, H, hd) -> (B, S, d)`` (served
     ``out_last`` as (H*hd, d)). ``w_eff``: {"attn/wq": fake-quantized
-    weight, ...} where the caller computed them."""
+    weight, ...} where the caller computed them. ``tp`` (a
+    `repro_torch.distributed.sharding.ModelSplit`): the weight is this
+    rank's heads, wq/wk/wv column-parallel and wo row-parallel
+    (`tp_matmul`); ``shared``: wq/wk/wv's `copy_to_model` copy of ``x``,
+    which the column products read (`_shared_input`); ``kv_select``: the
+    K/V heads of a whole wk/wv (and bk/bv) that this rank's query heads
+    read, the weight's gradient summed over the model ranks
+    (`copy_to_model`)."""
     w = params[key]                        # (d, H, hd) or (H, hd, d)
     unit = f"{name}/{key}"
     c = None if comp is None else comp.get(unit)
-    x = lm_fake_quant_act(x, qcfg)
+    x = lm_fake_quant_act(x, qcfg, tp if key == "wo" else None)
     art = None if c is None else c.get("serve")
     bias = params.get(bias_key) if bias_key else None
     if key == "wo":
@@ -133,15 +147,49 @@ def _project(params, x, qcfg: QuantConfig, comp, name: str, key: str,
     if qcfg.enabled:
         w = w_eff[unit] if w_eff is not None and unit in w_eff \
             else qat.fake_quant_weights([w], [c])[0]
+    if kv_select is not None:
+        w = copy_to_model(w, tp)[:, kv_select]
+        if bias is not None:
+            bias = copy_to_model(bias, tp)[kv_select]
     w_mat = (w.reshape(-1, w.shape[-1]) if key == "wo"
              else w.reshape(w.shape[0], -1)).to(x.dtype)
-    y = (exact_matmul(x, w_mat) if qcfg.enabled or qcfg.batch_invariant
-         else torch.matmul(x, w_mat)).to(x.dtype)
+    exact = qcfg.enabled or qcfg.batch_invariant
+    if tp is not None:
+        y = (tp_matmul(x, w_mat, tp, "row", exact) if key == "wo"
+             else tp_matmul(read_as(x, shared), w_mat, tp, "column",
+                            exact)).to(x.dtype)
+    else:
+        y = (exact_matmul(x, w_mat) if exact
+             else torch.matmul(x, w_mat)).to(x.dtype)
     if key != "wo":
         y = y.reshape(*x.shape[:-1], w.shape[1], w.shape[2])
     if bias is not None:
         y = y + bias.to(y.dtype)
     return y
+
+
+def _shared_input(x, tp, qcfg: QuantConfig) -> Optional[torch.Tensor]:
+    """The `copy_to_model` copy of a tensor-parallel attention's input
+    that its column products read (float64 where they are correctly
+    rounded: their input gradients summed once, then rounded); None
+    without ``tp``."""
+    if tp is None:
+        return None
+    return copy_to_model(x, tp, qcfg.enabled or qcfg.batch_invariant)
+
+
+def _kv_select(tp, dims: AttnDims, wk) -> Optional[slice]:
+    """The K/V heads that this rank's query heads read where wk holds every
+    K/V head (the guard replicated kv_heads over the model ranks); None
+    where wk is already this rank's share (or there is no split)."""
+    if tp is None or wk.shape[1] != dims.n_kv_heads or tp.size == 1:
+        return None
+    hq, q0 = tp.chunk(dims.n_heads)
+    g = dims.n_heads // dims.n_kv_heads
+    if hq % g and g % hq:
+        raise ValueError(f"{hq} query heads a rank do not group onto "
+                         f"{dims.n_kv_heads} K/V heads ({g} a K/V head)")
+    return slice(q0 // g, (q0 + hq - 1) // g + 1)
 
 
 # ------------------------------------------------------------ blocked attention
@@ -302,22 +350,28 @@ def apply_attention(params, x: torch.Tensor, dims: AttnDims, *,
                     kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                     q_block: int = 512, kv_block: int = 512,
                     return_kv: bool = False, w_eff=None,
-                    use_flash: bool = False):
+                    use_flash: bool = False, tp=None):
     """Prefill attention over (B, S, d_model). Returns the output, or
     (output, (k, v)) with post-RoPE K/V when ``return_kv`` (prefill cache
     capture). ``kv``: cross-attention, keys and values (B, S_kv, Hkv, D)
     given (no RoPE), at positions 0..S_kv-1. ``use_flash``:
-    `blocked_attention`'s flash backward."""
+    `blocked_attention`'s flash backward. ``tp``: this rank's heads only
+    (`_project`); the K/V it returns are the ones those heads read."""
     b, s, _ = x.shape
     dev = x.device
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32,
                                  device=dev).expand(b, s)
-    q = _project(params, x, qcfg, comp, name, "wq", "bq", w_eff)
+    shared = _shared_input(x, tp, qcfg)
+    q = _project(params, x, qcfg, comp, name, "wq", "bq", w_eff, tp,
+                 shared=shared)
     kv_positions = None
     if kv is None:
-        k = _project(params, x, qcfg, comp, name, "wk", "bk", w_eff)
-        v = _project(params, x, qcfg, comp, name, "wv", "bv", w_eff)
+        sel = _kv_select(tp, dims, params["wk"])
+        k = _project(params, x, qcfg, comp, name, "wk", "bk", w_eff, tp, sel,
+                     shared)
+        v = _project(params, x, qcfg, comp, name, "wv", "bv", w_eff, tp, sel,
+                     shared)
         if dims.rope_theta > 0:
             q = apply_rope(q, positions, dims.rope_theta)
             k = apply_rope(k, positions, dims.rope_theta)
@@ -344,7 +398,7 @@ def apply_attention(params, x: torch.Tensor, dims: AttnDims, *,
                             exact=qcfg.batch_invariant, use_flash=use_flash)
     if pad_q:
         out = out[:, :s]
-    out = _project(params, out, qcfg, comp, name, "wo", w_eff=w_eff)
+    out = _project(params, out, qcfg, comp, name, "wo", w_eff=w_eff, tp=tp)
     if return_kv:
         return out, (k_ret, v_ret)
     return out
@@ -369,28 +423,38 @@ def apply_attention_decode(params, x: torch.Tensor, cache: dict, pos,
                            qcfg: QuantConfig = QuantConfig.off(), comp=None,
                            name: str = "attn", w_eff=None,
                            cross_kv: Optional[Tuple[torch.Tensor,
-                                                    torch.Tensor]] = None
-                           ) -> Tuple[torch.Tensor, dict]:
+                                                    torch.Tensor]] = None,
+                           tp=None) -> Tuple[torch.Tensor, dict]:
     """One decode step: x (B, 1, d_model), cache {"k", "v"} (B, Smax, Hkv,
     D), pos () or (B,) the current position(s). Returns (output (B, 1, d),
     updated cache). Each row writes its own slot (``pos mod Smax``: a ring
     for windowed layers) and masks against its own position.
     ``cross_kv``: cross-attention, the query attends over every key of
-    (xk, xv) and the cache passes through unchanged."""
+    (xk, xv) and the cache passes through unchanged. ``tp``: this rank's
+    query heads; the cache holds its K/V heads, or every K/V head where
+    the guard replicated them (then each rank computes the new token's
+    K/V for all of them, keeping the replicated cache whole, and attends
+    over the ones its heads read)."""
     b = x.shape[0]
     dev = x.device
     pos_b = torch.as_tensor(pos, dtype=torch.int32, device=dev).expand(b)
     positions = pos_b[:, None]  # (B, 1)
-    q = _project(params, x, qcfg, comp, name, "wq", "bq", w_eff)
+    shared = _shared_input(x, tp, qcfg)
+    q = _project(params, x, qcfg, comp, name, "wq", "bq", w_eff, tp,
+                 shared=shared)
     if cross_kv is not None:
         out = decode_attention(
             q, cross_kv[0], cross_kv[1],
             dataclasses.replace(dims, causal=False, window=0),
             cur_pos=1 << 30, exact=qcfg.batch_invariant)
         return _project(params, out, qcfg, comp, name, "wo",
-                        w_eff=w_eff), cache
-    k_new = _project(params, x, qcfg, comp, name, "wk", "bk", w_eff)
-    v_new = _project(params, x, qcfg, comp, name, "wv", "bv", w_eff)
+                        w_eff=w_eff, tp=tp), cache
+    sel = _kv_select(tp, dims, params["wk"])
+    kv_tp = tp if sel is None else None
+    k_new = _project(params, x, qcfg, comp, name, "wk", "bk", w_eff, kv_tp,
+                     shared=shared)
+    v_new = _project(params, x, qcfg, comp, name, "wv", "bv", w_eff, kv_tp,
+                     shared=shared)
     if dims.rope_theta > 0:
         q = apply_rope(q, positions, dims.rope_theta)
         k_new = apply_rope(k_new, positions, dims.rope_theta)
@@ -405,10 +469,12 @@ def apply_attention_decode(params, x: torch.Tensor, cache: dict, pos,
     # <= pos; slots never written resolve to negative positions
     cache_positions = idx[None, :] + torch.div(
         pos_b[:, None] - idx[None, :], smax, rounding_mode="floor") * smax
-    out = decode_attention(q, k_cache, v_cache, dims, cur_pos=pos_b,
+    read = (k_cache, v_cache) if sel is None \
+        else (k_cache[:, :, sel], v_cache[:, :, sel])
+    out = decode_attention(q, *read, dims, cur_pos=pos_b,
                            cache_positions=cache_positions,
                            exact=qcfg.batch_invariant)
-    out = _project(params, out, qcfg, comp, name, "wo", w_eff=w_eff)
+    out = _project(params, out, qcfg, comp, name, "wo", w_eff=w_eff, tp=tp)
     return out, {"k": k_cache, "v": v_cache}
 
 

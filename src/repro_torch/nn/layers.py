@@ -32,6 +32,7 @@ import torch.nn.functional as F
 from repro_torch.core import qat
 from repro_torch.core.export import serve_conv, serve_dense
 from repro_torch.core.stats import same_pad_nhwc
+from repro_torch.distributed.sharding import batch_reduction, tp_matmul
 from repro_torch.kernels.lut_matmul.ref import ACTIVATIONS, exact_matmul
 from repro_torch.nn.spec import (
     ParamSpec,
@@ -98,13 +99,27 @@ class QuantConfig:
                            use_ref_kernel=use_ref_kernel)
 
 
-def lm_fake_quant_act(x: torch.Tensor, qcfg: QuantConfig) -> torch.Tensor:
+def lm_fake_quant_act(x: torch.Tensor, qcfg: QuantConfig,
+                      split=None) -> torch.Tensor:
     """An LM activation (B, S, ...) as the quantized matmul that follows it
     reads it: fake-quantized under QAT (one scale a call, or one a token
-    position when ``qcfg.batch_invariant``), unchanged otherwise."""
+    position when ``qcfg.batch_invariant``), unchanged otherwise. ``split``
+    (a `repro_torch.distributed.sharding.ModelSplit`): the activation's
+    features are split over model ranks, so its one amax is a MAX over
+    them too (and over the batch ranks); with ``qcfg.batch_invariant``
+    (per-token scales, which no meshed step sets) it raises."""
     if not (qcfg.enabled and qcfg.act_quant):
         return x
-    return qat.fake_quant_act(x, token_dims=2 if qcfg.batch_invariant else 0)
+    token_dims = 2 if qcfg.batch_invariant else 0
+    if split is None:
+        return qat.fake_quant_act(x, token_dims=token_dims)
+    if token_dims:
+        raise NotImplementedError(
+            "a per-token activation scale on features split over the model "
+            "ranks (batch_invariant in a tensor-parallel step): its amax "
+            "would be each rank's alone")
+    with batch_reduction(split.act):
+        return qat.fake_quant_act(x, token_dims=token_dims)
 
 
 def _serves(qcfg: QuantConfig, serve_art) -> bool:
@@ -229,25 +244,31 @@ def apply_dense(params, x: torch.Tensor, *,
 
 
 def quantized_mm(params, key, xin, *, qcfg: QuantConfig, comp, name: str,
-                 dtype, w_eff: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 dtype, w_eff: Optional[torch.Tensor] = None,
+                 tp=None) -> torch.Tensor:
     """``xin @ params[key]`` for a named compressible unit: on the packed LUT
     GEMM when a `ServeArtifact` is attached and ``comp_mode == "serve"``,
     else on the fake-quantized weight (``w_eff`` where the caller computed
     it) under QAT, as a correctly rounded product (`exact_matmul`: float64
     sums, one rounding), so the two agree to float32 ulps; without QAT a
-    plain product (correctly rounded under ``qcfg.batch_invariant``)."""
+    plain product (correctly rounded under ``qcfg.batch_invariant``).
+    ``tp``: (split, ``"column"`` or ``"row"``) of a tensor-parallel unit
+    whose weight is this rank's chunk (`tp_matmul`: the same product,
+    float64 partial sums added across the ranks before the one rounding;
+    a column unit's ``xin`` is its sub-module's `copy_to_model` copy)."""
     c = None if comp is None else comp.get(f"{name}/{key}")
     art = None if c is None else c.get("serve")
     if _serves(qcfg, art):
         return serve_dense(xin, art).to(dtype)
     w = params[key]
-    if not qcfg.enabled:
-        if qcfg.batch_invariant:
-            return exact_matmul(xin, w.to(dtype)).to(dtype)
-        return torch.matmul(xin, w.to(dtype))
-    if w_eff is None:
-        w_eff = _fake_quant_alone(w, c, qcfg, False)
-    return exact_matmul(xin, w_eff.to(dtype)).to(dtype)
+    if qcfg.enabled:
+        w = _fake_quant_alone(w, c, qcfg, False) if w_eff is None else w_eff
+    exact = qcfg.enabled or qcfg.batch_invariant
+    if tp is not None:
+        return tp_matmul(xin, w.to(dtype), *tp, exact).to(dtype)
+    if exact:
+        return exact_matmul(xin, w.to(dtype)).to(dtype)
+    return torch.matmul(xin, w.to(dtype))
 
 
 # --------------------------------------------------------------------- conv2d

@@ -32,6 +32,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core.export import serve_dense
+from repro_torch.distributed.sharding import copy_to_model, read_as
 from repro_torch.models.config import ArchConfig
 from repro_torch.nn import attention as A
 from repro_torch.nn import moe as MOE
@@ -113,11 +114,15 @@ def make_ffn_spec(cfg: ArchConfig):
 
 def apply_ffn(params, x, cfg: ArchConfig, *,
               qcfg: QuantConfig = QuantConfig.off(), comp=None,
-              name: str = "mlp", w_eff=None):
+              name: str = "mlp", w_eff=None, tp=None):
     """SwiGLU / GeGLU / GELU FFN. On the serve path each matmul runs on the
     packed LUT GEMM with its activation fused into the kernel's epilogue
     (the gate's SiLU); under QAT the products are correctly rounded
-    (`exact_matmul`), so the two agree to float32 ulps."""
+    (`exact_matmul`), so the two agree to float32 ulps. ``tp`` (a
+    `repro_torch.distributed.sharding.ModelSplit`): the weights are this
+    rank's share of the hidden width, w_gate / w_up column-parallel (on
+    one `copy_to_model` copy of their input) and w_down row-parallel; the
+    hidden activation's amax is taken over the model ranks too."""
 
     def mm(key, xin, activation="none"):
         """act(xin @ w[key])."""
@@ -126,18 +131,23 @@ def apply_ffn(params, x, cfg: ArchConfig, *,
         art = None if c is None else c.get("serve")
         if qcfg.enabled and qcfg.comp_mode == "serve" and art is not None:
             return serve_dense(xin, art, activation=activation)
+        split = None if tp is None else (
+            tp, "row" if key == "w_down" else "column")
         y = quantized_mm(params, key, xin, qcfg=qcfg, comp=comp, name=name,
                          dtype=x.dtype, w_eff=None if w_eff is None
-                         else w_eff.get(unit))
+                         else w_eff.get(unit), tp=split)
         return ACTIVATIONS[activation](y)
 
     xin = lm_fake_quant_act(x, qcfg)
+    if tp is not None:
+        xin = read_as(xin, copy_to_model(
+            x, tp, qcfg.enabled or qcfg.batch_invariant))
     if cfg.ffn in ("swiglu", "geglu"):
         act = "silu" if cfg.ffn == "swiglu" else "gelu"
         h = mm("w_gate", xin, act) * mm("w_up", xin)
     else:
         h = mm("w_up", xin, "gelu")
-    h = lm_fake_quant_act(h, qcfg)
+    h = lm_fake_quant_act(h, qcfg, tp)
     return mm("w_down", h)
 
 
@@ -174,16 +184,17 @@ def _check_block(params, block_type: str) -> None:
         raise ValueError(block_type)
 
 
-def _ffn_half(params, x, cfg, qcfg, comp, w_eff):
+def _ffn_half(params, x, cfg, qcfg, comp, w_eff, tp=None):
     """``(x + ffn(ln2(x)), MoE aux or None)``: the second half of every
-    block but ``ssm``, the dense FFN or the MoE."""
+    block but ``ssm``, the dense FFN (``tp``: tensor-parallel) or the MoE
+    (computed whole)."""
     h = apply_norm(params["ln2"], x, cfg, qcfg.batch_invariant)
     if "moe" in params:
         y, aux = MOE.apply_moe(params["moe"], h, cfg.moe_dims(), qcfg=qcfg,
                                comp=comp, name="moe", w_eff=w_eff)
         return x + y, aux
     return x + apply_ffn(params["mlp"], h, cfg, qcfg=qcfg, comp=comp,
-                         name="mlp", w_eff=w_eff), None
+                         name="mlp", w_eff=w_eff, tp=tp), None
 
 
 def _cross_kv(attn_params, enc_out, qcfg, comp, w_eff):
@@ -231,15 +242,20 @@ def apply_block(params, x: torch.Tensor, cfg: ArchConfig, block_type: str, *,
                 enc_out: Optional[torch.Tensor] = None,
                 q_block: int = 512, kv_block: int = 512,
                 encoder: bool = False, return_state: bool = False,
-                w_eff=None, use_flash: bool = False):
+                w_eff=None, use_flash: bool = False, tp=None):
     """One residual block (prefill). Returns (x, aux), or ((x, aux), state)
     when ``return_state``: the state is the block's contribution to a
     decode cache (K/V after RoPE, or the recurrent mixer's final state; a
     cross-attention block adds its cross K/V as ``xk``/``xv``).
     ``enc_out``: the encoder output a cross-attention block attends over.
     ``encoder``: the encoder's self-attention (non-causal, no RoPE).
-    ``use_flash``: the attention's flash backward (`repro_torch.nn.flash`)."""
+    ``use_flash``: the attention's flash backward (`repro_torch.nn.flash`).
+    ``tp``: {"attn": split, "mlp": split}, the sub-modules that compute
+    this rank's share of their heads / hidden width (a meshed step's
+    tensor-parallel units, `repro_torch.distributed.sharding.LayerGather`);
+    cross-attention, the MoE and the recurrent mixers compute whole."""
     _check_block(params, block_type)
+    tp = tp or {}
     aux = {"lb_loss": torch.zeros((), device=x.device),
            "z_loss": torch.zeros((), device=x.device)}
     h = apply_norm(params["ln1"], x, cfg, qcfg.batch_invariant)
@@ -256,7 +272,8 @@ def apply_block(params, x: torch.Tensor, cfg: ArchConfig, block_type: str, *,
                                 positions=positions, qcfg=qcfg, comp=comp,
                                 name="attn", q_block=q_block,
                                 kv_block=kv_block, return_kv=return_state,
-                                w_eff=w_eff, use_flash=use_flash)
+                                w_eff=w_eff, use_flash=use_flash,
+                                tp=tp.get("attn"))
         if return_state:
             mix, (k_st, v_st) = mix
             state = {"k": k_st, "v": v_st}
@@ -266,7 +283,8 @@ def apply_block(params, x: torch.Tensor, cfg: ArchConfig, block_type: str, *,
     if return_state and kv is not None:
         state = {**state, "xk": kv[0], "xv": kv[1]}
     if block_type != "ssm":
-        x, moe_aux = _ffn_half(params, x, cfg, qcfg, comp, w_eff)
+        x, moe_aux = _ffn_half(params, x, cfg, qcfg, comp, w_eff,
+                               tp.get("mlp"))
         if moe_aux is not None:
             aux = {"lb_loss": moe_aux["lb_loss"],
                    "z_loss": moe_aux["z_loss"]}
@@ -312,10 +330,11 @@ def init_block_cache(cfg: ArchConfig, block_type: str, batch: int,
 def apply_block_decode(params, x: torch.Tensor, cache: dict, pos,
                        cfg: ArchConfig, block_type: str, *,
                        qcfg: QuantConfig = QuantConfig.off(), comp=None,
-                       w_eff=None):
+                       w_eff=None, tp=None):
     """One decode step through a block: x (B, 1, d), pos () or (B,).
-    Returns (x, updated cache)."""
+    Returns (x, updated cache). ``tp`` as in `apply_block`."""
     _check_block(params, block_type)
+    tp = tp or {}
     h = apply_norm(params["ln1"], x, cfg, qcfg.batch_invariant)
     if block_type == "rglru":
         mix, new_cache = RG.apply_rglru_decode(
@@ -330,7 +349,7 @@ def apply_block_decode(params, x: torch.Tensor, cache: dict, pos,
         mix, kv_new = A.apply_attention_decode(
             params["attn"], h, {"k": cache["k"], "v": cache["v"]}, pos,
             cfg.attn_dims(block_type == "local"), qcfg=qcfg, comp=comp,
-            name="attn", w_eff=w_eff)
+            name="attn", w_eff=w_eff, tp=tp.get("attn"))
         new_cache.update(kv_new)
     x = x + mix
     if "xattn" in params:
@@ -341,7 +360,7 @@ def apply_block_decode(params, x: torch.Tensor, cache: dict, pos,
             cross_kv=(cache["xk"], cache["xv"]))
         x = x + xa
     if block_type != "ssm":
-        x, _ = _ffn_half(params, x, cfg, qcfg, comp, w_eff)
+        x, _ = _ffn_half(params, x, cfg, qcfg, comp, w_eff, tp.get("mlp"))
     return x, new_cache
 
 

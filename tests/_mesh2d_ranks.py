@@ -5,6 +5,9 @@ only; importable by name from a spawned process)."""
 import numpy as np
 import torch
 
+# the storage-only layout: no unit splits its compute over "model"
+STORAGE_ONLY = dict(heads=None, mlp=None, vocab=None, kv_heads=None)
+
 
 class ActCodes:
     """Patches `qat.fake_quant_act` while open and records each call's int8
@@ -45,31 +48,42 @@ def _batch(toks):
             "labels": torch.as_tensor(toks[:, 1:])}
 
 
-def _train(model, cfg, mesh, params, comp, toks, *, steps, dispatch=False):
+def _train(model, cfg, mesh, params, comp, toks, *, steps, dispatch=False,
+           rules=None):
     """``steps`` meshed train steps from the full numpy state: (losses, the
     gathered state after step 1 and after the last, this rank's codes, each
-    step's peak of gathered bytes)."""
+    step's peak of gathered bytes, the first step's matmul FLOPs counted by
+    `FlopCounterMode` and its collectives)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
     from repro_torch.distributed import sharding as S
     from repro_torch.launch import train as T
     from repro_torch.nn.spec import params_from_numpy
 
+    rules = S.DEFAULT_RULES if rules is None else rules
     p = params_from_numpy(params, "cpu")
     c = params_from_numpy(comp, "cpu")
-    sh = T.train_state_shardings(model, mesh)
+    sh = T.train_state_shardings(model, mesh, rules)
     state = S.shard_tree({"params": p, "opt": T.make_optimizer(cfg).init(p)},
                          sh)
-    local_comp = S.shard_tree(c, T.comp_shardings(model, mesh))
-    step = T.make_train_step(model, cfg, mesh=mesh,
+    local_comp = S.shard_tree(c, T.comp_shardings(model, mesh, rules))
+    step = T.make_train_step(model, cfg, mesh=mesh, rules=rules,
                              moe_local_dispatch=dispatch)
-    losses, firsts, peaks = [], None, []
+    losses, firsts, peaks, counted = [], None, [], {}
     with ActCodes() as rec:
         for i in range(steps):
-            state, met = step(state, _batch(toks), local_comp)
+            S.reset_collective_counts()
+            with FlopCounterMode(display=False) as flops:
+                state, met = step(state, _batch(toks), local_comp)
+            if i == 0:
+                counted = {"flops": flops.get_total_flops(),
+                           "collectives": S.collective_counts()}
             peaks.append(int(met.pop("gathered_peak_bytes")))
             losses.append({k: float(v) for k, v in met.items()})
             if i == 0:
                 firsts = host(S.gather_tree(state, sh))
-    return losses, firsts, host(S.gather_tree(state, sh)), rec.codes, peaks
+    return (losses, firsts, host(S.gather_tree(state, sh)), rec.codes, peaks,
+            counted)
 
 
 def gather_backward_checks(mesh):
@@ -141,14 +155,14 @@ def rank_checks(rank, world, inputs, ckpt_dir):
     for arch, item in inputs["archs"].items():
         model = build_lm(get_config(arch).scaled_down(
             compute_dtype="float32"))
-        losses, first, last, codes, peaks = _train(
+        losses, first, last, codes, peaks, counted = _train(
             model, cfg, mesh, item["params"], item["comp"], item["toks"],
             steps=2, dispatch=item["dispatch"])
         trained = last if arch == "olmo-1b" else trained
         out[arch] = {"losses": losses, "first": first if rank == 0 else None,
                      "last": last if rank == 0 else None,
-                     "codes": codes if mesh.coords["model"] == 0 else None,
-                     "gathered_peaks": peaks}
+                     "codes": codes, "gathered_peaks": peaks,
+                     "counted": counted}
     out["gather_backward"] = gather_backward_checks(mesh)
 
     olmo = inputs["archs"]["olmo-1b"]
@@ -160,16 +174,30 @@ def rank_checks(rank, world, inputs, ckpt_dir):
     out["replicated"] = {"losses": rep[0],
                          "last": rep[2] if rank == 0 else None,
                          "gathered_peaks": rep[4]}
+    # other layouts of the same step: storage only (every unit computed
+    # whole, as before tensor parallelism), and K/V heads replicated while
+    # the query heads split (each rank computes the K/V heads its heads read)
+    for name, kw in (("storage_only", STORAGE_ONLY),
+                     ("kv_replicated", dict(kv_heads=None))):
+        run = _train(model, cfg, mesh, olmo["params"], olmo["comp"],
+                     olmo["toks"], steps=1, rules=S.DEFAULT_RULES.replace(
+                         **kw))
+        out[name] = {"losses": run[0], "last": run[2] if rank == 0 else None,
+                     "gathered_peaks": run[4], "counted": run[5]}
 
     # prefill and decode over the mesh
     params = params_from_numpy(olmo["params"], "cpu")
     p_sh = S.make_param_shardings(model.spec, mesh)
     local_params = S.shard_tree(params, p_sh)
     prompt = torch.as_tensor(olmo["toks"][:, :16])
-    logits_rows = T.make_prefill_step(model, cfg, mesh=mesh)(
+    S.reset_collective_counts()
+    logits_block = T.make_prefill_step(model, cfg, mesh=mesh)(
         local_params, {"tokens": prompt})
+    out["prefill_collectives"] = S.collective_counts()
     out["prefill_gathered_peak"] = S.gathered_bytes()["peak"]
-    logits = S.gather(logits_rows, S.batch_sharding(mesh, (4, 16, 1)))
+    out["prefill_block"] = tuple(logits_block.shape)
+    logits = S.gather(logits_block, S.logits_sharding(
+        mesh, (4, 16, model.cfg.padded_vocab)))
     max_len = 24
     with torch.no_grad():
         _, cache = model.prefill(params, prompt, max_len,
@@ -192,7 +220,8 @@ def rank_checks(rank, world, inputs, ckpt_dir):
             lg, local = step(local_params, local, tok)
             out.setdefault("serve_gathered_peaks", []).append(
                 S.gathered_bytes()["peak"])
-            outs.append(S.gather(lg, S.batch_sharding(mesh, (4, 1, 1))))
+            outs.append(S.gather(lg, S.logits_sharding(
+                mesh, (4, 1, model.cfg.padded_vocab))))
         served[name] = {"logits": [o.numpy() for o in outs],
                         "cache": host(S.gather_tree(local, store)),
                         "local_k": tuple(local["groups"]["g0"]["k"].shape)}

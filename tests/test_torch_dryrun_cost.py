@@ -1,0 +1,179 @@
+"""The dry run's per-device FLOPs and collectives (`repro_torch.launch.dryrun
+.step_costs`) against the JAX package's compiled step, and the step knobs'
+effect on them.
+
+A reduced olmo-1b train cell (8 x 64 tokens, 16-position attention blocks,
+float32) on a (4, 2) ("data", "model") mesh: JAX compiles its meshed
+`make_train_step` on eight host CPU devices in a subprocess (as
+`tests/test_torch_sharding_rules.py` gets JAX's device order) and
+`repro.launch.hlo_cost.loop_corrected_cost` counts each device's dot FLOPs.
+The port's dry-run ``flops`` hold to it within 2%, on the tensor-parallel
+layout and on the storage-only one, with one product left out by name: the
+recompute of each checkpointed layer's last product (the FFN's w_down),
+whose output no gradient reads, so XLA drops it while the port's
+recompute runs it (``flops["remat_tail"]``).
+"""
+
+import json
+import os
+import subprocess
+import sys
+
+import pytest
+
+from repro_torch.configs import get_config
+from repro_torch.distributed import sharding as S
+from repro_torch.launch import dryrun as D
+from repro_torch.launch import train as T
+from repro_torch.models.lm import build_lm
+
+ROWS, SEQ, BLOCK = 8, 64, 16
+STORAGE_ONLY = dict(heads=None, mlp=None, vocab=None, kv_heads=None)
+MESH = S.AbstractMesh((4, 2), ("data", "model"))
+FLOPS_RTOL = 0.02
+
+_JAX_SCRIPT = r"""
+import json, sys
+import numpy as np
+import jax
+from jax.sharding import Mesh
+from repro.configs import Shape, get_config
+from repro.distributed.sharding import DEFAULT_RULES
+from repro.launch import train as TR
+from repro.launch.hlo_cost import loop_corrected_cost
+from repro.models.lm import build_lm
+
+rows, seq, block, storage = json.loads(sys.argv[1])
+cfg = get_config("olmo-1b").scaled_down(compute_dtype="float32")
+model = build_lm(cfg)
+mesh = Mesh(np.asarray(jax.devices()[:8]).reshape(4, 2), ("data", "model"))
+out = []
+for rules in (DEFAULT_RULES, DEFAULT_RULES.replace(**storage)):
+    step_cfg = TR.StepConfig(q_block=block, kv_block=block)
+    specs = TR.batch_specs(cfg, Shape("cell", "train", seq, rows))
+    step = TR.make_train_step(model, step_cfg, mesh, rules)
+    jitted = jax.jit(step, in_shardings=(
+        TR.train_state_shardings(model, mesh, rules),
+        TR.batch_shardings(specs, mesh, rules),
+        TR.comp_shardings(model, mesh, rules)))
+    with mesh:
+        hlo = jitted.lower(TR.abstract_train_state(model), specs,
+                           TR.comp_abstract(model)).compile().as_text()
+    out.append(loop_corrected_cost(hlo)["flops"])
+print(json.dumps(out))
+"""
+
+
+def model():
+    return build_lm(get_config("olmo-1b").scaled_down(
+        compute_dtype="float32"))
+
+
+def costs(rules=S.DEFAULT_RULES, **step):
+    cfg = T.StepConfig(**dict(dict(q_block=BLOCK, kv_block=BLOCK), **step))
+    return D.step_costs(model(), MESH, rules, "train", ROWS, SEQ, cfg)
+
+
+@pytest.fixture(scope="module")
+def jax_flops():
+    env = {**os.environ, "JAX_PLATFORMS": "cpu",
+           "XLA_FLAGS": "--xla_force_host_platform_device_count=8"}
+    res = subprocess.run(
+        [sys.executable, "-c", _JAX_SCRIPT,
+         json.dumps([ROWS, SEQ, BLOCK, STORAGE_ONLY])],
+        capture_output=True, text=True, env=env, timeout=120, check=True)
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("layout", ["tensor_parallel", "storage_only"])
+def test_dryrun_flops_match_jax_loop_corrected(jax_flops, layout):
+    rules = S.DEFAULT_RULES.replace(**STORAGE_ONLY) \
+        if layout == "storage_only" else S.DEFAULT_RULES
+    want = jax_flops[layout == "storage_only"]
+    flops = costs(rules)["flops"]
+    assert flops["remat_tail"] > 0
+    got = flops["total"] - flops["remat_tail"]
+    assert abs(got - want) <= FLOPS_RTOL * want, (got, want)
+
+
+def test_no_remat_lowers_flops():
+    with_remat, without = costs()["flops"], costs(remat=False)["flops"]
+    assert without["total"] < with_remat["total"]
+    assert without["remat_tail"] == 0
+    # every layer's forward products once fewer; the read-out unchanged
+    assert without["by_unit"]["readout"] == with_remat["by_unit"]["readout"]
+
+
+def test_grad_accum_keeps_flops_and_doubles_the_step_collectives():
+    one, two = costs(), costs(grad_accum=2)
+    assert two["flops"] == one["flops"]
+    assert two["collectives"]["all-gather"]["count"] == \
+        2 * one["collectives"]["all-gather"]["count"]
+
+
+def test_storage_only_rules_double_the_dense_units_flops():
+    tp = costs()["flops"]["by_unit"]
+    whole = costs(S.DEFAULT_RULES.replace(**STORAGE_ONLY))["flops"]["by_unit"]
+    assert set(tp) == {"attention", "ffn", "projections", "readout"}
+    for unit in tp:
+        assert whole[unit] == 2 * tp[unit], unit
+
+
+def test_qat_and_flash_change_what_they_should():
+    base = costs()
+    no_qat = costs(qat=False)
+    assert no_qat["flops"] == base["flops"]
+    # no K3 scales' MAX, no activation amax, the tensor-parallel sums in
+    # float32 instead of float64
+    assert no_qat["collectives"]["all-reduce"]["bytes"] \
+        < base["collectives"]["all-reduce"]["bytes"]
+    flash = costs(flash=True)["flops"]["by_unit"]
+    assert flash["attention"] * 8 == base["flops"]["by_unit"]["attention"] \
+        * 9        # the backward's five tile products against four
+
+
+def test_kv_seq_cache_layout_gathers_its_sequence():
+    m = build_lm(get_config("olmo-1b"))
+    mesh = S.AbstractMesh((32, 8), ("data", "model"))
+    heads = D.step_costs(m, mesh, None, "decode", 128, 32768)
+    seq = D.step_costs(m, mesh, None, "decode", 128, 32768,
+                       kv_seq_shard=True)
+    assert heads["flops"] == seq["flops"]
+    assert seq["collectives"]["all-gather"]["bytes"] \
+        > heads["collectives"]["all-gather"]["bytes"]
+
+
+def test_cli_flags_reach_the_manifest(tmp_path):
+    assert D.main(["--arch", "olmo-1b", "--shape", "train_4k", "--no-remat",
+                   "--grad-accum", "2", "--rules",
+                   "heads=None,mlp=None,vocab=None,kv_heads=None",
+                   "--tag", "whole", "--out-dir", str(tmp_path)]) == 0
+    cell = json.loads((tmp_path / "olmo-1b__train_4k__32x8__whole.json")
+                      .read_text())
+    assert (cell["remat"], cell["grad_accum"], cell["tag"]) == (False, 2,
+                                                              "whole")
+    assert cell["rules_override"] == STORAGE_ONLY
+    assert cell["flops"]["remat_tail"] == 0
+    assert cell["hlo_only"]["fields"] == ["temp_size_in_bytes"]
+    assert D.parse_rules("embed=data+model,heads=None") == {
+        "embed": ("data", "model"), "heads": None}
+
+
+@pytest.mark.parametrize("flag", ["--moe-local", "--remat-save-qat"])
+def test_cli_refuses_knobs_that_change_no_count(tmp_path, capsys, flag):
+    """Expert-parallel dispatch and the activations' bytes are not counted
+    yet: the flags are refused, not recorded as if they were."""
+    with pytest.raises(SystemExit) as e:
+        D.main(["--arch", "phi3.5-moe-42b-a6.6b", "--shape", "train_4k",
+                flag, "--out-dir", str(tmp_path)])
+    assert e.value.code == 2
+    assert flag in capsys.readouterr().err
+    assert not list(tmp_path.iterdir())
+
+
+def test_qwen_train_gathers_a_sixth_of_the_storage_only_layout():
+    tp = D.run_cell("qwen2.5-14b", "train_4k", False)
+    whole = D.run_cell("qwen2.5-14b", "train_4k", False,
+                       rules_override=STORAGE_ONLY)
+    assert tp["gathered_peak_bytes"] * 6 <= whole["gathered_peak_bytes"]
+    assert tp["flops"]["total"] < whole["flops"]["total"]

@@ -5,24 +5,34 @@ on the same numpy params, comp and batch:
 
   * two QAT train steps of reduced olmo-1b (remat on: the backward's
     recomputation takes the global activation amax too) and of reduced
-    phi3.5-moe with ``moe_local_dispatch=True``: loss rel 1e-5, gradient
-    (the first Adam moment after step 1, 0.1 x the clipped gradient)
-    rel-L2 1e-4, params after step 2 abs 2e-4 (the LM train-parity bounds
-    of `tests/test_torch_lm_train.py`); the int8 activation codes of every
-    fake-quant call equal, the data ranks' rows put together;
-  * a batch of 3 rows, which does not divide the data axis, replicates:
-    the same bounds against the unmeshed step on those rows;
-  * the meshed prefill logits and two serve steps (the cache held with
-    kv_heads over "model", and on its batch rows alone): logits and cache
-    against the unmeshed forward and decode, abs 1e-5 (each rank's
-    float32 products run on its own rows);
+    phi3.5-moe with ``moe_local_dispatch=True``, both with attention, the
+    FFN and the vocabulary tensor-parallel over "model" (phi3.5-moe's
+    experts computed whole: both paths in one step): loss rel 1e-5,
+    gradient (the first Adam moment after step 1, 0.1 x the clipped
+    gradient) rel-L2 1e-4, params after step 2 abs 2e-4 (the LM
+    train-parity bounds of `tests/test_torch_lm_train.py`); the int8
+    activation codes of every fake-quant call equal, the data ranks' rows
+    and the model ranks' features put together;
+  * the same step on two other layouts: storage only (``--rules
+    heads=None,mlp=None,vocab=None,kv_heads=None``) and K/V heads
+    replicated while the query heads split; a batch of 3 rows, which does
+    not divide the data axis, replicates: the same bounds;
+  * a rank's matmul FLOPs (`FlopCounterMode`) are 1/4 of the unmeshed
+    step's where every unit splits over "model", 1/2 on the storage-only
+    layout, and equal the dry run's ``flops`` (`launch.dryrun.step_costs`)
+    of the same reduced cell; the bytes and count of each kind of
+    collective a rank ran equal the dry run's ``collectives``;
+  * the meshed prefill logits (each rank's rows x vocabulary chunk,
+    `logits_sharding`) and two serve steps (the cache held with kv_heads
+    over "model", and on its batch rows alone): logits and cache against
+    the unmeshed forward and decode, abs 1e-5;
   * FSDP a layer: each rank's peak of gathered bytes (parameters gathered
-    at use and the full gradients being reduced) stays within the
-    embedding plus one block's parameters, fake-quantized copy and
-    gradient, the dry run's ``gathered_peak_bytes`` of the cell, and below
-    the model's parameter bytes, which the step gathered whole before;
-    `gather_at_use` gathers the full tensor and its backward gives the
-    slice of the data rows' summed gradient, for five layouts;
+    at use, a tensor-parallel unit's model chunk, and the full gradients
+    being reduced) stays within the embedding plus one block's
+    parameters, fake-quantized copy and gradient, the dry run's
+    ``gathered_peak_bytes`` of the cell, and below the model's parameter
+    bytes; `gather_at_use` gathers the full tensor and its backward gives
+    the slice of the data rows' summed gradient, for five layouts;
   * DTensor's ``distribute_tensor`` slices equal `NamedSharding.local`
     (whose order `tests/test_torch_sharding_rules.py` holds to JAX's);
   * a train state saved under 2 x 2 and restored by `elastic_restore` onto
@@ -38,7 +48,7 @@ import numpy as np
 import pytest
 import torch
 
-from _mesh2d_ranks import ActCodes, host, rank_checks
+from _mesh2d_ranks import STORAGE_ONLY, ActCodes, host, rank_checks
 from repro.configs import get_config as jget
 from repro.core import lm_compress as jlc
 from repro.launch import train as jtrain
@@ -46,6 +56,7 @@ from repro.models.lm import build_lm as jbuild
 from repro.nn.spec import flatten_with_names as jflat
 from repro.nn.spec import init_params as jinit
 from repro_torch.configs import get_config as tget
+from repro_torch.distributed import sharding as tsh
 from repro_torch.distributed.spawn import run_ranks
 from repro_torch.launch import dryrun as tdry
 from repro_torch.launch import train as ttrain
@@ -72,21 +83,24 @@ def tbatch(toks):
 
 def port_steps(arch, item, toks, steps):
     """The port's unmeshed steps: (losses, state after step 1, after the
-    last, codes)."""
+    last, codes, the first step's matmul FLOPs)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
     model = tbuild(tget(arch).scaled_down(compute_dtype="float32"))
     cfg = ttrain.StepConfig(**STEP)
     p = params_from_numpy(item["params"], "cpu")
     state = {"params": p, "opt": ttrain.make_optimizer(cfg).init(p)}
     step = ttrain.make_train_step(model, cfg)
-    losses, first = [], None
+    losses, first, flops = [], None, None
     with ActCodes() as rec:
         for i in range(steps):
-            state, met = step(state, tbatch(toks),
-                              params_from_numpy(item["comp"], "cpu"))
+            with FlopCounterMode(display=False) as fc:
+                state, met = step(state, tbatch(toks),
+                                  params_from_numpy(item["comp"], "cpu"))
             losses.append({k: float(v) for k, v in met.items()})
             if i == 0:
-                first = host(state)
-    return losses, first, host(state), rec.codes
+                first, flops = host(state), fc.get_total_flops()
+    return losses, first, host(state), rec.codes, flops
 
 
 def jax_steps(arch, item, toks, steps):
@@ -158,7 +172,7 @@ def check_state(losses, first, last, want_losses, want_first, want_last):
 @pytest.mark.parametrize("arch", list(ARCHS))
 def test_meshed_train_step_matches_the_unmeshed_port(runs, arch):
     r0 = runs["ranks"][0][arch]
-    losses, first, last, _ = runs["port"][arch]
+    losses, first, last = runs["port"][arch][:3]
     for r in runs["ranks"]:       # every rank reports the global metrics
         assert r[arch]["losses"] == r0["losses"]
     check_state(r0["losses"], r0["first"], r0["last"], losses, first, last)
@@ -171,26 +185,134 @@ def test_meshed_train_step_matches_jax(runs, arch):
     check_state(r0["losses"], r0["first"], r0["last"], losses, first, last)
 
 
+def put_together(parts, want):
+    """One fake-quant call's codes from the ranks ({(data, model): codes})
+    as the unmeshed call's: the data ranks' rows concatenated; a call on
+    features split over "model" (the attention output before wo, the FFN
+    hidden) has its model ranks' chunks concatenated along that axis, one
+    computed whole is the same on both."""
+    rows = []
+    for d in (0, 1):
+        a, b = parts[(d, 0)], parts[(d, 1)]
+        if a.shape[1:] == want.shape[1:]:
+            assert np.array_equal(a, b)
+            rows.append(a)
+        else:
+            ax = next(i for i in range(1, a.ndim)
+                      if a.shape[i] != want.shape[i])
+            rows.append(np.concatenate([a, b], axis=ax))
+    return np.concatenate(rows)
+
+
 @pytest.mark.parametrize("arch", list(ARCHS))
 def test_activation_codes_equal(runs, arch):
     want = runs["port"][arch][3]
-    by_data = {r["coords"]["data"]: r[arch]["codes"] for r in runs["ranks"]
-               if r["coords"]["model"] == 0}
-    assert len(want) == len(by_data[0]) == len(by_data[1]) > 0
+    by_pos = {(r["coords"]["data"], r["coords"]["model"]): r[arch]["codes"]
+              for r in runs["ranks"]}
+    assert all(len(c) == len(want) > 0 for c in by_pos.values())
+    split = 0
     for i, w in enumerate(want):
-        got = np.concatenate([by_data[0][i], by_data[1][i]])
+        parts = {k: v[i] for k, v in by_pos.items()}
+        split += parts[(0, 0)].shape[1:] != w.shape[1:]
+        got = put_together(parts, w)
         assert got.shape == w.shape and np.array_equal(got, w), i
+    # two a layer a run (the attention output, the FFN hidden; phi3.5-moe's
+    # experts are whole), forward and remat's recompute, two steps
+    assert split == (16 if arch == "olmo-1b" else 8)
 
 
 def test_batch_that_does_not_divide_replicates(runs):
     r0 = runs["ranks"][0]["replicated"]
-    losses, first, last, _ = runs["port"]["replicated"]
+    losses, first, last = runs["port"]["replicated"][:3]
     check_state(r0["losses"], r0["last"], r0["last"], losses, last, last)
+
+
+@pytest.mark.parametrize("layout", ["storage_only", "kv_replicated"])
+def test_other_layouts_match_the_unmeshed_port(runs, layout):
+    r0 = runs["ranks"][0][layout]
+    losses, first = runs["port"]["olmo-1b"][:2]
+    for r in runs["ranks"]:
+        assert r[layout]["losses"] == r0["losses"]
+    check_state(r0["losses"], r0["last"], r0["last"], losses[:1], first,
+                first)
+
+
+def olmo_model():
+    return tbuild(tget("olmo-1b").scaled_down(compute_dtype="float32"))
+
+
+MESH = tsh.AbstractMesh((2, 2), ("data", "model"))
+
+
+def dry(model, rules=tsh.DEFAULT_RULES, kind="train", rows=B, seq=S,
+        **kw):
+    return tdry.step_costs(model, MESH, rules, kind, rows, seq,
+                           ttrain.StepConfig(**STEP), **kw)
+
+
+@pytest.mark.parametrize("layout,fraction", [("olmo-1b", 4),
+                                             ("storage_only", 2)])
+def test_rank_flops_split_over_the_model_axis(runs, layout, fraction):
+    """Every unit of olmo-1b (attention, FFN, read-out) splits over
+    "model": a rank does 1/4 of the unmeshed step's products (half the
+    rows, half the features); computed whole, 1/2."""
+    unmeshed = runs["port"]["olmo-1b"][4]
+    rules = tsh.DEFAULT_RULES.replace(**STORAGE_ONLY) \
+        if layout == "storage_only" else tsh.DEFAULT_RULES
+    want = dry(olmo_model(), rules)["flops"]
+    for r in runs["ranks"]:
+        got = r[layout]["counted"]["flops"]
+        assert got * fraction == unmeshed
+        assert got == want["total"]
+
+
+def test_phi35_moe_flops_split_attention_not_experts(runs):
+    """phi3.5-moe: attention and the read-out split over "model" (1/4 of
+    the unmeshed products), the experts run whole on a rank's rows (1/2):
+    the counted FLOPs equal the dry run's, unit by unit summed."""
+    model = tbuild(tget("phi3.5-moe-42b-a6.6b").scaled_down(
+        compute_dtype="float32"))
+    meshed = dry(model)["flops"]["by_unit"]
+    alone = tdry.step_costs(model, tsh.AbstractMesh((1, 1), ("data",
+                                                             "model")),
+                            None, "train", B, S,
+                            ttrain.StepConfig(**STEP))["flops"]
+    assert alone["total"] == runs["port"]["phi3.5-moe-42b-a6.6b"][4]
+    for unit, n in alone["by_unit"].items():
+        assert meshed[unit] * (2 if unit == "moe" else 4) == n, unit
+    for r in runs["ranks"]:
+        assert r["phi3.5-moe-42b-a6.6b"]["counted"]["flops"] == sum(
+            meshed.values())
+
+
+@pytest.mark.parametrize("layout", ["olmo-1b", "phi3.5-moe-42b-a6.6b",
+                                    "storage_only", "kv_replicated"])
+def test_collective_bytes_equal_the_dry_run(runs, layout):
+    arch = "olmo-1b" if layout in ("storage_only", "kv_replicated") \
+        else layout
+    rules = {"storage_only": tsh.DEFAULT_RULES.replace(**STORAGE_ONLY),
+             "kv_replicated": tsh.DEFAULT_RULES.replace(kv_heads=None)
+             }.get(layout, tsh.DEFAULT_RULES)
+    model = tbuild(tget(arch).scaled_down(compute_dtype="float32"))
+    want = dry(model, rules)["collectives"]
+    for r in runs["ranks"]:
+        assert r[layout]["counted"]["collectives"] == want, r["rank"]
+    if layout == "olmo-1b":   # the float64 tensor-parallel all-reduces
+        assert want["all-reduce"]["bytes"] > 50 * dry(
+            model, tsh.DEFAULT_RULES.replace(**STORAGE_ONLY))[
+                "collectives"]["all-reduce"]["bytes"]
+
+
+def test_prefill_collectives_equal_the_dry_run(runs):
+    want = dry(olmo_model(), kind="prefill", seq=16,
+               param_dtype=torch.float32)["collectives"]
+    for r in runs["ranks"]:
+        assert r["prefill_collectives"] == want
 
 
 def test_meshed_prefill_and_serve_logits(runs):
     item = runs["inputs"]["archs"]["olmo-1b"]
-    model = tbuild(tget("olmo-1b").scaled_down(compute_dtype="float32"))
+    model = olmo_model()
     params = params_from_numpy(item["params"], "cpu")
     prompt = torch.as_tensor(item["toks"][:, :16])
     with torch.no_grad():
@@ -213,8 +335,11 @@ def test_meshed_prefill_and_serve_logits(runs):
         for k, v in want_cache.items():
             np.testing.assert_allclose(got["cache"][k], v, rtol=0,
                                        atol=LOGIT_ATOL, err_msg=k)
-    # kv_heads over "model": each rank holds 2 of 4 rows and 1 of 2 heads
+    # a rank's block of the logits: 2 of 4 rows, half the vocabulary
+    # (logits_sharding, JAX's logits_constraint); kv_heads over "model":
+    # each rank holds 2 of 4 rows and 1 of 2 heads
     for r in runs["ranks"]:
+        assert r["prefill_block"] == (2, 16, model.cfg.padded_vocab // 2)
         assert r["served"]["heads"]["local_k"][1:4] == (2, 24, 1)
         assert r["served"]["rows"]["local_k"][1:4] == (2, 24, 2)
 
@@ -251,14 +376,21 @@ def nbytes(tree):
 def one_block_bound(model, train=True):
     """The embedding plus one block's parameters and, in training, its
     fake-quantized copy and its gradient (each reduced model here has one
-    stacked group, float32)."""
+    stacked group, float32), on the 2 x 2 mesh: the tied table and the
+    attention and FFN leaves (tensor-parallel) count half, the rest whole;
+    and the model's parameter bytes."""
     params = abstract_params(model.spec)
     block = params["blocks"]["g0"]
     depth = model.n_rep
-    layer = nbytes(block) // depth
-    fq = sum(nbytes(block[u.split("/")[0]][u.split("/")[1]])
+
+    def at_use(sub, tree):
+        return nbytes(tree) // (2 if sub in ("attn", "mlp", "embed") else 1)
+
+    layer = sum(at_use(sub, v) for sub, v in block.items()) // depth
+    fq = sum(at_use(u.split("/")[0], block[u.split("/")[0]][u.split("/")[1]])
              for u in block_matmuls(block)) // depth
-    embed = max(nbytes(params["embed"]), nbytes(params.get("lm_head", {})))
+    embed = max(at_use("embed", params["embed"]),
+                nbytes(params.get("lm_head", {})) // 2)
     return embed + layer + (fq + layer if train else 0), nbytes(params)
 
 
@@ -266,7 +398,7 @@ def one_block_bound(model, train=True):
 def test_meshed_train_step_gathers_one_block_at_a_time(runs, arch):
     model = tbuild(tget(arch).scaled_down(compute_dtype="float32"))
     bound, whole = one_block_bound(model)
-    assert tdry.gathered_peak_bytes(model, "train") == bound
+    assert tdry.gathered_peak_bytes(model, "train", MESH) == bound
     for r in runs["ranks"]:
         peaks = r[arch]["gathered_peaks"]
         assert len(peaks) == 2 and min(peaks) > 0, peaks
@@ -275,7 +407,7 @@ def test_meshed_train_step_gathers_one_block_at_a_time(runs, arch):
 
 
 def test_replicated_batch_and_serving_steps_gather_one_block(runs):
-    model = tbuild(tget("olmo-1b").scaled_down(compute_dtype="float32"))
+    model = olmo_model()
     bound, whole = one_block_bound(model)
     serve_bound, _ = one_block_bound(model, train=False)
     for r in runs["ranks"]:

@@ -373,6 +373,11 @@ def test_dryrun_all_writes_every_cell(tmp_path):
             assert cell["per_device_peak_bytes"] == (
                 cell["per_device_bytes"]["total"]
                 + cell["gathered_peak_bytes"])
+            assert cell["flops"]["total"] == sum(
+                cell["flops"]["by_unit"].values()) > 0
+            assert cell["collectives"]["total_bytes"] == sum(
+                cell["collectives"][k]["bytes"]
+                for k in ("all-gather", "reduce-scatter", "all-reduce"))
         else:
             assert cell["shape"] == "long_500k" and cell["skip_reason"]
 
@@ -381,15 +386,16 @@ def test_dryrun_all_writes_every_cell(tmp_path):
 def test_dryrun_train_cells_fit_one_card_gathering_a_block(arch):
     """A meshed train step gathers one block at a time: the dry run's
     gathered bytes a device are the embedding plus the largest block's
-    parameters, fake-quantized copy and gradient, well below the whole
-    model's parameters the step once gathered, and with the arguments they
-    fit one 80 GB card on the 32 x 8 mesh."""
+    parameters, fake-quantized copy and gradient (a tensor-parallel unit's
+    chunk over "model"), well below the whole model's parameters the step
+    once gathered, and with the arguments they fit one 80 GB card on the
+    32 x 8 mesh."""
     cell = tdry.run_cell(arch, "train_4k", False)
     model = tbuild(tget(arch))
     params = tflat(ttrain.abstract_train_state(model)["params"])
     whole = sum(t.numel() * t.element_size() for t in params.values())
     assert cell["mesh"] == "32x8"
-    assert cell["gathered_peak_bytes"] == tdry.gathered_peak_bytes(model,
-                                                                   "train")
+    assert cell["gathered_peak_bytes"] == tdry.gathered_peak_bytes(
+        model, "train", tmesh.make_production_mesh(abstract=True))
     assert cell["gathered_peak_bytes"] < whole / 5
     assert cell["per_device_peak_bytes"] < 80e9
