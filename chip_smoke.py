@@ -280,7 +280,20 @@
    block of a meshed prefill's logits (half the vocabulary); then
    ``[mesh2d] dry`` lines: the dry run's ``gathered_peak_bytes``,
    ``flops`` and ``collectives`` of olmo-1b, qwen2.5-14b and phi3.5-moe
-   ``train_4k`` on 32 x 8;
+   ``train_4k`` on 32 x 8, and phi3.5-moe's with ``--moe-local``; (c)
+   four processes on cuda:0, a 1 x 4 mesh, phi3.5-moe at full width
+   (16 experts top-2, expert d_ff 6,400) and 1 of its 32 layers in
+   float32, expert parallel (each rank runs 4 experts on the dispatch
+   buffer; their outputs all-gathered), with ``moe_local_dispatch``: two
+   QAT steps of 8 x 64 tokens against the unmeshed steps on rank 0, at lr
+   1e-5: loss rel 1e-5, gradient rel-L2 1e-4, params abs 2e-4, the first
+   step's activation codes equal (the model ranks' experts put together),
+   one K3 launch a step a rank, a rank's matmul FLOPs equal to the dry
+   run's and 1/4 of the unmeshed step's in the experts, attention and
+   read-out (the router whole on each rank), its collectives by kind
+   equal to the dry run's, its gathered bytes alive at once within the
+   dry run's bound; ms a step and peak GB a rank printed; its own
+   ``[time]`` line;
 23. ``[k2-tune]`` (after 3): K2's configuration tuner on the card's
    balance, measuring the model's top 3 and the untuned configuration at
    olmo-1b's seven units at M = 4 and at its prefill's M = 4 x 256, one
@@ -465,6 +478,14 @@ MESH2D_BLOCK = 128          # the steps' attention blocks (q and kv)
 MESH2D_STORAGE_ONLY_GATHERED = 413_138_944
 # the three cells whose dry run (b) prints, on the 32 x 8 mesh
 MESH2D_DRY_CELLS = ("olmo-1b", "qwen2.5-14b", "phi3.5-moe-42b-a6.6b")
+# (c): phi3.5-moe at full width, 1 of its 32 layers, on a 1 x 4 mesh of
+# four processes on cuda:0: each model rank runs 4 of the 16 experts and
+# gathers no expert (the data axis has one position)
+MESH2D_MOE_ARCH, MESH2D_MOE_LAYERS = "phi3.5-moe-42b-a6.6b", 1
+MESH2D_MOE_SHAPE = (1, 4)
+# rank 0 runs the unmeshed reference steps while the others wait for it
+MESH2D_MOE_TIMEOUT_S = 300
+MESH2D_MOE_DEADLINE_S = 480     # (c)'s ranks are killed after this
 MESH2D_TIMEOUT_S = 120      # init_process_group(timeout=) of every rank
 MESH2D_DEADLINE_S = 300     # (b)'s ranks are killed after this
 MESH2D_NCCL_DEADLINE_S = 90
@@ -6330,6 +6351,31 @@ def mesh2d_nccl_probe(rank, world):
     return float(x[0])
 
 
+def first_counted(torch, step, count=True):
+    """(``step`` with its first call counted when ``count``, the calls'
+    records: the first's {"flops": matmul FLOPs (`FlopCounterMode`),
+    "collectives": `collective_counts`}, None for the others)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.distributed import sharding as S
+
+    calls = []
+
+    def run(*a):
+        if count and not calls:
+            S.reset_collective_counts()
+            with FlopCounterMode(display=False) as flops:
+                res = step(*a)
+            torch.cuda.synchronize()
+            calls.append(dict(flops=flops.get_total_flops(),
+                              collectives=S.collective_counts()))
+            return res
+        calls.append(None)
+        return step(*a)
+
+    return run, calls
+
+
 def mesh2d_rank(rank, world, layers, lrs):
     """(b): one rank of the 2 x 2 mesh on cuda:0. At each learning rate
     every rank first runs the unmeshed steps at the same depth (rank 0
@@ -6341,7 +6387,6 @@ def mesh2d_rank(rank, world, layers, lrs):
     then a meshed prefill gives the width of a rank's logits."""
     import torch
     import torch.distributed as dist
-    from torch.utils.flop_counter import FlopCounterMode
 
     from repro_torch.distributed import sharding as S
     from repro_torch.launch import train as T
@@ -6352,25 +6397,6 @@ def mesh2d_rank(rank, world, layers, lrs):
     mesh = S.process_mesh(MESH2D_SHAPE, ("data", "model"),
                           device_type="cuda")
     out["coords"] = mesh.coords
-
-    def counted(step, count):
-        """``step`` with its first call counted (FLOPs, collectives)."""
-        calls = []
-
-        def run(*a):
-            if count and not calls:
-                S.reset_collective_counts()
-                with FlopCounterMode(display=False) as flops:
-                    res = step(*a)
-                torch.cuda.synchronize()
-                calls.append(dict(flops=flops.get_total_flops(),
-                                  collectives=S.collective_counts()))
-                return res
-            calls.append(None)
-            return step(*a)
-
-        return run, calls
-
     host = {}
     for lr in lrs:
         count = lr == lrs[0]
@@ -6379,8 +6405,8 @@ def mesh2d_rank(rank, world, layers, lrs):
         ref = None
         if rank == 0 or count:   # rank 0's reference; the others warm up
             firsts = {}
-            ref_step, ref_calls = counted(T.make_train_step(model, cfg),
-                                          count)
+            ref_step, ref_calls = first_counted(
+                torch, T.make_train_step(model, cfg), count)
             with _ActQuant() as rec:
                 ref_state, ref_losses, _, ref_ms, _ = mesh2d_steps(
                     torch, ref_step, state0, batch, comp,
@@ -6399,8 +6425,8 @@ def mesh2d_rank(rank, world, layers, lrs):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         firsts = {}
-        step, calls = counted(T.make_train_step(model, cfg, mesh=mesh),
-                              count)
+        step, calls = first_counted(
+            torch, T.make_train_step(model, cfg, mesh=mesh), count)
         with _ActQuant() as rec:
             got, losses, k3_launches, ms, peaks = mesh2d_steps(
                 torch, step, local, batch, local_comp,
@@ -6451,13 +6477,15 @@ def put_together(parts, want_shape):
     computed whole is the same on both (the first is taken)."""
     rows = []
     for d in sorted({d for d, _ in parts}):
-        a, b = parts[(d, 0)], parts[(d, 1)]
+        chunks = [parts[(d, m)] for m in sorted(m for e, m in parts
+                                                if e == d)]
+        a = chunks[0]
         if a.shape[1:] == tuple(want_shape[1:]):
             rows.append(a)
         else:
             ax = next(i for i in range(1, a.ndim)
                       if a.shape[i] != want_shape[i])
-            rows.append(np.concatenate([a, b], axis=ax))
+            rows.append(np.concatenate(chunks, axis=ax))
     return np.concatenate(rows)
 
 
@@ -6637,6 +6665,337 @@ def mesh2d_phase(torch, work):
     return out
 
 
+# ------------------------------------------- (c): expert-parallel MoE
+
+
+def mesh2d_moe_inputs(torch):
+    """(c)'s cell: phi3.5-moe at full width and MESH2D_MOE_LAYERS layers,
+    computing in float32 (as (b), for the ranks' float32 sums): (model,
+    step config, the seeded parameters and k = 8 comp on the host, the
+    batch on the card)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import lm_compress
+    from repro_torch.launch.train import StepConfig
+    from repro_torch.models.lm import build_lm
+    from repro_torch.nn.spec import init_params
+
+    cfg = dataclasses.replace(get_config(MESH2D_MOE_ARCH),
+                              compute_dtype="float32",
+                              n_layers=MESH2D_MOE_LAYERS)
+    model = build_lm(cfg)
+    step_cfg = StepConfig(qat=True, with_comp=True, remat=True,
+                          q_block=MESH2D_BLOCK, kv_block=MESH2D_BLOCK,
+                          lr=MESH2D_LR)
+    params = init_params(0, model.spec, "cpu")
+    comp = lm_compress.restrict_all_codebooks(
+        model, lm_compress.init_lm_comp(model, device="cpu"),
+        lm_compress.symmetric_codebook_values(8))
+    toks = np.random.default_rng(LM_PROMPT_SEED).integers(
+        0, cfg.vocab, (MESH2D_BATCH, MESH2D_TOKENS + 1)).astype(np.int32)
+    batch = {"tokens": torch.as_tensor(toks[:, :-1], device="cuda"),
+             "labels": torch.as_tensor(toks[:, 1:], device="cuda")}
+    return model, step_cfg, params, comp, batch
+
+
+def full_on_rank0(torch, x, sharding):
+    """The full tensor of the slice ``x`` on ``sharding`` on rank 0 (on the
+    card), None on the others. Every rank of the mesh shares cuda:0, so
+    rank 0 reads the others' slices in place through CUDA IPC (the handles
+    gathered to it over the process group, a barrier holding the slices
+    alive until it has copied them): the slices do not go through the
+    host."""
+    import torch.distributed as dist
+    from torch.multiprocessing.reductions import reduce_tensor
+
+    from repro_torch.distributed.sharding import _mesh_size
+
+    mesh = sharding.mesh
+    part = x.detach().contiguous()
+    root = dist.get_rank() == mesh.ranks[0]
+    handles = [None] * len(mesh.ranks) if root else None
+    dist.gather_object(None if root else reduce_tensor(part), handles,
+                       dst=mesh.ranks[0])
+    full = None
+    if root:
+        full = torch.empty([n * _mesh_size(mesh, e) for n, e in zip(
+            part.shape, sharding.entries(part.ndim))], dtype=part.dtype,
+            device=part.device)
+        for r, handle in zip(mesh.ranks, handles):
+            src = part if handle is None else handle[0](*handle[1])
+            full[sharding.index(full.shape, mesh.coords_of(r))] = src
+            del src
+        torch.cuda.synchronize()
+    dist.barrier()
+    return full
+
+
+def sliced_gap(torch, tree, shardings, ref, kind):
+    """The largest gap, leaf by leaf, of the full tensors whose slices
+    ``tree`` holds against ``ref`` ({name: host tensor}, rank 0's),
+    computed on the card in the leaves' dtype: ``"rel_l2"`` or
+    ``"max_abs"``; None on the ranks but 0."""
+    gaps = []
+    shards = leaves(shardings)
+    for name, x in leaves(tree).items():
+        full = full_on_rank0(torch, x, shards[name])
+        if full is None:
+            continue
+        want = ref[name].to(full.device)
+        diff = full - want
+        gaps.append(float(diff.abs().max()) if kind == "max_abs" else
+                    float(torch.linalg.vector_norm(diff))
+                    / max(float(torch.linalg.vector_norm(want)), 1e-30))
+        del full, diff, want
+    return max(gaps) if gaps else None
+
+
+def mesh2d_warm_up(torch):
+    """One unmeshed QAT step of (c)'s architecture at its reduced size on
+    the card, its first call counted: this process's first launches (the
+    kernels' modules, cuBLAS's handles, the FLOP counter's set-up), before
+    rank 0's reference and the meshed steps, so that neither times
+    them."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import lm_compress
+    from repro_torch.launch import train as T
+    from repro_torch.models.lm import build_lm
+    from repro_torch.nn.spec import init_params
+
+    model = build_lm(dataclasses.replace(
+        get_config(MESH2D_MOE_ARCH).scaled_down(), n_layers=1))
+    cfg = T.StepConfig(q_block=MESH2D_BLOCK, kv_block=MESH2D_BLOCK)
+    params = init_params(0, model.spec, "cuda")
+    comp = lm_compress.restrict_all_codebooks(
+        model, lm_compress.init_lm_comp(model, device="cuda"),
+        lm_compress.symmetric_codebook_values(8))
+    toks = torch.zeros((2, 17), dtype=torch.int32, device="cuda")
+    step, _ = first_counted(torch, T.make_train_step(model, cfg))
+    step({"params": params, "opt": T.make_optimizer(cfg).init(params)},
+         {"tokens": toks[:, :-1], "labels": toks[:, 1:]}, comp)
+    torch.cuda.synchronize()
+
+
+def mesh2d_moe_rank(rank, world):
+    """(c): one rank of the 1 x 4 mesh on cuda:0. Rank 0 first runs the
+    unmeshed steps at the same depth (the others wait: the card holds one
+    unmeshed state), keeps its parameters, first Adam moment and codes on
+    the host, frees the card; then every rank runs the meshed steps on its
+    slices, its experts split over "model"; rank 0 compares."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch._device import tree_to
+    from repro_torch.distributed import sharding as S
+    from repro_torch.launch import train as T
+
+    t0 = time.perf_counter()
+    torch.cuda.set_device(0)
+    torch.set_float32_matmul_precision("highest")
+    mesh = S.process_mesh(MESH2D_MOE_SHAPE, ("data", "model"),
+                          device_type="cuda")
+    model, cfg, host, comp, batch = mesh2d_moe_inputs(torch)
+    mesh2d_warm_up(torch)
+    out = dict(rank=rank, coords=mesh.coords, backend=dist.get_backend(),
+               init_s=time.perf_counter() - t0)
+    def state_of(params):
+        """A train state no caller holds: each step frees the last."""
+        return {"params": params, "opt": T.make_optimizer(cfg).init(params)}
+
+    ref = None
+    if rank == 0:
+        firsts = {}
+        step, calls = first_counted(torch, T.make_train_step(model, cfg))
+        with _ActQuant() as rec:
+            st, losses, launches, ms, _ = mesh2d_steps(
+                torch, step, state_of(tree_to(host, "cuda")), batch,
+                tree_to(comp, "cuda"),
+                lambda st: firsts.update(mu={
+                    n: t.cpu() for n, t in leaves(st["opt"]["mu"]).items()}))
+        ref = dict(params={n: t.cpu() for n, t in leaves(
+            st["params"]).items()}, mu=firsts["mu"], losses=losses,
+            k3_launches_per_step=launches, ms_per_step=ms,
+            flops=calls[0]["flops"],
+            peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+            codes=[c.numpy() for c in rec.codes[:len(rec.codes)
+                                                // MESH2D_STEPS]])
+        del st, rec
+        torch.cuda.empty_cache()
+    out["ref_s"] = time.perf_counter() - t0
+    dist.barrier()
+    sh = T.train_state_shardings(model, mesh)
+    local_comp = S.shard_tree(comp, T.comp_shardings(model, mesh),
+                              device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    firsts = {}
+    step, calls = first_counted(torch, T.make_train_step(
+        model, cfg, mesh=mesh, moe_local_dispatch=True))
+    with _ActQuant() as rec:
+        got, losses, launches, ms, peaks = mesh2d_steps(
+            torch, step, state_of(S.shard_tree(host, sh["params"],
+                                               device="cuda")),
+            batch, local_comp,
+            lambda st: firsts.update(grad=sliced_gap(
+                torch, st["opt"]["mu"], sh["opt"]["mu"],
+                ref and ref["mu"], "rel_l2")))
+    out.update(losses=losses, k3_launches_per_step=launches, ms_per_step=ms,
+               steps_s=time.perf_counter() - t0,
+               gathered_peak_bytes=peaks, flops=calls[0]["flops"],
+               collectives=calls[0]["collectives"],
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               codes=[c.numpy() for c in rec.codes[:len(rec.codes)
+                                                   // MESH2D_STEPS]])
+    del rec
+    param_gap = sliced_gap(torch, got["params"], sh["params"],
+                           ref and ref["params"], "max_abs")
+    if rank == 0:
+        out.update(
+            ref={k: v for k, v in ref.items() if k not in ("params", "mu")},
+            loss_rel=max(abs(g[k] - w[k]) / max(abs(w[k]), 1e-30)
+                         for g, w in zip(losses, ref["losses"]) for k in w),
+            grad_rel_l2_max=firsts["grad"], param_max_abs=param_gap)
+    out["rank_s"] = time.perf_counter() - t0
+    return out
+
+
+def mesh2d_moe_dry(torch):
+    """The dry run of (c)'s cell on its 1 x 4 mesh and on one position:
+    (``gathered_peak_bytes``, {"flops", "collectives"} a rank, the 1 x 1
+    step's {"flops", ...})."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import AbstractMesh
+    from repro_torch.launch.dryrun import gathered_peak_bytes, step_costs
+    from repro_torch.launch.train import StepConfig
+    from repro_torch.models.lm import build_lm
+
+    cfg = dataclasses.replace(get_config(MESH2D_MOE_ARCH),
+                              compute_dtype="float32",
+                              n_layers=MESH2D_MOE_LAYERS)
+    model = build_lm(cfg)
+    step_cfg = StepConfig(qat=True, with_comp=True, remat=True,
+                          q_block=MESH2D_BLOCK, kv_block=MESH2D_BLOCK)
+    mesh = AbstractMesh(MESH2D_MOE_SHAPE, ("data", "model"))
+    one = AbstractMesh((1, 1), ("data", "model"))
+    return (gathered_peak_bytes(model, "train", mesh),
+            step_costs(model, mesh, None, "train", MESH2D_BATCH,
+                       MESH2D_TOKENS, step_cfg),
+            step_costs(model, one, None, "train", MESH2D_BATCH,
+                       MESH2D_TOKENS, step_cfg))
+
+
+def mesh2d_moe_codes(ranks):
+    """(c)'s first-step activation codes, the model ranks' experts (and
+    heads) put together, against rank 0's unmeshed codes: (flips, codes,
+    calls, shapes equal, calls split over "model")."""
+    by_pos = {(r["coords"]["data"], r["coords"]["model"]): r.pop("codes")
+              for r in ranks}
+    ref = ranks[0]["ref"].pop("codes")
+    got = [put_together({k: v[i] for k, v in by_pos.items()}, ref[i].shape)
+           for i in range(len(ref))]
+    shapes = all(len(v) == len(ref) for v in by_pos.values()) \
+        and all(g.shape == r.shape for g, r in zip(got, ref))
+    flips = int(sum((g != r).sum() for g, r in zip(got, ref)
+                    if g.shape == r.shape))
+    split = sum(by_pos[(0, 0)][i].shape != ref[i].shape
+                for i in range(len(ref)))
+    return flips, int(sum(c.size for c in ref)), len(ref), shapes, split
+
+
+def mesh2d_moe_phase(torch, work, backend):
+    """[mesh2d] (c): phi3.5-moe's expert-parallel QAT step on a 1 x 4 mesh
+    of four processes on cuda:0 against the unmeshed step (module
+    docstring, 22)."""
+    from repro_torch.distributed.spawn import run_ranks
+    from repro_torch.launch.dryrun import run_cell
+
+    t0 = time.perf_counter()
+    ranks = run_ranks(mesh2d_moe_rank, 4, backend=backend,
+                      timeout_s=MESH2D_MOE_TIMEOUT_S,
+                      deadline_s=MESH2D_MOE_DEADLINE_S, threads=None,
+                      workdir=str(work))
+    ranks_s = time.perf_counter() - t0
+    bound, want, alone = mesh2d_moe_dry(torch)
+    flips, n_codes, calls, shapes_equal, split = mesh2d_moe_codes(ranks)
+    r0 = ranks[0]
+    by_unit, one_by_unit = want["flops"]["by_unit"], alone["flops"][
+        "by_unit"]
+    out = dict(
+        arch=MESH2D_MOE_ARCH, layers=MESH2D_MOE_LAYERS,
+        mesh=dict(zip(("data", "model"), MESH2D_MOE_SHAPE)),
+        transport=backend if backend == "nccl"
+        else "gloo (CUDA tensors through the host)",
+        tokens=[MESH2D_BATCH, MESH2D_TOKENS], lr=MESH2D_LR,
+        losses=r0["losses"], ref_losses=r0["ref"]["losses"],
+        loss_rel=r0["loss_rel"], grad_rel_l2_max=r0["grad_rel_l2_max"],
+        param_max_abs=r0["param_max_abs"], act_code_flips_step1=flips,
+        act_codes=n_codes, act_code_calls=calls,
+        act_code_calls_split=split, act_code_shapes_equal=shapes_equal,
+        ref_flops=r0["ref"]["flops"], ref_ms_per_step=r0["ref"][
+            "ms_per_step"], ref_peak_gb=r0["ref"]["peak_gb"],
+        ref_k3_launches_per_step=r0["ref"]["k3_launches_per_step"],
+        gathered_bound_bytes=bound, dry_run=want,
+        dry_run_flops_1x1=alone["flops"],
+        ranks=[{k: r[k] for k in (
+            "rank", "coords", "backend", "k3_launches_per_step",
+            "ms_per_step", "peak_gb", "gathered_peak_bytes", "flops",
+            "collectives", "init_s", "ref_s", "steps_s", "rank_s")}
+               for r in ranks],
+        ranks_s=ranks_s)
+    print("[mesh2d] (c) " + json.dumps(out, sort_keys=True), flush=True)
+    cell = run_cell(MESH2D_MOE_ARCH, "train_4k", False,
+                    moe_local_dispatch=True)
+    print("[mesh2d] dry --moe-local " + json.dumps(
+        {k: cell[k] for k in ("arch", "shape", "mesh", "moe_local_dispatch",
+                              "gathered_peak_bytes",
+                              "per_device_peak_bytes", "flops",
+                              "collectives", "layout_s")}, sort_keys=True),
+        flush=True)
+    if not (out["loss_rel"] <= LOSS_RTOL
+            and out["grad_rel_l2_max"] <= GRAD_RTOL
+            and out["param_max_abs"] <= PARAM_ATOL):
+        raise AssertionError(
+            f"[mesh2d] (c) 1 x 4 against unmeshed at lr {MESH2D_LR}: loss "
+            f"rel {out['loss_rel']:.3e}, gradient rel-L2 "
+            f"{out['grad_rel_l2_max']:.3e}, params abs "
+            f"{out['param_max_abs']:.3e}")
+    if flips or not shapes_equal or not split:
+        raise AssertionError(
+            f"[mesh2d] (c) the first step's activation codes differ ({flips} "
+            f"flips, shapes equal {shapes_equal}, {split} calls split)")
+    # the experts and attention split 4 ways; the router runs whole on
+    # every model rank (the rows are not split: 1 x 4)
+    quarter = all(by_unit[u] * 4 == one_by_unit[u]
+                  for u in ("moe", "attention")) \
+        and by_unit["router"] == one_by_unit["router"]
+    if not (quarter and alone["flops"]["total"] == out["ref_flops"]):
+        raise AssertionError(
+            f"[mesh2d] (c) the dry run's FLOPs by unit {by_unit} against "
+            f"the unmeshed {one_by_unit}; counted unmeshed "
+            f"{out['ref_flops']}")
+    for r in out["ranks"]:
+        if r["flops"] != want["flops"]["total"] \
+                or r["collectives"] != want["collectives"]:
+            raise AssertionError(
+                f"[mesh2d] (c) rank {r['rank']}: {r['flops']} matmul FLOPs "
+                f"and collectives {r['collectives']} against the dry run's "
+                f"{want['flops']['total']} and {want['collectives']}")
+        if r["k3_launches_per_step"] != [1] * MESH2D_STEPS:
+            raise AssertionError(f"[mesh2d] (c) rank {r['rank']}: K3 "
+                                 f"launches a step {r['k3_launches_per_step']}")
+        if max(r["gathered_peak_bytes"]) > bound:
+            raise AssertionError(
+                f"[mesh2d] (c) rank {r['rank']}: gathered bytes "
+                f"{r['gathered_peak_bytes']} past the dry run's {bound}")
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"[mesh2d] (c) {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -6695,6 +7054,11 @@ def main() -> int:
         mesh2d = mesh2d_phase(torch, work)
         torch.cuda.empty_cache()
         mark("[mesh2d]")
+        mesh2d["moe"] = mesh2d_moe_phase(
+            torch, work, "nccl" if mesh2d["two"]["transport"] == "nccl"
+            else "gloo")
+        torch.cuda.empty_cache()
+        mark("[mesh2d] (c)")
         k2_build.result()
     mark("K2 build")
 
@@ -7213,7 +7577,17 @@ def main() -> int:
         one_by_one=mesh2d["one"]["k3_launches_per_step"],
         ranks={lr: {r["rank"]: r["k3_launches_per_step"]
                     for r in run["ranks"]}
-               for lr, run in mesh2d["two"]["runs"].items()})
+               for lr, run in mesh2d["two"]["runs"].items()},
+        moe=dict(
+            scope=f"(c): {MESH2D_MOE_ARCH} at full width, "
+                  f"{MESH2D_MOE_LAYERS} layer, a "
+                  f"{'x'.join(map(str, MESH2D_MOE_SHAPE))} mesh of four "
+                  "processes on cuda:0, expert parallel: the one grouped "
+                  "launch on each rank's 4 experts; launches a step, each "
+                  "rank, and the unmeshed reference's on rank 0",
+            ranks={r["rank"]: r["k3_launches_per_step"]
+                   for r in mesh2d["moe"]["ranks"]},
+            unmeshed=mesh2d["moe"]["ref_k3_launches_per_step"]))
     entries = [k2_entry, k1_entry, k1b_entry, k3_entry]
     print("[mesh] " + json.dumps({
         "profile_all_tiles": mesh_prof["all_tiles"],

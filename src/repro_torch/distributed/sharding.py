@@ -78,12 +78,15 @@ alive at once, and their peak.
 also names the sub-modules that split their features over the model axes
 (`tp_axes`: a decoder block's attention and dense FFN, the token table and
 the read-out, where the layout shards their heads, hidden width or
-vocabulary there): their leaves are gathered over the other axes only,
-keeping this rank's chunk (`without_axes`), and `ModelSplit` carries the
-model group to the model code. The model-group collectives are autograd
-functions: `copy_to_model` (identity forward, SUM backward: once a
-sub-module, on the input its column-parallel products share),
-`reduce_from_model` (SUM forward, identity backward); a MAX over the
+vocabulary there; the MoE's experts, every expert's hidden width and the
+shared experts' hidden width, `MOE_SPLITS`): their leaves are gathered
+over the other axes only, keeping this rank's chunk (`without_axes`,
+`kept_axes`), and `ModelSplit` carries the model group to the model code.
+The model-group collectives are autograd functions: `copy_to_model`
+(identity forward, SUM backward: once a sub-module, on the input its
+column-parallel products share), `reduce_from_model` (SUM forward,
+identity backward), `gather_from_model` (all-gather forward, this rank's
+chunk of the gradient backward: the expert outputs); a MAX over the
 model group (exact in any order) takes a split activation's amax
 (`ModelSplit.act`) and the cross-entropy's maximum; `tp_matmul` runs a
 column- or row-parallel product whose float64 partial sums (under QAT)
@@ -1126,6 +1129,17 @@ def without_axes(s: NamedSharding, axes: Sequence[str]) -> NamedSharding:
 # and the untied read-out (vocab)
 TP_UNITS = {"attn": ("wq", 1), "mlp": ("w_up", 1), "embed": ("table", 0),
             "lm_head": ("w", 1)}
+# the MoE's three splits, each by its defining (leaf, dim): the experts
+# over the axes of their E dim (expert parallel), every expert's hidden
+# width over those of moe_ff (tensor-parallel experts), the shared
+# experts' hidden width over those of mlp (as the dense FFN)
+MOE_SPLITS = {"experts": ("w_gate", 0), "expert_ff": ("w_gate", 2),
+              "shared": ("shared_up", 1)}
+# the splits whose chunk each MoE leaf keeps at use (the router: none)
+MOE_LEAVES = {**{k: ("experts", "expert_ff")
+                 for k in ("w_gate", "w_up", "w_down")},
+              **{k: ("shared",)
+                 for k in ("shared_gate", "shared_up", "shared_down")}}
 
 
 def tp_axes(shardings, path: Sequence[str],
@@ -1133,27 +1147,45 @@ def tp_axes(shardings, path: Sequence[str],
     """The mesh axes over which the sub-module at ``path`` of a params'
     sharding tree computes this rank's share of its features, () where it
     computes whole. ``path``: ``("blocks", "g0", "attn")``, ``("tail",
-    "t0", "mlp")``, ``("embed",)``, ``("lm_head",)``. A `TP_UNITS` entry
+    "t0", "mlp")``, ``("embed",)``, ``("lm_head",)``, or one of the MoE's
+    splits, ``("blocks", "g0", "moe", "experts")`` (`MOE_SPLITS`). A unit
     splits over the axes that shard its defining dim (after the
     divisibility guard), unless they split the batch too; an encoder block,
-    cross-attention, the MoE and the recurrent mixers compute whole."""
+    cross-attention and the recurrent mixers compute whole."""
     path = tuple(path)
-    if not path or path[-1] not in TP_UNITS \
-            or (len(path) > 1 and path[0] not in ("blocks", "tail")):
+    if len(path) > 1 and path[-2] == "moe" and path[-1] in MOE_SPLITS:
+        sub, (leaf, dim) = path[:-1], MOE_SPLITS[path[-1]]
+    elif path and path[-1] in TP_UNITS:
+        sub, (leaf, dim) = path, TP_UNITS[path[-1]]
+    else:
         return ()
-    leaf, dim = TP_UNITS[path[-1]]
+    if len(sub) > 1 and sub[0] not in ("blocks", "tail"):
+        return ()
     s = shardings
     try:
-        for key in (*path, leaf):
+        for key in (*sub, leaf):
             s = s[key]
     except KeyError:
         return ()
     mesh, spec = s.mesh, tuple(s.spec)
-    dim += path[0] == "blocks"              # the stacked layer axis
+    dim += sub[0] == "blocks"               # the stacked layer axis
     entry = spec[dim] if dim < len(spec) else None
     axes = tuple(a for a in _axes_of(entry) if a in mesh.axis_names)
     batch = set(_axes_of(_present(mesh, rules.lookup("batch"))))
     return () if batch & set(axes) else axes
+
+
+def kept_axes(shardings, path: Sequence[str],
+              rules: ShardingRules) -> Tuple[str, ...]:
+    """The mesh axes along which the leaf at ``path`` (``("blocks", "g0",
+    "attn", "wq")``) keeps this rank's chunk when a meshed step gathers it:
+    its sub-module's `tp_axes`, or, in the MoE, those of the splits the
+    leaf takes part in (`MOE_LEAVES`); () where it is gathered whole."""
+    *sub, key = tuple(path)
+    if sub and sub[-1] == "moe":
+        return tuple(a for name in MOE_LEAVES.get(key, ())
+                     for a in tp_axes(shardings, (*sub, name), rules))
+    return tp_axes(shardings, sub, rules)
 
 
 class LayerGather:
@@ -1168,8 +1200,11 @@ class LayerGather:
     computes its share of the features on each of those ranks
     (`model_split`): its leaves are gathered over their other axes only,
     each rank keeping its model chunk (`without_axes`), and the model code
-    runs it column- or row-parallel (`tp_matmul`). Every other leaf is
-    gathered whole. Without ``rules`` every leaf is gathered whole (the
+    runs it column- or row-parallel (`tp_matmul`). The MoE splits the same
+    way by `MOE_SPLITS`: its experts (expert parallel), every expert's
+    hidden width, its shared experts' hidden width, each leaf keeping the
+    chunks of the splits it takes part in (`kept_axes`). Every other leaf
+    is gathered whole. Without ``rules`` every leaf is gathered whole (the
     storage-only step)."""
 
     def __init__(self, shardings, batch_axes: Sequence[str] = (), *,
@@ -1177,6 +1212,7 @@ class LayerGather:
         self.shardings = shardings
         self.batch_axes = tuple(batch_axes)
         self.rules = rules
+        self.mesh = tree_leaves(shardings)[0].mesh
         self._splits: Dict[tuple, Optional["ModelSplit"]] = {}
 
     def sharding(self, *path: str, stacked: bool = False, ndim: int = 0):
@@ -1189,27 +1225,31 @@ class LayerGather:
         return _layer_sharding(s, ndim) if stacked else s
 
     def model_split(self, *path: str) -> Optional["ModelSplit"]:
-        """The `ModelSplit` of the tensor-parallel sub-module at ``path``
-        (`tp_axes`), or None where it computes whole."""
+        """The `ModelSplit` of the tensor-parallel sub-module (or MoE
+        split) at ``path`` (`tp_axes`), or None where it computes whole."""
         if path not in self._splits:
             axes = () if self.rules is None \
                 else tp_axes(self.shardings, path, self.rules)
             split = None
             if axes:
-                mesh = self.sharding(*path, TP_UNITS[path[-1]][0]).mesh
+                mesh = self.mesh
                 split = ModelSplit(
                     axes, mesh.group(axes),
                     NamedSharding(mesh, PartitionSpec())._chunk(
                         axes, mesh.coords), _mesh_size(mesh, axes),
-                    BatchReduce(mesh, self.batch_axes + axes))
+                    BatchReduce(mesh, self.batch_axes + axes), mesh)
             self._splits[path] = split
         return self._splits[path]
 
-    def block_splits(self, *path: str) -> Optional[Dict[str, "ModelSplit"]]:
-        """{"attn": split, "mlp": split} of the decoder block at ``path``,
-        the sub-modules that compute whole left out; None where none
+    def block_splits(self, *path: str) -> Optional[Dict[str, Any]]:
+        """{"attn": split, "mlp": split, "moe": {"experts": split,
+        "expert_ff": split, "shared": split}} of the decoder block at
+        ``path``, what computes whole left out; None where nothing
         splits."""
         out = {sub: self.model_split(*path, sub) for sub in ("attn", "mlp")}
+        moe = {name: self.model_split(*path, "moe", name)
+               for name in MOE_SPLITS}
+        out["moe"] = {k: v for k, v in moe.items() if v is not None} or None
         out = {k: v for k, v in out.items() if v is not None}
         return out or None
 
@@ -1219,7 +1259,8 @@ class LayerGather:
         ``stacked``) with every leaf gathered, but the leaves at the unit
         names in ``skip`` (``"attn/wq"``, relative to ``path``), passed on
         as they are. Leaves keyed by unit names are found the same way. A
-        tensor-parallel sub-module's leaves keep their model chunk."""
+        tensor-parallel sub-module's leaves keep their model chunk
+        (`kept_axes`)."""
         def walk(node, rel):
             if isinstance(node, dict):
                 return {k: walk(v, rel + (k,)) for k, v in node.items()}
@@ -1228,10 +1269,10 @@ class LayerGather:
                 return node
             s = self.sharding(*path, *rel, stacked=stacked, ndim=node.ndim)
             parts = tuple(p for r in (*path, *rel) for p in r.split("/"))
-            split = self.model_split(*parts[:-1]) if len(parts) > 1 \
-                else None
-            if split is not None:
-                s = without_axes(s, split.axes)
+            axes = () if self.rules is None \
+                else kept_axes(self.shardings, parts, self.rules)
+            if axes:
+                s = without_axes(s, axes)
             return gather_at_use(node, s, self.batch_axes)
 
         return walk(tree, ())
@@ -1266,13 +1307,14 @@ class ModelSplit:
     default): this rank computes chunk ``index`` of ``size`` of them, with
     the ranks of ``group`` (the same rows, the other chunks). ``act``: the
     reductions of an activation split that way (its amax is a MAX over the
-    batch ranks and ``group``)."""
+    batch ranks and ``group``); ``mesh``: the mesh the axes are of."""
 
     axes: Tuple[str, ...]
     group: Any
     index: int
     size: int
     act: BatchReduce
+    mesh: Any = None
 
     def chunk(self, n: int) -> Tuple[int, int]:
         """(length, start) of this rank's chunk of ``n`` features."""
@@ -1349,6 +1391,34 @@ def reduce_from_model(x: torch.Tensor, split: ModelSplit) -> torch.Tensor:
     return _ReduceFromModel.apply(x, split.group)
 
 
+class _GatherFromModel(torch.autograd.Function):
+    """All-gather of the model ranks' chunks along ``dim`` forward; backward
+    this rank's chunk of the gradient (every model rank computes the same
+    function of the gathered tensor, so each holds the whole gradient: a
+    sum over the ranks would count it ``size`` times)."""
+
+    @staticmethod
+    def forward(ctx, x, split, dim):
+        ctx.split, ctx.dim = split, dim
+        parts = [None] * x.ndim
+        parts[dim] = split.axes
+        y = gather(x, NamedSharding(split.mesh, PartitionSpec(*parts)),
+                   [dim])
+        return x.view_as(x) if y is x else y
+
+    @staticmethod
+    def backward(ctx, g):
+        n, start = ctx.split.chunk(g.shape[ctx.dim])
+        return g.narrow(ctx.dim, start, n), None, None
+
+
+def gather_from_model(x: torch.Tensor, split: ModelSplit,
+                      dim: int) -> torch.Tensor:
+    """The tensor whose chunk along ``dim`` ``x`` is, put together from the
+    model ranks of ``split`` (each holding its chunk, in chunk order)."""
+    return _GatherFromModel.apply(x, split, dim)
+
+
 def _sum_dtype(exact: bool, g: torch.Tensor) -> torch.dtype:
     return torch.float64 if exact else g.dtype
 
@@ -1372,15 +1442,11 @@ class _ColumnMatmul(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        from repro_torch.kernels.lut_matmul.ref import matmul_grads
+
         x, w = ctx.saved_tensors
-        dt = _sum_dtype(ctx.exact, g)
-        g = g.to(dt)
-        gx = gw = None
-        if ctx.needs_input_grad[0]:
-            gx = (g @ w.to(dt).mT).to(x.dtype)
-        if ctx.needs_input_grad[1]:
-            gw = (x.to(dt).reshape(-1, x.shape[-1]).mT
-                  @ g.reshape(-1, g.shape[-1])).to(w.dtype)
+        gx, gw = matmul_grads(x, w, g, _sum_dtype(ctx.exact, g),
+                              ctx.needs_input_grad[:2])
         return gx, gw, None, None
 
 
@@ -1411,7 +1477,8 @@ class _RowMatmul(torch.autograd.Function):
 
 def tp_matmul(x: torch.Tensor, w: torch.Tensor, split: ModelSplit,
               kind: str, exact: bool) -> torch.Tensor:
-    """``x @ w`` (``w`` 2-D) of a unit split over ``split``'s ranks:
+    """``x @ w`` (``w`` 2-D, or a batch of experts' (E, K, N) against ``x``
+    (E, M, K)) of a unit split over ``split``'s ranks:
     ``kind`` ``"column"`` (``w`` this rank's output columns; the result is
     its columns; ``x`` the `copy_to_model` copy of the sub-module's input,
     which sums its gradient over the ranks) or ``"row"`` (``x`` and ``w``

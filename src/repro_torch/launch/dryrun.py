@@ -16,8 +16,9 @@ under ``build/dryrun/`` with
     over "model", every other leaf whole), and ``per_device_peak_bytes``,
     that plus the arguments' bytes (activations not counted);
   * ``flops``: the step's products on this layout (`step_costs`: ``total``,
-    ``by_unit`` (projections, attention scores and values, ffn, moe,
-    recurrent mixer, read-out), with remat's recompute, the backward and
+    ``by_unit`` (projections, attention scores and values, ffn, moe (the
+    experts), router, recurrent mixer, read-out), with remat's recompute,
+    the backward and
     ``grad_accum`` counted; ``remat_tail``, the part XLA's remat drops);
   * ``collectives``: the bytes (of each collective's result, as the JAX
     package parses XLA's) and the count of the step's all-gathers,
@@ -35,12 +36,13 @@ The flags are the JAX CLI's step knobs: ``--rules`` (logical=mesh axes,
 heads=None,mlp=None,vocab=None,kv_heads=None`` is the storage-only step,
 no tensor-parallel unit), ``--no-qat``, ``--no-comp``, ``--no-remat``,
 ``--q-block``, ``--kv-block``, ``--flash``, ``--grad-accum``, ``--kv-seq``
-(the decode cache's sequence over "model") and ``--tag`` (a suffix of
-the manifest's name). ``--moe-local`` and ``--remat-save-qat`` are
-refused: the first needs expert parallelism, the second changes only the
-activations' bytes, and the port has neither yet (ROADMAP queues
-both). There is no compile step, so there is no ``--jobs``: every cell is
-laid out in this process.
+(the decode cache's sequence over "model"), ``--moe-local`` (the MoE's
+local dispatch, recorded in the manifest as ``moe_local_dispatch``: the
+port's meshed step scatters locally and runs each rank's experts either
+way, so no count changes) and ``--tag`` (a suffix of the manifest's
+name). ``--remat-save-qat`` is refused: it changes only the activations'
+bytes, which the dry run does not count yet. There is no compile step, so
+there is no ``--jobs``: every cell is laid out in this process.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch olmo-1b --shape train_4k
@@ -133,12 +135,13 @@ def gathered_peak_bytes(model, kind: str, mesh=None, rules=None) -> int:
     training, its fake-quantized matmul weights and its gradient. Train
     steps hold the parameters in their own dtype, serve steps in bfloat16
     (`abstract_serve_params`). A tensor-parallel sub-module's leaf counts
-    its chunk over the model axes (`tp_axes`), every other leaf whole;
+    its chunk over the model axes (`kept_axes`: the MoE's experts their
+    chunk of the experts or of the hidden width), every other leaf whole;
     without ``mesh`` every leaf counts whole (the storage-only step)."""
     from repro_torch.distributed.sharding import (
         DEFAULT_RULES,
+        kept_axes,
         make_param_shardings,
-        tp_axes,
     )
     from repro_torch.launch import train as TR
     from repro_torch.nn.transformer import block_matmuls
@@ -157,8 +160,8 @@ def gathered_peak_bytes(model, kind: str, mesh=None, rules=None) -> int:
         out = {}
         for rel, leaf, s in _walk_leaves(tree, tree if sh is None else sh):
             shape = _layer_shape(leaf, stacked)
-            axes = () if sh is None \
-                else tp_axes(p_sh, (*path, *rel[:-1]), rules)
+            axes = () if sh is None else kept_axes(p_sh, (*path, *rel),
+                                                   rules)
             if axes:
                 _, kept = _at_use(_layer_sharding(s, leaf.ndim, stacked),
                                   axes)
@@ -285,7 +288,11 @@ def step_costs(model, mesh, rules=None, kind: str = "train",
     gradient's reduction (`reduce_plan`); tensor-parallel all-reduces (a
     row-parallel output, the gradient of the input a sub-module's column
     products share, once: float64 under QAT, the activations' dtype
-    otherwise; a replicated K/V weight's gradient); the split
+    otherwise; a replicated K/V weight's gradient); the MoE's split
+    experts' all-gathered outputs and the gradient of the x their scatter
+    reads (summed once with the shared experts' input gradient where both
+    split over the same axes), tensor-parallel experts' row-parallel
+    outputs and their buffer's gradient; the split
     vocabulary's lookup sum, read-out gradient and the loss's three
     reductions; K3's per-column MAX; each activation
     fake-quant's amax MAX; the loss's two sums, the MoE auxiliary sums and
@@ -301,6 +308,7 @@ def step_costs(model, mesh, rules=None, kind: str = "train",
         _axes_of,
         _mesh_size,
         batch_sharding,
+        kept_axes,
         make_param_shardings,
         reduce_plan,
         tp_axes,
@@ -358,8 +366,7 @@ def step_costs(model, mesh, rules=None, kind: str = "train",
         for rel, leaf, s in _walk_leaves(tree, sh):
             full = _layer_shape(leaf, stacked)
             s = _layer_sharding(s, leaf.ndim, stacked)
-            axes = tp_axes(p_sh, (*path, *rel[:-1]), rules)
-            gs, kept = _at_use(s, axes)
+            gs, kept = _at_use(s, kept_axes(p_sh, (*path, *rel), rules))
             shape = kept.shard_shape(full)
             over = tuple(a for e in gs.entries(len(full))
                          for a in _axes_of(e))
@@ -394,20 +401,40 @@ def step_costs(model, mesh, rules=None, kind: str = "train",
         if remat:
             t.remat_tail += 2 * tokens * f_loc * cfg.d_model
 
-    def moe(times):
+    def moe(path, times):
+        """The MoE block (`nn.moe.apply_moe`): the router on every model
+        rank, this rank's experts (or hidden-width chunk) on the buffer,
+        the shared experts' chunk."""
         dims = cfg.moe_dims()
         e, fe, d = dims.n_experts, dims.d_ff, cfg.d_model
-        slots = rows * e * capacity(dims, s_all)
-        t.mm("moe", tokens, d, e, times + back)
-        t.mm("moe", slots, d, fe, 2 * (times + back))
-        t.mm("moe", slots, fe, d, times + back)
+        ep_axes, ep_m = split(*path, "moe", "experts")
+        _, ff_m = split(*path, "moe", "expert_ff")
+        sh_axes, sh_m = split(*path, "moe", "shared")
+        buf = rows * e * capacity(dims, s_all) * d      # (B, E, C, d)
+        slots = buf // d // ep_m
+        t.mm("router", tokens, d, e, times + back)
+        t.mm("moe", slots, d, fe // ff_m, 2 * (times + back))
+        t.mm("moe", slots, fe // ff_m, d, times + back)
+        amax(times=times)                     # the buffer, whole
+        amax(ep_m * ff_m, times)              # the hidden activation
+        if ep_m > 1:        # the experts' outputs put together
+            t.coll_add("all-gather", buf * cdt, times)
+        if ff_m > 1:        # w_down row-parallel; the buffer's copy
+            t.coll_add("all-reduce", buf * row_dt, times + (1 if train
+                                                            else 0))
+        copies = {ep_axes} if ep_m > 1 else set()
         if dims.n_shared:
-            fs = fe * dims.n_shared
+            fs = fe * dims.n_shared // sh_m
             t.mm("moe", tokens, d, fs, 2 * (times + back))
             t.mm("moe", tokens, fs, d, times + back)
             if remat:
                 t.remat_tail += 2 * tokens * fs * d
-        amax(times=(2 + bool(dims.n_shared)) * times)
+            amax(times=times)
+            if sh_m > 1:
+                t.coll_add("all-reduce", tokens * d * row_dt, times)
+                copies.add(sh_axes)
+        if train:           # x's input-gradient sums, one a model group
+            t.coll_add("all-reduce", tokens * d * row_dt, len(copies))
         if train and batch_group:
             for nbytes in (8, 8 * e, 8 * e, 8, 8):
                 t.coll_add("all-reduce", nbytes, times)
@@ -462,7 +489,7 @@ def step_costs(model, mesh, rules=None, kind: str = "train",
         if bt == "ssm":
             return
         if "moe" in bparams:
-            moe(times)
+            moe(path, times)
             return
         _, mlp_m = split(*path, "mlp")
         ffn(cfg.d_ff // mlp_m, times)
@@ -563,11 +590,13 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, *,
              q_block: int = 512, kv_block: int = 512,
              rules_override: Optional[dict] = None, flash: bool = False,
              grad_accum: int = 1, kv_seq_shard: bool = False,
-             tag: str = "") -> dict:
+             moe_local_dispatch: bool = False, tag: str = "") -> dict:
     """The cell's manifest (module docstring). The keywords are the JAX
     package's step knobs (its CLI flags); ``rules_override``: logical axis
     -> mesh axes (None: replicated) replacing `DEFAULT_RULES`' entries.
-    ``with_comp`` changes only the comp tree's bytes (an argument)."""
+    ``with_comp`` changes only the comp tree's bytes (an argument);
+    ``moe_local_dispatch`` is recorded and changes nothing (the port's
+    dispatch is local either way)."""
     from repro_torch.configs import (
         SHAPES,
         cell_is_runnable,
@@ -590,6 +619,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, *,
         "remat": remat, "flash": flash, "grad_accum": grad_accum,
         "q_block": q_block, "kv_block": kv_block,
         "kv_seq_shard": kv_seq_shard,
+        "moe_local_dispatch": moe_local_dispatch,
         "rules_override": rules_override or {}, "tag": tag,
     }
     if not cell_is_runnable(arch, shape_name):
@@ -698,7 +728,8 @@ def main(argv=None) -> int:
     ap.add_argument("--grad-accum", type=int, default=1)
     ap.add_argument("--kv-seq", action="store_true")
     ap.add_argument("--moe-local", action="store_true",
-                    help="refused: needs expert-parallel dispatch")
+                    help="the MoE's local dispatch (recorded; the port's "
+                    "dispatch is local either way)")
     ap.add_argument("--remat-save-qat", action="store_true",
                     help="refused: changes only the activations' bytes, "
                     "which the dry run does not count")
@@ -706,9 +737,6 @@ def main(argv=None) -> int:
     ap.add_argument("--rules", default="",
                     help="logical=mesh overrides, e.g. embed=model,heads=None")
     args = ap.parse_args(argv)
-    if args.moe_local:
-        ap.error("--moe-local: the port has no expert-parallel dispatch "
-                 "yet, so it would change no count")
     if args.remat_save_qat:
         ap.error("--remat-save-qat changes only the activations' bytes, "
                  "which the dry run does not count yet")
@@ -718,6 +746,7 @@ def main(argv=None) -> int:
                  remat=not args.no_remat, q_block=args.q_block,
                  kv_block=args.kv_block, flash=args.flash,
                  grad_accum=args.grad_accum, kv_seq_shard=args.kv_seq,
+                 moe_local_dispatch=args.moe_local,
                  rules_override=parse_rules(args.rules) or None,
                  tag=args.tag)
 

@@ -62,11 +62,20 @@ all-reduced and rounded once under QAT), the embedding is a masked lookup
 summed over "model", the loss a vocabulary-parallel cross-entropy, and
 each activation split over "model" takes its amax over those ranks too.
 K/V heads that the guard replicates are computed, on each rank, for the
-query heads it holds. MoE experts, the recurrent mixers, cross-attention
-and an encoder compute whole on a rank's rows (so phi3.5-moe runs both
-paths in one step); ``--rules heads=None,mlp=None,vocab=None,kv_heads=None``
-gives the storage-only step. ``moe_local_dispatch``'s
-`moe_dispatch_constraint` stays an identity on values. A step's losses
+query heads it holds. The MoE splits as the JAX partitioner divides it
+(`repro_torch.nn.moe`): each model rank runs its chunk of the experts
+("expert" -> "model") on the dispatch buffer of the rows its model group
+shares and the ranks all-gather the experts' outputs, or, with
+``expert=None, moe_ff=model``, every expert at its chunk of the hidden
+width (column- and row-parallel); shared experts split their hidden width
+as the dense FFN. The recurrent mixers, cross-attention and an encoder
+compute whole on a rank's rows; ``--rules
+heads=None,mlp=None,vocab=None,kv_heads=None`` gives the storage-only
+step of the other units (``expert=None`` runs every expert whole on
+each rank, stored over "data" alone). Every rank scatters its rows into
+the dispatch buffer locally and slices its experts, so the step is the
+same with or without ``moe_local_dispatch`` (its
+`moe_dispatch_constraint` is an identity on values). A step's losses
 are the global batch's; a prefill step returns the rank's block of the
 logits on `logits_sharding` (its rows, its vocabulary chunk), a serve
 step that block and its slice of the new cache. On a mesh of one process
@@ -161,9 +170,10 @@ def _value_and_grad(loss_fn, params, batch, comp):
 def moe_dispatch_constraint(mesh, rules: ShardingRules = DEFAULT_RULES):
     """The dispatch-buffer hook of `repro_torch.nn.moe` for ``mesh``. In
     the JAX package it pins the (B, E, C, d) buffer's layout for the SPMD
-    partitioner ('scatter': model-replicated, 'expert': E over the expert
-    axis); the MoE block is not tensor- or expert-parallel here (each rank
-    runs every expert on its own rows), so the hook returns its tensor
+    partitioner ('scatter': model-replicated, so the scatter is local;
+    'expert': E over the expert axis, a local slice). Here every model
+    rank already scatters its rows locally and slices its own experts
+    (`apply_moe`'s expert parallelism), so the hook returns its tensor
     unchanged."""
     del mesh, rules
 

@@ -100,17 +100,19 @@ class QuantConfig:
 
 
 def lm_fake_quant_act(x: torch.Tensor, qcfg: QuantConfig,
-                      split=None) -> torch.Tensor:
+                      split=None, token_dims: int = 2) -> torch.Tensor:
     """An LM activation (B, S, ...) as the quantized matmul that follows it
     reads it: fake-quantized under QAT (one scale a call, or one a token
-    position when ``qcfg.batch_invariant``), unchanged otherwise. ``split``
-    (a `repro_torch.distributed.sharding.ModelSplit`): the activation's
-    features are split over model ranks, so its one amax is a MAX over
-    them too (and over the batch ranks); with ``qcfg.batch_invariant``
-    (per-token scales, which no meshed step sets) it raises."""
+    position when ``qcfg.batch_invariant``: its leading ``token_dims``
+    dims index the tokens, 3 for the MoE's (B, E, C) slots), unchanged
+    otherwise. ``split`` (a `repro_torch.distributed.sharding.ModelSplit`):
+    the activation's features are split over model ranks, so its one amax
+    is a MAX over them too (and over the batch ranks); with
+    ``qcfg.batch_invariant`` (per-token scales, which no meshed step sets)
+    it raises."""
     if not (qcfg.enabled and qcfg.act_quant):
         return x
-    token_dims = 2 if qcfg.batch_invariant else 0
+    token_dims = token_dims if qcfg.batch_invariant else 0
     if split is None:
         return qat.fake_quant_act(x, token_dims=token_dims)
     if token_dims:

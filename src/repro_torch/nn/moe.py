@@ -28,6 +28,28 @@ its one grouped K3 launch fake-quantized, experts as candidates
 the serve path every expert's matmul runs on the LUT GEMM (K2) from its own
 slice of the stacked artifact, one launch an (expert, matrix), at M = B x C.
 Shared (always-on) experts (the moonshot family) are plain FFN matrices.
+
+**In a meshed step** (``tp=``, the splits of `repro_torch.distributed
+.sharding.MOE_SPLITS`) every model rank holds the same rows and the same
+router, so it makes the same routing, slots and scatter. With the experts
+split (``expert`` -> "model", the default rules: expert parallelism) a
+rank runs only its chunk of the experts on its slice of the (B, E, C, d)
+buffer, then the ranks' outputs are all-gathered (`gather_from_model`,
+whose backward keeps this rank's chunk of the gradient) and the gather,
+gate and float64 sum over k run as unsplit, so the forward is the
+unsplit one bit for bit. The scatter reads a `copy_to_model` copy of x,
+so the gradient that reaches x through the buffer (each rank's covers
+only its experts' slots) is summed over the model ranks, in float64
+under QAT, and rounded once; the router's path and the aux losses are
+the same on every model rank and are not summed over them. With
+``expert=None, moe_ff=model`` (tensor-parallel experts) a rank runs every
+expert at its chunk of the hidden width: w_gate and w_up column-parallel
+on one copy of the buffer, w_down row-parallel, their float64 partial
+sums all-reduced and rounded once (`tp_matmul`). The buffer's amax is the
+whole buffer's on every rank, the hidden activation's a MAX over the
+model ranks. Shared experts split their hidden width (``mlp``) as the
+dense FFN. Under QAT the model's one K3 launch fake-quantizes only this
+rank's experts (or hidden-width chunks), from its slices.
 """
 
 from __future__ import annotations
@@ -41,7 +63,13 @@ import torch.nn.functional as F
 
 from repro_torch.core import qat, routing_stats
 from repro_torch.core.export import ServeArtifact, serve_dense
-from repro_torch.distributed.sharding import batch_reduce
+from repro_torch.distributed.sharding import (
+    batch_reduce,
+    copy_to_model,
+    gather_from_model,
+    read_as,
+    tp_matmul,
+)
 from repro_torch.kernels.lut_matmul.ref import exact_matmul
 from repro_torch.models.config import MoEDims
 from repro_torch.nn.layers import (
@@ -59,8 +87,9 @@ __all__ = ["MoEDims", "apply_moe", "capacity", "make_moe_spec",
 # Optional dispatch-buffer hook (set by a meshed train step with
 # ``moe_local_dispatch``): hook(tensor, kind), kind in {"scatter",
 # "expert"}. In the JAX package it pins the (B, E, C, d) buffer's layout
-# for the SPMD partitioner; each rank here computes its rows with every
-# expert, so the hook returns its tensor unchanged.
+# for the SPMD partitioner (the scatter local, then E over "model"); here
+# every rank scatters its rows locally and slices its experts in any
+# case, so the hook returns its tensor unchanged.
 _DISPATCH_CONSTRAINT: contextvars.ContextVar[Optional[Callable]] = \
     contextvars.ContextVar("moe_dispatch_constraint", default=None)
 
@@ -145,17 +174,47 @@ def _sum_f64(x: torch.Tensor, dim) -> torch.Tensor:
     return x.sum(dim=dim, dtype=torch.float64).to(x.dtype)
 
 
+def _by_expert(mm, xin: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``mm(xin, w)`` of the (B, E, C, in) buffer and the (E, in, out)
+    experts, run as one product an expert, (E, B x C, in) @ (E, in, out):
+    a product broadcast over B would copy every expert's weight once a
+    row (and its gradient once a row in the backward)."""
+    b, e, c, k = xin.shape
+    y = mm(xin.transpose(0, 1).reshape(e, b * c, k), w)
+    return y.reshape(e, b, c, y.shape[-1]).transpose(0, 1)
+
+
 def apply_moe(params, x: torch.Tensor, dims: MoEDims, *,
               qcfg: QuantConfig = QuantConfig.off(), comp=None,
-              name: str = "moe", w_eff=None) -> Tuple[torch.Tensor, dict]:
+              name: str = "moe", w_eff=None,
+              tp=None) -> Tuple[torch.Tensor, dict]:
     """x (B, S, d) -> (output (B, S, d), aux {"lb_loss", "z_loss",
     "dropped_frac"}, 0-d float32). ``w_eff``: {"moe/w_gate": the (E, d, f)
-    fake-quantized experts, ...} where the model computed them."""
+    fake-quantized experts, ...} where the model computed them. ``tp``:
+    {"experts": split, "expert_ff": split, "shared": split}, the splits of
+    a meshed step (`repro_torch.distributed.sharding.LayerGather
+    .block_splits`; the parameters are then this rank's chunks): module
+    docstring."""
     b, s, d = x.shape
     e, k = dims.n_experts, dims.top_k
     c = capacity(dims, s)
     exact = qcfg.batch_invariant
     dev = x.device
+    tp = tp or {}
+    ep, ff, sh = (tp.get(n) for n in ("experts", "expert_ff", "shared"))
+    if ep is not None and ff is not None:
+        raise NotImplementedError(
+            f"experts split over {ep.axes} and their hidden width over "
+            f"{ff.axes} at once")
+    grad64 = qcfg.enabled or exact      # the ranks' gradient sums' dtype
+    copies: dict = {}
+
+    def copy_of(split):
+        """``x`` as the model ranks of ``split`` share it: one copy a
+        group, whose backward sums their gradients (`copy_to_model`)."""
+        if split.axes not in copies:
+            copies[split.axes] = copy_to_model(x, split, grad64)
+        return copies[split.axes]
 
     x32 = x.float()
     router = params["router"].float()
@@ -179,47 +238,67 @@ def apply_moe(params, x: torch.Tensor, dims: MoEDims, *,
         # expert matmuls, so they carry no expert energy
         collector("moe", name, (onehot * keep[..., None]).sum(dim=(0, 1)))
 
-    # ---- scatter tokens into (B, E, C, d); dropped rows to spare slot C
-    xk = torch.repeat_interleave(x, k, dim=1)                # (B, S*k, d)
+    # ---- scatter tokens into (B, E, C, d); dropped rows to spare slot C.
+    # Split experts: each rank sees only its experts' slots, so the
+    # gradient that reaches x through the buffer is summed over the model
+    # ranks (the scatter reads x's shared copy)
+    src = x if ep is None else copy_of(ep)
+    xk = torch.repeat_interleave(src, k, dim=1)              # (B, S*k, d)
     bidx = torch.arange(b, device=dev)[:, None].expand(b, s * k)
     hook = dispatch_constraint()
-    buf = x.new_zeros((b, e, c + 1, d)).index_put(
-        (bidx, expert, torch.where(keep, slot, c)), xk)[:, :, :c]
+    buf = src.new_zeros((b, e, c + 1, d)).index_put(
+        (bidx, expert, torch.where(keep, slot, c)), xk)[:, :, :c].to(x.dtype)
     if hook is not None:
         buf = hook(hook(buf, "scatter"), "expert")
 
-    tokens_dims = 3 if exact else 0
-
-    def act_q(a):
-        if qcfg.enabled and qcfg.act_quant:
-            return qat.fake_quant_act(a, token_dims=tokens_dims)
-        return a
+    def act_q(a, split=None):
+        """``a`` (B, E, C, ...) fake-quantized, one scale a slot under
+        ``batch_invariant``; ``split``: ``a`` is this rank's chunk."""
+        return lm_fake_quant_act(a, qcfg, split, token_dims=3)
 
     def expert_mm(key, xin):
-        """(B, E, C, in) @ expert weights -> (B, E, C, out); one LUT GEMM
-        an expert on the serve path."""
+        """(B, E, C, in) @ expert weights -> (B, E, C, out) (this rank's
+        experts, or its chunk of their hidden width); one LUT GEMM an
+        expert on the serve path."""
         unit = f"{name}/{key}"
         cmp = None if comp is None else comp.get(unit)
         art = None if cmp is None else cmp.get("serve")
         if qcfg.enabled and qcfg.comp_mode == "serve" and art is not None:
+            if tp:
+                raise NotImplementedError(
+                    "served experts split over the model ranks (the meshed "
+                    "steps run without artifacts)")
             outs = [serve_dense(xin[:, ei], _expert_slice(art, ei))
                     for ei in range(e)]
             return torch.stack(outs, dim=1).to(x.dtype)
         w = params[key]
-        if not qcfg.enabled:
-            if exact:
-                return exact_matmul(xin, w.to(x.dtype)).to(x.dtype)
-            return torch.matmul(xin, w.to(x.dtype))
-        we = None if w_eff is None else w_eff.get(unit)
-        if we is None:
-            we = fake_quant_experts(
-                w, None if cmp is None
-                else {ck: cv for ck, cv in cmp.items() if ck != "serve"})
-        return exact_matmul(xin, we.to(x.dtype)).to(x.dtype)
+        if qcfg.enabled:
+            w = None if w_eff is None else w_eff.get(unit)
+            if w is None:
+                w = fake_quant_experts(
+                    params[key], None if cmp is None
+                    else {ck: cv for ck, cv in cmp.items() if ck != "serve"})
+        w = w.to(x.dtype)
+        if ff is not None:
+            return _by_expert(lambda a, b: tp_matmul(
+                a, b, ff, "row" if key == "w_down" else "column",
+                qcfg.enabled or exact), xin, w).to(x.dtype)
+        if qcfg.enabled or exact:
+            return _by_expert(exact_matmul, xin, w).to(x.dtype)
+        return _by_expert(torch.matmul, xin, w)
 
+    # the whole buffer's amax (every model rank holds it), then this rank's
+    # experts, or its copy for the column products over the hidden width
     h_in = act_q(buf)
+    if ep is not None:
+        e_loc, e0 = ep.chunk(e)
+        h_in = h_in[:, e0:e0 + e_loc]
+    elif ff is not None:
+        h_in = read_as(h_in, copy_to_model(buf, ff, grad64))
     h = _act(expert_mm("w_gate", h_in), expert_mm("w_up", h_in), dims.ffn)
-    out_buf = expert_mm("w_down", act_q(h))                  # (B, E, C, d)
+    out_buf = expert_mm("w_down", act_q(h, ep or ff))
+    if ep is not None:              # every expert's outputs on every rank
+        out_buf = gather_from_model(out_buf, ep, 1)          # (B, E, C, d)
 
     # ---- gather back, weight by gate, sum over the k choices
     slot_safe = torch.where(keep, slot, c - 1)
@@ -229,17 +308,22 @@ def apply_moe(params, x: torch.Tensor, dims: MoEDims, *,
     # ---- shared experts
     if dims.n_shared:
         xin = lm_fake_quant_act(x, qcfg)
+        if sh is not None:
+            xin = read_as(xin, copy_of(sh))
 
         def shared_mm(key, h_in):
             unit = f"{name}/{key}"
             return quantized_mm(params, key, h_in, qcfg=qcfg, comp=comp,
                                 name=name, dtype=x.dtype,
                                 w_eff=None if w_eff is None
-                                else w_eff.get(unit))
+                                else w_eff.get(unit),
+                                tp=None if sh is None else (
+                                    sh, "row" if key == "shared_down"
+                                    else "column"))
 
-        sh = _act(shared_mm("shared_gate", xin), shared_mm("shared_up", xin),
-                  dims.ffn)
-        y = y + shared_mm("shared_down", sh)
+        h_sh = _act(shared_mm("shared_gate", xin),
+                    shared_mm("shared_up", xin), dims.ffn)
+        y = y + shared_mm("shared_down", h_sh)
 
     # ---- aux losses (Switch/GShard load balance + z-loss), float64 sums;
     # in a meshed step whose batch is split, the token sums and counts are

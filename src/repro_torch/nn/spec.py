@@ -16,13 +16,18 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
 import zlib
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch._device import tree_map
+
+# the most leaves `init_params` draws at once
+INIT_THREADS = 16
 
 Initializer = Callable[[torch.Generator, Tuple[int, ...], torch.dtype],
                        torch.Tensor]
@@ -88,17 +93,32 @@ def fan_in_init(in_axis: int = -2, scale: float = 1.0):
 def init_params(seed: int, spec_tree, device) -> Any:
     """Concretely initialize every parameter; leaf ``name`` draws from a
     generator seeded by (seed, crc32(name)), so adding a layer leaves the
-    others' values unchanged."""
+    others' values unchanged. The leaves are independent, so they are drawn
+    at the same time, one thread a leaf (torch's draws release the GIL);
+    each leaf's values are those of a draw alone, bit for bit."""
+    leaves = []
 
-    def init(node, name):
+    def walk(node, name):
         if isinstance(node, dict):
-            return {k: init(v, f"{name}{k}/") for k, v in node.items()}
+            return {k: walk(v, f"{name}{k}/") for k, v in node.items()}
+        leaves.append((name, node))
+        return len(leaves) - 1
+
+    def draw(item):
+        name, node = item
         gen = torch.Generator().manual_seed(
             (int(seed) * 1_000_003 + zlib.crc32(name.encode())) % (1 << 63))
         fn = node.init or normal_init(0.02)
         return fn(gen, node.shape, node.dtype).to(device)
 
-    return init(spec_tree, "")
+    tree = walk(spec_tree, "")
+    workers = min(len(leaves), os.cpu_count() or 1, INIT_THREADS)
+    if workers > 1:
+        with ThreadPoolExecutor(workers) as pool:
+            values = list(pool.map(draw, leaves))
+    else:
+        values = [draw(item) for item in leaves]
+    return tree_map(lambda i: values[i], tree)
 
 
 def abstract_params(spec_tree, dtype=None) -> Any:

@@ -186,15 +186,17 @@ def _check_block(params, block_type: str) -> None:
 
 def _ffn_half(params, x, cfg, qcfg, comp, w_eff, tp=None):
     """``(x + ffn(ln2(x)), MoE aux or None)``: the second half of every
-    block but ``ssm``, the dense FFN (``tp``: tensor-parallel) or the MoE
-    (computed whole)."""
+    block but ``ssm``, the dense FFN or the MoE (``tp``: the block's
+    splits, `apply_block`'s)."""
+    tp = tp or {}
     h = apply_norm(params["ln2"], x, cfg, qcfg.batch_invariant)
     if "moe" in params:
         y, aux = MOE.apply_moe(params["moe"], h, cfg.moe_dims(), qcfg=qcfg,
-                               comp=comp, name="moe", w_eff=w_eff)
+                               comp=comp, name="moe", w_eff=w_eff,
+                               tp=tp.get("moe"))
         return x + y, aux
     return x + apply_ffn(params["mlp"], h, cfg, qcfg=qcfg, comp=comp,
-                         name="mlp", w_eff=w_eff, tp=tp), None
+                         name="mlp", w_eff=w_eff, tp=tp.get("mlp")), None
 
 
 def _cross_kv(attn_params, enc_out, qcfg, comp, w_eff):
@@ -250,10 +252,11 @@ def apply_block(params, x: torch.Tensor, cfg: ArchConfig, block_type: str, *,
     ``enc_out``: the encoder output a cross-attention block attends over.
     ``encoder``: the encoder's self-attention (non-causal, no RoPE).
     ``use_flash``: the attention's flash backward (`repro_torch.nn.flash`).
-    ``tp``: {"attn": split, "mlp": split}, the sub-modules that compute
-    this rank's share of their heads / hidden width (a meshed step's
-    tensor-parallel units, `repro_torch.distributed.sharding.LayerGather`);
-    cross-attention, the MoE and the recurrent mixers compute whole."""
+    ``tp``: {"attn": split, "mlp": split, "moe": {"experts": split, ...}},
+    the sub-modules that compute this rank's share of their heads, hidden
+    width or experts (a meshed step's tensor-parallel units,
+    `repro_torch.distributed.sharding.LayerGather.block_splits`);
+    cross-attention and the recurrent mixers compute whole."""
     _check_block(params, block_type)
     tp = tp or {}
     aux = {"lb_loss": torch.zeros((), device=x.device),
@@ -283,8 +286,7 @@ def apply_block(params, x: torch.Tensor, cfg: ArchConfig, block_type: str, *,
     if return_state and kv is not None:
         state = {**state, "xk": kv[0], "xv": kv[1]}
     if block_type != "ssm":
-        x, moe_aux = _ffn_half(params, x, cfg, qcfg, comp, w_eff,
-                               tp.get("mlp"))
+        x, moe_aux = _ffn_half(params, x, cfg, qcfg, comp, w_eff, tp)
         if moe_aux is not None:
             aux = {"lb_loss": moe_aux["lb_loss"],
                    "z_loss": moe_aux["z_loss"]}
@@ -360,7 +362,7 @@ def apply_block_decode(params, x: torch.Tensor, cache: dict, pos,
             cross_kv=(cache["xk"], cache["xv"]))
         x = x + xa
     if block_type != "ssm":
-        x, _ = _ffn_half(params, x, cfg, qcfg, comp, w_eff, tp.get("mlp"))
+        x, _ = _ffn_half(params, x, cfg, qcfg, comp, w_eff, tp)
     return x, new_cache
 
 

@@ -7,6 +7,12 @@ import torch
 
 # the storage-only layout: no unit splits its compute over "model"
 STORAGE_ONLY = dict(heads=None, mlp=None, vocab=None, kv_heads=None)
+# tensor-parallel experts: every expert on every model rank, at its chunk
+# of the hidden width (the default rules split the experts themselves)
+TP_EXPERTS = dict(expert=None, moe_ff="model")
+MOE_ARCH = "phi3.5-moe-42b-a6.6b"
+# the MoE layouts whose prefill and serve steps the ranks run
+MOE_LAYOUTS = {"experts": {}, "tp_experts": TP_EXPERTS}
 
 
 class ActCodes:
@@ -118,6 +124,59 @@ def gather_backward_checks(mesh):
     return out
 
 
+def moe_serving(mesh, cfg, item, rank):
+    """phi3.5-moe's meshed prefill and two serve steps on each MoE layout
+    (the cache held with K/V heads over "model"): the logits put together
+    (rank 0), the prefill's FLOPs and collectives, the first serve step's
+    collectives."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import Shape, get_config
+    from repro_torch.distributed import sharding as S
+    from repro_torch.launch import train as T
+    from repro_torch.models.lm import build_lm
+    from repro_torch.nn.spec import params_from_numpy
+
+    model = build_lm(get_config(MOE_ARCH).scaled_down(
+        compute_dtype="float32"))
+    vocab = model.cfg.padded_vocab
+    params = params_from_numpy(item["params"], "cpu")
+    prompt = torch.as_tensor(item["toks"][:, :16])
+    with torch.no_grad():
+        _, cache = model.prefill(params, prompt, 24,
+                                 cache_dtype=torch.float32)
+    out = {}
+    for name, layout in MOE_LAYOUTS.items():
+        rules = S.DEFAULT_RULES.replace(**layout) if layout \
+            else S.DEFAULT_RULES
+        local_params = S.shard_tree(params, S.make_param_shardings(
+            model.spec, mesh, rules))
+        S.reset_collective_counts()
+        with FlopCounterMode(display=False) as flops:
+            block = T.make_prefill_step(model, cfg, mesh=mesh, rules=rules)(
+                local_params, {"tokens": prompt})
+        run = {"prefill": {"flops": flops.get_total_flops(),
+                           "collectives": S.collective_counts()},
+               "logits": [S.gather(block, S.logits_sharding(
+                   mesh, (4, 16, vocab), rules)).numpy()]}
+        c_sh = T.cache_shardings(model, Shape("d", "decode", 24, 4), mesh,
+                                 rules, dtype=torch.float32)
+        step = T.make_serve_step(model, cfg, mesh=mesh, rules=rules,
+                                 cache_shardings=c_sh)
+        local = S.shard_tree(cache, c_sh)
+        for t in range(2):
+            S.reset_collective_counts()
+            lg, local = step(local_params, local, torch.as_tensor(
+                item["toks"][:, 16 + t:17 + t]))
+            run.setdefault("decode_collectives", S.collective_counts())
+            run["logits"].append(S.gather(lg, S.logits_sharding(
+                mesh, (4, 1, vocab), rules)).numpy())
+        if rank:
+            run.pop("logits")
+        out[name] = run
+    return out
+
+
 def rank_checks(rank, world, inputs, ckpt_dir):
     """Every check of the 2 x 2 mesh in one process group."""
     import torch.distributed as dist
@@ -152,14 +211,16 @@ def rank_checks(rank, world, inputs, ckpt_dir):
 
     cfg = T.StepConfig(**inputs["step_cfg"])
     trained = None
-    for arch, item in inputs["archs"].items():
+    for name, (arch, layout) in inputs["runs"].items():
+        item = inputs["archs"][arch]
         model = build_lm(get_config(arch).scaled_down(
             compute_dtype="float32"))
         losses, first, last, codes, peaks, counted = _train(
             model, cfg, mesh, item["params"], item["comp"], item["toks"],
-            steps=2, dispatch=item["dispatch"])
-        trained = last if arch == "olmo-1b" else trained
-        out[arch] = {"losses": losses, "first": first if rank == 0 else None,
+            steps=2, dispatch=item["dispatch"],
+            rules=S.DEFAULT_RULES.replace(**layout) if layout else None)
+        trained = last if name == "olmo-1b" else trained
+        out[name] = {"losses": losses, "first": first if rank == 0 else None,
                      "last": last if rank == 0 else None,
                      "codes": codes, "gathered_peaks": peaks,
                      "counted": counted}
@@ -228,6 +289,8 @@ def rank_checks(rank, world, inputs, ckpt_dir):
     out["prefill_logits"] = logits.numpy() if rank == 0 else None
     out["served"] = served if rank == 0 else {
         k: {"local_k": v["local_k"]} for k, v in served.items()}
+    out["moe_serving"] = moe_serving(mesh, cfg, inputs["archs"][MOE_ARCH],
+                                     rank)
 
     # a checkpoint saved under 2 x 2, restored onto 4 x 1 and 1 x 4
     from repro_torch.checkpoint.manager import _unflatten

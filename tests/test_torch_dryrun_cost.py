@@ -11,7 +11,10 @@ The port's dry-run ``flops`` hold to it within 2%, on the tensor-parallel
 layout and on the storage-only one, with one product left out by name: the
 recompute of each checkpointed layer's last product (the FFN's w_down),
 whose output no gradient reads, so XLA drops it while the port's
-recompute runs it (``flops["remat_tail"]``).
+recompute runs it (``flops["remat_tail"]``). A reduced phi3.5-moe cell in
+the same subprocess, compiled with ``moe_local_dispatch=True`` (the
+dispatch buffer's experts over "model"), holds the port's expert-parallel
+count to JAX's the same way.
 """
 
 import json
@@ -30,6 +33,7 @@ from repro_torch.models.lm import build_lm
 ROWS, SEQ, BLOCK = 8, 64, 16
 STORAGE_ONLY = dict(heads=None, mlp=None, vocab=None, kv_heads=None)
 MESH = S.AbstractMesh((4, 2), ("data", "model"))
+MOE_ARCH = "phi3.5-moe-42b-a6.6b"
 FLOPS_RTOL = 0.02
 
 _JAX_SCRIPT = r"""
@@ -43,15 +47,19 @@ from repro.launch import train as TR
 from repro.launch.hlo_cost import loop_corrected_cost
 from repro.models.lm import build_lm
 
-rows, seq, block, storage = json.loads(sys.argv[1])
-cfg = get_config("olmo-1b").scaled_down(compute_dtype="float32")
-model = build_lm(cfg)
+rows, seq, block, storage, moe_arch = json.loads(sys.argv[1])
 mesh = Mesh(np.asarray(jax.devices()[:8]).reshape(4, 2), ("data", "model"))
 out = []
-for rules in (DEFAULT_RULES, DEFAULT_RULES.replace(**storage)):
+for arch, rules, local in (
+        ("olmo-1b", DEFAULT_RULES, False),
+        ("olmo-1b", DEFAULT_RULES.replace(**storage), False),
+        (moe_arch, DEFAULT_RULES, True)):
+    cfg = get_config(arch).scaled_down(compute_dtype="float32")
+    model = build_lm(cfg)
     step_cfg = TR.StepConfig(q_block=block, kv_block=block)
     specs = TR.batch_specs(cfg, Shape("cell", "train", seq, rows))
-    step = TR.make_train_step(model, step_cfg, mesh, rules)
+    step = TR.make_train_step(model, step_cfg, mesh, rules,
+                              moe_local_dispatch=local)
     jitted = jax.jit(step, in_shardings=(
         TR.train_state_shardings(model, mesh, rules),
         TR.batch_shardings(specs, mesh, rules),
@@ -64,14 +72,13 @@ print(json.dumps(out))
 """
 
 
-def model():
-    return build_lm(get_config("olmo-1b").scaled_down(
-        compute_dtype="float32"))
+def model(arch="olmo-1b"):
+    return build_lm(get_config(arch).scaled_down(compute_dtype="float32"))
 
 
-def costs(rules=S.DEFAULT_RULES, **step):
+def costs(rules=S.DEFAULT_RULES, arch="olmo-1b", **step):
     cfg = T.StepConfig(**dict(dict(q_block=BLOCK, kv_block=BLOCK), **step))
-    return D.step_costs(model(), MESH, rules, "train", ROWS, SEQ, cfg)
+    return D.step_costs(model(arch), MESH, rules, "train", ROWS, SEQ, cfg)
 
 
 @pytest.fixture(scope="module")
@@ -80,18 +87,28 @@ def jax_flops():
            "XLA_FLAGS": "--xla_force_host_platform_device_count=8"}
     res = subprocess.run(
         [sys.executable, "-c", _JAX_SCRIPT,
-         json.dumps([ROWS, SEQ, BLOCK, STORAGE_ONLY])],
+         json.dumps([ROWS, SEQ, BLOCK, STORAGE_ONLY, MOE_ARCH])],
         capture_output=True, text=True, env=env, timeout=120, check=True)
     return json.loads(res.stdout.strip().splitlines()[-1])
 
 
-@pytest.mark.parametrize("layout", ["tensor_parallel", "storage_only"])
+@pytest.mark.parametrize("layout", ["tensor_parallel", "storage_only",
+                                    "expert_parallel"])
 def test_dryrun_flops_match_jax_loop_corrected(jax_flops, layout):
     rules = S.DEFAULT_RULES.replace(**STORAGE_ONLY) \
         if layout == "storage_only" else S.DEFAULT_RULES
-    want = jax_flops[layout == "storage_only"]
-    flops = costs(rules)["flops"]
-    assert flops["remat_tail"] > 0
+    want = jax_flops[["tensor_parallel", "storage_only",
+                      "expert_parallel"].index(layout)]
+    if layout == "expert_parallel":
+        # phi3.5-moe: a device runs 2 of the 8 rows on 2 of the 4 experts
+        flops = costs(rules, MOE_ARCH)["flops"]
+        alone = D.step_costs(model(MOE_ARCH), S.AbstractMesh(
+            (1, 1), ("data", "model")), rules, "train", ROWS, SEQ,
+            T.StepConfig(q_block=BLOCK, kv_block=BLOCK))["flops"]
+        assert flops["by_unit"]["moe"] * 8 == alone["by_unit"]["moe"]
+    else:
+        flops = costs(rules)["flops"]
+        assert flops["remat_tail"] > 0
     got = flops["total"] - flops["remat_tail"]
     assert abs(got - want) <= FLOPS_RTOL * want, (got, want)
 
@@ -159,10 +176,10 @@ def test_cli_flags_reach_the_manifest(tmp_path):
         "embed": ("data", "model"), "heads": None}
 
 
-@pytest.mark.parametrize("flag", ["--moe-local", "--remat-save-qat"])
+@pytest.mark.parametrize("flag", ["--remat-save-qat"])
 def test_cli_refuses_knobs_that_change_no_count(tmp_path, capsys, flag):
-    """Expert-parallel dispatch and the activations' bytes are not counted
-    yet: the flags are refused, not recorded as if they were."""
+    """The activations' bytes are not counted yet: the flag is refused,
+    not recorded as if it were."""
     with pytest.raises(SystemExit) as e:
         D.main(["--arch", "phi3.5-moe-42b-a6.6b", "--shape", "train_4k",
                 flag, "--out-dir", str(tmp_path)])
@@ -177,3 +194,29 @@ def test_qwen_train_gathers_a_sixth_of_the_storage_only_layout():
                        rules_override=STORAGE_ONLY)
     assert tp["gathered_peak_bytes"] * 6 <= whole["gathered_peak_bytes"]
     assert tp["flops"]["total"] < whole["flops"]["total"]
+
+
+def test_cli_moe_local_writes_its_manifest(tmp_path):
+    """``python -m repro_torch.launch.dryrun --moe-local`` records the
+    local dispatch; the counts are the step's without it (the port's
+    dispatch is local either way), and the experts split: a device of
+    phi3.5-moe's train_4k on 32 x 8 gathers an eighth of their bytes."""
+    env = {**os.environ, "OMP_NUM_THREADS": "1",
+           "PYTHONPATH": os.pathsep.join(filter(None, [
+               os.path.join(os.path.dirname(__file__), "..", "src"),
+               os.environ.get("PYTHONPATH")]))}
+    subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         MOE_ARCH, "--shape", "train_4k", "--moe-local", "--tag", "local",
+         "--out-dir", str(tmp_path)],
+        capture_output=True, text=True, env=env, timeout=120, check=True)
+    cell = json.loads((tmp_path / f"{MOE_ARCH}__train_4k__32x8__local.json")
+                      .read_text())
+    assert cell["status"] == "ok" and cell["moe_local_dispatch"] is True
+    plain = D.run_cell(MOE_ARCH, "train_4k", False)
+    assert plain["moe_local_dispatch"] is False
+    for key in ("flops", "collectives", "gathered_peak_bytes"):
+        assert cell[key] == plain[key], key
+    whole = D.run_cell(MOE_ARCH, "train_4k", False,
+                       rules_override={"expert": None})
+    assert cell["gathered_peak_bytes"] * 6 < whole["gathered_peak_bytes"]

@@ -4,34 +4,42 @@ the port's unmeshed steps and the JAX package's unmeshed `make_train_step`
 on the same numpy params, comp and batch:
 
   * two QAT train steps of reduced olmo-1b (remat on: the backward's
-    recomputation takes the global activation amax too) and of reduced
-    phi3.5-moe with ``moe_local_dispatch=True``, both with attention, the
-    FFN and the vocabulary tensor-parallel over "model" (phi3.5-moe's
-    experts computed whole: both paths in one step): loss rel 1e-5,
-    gradient (the first Adam moment after step 1, 0.1 x the clipped
-    gradient) rel-L2 1e-4, params after step 2 abs 2e-4 (the LM
-    train-parity bounds of `tests/test_torch_lm_train.py`); the int8
-    activation codes of every fake-quant call equal, the data ranks' rows
-    and the model ranks' features put together;
+    recomputation takes the global activation amax too), of reduced
+    phi3.5-moe with ``moe_local_dispatch=True``, on the default layout
+    (each model rank runs its 2 of the 4 experts) and with tensor-parallel
+    experts (``expert=None, moe_ff=model``: every expert at half its hidden
+    width), and of reduced moonshot-v1-16b-a3b (its shared expert's hidden
+    width split too), all with attention, the FFN and the vocabulary
+    tensor-parallel over "model": loss rel 1e-5, gradient (the first Adam
+    moment after step 1, 0.1 x the clipped gradient) rel-L2 1e-4, params
+    after step 2 abs 2e-4 (the LM train-parity bounds of
+    `tests/test_torch_lm_train.py`); the int8 activation codes of every
+    fake-quant call equal, the data ranks' rows and the model ranks'
+    features (heads, hidden width, experts) put together;
   * the same step on two other layouts: storage only (``--rules
     heads=None,mlp=None,vocab=None,kv_heads=None``) and K/V heads
     replicated while the query heads split; a batch of 3 rows, which does
     not divide the data axis, replicates: the same bounds;
   * a rank's matmul FLOPs (`FlopCounterMode`) are 1/4 of the unmeshed
-    step's where every unit splits over "model", 1/2 on the storage-only
-    layout, and equal the dry run's ``flops`` (`launch.dryrun.step_costs`)
-    of the same reduced cell; the bytes and count of each kind of
-    collective a rank ran equal the dry run's ``collectives``;
+    step's where every unit splits over "model" (phi3.5-moe's experts on
+    both MoE layouts; its router, on every model rank, 1/2), 1/2 on the
+    storage-only layout, and equal the dry run's ``flops``
+    (`launch.dryrun.step_costs`) of the same reduced cell; the bytes and
+    count of each kind of collective a rank ran equal the dry run's
+    ``collectives``;
   * the meshed prefill logits (each rank's rows x vocabulary chunk,
     `logits_sharding`) and two serve steps (the cache held with kv_heads
     over "model", and on its batch rows alone): logits and cache against
-    the unmeshed forward and decode, abs 1e-5;
+    the unmeshed forward and decode, abs 1e-5; phi3.5-moe's on both MoE
+    layouts, with the prefill's FLOPs and collectives and a serve step's
+    collectives equal to the dry run's;
   * FSDP a layer: each rank's peak of gathered bytes (parameters gathered
     at use, a tensor-parallel unit's model chunk, and the full gradients
     being reduced) stays within the embedding plus one block's
     parameters, fake-quantized copy and gradient, the dry run's
     ``gathered_peak_bytes`` of the cell, and below the model's parameter
-    bytes; `gather_at_use` gathers the full tensor and its backward gives
+    bytes (the MoE's below what its cell gathered with the experts whole);
+    `gather_at_use` gathers the full tensor and its backward gives
     the slice of the data rows' summed gradient, for five layouts;
   * DTensor's ``distribute_tensor`` slices equal `NamedSharding.local`
     (whose order `tests/test_torch_sharding_rules.py` holds to JAX's);
@@ -48,7 +56,15 @@ import numpy as np
 import pytest
 import torch
 
-from _mesh2d_ranks import STORAGE_ONLY, ActCodes, host, rank_checks
+from _mesh2d_ranks import (
+    MOE_ARCH,
+    MOE_LAYOUTS,
+    STORAGE_ONLY,
+    TP_EXPERTS,
+    ActCodes,
+    host,
+    rank_checks,
+)
 from repro.configs import get_config as jget
 from repro.core import lm_compress as jlc
 from repro.launch import train as jtrain
@@ -64,7 +80,12 @@ from repro_torch.models.lm import build_lm as tbuild
 from repro_torch.nn.spec import abstract_params, params_from_numpy
 from repro_torch.nn.transformer import block_matmuls
 
-ARCHS = {"olmo-1b": False, "phi3.5-moe-42b-a6.6b": True}
+ARCHS = {"olmo-1b": False, MOE_ARCH: True, "moonshot-v1-16b-a3b": True}
+# the meshed train runs held to the unmeshed steps: name -> (arch, rules
+# overrides)
+RUNS = {"olmo-1b": ("olmo-1b", {}), MOE_ARCH: (MOE_ARCH, {}),
+        "phi3.5-moe-tp-experts": (MOE_ARCH, TP_EXPERTS),
+        "moonshot-v1-16b-a3b": ("moonshot-v1-16b-a3b", {})}
 STEP = dict(qat=True, with_comp=True, remat=True, q_block=16, kv_block=16,
             lr=1e-3)
 B, S = 4, 32
@@ -126,7 +147,7 @@ def jax_steps(arch, item, toks, steps):
 def runs(tmp_path_factory):
     n = torch.get_num_threads()
     torch.set_num_threads(1)
-    inputs = {"step_cfg": STEP, "archs": {}}
+    inputs = {"step_cfg": STEP, "archs": {}, "runs": RUNS}
     for i, (arch, dispatch) in enumerate(ARCHS.items()):
         jm = jbuild(jget(arch).scaled_down(compute_dtype="float32"))
         jp = jinit(jax.random.PRNGKey(i), jm.spec)
@@ -169,19 +190,19 @@ def check_state(losses, first, last, want_losses, want_first, want_last):
                                        atol=PARAM_ATOL, err_msg=k)
 
 
-@pytest.mark.parametrize("arch", list(ARCHS))
-def test_meshed_train_step_matches_the_unmeshed_port(runs, arch):
-    r0 = runs["ranks"][0][arch]
-    losses, first, last = runs["port"][arch][:3]
+@pytest.mark.parametrize("run", list(RUNS))
+def test_meshed_train_step_matches_the_unmeshed_port(runs, run):
+    r0 = runs["ranks"][0][run]
+    losses, first, last = runs["port"][RUNS[run][0]][:3]
     for r in runs["ranks"]:       # every rank reports the global metrics
-        assert r[arch]["losses"] == r0["losses"]
+        assert r[run]["losses"] == r0["losses"]
     check_state(r0["losses"], r0["first"], r0["last"], losses, first, last)
 
 
-@pytest.mark.parametrize("arch", list(ARCHS))
-def test_meshed_train_step_matches_jax(runs, arch):
-    r0 = runs["ranks"][0][arch]
-    losses, first, last = runs["jax"][arch]
+@pytest.mark.parametrize("run", list(RUNS))
+def test_meshed_train_step_matches_jax(runs, run):
+    r0 = runs["ranks"][0][run]
+    losses, first, last = runs["jax"][RUNS[run][0]]
     check_state(r0["losses"], r0["first"], r0["last"], losses, first, last)
 
 
@@ -189,8 +210,9 @@ def put_together(parts, want):
     """One fake-quant call's codes from the ranks ({(data, model): codes})
     as the unmeshed call's: the data ranks' rows concatenated; a call on
     features split over "model" (the attention output before wo, the FFN
-    hidden) has its model ranks' chunks concatenated along that axis, one
-    computed whole is the same on both."""
+    hidden, the experts' hidden: its experts or its hidden width) has its
+    model ranks' chunks concatenated along that axis, one computed whole is
+    the same on both."""
     rows = []
     for d in (0, 1):
         a, b = parts[(d, 0)], parts[(d, 1)]
@@ -204,10 +226,10 @@ def put_together(parts, want):
     return np.concatenate(rows)
 
 
-@pytest.mark.parametrize("arch", list(ARCHS))
-def test_activation_codes_equal(runs, arch):
-    want = runs["port"][arch][3]
-    by_pos = {(r["coords"]["data"], r["coords"]["model"]): r[arch]["codes"]
+@pytest.mark.parametrize("run", list(RUNS))
+def test_activation_codes_equal(runs, run):
+    want = runs["port"][RUNS[run][0]][3]
+    by_pos = {(r["coords"]["data"], r["coords"]["model"]): r[run]["codes"]
               for r in runs["ranks"]}
     assert all(len(c) == len(want) > 0 for c in by_pos.values())
     split = 0
@@ -216,9 +238,9 @@ def test_activation_codes_equal(runs, arch):
         split += parts[(0, 0)].shape[1:] != w.shape[1:]
         got = put_together(parts, w)
         assert got.shape == w.shape and np.array_equal(got, w), i
-    # two a layer a run (the attention output, the FFN hidden; phi3.5-moe's
-    # experts are whole), forward and remat's recompute, two steps
-    assert split == (16 if arch == "olmo-1b" else 8)
+    # two a layer a run (the attention output; the FFN's or the experts'
+    # hidden), forward and remat's recompute, two steps
+    assert split == 16
 
 
 def test_batch_that_does_not_divide_replicates(runs):
@@ -266,33 +288,47 @@ def test_rank_flops_split_over_the_model_axis(runs, layout, fraction):
         assert got == want["total"]
 
 
-def test_phi35_moe_flops_split_attention_not_experts(runs):
-    """phi3.5-moe: attention and the read-out split over "model" (1/4 of
-    the unmeshed products), the experts run whole on a rank's rows (1/2):
-    the counted FLOPs equal the dry run's, unit by unit summed."""
-    model = tbuild(tget("phi3.5-moe-42b-a6.6b").scaled_down(
-        compute_dtype="float32"))
-    meshed = dry(model)["flops"]["by_unit"]
+def moe_model(arch=MOE_ARCH):
+    return tbuild(tget(arch).scaled_down(compute_dtype="float32"))
+
+
+def rules_of(run):
+    layout = RUNS[run][1]
+    return tsh.DEFAULT_RULES.replace(**layout) if layout \
+        else tsh.DEFAULT_RULES
+
+
+@pytest.mark.parametrize("run", [MOE_ARCH, "phi3.5-moe-tp-experts"])
+def test_phi35_moe_experts_split_over_the_model_axis(runs, run):
+    """phi3.5-moe: a rank runs 1/4 of the unmeshed step's expert products
+    (half the rows; half the experts, or every expert at half its hidden
+    width), as of attention and the read-out; the router, on every model
+    rank, 1/2. The counted FLOPs equal the dry run's, unit by unit
+    summed."""
+    model = moe_model()
+    meshed = dry(model, rules_of(run))["flops"]["by_unit"]
     alone = tdry.step_costs(model, tsh.AbstractMesh((1, 1), ("data",
                                                              "model")),
                             None, "train", B, S,
                             ttrain.StepConfig(**STEP))["flops"]
-    assert alone["total"] == runs["port"]["phi3.5-moe-42b-a6.6b"][4]
+    assert alone["total"] == runs["port"][MOE_ARCH][4]
+    assert {"moe", "router"} <= set(alone["by_unit"])
     for unit, n in alone["by_unit"].items():
-        assert meshed[unit] * (2 if unit == "moe" else 4) == n, unit
+        assert meshed[unit] * (2 if unit == "router" else 4) == n, unit
     for r in runs["ranks"]:
-        assert r["phi3.5-moe-42b-a6.6b"]["counted"]["flops"] == sum(
-            meshed.values())
+        assert r[run]["counted"]["flops"] == sum(meshed.values())
 
 
 @pytest.mark.parametrize("layout", ["olmo-1b", "phi3.5-moe-42b-a6.6b",
-                                    "storage_only", "kv_replicated"])
+                                    "storage_only", "kv_replicated",
+                                    "phi3.5-moe-tp-experts",
+                                    "moonshot-v1-16b-a3b"])
 def test_collective_bytes_equal_the_dry_run(runs, layout):
     arch = "olmo-1b" if layout in ("storage_only", "kv_replicated") \
-        else layout
+        else RUNS[layout][0]
     rules = {"storage_only": tsh.DEFAULT_RULES.replace(**STORAGE_ONLY),
              "kv_replicated": tsh.DEFAULT_RULES.replace(kv_heads=None)
-             }.get(layout, tsh.DEFAULT_RULES)
+             }.get(layout) or rules_of(layout)
     model = tbuild(tget(arch).scaled_down(compute_dtype="float32"))
     want = dry(model, rules)["collectives"]
     for r in runs["ranks"]:
@@ -308,6 +344,40 @@ def test_prefill_collectives_equal_the_dry_run(runs):
                param_dtype=torch.float32)["collectives"]
     for r in runs["ranks"]:
         assert r["prefill_collectives"] == want
+
+
+@pytest.mark.parametrize("layout", list(MOE_LAYOUTS))
+def test_meshed_moe_prefill_and_serve(runs, layout):
+    """phi3.5-moe's meshed prefill and two serve steps on both MoE layouts:
+    logits against the unmeshed forward and decode, abs 1e-5; the
+    prefill's FLOPs and collectives and a serve step's collectives equal to
+    the dry run's."""
+    item = runs["inputs"]["archs"][MOE_ARCH]
+    model = moe_model()
+    params = params_from_numpy(item["params"], "cpu")
+    prompt = torch.as_tensor(item["toks"][:, :16])
+    with torch.no_grad():
+        want = [model.forward(params, prompt)[0].numpy()]
+        _, cache = model.prefill(params, prompt, 24,
+                                 cache_dtype=torch.float32)
+        for t in range(2):
+            lg, cache = model.decode_step(
+                params, cache, torch.as_tensor(item["toks"][:, 16 + t:17 + t]))
+            want.append(lg.numpy())
+    for got, w in zip(runs["ranks"][0]["moe_serving"][layout]["logits"],
+                      want):
+        np.testing.assert_allclose(got, w, rtol=0, atol=LOGIT_ATOL)
+    rules = tsh.DEFAULT_RULES.replace(**MOE_LAYOUTS[layout]) \
+        if MOE_LAYOUTS[layout] else tsh.DEFAULT_RULES
+    prefill = dry(model, rules, kind="prefill", seq=16,
+                  param_dtype=torch.float32)
+    decode = dry(model, rules, kind="decode", seq=24,
+                 param_dtype=torch.float32)
+    for r in runs["ranks"]:
+        got = r["moe_serving"][layout]
+        assert got["prefill"]["flops"] == prefill["flops"]["total"]
+        assert got["prefill"]["collectives"] == prefill["collectives"]
+        assert got["decode_collectives"] == decode["collectives"]
 
 
 def test_meshed_prefill_and_serve_logits(runs):
@@ -376,34 +446,45 @@ def nbytes(tree):
 def one_block_bound(model, train=True):
     """The embedding plus one block's parameters and, in training, its
     fake-quantized copy and its gradient (each reduced model here has one
-    stacked group, float32), on the 2 x 2 mesh: the tied table and the
-    attention and FFN leaves (tensor-parallel) count half, the rest whole;
-    and the model's parameter bytes."""
+    stacked group, float32), on the 2 x 2 mesh: the tied table, the
+    attention and FFN leaves and the MoE's experts and shared experts
+    (tensor-parallel: half the experts, or half their hidden width) count
+    half, the rest (norms, the router) whole; and the model's parameter
+    bytes."""
     params = abstract_params(model.spec)
     block = params["blocks"]["g0"]
     depth = model.n_rep
 
-    def at_use(sub, tree):
-        return nbytes(tree) // (2 if sub in ("attn", "mlp", "embed") else 1)
+    def at_use(sub, key, leaf):
+        split = sub in ("attn", "mlp", "embed") \
+            or (sub == "moe" and key != "router")
+        return nbytes(leaf) // (2 if split else 1)
 
-    layer = sum(at_use(sub, v) for sub, v in block.items()) // depth
-    fq = sum(at_use(u.split("/")[0], block[u.split("/")[0]][u.split("/")[1]])
+    layer = sum(at_use(sub, k, leaf) for sub, v in block.items()
+                for k, leaf in v.items()) // depth
+    fq = sum(at_use(*u.split("/"), block[u.split("/")[0]][u.split("/")[1]])
              for u in block_matmuls(block)) // depth
-    embed = max(at_use("embed", params["embed"]),
+    embed = max(at_use("embed", "table", params["embed"]),
                 nbytes(params.get("lm_head", {})) // 2)
     return embed + layer + (fq + layer if train else 0), nbytes(params)
 
 
-@pytest.mark.parametrize("arch", list(ARCHS))
-def test_meshed_train_step_gathers_one_block_at_a_time(runs, arch):
-    model = tbuild(tget(arch).scaled_down(compute_dtype="float32"))
+@pytest.mark.parametrize("run", list(RUNS))
+def test_meshed_train_step_gathers_one_block_at_a_time(runs, run):
+    model = tbuild(tget(RUNS[run][0]).scaled_down(compute_dtype="float32"))
     bound, whole = one_block_bound(model)
-    assert tdry.gathered_peak_bytes(model, "train", MESH) == bound
+    assert tdry.gathered_peak_bytes(model, "train", MESH,
+                                    rules_of(run)) == bound
+    # the same step with the experts gathered whole held more
+    experts_whole = tdry.gathered_peak_bytes(
+        model, "train", MESH, tsh.DEFAULT_RULES.replace(expert=None))
     for r in runs["ranks"]:
-        peaks = r[arch]["gathered_peaks"]
+        peaks = r[run]["gathered_peaks"]
         assert len(peaks) == 2 and min(peaks) > 0, peaks
         assert max(peaks) <= bound, (r["rank"], peaks, bound)
         assert max(peaks) < whole, (r["rank"], peaks, whole)
+        if "moe" in model.spec["blocks"]["g0"]:
+            assert max(peaks) < experts_whole, (r["rank"], peaks)
 
 
 def test_replicated_batch_and_serving_steps_gather_one_block(runs):
