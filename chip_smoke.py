@@ -292,7 +292,24 @@
    run's and 1/4 of the unmeshed step's in the experts, attention and
    read-out (the router whole on each rank), its collectives by kind
    equal to the dry run's, its gathered bytes alive at once within the
-   dry run's bound; ms a step and peak GB a rank printed; its own
+   dry run's bound; ms a step and peak GB a rank printed; (d) in (c)'s
+   four processes after it, on the same 1 x 4 mesh, at full width in
+   float32: mamba2-1.3b (2 of 48 layers; its SSM by heads, 16 of 64 a
+   rank), recurrentgemma-2b (one (rglru, rglru, local) repeat, 3 of 26
+   layers; the RG-LRU's 2,560 channels and the FFN split, the 10 heads
+   whole) and whisper-large-v3 (1 encoder and 1 decoder layer over 1,500
+   stub frames; the encoder's and the decoder's heads, 5 of 20 a rank,
+   cross-attention's too), each two QAT steps of 8 x 64 tokens against
+   the unmeshed steps on rank 0 at lr 1e-5 with (c)'s gates (the dry run
+   of each cell on 1 x 4 and 1 x 1: a rank's FLOPs and collectives equal,
+   the unmeshed step's FLOPs equal the 1 x 1 count), then one meshed
+   prefill of 4 x 64 tokens (whisper: its frames too) and one serve step
+   from the unmeshed prefill's cache, held on ``cache_shardings``, in
+   float32 as run: logits within 1e-5 of the unmeshed forward's and
+   decode step's, or that share of the logits' max abs where it passes 1
+   (`mesh2d_logit_bound`), the same steps with TF32 products reported
+   beside them (``[mesh2d] (d) <arch>`` lines); the ``[mesh2d] dry``
+   lines add the three archs' ``train_4k``; (c) and (d) share one
    ``[time]`` line;
 23. ``[k2-tune]`` (after 3): K2's configuration tuner on the card's
    balance, measuring the model's top 3 and the untuned configuration at
@@ -476,16 +493,26 @@ MESH2D_BLOCK = 128          # the steps' attention blocks (q and kv)
 # storage-only layout held at the same depth, the whole tied embedding
 # (measured on this card: 413,138,944 bytes, PERF.md section 6)
 MESH2D_STORAGE_ONLY_GATHERED = 413_138_944
-# the three cells whose dry run (b) prints, on the 32 x 8 mesh
-MESH2D_DRY_CELLS = ("olmo-1b", "qwen2.5-14b", "phi3.5-moe-42b-a6.6b")
+# the cells whose dry run [mesh2d] prints, on the 32 x 8 mesh
+MESH2D_DRY_CELLS = ("olmo-1b", "qwen2.5-14b", "phi3.5-moe-42b-a6.6b",
+                    "mamba2-1.3b", "recurrentgemma-2b", "whisper-large-v3")
 # (c): phi3.5-moe at full width, 1 of its 32 layers, on a 1 x 4 mesh of
 # four processes on cuda:0: each model rank runs 4 of the 16 experts and
 # gathers no expert (the data axis has one position)
 MESH2D_MOE_ARCH, MESH2D_MOE_LAYERS = "phi3.5-moe-42b-a6.6b", 1
 MESH2D_MOE_SHAPE = (1, 4)
+# (d), in (c)'s ranks after it: the recurrent mixers and whisper's encoder
+# and cross-attention split over "model" on the same 1 x 4 mesh, at full
+# width and these depths (recurrentgemma one (rglru, rglru, local) repeat;
+# whisper one encoder and one decoder layer over its stub frames)
+MESH2D_SPLIT = {"mamba2-1.3b": dict(n_layers=2),
+                "recurrentgemma-2b": dict(n_layers=3),
+                "whisper-large-v3": dict(n_layers=1, n_enc_layers=1)}
+MESH2D_ENC_FRAMES = 1500
+MESH2D_LOGIT_ATOL = 1e-5    # meshed prefill and serve logits vs unmeshed
 # rank 0 runs the unmeshed reference steps while the others wait for it
 MESH2D_MOE_TIMEOUT_S = 300
-MESH2D_MOE_DEADLINE_S = 480     # (c)'s ranks are killed after this
+MESH2D_MOE_DEADLINE_S = 780     # (c)'s and (d)'s ranks are killed after this
 MESH2D_TIMEOUT_S = 120      # init_process_group(timeout=) of every rank
 MESH2D_DEADLINE_S = 300     # (b)'s ranks are killed after this
 MESH2D_NCCL_DEADLINE_S = 90
@@ -4416,7 +4443,7 @@ def lm_recurrent_breakdown(torch, target, plan, comp_serve):
     if "ssm" in model.cfg.pattern:
         targets.update(ssd=(ssm, "ssd_chunked"),
                        conv=(ssm, "_causal_depthwise_conv"),
-                       gated_norm=(ssm, "apply_rmsnorm"))
+                       gated_norm=(ssm, "_gated_norm"))
     else:
         targets.update(scan=(rglru, "linear_scan"),
                        conv=(rglru, "_causal_depthwise_conv"),
@@ -6671,8 +6698,8 @@ def mesh2d_phase(torch, work):
 def mesh2d_moe_inputs(torch):
     """(c)'s cell: phi3.5-moe at full width and MESH2D_MOE_LAYERS layers,
     computing in float32 (as (b), for the ranks' float32 sums): (model,
-    step config, the seeded parameters and k = 8 comp on the host, the
-    batch on the card)."""
+    step config, the seeded parameters on the card (`shared_on_card`) and
+    k = 8 comp on the host, the batch on the card)."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -6688,7 +6715,8 @@ def mesh2d_moe_inputs(torch):
     step_cfg = StepConfig(qat=True, with_comp=True, remat=True,
                           q_block=MESH2D_BLOCK, kv_block=MESH2D_BLOCK,
                           lr=MESH2D_LR)
-    params = init_params(0, model.spec, "cpu")
+    params = shared_on_card(torch, model.spec,
+                            lambda: init_params(0, model.spec, "cpu"))
     comp = lm_compress.restrict_all_codebooks(
         model, lm_compress.init_lm_comp(model, device="cpu"),
         lm_compress.symmetric_codebook_values(8))
@@ -6729,6 +6757,32 @@ def full_on_rank0(torch, x, sharding):
         torch.cuda.synchronize()
     dist.barrier()
     return full
+
+
+def shared_on_card(torch, spec, draw):
+    """``draw()``'s tree (seeded parameters on the host) on the card, drawn
+    once, by the mesh's first rank: the other ranks, sharing cuda:0, map
+    its tensors in place through CUDA IPC (the handles broadcast over the
+    process group), so the processes neither draw the tree nor hold it
+    once each. ``spec``: its ParamSpec tree (the leaves' order). Rank 0
+    keeps the tensors alive until the callers' last barrier."""
+    import torch.distributed as dist
+    from torch.multiprocessing.reductions import reduce_tensor
+
+    from repro_torch._device import tree_leaves, tree_to, tree_unflatten
+    from repro_torch.nn.spec import abstract_params
+
+    box = [None]
+    tree = None
+    if dist.get_rank() == 0:
+        tree = tree_to(draw(), "cuda")
+        torch.cuda.synchronize()
+        box[0] = [reduce_tensor(t) for t in tree_leaves(tree)]
+    dist.broadcast_object_list(box, src=0)
+    if tree is None:
+        tree = tree_unflatten(abstract_params(spec), iter(
+            fn(*args) for fn, args in box[0]))
+    return tree
 
 
 def sliced_gap(torch, tree, shardings, ref, kind):
@@ -6780,27 +6834,63 @@ def mesh2d_warm_up(torch):
 
 
 def mesh2d_moe_rank(rank, world):
-    """(c): one rank of the 1 x 4 mesh on cuda:0. Rank 0 first runs the
-    unmeshed steps at the same depth (the others wait: the card holds one
-    unmeshed state), keeps its parameters, first Adam moment and codes on
-    the host, frees the card; then every rank runs the meshed steps on its
-    slices, its experts split over "model"; rank 0 compares."""
+    """(c), then (d): one rank of the 1 x 4 mesh on cuda:0, after one
+    warm-up step (`mesh2d_warm_up`): phi3.5-moe's case
+    (`mesh2d_meshed_case`), then each of MESH2D_SPLIT's archs', then its
+    meshed prefill and serve step (`mesh2d_split_serve`)."""
     import torch
+    import torch.distributed as dist
+
+    from repro_torch.distributed import sharding as S
+
+    t0 = time.perf_counter()
+    wall = [time.time()]
+    torch.cuda.set_device(0)
+    torch.set_float32_matmul_precision("highest")
+    mesh = S.process_mesh(MESH2D_MOE_SHAPE, ("data", "model"),
+                          device_type="cuda")
+    mesh2d_warm_up(torch)
+    out = dict(rank=rank, coords=mesh.coords, backend=dist.get_backend(),
+               wall=wall)
+    inputs = mesh2d_moe_inputs(torch)
+    out.update(mesh2d_meshed_case(torch, mesh, rank, *inputs, t0=t0,
+                                  moe_local_dispatch=True))
+    del inputs
+    dist.barrier()          # rank 0's shared parameters are let go
+    out["split"] = {}
+    for arch in MESH2D_SPLIT:
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        model, cfg, host, comp, batch = mesh2d_split_inputs(torch, arch)
+        case = mesh2d_meshed_case(torch, mesh, rank, model, cfg, host, comp,
+                                  batch, t0=t1)
+        torch.cuda.empty_cache()
+        case["serve"] = mesh2d_split_serve(torch, mesh, rank, model, cfg,
+                                           host, batch)
+        case["case_s"] = time.perf_counter() - t1
+        out["split"][arch] = case
+        del host, batch
+        dist.barrier()
+    wall.append(time.time())
+    return out
+
+
+def mesh2d_meshed_case(torch, mesh, rank, model, cfg, host, comp, batch, *,
+                       t0, moe_local_dispatch=False):
+    """One arch's meshed QAT steps against the unmeshed ones on this rank
+    of the 1 x 4 mesh. Rank 0 first runs the unmeshed steps at the same
+    depth (the others wait: the card holds one unmeshed state), keeps its
+    parameters, first Adam moment and codes on the host, frees the card;
+    then every rank runs the meshed steps on its slices, its split units
+    over "model"; rank 0 compares."""
     import torch.distributed as dist
 
     from repro_torch._device import tree_to
     from repro_torch.distributed import sharding as S
     from repro_torch.launch import train as T
 
-    t0 = time.perf_counter()
-    torch.cuda.set_device(0)
-    torch.set_float32_matmul_precision("highest")
-    mesh = S.process_mesh(MESH2D_MOE_SHAPE, ("data", "model"),
-                          device_type="cuda")
-    model, cfg, host, comp, batch = mesh2d_moe_inputs(torch)
-    mesh2d_warm_up(torch)
-    out = dict(rank=rank, coords=mesh.coords, backend=dist.get_backend(),
-               init_s=time.perf_counter() - t0)
+    out = dict(init_s=time.perf_counter() - t0)
+
     def state_of(params):
         """A train state no caller holds: each step frees the last."""
         return {"params": params, "opt": T.make_optimizer(cfg).init(params)}
@@ -6808,6 +6898,7 @@ def mesh2d_moe_rank(rank, world):
     ref = None
     if rank == 0:
         firsts = {}
+        torch.cuda.reset_peak_memory_stats()
         step, calls = first_counted(torch, T.make_train_step(model, cfg))
         with _ActQuant() as rec:
             st, losses, launches, ms, _ = mesh2d_steps(
@@ -6832,7 +6923,7 @@ def mesh2d_moe_rank(rank, world):
     torch.cuda.reset_peak_memory_stats()
     firsts = {}
     step, calls = first_counted(torch, T.make_train_step(
-        model, cfg, mesh=mesh, moe_local_dispatch=True))
+        model, cfg, mesh=mesh, moe_local_dispatch=moe_local_dispatch))
     with _ActQuant() as rec:
         got, losses, launches, ms, peaks = mesh2d_steps(
             torch, step, state_of(S.shard_tree(host, sh["params"],
@@ -6845,20 +6936,151 @@ def mesh2d_moe_rank(rank, world):
                steps_s=time.perf_counter() - t0,
                gathered_peak_bytes=peaks, flops=calls[0]["flops"],
                collectives=calls[0]["collectives"],
-               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
-               codes=[c.numpy() for c in rec.codes[:len(rec.codes)
-                                                   // MESH2D_STEPS]])
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    out["codes"] = mesh2d_code_flips(
+        mesh, [c.numpy() for c in rec.codes[:len(rec.codes)
+                                            // MESH2D_STEPS]],
+        ref and ref["codes"])
     del rec
     param_gap = sliced_gap(torch, got["params"], sh["params"],
                            ref and ref["params"], "max_abs")
     if rank == 0:
         out.update(
-            ref={k: v for k, v in ref.items() if k not in ("params", "mu")},
+            ref={k: v for k, v in ref.items()
+                 if k not in ("params", "mu", "codes")},
             loss_rel=max(abs(g[k] - w[k]) / max(abs(w[k]), 1e-30)
                          for g, w in zip(losses, ref["losses"]) for k in w),
             grad_rel_l2_max=firsts["grad"], param_max_abs=param_gap)
     out["rank_s"] = time.perf_counter() - t0
+    del got
     return out
+
+
+def mesh2d_split_inputs(torch, arch):
+    """(d)'s cell of ``arch``: at full width and MESH2D_SPLIT's depth,
+    computing in float32 (as (b) and (c)): (model, step config, the seeded
+    parameters on the card (`shared_on_card`) and k = 8 comp on the host,
+    the batch on the card, with whisper's MESH2D_ENC_FRAMES seeded stub
+    frames)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import lm_compress
+    from repro_torch.launch.train import StepConfig
+    from repro_torch.models.lm import build_lm
+    from repro_torch.nn.spec import init_params
+
+    cfg = dataclasses.replace(get_config(arch), compute_dtype="float32",
+                              **MESH2D_SPLIT[arch])
+    model = build_lm(cfg)
+    step_cfg = StepConfig(qat=True, with_comp=True, remat=True,
+                          q_block=MESH2D_BLOCK, kv_block=MESH2D_BLOCK,
+                          lr=MESH2D_LR)
+    params = shared_on_card(torch, model.spec,
+                            lambda: init_params(0, model.spec, "cpu"))
+    comp = lm_compress.restrict_all_codebooks(
+        model, lm_compress.init_lm_comp(model, device="cpu"),
+        lm_compress.symmetric_codebook_values(8))
+    rng = np.random.default_rng(LM_PROMPT_SEED)
+    toks = rng.integers(0, cfg.vocab, (MESH2D_BATCH, MESH2D_TOKENS + 1)
+                        ).astype(np.int32)
+    batch = {"tokens": torch.as_tensor(toks[:, :-1], device="cuda"),
+             "labels": torch.as_tensor(toks[:, 1:], device="cuda")}
+    if cfg.encoder_decoder:
+        batch["enc_embeds"] = torch.as_tensor(rng.standard_normal(
+            (MESH2D_BATCH, MESH2D_ENC_FRAMES, cfg.d_model)).astype(
+                np.float32), device="cuda")
+    return model, step_cfg, params, comp, batch
+
+
+def mesh2d_split_serve(torch, mesh, rank, model, cfg, host, batch):
+    """(d)'s meshed prefill and one serve step, as a user runs them (float32,
+    no QAT), on MESH2D_PREFILL's rows x prompt tokens (whisper: their
+    frames too), from the unmeshed prefill's cache (each rank computes it)
+    held on `cache_shardings` (K/V heads and recurrent channels over
+    "model"): the logits put together on rank 0 against the unmeshed
+    forward's and decode step's (max abs, and the unmeshed logits' max
+    abs over the real vocabulary, the gate's scale; None on the other
+    ranks), the serve step's collectives and each step's ms. Rank 0 also
+    reports the unmeshed
+    forward and decode step with TF32 products against the float32 ones
+    (``tf32_*``): what a kernel that drops the products to a 10-bit
+    mantissa moves the logits by, against which the gate's bound is set."""
+    from repro_torch.configs import Shape
+    from repro_torch.distributed import sharding as S
+    from repro_torch.launch import train as T
+
+    rows, plen = MESH2D_PREFILL
+    vocab, real = model.cfg.padded_vocab, model.cfg.vocab
+    enc = batch.get("enc_embeds")
+    prompt = {"tokens": batch["tokens"][:rows, :plen]}
+    if enc is not None:
+        prompt["enc_embeds"] = enc[:rows]
+    token = batch["labels"][:rows, plen - 1:plen]
+    blocks = dict(q_block=cfg.q_block, kv_block=cfg.kv_block)
+    local = S.shard_tree(host, S.make_param_shardings(model.spec, mesh))
+    c_sh = T.cache_shardings(model, Shape(
+        "d", "decode", MESH2D_ENC_FRAMES if enc is not None else plen + 1,
+        rows), mesh, dtype=torch.float32)
+
+    def unmeshed():     # (forward, cache, decode step); rank 0's logits
+        want = model.forward(host, prompt["tokens"],
+                             enc_embeds=prompt.get("enc_embeds"),
+                             **blocks)[0] if rank == 0 else None
+        _, cache = model.prefill(host, prompt["tokens"], plen + 1,
+                                 enc_embeds=prompt.get("enc_embeds"),
+                                 cache_dtype=torch.float32, **blocks)
+        return want, cache, model.decode_step(host, cache, token)[0] \
+            if rank == 0 else None
+
+    out = {}
+    with torch.no_grad():
+        want, cache, want_dec = unmeshed()
+        if rank == 0:
+            torch.set_float32_matmul_precision("high")
+            try:
+                tf32, _, tf32_dec = unmeshed()
+            finally:
+                torch.set_float32_matmul_precision("highest")
+            out.update(tf32_prefill_max_abs=float((tf32 - want).abs().max()),
+                       tf32_serve_max_abs=float(
+                           (tf32_dec - want_dec).abs().max()))
+            del tf32, tf32_dec
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    block = T.make_prefill_step(model, cfg, mesh=mesh)(local, prompt)
+    torch.cuda.synchronize()
+    out["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+    out["prefill_block"] = list(block.shape)
+    full = full_on_rank0(torch, block, S.logits_sharding(
+        mesh, (rows, plen, vocab)))
+    held = S.shard_tree(cache, c_sh)
+    del cache
+    S.reset_collective_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lg, _ = T.make_serve_step(model, cfg, mesh=mesh,
+                              cache_shardings=c_sh)(local, held, token)
+    torch.cuda.synchronize()
+    out["serve_ms"] = (time.perf_counter() - t0) * 1e3
+    out["serve_collectives"] = S.collective_counts()
+    full_dec = full_on_rank0(torch, lg, S.logits_sharding(
+        mesh, (rows, 1, vocab)))
+    if rank == 0:
+        out.update(
+            prefill_max_abs=float((full - want).abs().max()),
+            serve_max_abs=float((full_dec - want_dec).abs().max()),
+            prefill_logit_max_abs=float(want[..., :real].abs().max()),
+            serve_logit_max_abs=float(want_dec[..., :real].abs().max()))
+    return out
+
+
+def mesh2d_logit_bound(scale):
+    """The bound on a meshed step's logits against the unmeshed ones whose
+    max abs is ``scale``: `tests/test_torch_mesh2d.py`'s MESH2D_LOGIT_ATOL
+    where the logits stay within 1, and that share of ``scale`` past it
+    (float32 sums in another order move a logit by ulps of its size)."""
+    return MESH2D_LOGIT_ATOL * max(1.0, scale)
 
 
 def mesh2d_moe_dry(torch):
@@ -6888,22 +7110,53 @@ def mesh2d_moe_dry(torch):
                        MESH2D_TOKENS, step_cfg))
 
 
+def mesh2d_code_flips(mesh, codes, ref):
+    """This rank's share of comparing the meshed step's first-step
+    activation codes with the unmeshed step's (``ref``, rank 0's; None on
+    the others), without sending the codes back from the ranks: rank 0
+    names the calls split over "model" (their shape is not the unmeshed
+    one), every rank sends it those calls' chunks and a digest of each
+    other call, and rank 0 puts the chunks together. Returns, on rank 0,
+    (flips, codes, calls, shapes equal, calls split over "model"), None on
+    the others."""
+    import torch.distributed as dist
+
+    root = mesh.ranks[0]
+    box = [None if ref is None else sorted(
+        i for i, (c, r) in enumerate(zip(codes, ref))
+        if c.shape != r.shape)]
+    dist.broadcast_object_list(box, src=root)
+    split = box[0]
+    mine = dict(coords=mesh.coords, calls=len(codes),
+                split=[codes[i] for i in split if i < len(codes)],
+                digests=[hashlib.sha1(c.tobytes()).hexdigest()
+                         for i, c in enumerate(codes) if i not in split])
+    parts = [None] * len(mesh.ranks) if dist.get_rank() == root else None
+    dist.gather_object(mine, parts, dst=root)
+    if parts is None:
+        return None
+    flips, shapes = 0, all(p["calls"] == len(ref) for p in parts)
+    own = parts[0]
+    shapes &= all(p["digests"] == own["digests"] for p in parts)
+    for i, r in enumerate(ref):
+        if i in split:
+            j = split.index(i)
+            got = put_together({(p["coords"]["data"], p["coords"]["model"]):
+                                p["split"][j] for p in parts}, r.shape)
+        else:
+            got = codes[i]
+        shapes &= got.shape == r.shape
+        if got.shape == r.shape:
+            flips += int((got != r).sum())
+    return flips, int(sum(c.size for c in ref)), len(ref), shapes, \
+        len(split)
+
+
 def mesh2d_moe_codes(ranks):
-    """(c)'s first-step activation codes, the model ranks' experts (and
-    heads) put together, against rank 0's unmeshed codes: (flips, codes,
-    calls, shapes equal, calls split over "model")."""
-    by_pos = {(r["coords"]["data"], r["coords"]["model"]): r.pop("codes")
-              for r in ranks}
-    ref = ranks[0]["ref"].pop("codes")
-    got = [put_together({k: v[i] for k, v in by_pos.items()}, ref[i].shape)
-           for i in range(len(ref))]
-    shapes = all(len(v) == len(ref) for v in by_pos.values()) \
-        and all(g.shape == r.shape for g, r in zip(got, ref))
-    flips = int(sum((g != r).sum() for g, r in zip(got, ref)
-                    if g.shape == r.shape))
-    split = sum(by_pos[(0, 0)][i].shape != ref[i].shape
-                for i in range(len(ref)))
-    return flips, int(sum(c.size for c in ref)), len(ref), shapes, split
+    """(c)'s or a (d) cell's first-step activation codes against the
+    unmeshed step's, as rank 0 compared them (`mesh2d_code_flips`):
+    (flips, codes, calls, shapes equal, calls split over "model")."""
+    return [r.pop("codes") for r in ranks][0]
 
 
 def mesh2d_moe_phase(torch, work, backend):
@@ -6914,11 +7167,17 @@ def mesh2d_moe_phase(torch, work, backend):
     from repro_torch.launch.dryrun import run_cell
 
     t0 = time.perf_counter()
+    spawned = time.time()
     ranks = run_ranks(mesh2d_moe_rank, 4, backend=backend,
                       timeout_s=MESH2D_MOE_TIMEOUT_S,
                       deadline_s=MESH2D_MOE_DEADLINE_S, threads=None,
                       workdir=str(work))
     ranks_s = time.perf_counter() - t0
+    returned = time.time()
+    # the spawn's own seconds: until the first rank starts its work, and
+    # from the last rank's end until run_ranks returns (results sent back)
+    spawn_s = [min(r["wall"][0] for r in ranks) - spawned,
+               returned - max(r["wall"][1] for r in ranks)]
     bound, want, alone = mesh2d_moe_dry(torch)
     flips, n_codes, calls, shapes_equal, split = mesh2d_moe_codes(ranks)
     r0 = ranks[0]
@@ -6945,7 +7204,7 @@ def mesh2d_moe_phase(torch, work, backend):
             "ms_per_step", "peak_gb", "gathered_peak_bytes", "flops",
             "collectives", "init_s", "ref_s", "steps_s", "rank_s")}
                for r in ranks],
-        ranks_s=ranks_s)
+        ranks_s=ranks_s, spawn_s=spawn_s)
     print("[mesh2d] (c) " + json.dumps(out, sort_keys=True), flush=True)
     cell = run_cell(MESH2D_MOE_ARCH, "train_4k", False,
                     moe_local_dispatch=True)
@@ -6993,7 +7252,128 @@ def mesh2d_moe_phase(torch, work, backend):
                 f"{r['gathered_peak_bytes']} past the dry run's {bound}")
     out["phase_s"] = time.perf_counter() - t0
     print(f"[mesh2d] (c) {out['phase_s']:.1f} s", flush=True)
+    out["split"] = mesh2d_split_report(torch, ranks, backend)
+    print(f"[mesh2d] (d) reported at {time.perf_counter() - t0:.1f} s",
+          flush=True)
     return out
+
+
+def mesh2d_split_dry(torch, arch):
+    """The dry run of (d)'s cell of ``arch`` (its depth, float32, the
+    batch, whisper's frames apart from its tokens): ({"flops",
+    "collectives"} a rank on the 1 x 4 mesh, the 1 x 1 step's, the
+    gathered bytes' bound)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import AbstractMesh
+    from repro_torch.launch.dryrun import gathered_peak_bytes, step_costs
+    from repro_torch.launch.train import StepConfig
+    from repro_torch.models.lm import build_lm
+
+    cfg = dataclasses.replace(get_config(arch), compute_dtype="float32",
+                              **MESH2D_SPLIT[arch])
+    model = build_lm(cfg)
+    step_cfg = StepConfig(qat=True, with_comp=True, remat=True,
+                          q_block=MESH2D_BLOCK, kv_block=MESH2D_BLOCK)
+    kw = dict(enc_seq=MESH2D_ENC_FRAMES) if cfg.encoder_decoder else {}
+    mesh = AbstractMesh(MESH2D_MOE_SHAPE, ("data", "model"))
+    return (step_costs(model, mesh, None, "train", MESH2D_BATCH,
+                       MESH2D_TOKENS, step_cfg, **kw),
+            step_costs(model, AbstractMesh((1, 1), ("data", "model")), None,
+                       "train", MESH2D_BATCH, MESH2D_TOKENS, step_cfg, **kw),
+            gathered_peak_bytes(model, "train", mesh))
+
+
+def mesh2d_split_report(torch, ranks, backend):
+    """[mesh2d] (d): each of MESH2D_SPLIT's archs, from (c)'s ranks: a line
+    a cell, then its gates (module docstring, 29)."""
+    out = {}
+    for arch in MESH2D_SPLIT:
+        cases = [dict(r["split"][arch], rank=r["rank"], coords=r["coords"])
+                 for r in ranks]
+        want, alone, bound = mesh2d_split_dry(torch, arch)
+        flips, n_codes, calls, shapes_equal, split = mesh2d_moe_codes(
+            cases)
+        r0 = cases[0]
+        cell = dict(
+            arch=arch, depth=MESH2D_SPLIT[arch],
+            mesh=dict(zip(("data", "model"), MESH2D_MOE_SHAPE)),
+            transport=backend if backend == "nccl"
+            else "gloo (CUDA tensors through the host)",
+            tokens=[MESH2D_BATCH, MESH2D_TOKENS], lr=MESH2D_LR,
+            enc_frames=MESH2D_ENC_FRAMES
+            if "n_enc_layers" in MESH2D_SPLIT[arch] else None,
+            losses=r0["losses"], ref_losses=r0["ref"]["losses"],
+            loss_rel=r0["loss_rel"], grad_rel_l2_max=r0["grad_rel_l2_max"],
+            param_max_abs=r0["param_max_abs"], act_code_flips_step1=flips,
+            act_codes=n_codes, act_code_calls=calls,
+            act_code_calls_split=split, act_code_shapes_equal=shapes_equal,
+            ref_flops=r0["ref"]["flops"],
+            ref_ms_per_step=r0["ref"]["ms_per_step"],
+            ref_peak_gb=r0["ref"]["peak_gb"],
+            ref_k3_launches_per_step=r0["ref"]["k3_launches_per_step"],
+            gathered_bound_bytes=bound, dry_run=want,
+            dry_run_flops_1x1=alone["flops"],
+            **{k: r0["serve"][k] for k in r0["serve"]
+               if k.endswith("_max_abs")},
+            ranks=[{k: c[k] for k in (
+                "rank", "coords", "k3_launches_per_step", "ms_per_step",
+                "peak_gb", "gathered_peak_bytes", "flops", "collectives",
+                "init_s", "ref_s", "steps_s", "rank_s", "case_s")}
+                   | {k: v for k, v in c["serve"].items()
+                      if not k.endswith("_max_abs")} for c in cases])
+        print(f"[mesh2d] (d) {arch} " + json.dumps(cell, sort_keys=True),
+              flush=True)
+        out[arch] = (cell, want, alone, bound, flips, shapes_equal, split)
+    for arch, (cell, want, alone, bound, flips, shapes_equal,
+               split) in out.items():
+        tag = f"[mesh2d] (d) {arch}"
+        if not (cell["loss_rel"] <= LOSS_RTOL
+                and cell["grad_rel_l2_max"] <= GRAD_RTOL
+                and cell["param_max_abs"] <= PARAM_ATOL):
+            raise AssertionError(
+                f"{tag} 1 x 4 against unmeshed at lr {MESH2D_LR}: loss rel "
+                f"{cell['loss_rel']:.3e}, gradient rel-L2 "
+                f"{cell['grad_rel_l2_max']:.3e}, params abs "
+                f"{cell['param_max_abs']:.3e}")
+        if flips or not shapes_equal or not split:
+            raise AssertionError(
+                f"{tag}: the first step's activation codes differ ({flips} "
+                f"flips, shapes equal {shapes_equal}, {split} calls split)")
+        if alone["flops"]["total"] != cell["ref_flops"] \
+                or cell["ref_k3_launches_per_step"] != [1] * MESH2D_STEPS:
+            raise AssertionError(
+                f"{tag}: the unmeshed step counted {cell['ref_flops']} "
+                f"matmul FLOPs against the 1 x 1 dry run's "
+                f"{alone['flops']['total']}, K3 launches "
+                f"{cell['ref_k3_launches_per_step']}")
+        for r in cell["ranks"]:
+            if r["flops"] != want["flops"]["total"] \
+                    or r["collectives"] != want["collectives"]:
+                raise AssertionError(
+                    f"{tag} rank {r['rank']}: {r['flops']} matmul FLOPs and "
+                    f"collectives {r['collectives']} against the dry run's "
+                    f"{want['flops']['total']} and {want['collectives']}")
+            if r["k3_launches_per_step"] != [1] * MESH2D_STEPS:
+                raise AssertionError(
+                    f"{tag} rank {r['rank']}: K3 launches a step "
+                    f"{r['k3_launches_per_step']}")
+            if max(r["gathered_peak_bytes"]) > bound:
+                raise AssertionError(
+                    f"{tag} rank {r['rank']}: gathered bytes "
+                    f"{r['gathered_peak_bytes']} past the dry run's {bound}")
+        # the float32 steps as run: the split sums' order moves a logit by
+        # ulps of its size (MESH2D_LOGIT_ATOL of the logits' max abs)
+        for kind in ("prefill", "serve"):
+            err = cell[f"{kind}_max_abs"]
+            limit = mesh2d_logit_bound(cell[f"{kind}_logit_max_abs"])
+            if not err <= limit:
+                raise AssertionError(
+                    f"{tag}: meshed {kind} logits max abs {err:.3e} against "
+                    f"the unmeshed, past {limit:.3e} (logits' max abs "
+                    f"{cell[f'{kind}_logit_max_abs']:.3e})")
+    return {arch: v[0] for arch, v in out.items()}
 
 
 def main() -> int:
@@ -7058,7 +7438,7 @@ def main() -> int:
             torch, work, "nccl" if mesh2d["two"]["transport"] == "nccl"
             else "gloo")
         torch.cuda.empty_cache()
-        mark("[mesh2d] (c)")
+        mark("[mesh2d] (c), (d)")
         k2_build.result()
     mark("K2 build")
 

@@ -76,8 +76,9 @@ alive at once, and their peak.
 
 **Tensor parallel over "model".** With the step's rules a `LayerGather`
 also names the sub-modules that split their features over the model axes
-(`tp_axes`: a decoder block's attention and dense FFN, the token table and
-the read-out, where the layout shards their heads, hidden width or
+(`tp_axes`: a decoder or encoder block's attention and dense FFN,
+cross-attention, the recurrent mixers, the token table and the read-out,
+where the layout shards their heads, hidden width, `inner` channels or
 vocabulary there; the MoE's experts, every expert's hidden width and the
 shared experts' hidden width, `MOE_SPLITS`): their leaves are gathered
 over the other axes only, keeping this rank's chunk (`without_axes`,
@@ -85,15 +86,20 @@ over the other axes only, keeping this rank's chunk (`without_axes`,
 The model-group collectives are autograd functions: `copy_to_model`
 (identity forward, SUM backward: once a sub-module, on the input its
 column-parallel products share), `reduce_from_model` (SUM forward,
-identity backward), `gather_from_model` (all-gather forward, this rank's
-chunk of the gradient backward: the expert outputs); a MAX over the
+identity backward), `model_sum` (SUM both ways: the SSM's gated norm),
+`gather_from_model` (all-gather forward, this rank's chunk of the gradient
+backward: the expert outputs; of the ranks' summed gradient with
+``summed``: the SSM's projections re-laid out by heads); a MAX over the
 model group (exact in any order) takes a split activation's amax
 (`ModelSplit.act`) and the cross-entropy's maximum; `tp_matmul` runs a
 column- or row-parallel product whose float64 partial sums (under QAT)
 are summed across the ranks before the one rounding (a row-parallel
-output in its forward, the shared input's gradient in `copy_to_model`);
+output in its forward, reduce-scattered where each rank keeps its chunk,
+the shared input's gradient in `copy_to_model`);
 `vocab_lookup` and `vocab_parallel_nll` split the embedding and the
-cross-entropy by vocabulary. `activation_constraint` and
+cross-entropy by vocabulary (the unsplit loss takes the same
+`vocab_parallel_nll`, its exponentials summed in float64, so the two give
+the same bits). `activation_constraint` and
 `logits_sharding` are the JAX package's layouts, as this rank's slice.
 Every collective counts its result's bytes (`collective_counts`), the
 figure the dry run's ``collectives`` predicts.
@@ -1124,11 +1130,18 @@ def without_axes(s: NamedSharding, axes: Sequence[str]) -> NamedSharding:
 
 
 # the sub-modules that split their compute over the model axes when the
-# layout shards their defining dim there, and that (leaf, dim): a decoder
-# block's attention (heads) and dense FFN (mlp), the token table (vocab)
-# and the untied read-out (vocab)
-TP_UNITS = {"attn": ("wq", 1), "mlp": ("w_up", 1), "embed": ("table", 0),
-            "lm_head": ("w", 1)}
+# layout shards their defining dim there, and that (leaf, dim): a block's
+# attention (heads; an encoder block's too), its cross-attention (heads),
+# its dense FFN (mlp), the recurrent mixers (inner: the SSM's in_proj
+# columns, the RG-LRU's channels), the token table (vocab) and the untied
+# read-out (vocab)
+TP_UNITS = {"attn": ("wq", 1), "xattn": ("wq", 1), "mlp": ("w_up", 1),
+            "ssm": ("in_proj", 1), "rglru": ("in_proj", 1),
+            "embed": ("table", 0), "lm_head": ("w", 1)}
+# the leaves of a split unit that it reads whole (gathered over every
+# axis), each rank taking the part it needs: the SSM's conv weights, whose
+# channels (x | B | C) do not line up with its heads
+WHOLE_LEAVES = {"ssm": ("conv_w", "conv_b")}
 # the MoE's three splits, each by its defining (leaf, dim): the experts
 # over the axes of their E dim (expert parallel), every expert's hidden
 # width over those of moe_ff (tensor-parallel experts), the shared
@@ -1147,11 +1160,12 @@ def tp_axes(shardings, path: Sequence[str],
     """The mesh axes over which the sub-module at ``path`` of a params'
     sharding tree computes this rank's share of its features, () where it
     computes whole. ``path``: ``("blocks", "g0", "attn")``, ``("tail",
-    "t0", "mlp")``, ``("embed",)``, ``("lm_head",)``, or one of the MoE's
-    splits, ``("blocks", "g0", "moe", "experts")`` (`MOE_SPLITS`). A unit
-    splits over the axes that shard its defining dim (after the
-    divisibility guard), unless they split the batch too; an encoder block,
-    cross-attention and the recurrent mixers compute whole."""
+    "t0", "mlp")``, ``("enc_blocks", "attn")`` (the encoder's stack),
+    ``("blocks", "g0", "xattn")``, ``("blocks", "g0", "ssm")``,
+    ``("embed",)``, ``("lm_head",)``, or one of the MoE's splits,
+    ``("blocks", "g0", "moe", "experts")`` (`MOE_SPLITS`). A unit splits
+    over the axes that shard its defining dim (`TP_UNITS`, after the
+    divisibility guard), unless they split the batch too."""
     path = tuple(path)
     if len(path) > 1 and path[-2] == "moe" and path[-1] in MOE_SPLITS:
         sub, (leaf, dim) = path[:-1], MOE_SPLITS[path[-1]]
@@ -1159,7 +1173,7 @@ def tp_axes(shardings, path: Sequence[str],
         sub, (leaf, dim) = path, TP_UNITS[path[-1]]
     else:
         return ()
-    if len(sub) > 1 and sub[0] not in ("blocks", "tail"):
+    if len(sub) > 1 and sub[0] not in ("blocks", "tail", "enc_blocks"):
         return ()
     s = shardings
     try:
@@ -1168,7 +1182,7 @@ def tp_axes(shardings, path: Sequence[str],
     except KeyError:
         return ()
     mesh, spec = s.mesh, tuple(s.spec)
-    dim += sub[0] == "blocks"               # the stacked layer axis
+    dim += sub[0] in ("blocks", "enc_blocks")   # the stacked layer axis
     entry = spec[dim] if dim < len(spec) else None
     axes = tuple(a for a in _axes_of(entry) if a in mesh.axis_names)
     batch = set(_axes_of(_present(mesh, rules.lookup("batch"))))
@@ -1180,11 +1194,14 @@ def kept_axes(shardings, path: Sequence[str],
     """The mesh axes along which the leaf at ``path`` (``("blocks", "g0",
     "attn", "wq")``) keeps this rank's chunk when a meshed step gathers it:
     its sub-module's `tp_axes`, or, in the MoE, those of the splits the
-    leaf takes part in (`MOE_LEAVES`); () where it is gathered whole."""
+    leaf takes part in (`MOE_LEAVES`); () where it is gathered whole (a
+    leaf of `WHOLE_LEAVES` too)."""
     *sub, key = tuple(path)
     if sub and sub[-1] == "moe":
         return tuple(a for name in MOE_LEAVES.get(key, ())
                      for a in tp_axes(shardings, (*sub, name), rules))
+    if sub and key in WHOLE_LEAVES.get(sub[-1], ()):
+        return ()
     return tp_axes(shardings, sub, rules)
 
 
@@ -1200,12 +1217,14 @@ class LayerGather:
     computes its share of the features on each of those ranks
     (`model_split`): its leaves are gathered over their other axes only,
     each rank keeping its model chunk (`without_axes`), and the model code
-    runs it column- or row-parallel (`tp_matmul`). The MoE splits the same
-    way by `MOE_SPLITS`: its experts (expert parallel), every expert's
-    hidden width, its shared experts' hidden width, each leaf keeping the
-    chunks of the splits it takes part in (`kept_axes`). Every other leaf
-    is gathered whole. Without ``rules`` every leaf is gathered whole (the
-    storage-only step)."""
+    runs it column- or row-parallel (`tp_matmul`). That holds for a
+    decoder or encoder block's attention and FFN, cross-attention and the
+    recurrent mixers (the SSM's conv weights, `WHOLE_LEAVES`, are gathered
+    whole). The MoE splits the same way by `MOE_SPLITS`: its experts
+    (expert parallel), every expert's hidden width, its shared experts'
+    hidden width, each leaf keeping the chunks of the splits it takes part
+    in (`kept_axes`). Every other leaf is gathered whole. Without ``rules``
+    every leaf is gathered whole (the storage-only step)."""
 
     def __init__(self, shardings, batch_axes: Sequence[str] = (), *,
                  rules: Optional[ShardingRules] = None):
@@ -1242,11 +1261,13 @@ class LayerGather:
         return self._splits[path]
 
     def block_splits(self, *path: str) -> Optional[Dict[str, Any]]:
-        """{"attn": split, "mlp": split, "moe": {"experts": split,
-        "expert_ff": split, "shared": split}} of the decoder block at
-        ``path``, what computes whole left out; None where nothing
-        splits."""
-        out = {sub: self.model_split(*path, sub) for sub in ("attn", "mlp")}
+        """{"attn": split, "xattn": split, "mlp": split, "ssm": split,
+        "rglru": split, "moe": {"experts": split, "expert_ff": split,
+        "shared": split}} of the block at ``path`` (a decoder block's, or
+        ``("enc_blocks",)``, an encoder layer's), what computes whole or is
+        not there left out; None where nothing splits."""
+        out = {sub: self.model_split(*path, sub)
+               for sub in ("attn", "xattn", "mlp", "ssm", "rglru")}
         moe = {name: self.model_split(*path, "moe", name)
                for name in MOE_SPLITS}
         out["moe"] = {k: v for k, v in moe.items() if v is not None} or None
@@ -1391,32 +1412,73 @@ def reduce_from_model(x: torch.Tensor, split: ModelSplit) -> torch.Tensor:
     return _ReduceFromModel.apply(x, split.group)
 
 
+def _along(split: ModelSplit, ndim: int, dim: int) -> NamedSharding:
+    """The layout of a tensor chunked along ``dim`` over ``split``'s
+    axes."""
+    parts = [None] * ndim
+    parts[dim % ndim] = split.axes
+    return NamedSharding(split.mesh, PartitionSpec(*parts))
+
+
 class _GatherFromModel(torch.autograd.Function):
-    """All-gather of the model ranks' chunks along ``dim`` forward; backward
-    this rank's chunk of the gradient (every model rank computes the same
-    function of the gathered tensor, so each holds the whole gradient: a
-    sum over the ranks would count it ``size`` times)."""
+    """All-gather of the model ranks' chunks along ``dim`` forward. Backward
+    this rank's chunk of the gradient: where every model rank computes the
+    same function of the gathered tensor, each holds the whole gradient (a
+    sum over the ranks would count it ``size`` times); with ``summed``
+    the ranks use it differently, and the chunk is that of the SUM of
+    their gradients (a reduce-scatter; ``exact``: of their float64
+    gradients, rounded once)."""
 
     @staticmethod
-    def forward(ctx, x, split, dim):
-        ctx.split, ctx.dim = split, dim
-        parts = [None] * x.ndim
-        parts[dim] = split.axes
-        y = gather(x, NamedSharding(split.mesh, PartitionSpec(*parts)),
-                   [dim])
+    def forward(ctx, x, split, dim, summed, exact):
+        ctx.split, ctx.dim, ctx.summed, ctx.exact = split, dim, summed, exact
+        y = gather(x, _along(split, x.ndim, dim), [dim % x.ndim])
         return x.view_as(x) if y is x else y
 
     @staticmethod
     def backward(ctx, g):
-        n, start = ctx.split.chunk(g.shape[ctx.dim])
-        return g.narrow(ctx.dim, start, n), None, None
+        split, dim = ctx.split, ctx.dim % g.ndim
+        if ctx.summed and split.group is not None:
+            total = _reduce_scatter(g.to(_sum_dtype(ctx.exact, g)),
+                                    _along(split, g.ndim, dim), [dim],
+                                    split.group)
+            return total.to(g.dtype), None, None, None, None
+        n, start = split.chunk(g.shape[dim])
+        return g.narrow(dim, start, n), None, None, None, None
 
 
-def gather_from_model(x: torch.Tensor, split: ModelSplit,
-                      dim: int) -> torch.Tensor:
+def gather_from_model(x: torch.Tensor, split: ModelSplit, dim: int,
+                      summed: bool = False,
+                      exact: bool = False) -> torch.Tensor:
     """The tensor whose chunk along ``dim`` ``x`` is, put together from the
-    model ranks of ``split`` (each holding its chunk, in chunk order)."""
-    return _GatherFromModel.apply(x, split, dim)
+    model ranks of ``split`` (each holding its chunk, in chunk order).
+    ``summed``: the ranks read different parts of it (the SSM's heads), so
+    its gradient is summed over them before each keeps its chunk, in
+    float64 rounded once where ``exact`` (under QAT, as `tp_matmul`'s
+    sums)."""
+    return _GatherFromModel.apply(x, split, dim, summed, exact)
+
+
+class _ModelSum(torch.autograd.Function):
+    """SUM over the model group forward, and backward: every rank uses the
+    sum for its own features, so the sum's gradient is the ranks' sum."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        y = all_reduce(x, "sum", group)
+        return x.view_as(x) if y is x else y
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, "sum", ctx.group), None
+
+
+def model_sum(x: torch.Tensor, split: ModelSplit) -> torch.Tensor:
+    """The SUM of ``x`` (each rank's partial, e.g. a sum of squares over its
+    features) over the model ranks of ``split``, which each use it for
+    their own features: its backward sums their gradients too."""
+    return _ModelSum.apply(x, split.group)
 
 
 def _sum_dtype(exact: bool, g: torch.Tensor) -> torch.dtype:
@@ -1475,16 +1537,53 @@ class _RowMatmul(torch.autograd.Function):
         return gx, gw, None, None
 
 
+class _RowScatterMatmul(torch.autograd.Function):
+    """``x @ w`` of a row-parallel product whose output every rank needs
+    only its chunk of (the RG-LRU's gates): ``x`` (..., K / size) and ``w``
+    (K / size, N) this rank's share of the reduced dim. Forward: each
+    rank's partial sum, reduce-scattered over the model group along N (in
+    float64 when ``exact``) and rounded once, this rank's (..., N / size);
+    backward: the chunks' gradients all-gathered into the whole (..., N),
+    then this rank's gradients of ``x`` and ``w``."""
+
+    @staticmethod
+    def forward(ctx, x, w, split, exact):
+        ctx.save_for_backward(x, w)
+        ctx.split, ctx.exact = split, exact
+        y = (x.double() @ w.double()) if exact else torch.matmul(x, w)
+        if split.group is not None:
+            y = _reduce_scatter(y, _along(split, y.ndim, -1), [y.ndim - 1],
+                                split.group)
+        return y.float() if exact else y
+
+    @staticmethod
+    def backward(ctx, g):
+        from repro_torch.kernels.lut_matmul.ref import matmul_grads
+
+        x, w = ctx.saved_tensors
+        split = ctx.split
+        if split.group is not None:
+            g = gather(g.contiguous(), _along(split, g.ndim, -1),
+                       [g.ndim - 1])
+        gx, gw = matmul_grads(x, w, g, _sum_dtype(ctx.exact, g),
+                              ctx.needs_input_grad[:2])
+        return gx, gw, None, None
+
+
 def tp_matmul(x: torch.Tensor, w: torch.Tensor, split: ModelSplit,
               kind: str, exact: bool) -> torch.Tensor:
     """``x @ w`` (``w`` 2-D, or a batch of experts' (E, K, N) against ``x``
     (E, M, K)) of a unit split over ``split``'s ranks:
     ``kind`` ``"column"`` (``w`` this rank's output columns; the result is
     its columns; ``x`` the `copy_to_model` copy of the sub-module's input,
-    which sums its gradient over the ranks) or ``"row"`` (``x`` and ``w``
-    this rank's share of the reduced dim; the result is whole). ``exact``:
-    float32 out, summed in float64 across the ranks too and rounded once,
-    as `exact_matmul`; else the operands' dtype, as ``torch.matmul``."""
+    which sums its gradient over the ranks), ``"row"`` (``x`` and ``w``
+    this rank's share of the reduced dim; the result is whole) or
+    ``"row_scatter"`` (as ``"row"``, the result this rank's chunk of the
+    columns: `_RowScatterMatmul`). ``exact``: float32 out, summed in
+    float64 across the ranks too and rounded once, as `exact_matmul`; else
+    the operands' dtype, as ``torch.matmul``."""
+    if kind == "row_scatter":
+        return _RowScatterMatmul.apply(x, w, split, exact)
     fn = {"column": _ColumnMatmul, "row": _RowMatmul}[kind]
     return fn.apply(x, w, split.group, exact)
 
@@ -1505,18 +1604,22 @@ def vocab_lookup(table: torch.Tensor, tokens: torch.Tensor,
 
 class _VocabParallelNLL(torch.autograd.Function):
     """-log softmax(logits)[label] over a vocabulary split over the model
-    group: ``logits`` (..., V / size) float32, this rank's chunk starting
-    at id ``start``. The MAX of the chunks' maxima, the SUM of the shifted
-    exponentials and the label's logit from the rank that owns it (the
-    others add zero), then log_softmax's own order of operations; backward
-    ``g * (softmax - onehot)`` on the chunk."""
+    group (whole where ``group`` is None): ``logits`` (..., V / size)
+    float32, this rank's chunk starting at id ``start``. The MAX of the
+    chunks' maxima, the SUM of the shifted exponentials in float64 (the
+    chunks' sums added across the ranks, the log taken once and rounded),
+    the label's logit from the rank that owns it (the others add zero),
+    then log_softmax's order of operations; backward ``g * (softmax -
+    onehot)`` on the chunk, the softmax ``exp`` of that float32 log
+    probability. Split or whole, the loss and its gradient are the same
+    bits (but where the float64 sum rounds apart)."""
 
     @staticmethod
     def forward(ctx, logits, labels, start, group):
         v = logits.shape[-1]
         m = all_reduce(logits.amax(dim=-1), "max", group)
-        e = torch.exp(logits - m[..., None])
-        s = all_reduce(e.sum(dim=-1), "sum", group)
+        s = all_reduce(torch.exp(logits - m[..., None]).sum(
+            dim=-1, dtype=torch.float64), "sum", group)
         local = labels.long() - start
         own = (local >= 0) & (local < v)
         local = local.clamp(0, v - 1)
@@ -1524,22 +1627,28 @@ class _VocabParallelNLL(torch.autograd.Function):
         picked = all_reduce(torch.where(own, picked,
                                         torch.zeros_like(picked)),
                             "sum", group)
-        ctx.save_for_backward(e, s, local, own)
-        return -((picked - m) - torch.log(s))
+        log_s = torch.log(s).to(logits.dtype)
+        ctx.save_for_backward(logits, m, log_s, local, own)
+        return -((picked - m) - log_s)
 
     @staticmethod
     def backward(ctx, g):
-        e, s, local, own = ctx.saved_tensors
-        grad = e / s[..., None] * g[..., None]
+        logits, m, log_s, local, own = ctx.saved_tensors
+        grad = torch.exp((logits - m[..., None]) - log_s[..., None]) \
+            * g[..., None]
         hit = torch.where(own, g, torch.zeros_like(g))
         grad.scatter_add_(-1, local[..., None], -hit[..., None])
         return grad, None, None, None
 
 
 def vocab_parallel_nll(logits: torch.Tensor, labels: torch.Tensor,
-                       split: ModelSplit) -> torch.Tensor:
+                       split: Optional[ModelSplit]) -> torch.Tensor:
     """Per-position negative log-likelihood (..., ) of ``labels`` under
     logits whose vocabulary ``split`` chunks over the model ranks
-    (``logits`` this rank's chunk, float32)."""
+    (``logits`` this rank's chunk, float32), or, with ``split`` None, the
+    whole vocabulary: the same function, so a split loss gives the
+    unsplit bits (`_VocabParallelNLL`)."""
+    if split is None:
+        return _VocabParallelNLL.apply(logits, labels, 0, None)
     start = split.chunk(logits.shape[-1] * split.size)[1]
     return _VocabParallelNLL.apply(logits, labels, start, split.group)

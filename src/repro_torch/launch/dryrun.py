@@ -18,8 +18,10 @@ under ``build/dryrun/`` with
   * ``flops``: the step's products on this layout (`step_costs`: ``total``,
     ``by_unit`` (projections, attention scores and values, ffn, moe (the
     experts), router, recurrent mixer, read-out), with remat's recompute,
-    the backward and
-    ``grad_accum`` counted; ``remat_tail``, the part XLA's remat drops);
+    the backward and ``grad_accum`` counted; ``remat_tail``, the recompute
+    the JAX package's XLA step does not run, and ``xla_only``, the SSD
+    products it runs and the port does not: with both, the JAX package's
+    loop-corrected count);
   * ``collectives``: the bytes (of each collective's result, as the JAX
     package parses XLA's) and the count of the step's all-gathers,
     reduce-scatters and all-reduces on a device, and ``total_bytes``;
@@ -196,6 +198,7 @@ class _Tally:
 
         self.flops: Dict[str, int] = {}
         self.remat_tail = 0
+        self.xla_only = 0
         self.coll = {k: {"bytes": 0, "count": 0} for k in COLLECTIVE_KINDS}
 
     def mm(self, unit: str, m: int, k: int, n: int, times: int = 1):
@@ -215,7 +218,8 @@ class _Tally:
         coll["total_bytes"] = sum(v["bytes"] for v in coll.values())
         return {"flops": {"total": sum(self.flops.values()),
                           "by_unit": dict(sorted(self.flops.items())),
-                          "remat_tail": self.remat_tail},
+                          "remat_tail": self.remat_tail,
+                          "xla_only": self.xla_only},
                 "collectives": coll}
 
 
@@ -227,49 +231,70 @@ def _pad(n: int, block: int) -> int:
     return -(-n // block) * block
 
 
-@functools.lru_cache(maxsize=None)
+def _ssd_chunks(cfg, seq: int) -> Tuple[int, int]:
+    """(chunks, chunk length) of the SSD over ``seq`` positions (padded to
+    a multiple of the chunk)."""
+    l = cfg.ssm_dims().chunk
+    return _pad(seq, l) // l, l
+
+
 def _mixer_flops(cfg, bt: str, rows: int, seq: int, train: bool,
-                 decode: bool) -> Tuple[int, int]:
+                 decode: bool, m: int = 1) -> Tuple[int, int]:
     """(forward, backward) products of one recurrent mixer (``ssm``,
-    ``rglru``) over ``rows`` x ``seq`` positions (one in decode), counted
-    by `torch.utils.flop_counter.FlopCounterMode` on meta tensors: its
-    projections and the SSD's batched products (the scan has none)."""
-    from torch.utils.flop_counter import FlopCounterMode
+    ``rglru``) over ``rows`` x ``seq`` positions (one in decode) on a rank
+    that runs ``1 / m`` of its features (`repro_torch.nn.ssm`,
+    `repro_torch.nn.rglru`): the projections (the SSM's in_proj on its
+    stored chunk of columns, the RG-LRU's w_a and w_x on the rank's rows),
+    and the SSD's batched products on the rank's heads, its C B^T scores
+    once a group on every rank; the scan has none. The backward takes both
+    operands' gradients of every product whose output a gradient reads (at
+    one chunk the SSD's input states feed only the final state, and its
+    state term reads no state)."""
+    tokens = rows * (1 if decode else seq)
+    d = cfg.d_model
+    if bt == "rglru":
+        r = cfg.rglru_dims().d_rnn
+        fwd = 2 * tokens * (2 * d * r // m + 2 * (r // m) * r + r // m * d)
+        return fwd, 2 * fwd if train else 0
+    sd = cfg.ssm_dims()
+    io = 2 * sd.d_inner + 2 * sd.n_groups * sd.d_state + sd.n_heads
+    hl, p, n, g = sd.n_heads // m, sd.head_dim, sd.d_state, sd.n_groups
+    proj = 2 * tokens * d * io // m + 2 * tokens * sd.d_inner // m * d
+    if decode:
+        return proj + 2 * rows * hl * p * n, 0
+    nc, l = _ssd_chunks(cfg, seq)
+    one = 2 * rows * nc * l       # a product's factor over rows and chunks
+    scores, diag = one * g * l * n, one * hl * l * p
+    states = off = one * hl * p * n
+    fwd = proj + scores + diag + states + off
+    if not train:
+        return fwd, 0
+    return fwd, 2 * (proj + scores + diag) + off + (
+        2 * states + off if nc > 1 else 0)
 
-    from repro_torch.nn import rglru as RG
-    from repro_torch.nn import ssm as SSM
-    from repro_torch.nn.spec import abstract_params
 
-    if bt == "ssm":
-        dims, spec = cfg.ssm_dims(), SSM.make_ssm_spec(cfg.ssm_dims(),
-                                                       cfg.pdtype)
-    else:
-        dims, spec = cfg.rglru_dims(), RG.make_rglru_spec(cfg.rglru_dims(),
-                                                          cfg.pdtype)
-    params = tree_map(lambda t: t.requires_grad_(train),
-                      abstract_params(spec))
-    x = torch.empty((rows, 1 if decode else seq, cfg.d_model),
-                    device="meta", dtype=cfg.cdtype, requires_grad=train)
-    with FlopCounterMode(display=False) as fwd:
-        if decode:
-            cache = (SSM.ssm_cache_spec if bt == "ssm"
-                     else RG.rglru_cache_spec)(rows, dims)
-            y = (SSM.apply_ssm_decode if bt == "ssm"
-                 else RG.apply_rglru_decode)(params, x, cache, dims)[0]
-        else:
-            y = (SSM.apply_ssm if bt == "ssm" else RG.apply_rglru)(
-                params, x, dims)
-    bwd = 0
+def _xla_ssd_extra(cfg, rows: int, seq: int, m: int, runs: int,
+                   train: bool) -> int:
+    """The products of one SSM layer that the JAX package's compiled step
+    runs and the port's does not: its C B^T scores one a head (B and C
+    repeated a head) where the port's are one a group, and in the backward
+    two decay gradients XLA writes as products (the input states' over P,
+    the state term's over N); counted at two or more chunks, where they
+    were read off XLA's HLO."""
+    sd = cfg.ssm_dims()
+    nc, l = _ssd_chunks(cfg, seq)
+    hl = sd.n_heads // m
+    extra = 2 * rows * nc * l * l * sd.d_state * (hl - sd.n_groups) \
+        * (runs + (2 if train else 0))
     if train:
-        with FlopCounterMode(display=False) as back:
-            y.backward(torch.empty_like(y))
-        bwd = back.get_total_flops()
-    return fwd.get_total_flops(), bwd
+        extra += 2 * rows * nc * l * hl * (sd.head_dim + sd.d_state)
+    return extra
 
 
 def step_costs(model, mesh, rules=None, kind: str = "train",
                batch: int = 1, seq: int = 1, step_cfg=None, *,
-               kv_seq_shard: bool = False, param_dtype=None) -> dict:
+               kv_seq_shard: bool = False, param_dtype=None,
+               enc_seq: Optional[int] = None) -> dict:
     """Per-device FLOPs (``2 M K N`` a product, by unit) and collectives
     (result bytes and count by kind) of one meshed step of ``kind`` on
     ``mesh``: what `repro_torch.launch.train`'s steps run on each rank,
@@ -278,6 +303,8 @@ def step_costs(model, mesh, rules=None, kind: str = "train",
     count). ``batch`` x ``seq``: the cell's (a decode cell's cache length).
     ``param_dtype``: the parameters' dtype where the caller's differ from
     the cell's (train: the spec's; prefill and decode: bfloat16).
+    ``enc_seq``: the encoder-decoder family's frames where they are not
+    the cell's ``seq`` (its decoder then takes ``seq`` tokens).
 
     Train: the QAT forward (or not: ``step_cfg.qat``), remat's recompute of
     every layer (its forward products and collectives twice: a meshed
@@ -299,9 +326,15 @@ def step_costs(model, mesh, rules=None, kind: str = "train",
     the clip norm. Prefill and decode: the forward without QAT or
     reductions over the batch; decode also gathers the held cache's dims
     the step does not split (`compute_cache_shardings`), both ways.
-    ``flops["remat_tail"]``: the recompute of each checkpointed layer's
-    last product whose output no gradient reads (XLA drops it; the port's
-    recompute runs it)."""
+    ``flops["remat_tail"]``: the recompute the JAX package's XLA step does
+    not run and the port's does: the last product of each checkpointed
+    body (one a pattern repeat, one an encoder layer), whose output no
+    gradient reads, and the whole forward of the unstacked tail blocks,
+    which the JAX package runs unchecked. ``flops["xla_only"]``: the
+    products XLA runs and the port does not (`_xla_ssd_extra`). The split
+    recurrent mixers are counted as `repro_torch.nn.ssm` and
+    `repro_torch.nn.rglru` run them (`_mixer_flops`, `mixer`), an encoder
+    layer over its frames (``enc_seq`` where they are not ``seq``)."""
     from repro_torch.core.lm_compress import is_expert_unit
     from repro_torch.distributed.sharding import (
         DEFAULT_RULES,
@@ -345,6 +378,9 @@ def step_costs(model, mesh, rules=None, kind: str = "train",
     s_all = s_tok + (cfg.prefix_len if "prefix_embeds" in specs
                      and not decode else 0)
     s_enc = specs["enc_embeds"].shape[1] if "enc_embeds" in specs else 0
+    if enc_seq is not None and s_enc:
+        s_enc, s_tok = enc_seq, 1 if decode else seq
+        s_all = s_tok
     tokens = rows * s_all
     qb, kb = step_cfg.q_block, step_cfg.kv_block
     cell = type("Cell", (), dict(batch=batch, seq=seq, kind=kind))()
@@ -394,14 +430,14 @@ def step_costs(model, mesh, rules=None, kind: str = "train",
               + ((5 if flash else 4) * one if train else 0))
         t.mm("projections", tokens, hq * hd, d, times + back)
 
-    def ffn(f_loc, times):
+    def ffn(f_loc, times, last):
         n_in = 2 if cfg.ffn in ("swiglu", "geglu") else 1
         t.mm("ffn", tokens, cfg.d_model, f_loc, n_in * (times + back))
         t.mm("ffn", tokens, f_loc, cfg.d_model, times + back)
-        if remat:
+        if remat and last:
             t.remat_tail += 2 * tokens * f_loc * cfg.d_model
 
-    def moe(path, times):
+    def moe(path, times, last):
         """The MoE block (`nn.moe.apply_moe`): the router on every model
         rank, this rank's experts (or hidden-width chunk) on the buffer,
         the shared experts' chunk."""
@@ -427,7 +463,7 @@ def step_costs(model, mesh, rules=None, kind: str = "train",
             fs = fe * dims.n_shared // sh_m
             t.mm("moe", tokens, d, fs, 2 * (times + back))
             t.mm("moe", tokens, fs, d, times + back)
-            if remat:
+            if remat and last:
                 t.remat_tail += 2 * tokens * fs * d
             amax(times=times)
             if sh_m > 1:
@@ -439,66 +475,143 @@ def step_costs(model, mesh, rules=None, kind: str = "train",
             for nbytes in (8, 8 * e, 8 * e, 8, 8):
                 t.coll_add("all-reduce", nbytes, times)
 
+    def mixer(path, bparams, bt, times, last):
+        """A recurrent mixer (`_mixer_flops`), split over "model" where
+        `tp_axes` says: the SSM's stored in_proj chunks all-gathered (their
+        gradient reduce-scattered), its gated norm's float64 sum of squares
+        and the conv weights' gradient summed; the RG-LRU's gates
+        reduce-scattered (their gradient all-gathered) and Lambda's and the
+        gate biases' gradients summed; out_proj row-parallel and the
+        input's one `copy_to_model`, as attention."""
+        m = split(*path, bt)[1]
+        fwd, bwd = _mixer_flops(cfg, bt, rows, s_all, train, decode, m)
+        t.add("mixer", fwd * times + bwd)
+        amax(times=times)
+        amax(m, times)
+        d = cfg.d_model
+        if bt == "ssm":
+            sd = cfg.ssm_dims()
+            if remat and last:
+                t.remat_tail += 2 * tokens * sd.d_inner // m * d
+            if not decode:
+                t.xla_only += _xla_ssd_extra(cfg, rows, s_all, m, runs, train)
+        if m == 1:
+            return
+        t.coll_add("all-reduce", tokens * d * row_dt, times)    # out_proj
+        if bt == "ssm":
+            io = 2 * sd.d_inner + 2 * sd.n_groups * sd.d_state + sd.n_heads
+            t.coll_add("all-gather", tokens * io * cdt, times)
+            t.coll_add("all-reduce", tokens * 8, times + (1 if train
+                                                          else 0))
+            summed = ("conv_w", "conv_b")
+            if train:       # float64 under QAT
+                t.coll_add("reduce-scatter", tokens * io // m * row_dt)
+        else:
+            r = cfg.rglru_dims().d_rnn
+            t.coll_add("reduce-scatter", tokens * r // m * row_dt,
+                       2 * times)
+            summed = ("b_a", "b_x", "lam")
+            if train:       # the gates' gradient (float32 under QAT)
+                t.coll_add("all-gather", tokens * r * (4 if qat else cdt), 2)
+        if train:       # the input's copy; the whole leaves' gradients
+            t.coll_add("all-reduce", tokens * d * row_dt)
+            for key in summed:
+                leaf = bparams[bt][key]
+                t.coll_add("all-reduce", math.prod(_layer_shape(
+                    leaf, path[0] != "tail")) * leaf.element_size())
+
+    def attn_split(path, bparams, bsh, sub, dims, stacked, times):
+        """(model ranks, K/V heads a rank computes) of the attention (or
+        cross-attention) ``sub`` of a block, and its tensor-parallel
+        collectives: wo's all-reduce, in training the shared inputs'
+        gradient sums (``sub``'s one, cross-attention's encoder output's
+        too) and a replicated K/V weight's gradient."""
+        axes, tp_m = split(*path, sub)
+        kv_local, replicated = dims.n_kv_heads, False
+        if tp_m > 1:
+            wk, wk_s = bparams[sub]["wk"], bsh[sub]["wk"]
+            if set(axes) & {a for e in wk_s.entries(wk.ndim)
+                            for a in _axes_of(e)}:
+                kv_local = dims.n_kv_heads // tp_m
+            elif not decode:  # the K/V heads this rank's heads read
+                replicated = True
+                g = dims.n_heads // dims.n_kv_heads
+                kv_local = max(1, dims.n_heads // tp_m // g)
+            t.coll_add("all-reduce", tokens * cfg.d_model * row_dt, times)
+            if train:       # the column products' shared input(s)
+                t.coll_add("all-reduce", tokens * cfg.d_model * row_dt)
+                if sub == "xattn":
+                    t.coll_add("all-reduce",
+                               rows * s_enc * cfg.d_model * row_dt)
+                for key in ("wk", "wv", "bk", "bv") if replicated else ():
+                    if key in bparams[sub]:
+                        leaf = bparams[sub][key]
+                        t.coll_add("all-reduce", math.prod(_layer_shape(
+                            leaf, stacked)) * leaf.element_size())
+        return tp_m, kv_local
+
     def block(path, bparams, bsh, bt, stacked, times, *, encoder=False,
-              first=False, layer_cache=None):
+              first=False, layer_cache=None, last=True):
+        """One block's products and collectives; ``last``: its last
+        product is the last of a checkpointed layer body (remat's tail)."""
         gather_at_use(path, bparams, bsh, stacked, times)
         if bt in RECURRENT:
-            fwd, bwd = _mixer_flops(cfg, bt, rows, s_all, train, decode)
-            t.add("mixer", fwd * times + bwd)
-            amax(times=2 * times)
-            if remat and bt == "ssm":
-                t.remat_tail += 2 * tokens * cfg.ssm_dims().d_inner \
-                    * cfg.d_model
+            mixer(path, bparams, bt, times, last)
         else:
             dims = cfg.enc_attn_dims() if encoder \
                 else cfg.attn_dims(bt == "local")
-            axes, tp_m = split(*path, "attn")
-            kv_local, replicated = dims.n_kv_heads, False
-            if tp_m > 1:
-                wk, wk_s = bparams["attn"]["wk"], bsh["attn"]["wk"]
-                if set(axes) & {a for e in wk_s.entries(wk.ndim)
-                                for a in _axes_of(e)}:
-                    kv_local = dims.n_kv_heads // tp_m
-                elif not decode:  # the K/V heads this rank's heads read
-                    replicated = True
-                    g = dims.n_heads // dims.n_kv_heads
-                    kv_local = max(1, dims.n_heads // tp_m // g)
+            tp_m, kv_local = attn_split(path, bparams, bsh, "attn", dims,
+                                        stacked, times)
             kv_len = layer_cache["k"].shape[-3] if decode else s_all
             attention(dims, tp_m, kv_local, kv_len, times, first=first,
                       flash=train and step_cfg.flash and not encoder
                       and dims.softcap == 0)
             amax(times=3 * times)
             amax(tp_m, times)
-            if tp_m > 1:
-                t.coll_add("all-reduce", tokens * cfg.d_model * row_dt,
-                           times)
-                if train:       # the column products' shared input
-                    t.coll_add("all-reduce", tokens * cfg.d_model * row_dt)
-                    for key in ("wk", "wv", "bk", "bv") if replicated \
-                            else ():
-                        if key in bparams["attn"]:
-                            leaf = bparams["attn"][key]
-                            t.coll_add("all-reduce", math.prod(_layer_shape(
-                                leaf, stacked)) * leaf.element_size())
             if "xattn" in bparams:
                 xd = cfg.enc_attn_dims()
-                attention(xd, 1, xd.n_kv_heads,
+                x_m, x_kv = attn_split(path, bparams, bsh, "xattn", xd,
+                                       stacked, times)
+                attention(xd, x_m, x_kv,
                           layer_cache["xk"].shape[-3] if decode else s_enc,
                           times, cross=True)
-                amax(times=4 * times)
+                amax(times=3 * times)
+                amax(x_m, times)
         if bt == "ssm":
             return
         if "moe" in bparams:
-            moe(path, times)
+            moe(path, times, last)
             return
         _, mlp_m = split(*path, "mlp")
-        ffn(cfg.d_ff // mlp_m, times)
+        ffn(cfg.d_ff // mlp_m, times, last)
         amax(times=times)
         amax(mlp_m, times)
         if mlp_m > 1:
             t.coll_add("all-reduce", tokens * cfg.d_model * row_dt, times)
             if train:
                 t.coll_add("all-reduce", tokens * cfg.d_model * row_dt)
+
+    def encoder_block(first):
+        """An encoder layer: its blocks' products over the frames."""
+        nonlocal tokens, s_all
+        dec = tokens, s_all
+        tokens, s_all = rows * s_enc, s_enc
+        try:
+            block(("enc_blocks",), params["enc_blocks"], p_sh["enc_blocks"],
+                  "attn", True, runs, encoder=True, first=first)
+        finally:
+            tokens, s_all = dec
+
+    def forward_once(fn) -> int:
+        """The products of one forward of ``fn(times)`` (a block)."""
+        nonlocal t
+        kept, counts = t, []
+        for times in (1, 2):
+            t = _Tally()
+            fn(times)
+            counts.append(sum(t.flops.values()))
+        t = kept
+        return counts[1] - counts[0]
 
     def k3_scales():
         """K3's per-column MAX of every unit whose reduced dims are
@@ -533,9 +646,7 @@ def step_costs(model, mesh, rules=None, kind: str = "train",
                 # the frames need no gradient: the first layer's
                 # projections skip theirs, unless a norm's parameters
                 # stand between
-                block(("enc_blocks",), params["enc_blocks"],
-                      p_sh["enc_blocks"], "attn", True, runs, encoder=True,
-                      first=r == 0 and not params["enc_blocks"]["ln1"])
+                encoder_block(r == 0 and not params["enc_blocks"]["ln1"])
             gather_at_use(("enc_norm",), params["enc_norm"],
                           p_sh["enc_norm"], False, 1)
         for _r in range(model.n_rep):
@@ -543,12 +654,18 @@ def step_costs(model, mesh, rules=None, kind: str = "train",
                 g = f"g{i}"
                 block(("blocks", g), params["blocks"][g], p_sh["blocks"][g],
                       bt, True, runs, layer_cache=None if not decode
-                      else {k: v[0] for k, v in cache["groups"][g].items()})
+                      else {k: v[0] for k, v in cache["groups"][g].items()},
+                      last=i == len(cfg.pattern) - 1)
         for j in range(model.n_tail):
             name = f"t{j}"
-            block(("tail", name), params["tail"][name], p_sh["tail"][name],
-                  cfg.pattern[j], False, runs,
-                  layer_cache=None if not decode else cache["tail"][name])
+            tail = functools.partial(
+                block, ("tail", name), params["tail"][name],
+                p_sh["tail"][name], cfg.pattern[j], False,
+                layer_cache=None if not decode else cache["tail"][name],
+                last=False)
+            tail(runs)
+            if remat:       # the JAX package runs the tail unchecked
+                t.remat_tail += forward_once(tail)
         gather_at_use(("final_norm",), params["final_norm"],
                       p_sh["final_norm"], False, 1)
         _, h_m = split(head)
@@ -556,9 +673,11 @@ def step_costs(model, mesh, rules=None, kind: str = "train",
         t.mm("readout", tokens, cfg.d_model, cfg.padded_vocab // h_m,
              1 + back)
         if train:
-            if h_m > 1:
-                t.coll_add("all-reduce", tokens * cfg.d_model * cdt)
-                t.coll_add("all-reduce", rows * s_tok * 4, 3)
+            if h_m > 1:     # the read-out's input gradient (float64
+                # under QAT); the loss's max, float64 sum and label
+                t.coll_add("all-reduce", tokens * cfg.d_model * row_dt)
+                for nbytes in (4, 8, 4):
+                    t.coll_add("all-reduce", rows * s_tok * nbytes)
             if batch_group:
                 t.coll_add("all-reduce", 8, 2)
     if decode:

@@ -68,12 +68,11 @@ query heads it holds. The MoE splits as the JAX partitioner divides it
 shares and the ranks all-gather the experts' outputs, or, with
 ``expert=None, moe_ff=model``, every expert at its chunk of the hidden
 width (column- and row-parallel); shared experts split their hidden width
-as the dense FFN. The recurrent mixers, cross-attention and an encoder
-compute whole on a rank's rows; ``--rules
-heads=None,mlp=None,vocab=None,kv_heads=None`` gives the storage-only
-step of the other units (``expert=None`` runs every expert whole on
-each rank, stored over "data" alone). Every rank scatters its rows into
-the dispatch buffer locally and slices its experts, so the step is the
+as the dense FFN. ``--rules
+heads=None,mlp=None,vocab=None,kv_heads=None,inner=None`` gives the
+storage-only step (``expert=None`` runs every expert whole on each rank,
+stored over "data" alone). Every rank scatters its rows into the
+dispatch buffer locally and slices its experts, so the step is the
 same with or without ``moe_local_dispatch`` (its
 `moe_dispatch_constraint` is an identity on values). A step's losses
 are the global batch's; a prefill step returns the rank's block of the
@@ -81,7 +80,24 @@ logits on `logits_sharding` (its rows, its vocabulary chunk), a serve
 step that block and its slice of the new cache. On a mesh of one process
 (1 x 1) nothing is gathered, split or reduced and the step is the
 unmeshed one, bit for bit.
-`abstract_train_state`, `abstract_serve_params` and `comp_abstract` are
+
+The recurrent mixers, an encoder's blocks and cross-attention split over
+"model" too, as the JAX partitioner divides them where the layout shards
+their `inner` channels or heads there: the RG-LRU by channels (in_proj and
+gate_proj column-parallel, w_a and w_x row-parallel with their gates
+reduce-scattered, out_proj row-parallel), Mamba-2's SSM by heads (in_proj
+column-parallel on its stored chunk, the chunks all-gathered and read by
+heads; the gated norm's sum of squares summed over the ranks; out_proj
+row-parallel), an encoder layer's attention and FFN and a decoder layer's
+cross-attention as a decoder layer's attention (`repro_torch.nn.ssm`,
+`repro_torch.nn.rglru`, `repro_torch.nn.transformer`). A serve step
+computes the recurrent caches on the rank's channels or heads (the SSM's
+conv history whole) and the cross K/V on its K/V heads
+(`compute_cache_shardings`). The loss is one function whether the
+vocabulary splits or not (`repro_torch.distributed.sharding
+.vocab_parallel_nll`: its exponentials summed in float64), so a meshed
+step's gradients are the unmeshed step's bits but for the rounding of
+that sum. `abstract_train_state`, `abstract_serve_params` and `comp_abstract` are
 meta tensors.
 
     python -m repro_torch.launch.train --arch olmo-1b --steps 50 \\
@@ -415,21 +431,27 @@ def make_serve_step(model, step_cfg: StepConfig, mesh=None,
 def compute_cache_shardings(cache, mesh,
                             rules: ShardingRules = DEFAULT_RULES):
     """The layout a meshed serve step computes a decode cache (full
-    shapes, e.g. meta tensors) on: its batch rows, and the K/V heads
-    (``k``, ``v``) over the axes that split attention's heads where the
-    heads and K/V heads share them (the guard replicating K/V heads that
-    do not divide). Cross-attention's ``xk`` / ``xv`` (computed whole) and
-    the recurrent states keep only their batch rows."""
-    heads = rules.lookup("heads")
+    shapes, e.g. meta tensors) on: its batch rows; the K/V heads (``k``,
+    ``v``, and cross-attention's ``xk`` / ``xv``) over the axes that split
+    attention's heads where the heads and K/V heads share them (the guard
+    replicating K/V heads that do not divide); the recurrent mixers'
+    channels (the RG-LRU's ``h`` and ``conv``, the SSM's ``state`` by
+    heads) over the axes of ``inner``, as the mixers split (guarded alike).
+    The SSM's ``conv`` history keeps every channel: its x | B | C channels
+    do not line up with the heads, and the step rebuilds it whole."""
+    heads, inner = rules.lookup("heads"), rules.lookup("inner")
+    batch = set(_axes_of(rules.lookup("batch")))
     compute_rules = ShardingRules((
         ("batch", rules.lookup("batch")),
         ("kv_heads", heads if heads is not None
-         and rules.lookup("kv_heads") == heads else None)))
+         and rules.lookup("kv_heads") == heads else None),
+        ("inner", None if batch & set(_axes_of(inner)) else inner)))
 
     def walk(node, ax, name=None):
         if isinstance(node, dict):
-            return {k: walk(v, ax[k], k) for k, v in node.items()}
-        if name in ("k", "v"):
+            return {k: walk(v, ax[k], None if k == "conv" and "state" in node
+                            else k) for k, v in node.items()}
+        if name in ("k", "v", "xk", "xv", "state", "h", "conv"):
             return ax
         return tuple(a if a == "batch" else None for a in ax)
 

@@ -20,9 +20,11 @@ its cache row shuffles (`gather_cache_rows`, `scatter_cache_rows`) follow
 the same layer walk and make the same one K3 launch a call. In a meshed
 step (`repro_torch.distributed.sharding.layer_gathering`) the parameters
 are the rank's slices: the K3 launch runs on them with the gathered
-weights' per-column scales (`_global_amax_row`), and each block, the
-embedding, the read-out and the norms are gathered where they are used
-(`_run_block`, `_at_use`). `LMModel.loss`
+weights' per-column scales (`_global_amax_row`, for the row-split leaves
+too: wo, w_down, out_proj, w_a, w_x), and each block, the embedding, the
+read-out and the norms are gathered where they are used (`_run_block`,
+`_at_use`), a block's tensor-parallel units (an encoder layer's too)
+keeping this rank's chunk. `LMModel.loss`
 is the causal LM loss of the train step (`repro_torch.launch.train`); its
 forward may recompute each layer in the backward (``remat``) and take the
 flash backward of attention (``use_flash``).
@@ -145,8 +147,8 @@ def _run_block(fn, block_params, block_weff, key, *args, **kw):
     returns: every parameter but the matmul weights that ``block_weff``
     replaces, whose fake-quantized copies are gathered instead; a
     tensor-parallel sub-module keeps this rank's model chunk and runs split
-    (``tp=``). ``key``: `LMModel._layers`'s (top, name, layer) of the
-    block."""
+    (``tp=``; an encoder layer's too). ``key``: `LMModel._layers`'s (top,
+    name, layer) of the block, or ("enc_blocks", None, layer)."""
     hook = layer_gather()
     if hook is not None:
         top, name, r = key
@@ -157,7 +159,7 @@ def _run_block(fn, block_params, block_weff, key, *args, **kw):
             block_weff = hook(block_weff, *path, stacked=stacked)
         block_params = hook(block_params, *path, stacked=stacked,
                             skip=tuple(block_weff or ()))
-        tp = hook.block_splits(*path) if name is not None else None
+        tp = hook.block_splits(*path)
         if tp is not None:
             kw = dict(kw, tp=tp)
     return fn(block_params, *args, w_eff=block_weff, **kw)
@@ -217,6 +219,8 @@ def _global_amax_row(w, c, path, lead):
 
 def _unchanged(y):
     return y
+
+
 
 
 def _sinusoid(positions: torch.Tensor, d: int) -> torch.Tensor:
@@ -418,10 +422,13 @@ class LMModel:
                 qcfg: QuantConfig = QuantConfig.off(), comp=None,
                 remat: bool = False, q_block: int = 512,
                 kv_block: int = 512, use_flash: bool = False,
-                remat_policy: Optional[str] = None
+                remat_policy: Optional[str] = None,
+                exact_readout: bool = False
                 ) -> Tuple[torch.Tensor, dict]:
         """Returns (logits (B, P + S, padded_vocab) float32, aux), P the
         length of ``prefix_embeds`` (B, P, d) (0 without).
+        ``exact_readout``: the read-out correctly rounded (as under
+        ``qcfg.batch_invariant``): `loss`'s under QAT.
 
         ``remat``: each layer runs under `torch.utils.checkpoint`
         (non-reentrant), so the backward recomputes its activations instead
@@ -464,7 +471,8 @@ class LMModel:
                 x, a = layer(x)
             aux = {k: aux[k] + a[k] for k in aux}
         x = self._final_norm(params, x, qcfg)
-        return self._unembed(params, x, qcfg.batch_invariant), aux
+        return self._unembed(params, x, exact_readout
+                             or qcfg.batch_invariant), aux
 
     # ----------------------------------------------------------------- loss
 
@@ -480,19 +488,23 @@ class LMModel:
         .batch_reduction`) ``batch`` is this rank's rows and the loss is
         the global batch's: the masked sum and the count are summed over
         the ranks in float64; where the read-out is split by vocabulary the
-        log-softmax is too (`vocab_parallel_nll`)."""
+        log-softmax is too. Split or not, the log-softmax sums its
+        exponentials in float64 (`vocab_parallel_nll`), so both give the
+        same bits."""
+        # under QAT the read-out is correctly rounded, as every product of
+        # the QAT forward: a meshed step whose vocabulary splits then
+        # computes this step's logits and gradients, bit for bit
+        qcfg = fwd_kwargs.get("qcfg", QuantConfig.off())
         logits, aux = self.forward(params, batch["tokens"],
                                    prefix_embeds=batch.get("prefix_embeds"),
                                    enc_embeds=batch.get("enc_embeds"),
-                                   **fwd_kwargs)
+                                   exact_readout=qcfg.enabled, **fwd_kwargs)
         labels = batch["labels"].long()
         logits_tok = logits[:, logits.shape[1] - labels.shape[1]:]
-        split = _readout_split(self.cfg)
-        if split is None:
-            logp = torch.log_softmax(logits_tok, dim=-1)
-            nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
-        else:   # this rank's vocabulary chunk of the logits
-            nll = vocab_parallel_nll(logits_tok, labels, split)
+        # this rank's vocabulary chunk of the logits where the read-out is
+        # split, else the whole (the same function: the same bits)
+        nll = vocab_parallel_nll(logits_tok, labels,
+                                 _readout_split(self.cfg))
         mask = batch.get("loss_mask")
         red = batch_reduce()
         if red is not None:
@@ -519,7 +531,8 @@ class LMModel:
     def _unembed(self, params, x, exact: bool = False):
         """Logits in float32 with the vocab padding masked to -1e30 (the
         tied read-out is a plain product in the activations' dtype, or with
-        ``exact`` a correctly rounded one: `QuantConfig.batch_invariant`).
+        ``exact`` a correctly rounded one: `QuantConfig.batch_invariant`,
+        and `loss` under QAT).
         In a meshed step whose read-out is split by vocabulary: this rank's
         chunk of the vocabulary (column-parallel)."""
         cfg = self.cfg

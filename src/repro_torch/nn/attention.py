@@ -25,7 +25,8 @@ cache, then attended over the whole cache with per-row positions.
 
 Cross-attention (the encoder-decoder family): `apply_attention` takes the
 keys and values from ``kv`` (the encoder output's projections), and
-`apply_attention_decode` attends one query over ``cross_kv``. Keys are
+`apply_attention_decode` attends one query over ``cross_kv``; in a meshed
+step both split by heads as self-attention does (``tp``). Keys are
 padded to a multiple of the key block as in the JAX package. Its
 non-causal mask (the encoder's self-attention, cross-attention) masks
 nothing, so the padded keys, zeros, take part in the softmax with score 0
@@ -354,9 +355,10 @@ def apply_attention(params, x: torch.Tensor, dims: AttnDims, *,
     """Prefill attention over (B, S, d_model). Returns the output, or
     (output, (k, v)) with post-RoPE K/V when ``return_kv`` (prefill cache
     capture). ``kv``: cross-attention, keys and values (B, S_kv, Hkv, D)
-    given (no RoPE), at positions 0..S_kv-1. ``use_flash``:
-    `blocked_attention`'s flash backward. ``tp``: this rank's heads only
-    (`_project`); the K/V it returns are the ones those heads read."""
+    given (no RoPE), at positions 0..S_kv-1 (with ``tp``, the K/V heads
+    this rank's heads read). ``use_flash``: `blocked_attention`'s flash
+    backward. ``tp``: this rank's heads only (`_project`); the K/V it
+    returns are the ones those heads read."""
     b, s, _ = x.shape
     dev = x.device
     if positions is None:
@@ -431,10 +433,10 @@ def apply_attention_decode(params, x: torch.Tensor, cache: dict, pos,
     for windowed layers) and masks against its own position.
     ``cross_kv``: cross-attention, the query attends over every key of
     (xk, xv) and the cache passes through unchanged. ``tp``: this rank's
-    query heads; the cache holds its K/V heads, or every K/V head where
-    the guard replicated them (then each rank computes the new token's
-    K/V for all of them, keeping the replicated cache whole, and attends
-    over the ones its heads read)."""
+    query heads; the cache (and ``cross_kv``) holds its K/V heads, or
+    every K/V head where the guard replicated them (then each rank
+    computes the new token's K/V for all of them, keeping the replicated
+    cache whole, and attends over the ones its heads read)."""
     b = x.shape[0]
     dev = x.device
     pos_b = torch.as_tensor(pos, dtype=torch.int32, device=dev).expand(b)
@@ -443,9 +445,11 @@ def apply_attention_decode(params, x: torch.Tensor, cache: dict, pos,
     q = _project(params, x, qcfg, comp, name, "wq", "bq", w_eff, tp,
                  shared=shared)
     if cross_kv is not None:
+        sel = _kv_select(tp, dims, params["wk"])
+        ck, cv = cross_kv if sel is None \
+            else (cross_kv[0][:, :, sel], cross_kv[1][:, :, sel])
         out = decode_attention(
-            q, cross_kv[0], cross_kv[1],
-            dataclasses.replace(dims, causal=False, window=0),
+            q, ck, cv, dataclasses.replace(dims, causal=False, window=0),
             cur_pos=1 << 30, exact=qcfg.batch_invariant)
         return _project(params, out, qcfg, comp, name, "wo",
                         w_eff=w_eff, tp=tp), cache

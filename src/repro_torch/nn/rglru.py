@@ -24,6 +24,16 @@ documented simplification). The recurrence parameters Lambda are float32
 and are not compressible units. While a `repro_torch.core.routing_stats`
 collector is set, `apply_rglru` emits the mean square of its float32 input
 (the scan target's calibration tap).
+
+**Split over "model"** (``tp``, a meshed step's
+`repro_torch.distributed.sharding.ModelSplit`): each model rank runs its
+chunk of the d_rnn channels. in_proj and gate_proj are column-parallel,
+the conv and the scan per channel; w_a and w_x, stored by rows, take the
+rank's chunk of the conv output, so their products are partial sums,
+reduce-scattered over the ranks (float64 under QAT, rounded once) into the
+rank's chunk of the gates; b_a, b_x and Lambda (replicated) are read at
+that chunk; out_proj is row-parallel. The decode cache holds the rank's
+channels.
 """
 
 from __future__ import annotations
@@ -33,12 +43,14 @@ from typing import List, Tuple
 import torch
 
 from repro_torch.core import routing_stats
+from repro_torch.distributed.sharding import copy_to_model
 from repro_torch.models.config import RGLRUDims
 from repro_torch.nn.layers import QuantConfig, gelu, lm_fake_quant_act
 from repro_torch.nn.spec import ParamSpec, fan_in_init, normal_init, zeros_init
 from repro_torch.nn.ssm import (
     _causal_depthwise_conv,
     _conv_tail,
+    _mixer_input,
     _mm_fn,
     softplus,
 )
@@ -122,14 +134,28 @@ def linear_scan(a: torch.Tensor, bx: torch.Tensor) -> torch.Tensor:
 # ------------------------------------------------------------------ the block
 
 
-def _rglru_coeffs(params, xc, qcfg, comp, name, w_eff):
+def _channels(params, key: str, tp):
+    """A replicated per-channel leaf at this rank's channels (through a
+    `copy_to_model` copy: the ranks' gradients are summed); whole without
+    ``tp``."""
+    v = params[key]
+    if tp is None:
+        return v
+    n, start = tp.chunk(v.shape[-1])
+    return copy_to_model(v, tp)[..., start:start + n]
+
+
+def _rglru_coeffs(params, xc, qcfg, comp, name, w_eff, tp=None):
     """Per-step (a, beta*i*x) terms, float32, from conv output xc (B, S,
     r); the gate products take xc's dtype (float32 in decode, where the
-    float32 conv history promotes it)."""
-    mm = _mm_fn(params, qcfg, comp, name, xc.dtype, w_eff)
-    r_gate = torch.sigmoid(mm("w_a", xc) + params["b_a"].to(xc.dtype))
-    i_gate = torch.sigmoid(mm("w_x", xc) + params["b_x"].to(xc.dtype))
-    log_a = -_C * softplus(params["lam"]) * r_gate.float()
+    float32 conv history promotes it). ``tp``: xc is this rank's channels,
+    and so are the terms."""
+    mm = _mm_fn(params, qcfg, comp, name, xc.dtype, w_eff, tp)
+    r_gate = torch.sigmoid(mm("w_a", xc)
+                           + _channels(params, "b_a", tp).to(xc.dtype))
+    i_gate = torch.sigmoid(mm("w_x", xc)
+                           + _channels(params, "b_x", tp).to(xc.dtype))
+    log_a = -_C * softplus(_channels(params, "lam", tp)) * r_gate.float()
     a = torch.exp(log_a)
     beta = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12))
     bx = beta * (i_gate.float() * xc.float())
@@ -139,25 +165,26 @@ def _rglru_coeffs(params, xc, qcfg, comp, name, w_eff):
 def apply_rglru(params, x: torch.Tensor, dims: RGLRUDims, *,
                 qcfg: QuantConfig = QuantConfig.off(), comp=None,
                 name: str = "rglru", return_state: bool = False,
-                w_eff=None):
+                w_eff=None, tp=None):
     """Training/prefill path over x (B, S, d_model). With ``return_state``
     also returns the decode cache ({"h", "conv"}) at the end of the
     sequence. ``w_eff``: {"rglru/in_proj": fake-quantized weight, ...}
-    where the model computed them."""
+    where the model computed them. ``tp``: this rank's channels (module
+    docstring); so is the cache."""
     collector = routing_stats.get_collector()
     if collector is not None:
         collector("rglru", name, routing_stats.mean_square(x))
-    mm = _mm_fn(params, qcfg, comp, name, x.dtype, w_eff)
-    xin = lm_fake_quant_act(x, qcfg)
+    mm = _mm_fn(params, qcfg, comp, name, x.dtype, w_eff, tp)
+    xin = _mixer_input(x, qcfg, tp)
     branch = mm("in_proj", xin)
     gate = mm("gate_proj", xin)
 
     xc = _causal_depthwise_conv(branch, params["conv_w"].to(x.dtype),
                                 params["conv_b"].to(x.dtype))
-    a, bx = _rglru_coeffs(params, xc, qcfg, comp, name, w_eff)
+    a, bx = _rglru_coeffs(params, xc, qcfg, comp, name, w_eff, tp)
     h = linear_scan(a, bx)
     out = h.to(x.dtype) * gelu(gate)
-    out = mm("out_proj", lm_fake_quant_act(out, qcfg))
+    out = mm("out_proj", lm_fake_quant_act(out, qcfg, tp))
     if return_state:
         return out, {"h": h[:, -1].float(),
                      "conv": _conv_tail(branch, dims.conv_width)}
@@ -183,14 +210,15 @@ def init_rglru_cache(batch: int, dims: RGLRUDims, dtype=torch.float32, *,
 def apply_rglru_decode(params, x: torch.Tensor, cache: dict,
                        dims: RGLRUDims, *,
                        qcfg: QuantConfig = QuantConfig.off(), comp=None,
-                       name: str = "rglru", w_eff=None
+                       name: str = "rglru", w_eff=None, tp=None
                        ) -> Tuple[torch.Tensor, dict]:
     """One decode step: x (B, 1, d_model), cache {"h" (B, r), "conv" (B,
     W-1, r)}. The conv history is the cache concatenated with the new
     branch, promoted as ``jnp.concatenate`` promotes (float32 with a
-    float32 cache). Returns (output (B, 1, d), new cache)."""
-    mm = _mm_fn(params, qcfg, comp, name, x.dtype, w_eff)
-    xin = lm_fake_quant_act(x, qcfg)
+    float32 cache). Returns (output (B, 1, d), new cache). ``tp``: this
+    rank's channels, as `apply_rglru`; the cache holds them."""
+    mm = _mm_fn(params, qcfg, comp, name, x.dtype, w_eff, tp)
+    xin = _mixer_input(x, qcfg, tp)
     branch = mm("in_proj", xin)
     gate = mm("gate_proj", xin)
 
@@ -202,8 +230,8 @@ def apply_rglru_decode(params, x: torch.Tensor, cache: dict,
     xc = prods.sum(dim=1).to(dt) + params["conv_b"].to(x.dtype)
     new_conv = hist[:, 1:]
 
-    a, bx = _rglru_coeffs(params, xc[:, None], qcfg, comp, name, w_eff)
+    a, bx = _rglru_coeffs(params, xc[:, None], qcfg, comp, name, w_eff, tp)
     h_new = a[:, 0] * cache["h"].float() + bx[:, 0]
     out = h_new.to(x.dtype)[:, None] * gelu(gate)
-    out = mm("out_proj", lm_fake_quant_act(out, qcfg))
+    out = mm("out_proj", lm_fake_quant_act(out, qcfg, tp))
     return out, {"h": h_new.to(cache["h"].dtype), "conv": new_conv}

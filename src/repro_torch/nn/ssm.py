@@ -12,8 +12,27 @@ head axis split into (groups, heads a group), so B and C are read once a
 group instead of repeated a head. The products and the state carry are
 float32, as in the reference. With ``exact`` (the serving engine's
 `QuantConfig.batch_invariant`) every product, the chunk-local cumulative
-sums and the gated RMS norm sum in float64 and round once, so a row's
-result does not depend on how many rows the call holds.
+sums sum in float64 and round once, so a row's result does not depend on
+how many rows the call holds. The gated RMS norm's mean square is always a
+float64 sum rounded once: split over the model ranks, the ranks' partial
+sums then give the same bits.
+
+**Split over "model"** (``tp``, a meshed step's
+`repro_torch.distributed.sharding.ModelSplit`): each model rank runs its
+chunk of the heads. in_proj's stored columns are the concatenation z | x |
+B | C | dt, whose contiguous chunks do not line up with heads: a rank
+computes its stored chunk (column-parallel, as the JAX partitioner does)
+and the chunks are all-gathered (`gather_from_model`, ``summed``: the
+backward reduce-scatters the ranks' gradients, in float64 rounded once
+under QAT), then each rank takes its
+heads' z, x and dt columns and all of B and C (``n_groups`` = 1: every
+head reads them). The conv weights are gathered whole and read at the same
+channels (`copy_to_model`: their gradient is summed over the ranks); the
+per-head scalars, norm_scale and out_proj's rows are the rank's chunk;
+the SSD runs on its heads, the gated norm's sum of squares is summed over
+the ranks (`model_sum`), and out_proj is row-parallel. The decode cache's
+``state`` holds the rank's heads, its ``conv`` every channel (the step
+rebuilds the whole history from the gathered projections).
 
 Projections (in/out) are compressible units like every other matmul; the
 per-head A/dt/D scalars are not (they never occupy a systolic weight
@@ -31,11 +50,16 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import routing_stats
+from repro_torch.distributed.sharding import (
+    copy_to_model,
+    gather_from_model,
+    model_sum,
+    read_as,
+)
 from repro_torch.kernels.lut_matmul.ref import exact_matmul
 from repro_torch.models.config import SSMDims
 from repro_torch.nn.layers import (
     QuantConfig,
-    apply_rmsnorm,
     lm_fake_quant_act,
     quantized_mm,
 )
@@ -174,10 +198,53 @@ def ssd_chunked(x: torch.Tensor, a: torch.Tensor, b_mat: torch.Tensor,
 # ------------------------------------------------------------------ full layer
 
 
-def _split_proj(z: torch.Tensor, dims: SSMDims):
+def _heads(dims: SSMDims, tp) -> Tuple[int, int]:
+    """(count, first) of the heads this rank runs: all without ``tp``."""
+    if tp is None:
+        return dims.n_heads, 0
+    if dims.n_groups != 1:
+        raise NotImplementedError(
+            f"an SSM split over the model ranks reads every group's B and "
+            f"C; {dims.n_groups} groups are not split")
+    return tp.chunk(dims.n_heads)
+
+
+def _split_proj(z: torch.Tensor, dims: SSMDims, tp=None):
+    """(z, x, B, C, dt) of in_proj's output: with ``tp`` this rank's heads'
+    z, x and dt columns of the whole output, B and C whole."""
     di, gn = dims.d_inner, dims.n_groups * dims.d_state
-    return (z[..., :di], z[..., di:2 * di], z[..., 2 * di:2 * di + gn],
-            z[..., 2 * di + gn:2 * di + 2 * gn], z[..., 2 * di + 2 * gn:])
+    nh, h0 = _heads(dims, tp)
+    p = dims.head_dim
+    c0, c1 = h0 * p, (h0 + nh) * p
+    dt0 = 2 * di + 2 * gn
+    return (z[..., c0:c1], z[..., di + c0:di + c1],
+            z[..., 2 * di:2 * di + gn], z[..., 2 * di + gn:dt0],
+            z[..., dt0 + h0:dt0 + h0 + nh])
+
+
+def _conv_weights(params, dims: SSMDims, dtype, tp=None):
+    """The depthwise conv's (w, b) at the channels of `_split_proj`'s x | B
+    | C: with ``tp`` the whole weights read through one `copy_to_model`
+    copy (every rank convolves B and C; the gradient sums the ranks')."""
+    w, b = params["conv_w"], params["conv_b"]
+    if tp is not None:
+        w = _conv_channels(copy_to_model(w, tp), dims, tp)
+        b = _conv_channels(copy_to_model(b, tp), dims, tp)
+    return w.to(dtype), b.to(dtype)
+
+
+def _gated_norm(scale: torch.Tensor, y: torch.Tensor, gate: torch.Tensor,
+                d_inner: int, tp=None, eps: float = 1e-6) -> torch.Tensor:
+    """Mamba-2's gated RMS norm of ``y * silu(gate)`` over d_inner: the
+    mean square summed in float64 and rounded once (over the model ranks'
+    channels with ``tp``), the rest in float32, out in ``y``'s dtype."""
+    x = y * F.silu(gate)
+    ss = (x.double() ** 2).sum(dim=-1, keepdim=True)
+    if tp is not None:
+        ss = model_sum(ss, tp)
+    var = (ss / d_inner).float()
+    out = x.float() * torch.rsqrt(var + eps)
+    return (out * scale.float()).to(x.dtype)
 
 
 def _causal_depthwise_conv(x: torch.Tensor, w: torch.Tensor,
@@ -200,41 +267,63 @@ def _conv_tail(conv_in: torch.Tensor, width: int) -> torch.Tensor:
     return F.pad(tail, (0, 0, pad, 0)) if pad > 0 else tail
 
 
-def _mm_fn(params, qcfg, comp, name, dtype, w_eff):
+# how each recurrent projection runs split over the model ranks
+TP_KINDS = {"in_proj": "column", "gate_proj": "column", "out_proj": "row",
+            "w_a": "row_scatter", "w_x": "row_scatter"}
+
+
+def _mm_fn(params, qcfg, comp, name, dtype, w_eff, tp=None):
     def mm(key, xin):
         unit = f"{name}/{key}"
         return quantized_mm(params, key, xin, qcfg=qcfg, comp=comp,
                             name=name, dtype=dtype,
-                            w_eff=None if w_eff is None else w_eff.get(unit))
+                            w_eff=None if w_eff is None else w_eff.get(unit),
+                            tp=None if tp is None else (tp, TP_KINDS[key]))
     return mm
+
+
+def _mixer_input(x, qcfg: QuantConfig, tp):
+    """A recurrent mixer's input as its first projections read it
+    (fake-quantized under QAT); with ``tp`` through one `copy_to_model`
+    copy (float64 under QAT), whose backward sums the ranks' gradients."""
+    xin = lm_fake_quant_act(x, qcfg)
+    if tp is None:
+        return xin
+    return read_as(xin, copy_to_model(
+        x, tp, qcfg.enabled or qcfg.batch_invariant))
 
 
 def apply_ssm(params, x: torch.Tensor, dims: SSMDims, *,
               qcfg: QuantConfig = QuantConfig.off(), comp=None,
-              name: str = "ssm", return_state: bool = False, w_eff=None):
+              name: str = "ssm", return_state: bool = False, w_eff=None,
+              tp=None):
     """Training/prefill path over x (B, S, d_model). With ``return_state``
     also returns the decode cache ({"state", "conv"}) at the end of the
     sequence. S is padded at the end to a multiple of ``dims.chunk``
     inside the SSD. ``w_eff``: {"ssm/in_proj": fake-quantized weight, ...}
-    where the model computed them."""
+    where the model computed them. ``tp``: this rank's heads (module
+    docstring); the state is theirs, the conv history every channel's."""
     bsz, s, _ = x.shape
     exact = qcfg.batch_invariant
     collector = routing_stats.get_collector()
     if collector is not None:
         collector("ssm", name, routing_stats.mean_square(x))
-    mm = _mm_fn(params, qcfg, comp, name, x.dtype, w_eff)
+    mm = _mm_fn(params, qcfg, comp, name, x.dtype, w_eff, tp)
 
-    z = mm("in_proj", lm_fake_quant_act(x, qcfg))
-    zg, xi, b_mat, c_mat, dt_raw = _split_proj(z, dims)
+    z = mm("in_proj", _mixer_input(x, qcfg, tp))
+    if tp is not None:      # the stored chunks, put together by heads
+        z = gather_from_model(z, tp, -1, summed=True,
+                              exact=qcfg.enabled or exact)
+    zg, xi, b_mat, c_mat, dt_raw = _split_proj(z, dims, tp)
 
-    conv_in = torch.cat([xi, b_mat, c_mat], dim=-1)
     conv_out = F.silu(_causal_depthwise_conv(
-        conv_in, params["conv_w"].to(x.dtype), params["conv_b"].to(x.dtype)))
-    di, gn = dims.d_inner, dims.n_groups * dims.d_state
+        torch.cat([xi, b_mat, c_mat], dim=-1),
+        *_conv_weights(params, dims, x.dtype, tp)))
+    di, gn = xi.shape[-1], dims.n_groups * dims.d_state
     xi, b_mat, c_mat = (conv_out[..., :di], conv_out[..., di:di + gn],
                         conv_out[..., di + gn:])
 
-    h = dims.n_heads
+    h = di // dims.head_dim
     xh = xi.reshape(bsz, s, h, dims.head_dim)
     bg = b_mat.reshape(bsz, s, dims.n_groups, dims.d_state)
     cg = c_mat.reshape(bsz, s, dims.n_groups, dims.d_state)
@@ -256,13 +345,13 @@ def apply_ssm(params, x: torch.Tensor, dims: SSMDims, *,
         y = y[:, :s]
     y = y.to(xh.dtype)  # SSD internals accumulate f32; back to stream dtype
     y = y + xh * params["d_skip"][None, None, :, None].to(xh.dtype)
-    y = y.reshape(bsz, s, dims.d_inner)
+    y = y.reshape(bsz, s, di)
 
     # gated RMSNorm (mamba2) then out projection
-    y = apply_rmsnorm({"scale": params["norm_scale"]}, y * F.silu(zg),
-                      exact=exact)
-    out = mm("out_proj", lm_fake_quant_act(y, qcfg))
-    if return_state:
+    y = _gated_norm(params["norm_scale"], y, zg, dims.d_inner, tp)
+    out = mm("out_proj", lm_fake_quant_act(y, qcfg, tp))
+    if return_state:         # the history of every channel: x | B | C
+        conv_in = z[..., dims.d_inner:dims.d_inner + dims.conv_dim]
         return out, {"state": final_state.float(),
                      "conv": _conv_tail(conv_in, dims.conv_width)}
     return out
@@ -286,33 +375,40 @@ def init_ssm_cache(batch: int, dims: SSMDims, dtype=torch.float32, *,
 
 def apply_ssm_decode(params, x: torch.Tensor, cache: dict, dims: SSMDims, *,
                      qcfg: QuantConfig = QuantConfig.off(), comp=None,
-                     name: str = "ssm", w_eff=None
+                     name: str = "ssm", w_eff=None, tp=None
                      ) -> Tuple[torch.Tensor, dict]:
     """One decode step: x (B, 1, d_model), cache {"state" (B, H, P, N),
     "conv" (B, W-1, conv_dim)}. Returns (output (B, 1, d), new cache, in
-    the cache's dtypes)."""
+    the cache's dtypes). ``tp``: this rank's heads, as `apply_ssm`; the
+    cache's ``state`` holds them, its ``conv`` every channel, and so does
+    the new cache."""
     bsz = x.shape[0]
     exact = qcfg.batch_invariant
-    mm = _mm_fn(params, qcfg, comp, name, x.dtype, w_eff)
+    mm = _mm_fn(params, qcfg, comp, name, x.dtype, w_eff, tp)
 
-    z = mm("in_proj", lm_fake_quant_act(x, qcfg))[:, 0]
-    zg, xi, b_mat, c_mat, dt_raw = _split_proj(z, dims)
+    z = mm("in_proj", _mixer_input(x, qcfg, tp))
+    if tp is not None:
+        z = gather_from_model(z, tp, -1, summed=True)
+    z = z[:, 0]
+    zg, xi, b_mat, c_mat, dt_raw = _split_proj(z, dims, tp)
 
-    conv_in = torch.cat([xi, b_mat, c_mat], dim=-1)            # (B, conv_dim)
-    conv_hist = torch.cat([cache["conv"].to(x.dtype), conv_in[:, None]],
-                          dim=1)                               # (B, W, C)
-    w = params["conv_w"].to(x.dtype)
+    conv_in = z[:, None, dims.d_inner:dims.d_inner + dims.conv_dim]
+    hist = torch.cat([cache["conv"].to(x.dtype), conv_in],
+                     dim=1)                                    # (B, W, C)
+    new_conv = hist[:, 1:].to(cache["conv"].dtype)
+    # this rank's channels of the whole history
+    conv_hist = hist if tp is None else _conv_channels(hist, dims, tp)
+    w, b = _conv_weights(params, dims, x.dtype, tp)
     prods = conv_hist.double() * w.double() if exact \
         else conv_hist.float() * w.float()
-    conv_out = prods.sum(dim=1).to(x.dtype) + params["conv_b"].to(x.dtype)
+    conv_out = prods.sum(dim=1).to(x.dtype) + b
     conv_out = F.silu(conv_out).to(x.dtype)
-    new_conv = conv_hist[:, 1:].to(cache["conv"].dtype)
 
-    di, gn = dims.d_inner, dims.n_groups * dims.d_state
+    di, gn = xi.shape[-1], dims.n_groups * dims.d_state
     xi, b_vec, c_vec = (conv_out[..., :di], conv_out[..., di:di + gn],
                         conv_out[..., di + gn:])
 
-    h, p, n = dims.n_heads, dims.head_dim, dims.d_state
+    h, p, n = di // dims.head_dim, dims.head_dim, dims.d_state
     rep = h // dims.n_groups
     xh = xi.reshape(bsz, h, p)
     bg = b_vec.reshape(bsz, dims.n_groups, n).repeat_interleave(rep, dim=1)
@@ -328,10 +424,17 @@ def apply_ssm_decode(params, x: torch.Tensor, cache: dict, dims: SSMDims, *,
     y = _mm(new_state.to(xh.dtype), cg[..., None], exact)[..., 0] \
         .to(xh.dtype)                                           # (B, H, P)
     y = y + xh * params["d_skip"][None, :, None].to(xh.dtype)
-    y = y.reshape(bsz, 1, dims.d_inner)
+    y = y.reshape(bsz, 1, di)
 
-    y = apply_rmsnorm({"scale": params["norm_scale"]},
-                      y * F.silu(zg[:, None]), exact=exact)
-    out = mm("out_proj", lm_fake_quant_act(y, qcfg))
+    y = _gated_norm(params["norm_scale"], y, zg[:, None], dims.d_inner, tp)
+    out = mm("out_proj", lm_fake_quant_act(y, qcfg, tp))
     return out, {"state": new_state.to(cache["state"].dtype),
                  "conv": new_conv}
+
+
+def _conv_channels(t: torch.Tensor, dims: SSMDims, tp) -> torch.Tensor:
+    """The channels of a whole (..., conv_dim) tensor that this rank
+    convolves: its heads' x, then B and C."""
+    nh, h0 = _heads(dims, tp)
+    c0, c1 = h0 * dims.head_dim, (h0 + nh) * dims.head_dim
+    return torch.cat([t[..., c0:c1], t[..., dims.d_inner:]], dim=-1)

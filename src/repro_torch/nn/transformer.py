@@ -23,6 +23,9 @@ the JAX package.
 Every compressible matmul takes an optional ``w_eff``: {"attn/wq": the
 fake-quantized weight, ...}, computed for all layers at once by the
 model's one grouped K3 launch; a block called alone fake-quantizes its own.
+In a meshed step ``tp`` names the sub-modules that compute this rank's
+share of their features (`apply_block`): attention, cross-attention, the
+FFN, the MoE and the recurrent mixers; the norms compute whole.
 """
 
 from __future__ import annotations
@@ -199,43 +202,47 @@ def _ffn_half(params, x, cfg, qcfg, comp, w_eff, tp=None):
                          name="mlp", w_eff=w_eff, tp=tp.get("mlp")), None
 
 
-def _cross_kv(attn_params, enc_out, qcfg, comp, w_eff):
+def _cross_kv(attn_params, enc_out, qcfg, comp, w_eff, dims, tp=None):
     """Cross-attention K/V (B, S_enc, Hkv, D) from the encoder output (no
-    RoPE)."""
-    return (A._project(attn_params, enc_out, qcfg, comp, "xattn", "wk", "bk",
-                       w_eff),
-            A._project(attn_params, enc_out, qcfg, comp, "xattn", "wv", "bv",
-                       w_eff))
+    RoPE). ``tp``: the K/V heads this rank's query heads read, wk/wv
+    column-parallel on one `copy_to_model` copy of the encoder output."""
+    sel = A._kv_select(tp, dims, attn_params["wk"])
+    shared = A._shared_input(enc_out, tp, qcfg)
+    return tuple(A._project(attn_params, enc_out, qcfg, comp, "xattn", key,
+                            bias, w_eff, tp, sel, shared)
+                 for key, bias in (("wk", "bk"), ("wv", "bv")))
 
 
 def _cross_half(params, x, cfg, qcfg, comp, w_eff, enc_out, q_block,
-                kv_block):
+                kv_block, tp=None):
     """``x + xattn(ln_x(x), enc_out)`` and the cross K/V it used (None, x
-    for a block without cross-attention)."""
+    for a block without cross-attention). ``tp``: this rank's heads."""
     if "xattn" not in params:
         return x, None
     if enc_out is None:
         raise ValueError("a cross-attention block needs the encoder output "
                          "(enc_embeds)")
     h = apply_norm(params["ln_x"], x, cfg, qcfg.batch_invariant)
-    kv = _cross_kv(params["xattn"], enc_out, qcfg, comp, w_eff)
-    xa = A.apply_attention(params["xattn"], h, cfg.enc_attn_dims(),
-                           qcfg=qcfg, comp=comp, name="xattn", kv=kv,
-                           q_block=q_block, kv_block=kv_block, w_eff=w_eff)
+    dims = cfg.enc_attn_dims()
+    kv = _cross_kv(params["xattn"], enc_out, qcfg, comp, w_eff, dims, tp)
+    xa = A.apply_attention(params["xattn"], h, dims, qcfg=qcfg, comp=comp,
+                           name="xattn", kv=kv, q_block=q_block,
+                           kv_block=kv_block, w_eff=w_eff, tp=tp)
     return x + xa, kv
 
 
 def _recurrent_prefill(params, h, cfg, block_type, qcfg, comp, w_eff,
-                       return_state):
+                       return_state, tp=None):
     """A recurrent mixer over the whole sequence from its zero state:
-    output, or (output, decode-cache state) with ``return_state``."""
+    output, or (output, decode-cache state) with ``return_state``. ``tp``:
+    the mixer's split (`apply_block`'s ``tp[block_type]``)."""
     if block_type == "rglru":
         return RG.apply_rglru(params["rglru"], h, cfg.rglru_dims(),
                               qcfg=qcfg, comp=comp, name="rglru",
-                              return_state=return_state, w_eff=w_eff)
+                              return_state=return_state, w_eff=w_eff, tp=tp)
     return SSM.apply_ssm(params["ssm"], h, cfg.ssm_dims(), qcfg=qcfg,
                          comp=comp, name="ssm", return_state=return_state,
-                         w_eff=w_eff)
+                         w_eff=w_eff, tp=tp)
 
 
 def apply_block(params, x: torch.Tensor, cfg: ArchConfig, block_type: str, *,
@@ -252,11 +259,12 @@ def apply_block(params, x: torch.Tensor, cfg: ArchConfig, block_type: str, *,
     ``enc_out``: the encoder output a cross-attention block attends over.
     ``encoder``: the encoder's self-attention (non-causal, no RoPE).
     ``use_flash``: the attention's flash backward (`repro_torch.nn.flash`).
-    ``tp``: {"attn": split, "mlp": split, "moe": {"experts": split, ...}},
-    the sub-modules that compute this rank's share of their heads, hidden
-    width or experts (a meshed step's tensor-parallel units,
-    `repro_torch.distributed.sharding.LayerGather.block_splits`);
-    cross-attention and the recurrent mixers compute whole."""
+    ``tp``: {"attn": split, "xattn": split, "mlp": split, "ssm": split,
+    "rglru": split, "moe": {"experts": split, ...}}, the sub-modules that
+    compute this rank's share of their heads, hidden width, channels or
+    experts (a meshed step's tensor-parallel units,
+    `repro_torch.distributed.sharding.LayerGather.block_splits`); one left
+    out computes whole. The norms compute whole."""
     _check_block(params, block_type)
     tp = tp or {}
     aux = {"lb_loss": torch.zeros((), device=x.device),
@@ -265,7 +273,7 @@ def apply_block(params, x: torch.Tensor, cfg: ArchConfig, block_type: str, *,
     state = None
     if block_type in RECURRENT:
         mix = _recurrent_prefill(params, h, cfg, block_type, qcfg, comp,
-                                 w_eff, return_state)
+                                 w_eff, return_state, tp.get(block_type))
         if return_state:
             mix, state = mix
     else:
@@ -282,7 +290,7 @@ def apply_block(params, x: torch.Tensor, cfg: ArchConfig, block_type: str, *,
             state = {"k": k_st, "v": v_st}
     x = x + mix
     x, kv = _cross_half(params, x, cfg, qcfg, comp, w_eff, enc_out, q_block,
-                        kv_block)
+                        kv_block, tp.get("xattn"))
     if return_state and kv is not None:
         state = {**state, "xk": kv[0], "xv": kv[1]}
     if block_type != "ssm":
@@ -341,11 +349,11 @@ def apply_block_decode(params, x: torch.Tensor, cache: dict, pos,
     if block_type == "rglru":
         mix, new_cache = RG.apply_rglru_decode(
             params["rglru"], h, cache, cfg.rglru_dims(), qcfg=qcfg,
-            comp=comp, name="rglru", w_eff=w_eff)
+            comp=comp, name="rglru", w_eff=w_eff, tp=tp.get("rglru"))
     elif block_type == "ssm":
         mix, new_cache = SSM.apply_ssm_decode(
             params["ssm"], h, cache, cfg.ssm_dims(), qcfg=qcfg, comp=comp,
-            name="ssm", w_eff=w_eff)
+            name="ssm", w_eff=w_eff, tp=tp.get("ssm"))
     else:
         new_cache = dict(cache)
         mix, kv_new = A.apply_attention_decode(
@@ -359,7 +367,7 @@ def apply_block_decode(params, x: torch.Tensor, cache: dict, pos,
         xa, _ = A.apply_attention_decode(
             params["xattn"], h, {}, pos, cfg.enc_attn_dims(), qcfg=qcfg,
             comp=comp, name="xattn", w_eff=w_eff,
-            cross_kv=(cache["xk"], cache["xv"]))
+            cross_kv=(cache["xk"], cache["xv"]), tp=tp.get("xattn"))
         x = x + xa
     if block_type != "ssm":
         x, _ = _ffn_half(params, x, cfg, qcfg, comp, w_eff, tp)

@@ -13,6 +13,21 @@ TP_EXPERTS = dict(expert=None, moe_ff="model")
 MOE_ARCH = "phi3.5-moe-42b-a6.6b"
 # the MoE layouts whose prefill and serve steps the ranks run
 MOE_LAYOUTS = {"experts": {}, "tp_experts": TP_EXPERTS}
+# the recurrent mixers and the encoder-decoder, split over "model": arch ->
+# `scaled_down` overrides (recurrentgemma at one (rglru, rglru, local)
+# repeat)
+SPLIT_ARCHS = {"mamba2-1.3b": {}, "recurrentgemma-2b": {"n_layers": 3},
+               "whisper-large-v3": {}}
+ENC_LEN = 32        # whisper's stub frames: a multiple of the key block
+PROMPT = 16         # the split archs' served prompt (and whisper's frames)
+
+
+def reduced(arch):
+    """The reduced float32 config of ``arch`` the mesh tests run."""
+    from repro_torch.configs import get_config
+
+    return get_config(arch).scaled_down(compute_dtype="float32",
+                                        **SPLIT_ARCHS.get(arch, {}))
 
 
 class ActCodes:
@@ -42,6 +57,63 @@ class ActCodes:
         qat.fake_quant_act = self._real
 
 
+class ReplayCodes:
+    """Patches `qat.fake_quant_act` while open so that call i rounds to
+    ``codes[i]`` (the unmeshed step's int8 codes, e.g. the JAX package's)
+    instead of its own: this rank's rows (the data coordinate's chunk of
+    dim 0) and, on features split over "model", its model chunk of the
+    first axis whose length differs; the scale is the call's own."""
+
+    def __init__(self, codes, coords):
+        self.codes, self.coords, self.calls = codes, coords, 0
+
+    def __enter__(self):
+        from repro_torch.core import qat
+
+        self._real = qat.fake_quant_act
+
+        def fake_quant_act(a, cand_dim=None, *, token_dims=0):
+            scale = qat._act_scale(a, cand_dim, token_dims)
+            want = torch.from_numpy(np.array(self.codes[self.calls]))
+            self.calls += 1
+            for ax, coord in ((0, "data"), (None, "model")):
+                if ax is None:
+                    ax = next((i for i in range(1, a.ndim)
+                               if a.shape[i] != want.shape[i]), None)
+                if ax is not None and a.shape[ax] != want.shape[ax]:
+                    n = a.shape[ax]
+                    want = want.narrow(ax, self.coords[coord] * n, n)
+            return a + (want.to(a.dtype) * scale - a).detach()
+
+        qat.fake_quant_act = fake_quant_act
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core import qat
+
+        qat.fake_quant_act = self._real
+
+
+def wait_for_codes(path, deadline_s=240.0):
+    """{arch: [codes]} from the file the test process writes (``np.savez``
+    keys ``arch|i``) once it has them; raises if the writer failed."""
+    import os
+    import time
+
+    end = time.monotonic() + deadline_s
+    while not os.path.exists(path):
+        if os.path.exists(path + ".failed"):
+            raise RuntimeError(open(path + ".failed").read())
+        if time.monotonic() > end:
+            raise TimeoutError(f"no activation codes at {path}")
+        time.sleep(0.2)
+    out: dict = {}
+    with np.load(path) as z:
+        for key in sorted(z.files, key=lambda k: int(k.split("|")[1])):
+            out.setdefault(key.split("|")[0], []).append(z[key])
+    return out
+
+
 def host(tree):
     from repro_torch.nn.spec import flatten_with_names
 
@@ -49,17 +121,22 @@ def host(tree):
             for k, v in flatten_with_names(tree).items()}
 
 
-def _batch(toks):
-    return {"tokens": torch.as_tensor(toks[:, :-1]),
-            "labels": torch.as_tensor(toks[:, 1:])}
+def _batch(toks, enc=None):
+    out = {"tokens": torch.as_tensor(toks[:, :-1]),
+           "labels": torch.as_tensor(toks[:, 1:])}
+    if enc is not None:
+        out["enc_embeds"] = torch.as_tensor(enc[:len(toks)])
+    return out
 
 
 def _train(model, cfg, mesh, params, comp, toks, *, steps, dispatch=False,
-           rules=None):
+           rules=None, enc=None, replay=None):
     """``steps`` meshed train steps from the full numpy state: (losses, the
     gathered state after step 1 and after the last, this rank's codes, each
     step's peak of gathered bytes, the first step's matmul FLOPs counted by
-    `FlopCounterMode` and its collectives)."""
+    `FlopCounterMode` and its collectives). ``replay``: the unmeshed
+    step's activation codes, which the meshed step rounds to
+    (`ReplayCodes`)."""
     from torch.utils.flop_counter import FlopCounterMode
 
     from repro_torch.distributed import sharding as S
@@ -76,11 +153,12 @@ def _train(model, cfg, mesh, params, comp, toks, *, steps, dispatch=False,
     step = T.make_train_step(model, cfg, mesh=mesh, rules=rules,
                              moe_local_dispatch=dispatch)
     losses, firsts, peaks, counted = [], None, [], {}
-    with ActCodes() as rec:
+    with ActCodes() if replay is None \
+            else ReplayCodes(replay, mesh.coords) as rec:
         for i in range(steps):
             S.reset_collective_counts()
             with FlopCounterMode(display=False) as flops:
-                state, met = step(state, _batch(toks), local_comp)
+                state, met = step(state, _batch(toks, enc), local_comp)
             if i == 0:
                 counted = {"flops": flops.get_total_flops(),
                            "collectives": S.collective_counts()}
@@ -88,8 +166,8 @@ def _train(model, cfg, mesh, params, comp, toks, *, steps, dispatch=False,
             losses.append({k: float(v) for k, v in met.items()})
             if i == 0:
                 firsts = host(S.gather_tree(state, sh))
-    return (losses, firsts, host(S.gather_tree(state, sh)), rec.codes, peaks,
-            counted)
+    return (losses, firsts, host(S.gather_tree(state, sh)),
+            getattr(rec, "codes", None), peaks, counted)
 
 
 def gather_backward_checks(mesh):
@@ -177,6 +255,64 @@ def moe_serving(mesh, cfg, item, rank):
     return out
 
 
+def split_serving(mesh, cfg, arch, item, rank):
+    """A split arch's meshed prefill and two serve steps (the cache held
+    on `cache_shardings`: K/V heads and recurrent channels over "model",
+    from the unmeshed prefill's cache): the logits put together (rank 0),
+    the prefill's FLOPs and collectives, the first serve step's
+    collectives, the gathered peaks."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import Shape
+    from repro_torch.distributed import sharding as S
+    from repro_torch.launch import train as T
+    from repro_torch.models.lm import build_lm
+    from repro_torch.nn.spec import params_from_numpy
+
+    model = build_lm(reduced(arch))
+    vocab = model.cfg.padded_vocab
+    params = params_from_numpy(item["params"], "cpu")
+    prompt = {"tokens": torch.as_tensor(item["toks"][:, :PROMPT])}
+    if item.get("enc") is not None:
+        prompt["enc_embeds"] = torch.as_tensor(item["enc"][:, :PROMPT])
+    with torch.no_grad():
+        _, cache = model.prefill(params, prompt["tokens"], PROMPT + 8,
+                                 enc_embeds=prompt.get("enc_embeds"),
+                                 cache_dtype=torch.float32)
+    local_params = S.shard_tree(params, S.make_param_shardings(
+        model.spec, mesh))
+    S.reset_collective_counts()
+    with FlopCounterMode(display=False) as flops:
+        block = T.make_prefill_step(model, cfg, mesh=mesh)(local_params,
+                                                           prompt)
+    run = {"prefill": {"flops": flops.get_total_flops(),
+                       "collectives": S.collective_counts()},
+           "peaks": [S.gathered_bytes()["peak"]],
+           "logits": [S.gather(block, S.logits_sharding(
+               mesh, (4, PROMPT, vocab))).numpy()]}
+    # a decode cell of the prompt's rows (whisper's: its frames); the
+    # layout does not depend on the cache's length
+    c_sh = T.cache_shardings(model, Shape("d", "decode", PROMPT, 4), mesh,
+                             dtype=torch.float32)
+    step = T.make_serve_step(model, cfg, mesh=mesh, cache_shardings=c_sh)
+    local = S.shard_tree(cache, c_sh)
+    run["local_shapes"] = {k: tuple(v.shape)
+                           for k, v in host(local).items()}
+    for t in range(2):
+        S.reset_collective_counts()
+        lg, local = step(local_params, local, torch.as_tensor(
+            item["toks"][:, PROMPT + t:PROMPT + t + 1]))
+        run.setdefault("decode_collectives", S.collective_counts())
+        run["peaks"].append(S.gathered_bytes()["peak"])
+        run["logits"].append(S.gather(lg, S.logits_sharding(
+            mesh, (4, 1, vocab))).numpy())
+    run["cache"] = host(S.gather_tree(local, c_sh))
+    if rank:
+        run.pop("logits")
+        run.pop("cache")
+    return run
+
+
 def rank_checks(rank, world, inputs, ckpt_dir):
     """Every check of the 2 x 2 mesh in one process group."""
     import torch.distributed as dist
@@ -213,17 +349,29 @@ def rank_checks(rank, world, inputs, ckpt_dir):
     trained = None
     for name, (arch, layout) in inputs["runs"].items():
         item = inputs["archs"][arch]
-        model = build_lm(get_config(arch).scaled_down(
-            compute_dtype="float32"))
+        model = build_lm(reduced(arch))
         losses, first, last, codes, peaks, counted = _train(
             model, cfg, mesh, item["params"], item["comp"], item["toks"],
             steps=2, dispatch=item["dispatch"],
-            rules=S.DEFAULT_RULES.replace(**layout) if layout else None)
+            rules=S.DEFAULT_RULES.replace(**layout) if layout else None,
+            enc=item.get("enc"))
         trained = last if name == "olmo-1b" else trained
         out[name] = {"losses": losses, "first": first if rank == 0 else None,
                      "last": last if rank == 0 else None,
                      "codes": codes, "gathered_peaks": peaks,
                      "counted": counted}
+    # the split archs on the JAX package's own activation rounding (its
+    # codes, recorded without remat, replayed), for the comparison with it
+    replay_cfg = T.StepConfig(**dict(inputs["step_cfg"], remat=False))
+    for arch, codes in wait_for_codes(inputs["jax_codes_file"]).items():
+        item = inputs["archs"][arch]
+        losses, first, last, *_ = _train(
+            build_lm(reduced(arch)), replay_cfg, mesh, item["params"],
+            item["comp"], item["toks"], steps=2, enc=item.get("enc"),
+            replay=codes)
+        out[f"{arch}-jax-rounding"] = {
+            "losses": losses, "first": first if rank == 0 else None,
+            "last": last if rank == 0 else None}
     out["gather_backward"] = gather_backward_checks(mesh)
 
     olmo = inputs["archs"]["olmo-1b"]
@@ -291,6 +439,9 @@ def rank_checks(rank, world, inputs, ckpt_dir):
         k: {"local_k": v["local_k"]} for k, v in served.items()}
     out["moe_serving"] = moe_serving(mesh, cfg, inputs["archs"][MOE_ARCH],
                                      rank)
+    out["split_serving"] = {arch: split_serving(mesh, cfg, arch,
+                                                inputs["archs"][arch], rank)
+                            for arch in SPLIT_ARCHS}
 
     # a checkpoint saved under 2 x 2, restored onto 4 x 1 and 1 x 4
     from repro_torch.checkpoint.manager import _unflatten

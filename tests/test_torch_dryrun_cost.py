@@ -14,7 +14,17 @@ whose output no gradient reads, so XLA drops it while the port's
 recompute runs it (``flops["remat_tail"]``). A reduced phi3.5-moe cell in
 the same subprocess, compiled with ``moe_local_dispatch=True`` (the
 dispatch buffer's experts over "model"), holds the port's expert-parallel
-count to JAX's the same way.
+count to JAX's the same way. Reduced mamba2-1.3b, recurrentgemma-2b and
+whisper-large-v3 on the same mesh, compiled in a second subprocess started
+beside the first: their recurrent mixers, encoder blocks and
+cross-attention split over "model", held to JAX the same way once two
+named terms are taken into account: ``remat_tail`` counts only the last
+product of each checkpointed pattern repeat (JAX checkpoints a repeat of
+recurrentgemma's (rglru, rglru, local), not each layer) and the unstacked
+tail's whole recompute (JAX runs the tail unchecked), and
+``flops["xla_only"]`` adds the SSD products JAX runs and the port does
+not (its C B^T scores a head where the port's are a group; two decay
+gradients XLA writes as products).
 """
 
 import json
@@ -81,15 +91,79 @@ def costs(rules=S.DEFAULT_RULES, arch="olmo-1b", **step):
     return D.step_costs(model(arch), MESH, rules, "train", ROWS, SEQ, cfg)
 
 
+# the recurrent mixers and the encoder-decoder, split over "model" on the
+# (4, 2) mesh, compiled in a second subprocess beside the first
+SPLIT_ARCHS = ("mamba2-1.3b", "recurrentgemma-2b", "whisper-large-v3")
+_JAX_SPLIT_SCRIPT = r"""
+import json, sys
+import numpy as np
+import jax
+from jax.sharding import Mesh
+from repro.configs import Shape, get_config
+from repro.distributed.sharding import DEFAULT_RULES
+from repro.launch import train as TR
+from repro.launch.hlo_cost import loop_corrected_cost
+from repro.models.lm import build_lm
+
+rows, seq, block, archs = json.loads(sys.argv[1])
+mesh = Mesh(np.asarray(jax.devices()[:8]).reshape(4, 2), ("data", "model"))
+out = []
+for arch in archs:
+    cfg = get_config(arch).scaled_down(compute_dtype="float32")
+    model = build_lm(cfg)
+    step_cfg = TR.StepConfig(q_block=block, kv_block=block)
+    specs = TR.batch_specs(cfg, Shape("cell", "train", seq, rows))
+    step = TR.make_train_step(model, step_cfg, mesh, DEFAULT_RULES)
+    jitted = jax.jit(step, in_shardings=(
+        TR.train_state_shardings(model, mesh, DEFAULT_RULES),
+        TR.batch_shardings(specs, mesh, DEFAULT_RULES),
+        TR.comp_shardings(model, mesh, DEFAULT_RULES)))
+    with mesh:
+        hlo = jitted.lower(TR.abstract_train_state(model), specs,
+                           TR.comp_abstract(model)).compile().as_text()
+    out.append(loop_corrected_cost(hlo)["flops"])
+print(json.dumps(out))
+"""
+
+
 @pytest.fixture(scope="module")
-def jax_flops():
+def jax_compiles():
+    """Both JAX subprocesses, started together (each with its own
+    timeout): the olmo-1b and phi3.5-moe cells, and the split archs'."""
     env = {**os.environ, "JAX_PLATFORMS": "cpu",
            "XLA_FLAGS": "--xla_force_host_platform_device_count=8"}
-    res = subprocess.run(
-        [sys.executable, "-c", _JAX_SCRIPT,
-         json.dumps([ROWS, SEQ, BLOCK, STORAGE_ONLY, MOE_ARCH])],
-        capture_output=True, text=True, env=env, timeout=120, check=True)
-    return json.loads(res.stdout.strip().splitlines()[-1])
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", script, json.dumps(arg)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+        for script, arg in (
+            (_JAX_SCRIPT, [ROWS, SEQ, BLOCK, STORAGE_ONLY, MOE_ARCH]),
+            (_JAX_SPLIT_SCRIPT, [ROWS, SEQ, BLOCK, list(SPLIT_ARCHS)]))]
+    yield procs
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.communicate()
+
+
+def _result(proc, timeout):
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise
+    assert proc.returncode == 0, err[-2000:]
+    return json.loads(out.strip().splitlines()[-1])
+
+
+@pytest.fixture(scope="module")
+def jax_flops(jax_compiles):
+    return _result(jax_compiles[0], 120)
+
+
+@pytest.fixture(scope="module")
+def jax_split_flops(jax_compiles):
+    return dict(zip(SPLIT_ARCHS, _result(jax_compiles[1], 120)))
 
 
 @pytest.mark.parametrize("layout", ["tensor_parallel", "storage_only",
@@ -109,8 +183,35 @@ def test_dryrun_flops_match_jax_loop_corrected(jax_flops, layout):
     else:
         flops = costs(rules)["flops"]
         assert flops["remat_tail"] > 0
-    got = flops["total"] - flops["remat_tail"]
+    got = flops["total"] - flops["remat_tail"] + flops["xla_only"]
     assert abs(got - want) <= FLOPS_RTOL * want, (got, want)
+
+
+@pytest.mark.parametrize("arch", SPLIT_ARCHS)
+def test_split_units_flops_match_jax_loop_corrected(jax_split_flops, arch):
+    """The recurrent mixers, whisper's encoder blocks and its
+    cross-attention split over "model" as the JAX partitioner divides
+    them: a device's dry-run FLOPs on (4, 2), less `remat_tail` (the last
+    product of each checkpointed pattern repeat, XLA's remat drops it) and
+    plus `xla_only` (mamba2's SSD: C B^T a head where the port's is a
+    group, and two decay gradients XLA runs as products), equal JAX's
+    loop-corrected count within 2%; a device runs an eighth of the 1 x 1
+    step, but for mamba2's scores, which each model rank repeats."""
+    want = jax_split_flops[arch]
+    flops = costs(arch=arch)["flops"]
+    got = flops["total"] - flops["remat_tail"] + flops["xla_only"]
+    assert abs(got - want) <= FLOPS_RTOL * want, (got, want)
+    alone = D.step_costs(model(arch), S.AbstractMesh((1, 1), ("data",
+                                                              "model")),
+                         None, "train", ROWS, SEQ,
+                         T.StepConfig(q_block=BLOCK, kv_block=BLOCK))["flops"]
+    split = {"mamba2-1.3b": ("readout",),
+             "recurrentgemma-2b": ("attention", "ffn", "mixer", "readout"),
+             "whisper-large-v3": ("attention", "ffn", "projections",
+                                  "readout")}[arch]
+    for unit in split:
+        assert flops["by_unit"][unit] * 8 == alone["by_unit"][unit], unit
+    assert (flops["xla_only"] > 0) == (arch == "mamba2-1.3b")
 
 
 def test_no_remat_lowers_flops():

@@ -44,11 +44,31 @@ on the same numpy params, comp and batch:
   * DTensor's ``distribute_tensor`` slices equal `NamedSharding.local`
     (whose order `tests/test_torch_sharding_rules.py` holds to JAX's);
   * a train state saved under 2 x 2 and restored by `elastic_restore` onto
-    4 x 1 and 1 x 4: every full tensor equal.
+    4 x 1 and 1 x 4: every full tensor equal;
+  * the recurrent mixers and the encoder-decoder split over "model":
+    reduced mamba2-1.3b (its SSM by heads), recurrentgemma-2b at one
+    (rglru, rglru, local) repeat (the RG-LRU by channels) and
+    whisper-large-v3 (its encoder layers and cross-attention by heads),
+    two train steps each against the port's unmeshed steps at the bounds
+    above with the codes equal; against JAX on JAX's own int8 activation
+    rounding (its codes, recorded without remat in a thread beside the
+    ranks, replayed into a meshed run: each package's own rounding flips
+    codes at these sizes, `tests/test_torch_lm_recurrent_train.py`); a
+    rank's FLOPs equal to the dry run's, a quarter of the unmeshed step's
+    in each split unit (mamba2's SSD scores, one a group, on every model
+    rank); collectives equal to the dry run's; gathered bytes within the
+    dry run's bound and below the storage-only layout's; a meshed prefill
+    and two serve steps (the recurrent caches and cross K/V held split)
+    against the unmeshed forward and decode, abs 1e-5, the prefill's
+    FLOPs and collectives and a serve step's collectives equal to the dry
+    run's; and the SSM's head split read off its columns and channels.
 
 The ranks rendezvous through a file under ``tmp_path``, with a 120 s
 collective timeout and a deadline that kills them.
 """
+
+import os
+from concurrent.futures import ThreadPoolExecutor
 
 import jax
 import jax.numpy as jnp
@@ -57,16 +77,21 @@ import pytest
 import torch
 
 from _mesh2d_ranks import (
+    ENC_LEN,
     MOE_ARCH,
     MOE_LAYOUTS,
+    PROMPT,
+    SPLIT_ARCHS,
     STORAGE_ONLY,
     TP_EXPERTS,
     ActCodes,
     host,
     rank_checks,
+    reduced,
 )
 from repro.configs import get_config as jget
 from repro.core import lm_compress as jlc
+from repro.core import qat as jqat
 from repro.launch import train as jtrain
 from repro.models.lm import build_lm as jbuild
 from repro.nn.spec import flatten_with_names as jflat
@@ -80,12 +105,21 @@ from repro_torch.models.lm import build_lm as tbuild
 from repro_torch.nn.spec import abstract_params, params_from_numpy
 from repro_torch.nn.transformer import block_matmuls
 
-ARCHS = {"olmo-1b": False, MOE_ARCH: True, "moonshot-v1-16b-a3b": True}
+ARCHS = {"olmo-1b": False, MOE_ARCH: True, "moonshot-v1-16b-a3b": True,
+         **{arch: False for arch in SPLIT_ARCHS}}
 # the meshed train runs held to the unmeshed steps: name -> (arch, rules
 # overrides)
-RUNS = {"olmo-1b": ("olmo-1b", {}), MOE_ARCH: (MOE_ARCH, {}),
-        "phi3.5-moe-tp-experts": (MOE_ARCH, TP_EXPERTS),
-        "moonshot-v1-16b-a3b": ("moonshot-v1-16b-a3b", {})}
+DECODER_RUNS = {"olmo-1b": ("olmo-1b", {}), MOE_ARCH: (MOE_ARCH, {}),
+                "phi3.5-moe-tp-experts": (MOE_ARCH, TP_EXPERTS),
+                "moonshot-v1-16b-a3b": ("moonshot-v1-16b-a3b", {})}
+RUNS = {**DECODER_RUNS, **{arch: (arch, {}) for arch in SPLIT_ARCHS}}
+# fake-quant calls on features split over "model" in two steps (forward
+# and remat's recompute): a decoder layer's attention output and FFN
+# hidden; an SSM layer's out_proj input; an RG-LRU layer's out_proj input
+# and FFN hidden; whisper's encoder layer's two, decoder layer's three
+# (cross-attention's output too)
+SPLIT_CALLS = {**{run: 16 for run in DECODER_RUNS}, "mamba2-1.3b": 8,
+               "recurrentgemma-2b": 24, "whisper-large-v3": 40}
 STEP = dict(qat=True, with_comp=True, remat=True, q_block=16, kv_block=16,
             lr=1e-3)
 B, S = 4, 32
@@ -97,9 +131,12 @@ def rel_l2(a, b):
     return np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30)
 
 
-def tbatch(toks):
-    return {"tokens": torch.as_tensor(toks[:, :-1]),
-            "labels": torch.as_tensor(toks[:, 1:])}
+def tbatch(toks, enc=None):
+    out = {"tokens": torch.as_tensor(toks[:, :-1]),
+           "labels": torch.as_tensor(toks[:, 1:])}
+    if enc is not None:
+        out["enc_embeds"] = torch.as_tensor(enc[:len(toks)])
+    return out
 
 
 def port_steps(arch, item, toks, steps):
@@ -107,7 +144,7 @@ def port_steps(arch, item, toks, steps):
     last, codes, the first step's matmul FLOPs)."""
     from torch.utils.flop_counter import FlopCounterMode
 
-    model = tbuild(tget(arch).scaled_down(compute_dtype="float32"))
+    model = tbuild(reduced(arch))
     cfg = ttrain.StepConfig(**STEP)
     p = params_from_numpy(item["params"], "cpu")
     state = {"params": p, "opt": ttrain.make_optimizer(cfg).init(p)}
@@ -116,7 +153,7 @@ def port_steps(arch, item, toks, steps):
     with ActCodes() as rec:
         for i in range(steps):
             with FlopCounterMode(display=False) as fc:
-                state, met = step(state, tbatch(toks),
+                state, met = step(state, tbatch(toks, item.get("enc")),
                                   params_from_numpy(item["comp"], "cpu"))
             losses.append({k: float(v) for k, v in met.items()})
             if i == 0:
@@ -124,23 +161,65 @@ def port_steps(arch, item, toks, steps):
     return losses, first, host(state), rec.codes, flops
 
 
-def jax_steps(arch, item, toks, steps):
-    jm = jbuild(jget(arch).scaled_down(compute_dtype="float32"))
-    cfg = jtrain.StepConfig(**STEP)
+def jax_steps(arch, item, toks, steps, record=None):
+    """The JAX package's unmeshed steps: (losses, state after step 1,
+    after the last). ``record`` (a list): run without remat, collecting the
+    int8 codes of every activation fake-quant call in order (an ordered
+    host callback inside the jitted step)."""
+    jm = jbuild(jget(arch).scaled_down(compute_dtype="float32",
+                                       **SPLIT_ARCHS.get(arch, {})))
+    cfg = jtrain.StepConfig(**dict(STEP, remat=record is None))
     p = jax.tree.map(jnp.asarray, item["jparams"])
     state = {"params": p, "opt": jtrain.make_optimizer(cfg).init(p)}
-    step = jax.jit(jtrain.make_train_step(jm, cfg))
-    losses, first = [], None
-    for i in range(steps):
-        state, met = step(state, {"tokens": jnp.asarray(toks[:, :-1]),
-                                  "labels": jnp.asarray(toks[:, 1:])},
-                          item["jcomp"])
-        losses.append({k: float(v) for k, v in met.items()})
-        if i == 0:
-            first = {k: np.asarray(v)
-                     for k, v in jflat(jax.device_get(state)).items()}
+    real = jqat.fake_quant_act
+
+    def recording(a):
+        scale = jnp.maximum(jnp.max(jnp.abs(a)), 1e-8) / jqat.QMAX
+        codes = jnp.clip(jnp.round(a / scale), -jqat.QMAX, jqat.QMAX)
+        jax.debug.callback(lambda c: record.append(np.asarray(
+            c, dtype=np.int8)), codes, ordered=True)
+        return real(a)
+
+    if record is not None:
+        jqat.fake_quant_act = recording
+    try:
+        step = jax.jit(jtrain.make_train_step(jm, cfg))
+        losses, first = [], None
+        for i in range(steps):
+            state, met = step(state, {k: jnp.asarray(v.numpy()) for k, v in
+                                      tbatch(toks, item.get("enc")).items()},
+                              item["jcomp"])
+            losses.append({k: float(v) for k, v in met.items()})
+            if i == 0:
+                first = {k: np.asarray(v)
+                         for k, v in jflat(jax.device_get(state)).items()}
+        jax.effects_barrier()
+    finally:
+        jqat.fake_quant_act = real
     return losses, first, {k: np.asarray(v) for k, v in
                            jflat(jax.device_get(state)).items()}
+
+
+def in_port_order(codes, cfg):
+    """JAX's recorded activation codes in the order the port's step makes
+    its calls. The encoder-decoder differs: the cross K/V projections'
+    input is the encoder output, the same in every decoder layer, and JAX
+    quantizes it once, before the decoder's layer scan; the port quantizes
+    it in each layer, after the self-attention (per step: 6 calls an
+    encoder layer, then that one pair, then 8 a decoder layer)."""
+    if not cfg.encoder_decoder:
+        return codes
+    n_enc, n_dec = cfg.n_enc_layers, cfg.n_layers
+    per = 6 * n_enc + 2 + 8 * n_dec
+    out = []
+    for s0 in range(0, len(codes), per):
+        step = codes[s0:s0 + per]
+        i = 6 * n_enc
+        out += step[:i]
+        pair = step[i:i + 2]
+        for i in range(i + 2, per, 8):
+            out += step[i:i + 4] + pair + step[i + 4:i + 8]
+    return out
 
 
 @pytest.fixture(scope="module")
@@ -149,25 +228,58 @@ def runs(tmp_path_factory):
     torch.set_num_threads(1)
     inputs = {"step_cfg": STEP, "archs": {}, "runs": RUNS}
     for i, (arch, dispatch) in enumerate(ARCHS.items()):
-        jm = jbuild(jget(arch).scaled_down(compute_dtype="float32"))
+        jm = jbuild(jget(arch).scaled_down(compute_dtype="float32",
+                                           **SPLIT_ARCHS.get(arch, {})))
         jp = jinit(jax.random.PRNGKey(i), jm.spec)
         jc = jlc.restrict_all_codebooks(jm, jlc.init_lm_comp(jm),
                                         jlc.symmetric_codebook_values(8))
-        toks = np.random.default_rng(i).integers(
-            0, jm.cfg.vocab, (B, S + 1)).astype(np.int32)
+        rng = np.random.default_rng(i)
+        toks = rng.integers(0, jm.cfg.vocab, (B, S + 1)).astype(np.int32)
         inputs["archs"][arch] = {
             "params": jax.device_get(jp), "comp": jax.device_get(jc),
-            "toks": toks, "dispatch": dispatch}
+            "toks": toks, "dispatch": dispatch,
+            "enc": rng.standard_normal((B, ENC_LEN, jm.cfg.d_model)).astype(
+                np.float32) if jm.cfg.encoder_decoder else None}
     work = tmp_path_factory.mktemp("mesh2d")
-    ranks = run_ranks(rank_checks, 4, args=(inputs, str(work / "ckpt")),
-                      backend="gloo", timeout_s=120, deadline_s=300,
-                      workdir=str(work))
-    out = {"ranks": ranks, "port": {}, "jax": {}, "inputs": inputs}
+    # the split archs are held to JAX on its own activation rounding: its
+    # codes, recorded without remat while the ranks run their other
+    # checks, are replayed into a meshed run (`wait_for_codes`)
+    codes_file = work / "jax_codes.npz"
+    inputs["jax_codes_file"] = str(codes_file)
+    jax_rounding = {}
+
+    def record():
+        try:
+            codes = {}
+            for arch in SPLIT_ARCHS:
+                item, got = inputs["archs"][arch], []
+                jax_rounding[arch] = jax_steps(
+                    arch, dict(item, jparams=item["params"],
+                               jcomp=item["comp"]), item["toks"], 2,
+                    record=got)
+                codes[arch] = in_port_order(got, reduced(arch))
+            with open(work / "jax_codes.part", "wb") as f:
+                np.savez(f, **{f"{a}|{i}": c for a, cs in codes.items()
+                               for i, c in enumerate(cs)})
+            os.replace(work / "jax_codes.part", codes_file)
+        except BaseException as e:
+            (work / "jax_codes.npz.failed").write_text(repr(e))
+            raise
+
+    with ThreadPoolExecutor(1) as pool:
+        recorded = pool.submit(record)
+        ranks = run_ranks(rank_checks, 4, args=(inputs, str(work / "ckpt")),
+                          backend="gloo", timeout_s=120, deadline_s=300,
+                          workdir=str(work))
+        recorded.result()
+    out = {"ranks": ranks, "port": {}, "jax": jax_rounding,
+           "inputs": inputs}
     for arch, item in inputs["archs"].items():
         out["port"][arch] = port_steps(arch, item, item["toks"], 2)
-        out["jax"][arch] = jax_steps(
-            arch, dict(item, jparams=item["params"], jcomp=item["comp"]),
-            item["toks"], 2)
+        if arch not in SPLIT_ARCHS:
+            out["jax"][arch] = jax_steps(
+                arch, dict(item, jparams=item["params"],
+                           jcomp=item["comp"]), item["toks"], 2)
     out["port"]["replicated"] = port_steps(
         "olmo-1b", inputs["archs"]["olmo-1b"],
         inputs["archs"]["olmo-1b"]["toks"][:3], 1)
@@ -201,7 +313,13 @@ def test_meshed_train_step_matches_the_unmeshed_port(runs, run):
 
 @pytest.mark.parametrize("run", list(RUNS))
 def test_meshed_train_step_matches_jax(runs, run):
-    r0 = runs["ranks"][0][run]
+    """The split archs against JAX on its own int8 activation rounding
+    (each package rounds its own sums: an activation within an ulp of a
+    rounding boundary takes the next code in one of them, and one code
+    moves an updated weight by up to 2 lr, `tests/test_torch_lm_recurrent
+    _train.py`), without remat; the others on their own rounding."""
+    r0 = runs["ranks"][0][f"{run}-jax-rounding" if run in SPLIT_ARCHS
+                          else run]
     losses, first, last = runs["jax"][RUNS[run][0]]
     check_state(r0["losses"], r0["first"], r0["last"], losses, first, last)
 
@@ -238,9 +356,7 @@ def test_activation_codes_equal(runs, run):
         split += parts[(0, 0)].shape[1:] != w.shape[1:]
         got = put_together(parts, w)
         assert got.shape == w.shape and np.array_equal(got, w), i
-    # two a layer a run (the attention output; the FFN's or the experts'
-    # hidden), forward and remat's recompute, two steps
-    assert split == 16
+    assert split == SPLIT_CALLS[run]
 
 
 def test_batch_that_does_not_divide_replicates(runs):
@@ -322,14 +438,14 @@ def test_phi35_moe_experts_split_over_the_model_axis(runs, run):
 @pytest.mark.parametrize("layout", ["olmo-1b", "phi3.5-moe-42b-a6.6b",
                                     "storage_only", "kv_replicated",
                                     "phi3.5-moe-tp-experts",
-                                    "moonshot-v1-16b-a3b"])
+                                    "moonshot-v1-16b-a3b", *SPLIT_ARCHS])
 def test_collective_bytes_equal_the_dry_run(runs, layout):
     arch = "olmo-1b" if layout in ("storage_only", "kv_replicated") \
         else RUNS[layout][0]
     rules = {"storage_only": tsh.DEFAULT_RULES.replace(**STORAGE_ONLY),
              "kv_replicated": tsh.DEFAULT_RULES.replace(kv_heads=None)
              }.get(layout) or rules_of(layout)
-    model = tbuild(tget(arch).scaled_down(compute_dtype="float32"))
+    model = tbuild(reduced(arch))
     want = dry(model, rules)["collectives"]
     for r in runs["ranks"]:
         assert r[layout]["counted"]["collectives"] == want, r["rank"]
@@ -469,7 +585,7 @@ def one_block_bound(model, train=True):
     return embed + layer + (fq + layer if train else 0), nbytes(params)
 
 
-@pytest.mark.parametrize("run", list(RUNS))
+@pytest.mark.parametrize("run", list(DECODER_RUNS))
 def test_meshed_train_step_gathers_one_block_at_a_time(runs, run):
     model = tbuild(tget(RUNS[run][0]).scaled_down(compute_dtype="float32"))
     bound, whole = one_block_bound(model)
@@ -503,3 +619,146 @@ def test_gather_backward_is_the_slice_of_the_summed_gradient(runs):
         checks = r["gather_backward"]
         assert len(checks) == 6 and all(checks.values()), (r["rank"],
                                                             checks)
+
+
+# ------------------------------------ the recurrent mixers and the encoder
+
+
+# the units of each split arch whose products a rank runs a quarter of
+# (half the rows, half the features): recurrentgemma's MQA K/V projections
+# run whole on each model rank, and mamba2's SSD scores are one a group
+QUARTER = {"mamba2-1.3b": ("readout",),
+           "recurrentgemma-2b": ("attention", "ffn", "mixer", "readout"),
+           "whisper-large-v3": ("attention", "ffn", "projections",
+                                "readout")}
+
+
+@pytest.mark.parametrize("arch", list(SPLIT_ARCHS))
+def test_split_units_flops_equal_the_dry_run(runs, arch):
+    """A rank of the 2 x 2 mesh runs the dry run's products: a quarter of
+    the unmeshed step's in each split unit (mamba2's mixer: a quarter but
+    for its C B^T scores, one a group, which every model rank runs), the
+    unmeshed step's being the 1 x 1 dry run's."""
+    model = tbuild(reduced(arch))
+    meshed = dry(model)["flops"]
+    alone = tdry.step_costs(model, tsh.AbstractMesh((1, 1), ("data",
+                                                             "model")),
+                            None, "train", B, S,
+                            ttrain.StepConfig(**STEP))["flops"]
+    assert alone["total"] == runs["port"][arch][4]
+    for r in runs["ranks"]:
+        assert r[arch]["counted"]["flops"] == meshed["total"], r["rank"]
+    for unit in QUARTER[arch]:
+        assert meshed["by_unit"][unit] * 4 == alone["by_unit"][unit], unit
+    if arch == "mamba2-1.3b":
+        sd = model.cfg.ssm_dims()
+        scores = 2 * B * (S // sd.chunk) * sd.chunk ** 2 * sd.d_state \
+            * model.n_rep * 4           # forward, recompute, two gradients
+        assert 4 * meshed["by_unit"]["mixer"] \
+            == alone["by_unit"]["mixer"] + scores
+    else:
+        assert meshed["xla_only"] == 0
+
+
+@pytest.mark.parametrize("arch", list(SPLIT_ARCHS))
+def test_split_archs_gather_within_the_dry_run(runs, arch):
+    model = tbuild(reduced(arch))
+    bound = tdry.gathered_peak_bytes(model, "train", MESH)
+    whole = nbytes(abstract_params(model.spec))
+    assert bound < whole
+    storage = tdry.gathered_peak_bytes(model, "train", MESH, tsh.DEFAULT_RULES
+                                       .replace(**STORAGE_ONLY, inner=None))
+    assert bound < storage
+    for r in runs["ranks"]:
+        peaks = r[arch]["gathered_peaks"]
+        assert len(peaks) == 2 and 0 < max(peaks) <= bound, (r["rank"],
+                                                            peaks, bound)
+
+
+@pytest.mark.parametrize("arch", list(SPLIT_ARCHS))
+def test_split_archs_prefill_and_serve(runs, arch):
+    """The meshed prefill and two serve steps (the cache held with K/V
+    heads and recurrent channels over "model"; the SSM's conv history
+    whole for the step) against the unmeshed forward and decode: logits
+    and the cache abs 1e-5; the prefill's FLOPs and collectives and a
+    serve step's collectives equal to the dry run's."""
+    item = runs["inputs"]["archs"][arch]
+    model = tbuild(reduced(arch))
+    params = params_from_numpy(item["params"], "cpu")
+    prompt = torch.as_tensor(item["toks"][:, :PROMPT])
+    enc = None if item["enc"] is None \
+        else torch.as_tensor(item["enc"][:, :PROMPT])
+    with torch.no_grad():
+        # the meshed prefill's attention blocks: an encoder's padded keys
+        # would take part in its non-causal attention
+        want = [model.forward(params, prompt, enc_embeds=enc,
+                              q_block=STEP["q_block"],
+                              kv_block=STEP["kv_block"])[0].numpy()]
+        _, cache = model.prefill(params, prompt, PROMPT + 8, enc_embeds=enc,
+                                 cache_dtype=torch.float32)
+        for t in range(2):
+            lg, cache = model.decode_step(params, cache, torch.as_tensor(
+                item["toks"][:, PROMPT + t:PROMPT + t + 1]))
+            want.append(lg.numpy())
+    got = runs["ranks"][0]["split_serving"][arch]
+    for g, w in zip(got["logits"], want):
+        np.testing.assert_allclose(g, w, rtol=0, atol=LOGIT_ATOL)
+    for k, v in host(cache).items():
+        np.testing.assert_allclose(got["cache"][k], v, rtol=0,
+                                   atol=LOGIT_ATOL, err_msg=k)
+    prefill = dry(model, kind="prefill", seq=PROMPT,
+                  param_dtype=torch.float32)
+    decode = dry(model, kind="decode", seq=PROMPT, param_dtype=torch.float32)
+    for r in runs["ranks"]:
+        run = r["split_serving"][arch]
+        assert run["prefill"]["flops"] == prefill["flops"]["total"]
+        assert run["prefill"]["collectives"] == prefill["collectives"]
+        assert run["decode_collectives"] == decode["collectives"]
+    # a rank holds its rows and its half of the split caches' heads or
+    # channels (the SSM's conv history on its stored chunk of x | B | C)
+    shapes, full = got["local_shapes"], host(cache)
+    split = [k for k in full if k.endswith(("/state", "/h", "/conv", "/xk",
+                                            "/xv"))]
+    assert split
+    for name in split:
+        assert 4 * np.prod(shapes[name]) == full[name].size, name
+
+
+def test_ssm_head_split_reads_its_heads_and_every_b_c():
+    """The SSM split by heads over two model ranks: rank k's z, x and dt
+    columns of in_proj's output are its heads', B and C whole on both;
+    its conv channels its heads' x, then B and C. The stored in_proj
+    chunk (contiguous over z | x | B | C | dt) does not line up with the
+    heads, hence the all-gather."""
+    from repro_torch.nn import ssm as SSM
+
+    model = tbuild(reduced("mamba2-1.3b"))
+    sd = model.cfg.ssm_dims()
+    di, gn, h, p = sd.d_inner, sd.d_state, sd.n_heads, sd.head_dim
+    io = 2 * di + 2 * gn + h
+    z, conv = torch.arange(io), torch.arange(sd.conv_dim)
+    hl = h // 2
+    for k in (0, 1):
+        split = tsh.ModelSplit(("model",), None, k, 2, None)
+        zg, x, b, c, dt = (v.tolist() for v in SSM._split_proj(z, sd, split))
+        heads = list(range(k * hl * p, (k + 1) * hl * p))
+        assert zg == heads
+        assert x == [di + i for i in heads]
+        assert b == list(range(2 * di, 2 * di + gn))
+        assert c == list(range(2 * di + gn, 2 * di + 2 * gn))
+        assert dt == list(range(2 * di + 2 * gn + k * hl,
+                                2 * di + 2 * gn + (k + 1) * hl))
+        assert SSM._conv_channels(conv, sd, split).tolist() \
+            == heads + list(range(di, sd.conv_dim))
+    s = tsh.make_param_shardings(model.spec, MESH)["blocks"]["g0"]["ssm"]
+    stored = s["in_proj"].index((1, model.cfg.d_model, io),
+                                {"data": 0, "model": 0})[2]
+    assert (stored.start, stored.stop) == (0, io // 2) and io // 2 != di
+    for key in ("a_log", "norm_scale", "out_proj"):
+        assert tsh.kept_axes(tsh.make_param_shardings(model.spec, MESH),
+                             ("blocks", "g0", "ssm", key),
+                             tsh.DEFAULT_RULES) == ("model",), key
+    for key in ("conv_w", "conv_b"):
+        assert tsh.kept_axes(tsh.make_param_shardings(model.spec, MESH),
+                             ("blocks", "g0", "ssm", key),
+                             tsh.DEFAULT_RULES) == (), key

@@ -1,9 +1,10 @@
 """The tensor-parallel building blocks of `repro_torch.distributed.sharding`
 in one process (a model group of one rank, so every collective returns its
 input): how a sub-module's column-parallel products send their input
-gradient to the one `copy_to_model` copy, and the activation fake-quant's
-refusal of per-token scales on split features. The four-rank checks are
-in `tests/test_torch_mesh2d.py`."""
+gradient to the one `copy_to_model` copy, the activation fake-quant's
+refusal of per-token scales on split features, the RG-LRU's
+reduce-scattered gate product and the LM loss (one function, split or
+not). The four-rank checks are in `tests/test_torch_mesh2d.py`."""
 
 import dataclasses
 
@@ -69,3 +70,43 @@ def test_split_activation_with_per_token_scales_raises():
         lm_fake_quant_act(x, qcfg, SPLIT)
     # computed whole, the per-token scale stays
     assert lm_fake_quant_act(x, qcfg).shape == x.shape
+
+
+def test_row_scatter_product_is_the_correctly_rounded_product():
+    """The RG-LRU's gate product (``row_scatter``) on a model group of one:
+    the forward is the float64 product rounded once, the gradients the
+    float64 sums rounded once."""
+    x, ws, gs = arrays(2)
+    xt = torch.tensor(x, requires_grad=True)
+    wt = torch.tensor(ws[0], requires_grad=True)
+    y = S.tp_matmul(xt, wt, SPLIT, "row_scatter", True)
+    x64, w64 = x.astype(np.float64), ws[0].astype(np.float64)
+    np.testing.assert_array_equal(y.detach().numpy(),
+                                  (x64 @ w64).astype(np.float32))
+    (y * torch.tensor(gs[0])).sum().backward()
+    g64 = gs[0].astype(np.float64)
+    np.testing.assert_array_equal(xt.grad.numpy(),
+                                  (g64 @ w64.T).astype(np.float32))
+    np.testing.assert_array_equal(
+        wt.grad.numpy(), (x64.reshape(-1, 24).T @ g64.reshape(-1, 16))
+        .astype(np.float32))
+
+
+def test_loss_split_or_not_is_the_log_softmax_nll():
+    """`vocab_parallel_nll` without a split (the unmeshed loss, the same
+    function as the split one): -log_softmax at the label and its
+    gradient softmax - onehot, within float32 rounding."""
+    rng = np.random.default_rng(3)
+    logits = (3 * rng.standard_normal((2, 5, 64))).astype(np.float32)
+    labels = rng.integers(0, 64, (2, 5))
+    lt = torch.tensor(logits, requires_grad=True)
+    nll = S.vocab_parallel_nll(lt, torch.tensor(labels), None)
+    want = -torch.gather(torch.log_softmax(torch.tensor(logits).double(),
+                                           -1),
+                         -1, torch.tensor(labels)[..., None])[..., 0]
+    np.testing.assert_allclose(nll.detach().numpy(), want.numpy(),
+                               rtol=1e-6)
+    nll.sum().backward()
+    soft = torch.softmax(torch.tensor(logits).double(), -1).numpy()
+    soft[np.arange(2)[:, None], np.arange(5)[None, :], labels] -= 1
+    np.testing.assert_allclose(lt.grad.numpy(), soft, rtol=0, atol=1e-6)
